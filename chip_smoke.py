@@ -7,31 +7,49 @@ Phases; any failure ends the run with a nonzero exit and no result line:
 
 1. the card's name and power limit, and the build of every kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, started together);
-2. kernel parity: the masked GEMM and flash attention against their plain
-   PyTorch versions at the shapes of the serving path, with their times on
-   the card beside the bound, the plain version and one library call. The
-   layer GEMMs run at M = 4 (decode and the prefill unembed), 512 (serving
-   prefill, 4 x 128), 1024 and 8192 (long prefill, 4 x 2048); the tied
-   unembed at M = 4 and 1024;
-3. serve: SmolLM-135M at full published width (random weights, seed 0) on
-   a 256x256 array with 10% of its PEs faulty, through ``ServeEngine`` in
+2. kernel parity: each kernel against its plain PyTorch version at the
+   shapes of the serving paths, with its time on the card beside the bound,
+   the plain version and one library call where there is one:
+   - the masked GEMM at SmolLM-135M's shapes in bf16 and float32, the layer
+     GEMMs at M = 4 (decode and the prefill unembed), 512 (serving prefill,
+     4 x 128), 1024 and 8192 (long prefill, 4 x 2048), the tied unembed at
+     M = 4 and 1024;
+   - flash attention at SmolLM's heads, S = 128 and 2048;
+   - the selective scan at (B, L, D, N) = (4, 128, 8192, 16) (falcon-mamba's
+     serving prefill), (4, 128, 3200, 16) (hymba's), (4, 2048, 3200, 16)
+     (hymba's long prefill) and a ragged (2, 37, 11, 4), with u, B and C in
+     bf16 and dt in fp32 as the model gives them, and all in float32;
+   - the masked GEMM in bf16 at every falcon-mamba-7b and hymba-1.5b GEMM
+     shape at M = 4 and 512, and at hymba's layer shapes at M = 8192;
+3. serve SmolLM-135M at full published width (random weights, seed 0) on a
+   256x256 array with 10% of its PEs faulty, through ``ServeEngine`` in
    ``kernel`` mode: 4 prompts of 128 tokens, 32 greedy new tokens, in bf16
    and in float32. The served sequences are re-run teacher-forced through
    the plain ``fap`` context and the logits are gated;
-4. long prefill: ``prefill`` at 4 x 2048 tokens in ``kernel`` mode with the
-   flash kernel, against the plain path (``fap`` context, dense attention):
-   logits and KV cache;
-5. a ``{"kernels": [...]}`` line, the card's line, and last the
+4. long prefill: SmolLM's ``prefill`` at 4 x 2048 tokens in ``kernel`` mode
+   with the flash kernel, against the plain path (``fap`` context, dense
+   attention): logits and KV cache;
+5. serve falcon-mamba-7b at full published width (64 layers, d_inner 8192)
+   the same way in bf16 and float32, on the same faulty chip;
+6. serve hymba-1.5b at full published width the same way in bf16 and
+   float32;
+7. hymba's long prefill at 4 x 2048 through the kernels (masked GEMM,
+   flash with its 1024-token window, the scan) against the plain path
+   (``fap`` context, dense attention and the scan's plain version), in bf16
+   and in float32: logits, KV ring, conv tail and SSM state;
+8. a ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, "device": ...}`` line.
 
-``--profile`` adds a phase after 3: the bf16 engine serves 8 new tokens
-once untraced (wall time) and once under ``torch.profiler`` tracing the
-card alone; device time by kernel goes to ``build/profile_serve.txt``, and
-the busy share is the traced kernel time over the untraced wall time.
+``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
+hymba), a run of 8 new tokens once untraced (wall time) and once under
+``torch.profiler`` tracing the card alone; device time by kernel goes to
+``build/profile_serve.txt``, and the busy share is the traced kernel time
+over the untraced wall time.
 
-Launch counts are set to 0 just before each main-path run (phases 3 and 4)
-and read just after it; the parity and timing launches of phase 2 are not
-counted. Tolerances, each printed beside its error:
+Launch counts are set to 0 just before each main-path run (the generate
+calls of phases 3, 5 and 6 and the kernel-path prefills of phases 4 and 7)
+and read just after it; parity and timing launches are not counted.
+Tolerances, each printed beside its error:
 
 - the masked GEMM against its plain version: the repository's per-dtype
   table (``dtype_tol``: bf16 rtol 2e-2 / atol 2e-1, float32 rtol 2e-5 /
@@ -41,10 +59,25 @@ counted. Tolerances, each printed beside its error:
   have an RMS of only 0.05-0.1, where the table's atol 0.2 would pass
   almost anything; the kernel's measured bf16 error is 2e-3-4e-3. float32
   takes the table;
-- whole-model logits and KV caches: bf16 takes the table elementwise and,
-  in phase 4, a relative L2 error (||got - ref|| / ||ref||) of at most
-  5e-2; float32 takes atol 1e-3 (``atol_scale=50``) because 30 layers of
-  reassociated fp32 sums compound.
+- the selective scan: h_last, and float32 y, at rtol 2e-5 / atol 1e-4 (the
+  reference's kernel tests). bf16 y at rtol 2e-2 and atol 1e-2 x the RMS of
+  the plain y: both sides round one fp32 value to bf16, so they differ by
+  at most one bf16 step, 2^-8 of the value;
+- whole-model logits and caches: bf16 takes the table elementwise and, in
+  the long prefills, a relative L2 error (||got - ref|| / ||ref||) of at
+  most 5e-2; float32 takes atol 1e-3 (``atol_scale=50``) because 30 to 64
+  layers of reassociated fp32 sums compound;
+- every bf16 serve is also held against the plain path run in float32 on
+  the served sequence: the kernel path's relative L2 error on the logits,
+  and the served logprobs' RMS error, may be at most 1.5 times the plain
+  bf16 path's own. For falcon-mamba-7b and hymba-1.5b this gate replaces
+  the elementwise bf16 one: the plain bf16 path of those models is itself
+  0.3-0.4 away from its float32 self in the largest logit, more than the
+  table's atol 0.2, so no bf16 path could pass that. Their float32 serves
+  carry the elementwise gate. hymba's long prefill is gated the same way:
+  its float32 runs elementwise (atol 1e-3) and by relative L2, its bf16
+  runs by their relative L2 error against the plain float32 run, since its
+  plain bf16 logits are themselves about 5e-2 (relative L2) from it.
 
 Plain-version float32 matmuls run without TF32 (``allow_tf32=False``), so
 they are true fp32.
@@ -53,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -65,9 +99,15 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+# exp2 on the special-function units: 16 per clock per SM (CUDA programming
+# guide, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 BATCH, PROMPT, NEW, LONG = 4, 128, 32, 2048
 FLASH_BF16_TOL = (2e-2, 1e-2)  # (rtol, atol); see the module docstring
+SCAN_F32_TOL = (2e-5, 1e-4)
 MAX_REL_L2 = 5e-2
+ANCHOR_RATIO = 1.5  # see serve(): bf16 paths held against the float32 plain path
+SCAN_SHAPES = [(4, 128, 8192, 16), (4, 128, 3200, 16), (4, LONG, 3200, 16), (2, 37, 11, 4)]
 
 
 def log(*a):
@@ -79,10 +119,14 @@ def fail(msg: str) -> int:
     return 1
 
 
+class Failed(Exception):
+    pass
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bf16 serving run (build/profile_serve.txt)")
+                    help="also profile one bf16 serving run per model (build/profile_serve.txt)")
     args = ap.parse_args(argv)
 
     import torch
@@ -92,18 +136,27 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         return fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    try:
+        return run(args, torch)
+    except Failed as e:
+        return fail(str(e))
 
+
+def run(args, torch) -> int:
     from repro_torch.configs import get_arch
     from repro_torch.core import from_fault_map, random_fault_map
     from repro_torch.kernels.common import build_kernels, dtype_tol
     from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
+    from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
     from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
     from repro_torch.models import model as M
+    from repro_torch.models import ssm as ssm_module
     from repro_torch.serve import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -113,7 +166,7 @@ def main(argv=None) -> int:
 
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    logs = build_kernels(["masked_matmul", "flash_attention"])
+    logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -149,9 +202,16 @@ def main(argv=None) -> int:
     def rel_l2(got, ref):
         return float((got.float() - ref.float()).norm() / ref.float().norm())
 
+    def name_of(dtype):
+        return str(dtype)[6:]
+
     failures = []
     cfg = get_arch("smollm-135m")
+    falcon, hymba = get_arch("falcon-mamba-7b"), get_arch("hymba-1.5b")
     gen = torch.Generator(device=dev).manual_seed(0)
+    fm = random_fault_map(0, cfg.array_rows, cfg.array_cols, 0.1)
+    ctx_k = from_fault_map(fm, "kernel", device=dev)
+    ctx_f = from_fault_map(fm, "fap", device=dev)
 
     # ---- phase 2: kernel parity -------------------------------------------
     oks = {
@@ -159,44 +219,54 @@ def main(argv=None) -> int:
         for rate in (0.0, 0.1, 0.3)
     }
     mm_err, mm_rows = 0.0, {}
+
+    def gemm_case(arch, idx, k, n, uses, tied, dtype, ms_list):
+        """Parity at three fault rates and timings at 10% for one weight shape
+        at each M of ``ms_list``; returns the largest error."""
+        w32 = torch.randn(n, k, generator=gen, device=dev).T if tied else \
+            torch.randn(k, n, generator=gen, device=dev)
+        w32 = w32 / math.sqrt(k)
+        w = w32.to(dtype)  # fault_linear's cast; keeps embed.T's strides
+        if tied and w.stride(0) != 1:
+            raise Failed(f"the unembed weight lost its transposed strides: {w.stride()}")
+        shape_err = 0.0
+        for m in ms_list:
+            x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+            err = 0.0
+            for rate, ok in oks.items():
+                e, good = worst(masked_matmul(x, w, ok), masked_matmul_ref(x, w, ok), dtype_tol(dtype))
+                err = max(err, e)
+                if not good:
+                    failures.append(f"masked_matmul {arch} {dtype} {m}x{k}x{n} rate {rate}: {e}")
+            ok = oks[0.1]
+            wm = w * (ok[torch.arange(k, device=dev) % 256][:, torch.arange(n, device=dev) % 256]).to(dtype)
+            size = torch.finfo(dtype).bits // 8
+            nbytes = (m * k + k * n + m * n) * size + ok.numel() * 4
+            bound = max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / PEAK_OPS[name_of(dtype)]) * 1e3
+            row = dict(
+                ms=time_ms(lambda: masked_matmul(x, w, ok)),
+                plain_ms=time_ms(lambda: masked_matmul_ref(x, w, ok), reps=5),
+                library_ms=time_ms(lambda: torch.matmul(x, wm)),
+                bound_ms=bound,
+                cast_ms=time_ms(lambda: w32.to(dtype)) if dtype == torch.bfloat16 else 0.0,
+                uses=uses, k=k, n=n, tied=tied, max_abs_err=err,
+            )
+            mm_rows[(arch, name_of(dtype), m, idx)] = row
+            log(f"masked_matmul {arch:15s} {name_of(dtype):8s} M={m:5d} K={k:5d} N={n:6d}"
+                f"{' (embed.T)' if tied else ''}: err<= {err:.3g} (rtol, atol {dtype_tol(dtype)}) "
+                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                f"torch.matmul(masked w) {row['library_ms']:.4f} ms  bound {bound:.4f} ms"
+                f"{'  cast fp32->bf16 %.4f ms' % row['cast_ms'] if row['cast_ms'] else ''}")
+            shape_err = max(shape_err, err)
+        return shape_err
+
     for dtype in (torch.bfloat16, torch.float32):
         for idx, (k, n, uses) in enumerate(cfg.gemm_shapes()):
             tied = n == cfg.vocab_size  # the unembed reads embed.T, a strided view
-            w32 = torch.randn(n, k, generator=gen, device=dev).T if tied else \
-                torch.randn(k, n, generator=gen, device=dev)
-            w32 = w32 / math.sqrt(k)
-            w = w32.to(dtype)  # fault_linear's cast; keeps embed.T's strides
-            if tied and w.stride(0) != 1:
-                return fail(f"the unembed weight lost its transposed strides: {w.stride()}")
             # serving prefill gives the layers M = 4 x 128 and the long prefill
             # 4 x 2048; the unembed sees only the last position at prefill
-            for m in (BATCH, 1024) if tied else (BATCH, BATCH * PROMPT, 1024, BATCH * LONG):
-                x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-                err = 0.0
-                for rate, ok in oks.items():
-                    e, good = worst(masked_matmul(x, w, ok), masked_matmul_ref(x, w, ok), dtype_tol(dtype))
-                    err, mm_err = max(err, e), max(mm_err, e)
-                    if not good:
-                        failures.append(f"masked_matmul {dtype} {m}x{k}x{n} rate {rate}: {err}")
-                ok = oks[0.1]
-                wm = w * (ok[torch.arange(k, device=dev) % 256][:, torch.arange(n, device=dev) % 256]).to(dtype)
-                size = torch.finfo(dtype).bits // 8
-                nbytes = (m * k + k * n + m * n) * size + ok.numel() * 4
-                bound = max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / PEAK_OPS[str(dtype)[6:]]) * 1e3
-                row = dict(
-                    ms=time_ms(lambda: masked_matmul(x, w, ok)),
-                    plain_ms=time_ms(lambda: masked_matmul_ref(x, w, ok), reps=5),
-                    library_ms=time_ms(lambda: torch.matmul(x, wm)),
-                    bound_ms=bound,
-                    cast_ms=time_ms(lambda: w32.to(dtype)) if dtype == torch.bfloat16 else 0.0,
-                    uses=uses, k=k, n=n, tied=tied,
-                )
-                mm_rows[(str(dtype)[6:], m, idx)] = row
-                log(f"masked_matmul {str(dtype)[6:]:8s} M={m:5d} K={k:5d} N={n:6d}"
-                    f"{' (embed.T)' if tied else ''}: err<= {err:.3g} (rtol, atol {dtype_tol(dtype)}) "
-                    f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-                    f"torch.matmul(masked w) {row['library_ms']:.4f} ms  bound {bound:.4f} ms"
-                    f"{'  cast fp32->bf16 %.4f ms' % row['cast_ms'] if row['cast_ms'] else ''}")
+            ms_list = (BATCH, 1024) if tied else (BATCH, BATCH * PROMPT, 1024, BATCH * LONG)
+            mm_err = max(mm_err, gemm_case(cfg.name, idx, k, n, uses, tied, dtype, ms_list))
 
     fa_err, fa_rows = 0.0, {}
     b, hq, hkv, d = BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -221,7 +291,7 @@ def main(argv=None) -> int:
                 pairs = int(keep.sum())
                 size = torch.finfo(dtype).bits // 8
                 nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * size
-                bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * hq * d * pairs / PEAK_OPS[str(dtype)[6:]]) * 1e3
+                bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * hq * d * pairs / PEAK_OPS[name_of(dtype)]) * 1e3
                 kr, vr = kk.repeat_interleave(hq // hkv, 1), vv.repeat_interleave(hq // hkv, 1)
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 row = dict(
@@ -230,30 +300,93 @@ def main(argv=None) -> int:
                     library_ms=time_ms(lambda: sdpa(q, kr, vr, attn_mask=keep)),
                     bound_ms=bound,
                 )
-                fa_rows[(str(dtype)[6:], s, case)] = row
-                log(f"flash_attention {str(dtype)[6:]:8s} B={b} Hq={hq} Hkv={hkv} Sq={sq:5d} "
+                fa_rows[(name_of(dtype), s, case)] = row
+                log(f"flash_attention {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} Sq={sq:5d} "
                     f"Skv={s:5d} {case:9s}: err<= {err:.3g} (rtol, atol {tol}) kernel {row['ms']:.4f} ms  "
                     f"plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  "
                     f"bound {bound:.4f} ms")
-    if failures:
-        return fail("kernel parity: " + "; ".join(failures))
+    del q, kk, vv, kr, vr, keep
 
-    # ---- phase 3: serve SmolLM-135M at full width on a 10%-faulty chip ----
+    # the selective scan, with inputs as the model gives them: dt fp32 from a
+    # softplus, B and C strided slices of one (B, L, r + 2N) tensor in u's dtype
+    scan_err, scan_rows = 0.0, {}
+    for u_dtype in (torch.bfloat16, torch.float32):
+        for bsz, length, dim, n in SCAN_SHAPES:
+            u = torch.randn(bsz, length, dim, generator=gen, device=dev).to(u_dtype)
+            dt = torch.nn.functional.softplus(torch.randn(bsz, length, dim, generator=gen, device=dev) - 3.0)
+            a = -torch.exp(torch.randn(dim, n, generator=gen, device=dev))
+            dbc = torch.randn(bsz, length, 8 + 2 * n, generator=gen, device=dev).to(u_dtype)
+            _, bm, cm = torch.split(dbc, [8, n, n], dim=-1)
+            d_skip = torch.randn(dim, generator=gen, device=dev)
+            args_ = (u, dt, a, bm, cm, d_skip)
+            y, h = selective_scan(*args_)
+            ref_y, ref_h = selective_scan_ref(*args_)
+            y_tol = SCAN_F32_TOL if u_dtype == torch.float32 else \
+                (2e-2, 1e-2 * float(ref_y.float().pow(2).mean().sqrt()))
+            y_err, y_good = worst(y, ref_y, y_tol)
+            h_err, h_good = worst(h, ref_h, SCAN_F32_TOL)
+            scan_err = max(scan_err, y_err, h_err)
+            key = f"{name_of(u_dtype)} {bsz}x{length}x{dim}x{n}"
+            if not (y_good and h_good):
+                failures.append(f"selective_scan {key}: y err {y_err} (tol {y_tol}), h err {h_err}")
+            size = torch.finfo(u_dtype).bits // 8
+            elems = bsz * length * dim * n
+            nbytes = (bsz * length * dim * (2 * size + 4) + 2 * bsz * length * n * size
+                      + dim * n * 4 + dim * 4 + bsz * dim * n * 4)
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 7 * elems / PEAK_OPS["float32"] * 1e3
+            row = dict(
+                ms=time_ms(lambda: selective_scan(*args_)),
+                plain_ms=time_ms(lambda: selective_scan_ref(*args_), reps=3),
+                bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms, exp_ms=elems / SFU_PER_S * 1e3,
+                y_err=y_err, y_tol=y_tol, h_err=h_err, mbytes=nbytes / 1e6,
+            )
+            scan_rows[key] = row
+            log(f"selective_scan {key:24s}: y err {y_err:.3g} (rtol, atol {y_tol[0]}, {y_tol[1]:.3g}), "
+                f"h_last err {h_err:.3g} (rtol, atol {SCAN_F32_TOL}); kernel {row['ms']:.4f} ms  "
+                f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                f"{row['mbytes']:.1f} MB {bytes_ms:.4f} ms, 7 fp32 ops/elem {ops_ms:.4f} ms; "
+                f"exps on the SFUs {row['exp_ms']:.4f} ms)")
+    del u, dt, a, dbc, bm, cm, args_, y, h, ref_y, ref_h
+
+    # the masked GEMM at the SSM models' shapes, bf16, as their serving paths run it
+    for arch in (falcon, hymba):
+        for idx, (k, n, uses) in enumerate(arch.gemm_shapes()):
+            unembed = n == arch.vocab_size
+            ms_list = (BATCH, BATCH * PROMPT) + (() if unembed or arch is falcon else (BATCH * LONG,))
+            mm_err = max(mm_err, gemm_case(arch.name, idx, k, n, uses, False, torch.bfloat16, ms_list))
+    if failures:
+        raise Failed("kernel parity: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+
+    # ---- serving: shared by phases 3, 5 and 6 ------------------------------
     def reset():
         masked_matmul.launches = 0
         flash_attention.launches = 0
+        selective_scan.launches = 0
 
-    params = M.init_params(cfg, 0, device=dev)
-    fm = random_fault_map(0, cfg.array_rows, cfg.array_cols, 0.1)
-    ctx_k = from_fault_map(fm, "kernel", device=dev)
-    ctx_f = from_fault_map(fm, "fap", device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
-    per_step = sum(uses for _, _, uses in cfg.gemm_shapes())
-    launches = {"masked_matmul": 0, "flash_attention": 0}
-    serve_report, engines = {}, {}
-    for dtype, atol_scale in (("bfloat16", 10.0), ("float32", 50.0)):
-        c = dataclasses.replace(cfg, dtype=dtype)
-        eng = engines[dtype] = ServeEngine(c, params, ctx_k, max_len=None)
+    def counts():
+        return dict(masked_matmul=masked_matmul.launches, flash_attention=flash_attention.launches,
+                    selective_scan=selective_scan.launches)
+
+    launches = {"masked_matmul": 0, "flash_attention": 0, "selective_scan": 0}
+    serve_report, profile_report, profile_lines = {}, {}, []
+
+    def serve(c, params, atol_scale, elementwise=True):
+        """Serve 4 x 128-token prompts, 32 greedy new tokens, in kernel mode;
+        gate the launch counts and the teacher-forced logits and logprobs.
+
+        The served sequence is re-run teacher-forced through the plain
+        ``fap`` path (``ref``) and the kernel path (``got``). With
+        ``elementwise`` the logits of the two and the served logprobs are
+        held elementwise to ``dtype_tol``. A bf16 run is also held against
+        the plain path in float32 (``ref32``): the kernel path's relative L2
+        error on the logits, and the served logprobs' RMS error, may be at
+        most ANCHOR_RATIO times the plain bf16 path's own."""
+        label = f"{c.name} {c.dtype}"
+        prompts = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+        per_step = sum(uses for _, _, uses in c.gemm_shapes())
+        eng = ServeEngine(c, params, ctx_k, max_len=None)
         eng.generate(prompts, max_new_tokens=2)  # warm-up, not counted
         torch.cuda.synchronize()
         reset()
@@ -261,52 +394,84 @@ def main(argv=None) -> int:
         out = eng.generate(prompts, max_new_tokens=NEW)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = (masked_matmul.launches, flash_attention.launches)
-        launches["masked_matmul"] += counts[0]
-        if counts[0] != per_step * (1 + NEW) or counts[1] != 0:
-            return fail(f"serve {dtype}: launches {counts}, expected {per_step} per step x {1 + NEW}")
+        got_counts = counts()
+        for key in launches:
+            launches[key] += got_counts[key]
+        want = dict(masked_matmul=per_step * (1 + NEW), flash_attention=0,
+                    selective_scan=c.num_layers if c.has_ssm else 0)
+        if got_counts != want:
+            raise Failed(f"serve {label}: launches {got_counts}, expected {want} "
+                         f"({per_step} masked GEMMs per step x {1 + NEW} steps)")
+        if not torch.isfinite(out.logprobs).all() or out.tokens.shape != (BATCH, PROMPT + NEW):
+            raise Failed(f"serve {label}: bad output {tuple(out.tokens.shape)}")
         t1 = time.perf_counter()
-        cache_len = eng.cache_len_for(PROMPT, NEW)
-        M.prefill(params, {"tokens": prompts}, c, ctx_k, cache_len=cache_len, valid_len=PROMPT)
+        kw = {} if c.has_ssm else dict(valid_len=PROMPT)  # SSM families prefill unpadded
+        M.prefill(params, {"tokens": prompts}, c, ctx_k, cache_len=eng.cache_len_for(PROMPT, NEW), **kw)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
-        with torch.no_grad():
-            seq = out.tokens
-            ref = M.forward(params, {"tokens": seq[:, :-1]}, c, ctx_f, attn_impl="dense")
-            got = M.forward(params, {"tokens": seq[:, :-1]}, c, ctx_k, attn_impl="dense")
-        steps = slice(PROMPT - 1, PROMPT - 1 + NEW)
-        ref_lp = torch.log_softmax(ref[:, steps].float(), -1).gather(-1, seq[:, PROMPT:, None])[..., 0]
-        rtol, atol = dtype_tol(getattr(torch, dtype), atol_scale=atol_scale)
+
+        seq, steps = out.tokens, slice(PROMPT - 1, PROMPT - 1 + NEW)
+
+        def teacher_forced(cc, ctx):
+            with torch.no_grad():
+                logits = M.forward(params, {"tokens": seq[:, :-1]}, cc, ctx, attn_impl="dense")[:, steps].float()
+            return logits, torch.log_softmax(logits, -1).gather(-1, seq[:, PROMPT:, None])[..., 0]
+
+        ref, ref_lp = teacher_forced(c, ctx_f)
+        got, _ = teacher_forced(c, ctx_k)
+        rtol, atol = dtype_tol(getattr(torch, c.dtype), atol_scale=atol_scale)
         lp_err = float((out.logprobs - ref_lp).abs().max())
-        logit_diff = (got[:, steps].float() - ref[:, steps].float()).abs()
+        logit_diff = (got - ref).abs()
         logit_err = float(logit_diff.max())
-        agree = float((ref[:, steps].argmax(-1) == seq[:, PROMPT:]).float().mean())
-        serve_report[dtype] = dict(
-            tokens_per_s=BATCH * NEW / dt, generate_s=dt, prefill_ms=prefill_ms,
-            masked_matmul_launches=counts[0], launches_per_step=counts[0] / (1 + NEW),
-            logprob_err=lp_err, logit_err=logit_err, token_agreement=agree,
+        agree = float((ref.argmax(-1) == seq[:, PROMPT:]).float().mean())
+        report = serve_report[label] = dict(
+            tokens_per_s=BATCH * NEW / dt, generate_s=dt, step_ms=dt / (1 + NEW) * 1e3,
+            prefill_ms=prefill_ms, launches=got_counts, launches_per_step=got_counts["masked_matmul"] / (1 + NEW),
+            logprob_err=lp_err, logit_err=logit_err, ref_logit_rms=float(ref.pow(2).mean().sqrt()),
+            token_agreement=agree, elementwise_gate=elementwise,
         )
-        log(f"serve {dtype}: {BATCH}x{NEW} tokens in {dt:.3f} s ({BATCH * NEW / dt:.1f} tok/s); "
-            f"prefill {BATCH}x{PROMPT} {prefill_ms:.2f} ms; masked_matmul launches {counts[0]} "
-            f"({counts[0] / (1 + NEW):.0f} per step), flash {counts[1]}; teacher-forced fap: "
-            f"logprob err {lp_err:.3g}, logit err {logit_err:.3g} (rtol {rtol}, atol {atol}), "
-            f"greedy token agreement {agree:.4f}")
-        if lp_err > atol or not bool((logit_diff <= atol + rtol * ref[:, steps].float().abs()).all()):
-            return fail(f"serve {dtype}: served logits disagree with the plain fap path")
-        if not torch.isfinite(out.logprobs).all() or out.tokens.shape != (BATCH, PROMPT + NEW):
-            return fail(f"serve {dtype}: bad output {tuple(out.tokens.shape)}")
+        log(f"serve {label}: {BATCH}x{NEW} tokens in {dt:.3f} s ({BATCH * NEW / dt:.1f} tok/s); "
+            f"prefill {BATCH}x{PROMPT} {prefill_ms:.2f} ms; launches {got_counts} "
+            f"({got_counts['masked_matmul'] / (1 + NEW):.0f} masked GEMMs per step); teacher-forced fap: "
+            f"logprob err {lp_err:.3g}, logit err {logit_err:.3g} (rtol {rtol}, atol {atol}"
+            f"{'' if elementwise else '; not gated, see the anchored gate'}), greedy token agreement {agree:.4f}")
+        if elementwise and (
+            lp_err > atol or not bool((logit_diff <= atol + rtol * ref.abs()).all())
+        ):
+            raise Failed(f"serve {label}: served logits disagree with the plain fap path")
+        if c.dtype == "bfloat16":
+            ref32, ref32_lp = teacher_forced(dataclasses.replace(c, dtype="float32"), ctx_f)
+            anchored = dict(
+                plain_rel_l2=rel_l2(ref, ref32), kernel_rel_l2=rel_l2(got, ref32),
+                plain_max=float((ref - ref32).abs().max()), kernel_max=float((got - ref32).abs().max()),
+                plain_lp_rms=float((ref_lp - ref32_lp).pow(2).mean().sqrt()),
+                served_lp_rms=float((out.logprobs - ref32_lp).pow(2).mean().sqrt()),
+            )
+            report["anchored"] = anchored
+            ratios = (anchored["kernel_rel_l2"] / anchored["plain_rel_l2"],
+                      anchored["served_lp_rms"] / anchored["plain_lp_rms"])
+            log(f"serve {label} against the plain path in float32: logits rel L2 plain bf16 "
+                f"{anchored['plain_rel_l2']:.4g}, kernel bf16 {anchored['kernel_rel_l2']:.4g} (ratio "
+                f"{ratios[0]:.3f} <= {ANCHOR_RATIO}); max err plain {anchored['plain_max']:.3g}, kernel "
+                f"{anchored['kernel_max']:.3g}; logprob RMS err plain teacher-forced "
+                f"{anchored['plain_lp_rms']:.4g}, served {anchored['served_lp_rms']:.4g} (ratio "
+                f"{ratios[1]:.3f} <= {ANCHOR_RATIO})")
+            if max(ratios) > ANCHOR_RATIO:
+                raise Failed(f"serve {label}: the kernel path is farther from the float32 plain path "
+                             f"than the bf16 plain path is: {anchored}")
+            if args.profile:
+                profile(label, eng, prompts)
+        return eng
 
-    # ---- optional: where one bf16 serving run's device time goes ------------
-    profile_report = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+    def profile(label, eng, prompts, prof_new=8):
+        """Where one bf16 serving run's device time goes."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
 
-        eng, prof_new = engines["bfloat16"], 8
         t0 = time.perf_counter()
         eng.generate(prompts, max_new_tokens=prof_new)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             eng.generate(prompts, max_new_tokens=prof_new)
             torch.cuda.synchronize()
         by_kernel = sorted(
@@ -316,83 +481,184 @@ def main(argv=None) -> int:
         )
         busy_ms = sum(t for _, _, t in by_kernel)
         if not busy_ms:
-            return fail("profile: torch.profiler recorded no device time")
-        profile_report = dict(new_tokens=prof_new, wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+            raise Failed("profile: torch.profiler recorded no device time")
+        profile_report[label] = dict(new_tokens=prof_new, wall_ms=wall_ms, busy_ms=busy_ms,
+                                     busy_share=busy_ms / wall_ms)
         lines = [
-            f"card: {card}; bf16 kernel mode; {BATCH}x{PROMPT} prompt, {prof_new} new tokens",
+            f"{label}: card {card}; kernel mode; {BATCH}x{PROMPT} prompt, {prof_new} new tokens",
             f"untraced wall {wall_ms:.2f} ms; traced device time {busy_ms:.2f} ms "
             f"(busy {busy_ms / wall_ms:.1%} of the untraced wall)",
             f"{'device ms':>10} {'share':>7} {'calls':>7}  kernel",
         ] + [f"{t:10.3f} {t / busy_ms:7.1%} {n:7d}  {key[:110]}" for key, n, t in by_kernel[:25]]
-        OUT_DIR.mkdir(parents=True, exist_ok=True)
-        (OUT_DIR / "profile_serve.txt").write_text("\n".join(lines) + "\n")
-        for line in lines[1:12]:
+        profile_lines.extend(lines + [""])
+        for line in lines[:12]:
             log(f"profile: {line}")
 
-    # ---- phase 4: long prefill through the flash kernel --------------------
-    long_tokens = torch.randint(0, cfg.vocab_size, (BATCH, LONG), generator=gen, device=dev)
-    M.prefill(params, {"tokens": long_tokens[:, :256]}, cfg, ctx_k, attn_impl="kernel")
-    torch.cuda.synchronize()
-    reset()
+    def long_prefill(c, params, anchored):
+        """``prefill`` at 4 x 2048 in bf16 through the kernels against the plain
+        path: fap masking, dense attention and the scan's plain version (swapped
+        in for the plain runs).
+
+        Without ``anchored`` the logits and KV cache of the two are held
+        elementwise to ``dtype_tol`` and by relative L2 (at most MAX_REL_L2).
+        With it, both paths run in float32 too: there the kernel path is held
+        elementwise to the plain path (``dtype_tol``, atol_scale 50) and by
+        relative L2; and in bf16 each path's relative L2 error against the plain
+        float32 path is compared, the kernel path's being at most ANCHOR_RATIO
+        times the plain path's own."""
+        per_step = sum(uses for _, _, uses in c.gemm_shapes())
+        tokens = {"tokens": torch.randint(0, c.vocab_size, (BATCH, LONG), generator=gen, device=dev)}
+        M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, c, ctx_k, attn_impl="kernel")
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        outs = {"kernel": M.prefill(params, tokens, c, ctx_k, attn_impl="kernel")}
+        torch.cuda.synchronize()
+        kernel_ms = (time.perf_counter() - t0) * 1e3
+        got_counts = counts()
+        for key in launches:
+            launches[key] += got_counts[key]
+        want = dict(masked_matmul=per_step, flash_attention=c.num_layers,
+                    selective_scan=c.num_layers if c.has_ssm else 0)
+        if got_counts != want:
+            raise Failed(f"long prefill {c.name}: launches {got_counts}, expected {want}")
+
+        def plain(cc):
+            ssm_module.selective_scan = selective_scan_ref
+            try:
+                return M.prefill(params, tokens, cc, ctx_f, attn_impl="dense")
+            finally:
+                ssm_module.selective_scan = selective_scan
+
+        t0 = time.perf_counter()
+        outs["plain"] = plain(c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if anchored:
+            c32 = dataclasses.replace(c, dtype="float32")
+            outs["kernel32"] = M.prefill(params, tokens, c32, ctx_k, attn_impl="kernel")
+            outs["plain32"] = plain(c32)
+
+        def pick(run, key):
+            logits, cache = outs[run]
+            return logits if key == "logits" else cache[key]
+
+        errs, lines = {}, []
+        for key in ["logits"] + [k for k in ("k", "v", "conv", "h") if k in outs["kernel"][1]]:
+            a, r = pick("kernel", key), pick("plain", key)
+            err, good = worst(a, r, dtype_tol(torch.bfloat16))
+            e = errs[key] = dict(max_abs=err, rel_l2=rel_l2(a, r), ref_rms=float(r.float().pow(2).mean().sqrt()))
+            line = f"{key}: bf16 max err {err:.3g}, rel L2 {e['rel_l2']:.3g}, ref RMS {e['ref_rms']:.3g}"
+            if not anchored:
+                bad = not good or e["rel_l2"] > MAX_REL_L2
+            else:
+                a32, r32 = pick("kernel32", key), pick("plain32", key)
+                tol32 = dtype_tol(torch.float32, atol_scale=50.0)
+                e["f32_max_abs"], good32 = worst(a32, r32, tol32)
+                e["f32_rel_l2"] = rel_l2(a32, r32)
+                e["plain_rel_l2_vs_f32"] = rel_l2(r, r32)
+                e["kernel_rel_l2_vs_f32"] = rel_l2(a, r32)
+                ratio = e["kernel_rel_l2_vs_f32"] / e["plain_rel_l2_vs_f32"]
+                bad = not good32 or e["f32_rel_l2"] > MAX_REL_L2 or ratio > ANCHOR_RATIO
+                line += (f"; float32 max err {e['f32_max_abs']:.3g} (rtol, atol {tol32}), rel L2 "
+                         f"{e['f32_rel_l2']:.3g}; rel L2 against the plain float32 path: plain bf16 "
+                         f"{e['plain_rel_l2_vs_f32']:.4g}, kernel bf16 {e['kernel_rel_l2_vs_f32']:.4g} "
+                         f"(ratio {ratio:.3f} <= {ANCHOR_RATIO})")
+            if bad:
+                raise Failed(f"long prefill {c.name}: {key} of the kernel path disagree with the plain path: {e}")
+            lines.append(line)
+        gate = (f"bf16 elementwise (rtol, atol) {dtype_tol(torch.bfloat16)} and rel L2 <= {MAX_REL_L2}"
+                if not anchored else "float32 elementwise and rel L2; bf16 anchored to float32")
+        log(f"long prefill {c.name} {BATCH}x{LONG} bf16: kernel path {kernel_ms:.2f} ms, plain path "
+            f"{plain_ms:.2f} ms; launches {got_counts}; gate: {gate}; " + "; ".join(lines))
+        return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, launches=got_counts, err=errs)
+
+    # ---- phase 3: serve SmolLM-135M at full width on a 10%-faulty chip ----
+    params = M.init_params(cfg, 0, device=dev)
+    for dtype, atol_scale in (("bfloat16", 10.0), ("float32", 50.0)):
+        serve(dataclasses.replace(cfg, dtype=dtype), params, atol_scale)
+
+    # ---- phase 4: SmolLM long prefill through the flash kernel ------------
+    long_report = {cfg.name: long_prefill(cfg, params, anchored=False)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: serve falcon-mamba-7b at full width ----------------------
     t0 = time.perf_counter()
-    lk, ck = M.prefill(params, {"tokens": long_tokens}, cfg, ctx_k, attn_impl="kernel")
+    params = M.init_params(falcon, 0, device=dev)
     torch.cuda.synchronize()
-    kernel_prefill_ms = (time.perf_counter() - t0) * 1e3
-    counts = (masked_matmul.launches, flash_attention.launches)
-    launches["masked_matmul"] += counts[0]
-    launches["flash_attention"] += counts[1]
-    if counts != (per_step, cfg.num_layers):
-        return fail(f"long prefill: launches {counts}, expected ({per_step}, {cfg.num_layers})")
-    # the plain path: masked weights by the fap context, dense attention
-    t0 = time.perf_counter()
-    ld, cd = M.prefill(params, {"tokens": long_tokens}, cfg, ctx_f, attn_impl="dense")
-    torch.cuda.synchronize()
-    plain_prefill_ms = (time.perf_counter() - t0) * 1e3
-    long_err = {}
-    for name, a, r in (("logits", lk, ld), ("k", ck["k"], cd["k"]), ("v", ck["v"], cd["v"])):
-        err, good = worst(a, r, dtype_tol(torch.bfloat16))
-        long_err[name] = dict(max_abs=err, rel_l2=rel_l2(a, r), ref_rms=float(r.float().pow(2).mean().sqrt()))
-        if not good or long_err[name]["rel_l2"] > MAX_REL_L2:
-            return fail(f"long prefill: {name} of the kernel path disagree with the plain path: {long_err[name]}")
-    log(f"long prefill {BATCH}x{LONG} bf16: kernel path (masked GEMM + flash) {kernel_prefill_ms:.2f} ms, "
-        f"plain path (fap + dense) {plain_prefill_ms:.2f} ms; launches masked_matmul {counts[0]}, "
-        f"flash_attention {counts[1]}; " + "; ".join(
-            f"{k}: max err {v['max_abs']:.3g} (rtol, atol {dtype_tol(torch.bfloat16)}), "
-            f"rel L2 {v['rel_l2']:.3g} (<= {MAX_REL_L2}), ref RMS {v['ref_rms']:.3g}"
-            for k, v in long_err.items()))
+    log(f"falcon-mamba-7b: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} G fp32 parameters "
+        f"initialized on the card in {time.perf_counter() - t0:.2f} s")
+    # 64 layers of bf16 rounding move the plain path itself by more than the
+    # table's atol from its float32 self: bf16 takes the anchored gate, and a
+    # float32 serve holds the kernels and the decode recurrence elementwise
+    serve(falcon, params, 10.0, elementwise=False)
+    serve(dataclasses.replace(falcon, dtype="float32"), params, 50.0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: serve hymba-1.5b at full width ---------------------------
+    params = M.init_params(hymba, 0, device=dev)
+    serve(hymba, params, 10.0, elementwise=False)
+    serve(dataclasses.replace(hymba, dtype="float32"), params, 50.0)
+
+    # ---- phase 7: hymba long prefill ---------------------------------------
+    long_report[hymba.name] = long_prefill(hymba, params, anchored=True)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # ---- phase 5: the record -----------------------------------------------
-    step = [mm_rows[("bfloat16", BATCH, i)] for i in range(len(cfg.gemm_shapes()))]
-    step_sum = {key: sum(r[key] * r["uses"] for r in step) for key in ("ms", "plain_ms", "library_ms", "bound_ms", "cast_ms")}
-    log(f"decode step (bf16, M={BATCH}), {per_step} masked GEMMs: kernel {step_sum['ms']:.4f} ms, "
-        f"plain {step_sum['plain_ms']:.4f} ms, torch.matmul {step_sum['library_ms']:.4f} ms, "
-        f"bound {step_sum['bound_ms']:.4f} ms; fault_linear's fp32->bf16 weight casts "
-        f"{step_sum['cast_ms']:.4f} ms")
+    # ---- phase 8: the record -----------------------------------------------
+    def step_sum(arch):
+        rows = [mm_rows[(arch.name, "bfloat16", BATCH, i)] for i in range(len(arch.gemm_shapes()))]
+        return {key: sum(r[key] * r["uses"] for r in rows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "cast_ms")}
+
+    steps = {arch.name: step_sum(arch) for arch in (cfg, falcon, hymba)}
+    for name, st in steps.items():
+        per_step = sum(uses for _, _, uses in get_arch(name).gemm_shapes())
+        log(f"decode step {name} (bf16, M={BATCH}), {per_step} masked GEMMs: kernel {st['ms']:.4f} ms, "
+            f"plain {st['plain_ms']:.4f} ms, torch.matmul {st['library_ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.4f} ms; fault_linear's fp32->bf16 weight casts {st['cast_ms']:.4f} ms")
     fa = fa_rows[("bfloat16", LONG, "causal")]
+    sc = scan_rows["bfloat16 4x128x8192x16"]
     kernels = [
         dict(name="masked_matmul", route="cuda", source="src/repro_torch/kernels/csrc/masked_matmul.cu",
              replaces="src/repro/kernels/masked_matmul/masked_matmul.py:66",
              launches=launches["masked_matmul"], max_abs_err=mm_err,
-             ms=step_sum["ms"], plain_ms=step_sum["plain_ms"], bound_ms=step_sum["bound_ms"],
-             bound_by="bytes", library_ms=step_sum["library_ms"]),
+             ms=steps[cfg.name]["ms"], plain_ms=steps[cfg.name]["plain_ms"],
+             bound_ms=steps[cfg.name]["bound_ms"], bound_by="bytes",
+             library_ms=steps[cfg.name]["library_ms"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
              launches=launches["flash_attention"], max_abs_err=fa_err,
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
              bound_by="operations", library_ms=fa["library_ms"]),
+        dict(name="selective_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/selective_scan.cu",
+             replaces="src/repro/kernels/mamba_scan/mamba_scan.py:54",
+             launches=launches["selective_scan"], max_abs_err=scan_err,
+             ms=sc["ms"], plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
+             bound_by=sc["bound_by"], library_ms=None),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if profile_lines:
+        (OUT_DIR / "profile_serve.txt").write_text("\n".join(profile_lines))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, serve=serve_report, kernels=kernels, profile=profile_report,
-        masked_matmul_rows=[dict(dtype=k[0], m=k[1], **v) for k, v in mm_rows.items()],
+        card=card, serve=serve_report, kernels=kernels, profile=profile_report or None,
+        decode_step_gemms=steps,
+        masked_matmul_rows=[dict(arch=k[0], dtype=k[1], m=k[2], **v) for k, v in mm_rows.items()],
         flash_rows=[dict(dtype=k[0], s=k[1], case=k[2], **v) for k, v in fa_rows.items()],
-        long_prefill=dict(kernel_ms=kernel_prefill_ms, plain_ms=plain_prefill_ms, err=long_err),
+        scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
+        long_prefill=long_report, seconds=time.perf_counter() - t_start,
     ), indent=1))
-    log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}" for k in kernels))
-    log("masked_matmul ms/plain_ms/library_ms/bound_ms: one bf16 decode step's 211 launches at M=4; "
-        "flash_attention: one launch at 4x9x2048^2 causal bf16")
+    log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
+                                for k in kernels))
+    log(f"masked_matmul ms/plain_ms/library_ms/bound_ms: one bf16 SmolLM-135M decode step's "
+        f"{sum(u for _, _, u in cfg.gemm_shapes())} launches at M={BATCH}; flash_attention: one launch at "
+        f"4x9x2048^2 causal bf16; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
+        f"serving prefill); run time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

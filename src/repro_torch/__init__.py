@@ -2,7 +2,8 @@
 
 Layout mirrors the reference package: ``configs``, ``core`` (fault maps,
 periodic masks, the fault context), ``kernels`` (hand-written CUDA for the
-masked GEMM and flash attention, each beside its plain PyTorch version),
+masked GEMM, flash attention and the selective scan, each beside its plain
+PyTorch version),
 ``models``, ``serve`` and ``launch``; ``convert`` hands the reference's
 numpy parameters over for parity tests. Nothing here imports JAX.
 """

@@ -8,6 +8,7 @@ model. Only the architectures the port can run are registered.
 from __future__ import annotations
 
 import importlib
+import math
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -69,6 +70,16 @@ class ArchConfig:
         return 0
 
     @property
+    def resolved_dt_rank(self) -> int:
+        if self.ssm_dt_rank:
+            return self.ssm_dt_rank
+        return math.ceil(self.d_model / 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def has_attention(self) -> bool:
         return self.family in ("dense", "moe", "vlm", "audio", "hybrid")
 
@@ -81,14 +92,25 @@ class ArchConfig:
         return self.num_experts > 0
 
     def gemm_shapes(self) -> list[tuple[int, int, int]]:
-        """``(d_in, d_out, uses)`` of every masked GEMM one step of the dense
-        swiglu family runs: the seven per-layer projections, then the unembed."""
-        d, f, hd = self.d_model, self.d_ff, self.resolved_head_dim
-        q, kv, L = self.num_heads * hd, self.num_kv_heads * hd, self.num_layers
-        return [(d, q, L), (d, kv, 2 * L), (q, d, L), (d, f, 2 * L), (f, d, L), (d, self.vocab_size, 1)]
+        """``(d_in, d_out, uses)`` of every masked GEMM one decode step runs:
+        per layer the attention projections (q, k and v, o), the swiglu MLP
+        (gate and up, down) and the SSM's four (in_proj, x_proj, dt_w,
+        out_proj), as the family has them; then the unembed."""
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        shapes = []
+        if self.has_attention:
+            hd = self.resolved_head_dim
+            q, kv = self.num_heads * hd, self.num_kv_heads * hd
+            shapes += [(d, q, L), (d, kv, 2 * L), (q, d, L)]
+        if f:
+            shapes += [(d, f, 2 * L), (f, d, L)]
+        if self.has_ssm:
+            di, r, n = self.d_inner, self.resolved_dt_rank, self.ssm_state
+            shapes += [(d, 2 * di, L), (di, r + 2 * n, L), (r, di, L), (di, d, L)]
+        return shapes + [(d, self.vocab_size, 1)]
 
 
-_ARCH_MODULES = ["smollm_135m"]
+_ARCH_MODULES = ["falcon_mamba_7b", "smollm_135m", "hymba_1_5b"]
 
 
 def _norm(name: str) -> str:

@@ -28,8 +28,11 @@ def params_from_jax(cfg, tree: Mapping, *, device=None) -> Model:
 
     ``tree`` is the reference's param dict with numpy leaves; its layers are
     stacked on axis 0 (``tree["layers"][...][i]`` is layer i), and are
-    unstacked into the port's ``ModuleList``. Every weight keeps its
-    ``(d_in, d_out)`` layout."""
+    unstacked into the port's ``ModuleList``. The port's parameter names
+    are the reference's keys (``layers.i.ssm.a_log`` is
+    ``tree["layers"]["ssm"]["a_log"][i]``, an untied ``lm_head`` is
+    ``tree["lm_head"]``), so every family walks the same way. Every weight
+    keeps its ``(d_in, d_out)`` layout."""
     model = Model(cfg, device=device)
     for name, p in model.named_parameters():
         parts = name.split(".")

@@ -3,6 +3,8 @@
 masked_matmul    — the paper's FAP operator: GEMM with the periodic fault
                    mask applied on chip
 flash_attention  — blocked online-softmax attention (causal/SWA/GQA)
+mamba_scan       — the Mamba-1 selective scan (prefill and forward of the
+                   ssm and hybrid families)
 
 Each package's ``ops.py`` holds the wrapper (kernel on CUDA tensors, launch
 count), the plain PyTorch version (CPU tensors, and the reference the card's

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --fault-rate 0.1 --fault-mode kernel --batch 4 --new-tokens 16
 
+``--arch`` is any registered architecture: smollm-135m, falcon-mamba-7b or
+hymba-1.5b.
+
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path on the
 host (with ``--reduced`` for a tiny model).
 """

@@ -1,4 +1,5 @@
-"""Model assembly for the dense family: parameters, forward, prefill, decode.
+"""Model assembly for the dense, ssm and hybrid families: parameters,
+forward, prefill, decode.
 
 Parameters are ``nn.Module``s; the layers are an ``nn.ModuleList`` walked by
 a Python loop (the reference stacks them on a leading axis and scans). Every
@@ -19,6 +20,7 @@ from torch import nn
 from repro_torch.core.masking import FaultContext, fault_linear, healthy
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import KVCache, apply_norm, attention_block, mlp_block, rope_tables
+from repro_torch.models.ssm import SSMCache, ssm_block
 
 Tensor = torch.Tensor
 
@@ -57,26 +59,57 @@ class MLP(nn.Module):
         self.wd = _empty(f, d, device=device, dtype=dtype)
 
 
-class Layer(nn.Module):
+class SSM(nn.Module):
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = Attention(cfg, device=device, dtype=dtype)
-        self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.mlp = MLP(cfg, device=device, dtype=dtype)
+        d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+        self.in_proj = _empty(d, 2 * di, device=device, dtype=dtype)
+        self.conv_w = _empty(cfg.ssm_conv, di, device=device, dtype=dtype)
+        self.conv_b = _empty(di, device=device, dtype=dtype)
+        self.x_proj = _empty(di, r + 2 * n, device=device, dtype=dtype)
+        self.dt_w = _empty(r, di, device=device, dtype=dtype)
+        self.dt_b = _empty(di, device=device, dtype=dtype)
+        self.a_log = _empty(di, n, device=device, dtype=dtype)
+        self.d_skip = _empty(di, device=device, dtype=dtype)
+        self.out_proj = _empty(di, d, device=device, dtype=dtype)
+
+
+class Layer(nn.Module):
+    """One layer, with the reference's parameter names: ``attn`` for the
+    dense and hybrid families, ``ssm`` for ssm and hybrid, the hybrid's
+    branch weights ``alpha_attn`` and ``alpha_ssm``, and ``ln2``/``mlp``
+    where the family has an MLP."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = RMSNorm(cfg.d_model, **kw)
+        if cfg.has_attention:
+            self.attn = Attention(cfg, **kw)
+        if cfg.has_ssm:
+            self.ssm = SSM(cfg, **kw)
+        if cfg.family == "hybrid":
+            self.alpha_attn = _empty(cfg.d_model, **kw)
+            self.alpha_ssm = _empty(cfg.d_model, **kw)
+        if cfg.family != "ssm":
+            self.ln2 = RMSNorm(cfg.d_model, **kw)
+            self.mlp = MLP(cfg, **kw)
 
 
 class Model(nn.Module):
-    """The parameters of one dense-family model, uninitialized; fill them
-    with :func:`init_params` or ``repro_torch.convert.params_from_jax``."""
+    """The parameters of one model, uninitialized; fill them with
+    :func:`init_params` or ``repro_torch.convert.params_from_jax``."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if (cfg.family, cfg.activation, cfg.modality) != ("dense", "swiglu", "text") or (
-            cfg.qk_norm or cfg.is_encoder
+        if (
+            cfg.family not in ("dense", "ssm", "hybrid") or cfg.modality != "text"
+            or (cfg.family != "ssm" and cfg.activation != "swiglu")
+            or cfg.qk_norm or cfg.is_encoder
         ):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs the dense causal swiglu text family without qk_norm"
+                f"{cfg.name}: the port runs the causal text families dense (swiglu, "
+                "no qk_norm), ssm and hybrid"
             )
         kw = dict(device=resolve_device(device), dtype=getattr(torch, cfg.param_dtype))
         self.embed = _empty(cfg.vocab_size, cfg.d_model, **kw)
@@ -89,14 +122,26 @@ class Model(nn.Module):
 @torch.no_grad()
 def init_params(cfg, seed: int = 0, *, device=None) -> Model:
     """Random parameters from the port's own seeded generator, with the
-    reference's distributions: embeddings N(0, 0.02^2), GEMM weights
-    N(0, 1/fan_in), norm scales 1. (``jax.random`` streams cannot be
-    replayed here, so parity tests hand weights over with ``convert``.)"""
+    reference's distributions: embeddings N(0, 0.02^2), GEMM weights and
+    the conv taps N(0, 1/fan_in), norm scales, branch weights and the SSM's
+    skip 1, the conv bias 0, ``a_log = log(1..N)`` and ``dt_b`` the inverse
+    softplus of a log-uniform dt in [1e-3, 1e-1]. (``jax.random`` streams
+    cannot be replayed here, so parity tests hand weights over with
+    ``convert``.)"""
     model = Model(cfg, device=device)
     dev = model.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, p in model.named_parameters():
-        if p.ndim == 1:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "a_log":
+            p.copy_(torch.log(torch.arange(1, p.shape[1] + 1, device=dev, dtype=p.dtype)).expand(p.shape))
+        elif leaf == "dt_b":
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            dt = torch.exp(torch.rand(p.shape, generator=gen, device=dev, dtype=p.dtype) * (hi - lo) + lo)
+            p.copy_(dt + torch.log(-torch.expm1(-dt)))
+        elif leaf == "conv_b":
+            p.zero_()
+        elif p.ndim == 1:
             p.fill_(1.0)
         else:
             std = 0.02 if name == "embed" else 1.0 / math.sqrt(p.shape[0])
@@ -109,15 +154,28 @@ def init_params(cfg, seed: int = 0, *, device=None) -> Model:
 # ---------------------------------------------------------------------------
 
 
-def _block(lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=None, build_cache=False):
-    """One layer. Returns (x, kv) — the updated KVCache or the raw (k, v)."""
+def _block(lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=(None, None), build_cache=False):
+    """One layer. ``cache`` is the layer's (KVCache, SSMCache) decode state,
+    each None where the family has no such branch. Returns (x, pieces):
+    with ``build_cache`` (prefill) ``pieces["kv"]`` holds the raw (k, v) and
+    ``pieces["ssm"]`` the SSMCache the layer leaves behind."""
+    kv_cache, ssm_cache = cache
+    pieces = {}
     h = apply_norm(x, lp.ln1, cfg.norm_eps)
-    a, kv = attention_block(
-        lp.attn, h, cfg, ctx, rope=rope, impl=attn_impl, cache=cache, return_kv=build_cache
-    )
+    if cfg.has_attention:
+        a, pieces["kv"] = attention_block(
+            lp.attn, h, cfg, ctx, rope=rope, impl=attn_impl, cache=kv_cache, return_kv=build_cache
+        )
+    if cfg.has_ssm:
+        s, pieces["ssm"] = ssm_block(lp.ssm, h, cfg, ctx, cache=ssm_cache, build_cache=build_cache)
+    if cfg.family == "ssm":
+        return x + s, pieces
+    if cfg.family == "hybrid":
+        # attention and the SSM read the same input in parallel
+        a = 0.5 * (a * lp.alpha_attn.to(a.dtype) + s * lp.alpha_ssm.to(a.dtype))
     x = x + a
     h2 = apply_norm(x, lp.ln2, cfg.norm_eps)
-    return x + mlp_block(lp.mlp, h2, cfg, ctx), kv
+    return x + mlp_block(lp.mlp, h2, cfg, ctx), pieces
 
 
 def embed_inputs(cfg, params: Model, batch: dict, ctx: FaultContext) -> tuple[Tensor, Tensor]:
@@ -137,6 +195,12 @@ def unembed(cfg, params: Model, x: Tensor, ctx: FaultContext) -> Tensor:
     return fault_linear(x, w, ctx)
 
 
+def _rope(cfg, positions: Tensor):
+    if not cfg.has_attention:
+        return None
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
 # ---------------------------------------------------------------------------
 # Forward (train / eval / prefill-without-cache)
 # ---------------------------------------------------------------------------
@@ -148,7 +212,7 @@ def forward(
     """Full-sequence forward. Returns logits (B, S, V)."""
     ctx = ctx or healthy()
     x, positions = embed_inputs(cfg, params, batch, ctx)
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = _rope(cfg, positions)
     for lp in params.layers:
         x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl)
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
@@ -156,7 +220,7 @@ def forward(
 
 
 # ---------------------------------------------------------------------------
-# KV cache: init, prefill, decode
+# KV/SSM cache: init, prefill, decode
 # ---------------------------------------------------------------------------
 
 
@@ -167,12 +231,27 @@ def cache_buffer_len(cfg, seq_len: int) -> int:
 
 
 def init_cache(cfg, batch: int, seq_len: int, *, device=None) -> dict:
-    """Zero cache able to hold ``seq_len`` history (window-bounded for SWA):
-    ``k``/``v`` of shape (L, B, Hkv, S_buf, hd) and the int ``index``."""
-    s_buf = cache_buffer_len(cfg, seq_len)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, s_buf, cfg.resolved_head_dim)
+    """Zero cache able to hold ``seq_len`` history (window-bounded for SWA)
+    and the int ``index``. Attention families hold ``k``/``v`` of shape
+    (L, B, Hkv, S_buf, hd); SSM families hold ``conv`` (L, B, K-1, d_inner)
+    in the compute dtype and ``h`` (L, B, d_inner, N) in fp32."""
     kw = dict(dtype=getattr(torch, cfg.dtype), device=resolve_device(device))
-    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw), "index": 0}
+    L, c = cfg.num_layers, {"index": 0}
+    if cfg.has_attention:
+        shape = (L, batch, cfg.num_kv_heads, cache_buffer_len(cfg, seq_len), cfg.resolved_head_dim)
+        c["k"], c["v"] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+    if cfg.has_ssm:
+        c["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner), **kw)
+        kw["dtype"] = torch.float32
+        c["h"] = torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state), **kw)
+    return c
+
+
+def _layer_cache(cfg, cache: dict, i: int, index: int):
+    """Layer ``i``'s (KVCache, SSMCache) views into the stacked buffers."""
+    kv = KVCache(cache["k"][i], cache["v"][i], index) if cfg.has_attention else None
+    ssm = SSMCache(cache["conv"][i], cache["h"][i]) if cfg.has_ssm else None
+    return kv, ssm
 
 
 def _ring_perm(s_buf: int, total: int) -> np.ndarray:
@@ -198,30 +277,39 @@ def prefill(
     ``valid_len - 1``, the cache keeps the valid tokens (the SWA ring order
     follows ``valid_len``) and ``cache["index"] = valid_len``, so decode
     overwrites the pad. Causality alone keeps right-pad keys away from every
-    real query.
+    real query. SSM families take no ``valid_len``: right-pad tokens would
+    advance the scan.
     """
+    if valid_len is not None and cfg.has_ssm:
+        raise ValueError("padded prefill supports causal attention families only")
     ctx = ctx or healthy()
     x, positions = embed_inputs(cfg, params, batch, ctx)
     b, s = x.shape[0], x.shape[1]
     cache_len = cache_len or s
     cache = init_cache(cfg, b, cache_len, device=x.device)
-    s_buf = cache["k"].shape[3]
     total = s if valid_len is None else int(valid_len)
-    ring = bool(cfg.sliding_window) and s_buf == cfg.sliding_window
-    if s >= s_buf:
-        # the last s_buf VALID tokens end at total
-        start = min(max(total - s_buf, 0), s - s_buf)
-        perm = _ring_perm(s_buf, total) if ring and total >= s_buf else np.arange(s_buf)
-        perm = torch.as_tensor(start + perm, device=x.device)
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    for i, lp in enumerate(params.layers):
-        x, (k, v) = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True)
+    if cfg.has_attention:
+        s_buf = cache["k"].shape[3]
+        ring = bool(cfg.sliding_window) and s_buf == cfg.sliding_window
         if s >= s_buf:
-            cache["k"][i] = k[:, :, perm]
-            cache["v"][i] = v[:, :, perm]
-        else:
-            cache["k"][i, :, :, :s] = k
-            cache["v"][i, :, :, :s] = v
+            # the last s_buf VALID tokens end at total
+            start = min(max(total - s_buf, 0), s - s_buf)
+            perm = _ring_perm(s_buf, total) if ring and total >= s_buf else np.arange(s_buf)
+            perm = torch.as_tensor(start + perm, device=x.device)
+    rope = _rope(cfg, positions)
+    for i, lp in enumerate(params.layers):
+        x, pieces = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True)
+        if cfg.has_attention:
+            k, v = pieces["kv"]
+            if s >= s_buf:
+                cache["k"][i] = k[:, :, perm]
+                cache["v"][i] = v[:, :, perm]
+            else:
+                cache["k"][i, :, :, :s] = k
+                cache["v"][i, :, :, :s] = v
+        if cfg.has_ssm:
+            cache["conv"][i] = pieces["ssm"].conv
+            cache["h"][i] = pieces["ssm"].h
     last = x[:, total - 1 : total]
     logits = unembed(cfg, params, apply_norm(last, params.final_ln, cfg.norm_eps), ctx)[:, 0]
     cache["index"] = total
@@ -235,17 +323,18 @@ def decode_step(
     """One autoregressive step against the dense cache from :func:`prefill`
     or :func:`init_cache`. Returns (logits (B, s_new, V), cache).
 
-    The cache is updated IN PLACE (its k/v buffers and its index) and the
-    same dict is returned: the counterpart of the reference donating it."""
+    The cache is updated IN PLACE (its k/v, conv and h buffers and its
+    index) and the same dict is returned: the counterpart of the reference
+    donating it."""
     ctx = ctx or healthy()
     b, s = tokens.shape
     index = cache["index"]
     positions = (index + torch.arange(s, device=tokens.device))[None].expand(b, s)
     x = params.embed[tokens].to(getattr(torch, cfg.dtype))
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
-        kv = KVCache(cache["k"][i], cache["v"][i], index)
-        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=kv)
+        layer_cache = _layer_cache(cfg, cache, i, index)
+        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=layer_cache)
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
     logits = unembed(cfg, params, x, ctx)
     cache["index"] = index + s

@@ -79,8 +79,8 @@ class ServeEngine:
 
     Prompt widths are bucketed (``serve/bucketing.py``): ``generate`` pads
     the prompt up to the smallest ladder rung that holds it and runs
-    prefill with the real ``valid_len``. ``prefill_buckets=None`` runs
-    prefill at the exact prompt length.
+    prefill with the real ``valid_len``. ``prefill_buckets=None``, and any
+    family with an SSM, runs prefill at the exact prompt length.
 
     The engine runs on the device of ``params``.
     """
@@ -102,8 +102,10 @@ class ServeEngine:
         self.max_len = max_len
         self.page_size = page_size
         self.pad_id = pad_id
+        # the SSM state is a running scan that right-pad tokens would
+        # advance, so SSM families always prefill at the exact length
         self.prefill_buckets = (
-            None if prefill_buckets is None else validate_buckets(prefill_buckets)
+            None if prefill_buckets is None or cfg.has_ssm else validate_buckets(prefill_buckets)
         )
         self._sample_decode = make_sample_decode(cfg, pad_id=pad_id)
 

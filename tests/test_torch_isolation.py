@@ -14,6 +14,7 @@ from repro_torch.convert import context_from_ok, params_from_jax
 from repro_torch.core import from_fault_map, random_fault_map
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
+from repro_torch.models import ssm as S
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -79,6 +80,7 @@ def test_entry_points_refuse_the_host_unless_asked(monkeypatch):
     calls = [
         lambda: M.init_params(cfg, 0),
         lambda: M.init_cache(cfg, 1, 8),
+        lambda: S.init_ssm_cache(reduce_config(get_arch("falcon-mamba-7b")), 1, torch.float32),
         lambda: from_fault_map(fm, "kernel"),
         lambda: context_from_ok(fm.ok_mask, "pallas"),
         lambda: params_from_jax(cfg, {}),

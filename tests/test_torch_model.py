@@ -51,13 +51,15 @@ def _tok(a):
     return torch.from_numpy(np.asarray(a, np.int64))
 
 
-def test_configs_match_reference():
-    for name in ("smollm-135m",):
-        jcfg, cfg = jax_get_arch(name), get_arch(name)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-        assert dataclasses.asdict(reduce_config(cfg)) == dataclasses.asdict(jax_reduce_config(jcfg))
-    full = get_arch("smollm-135m")
-    assert sum(uses for _, _, uses in full.gemm_shapes()) == 7 * 30 + 1
+@pytest.mark.parametrize("name,per_step", [
+    ("smollm-135m", 7 * 30 + 1), ("falcon-mamba-7b", 4 * 64 + 1), ("hymba-1.5b", 11 * 32 + 1),
+])
+def test_configs_match_reference(name, per_step):
+    jcfg, cfg = jax_get_arch(name), get_arch(name)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(reduce_config(cfg)) == dataclasses.asdict(jax_reduce_config(jcfg))
+    assert (cfg.d_inner, cfg.resolved_dt_rank) == (jcfg.d_inner, jcfg.resolved_dt_rank)
+    assert sum(uses for _, _, uses in cfg.gemm_shapes()) == per_step
 
 
 @pytest.mark.parametrize("mode", MODES)
