@@ -21,24 +21,53 @@ Phases; any failure ends the run with a nonzero exit and no result line:
      bf16 and dt in fp32 as the model gives them, and all in float32;
    - the masked GEMM in bf16 at every falcon-mamba-7b and hymba-1.5b GEMM
      shape at M = 4 and 512, and at hymba's layer shapes at M = 8192;
-3. serve SmolLM-135M at full published width (random weights, seed 0) on a
+3. int8 decode attention (kernel #3) against its plain version, float32
+   and bf16 q, at (B, Hq, Hkv, S, D) = (1, 2, 2, 512, 32) (the reference's
+   tune-suite shape), SmolLM-135M's decode (4, 9, 3, 2048, 64) at valid
+   lengths 2048, 1000 and 0, the same heads at B = 32, and hymba-1.5b's
+   (4, 25, 5, 1024, 64) (its KV ring holds 1024 tokens). Each cell prints the
+   kernel's time at the heuristic bkv, its bytes bound at 3.35 TB/s (the
+   valid prefix of int8 K and V with their fp32 scales, q and o in q's
+   dtype), the plain version's time and a library yardstick labelled as
+   such: SDPA on K/V already dequantized, which reads more than twice the
+   bytes and is not a port. Then every bkv of each cell's lattice that the
+   geometry lint accepts is launched and held to the plain version with
+   float32 q at the table's tolerance (a key dropped or counted twice per
+   tile moves an output by about 1e-3, which bf16's tolerance would pass)
+   and with bf16 q, and the rejected ones are listed with their codes;
+4. paged decode attention (kernel #4) over a pool of 8-token pages laid out
+   by ``PageAllocator`` (every other chain freed and allocated again, so
+   the ids are out of order): SmolLM's heads, 32 slots with ragged lengths
+   up to 2048, one of 0 and one ending mid-page, stale page ids past each
+   chain. One call is the main path; it is held to the plain version, and
+   the same call with the stale ids replaced by ids far outside the pool
+   must give the same bits;
+5. the kernel autotuner (``repro_torch.tune.tune_many``) from an empty
+   cache over the dense cells (bf16; the tune-suite shape in float32, as
+   the reference tunes it), printing the heuristic and tuned bkv and their
+   microseconds, the speedup, the H100 roofline fraction, the evaluated and
+   rejected candidates with their codes, and the recorder's span count.
+   With the tuned table as the process cache, ``decode_attention`` called
+   with no bkv must launch the tuned tile and still match the plain
+   version. The table is saved to ``build/tune_decode_attention.json``;
+6. serve SmolLM-135M at full published width (random weights, seed 0) on a
    256x256 array with 10% of its PEs faulty, through ``ServeEngine`` in
    ``kernel`` mode: 4 prompts of 128 tokens, 32 greedy new tokens, in bf16
    and in float32. The served sequences are re-run teacher-forced through
    the plain ``fap`` context and the logits are gated;
-4. long prefill: SmolLM's ``prefill`` at 4 x 2048 tokens in ``kernel`` mode
+7. long prefill: SmolLM's ``prefill`` at 4 x 2048 tokens in ``kernel`` mode
    with the flash kernel, against the plain path (``fap`` context, dense
    attention): logits and KV cache;
-5. serve falcon-mamba-7b at full published width (64 layers, d_inner 8192)
+8. serve falcon-mamba-7b at full published width (64 layers, d_inner 8192)
    the same way in bf16 and float32, on the same faulty chip;
-6. serve hymba-1.5b at full published width the same way in bf16 and
+9. serve hymba-1.5b at full published width the same way in bf16 and
    float32;
-7. hymba's long prefill at 4 x 2048 through the kernels (masked GEMM,
-   flash with its 1024-token window, the scan) against the plain path
-   (``fap`` context, dense attention and the scan's plain version), in bf16
-   and in float32: logits, KV ring, conv tail and SSM state;
-8. a ``{"kernels": [...]}`` line, the card's line, and last the
-   ``{"ok": true, "device": ...}`` line.
+10. hymba's long prefill at 4 x 2048 through the kernels (masked GEMM,
+    flash with its 1024-token window, the scan) against the plain path
+    (``fap`` context, dense attention and the scan's plain version), in bf16
+    and in float32: logits, KV ring, conv tail and SSM state;
+11. a ``{"kernels": [...]}`` line, the card's line, and last the
+    ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
 hymba), a run of 8 new tokens once untraced (wall time) and once under
@@ -46,9 +75,11 @@ hymba), a run of 8 new tokens once untraced (wall time) and once under
 ``build/profile_serve.txt``, and the busy share is the traced kernel time
 over the untraced wall time.
 
-Launch counts are set to 0 just before each main-path run (the generate
-calls of phases 3, 5 and 6 and the kernel-path prefills of phases 4 and 7)
-and read just after it; parity and timing launches are not counted.
+Launch counts are set to 0 just before each main-path run (the tuner of
+phase 5 for the dense decode kernel, the paged call of phase 4, the
+generate calls of phases 6, 8 and 9 and the kernel-path prefills of phases
+7 and 10) and read just after it; parity and timing launches are not
+counted.
 Tolerances, each printed beside its error:
 
 - the masked GEMM against its plain version: the repository's per-dtype
@@ -59,6 +90,9 @@ Tolerances, each printed beside its error:
   have an RMS of only 0.05-0.1, where the table's atol 0.2 would pass
   almost anything; the kernel's measured bf16 error is 2e-3-4e-3. float32
   takes the table;
+- int8 decode attention, dense and paged: float32 takes the table; bf16
+  rtol 2e-2 / atol 1e-2, the flash rule, since the outputs' RMS is well
+  under 1. A sequence of length 0 must give exact zeros;
 - the selective scan: h_last, and float32 y, at rtol 2e-5 / atol 1e-4 (the
   reference's kernel tests). bf16 y at rtol 2e-2 and atol 1e-2 x the RMS of
   the plain y: both sides round one fp32 value to bf16, so they differ by
@@ -108,6 +142,17 @@ SCAN_F32_TOL = (2e-5, 1e-4)
 MAX_REL_L2 = 5e-2
 ANCHOR_RATIO = 1.5  # see serve(): bf16 paths held against the float32 plain path
 SCAN_SHAPES = [(4, 128, 8192, 16), (4, 128, 3200, 16), (4, LONG, 3200, 16), (2, 37, 11, 4)]
+# int8 decode attention: (label, (B, Hq, Hkv, S, D), valid lengths); the first is the
+# reference's tune-suite shape, then SmolLM-135M's decode at batch 4 and 32 and hymba-1.5b's,
+# whose KV ring holds 1024 tokens
+DECODE_CELLS = [
+    ("tune-suite", (1, 2, 2, 512, 32), (512,)),
+    ("smollm-b4", (4, 9, 3, LONG, 64), (LONG, 1000, 0)),
+    ("smollm-b32", (32, 9, 3, LONG, 64), (LONG,)),
+    ("hymba-b4", (4, 25, 5, 1024, 64), (1024,)),
+]
+DECODE_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-2)}  # dtype_tol; the flash rule
+PAGED_SLOTS = 32
 
 
 def log(*a):
@@ -146,12 +191,18 @@ def run(args, torch) -> int:
     from repro_torch.configs import get_arch
     from repro_torch.core import from_fault_map, random_fault_map
     from repro_torch.kernels.common import build_kernels, dtype_tol
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
     from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
     from repro_torch.models import model as M
     from repro_torch.models import ssm as ssm_module
+    from repro_torch.obs.recorder import Recorder
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.kvcache import PageAllocator, chain_layout, pages_needed
+    from repro_torch.tune import TuningCache, set_tuning_cache, tune_many
+    from repro_torch.tune.search import pow2_lattice
+    from repro_torch.tune.tuner import lint_candidate
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -166,7 +217,7 @@ def run(args, torch) -> int:
 
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan"])
+    logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan", "decode_attention"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -359,7 +410,214 @@ def run(args, torch) -> int:
         raise Failed("kernel parity: " + "; ".join(failures))
     torch.cuda.empty_cache()
 
-    # ---- serving: shared by phases 3, 5 and 6 ------------------------------
+    # ---- phase 3: int8 decode attention (dense) against its plain version ---
+    def sdpa_gqa(q, k, v, mask=None):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    def decode_bound(nbytes, flops):
+        """(bound ms, bound_by): bytes at the HBM rate against the kernels'
+        fp32 FMAs at the fp32 rate."""
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS["float32"] * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    def int8_cache(b, hkv, skv, d):
+        ki, ks = da.quantize_kv(torch.randn(b, hkv, skv, d, generator=gen, device=dev))
+        vi, vs = da.quantize_kv(torch.randn(b, hkv, skv, d, generator=gen, device=dev))
+        return ki, ks, vi, vs
+
+    prev_cache = set_tuning_cache(TuningCache(source="<chip_smoke: heuristic>"))
+    da_err, da_rows, da_inputs = 0.0, {}, {}
+    for label, (b, hq, hkv, skv, d), valids in DECODE_CELLS:
+        cache = int8_cache(b, hkv, skv, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(dtype)
+            da_inputs[(label, name_of(dtype))] = (q, cache)
+            tol = DECODE_TOL[name_of(dtype)]
+            for valid in valids:
+                got = da.decode_attention(q, *cache, valid)
+                err, good = worst(got, da.decode_attention_ref(q, *cache, kv_valid_len=valid), tol)
+                da_err = max(da_err, err)
+                if not good or (valid == 0 and bool(got.abs().any())):
+                    failures.append(f"decode_attention {label} {dtype} valid {valid}: {err}")
+                if valid == 0:
+                    log(f"decode_attention {label:10s} {name_of(dtype):8s} valid 0: output all zero "
+                        f"{not bool(got.abs().any())}, err<= {err:.3g}")
+                    continue
+                kd, vd = (da.dequantize_kv(i, sc, dtype)[:, :, :valid] for i, sc in (cache[:2], cache[2:]))
+                # the valid prefix of int8 K and V with their fp32 scales, q read and o written in q's dtype
+                nbytes = 2 * b * hkv * valid * (d + 4) + 2 * b * hq * d * q.element_size()
+                bound, bound_by = decode_bound(nbytes, 4.0 * b * hq * valid * d)
+                row = dict(
+                    ms=time_ms(lambda: da.decode_attention(q, *cache, valid)),
+                    plain_ms=time_ms(lambda: da.decode_attention_ref(q, *cache, kv_valid_len=valid), reps=3),
+                    library_ms=time_ms(lambda: sdpa_gqa(q, kd, vd)),
+                    bound_ms=bound, bound_by=bound_by, mbytes=nbytes / 1e6, max_abs_err=err,
+                    bkv=da.decode_attention.last_bkv,
+                )
+                da_rows[(label, name_of(dtype), valid)] = row
+                log(f"decode_attention {label:10s} {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} S={skv} "
+                    f"D={d} valid {valid:4d} bkv {row['bkv']}: err<= {err:.3g} (rtol, atol {tol}) "
+                    f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library yardstick (SDPA "
+                    f"on K/V dequantized to {name_of(dtype)}, not a port) {row['library_ms']:.4f} ms  "
+                    f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB)")
+
+    # every tile the lint accepts launches and agrees, in float32 at the table's tolerance (where a
+    # key dropped or counted twice per tile shows) and in bf16; the rejected ones are never launched
+    lattice_report = {}
+    for label, (b, hq, hkv, skv, d), valids in DECODE_CELLS:
+        for dname in ("float32", "bfloat16"):
+            q, cache = da_inputs[(label, dname)]
+            ref = da.decode_attention_ref(q, *cache, kv_valid_len=valids[0])
+            accepted, rejected, lat_err = [], {}, 0.0
+            for bkv in pow2_lattice(skv, lo=8):
+                findings, smem = lint_candidate("decode_attention", dict(b=b, hq=hq, hkv=hkv, skv=skv, d=d),
+                                                q.dtype, dict(bkv=bkv))
+                if findings:
+                    rejected[bkv] = [f.code for f in findings]
+                    continue
+                got = da.decode_attention(q, *cache, valids[0], bkv=bkv)
+                torch.cuda.synchronize()
+                err, good = worst(got, ref, DECODE_TOL[dname])
+                da_err, lat_err = max(da_err, err), max(lat_err, err)
+                if not good:
+                    failures.append(f"decode_attention {label} {dname} bkv {bkv} ({smem} B of shared "
+                                    f"memory): {err}")
+                accepted.append(bkv)
+            lattice_report[(label, dname)] = dict(accepted=accepted, rejected=rejected, max_abs_err=lat_err)
+            log(f"decode_attention {label:10s} {dname:8s} lattice: launched and agreed at bkv {accepted} "
+                f"(err<= {lat_err:.3g}, rtol, atol {DECODE_TOL[dname]}); lint-rejected {rejected}")
+    if failures:
+        raise Failed("decode attention parity: " + "; ".join(failures))
+
+    # ---- phase 4: paged decode attention over a PageAllocator pool ---------
+    b, hq, hkv, d, page = PAGED_SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 8
+    lens = torch.randint(1, LONG + 1, (b,), generator=gen, device=dev)
+    lens[0], lens[1], lens[2] = 0, 1001, LONG  # empty, ending mid-page, a full chain
+    lens_host = lens.tolist()
+    chains = [pages_needed(n, page) for n in lens_host]
+    alloc = PageAllocator(1 + sum(chains) + 64, page)
+    owned = [alloc.alloc(n) if n else [] for n in chains]
+    for slot in range(0, b, 2):  # free every other chain and allocate them again, newest first
+        if owned[slot]:
+            alloc.free(owned[slot])
+    for slot in reversed(range(0, b, 2)):
+        owned[slot] = alloc.alloc(chains[slot]) if chains[slot] else []
+    maxp = max(chains)
+    pool = [torch.zeros(hkv, alloc.num_pages, page, d, dtype=torch.int8, device=dev),
+            torch.zeros(hkv, alloc.num_pages, page, device=dev)]
+    pool = pool + [t.clone() for t in pool]  # k, k scales, v, v scales
+    # stale table entries past each chain: pages other chains own, as a freed slot leaves them
+    stale = torch.randint(1, alloc.num_pages, (b, maxp), generator=gen, device=dev, dtype=torch.int32)
+    tables = stale.clone()
+    for slot, ids in enumerate(owned):
+        if not ids:
+            continue
+        tables[slot, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
+        ids_t = torch.tensor(ids, device=dev)
+        for which in (0, 2):
+            ki, ks = da.quantize_kv(torch.randn(1, 1, hkv, lens_host[slot], d, generator=gen, device=dev))
+            pool[which][:, ids_t] = chain_layout(ki, page, len(ids))[0].movedim(0, 1)
+            pool[which + 1][:, ids_t] = chain_layout(ks[..., None], page, len(ids))[0, ..., 0].movedim(0, 1)
+    lens32 = lens.to(torch.int32)
+    past_chain = torch.arange(maxp, device=dev)[None] >= torch.tensor(chains, device=dev)[:, None]
+    log(f"paged pool: {alloc.num_pages} pages of {page} tokens, {alloc.pages_in_use} in use "
+        f"(high water {alloc.high_water}); {b} slots, lengths {min(lens_host)}..{max(lens_host)}, "
+        f"maxp {maxp}; first chain ids {owned[2][:6]}")
+
+    pg_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(dtype)
+        args_ = (q, *pool, tables, lens32)
+        da.paged_decode_attention.launches = 0  # the main path of kernel #4: one decode read
+        got = da.paged_decode_attention(*args_)
+        torch.cuda.synchronize()
+        pg_launches = da.paged_decode_attention.launches
+        if pg_launches != 1:
+            raise Failed(f"paged_decode_attention: {pg_launches} launches for one call")
+        tol = DECODE_TOL[name_of(dtype)]
+        err, good = worst(got, da.paged_decode_attention_ref(*args_), tol)
+        # page ids past a chain are never read: out-of-pool ids there change nothing
+        wild = torch.where(past_chain, torch.full_like(tables, 2**30), tables)
+        untouched = torch.equal(da.paged_decode_attention(q, *pool, wild, lens32), got)
+        if not good or not untouched or bool(got[0].abs().any()):
+            raise Failed(f"paged_decode_attention {dtype}: err {err} (tol {tol}), stale ids never read "
+                         f"{untouched}, empty slot zero {not bool(got[0].abs().any())}")
+        dense_k, dense_v = (da.gather_pages(da.dequantize_kv(pool[i], pool[i + 1], dtype), tables)
+                            for i in (0, 2))
+        mask = (torch.arange(maxp * page, device=dev)[None] < lens[:, None])[:, None, None, :]
+        tokens = sum(lens_host)
+        nbytes = (2 * hkv * tokens * (d + 4) + 2 * b * hq * d * q.element_size()
+                  + 4 * sum(chains) + 4 * b)
+        bound, bound_by = decode_bound(nbytes, 4.0 * hq * tokens * d)
+        row = pg_rows[name_of(dtype)] = dict(
+            ms=time_ms(lambda: da.paged_decode_attention(*args_)),
+            plain_ms=time_ms(lambda: da.paged_decode_attention_ref(*args_), reps=3),
+            library_ms=time_ms(lambda: sdpa_gqa(q, dense_k, dense_v, mask)),
+            bound_ms=bound, bound_by=bound_by, mbytes=nbytes / 1e6, max_abs_err=err,
+            launches=pg_launches, tokens=tokens,
+        )
+        log(f"paged_decode_attention {name_of(dtype):8s} {b} slots x Hq={hq} Hkv={hkv} D={d}, "
+            f"{tokens} tokens in {sum(chains)} pages: err<= {err:.3g} (rtol, atol {tol}); stale ids never "
+            f"read; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library yardstick (SDPA on "
+            f"the gathered cache dequantized to {name_of(dtype)}, not a port) {row['library_ms']:.4f} ms  "
+            f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB)")
+    del pool, dense_k, dense_v, mask
+
+    # ---- phase 5: the kernel autotuner over the dense cells ----------------
+    rec = Recorder()
+    da.decode_attention.launches = 0  # the main path of kernel #3: the tuner
+    t0 = time.perf_counter()
+    tune_results, table = tune_many(
+        [("decode_attention", dict(b=b_, hq=hq_, hkv=hkv_, skv=s_, d=d_))
+         for label, (b_, hq_, hkv_, s_, d_), _ in DECODE_CELLS if label != "tune-suite"],
+        dtype=torch.bfloat16, device=dev, recorder=rec)
+    b_, hq_, hkv_, s_, d_ = DECODE_CELLS[0][1]  # the reference's tune suite runs it in float32
+    more, table = tune_many([("decode_attention", dict(b=b_, hq=hq_, hkv=hkv_, skv=s_, d=d_))],
+                            cache=table, dtype=torch.float32, device=dev, recorder=rec)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune_results += more
+    tune_launches = da.decode_attention.launches
+    spans = sum(1 for e in rec.event_list() if e.kind == "span")
+    if not tune_launches or spans != sum(r.evaluated for r in tune_results):
+        raise Failed(f"tuner: {tune_launches} launches, {spans} spans")
+    tune_report = []
+    for r in tune_results:
+        tune_report.append(dict(key=r.key, heuristic=r.heuristic_blocks, heuristic_us=r.heuristic_s * 1e6,
+                                tuned=r.best_blocks, tuned_us=r.best_s * 1e6, speedup=r.speedup,
+                                roofline_fraction=r.roofline_fraction, smem_bytes=r.smem_bytes,
+                                evaluated=r.evaluated, rejected=r.rejected_configs))
+        log(f"tune {r.key}: heuristic bkv {r.heuristic_blocks['bkv']} {r.heuristic_s * 1e6:.2f} us, tuned "
+            f"bkv {r.best_blocks['bkv']} {r.best_s * 1e6:.2f} us (x{r.speedup:.3f}; H100 roofline fraction "
+            f"{r.roofline_fraction:.4f}; {r.smem_bytes} B shared memory); evaluated {r.evaluated}, "
+            f"rejected {r.rejected} {[(x['blocks']['bkv'], x['codes']) for x in r.rejected_configs]}")
+    log(f"tuner: {len(tune_results)} cells in {tune_s:.2f} s, {tune_launches} kernel launches, {spans} "
+        f"recorder spans, {rec.metrics.counter('tune.lint_rejected').value} lint rejections; the recorder's own "
+        f"host time {rec.self_time_s * 1e3:.3f} ms")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    table.save(str(OUT_DIR / "tune_decode_attention.json"))
+
+    # the tuned table as the process cache: a call with no bkv launches the tuned tile
+    set_tuning_cache(table)
+    for label, (b_, hq_, hkv_, s_, d_), valids in DECODE_CELLS:
+        dname = "float32" if label == "tune-suite" else "bfloat16"
+        q, cache = da_inputs[(label, dname)]
+        want = table.lookup_blocks("decode_attention", dict(b=b_, hq=hq_, hkv=hkv_, skv=s_, d=d_),
+                                   dname, "cuda")["bkv"]
+        got = da.decode_attention(q, *cache, valids[0])
+        err, good = worst(got, da.decode_attention_ref(q, *cache, kv_valid_len=valids[0]), DECODE_TOL[dname])
+        if da.decode_attention.last_bkv != want or not good:
+            raise Failed(f"tuned {label}: launched bkv {da.decode_attention.last_bkv}, table {want}, err {err}")
+        row = da_rows.get((label, dname, valids[0]))
+        if row is not None:
+            row["tuned_bkv"], row["tuned_ms"] = want, time_ms(lambda: da.decode_attention(q, *cache, valids[0]))
+        log(f"tuned table in use, {label} {dname}: launched bkv {want}, err<= {err:.3g}"
+            + (f"; kernel {row['tuned_ms']:.4f} ms (heuristic {row['ms']:.4f} ms)" if row else ""))
+    set_tuning_cache(prev_cache)
+    del da_inputs
+    torch.cuda.empty_cache()
+
+    # ---- serving: shared by phases 6, 8 and 9 ------------------------------
     def reset():
         masked_matmul.launches = 0
         flash_attention.launches = 0
@@ -573,18 +831,18 @@ def run(args, torch) -> int:
             f"{plain_ms:.2f} ms; launches {got_counts}; gate: {gate}; " + "; ".join(lines))
         return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, launches=got_counts, err=errs)
 
-    # ---- phase 3: serve SmolLM-135M at full width on a 10%-faulty chip ----
+    # ---- phase 6: serve SmolLM-135M at full width on a 10%-faulty chip ----
     params = M.init_params(cfg, 0, device=dev)
     for dtype, atol_scale in (("bfloat16", 10.0), ("float32", 50.0)):
         serve(dataclasses.replace(cfg, dtype=dtype), params, atol_scale)
 
-    # ---- phase 4: SmolLM long prefill through the flash kernel ------------
+    # ---- phase 7: SmolLM long prefill through the flash kernel ------------
     long_report = {cfg.name: long_prefill(cfg, params, anchored=False)}
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase 5: serve falcon-mamba-7b at full width ----------------------
+    # ---- phase 8: serve falcon-mamba-7b at full width ----------------------
     t0 = time.perf_counter()
     params = M.init_params(falcon, 0, device=dev)
     torch.cuda.synchronize()
@@ -599,16 +857,16 @@ def run(args, torch) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase 6: serve hymba-1.5b at full width ---------------------------
+    # ---- phase 9: serve hymba-1.5b at full width ---------------------------
     params = M.init_params(hymba, 0, device=dev)
     serve(hymba, params, 10.0, elementwise=False)
     serve(dataclasses.replace(hymba, dtype="float32"), params, 50.0)
 
-    # ---- phase 7: hymba long prefill ---------------------------------------
+    # ---- phase 10: hymba long prefill ---------------------------------------
     long_report[hymba.name] = long_prefill(hymba, params, anchored=True)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # ---- phase 8: the record -----------------------------------------------
+    # ---- phase 11: the record -----------------------------------------------
     def step_sum(arch):
         rows = [mm_rows[(arch.name, "bfloat16", BATCH, i)] for i in range(len(arch.gemm_shapes()))]
         return {key: sum(r[key] * r["uses"] for r in rows)
@@ -622,6 +880,8 @@ def run(args, torch) -> int:
             f"bound {st['bound_ms']:.4f} ms; fault_linear's fp32->bf16 weight casts {st['cast_ms']:.4f} ms")
     fa = fa_rows[("bfloat16", LONG, "causal")]
     sc = scan_rows["bfloat16 4x128x8192x16"]
+    dec = da_rows[("smollm-b4", "bfloat16", LONG)]
+    pg = pg_rows["bfloat16"]
     kernels = [
         dict(name="masked_matmul", route="cuda", source="src/repro_torch/kernels/csrc/masked_matmul.cu",
              replaces="src/repro/kernels/masked_matmul/masked_matmul.py:66",
@@ -641,6 +901,18 @@ def run(args, torch) -> int:
              launches=launches["selective_scan"], max_abs_err=scan_err,
              ms=sc["ms"], plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
              bound_by=sc["bound_by"], library_ms=None),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/decode_attention.py:216",
+             launches=tune_launches, max_abs_err=da_err,
+             ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+             bound_by=dec["bound_by"], library_ms=dec["library_ms"]),
+        dict(name="paged_decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/decode_attention.py:151",
+             launches=pg["launches"], max_abs_err=max(r["max_abs_err"] for r in pg_rows.values()),
+             ms=pg["ms"], plain_ms=pg["plain_ms"], bound_ms=pg["bound_ms"],
+             bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
@@ -651,6 +923,8 @@ def run(args, torch) -> int:
         masked_matmul_rows=[dict(arch=k[0], dtype=k[1], m=k[2], **v) for k, v in mm_rows.items()],
         flash_rows=[dict(dtype=k[0], s=k[1], case=k[2], **v) for k, v in fa_rows.items()],
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
+        decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
+        decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
         long_prefill=long_report, seconds=time.perf_counter() - t_start,
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
@@ -658,7 +932,10 @@ def run(args, torch) -> int:
     log(f"masked_matmul ms/plain_ms/library_ms/bound_ms: one bf16 SmolLM-135M decode step's "
         f"{sum(u for _, _, u in cfg.gemm_shapes())} launches at M={BATCH}; flash_attention: one launch at "
         f"4x9x2048^2 causal bf16; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
-        f"serving prefill); run time {time.perf_counter() - t_start:.1f} s")
+        f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "
+        f"int8 tokens, bf16 q, the heuristic bkv (launches: the tuner's); paged_decode_attention: "
+        f"one launch over {PAGED_SLOTS} slots of a paged pool, bf16 q; run time "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

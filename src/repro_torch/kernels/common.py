@@ -1,5 +1,6 @@
-"""Shared kernel-runtime layer: the per-dtype tolerance table, and the build
-and binding of the hand-written CUDA kernels.
+"""Shared kernel-runtime layer: the per-dtype tolerance table, the build and
+binding of the hand-written CUDA kernels, the card's shared-memory limit and
+the ``tuned_block`` seam between the wrappers and the tuning cache.
 
 Kernels live in ``kernels/csrc/*.cu``, each with a plain C entry point. At
 first use ``nvcc`` compiles a source for ``sm_90a`` into a shared library
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Any, Iterable
+from typing import Any, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,6 +32,10 @@ __all__ = [
     "build_kernels",
     "load_kernel",
     "check_launch",
+    "SMEM_LIMIT_BYTES",
+    "dtype_name",
+    "backend_tag",
+    "tuned_block",
 ]
 
 # ---------------------------------------------------------------------------
@@ -123,13 +128,15 @@ def build_kernels(names: Iterable[str]) -> dict[str, str]:
     return logs
 
 
-def load_kernel(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of ``csrc/<name>.cu``, built and bound on
-    first use, then cached for the process."""
+def load_kernel(name: str, argtypes: list, source: Optional[str] = None) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``), built and bound on first use, then cached for the
+    process."""
     fn = _FNS.get(name)
     if fn is None:
-        build_kernels([name])
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), name)
+        source = source or name
+        build_kernels([source])
+        fn = getattr(ctypes.CDLL(str(_lib_path(source))), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -141,3 +148,63 @@ def check_launch(name: str, err: int) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# The card's shared memory, and the tuning-cache seam
+# ---------------------------------------------------------------------------
+
+# Dynamic shared memory one block of an H100 may use: 227 KiB of the SM's
+# 256 KiB, above 48 KiB only after cudaFuncSetAttribute(...,
+# cudaFuncAttributeMaxDynamicSharedMemorySize, bytes), which the kernels'
+# C entry points set. It takes the place of the TPU's VMEM budget.
+SMEM_LIMIT_BYTES = 232448
+
+
+def dtype_name(dtype: Any) -> str:
+    """The tuning-cache spelling of a dtype: ``float32``, ``bfloat16``, ...
+    (the same names JAX uses). Takes a torch dtype or a name."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(dtype)
+
+
+def backend_tag(device: Any) -> str:
+    """The backend component of a tuning-cache key: ``"cuda"`` where the
+    wrapper launches its kernel, ``"cpu"`` where it runs the plain version.
+    Timings of the two never share an entry."""
+    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+
+
+def tuned_block(
+    kernel: str,
+    shape: Mapping[str, int],
+    dtype: Any,
+    *,
+    device: Any,
+    defaults: Mapping[str, int],
+    overrides: Optional[Mapping[str, Optional[int]]] = None,
+) -> dict[str, int]:
+    """The seam between the ``ops.py`` wrappers and the tuning cache.
+
+    Resolution order, per block parameter:
+
+    1. an explicit caller value (an ``overrides`` entry that is not None);
+    2. the process-wide tuning cache (:mod:`repro_torch.tune.cache`) under
+       the ``(kernel, shape, dtype, backend)`` key;
+    3. the wrapper's heuristic ``defaults``, so an empty cache changes
+       nothing.
+    """
+    from repro_torch.tune.cache import get_tuning_cache  # cycle-free at call time
+
+    blocks = {k: int(v) for k, v in defaults.items()}
+    hit = get_tuning_cache().lookup_blocks(kernel, shape, dtype_name(dtype), backend_tag(device))
+    if hit:
+        for k in blocks:
+            if k in hit:
+                blocks[k] = int(hit[k])
+    if overrides:
+        for k, v in overrides.items():
+            if v is not None:
+                blocks[k] = int(v)
+    return blocks

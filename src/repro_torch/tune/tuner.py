@@ -1,0 +1,291 @@
+"""The kernel autotuner: a lint-gated search over a kernel's launch blocks.
+
+For one ``(kernel, shape, dtype, backend)`` launch the tuner:
+
+1. builds the powers-of-two block lattice (``repro_torch.tune.search``),
+   with every raw point normalized to the blocks the wrapper would launch
+   (read off the ``analysis.kernelgeom`` launch builder);
+2. accepts or rejects each candidate statically through the geometry lint
+   (KRN002: the shared memory the CUDA kernel requests against the card's
+   227 KiB; KRN003: a degenerate launch): a rejected candidate is never
+   launched;
+3. times the survivors under a greedy hillclimb seeded at the heuristic
+   config: one warm-up call, then the fastest of ``iters`` launches timed by
+   CUDA events with the L2 flushed before each (a host clock on the CPU),
+   with ``repro_torch.obs`` recorder spans around every measurement;
+4. records the winner with its speedup over the heuristic and its
+   achieved-against-roofline fraction (:mod:`repro_torch.tune.roofline`) as
+   a tuning-cache entry.
+
+The heuristic seeds the climb, so the winner beats or ties it. Numerics do
+not depend on the blocks beyond the order of fp32 sums.
+
+One kernel space is ported: ``decode_attention``'s ``bkv``. The reference's
+spaces for the masked GEMM, flash attention and the scan tune TPU block
+shapes; their CUDA kernels have other tunables and wait for their own
+spaces.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Mapping, Optional
+
+import torch
+
+from repro_torch.analysis.kernelgeom import KernelLaunch, decode_attention_launch, lint_launch
+from repro_torch.device import resolve_device
+from repro_torch.kernels.common import backend_tag, dtype_name
+from repro_torch.obs.recorder import NULL_RECORDER
+from repro_torch.tune.cache import TuningCache, cache_key
+from repro_torch.tune.roofline import kernel_flops_bytes, roofline_fraction
+from repro_torch.tune.search import hillclimb, lattice_neighbors, pow2_lattice
+
+__all__ = [
+    "KERNELS",
+    "SHAPE_FIELDS",
+    "HEURISTIC_BLOCKS",
+    "KernelSpace",
+    "TuneResult",
+    "normalize_blocks",
+    "lint_candidate",
+    "tune_kernel",
+    "tune_many",
+]
+
+# shape-key fields per tuned kernel (the reference's names)
+SHAPE_FIELDS = {"decode_attention": ("b", "hq", "hkv", "skv", "d")}
+
+# the wrappers' heuristic defaults: the hillclimb seed
+HEURISTIC_BLOCKS = {"decode_attention": dict(bkv=128)}
+
+
+def _da_launch(shape, dtype, blocks) -> KernelLaunch:
+    return decode_attention_launch(
+        shape["b"], shape["hq"], shape["hkv"], shape["skv"], shape["d"], bkv=blocks["bkv"],
+    )
+
+
+def _da_runner(shape, dtype, device):
+    from repro_torch.kernels.decode_attention.ops import decode_attention, quantize_kv
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, hq, hkv, skv, d = (shape[f] for f in SHAPE_FIELDS["decode_attention"])
+    q = torch.randn((b, hq, 1, d), generator=gen, device=device).to(dtype)
+    ki, ksc = quantize_kv(torch.randn((b, hkv, skv, d), generator=gen, device=device))
+    vi, vsc = quantize_kv(torch.randn((b, hkv, skv, d), generator=gen, device=device))
+
+    def call(blocks):
+        return decode_attention(q, ki, ksc, vi, vsc, skv, **blocks)
+
+    return call
+
+
+@dataclass(frozen=True)
+class KernelSpace:
+    """One kernel's tunable space: block parameters, the shape field that
+    bounds each one's lattice, each one's lattice floor, the geometry
+    builder (mirroring the wrapper via analysis.kernelgeom), the
+    measurement runner, and each parameter's slot in ``KernelLaunch.blocks``."""
+
+    params: tuple
+    axes: Mapping[str, str]
+    floors: Mapping[str, int]
+    build_launch: Callable[[Mapping, Any, Mapping], KernelLaunch]
+    make_runner: Callable[[Mapping, Any, torch.device], Callable]
+    launch_slots: Mapping[str, int]
+
+
+KERNELS: dict[str, KernelSpace] = {
+    "decode_attention": KernelSpace(
+        params=("bkv",),
+        axes=dict(bkv="skv"),
+        floors=dict(bkv=8),
+        build_launch=_da_launch,
+        make_runner=_da_runner,
+        launch_slots=dict(bkv=1),
+    ),
+}
+
+
+@dataclass
+class TuneResult:
+    """Outcome of tuning one launch; ``entry`` is the cache-ready record."""
+
+    kernel: str
+    shape: dict
+    dtype: str
+    backend: str
+    key: str
+    heuristic_blocks: dict
+    heuristic_s: float
+    best_blocks: dict
+    best_s: float
+    speedup: float
+    roofline_fraction: float
+    smem_bytes: int
+    evaluated: int
+    rejected: int
+    rejected_configs: list = field(default_factory=list)
+
+    @property
+    def entry(self) -> dict:
+        return dict(
+            blocks=dict(self.best_blocks),
+            time_us=round(self.best_s * 1e6, 3),
+            heuristic_us=round(self.heuristic_s * 1e6, 3),
+            speedup=round(self.speedup, 4),
+            roofline_fraction=self.roofline_fraction,
+            smem_bytes=int(self.smem_bytes),
+            backend=self.backend,
+            evaluated=self.evaluated,
+            rejected=self.rejected,
+        )
+
+
+def normalize_blocks(kernel: str, shape: Mapping[str, int], blocks: Mapping[str, int]) -> dict:
+    """Raw lattice point -> the blocks the wrapper would launch (read off
+    the kernelgeom launch, which applies the wrapper's clamp)."""
+    space = KERNELS[kernel]
+    launch = space.build_launch(shape, torch.float32, dict(blocks))
+    return {p: int(launch.blocks[i]) for p, i in space.launch_slots.items()}
+
+
+def lint_candidate(
+    kernel: str,
+    shape: Mapping[str, int],
+    dtype: Any,
+    blocks: Mapping[str, int],
+) -> tuple[list, int]:
+    """Static accept or reject of one candidate: (findings, the shared
+    memory one block requests); no findings means it may launch."""
+    launch = KERNELS[kernel].build_launch(shape, dtype, dict(blocks))
+    return lint_launch(launch), launch.smem_bytes
+
+
+def _fastest_s(fn: Callable, iters: int, device: torch.device) -> float:
+    """One warm-up call (the build and first launch stay off the clock),
+    then the fastest of ``iters`` calls: CUDA events on the card, the host
+    clock on the CPU.
+
+    On the card each timed call follows an overwrite of 1 GiB, which evicts
+    the 50 MB L2 (a decode step finds each layer's cache cold) and keeps the
+    device busy for about 0.3 ms, longer than the host takes to enqueue the
+    call: the events then time the device alone. Without it, an idle device
+    waits on the host's Python and ctypes work between the two events."""
+    fn()
+    best = math.inf
+    if device.type == "cuda":
+        flush = torch.empty(2**28, dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)
+        for _ in range(max(1, iters)):
+            flush.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        del flush
+    else:
+        for _ in range(max(1, iters)):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def tune_kernel(
+    kernel: str,
+    shape: Mapping[str, int],
+    dtype: Any = torch.float32,
+    *,
+    iters: int = 10,
+    max_evals: int = 24,
+    device: Any = None,
+    recorder=NULL_RECORDER,
+) -> TuneResult:
+    """Tune one launch; see the module docstring. ``device`` defaults to the
+    card and raises without one; ``device="cpu"`` times the plain version."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r} (have {sorted(KERNELS)})")
+    space = KERNELS[kernel]
+    shape = {k: int(v) for k, v in shape.items()}
+    missing = [f for f in SHAPE_FIELDS[kernel] if f not in shape]
+    if missing:
+        raise ValueError(f"{kernel} shape is missing fields {missing}")
+    dev = resolve_device(device)
+    backend = backend_tag(dev)
+    dname = dtype_name(dtype)
+
+    lattices = {p: pow2_lattice(shape[space.axes[p]], lo=space.floors[p]) for p in space.params}
+    runner = space.make_runner(shape, dtype, dev)
+
+    timed: dict[tuple, float] = {}
+    rejected: list[dict] = []
+
+    def score(raw_blocks: Mapping[str, int]) -> Optional[float]:
+        blocks = normalize_blocks(kernel, shape, raw_blocks)
+        key = tuple(sorted(blocks.items()))
+        if key in timed:
+            return timed[key]
+        findings, _ = lint_candidate(kernel, shape, dtype, blocks)
+        if findings:
+            recorder.count("tune.lint_rejected")
+            rejected.append(dict(blocks=blocks, codes=[f.code for f in findings]))
+            return None
+        label = ",".join(f"{k}={v}" for k, v in sorted(blocks.items()))
+        with recorder.timed(f"tune:{kernel}", proc="tune", track=kernel, args=dict(blocks=dict(blocks))):
+            best = _fastest_s(lambda: runner(blocks), iters, dev)
+        recorder.observe(f"tune.{kernel}.candidate_s", best, buckets=(1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 0.1, 1.0))
+        recorder.instant(f"tuned:{label}", proc="tune", track=kernel, args=dict(seconds=best))
+        timed[key] = best
+        return best
+
+    heuristic = normalize_blocks(kernel, shape, HEURISTIC_BLOCKS[kernel])
+    heuristic_s = score(heuristic)
+    if heuristic_s is None:
+        raise ValueError(
+            f"heuristic config {heuristic} for {kernel} {shape} fails the geometry lint: "
+            "the launch is broken before tuning"
+        )
+    best, best_s, _ = hillclimb(
+        heuristic, lambda b: lattice_neighbors(b, lattices), score, max_evals=max_evals,
+    )
+    _, best_smem = lint_candidate(kernel, shape, dtype, best)
+    flops, byts = kernel_flops_bytes(kernel, shape, dtype)
+    return TuneResult(
+        kernel=kernel,
+        shape=dict(shape),
+        dtype=dname,
+        backend=backend,
+        key=cache_key(kernel, shape, dname, backend),
+        heuristic_blocks=heuristic,
+        heuristic_s=heuristic_s,
+        best_blocks=best,
+        best_s=best_s,
+        speedup=heuristic_s / best_s if best_s > 0 else float("inf"),
+        roofline_fraction=roofline_fraction(flops, byts, best_s),
+        smem_bytes=best_smem,
+        evaluated=len(timed),
+        rejected=len(rejected),
+        rejected_configs=rejected,
+    )
+
+
+def tune_many(
+    cells: list[tuple[str, Mapping[str, int]]],
+    *,
+    cache: Optional[TuningCache] = None,
+    **kwargs,
+) -> tuple[list[TuneResult], TuningCache]:
+    """Tune a list of (kernel, shape) cells; the winners land in ``cache``
+    (a new one when None). Returns (results, cache)."""
+    cache = cache if cache is not None else TuningCache()
+    results = []
+    for kernel, shape in cells:
+        res = tune_kernel(kernel, shape, **kwargs)
+        cache.put(res.key, res.entry)
+        results.append(res)
+    return results, cache

@@ -10,6 +10,13 @@ import torch
 
 from repro_torch.core import random_fault_map
 from repro_torch.kernels.common import assert_close, dtype_tol
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+    quantize_kv,
+)
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
 from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
@@ -135,3 +142,127 @@ def test_selective_scan_is_deterministic(cuda):
     y1, h1 = selective_scan(*args)
     y2, h2 = selective_scan(*args)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+# ---------------------------------------------------------------------------
+# int8 decode attention, dense and paged
+# ---------------------------------------------------------------------------
+
+# f32 at the repository's table; bf16 at the flash rule (outputs' RMS is well under 1)
+DECODE_TOL = {torch.float32: dtype_tol(torch.float32), torch.bfloat16: (2e-2, 1e-2)}
+
+
+def _int8_cache(cuda, b, hkv, s, d, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ki, ks = quantize_kv(torch.randn(b, hkv, s, d, generator=g, device=cuda))
+    vi, vs = quantize_kv(torch.randn(b, hkv, s, d, generator=g, device=cuda))
+    return ki, ks, vi, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,valid,bkv", [
+    (1, 2, 2, 512, 32, 512, None),  # the reference's tune-suite shape
+    (4, 9, 3, 2048, 64, 1000, None),  # SmolLM-135M heads, ragged length
+    (4, 25, 5, 1024, 64, 1024, 1024),  # hymba-1.5b heads, the whole ring in one tile
+    (2, 8, 2, 300, 128, 257, 64),
+    (3, 4, 4, 96, 64, 0, 32),  # zero length gives 0
+])
+def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype, b, hq, hkv, s, d, valid, bkv):
+    cache = _int8_cache(cuda, b, hkv, s, d, seed=s)
+    q = torch.randn(b, hq, 1, d, device=cuda).to(dtype)
+    before = decode_attention.launches
+    got = decode_attention(q, *cache, valid, bkv=bkv)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(q, *cache, kv_valid_len=valid)
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    if valid == 0:
+        assert not got.abs().any()
+    # a device-resident length launches the same kernel and gives the same result
+    dev_len = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(decode_attention(q, *cache, dev_len, bkv=bkv), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(9, 3, 64), (4, 2, 32), (8, 8, 128)])
+def test_paged_decode_attention_kernel_matches_plain_on_card(cuda, dtype, hq, hkv, d):
+    b, page, maxp, pool = 6, 8, 40, 400
+    lens = torch.tensor([0, 1, 77, 320, 8, 200], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    ki, ks = quantize_kv(torch.randn(hkv, pool, page, d, generator=g, device=cuda))
+    vi, vs = quantize_kv(torch.randn(hkv, pool, page, d, generator=g, device=cuda))
+    # shuffled page ids; ids past a sequence's pages are stale (out of the pool, never read)
+    ids = torch.randperm(pool - 1, generator=g, device=cuda)[: b * maxp].reshape(b, maxp) + 1
+    used = (lens + page - 1) // page
+    stale = torch.arange(maxp, device=cuda)[None] >= used[:, None]
+    tables = torch.where(stale, torch.full_like(ids, 10**6), ids).to(torch.int32)
+    q = torch.randn(b, hq, 1, d, generator=g, device=cuda).to(dtype)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, ki, ks, vi, vs, tables, lens)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_ref(q, ki, ks, vi, vs, ids.to(torch.int32), lens)
+    rtol, atol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    assert not got[0].abs().any()
+
+
+def test_decode_attention_refuses_what_it_does_not_take(cuda):
+    ki, ks, vi, vs = _int8_cache(cuda, 1, 2, 64, 48)
+    q = torch.randn(1, 4, 1, 48, device=cuda)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, ki, ks, vi, vs, 64)  # D = 48 is not built
+    ki, ks, vi, vs = _int8_cache(cuda, 1, 2, 64, 64)
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention(torch.randn(1, 3, 1, 64, device=cuda), ki, ks, vi, vs, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_attention(torch.randn(1, 4, 1, 64, device=cuda), *_int8_cache(cuda, 1, 2, 4096, 64), 64,
+                         bkv=4096)
+    with pytest.raises(TypeError):
+        decode_attention(torch.randn(1, 4, 1, 64, device=cuda).half(), ki, ks, vi, vs, 64)
+    with pytest.raises(ValueError, match="int8"):
+        decode_attention(torch.randn(1, 4, 1, 64, device=cuda), ki.float(), ks, vi, vs, 64)
+    assert decode_attention.launches == before
+
+
+def test_tuned_cache_changes_bkv_not_result(cuda):
+    from repro_torch.tune.cache import TuningCache, cache_key, set_tuning_cache
+
+    b, hq, hkv, s, d = 2, 6, 2, 1000, 64
+    cache = _int8_cache(cuda, b, hkv, s, d)
+    q = torch.randn(b, hq, 1, d, device=cuda)
+    prev = set_tuning_cache(TuningCache())
+    try:
+        base = decode_attention(q, *cache, 900)
+        assert decode_attention.last_bkv == 128
+        table = TuningCache()
+        table.put(cache_key("decode_attention", dict(b=b, hq=hq, hkv=hkv, skv=s, d=d), "float32", "cuda"),
+                  dict(blocks=dict(bkv=512)))
+        set_tuning_cache(table)
+        tuned = decode_attention(q, *cache, 900)
+        assert decode_attention.last_bkv == 512
+        decode_attention(q, *cache, 900, bkv=64)  # an explicit bkv beats the cache
+        assert decode_attention.last_bkv == 64
+    finally:
+        set_tuning_cache(prev)
+    rtol, atol = dtype_tol(torch.float32)
+    torch.testing.assert_close(tuned, base, rtol=rtol, atol=atol)
+
+
+def test_tuner_on_card_beats_or_ties_heuristic(cuda):
+    from repro_torch.tune import tune_many
+    from repro_torch.tune.tuner import lint_candidate
+
+    before = decode_attention.launches
+    results, table = tune_many([("decode_attention", dict(b=4, hq=9, hkv=3, skv=2048, d=64))],
+                               dtype=torch.bfloat16, iters=3)
+    res = results[0]
+    assert res.backend == "cuda" and res.best_s <= res.heuristic_s
+    findings, _ = lint_candidate("decode_attention", res.shape, torch.bfloat16, dict(bkv=2048))
+    assert [f.code for f in findings] == ["KRN002"]  # over the 227 KiB limit: never launched
+    assert all("KRN002" in r["codes"] for r in res.rejected_configs)
+    assert decode_attention.launches > before
+    assert table.get(res.key)["blocks"] == res.best_blocks
