@@ -13,8 +13,15 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    - the masked GEMM at SmolLM-135M's shapes in bf16 and float32, the layer
      GEMMs at M = 4 (decode and the prefill unembed), 512 (serving prefill,
      4 x 128), 1024 and 8192 (long prefill, 4 x 2048), the tied unembed at
-     M = 4 and 1024;
-   - flash attention at SmolLM's heads, S = 128 and 2048;
+     M = 4 and 1024. In bf16 the kernel the path picks (decode at M <= 16,
+     mma above) runs on the bf16 copy of w and on the fp32 master read in
+     place, and the two must give the same bits; v1 is timed beside them,
+     with the fp32->bf16 cast and ``torch.matmul`` on pre-masked w. The mask
+     is packed to bits once (timed), and a bf16 kernel's bound counts those
+     bits, v1's the float mask;
+   - flash attention at SmolLM's heads, S = 128 and 2048, and at hymba's
+     (25 / 5, window 1024) at S = 2048; in bf16 the mma kernel and v1 are
+     both held and timed;
    - the selective scan at (B, L, D, N) = (4, 128, 8192, 16) (falcon-mamba's
      serving prefill), (4, 128, 3200, 16) (hymba's), (4, 2048, 3200, 16)
      (hymba's long prefill) and a ragged (2, 37, 11, 4), with u, B and C in
@@ -66,8 +73,13 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     flash with its 1024-token window, the scan) against the plain path
     (``fap`` context, dense attention and the scan's plain version), in bf16
     and in float32: logits, KV ring, conv tail and SSM state;
-11. a ``{"kernels": [...]}`` line, the card's line, and last the
-    ``{"ok": true, "device": ...}`` line.
+11. the record: each model's bf16 decode step of masked GEMMs as kernel
+    mode runs it (the decode kernel on the fp32 master, no cast) beside the
+    path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
+    GEMMs; then a ``{"kernels": [...]}`` line with one entry per kernel
+    variant (``masked_matmul.decode``, ``.mma``, ``.v1``,
+    ``flash_attention.mma``, ``.v1``, and the scan and decode kernels), the
+    card's line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
 hymba), a run of 8 new tokens once untraced (wall time) and once under
@@ -78,8 +90,12 @@ over the untraced wall time.
 Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9 and the kernel-path prefills of phases
-7 and 10) and read just after it; parity and timing launches are not
-counted.
+7 and 10, bf16 and hymba's float32) and read just after it; parity and
+timing launches are not counted. The masked GEMM and flash count launches
+per variant: bf16 runs must launch only the bf16 kernels, float32 runs only
+v1, and every variant must be launched on its main path. A bf16 serve in
+kernel mode is also watched for one short run: no fp32 -> bf16 conversion of
+a tensor with a GEMM weight's shape may happen.
 Tolerances, each printed beside its error:
 
 - the masked GEMM against its plain version: the repository's per-dtype
@@ -194,7 +210,7 @@ def run(args, torch) -> int:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
-    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref, packed_mask, pick_variant
     from repro_torch.models import model as M
     from repro_torch.models import ssm as ssm_module
     from repro_torch.obs.recorder import Recorder
@@ -270,44 +286,93 @@ def run(args, torch) -> int:
         for rate in (0.0, 0.1, 0.3)
     }
     mm_err, mm_rows = 0.0, {}
+    # the bf16 kernels read the mask as bits, packed once per mask tensor (and the 0/1 check);
+    # the first packing in a process also loads the kernels of the ops it runs
+    pack_ms = []
+    for _ in range(2):
+        fresh = oks[0.1].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed_mask(fresh)
+        torch.cuda.synchronize()
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"mask packing, once per FaultContext mask: {pack_ms[1]:.3f} ms (host clock, with its sync; "
+        f"the process's first packing {pack_ms[0]:.3f} ms)")
 
     def gemm_case(arch, idx, k, n, uses, tied, dtype, ms_list):
         """Parity at three fault rates and timings at 10% for one weight shape
-        at each M of ``ms_list``; returns the largest error."""
+        at each M of ``ms_list``; returns the largest error.
+
+        In bf16 the kernel the path picks (decode at M <= 16, mma above) runs
+        on the bf16 copy of w and on the fp32 master read in place, as
+        ``fault_linear`` hands it over in kernel mode; the two launches must
+        give the same bits. v1 is timed beside them on the bf16 copy."""
         w32 = torch.randn(n, k, generator=gen, device=dev).T if tied else \
             torch.randn(k, n, generator=gen, device=dev)
         w32 = w32 / math.sqrt(k)
-        w = w32.to(dtype)  # fault_linear's cast; keeps embed.T's strides
+        w = w32.to(dtype)  # the plain path's cast; keeps embed.T's strides
         if tied and w.stride(0) != 1:
             raise Failed(f"the unembed weight lost its transposed strides: {w.stride()}")
+        bf16 = dtype == torch.bfloat16
         shape_err = 0.0
         for m in ms_list:
             x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
             err = 0.0
             for rate, ok in oks.items():
-                e, good = worst(masked_matmul(x, w, ok), masked_matmul_ref(x, w, ok), dtype_tol(dtype))
+                ref = masked_matmul_ref(x, w, ok)
+                got = masked_matmul(x, w, ok)
+                e, good = worst(got, ref, dtype_tol(dtype))
                 err = max(err, e)
                 if not good:
                     failures.append(f"masked_matmul {arch} {dtype} {m}x{k}x{n} rate {rate}: {e}")
+                if bf16:
+                    got32 = masked_matmul(x, w32, ok)
+                    e32, good32 = worst(got32, masked_matmul_ref(x, w32, ok), dtype_tol(dtype))
+                    err = max(err, e32)
+                    if not good32 or not torch.equal(got32, got):
+                        failures.append(f"masked_matmul {arch} fp32 w {m}x{k}x{n} rate {rate}: err {e32}, "
+                                        f"bit-identical to the bf16-w launch {torch.equal(got32, got)}")
             ok = oks[0.1]
             wm = w * (ok[torch.arange(k, device=dev) % 256][:, torch.arange(n, device=dev) % 256]).to(dtype)
             size = torch.finfo(dtype).bits // 8
-            nbytes = (m * k + k * n + m * n) * size + ok.numel() * 4
-            bound = max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / PEAK_OPS[name_of(dtype)]) * 1e3
+
+            # the mask as the kernel reads it: v1 the float mask, the bf16 kernels its bits
+            # (packed along C, or along R for embed.T)
+            r, c = ok.shape
+            mask_bytes = (c * -(-r // 8) if tied else r * -(-c // 8)) if bf16 else ok.numel() * 4
+
+            def bound(w_size, prefix=""):
+                """The bound and its two sides: each input read once, each output written once,
+                at the HBM rate; the product's operations at the dtype's peak."""
+                nbytes = (m * k + m * n) * size + k * n * w_size + mask_bytes
+                sides = {f"{prefix}bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         f"{prefix}ops_ms": 2 * m * k * n / PEAK_OPS[name_of(dtype)] * 1e3}
+                return {f"{prefix}bound_ms": max(sides.values()), **sides}
+
             row = dict(
+                variant=pick_variant(dtype, m),
                 ms=time_ms(lambda: masked_matmul(x, w, ok)),
                 plain_ms=time_ms(lambda: masked_matmul_ref(x, w, ok), reps=5),
                 library_ms=time_ms(lambda: torch.matmul(x, wm)),
-                bound_ms=bound,
-                cast_ms=time_ms(lambda: w32.to(dtype)) if dtype == torch.bfloat16 else 0.0,
-                uses=uses, k=k, n=n, tied=tied, max_abs_err=err,
+                **bound(size), uses=uses, k=k, n=n, tied=tied, max_abs_err=err,
             )
+            if bf16:
+                row.update(
+                    f32w_ms=time_ms(lambda: masked_matmul(x, w32, ok)),
+                    **bound(4, "f32w_"),
+                    v1_ms=time_ms(lambda: masked_matmul(x, w, ok, variant="v1")),
+                    cast_ms=time_ms(lambda: w32.to(dtype)),
+                )
+                row["cast_matmul_ms"] = row["cast_ms"] + row["library_ms"]
             mm_rows[(arch, name_of(dtype), m, idx)] = row
             log(f"masked_matmul {arch:15s} {name_of(dtype):8s} M={m:5d} K={k:5d} N={n:6d}"
                 f"{' (embed.T)' if tied else ''}: err<= {err:.3g} (rtol, atol {dtype_tol(dtype)}) "
-                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-                f"torch.matmul(masked w) {row['library_ms']:.4f} ms  bound {bound:.4f} ms"
-                f"{'  cast fp32->bf16 %.4f ms' % row['cast_ms'] if row['cast_ms'] else ''}")
+                f"{row['variant']} {row['ms']:.4f} ms"
+                + (f"  fp32 w {row['f32w_ms']:.4f} ms (bound {row['f32w_bound_ms']:.4f})  v1 {row['v1_ms']:.4f} ms"
+                   if bf16 else "")
+                + f"  plain {row['plain_ms']:.4f} ms  torch.matmul(masked w) {row['library_ms']:.4f} ms  "
+                f"bound {row['bound_ms']:.4f} ms"
+                + (f"  cast fp32->bf16 {row['cast_ms']:.4f} ms" if bf16 else ""))
             shape_err = max(shape_err, err)
         return shape_err
 
@@ -320,43 +385,58 @@ def run(args, torch) -> int:
             mm_err = max(mm_err, gemm_case(cfg.name, idx, k, n, uses, tied, dtype, ms_list))
 
     fa_err, fa_rows = 0.0, {}
-    b, hq, hkv, d = BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b, d = BATCH, cfg.resolved_head_dim
+    # (model, Hq, Hkv, S, case, window, Sq): SmolLM's heads at the serving and long-prefill
+    # lengths, hymba's (window 1024) at its long prefill; q_offset cases put Sq = S / 2 queries
+    # at the end of the keys
+    flash_cells = [(cfg.name, cfg.num_heads, cfg.num_kv_heads, s, case, window, sq)
+                   for s in (128, LONG)
+                   for case, window, sq in (("causal", None, s), ("window256", 256, s), ("q_offset", None, s // 2))]
+    flash_cells += [(hymba.name, hymba.num_heads, hymba.num_kv_heads, LONG, case, hymba.sliding_window, sq)
+                    for case, sq in (("window1024", LONG), ("window1024_q_offset", LONG // 2))]
     for dtype in (torch.bfloat16, torch.float32):
-        for s in (128, LONG):
-            for case, window, sq in (("causal", None, s), ("window256", 256, s), ("q_offset", None, s // 2)):
-                off = s - sq
-                q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
-                kk = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
-                vv = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
-                kw = dict(causal=True, window=window, q_offset=off)
-                tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else dtype_tol(dtype)
-                err, good = worst(flash_attention(q, kk, vv, **kw), attention_ref(q, kk, vv, **kw), tol)
-                fa_err = max(fa_err, err)
-                if not good:
-                    failures.append(f"flash_attention {dtype} S={s} {case}: {err}")
-                rows = torch.arange(sq, device=dev)[:, None] + off
-                cols = torch.arange(s, device=dev)[None, :]
-                keep = cols <= rows
-                if window:
-                    keep &= cols > rows - window
-                pairs = int(keep.sum())
-                size = torch.finfo(dtype).bits // 8
-                nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * size
-                bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * hq * d * pairs / PEAK_OPS[name_of(dtype)]) * 1e3
-                kr, vr = kk.repeat_interleave(hq // hkv, 1), vv.repeat_interleave(hq // hkv, 1)
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                row = dict(
-                    ms=time_ms(lambda: flash_attention(q, kk, vv, **kw)),
-                    plain_ms=time_ms(lambda: attention_ref(q, kk, vv, **kw), reps=3),
-                    library_ms=time_ms(lambda: sdpa(q, kr, vr, attn_mask=keep)),
-                    bound_ms=bound,
-                )
-                fa_rows[(name_of(dtype), s, case)] = row
-                log(f"flash_attention {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} Sq={sq:5d} "
-                    f"Skv={s:5d} {case:9s}: err<= {err:.3g} (rtol, atol {tol}) kernel {row['ms']:.4f} ms  "
-                    f"plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  "
-                    f"bound {bound:.4f} ms")
-    del q, kk, vv, kr, vr, keep
+        bf16 = dtype == torch.bfloat16
+        for model, hq, hkv, s, case, window, sq in flash_cells:
+            off = s - sq
+            q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
+            kk = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
+            vv = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=True, window=window, q_offset=off)
+            tol = FLASH_BF16_TOL if bf16 else dtype_tol(dtype)
+            ref = attention_ref(q, kk, vv, **kw)
+            err, good = worst(flash_attention(q, kk, vv, **kw), ref, tol)
+            if bf16:  # v1 is held too: it stays reachable by its variant
+                e1, good1 = worst(flash_attention(q, kk, vv, variant="v1", **kw), ref, tol)
+                err, good = max(err, e1), good and good1
+            fa_err = max(fa_err, err)
+            if not good:
+                failures.append(f"flash_attention {model} {dtype} S={s} {case}: {err}")
+            rows = torch.arange(sq, device=dev)[:, None] + off
+            cols = torch.arange(s, device=dev)[None, :]
+            keep = cols <= rows
+            if window:
+                keep &= cols > rows - window
+            pairs = int(keep.sum())
+            size = torch.finfo(dtype).bits // 8
+            nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * size
+            bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * hq * d * pairs / PEAK_OPS[name_of(dtype)]) * 1e3
+            kr, vr = kk.repeat_interleave(hq // hkv, 1), vv.repeat_interleave(hq // hkv, 1)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row = dict(
+                variant="mma" if bf16 else "v1",
+                ms=time_ms(lambda: flash_attention(q, kk, vv, **kw)),
+                plain_ms=time_ms(lambda: attention_ref(q, kk, vv, **kw), reps=3),
+                library_ms=time_ms(lambda: sdpa(q, kr, vr, attn_mask=keep)),
+                bound_ms=bound, max_abs_err=err,
+            )
+            if bf16:
+                row["v1_ms"] = time_ms(lambda: flash_attention(q, kk, vv, variant="v1", **kw))
+            fa_rows[(name_of(dtype), model, s, case)] = row
+            log(f"flash_attention {model:11s} {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} Sq={sq:5d} "
+                f"Skv={s:5d} {case:19s}: err<= {err:.3g} (rtol, atol {tol}) {row['variant']} {row['ms']:.4f} ms"
+                + (f"  v1 {row['v1_ms']:.4f} ms" if bf16 else "")
+                + f"  plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  bound {bound:.4f} ms")
+    del q, kk, vv, kr, vr, keep, ref
 
     # the selective scan, with inputs as the model gives them: dt fp32 from a
     # softplus, B and C strided slices of one (B, L, r + 2N) tensor in u's dtype
@@ -622,12 +702,44 @@ def run(args, torch) -> int:
         masked_matmul.launches = 0
         flash_attention.launches = 0
         selective_scan.launches = 0
+        for fn in (masked_matmul, flash_attention):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
     def counts():
         return dict(masked_matmul=masked_matmul.launches, flash_attention=flash_attention.launches,
                     selective_scan=selective_scan.launches)
 
+    def variant_counts():
+        return {f"{fn.__name__}.{v}": n for fn in (masked_matmul, flash_attention)
+                for v, n in fn.launches_by_variant.items()}
+
+    def check_variants(label, dtype_name, got):
+        """bf16 runs launch only the bf16 kernels, float32 runs only v1."""
+        wrong = {k: n for k, n in got.items() if n and (k.endswith(".v1") == (dtype_name == "bfloat16"))}
+        if wrong:
+            raise Failed(f"{label}: {dtype_name} launched the wrong kernels {wrong}")
+
     launches = {"masked_matmul": 0, "flash_attention": 0, "selective_scan": 0}
+    variant_launches = dict.fromkeys(variant_counts(), 0)
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class WeightCasts(TorchDispatchMode):
+        """Records every fp32 -> bf16 conversion whose shape is a GEMM weight's."""
+
+        def __init__(self, shapes):
+            super().__init__()
+            self.shapes, self.seen = shapes, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default):
+                src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+                dst = args[0] if func is torch.ops.aten.copy_.default else out
+                if (isinstance(src, torch.Tensor) and src.dtype == torch.float32
+                        and dst.dtype == torch.bfloat16 and tuple(src.shape) in self.shapes):
+                    self.seen.append(tuple(src.shape))
+            return out
     serve_report, profile_report, profile_lines = {}, {}, []
 
     def serve(c, params, atol_scale, elementwise=True):
@@ -652,14 +764,26 @@ def run(args, torch) -> int:
         out = eng.generate(prompts, max_new_tokens=NEW)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        got_counts = counts()
+        got_counts, got_variants = counts(), variant_counts()
         for key in launches:
             launches[key] += got_counts[key]
+        for key in variant_launches:
+            variant_launches[key] += got_variants[key]
         want = dict(masked_matmul=per_step * (1 + NEW), flash_attention=0,
                     selective_scan=c.num_layers if c.has_ssm else 0)
         if got_counts != want:
             raise Failed(f"serve {label}: launches {got_counts}, expected {want} "
                          f"({per_step} masked GEMMs per step x {1 + NEW} steps)")
+        check_variants(f"serve {label}", c.dtype, got_variants)
+        casts = None
+        if c.dtype == "bfloat16":  # kernel mode reads the fp32 master in place: no weight is cast
+            shapes = {sh for k_, n_, _ in c.gemm_shapes() for sh in ((k_, n_), (n_, k_))}
+            with WeightCasts(shapes) as watch:
+                eng.generate(prompts, max_new_tokens=2)
+                torch.cuda.synchronize()
+            casts = len(watch.seen)
+            if casts:
+                raise Failed(f"serve {label}: kernel mode cast GEMM weights to bf16: {watch.seen[:8]}")
         if not torch.isfinite(out.logprobs).all() or out.tokens.shape != (BATCH, PROMPT + NEW):
             raise Failed(f"serve {label}: bad output {tuple(out.tokens.shape)}")
         t1 = time.perf_counter()
@@ -684,13 +808,16 @@ def run(args, torch) -> int:
         agree = float((ref.argmax(-1) == seq[:, PROMPT:]).float().mean())
         report = serve_report[label] = dict(
             tokens_per_s=BATCH * NEW / dt, generate_s=dt, step_ms=dt / (1 + NEW) * 1e3,
-            prefill_ms=prefill_ms, launches=got_counts, launches_per_step=got_counts["masked_matmul"] / (1 + NEW),
+            prefill_ms=prefill_ms, launches=got_counts, variant_launches=got_variants, weight_casts=casts,
+            launches_per_step=got_counts["masked_matmul"] / (1 + NEW),
             logprob_err=lp_err, logit_err=logit_err, ref_logit_rms=float(ref.pow(2).mean().sqrt()),
             token_agreement=agree, elementwise_gate=elementwise,
         )
         log(f"serve {label}: {BATCH}x{NEW} tokens in {dt:.3f} s ({BATCH * NEW / dt:.1f} tok/s); "
             f"prefill {BATCH}x{PROMPT} {prefill_ms:.2f} ms; launches {got_counts} "
-            f"({got_counts['masked_matmul'] / (1 + NEW):.0f} masked GEMMs per step); teacher-forced fap: "
+            f"({got_counts['masked_matmul'] / (1 + NEW):.0f} masked GEMMs per step; by kernel "
+            f"{ {k: n for k, n in got_variants.items() if n} }; fp32->bf16 weight casts in kernel mode "
+            f"{'not checked' if casts is None else casts}); teacher-forced fap: "
             f"logprob err {lp_err:.3g}, logit err {logit_err:.3g} (rtol {rtol}, atol {atol}"
             f"{'' if elementwise else '; not gated, see the anchored gate'}), greedy token agreement {agree:.4f}")
         if elementwise and (
@@ -768,18 +895,28 @@ def run(args, torch) -> int:
         tokens = {"tokens": torch.randint(0, c.vocab_size, (BATCH, LONG), generator=gen, device=dev)}
         M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, c, ctx_k, attn_impl="kernel")
         torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        outs = {"kernel": M.prefill(params, tokens, c, ctx_k, attn_impl="kernel")}
-        torch.cuda.synchronize()
-        kernel_ms = (time.perf_counter() - t0) * 1e3
-        got_counts = counts()
-        for key in launches:
-            launches[key] += got_counts[key]
         want = dict(masked_matmul=per_step, flash_attention=c.num_layers,
                     selective_scan=c.num_layers if c.has_ssm else 0)
-        if got_counts != want:
-            raise Failed(f"long prefill {c.name}: launches {got_counts}, expected {want}")
+
+        def kernel_run(cc):
+            """One main-path prefill through the kernels, its launches counted."""
+            reset()
+            t0 = time.perf_counter()
+            out = M.prefill(params, tokens, cc, ctx_k, attn_impl="kernel")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got_counts, got_variants = counts(), variant_counts()
+            for key in launches:
+                launches[key] += got_counts[key]
+            for key in variant_launches:
+                variant_launches[key] += got_variants[key]
+            if got_counts != want:
+                raise Failed(f"long prefill {c.name} {cc.dtype}: launches {got_counts}, expected {want}")
+            check_variants(f"long prefill {c.name}", cc.dtype, got_variants)
+            return out, ms, got_counts, got_variants
+
+        kernel_out, kernel_ms, got_counts, got_variants = kernel_run(c)
+        outs = {"kernel": kernel_out}
 
         def plain(cc):
             ssm_module.selective_scan = selective_scan_ref
@@ -794,7 +931,7 @@ def run(args, torch) -> int:
         plain_ms = (time.perf_counter() - t0) * 1e3
         if anchored:
             c32 = dataclasses.replace(c, dtype="float32")
-            outs["kernel32"] = M.prefill(params, tokens, c32, ctx_k, attn_impl="kernel")
+            outs["kernel32"], kernel32_ms, _, variants32 = kernel_run(c32)
             outs["plain32"] = plain(c32)
 
         def pick(run, key):
@@ -827,9 +964,14 @@ def run(args, torch) -> int:
             lines.append(line)
         gate = (f"bf16 elementwise (rtol, atol) {dtype_tol(torch.bfloat16)} and rel L2 <= {MAX_REL_L2}"
                 if not anchored else "float32 elementwise and rel L2; bf16 anchored to float32")
+        extra = dict(kernel32_ms=kernel32_ms, variant_launches32=variants32) if anchored else {}
         log(f"long prefill {c.name} {BATCH}x{LONG} bf16: kernel path {kernel_ms:.2f} ms, plain path "
-            f"{plain_ms:.2f} ms; launches {got_counts}; gate: {gate}; " + "; ".join(lines))
-        return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, launches=got_counts, err=errs)
+            f"{plain_ms:.2f} ms; launches {got_counts}, by kernel { {k: n for k, n in got_variants.items() if n} }"
+            + (f"; float32 kernel path {kernel32_ms:.2f} ms, by kernel "
+               f"{ {k: n for k, n in variants32.items() if n} }" if anchored else "")
+            + f"; gate: {gate}; " + "; ".join(lines))
+        return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, launches=got_counts, variant_launches=got_variants,
+                    err=errs, **extra)
 
     # ---- phase 6: serve SmolLM-135M at full width on a 10%-faulty chip ----
     params = M.init_params(cfg, 0, device=dev)
@@ -867,34 +1009,60 @@ def run(args, torch) -> int:
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ---- phase 11: the record -----------------------------------------------
-    def step_sum(arch):
-        rows = [mm_rows[(arch.name, "bfloat16", BATCH, i)] for i in range(len(arch.gemm_shapes()))]
-        return {key: sum(r[key] * r["uses"] for r in rows)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "cast_ms")}
+    def gemm_sum(arch, dtype, m, layers_only=False):
+        """One step's masked GEMMs at M = m, each launch timed alone, times its uses."""
+        shapes = arch.gemm_shapes()
+        rows = [mm_rows[(arch.name, dtype, m, i)] for i in range(len(shapes) - int(layers_only))]
+        keys = [k for k, v in rows[0].items() if k.endswith("ms")]
+        return {key: sum(r[key] * r["uses"] for r in rows) for key in keys}
 
-    steps = {arch.name: step_sum(arch) for arch in (cfg, falcon, hymba)}
+    steps = {arch.name: gemm_sum(arch, "bfloat16", BATCH) for arch in (cfg, falcon, hymba)}
     for name, st in steps.items():
         per_step = sum(uses for _, _, uses in get_arch(name).gemm_shapes())
-        log(f"decode step {name} (bf16, M={BATCH}), {per_step} masked GEMMs: kernel {st['ms']:.4f} ms, "
-            f"plain {st['plain_ms']:.4f} ms, torch.matmul {st['library_ms']:.4f} ms, "
-            f"bound {st['bound_ms']:.4f} ms; fault_linear's fp32->bf16 weight casts {st['cast_ms']:.4f} ms")
-    fa = fa_rows[("bfloat16", LONG, "causal")]
+        log(f"decode step {name} (bf16, M={BATCH}), {per_step} masked GEMMs as kernel mode runs them "
+            f"(decode kernel, fp32 master read in place, no cast): {st['f32w_ms']:.4f} ms, bound "
+            f"{st['f32w_bound_ms']:.4f} ms; path-level yardstick, cast fp32->bf16 + torch.matmul on "
+            f"pre-masked w: {st['cast_matmul_ms']:.4f} ms ({st['cast_ms']:.4f} + {st['library_ms']:.4f}); "
+            f"decode kernel on a bf16 copy {st['ms']:.4f} ms (bound {st['bound_ms']:.4f}); v1 on a bf16 copy "
+            f"{st['v1_ms']:.4f} ms; plain {st['plain_ms']:.4f} ms")
+    prefills = {arch.name: gemm_sum(arch, "bfloat16", BATCH * LONG, layers_only=True) for arch in (cfg, hymba)}
+    for name, st in prefills.items():
+        log(f"long-prefill layer GEMMs {name} (bf16, M={BATCH * LONG}), once per layer as kernel mode runs "
+            f"them (mma kernel, fp32 master in place): {st['f32w_ms']:.4f} ms, bound {st['f32w_bound_ms']:.4f} "
+            f"ms; bf16 copy {st['ms']:.4f} ms; v1 {st['v1_ms']:.4f} ms; torch.matmul on pre-masked w "
+            f"{st['library_ms']:.4f} ms; cast + torch.matmul {st['cast_matmul_ms']:.4f} ms")
+    f32_step = gemm_sum(cfg, "float32", BATCH)
+    fa = fa_rows[("bfloat16", cfg.name, LONG, "causal")]
+    fa32 = fa_rows[("float32", cfg.name, LONG, "causal")]
     sc = scan_rows["bfloat16 4x128x8192x16"]
     dec = da_rows[("smollm-b4", "bfloat16", LONG)]
     pg = pg_rows["bfloat16"]
+    mm_src = dict(route="cuda", source="src/repro_torch/kernels/csrc/masked_matmul.cu",
+                  replaces="src/repro/kernels/masked_matmul/masked_matmul.py:66", max_abs_err=mm_err)
+    fa_src = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention/flash_attention.py:110", max_abs_err=fa_err)
+    dstep, pstep = steps[cfg.name], prefills[cfg.name]
+
+    def bound_by(st, prefix=""):
+        """The side of a summed bound that weighs more."""
+        return "bytes" if st[f"{prefix}bytes_ms"] >= st[f"{prefix}ops_ms"] else "operations"
+
     kernels = [
-        dict(name="masked_matmul", route="cuda", source="src/repro_torch/kernels/csrc/masked_matmul.cu",
-             replaces="src/repro/kernels/masked_matmul/masked_matmul.py:66",
-             launches=launches["masked_matmul"], max_abs_err=mm_err,
-             ms=steps[cfg.name]["ms"], plain_ms=steps[cfg.name]["plain_ms"],
-             bound_ms=steps[cfg.name]["bound_ms"], bound_by="bytes",
-             library_ms=steps[cfg.name]["library_ms"]),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
-             launches=launches["flash_attention"], max_abs_err=fa_err,
+        dict(name="masked_matmul.decode", **mm_src, launches=variant_launches["masked_matmul.decode"],
+             ms=dstep["f32w_ms"], plain_ms=dstep["plain_ms"], bound_ms=dstep["f32w_bound_ms"],
+             bound_by=bound_by(dstep, "f32w_"), library_ms=dstep["library_ms"]),
+        dict(name="masked_matmul.mma", **mm_src, launches=variant_launches["masked_matmul.mma"],
+             ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
+             bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
+        dict(name="masked_matmul.v1", **mm_src, launches=variant_launches["masked_matmul.v1"],
+             ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
+             bound_by=bound_by(f32_step), library_ms=f32_step["library_ms"]),
+        dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
              bound_by="operations", library_ms=fa["library_ms"]),
+        dict(name="flash_attention.v1", **fa_src, launches=variant_launches["flash_attention.v1"],
+             ms=fa32["ms"], plain_ms=fa32["plain_ms"], bound_ms=fa32["bound_ms"],
+             bound_by="operations", library_ms=fa32["library_ms"]),
         dict(name="selective_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/selective_scan.cu",
              replaces="src/repro/kernels/mamba_scan/mamba_scan.py:54",
@@ -914,14 +1082,18 @@ def run(args, torch) -> int:
              ms=pg["ms"], plain_ms=pg["plain_ms"], bound_ms=pg["bound_ms"],
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
+    for k in kernels:
+        if not k["launches"]:
+            raise Failed(f"{k['name']} was not launched on its main path")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
         (OUT_DIR / "profile_serve.txt").write_text("\n".join(profile_lines))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, serve=serve_report, kernels=kernels, profile=profile_report or None,
-        decode_step_gemms=steps,
+        decode_step_gemms=steps, long_prefill_gemms=prefills, mask_pack_ms=pack_ms,
+        variant_launches=variant_launches,
         masked_matmul_rows=[dict(arch=k[0], dtype=k[1], m=k[2], **v) for k, v in mm_rows.items()],
-        flash_rows=[dict(dtype=k[0], s=k[1], case=k[2], **v) for k, v in fa_rows.items()],
+        flash_rows=[dict(dtype=k[0], model=k[1], s=k[2], case=k[3], **v) for k, v in fa_rows.items()],
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
@@ -929,9 +1101,11 @@ def run(args, torch) -> int:
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
                                 for k in kernels))
-    log(f"masked_matmul ms/plain_ms/library_ms/bound_ms: one bf16 SmolLM-135M decode step's "
-        f"{sum(u for _, _, u in cfg.gemm_shapes())} launches at M={BATCH}; flash_attention: one launch at "
-        f"4x9x2048^2 causal bf16; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
+    log(f"masked_matmul.decode ms/plain_ms/library_ms/bound_ms: one bf16 SmolLM-135M decode step's "
+        f"{sum(u for _, _, u in cfg.gemm_shapes())} launches at M={BATCH}, the fp32 master read in place "
+        f"(plain and torch.matmul on the bf16 copy); masked_matmul.mma: SmolLM-135M's layer GEMMs at "
+        f"M={BATCH * LONG}, once per layer, fp32 master; masked_matmul.v1: the float32 decode step; "
+        f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
         f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "
         f"int8 tokens, bf16 q, the heuristic bkv (launches: the tuner's); paged_decode_attention: "
         f"one launch over {PAGED_SLOTS} slots of a paged pool, bf16 q; run time "

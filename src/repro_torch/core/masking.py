@@ -103,19 +103,25 @@ def fault_linear(
     """y = x @ mask(w). ``w`` is (d_in, d_out); contraction over -1 of x.
 
     Weights are cast to the activation dtype (bf16 compute, fp32 master),
-    as the reference does: in bf16 every call reads the fp32 weight and
-    writes a bf16 copy before the GEMM reads it.
+    as the reference does. The plain modes (``none``, ``fap``) cast first,
+    so in bf16 every call reads the fp32 weight and writes a bf16 copy
+    before the GEMM reads it. ``kernel`` mode hands the fp32 master to the
+    masked-GEMM kernel, which rounds each weight to bf16 as it loads it: the
+    same values, with no copy written. It casts only a w the kernels do not
+    take (one neither in x's dtype nor fp32 beside bf16 x, e.g. a bf16
+    ``param_dtype`` with a float32 ``dtype``).
     """
-    w = w.to(x.dtype)
     if ctx is None or not ctx.active:
-        return torch.matmul(x, w)
+        return torch.matmul(x, w.to(x.dtype))
     _require_per_chip(ctx)
     if ctx.mode == "kernel":
         # imported here: the kernel module imports core.mapping
         from repro_torch.kernels.masked_matmul.ops import masked_matmul
 
+        if not (w.dtype == x.dtype or (x.dtype == torch.bfloat16 and w.dtype == torch.float32)):
+            w = w.to(x.dtype)
         return masked_matmul(x, w, ctx.ok)
-    return torch.matmul(x, masked_weight(w, ctx.ok))
+    return torch.matmul(x, masked_weight(w.to(x.dtype), ctx.ok))
 
 
 # Parameter names that flow through fault_linear (execute as GEMMs on the

@@ -1,21 +1,34 @@
-"""Fault-masked GEMM: the CUDA kernel's wrapper, its plain PyTorch version
-and its launch count.
+"""Fault-masked GEMM: the CUDA kernels' wrapper, its plain PyTorch version
+and its launch counts.
 
-Kernel: ``kernels/csrc/masked_matmul.cu``. It replaces the TPU kernel
+Kernels: ``kernels/csrc/masked_matmul.cu``. They replace the TPU kernel
 ``repro/kernels/masked_matmul/masked_matmul.py::masked_matmul_pallas``.
 
-Bound on an H100: at decode (M = batch) the weight bytes bound it, so the
-kernel reads each weight once, applies the mask on chip and never writes a
-masked copy; ``w`` is taken through its strides so the tied unembedding's
-``embed.T`` is read in place, and K is split across blocks so a narrow GEMM
-still spreads its reads over the whole card. At prefill (M = batch x prompt)
-operations bound it; this first version uses fp32 SIMT FMAs, not tensor
-cores.
+The dtype and M pick the kernel; each is hand-written and each is bound
+differently on an H100:
 
-``masked_matmul`` launches the kernel for a CUDA tensor and counts the launch
-in ``masked_matmul.launches``; for a CPU tensor it runs
-``masked_matmul_ref``, the plain version. There is no fallback between the
-two.
+- ``decode`` (bf16 x, M <= 16): the weight bytes bound it. It streams w
+  with 16-byte loads, applies the mask on chip and never writes a masked
+  copy; K is split across blocks so a narrow GEMM still spreads its reads
+  over the whole card;
+- ``mma`` (bf16 x, M > 16): operations bound it; 128 x 128 tiles on the
+  tensor cores;
+- ``v1`` (float32 x and w): the first SIMT kernel, since tensor cores would
+  round fp32 to tf32. ``variant="v1"`` also forces it for bf16 x and w, to
+  time it beside the bf16 kernels; the serving paths never ask for it.
+
+The bf16 kernels take w in bf16 or float32. A float32 w (the fp32 master,
+as ``fault_linear`` passes it in ``kernel`` mode) is rounded to bf16 inside
+the kernel, bit for bit as ``w.to(torch.bfloat16)`` would round it, so the
+two launches give the same bits and no bf16 copy of w is ever written. w is
+taken through its strides, so the tied unembedding's ``embed.T`` is read in
+place. The bf16 kernels read the mask as bits, packed once per mask tensor
+(``packed_mask``).
+
+``masked_matmul`` launches a kernel for a CUDA tensor and counts the launch
+in ``masked_matmul.launches`` and ``masked_matmul.launches_by_variant``; for
+a CPU tensor it runs ``masked_matmul_ref``, the plain version. There is no
+fallback between the two.
 """
 from __future__ import annotations
 
@@ -24,22 +37,27 @@ import functools
 import math
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.mapping import periodic_mask
 from repro_torch.kernels.common import check_launch, load_kernel
 
-__all__ = ["masked_matmul", "masked_matmul_ref"]
+__all__ = ["masked_matmul", "masked_matmul_ref", "packed_mask", "pick_variant", "VARIANTS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 )
-# (BM, BN, BK) of the kernel's tiles for small M (decode) and otherwise; these
-# mirror the dispatch in csrc/masked_matmul.cu, which checks the scratch sizes
+# the C entry point's variant codes
+VARIANTS = {"v1": 1, "decode": 2, "mma": 3}
+# v1's tiles, (BM, BN, BK) for small M (decode) and otherwise; they mirror
+# csrc/masked_matmul.cu, which checks the scratch sizes. The bf16 kernels'
+# plans come from the C side (``_plan``).
 _SMALL_M = 16
 _TILES = {True: (16, 64, 32), False: (64, 64, 16)}
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,9 +65,10 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
 def _split_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
-    """(K slices, scratch bytes): K is split until about two blocks per SM
-    are in flight, or every slice holds one K tile. A split needs one int
+    """v1's (K slices, scratch bytes): K is split until about two blocks per
+    SM are in flight, or every slice holds one K tile. A split needs one int
     counter per output tile (16-byte aligned) and every slice's fp32
     partial output."""
     bm, bn, bk = _TILES[m <= _SMALL_M]
@@ -62,27 +81,109 @@ def _split_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     return splits, -(-4 * tiles_out // 16) * 16 + 4 * splits * m * n
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(kind: str, m: int, n: int, k: int, k_contiguous: bool, sms: int) -> tuple[int, int, int]:
+    """A bf16 kernel's (K slices, scratch bytes, output tiles), from
+    ``masked_matmul_plan`` in csrc/masked_matmul.cu, which holds the kernels'
+    tiles and split rules; cached per shape, so a decode step asks once."""
+    out = (ctypes.c_longlong * 3)()
+    fn = load_kernel("masked_matmul_plan", _PLAN_ARGTYPES, source="masked_matmul")
+    check_launch("masked_matmul_plan", fn(VARIANTS[kind], m, n, k, int(k_contiguous), sms, out))
+    return out[0], out[1], out[2]
+
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """Zeroed int32 split-K counters for one launch on ``stream`` of
+    ``device``. The bf16 kernels leave every counter they use at 0, so a
+    buffer is zeroed once (and again only when it grows), not per launch.
+    Launches that share a buffer must run one at a time, so each stream has
+    its own: launches on two streams may overlap."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = _COUNTERS[key] = torch.zeros(max(tiles, 1 << 14), dtype=torch.int32, device=device)
+    return buf
+
+
+def pick_variant(x_dtype: torch.dtype, m: int, variant: str = "auto") -> str:
+    """The kernel a launch runs: ``v1`` for float32, ``decode`` for bf16 at
+    M <= 16, ``mma`` for bf16 above; ``variant="v1"`` forces v1."""
+    if variant not in ("auto", "v1"):
+        raise ValueError(f"variant is 'auto' or 'v1', got {variant!r}")
+    if variant == "v1" or x_dtype == torch.float32:
+        return "v1"
+    return "decode" if m <= _SMALL_M else "mma"
+
+
+def _pack_bits(ok: torch.Tensor) -> torch.Tensor:
+    """(R, C) 0/1 mask -> (R, ceil(C / 8)) uint8, entry c in bit c % 8 of
+    byte c // 8."""
+    r, c = ok.shape
+    cb = -(-c // 8)
+    b = torch.zeros(r, cb * 8, dtype=torch.uint8, device=ok.device)
+    b[:, :c] = ok != 0
+    weights = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8, device=ok.device)
+    return (b.view(r, cb, 8) * weights).sum(-1, dtype=torch.uint8).contiguous()
+
+
+_PACKED = WeakIdKeyDictionary()
+
+
+def packed_mask(ok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mask as the bf16 kernels read it: bits along C, and bits of
+    ``ok.T`` along R (for k-contiguous w). Packed once per mask tensor and
+    kept while it lives; an in-place change of ``ok`` packs it again. The
+    mask must hold only 0 and 1: the bits cannot carry other factors."""
+    hit = _PACKED.get(ok)
+    if hit is not None and hit[0] == ok._version:
+        return hit[1], hit[2]
+    if not bool(((ok == 0) | (ok == 1)).all()):
+        raise ValueError("the bf16 masked-GEMM kernels take a 0/1 mask")
+    bits, bits_t = _pack_bits(ok), _pack_bits(ok.T)
+    _PACKED[ok] = (ok._version, bits, bits_t)
+    return bits, bits_t
+
+
+def _check_dtypes(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dtype == w.dtype or (x.dtype == torch.bfloat16 and w.dtype == torch.float32):
+        return
+    raise TypeError(
+        f"masked_matmul takes w in x's dtype, or a float32 w with a bfloat16 x; got x {x.dtype}, w {w.dtype}"
+    )
+
+
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Plain version: y = x @ (w * periodic_mask(ok)) with fp32 accumulation.
-    x: (..., K); w: (K, N); ok: (R, C) 1/0 healthy mask."""
+    """Plain version: y = x @ (w.to(x.dtype) * periodic_mask(ok)) with fp32
+    accumulation. x: (..., K); w: (K, N) in x's dtype, or float32 with a
+    bfloat16 x; ok: (R, C) 1/0 healthy mask."""
+    _check_dtypes(x, w)
     mask = periodic_mask(w.shape, ok, dtype=torch.float32)
-    wm = (w.float() * mask).to(w.dtype)
+    wm = (w.to(x.dtype).float() * mask).to(x.dtype)
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
 
 
-def masked_matmul(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """y = x @ (w * periodic_mask(ok)); x: (..., K), w: (K, N), ok: (R, C).
+def masked_matmul(
+    x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor, *, variant: str = "auto"
+) -> torch.Tensor:
+    """y = x @ (w.to(x.dtype) * periodic_mask(ok)); x: (..., K), w: (K, N),
+    ok: (R, C).
 
-    On CUDA: x and w share a dtype (float32 or bfloat16), w has a unit
-    stride along one of its axes, ok is a contiguous float32 tensor."""
+    On CUDA: x is float32 or bfloat16; w is in x's dtype, or float32 with a
+    bfloat16 x; w has a unit stride along one of its axes; ok is a
+    contiguous float32 tensor. ``variant="v1"`` forces the first SIMT kernel
+    (x and w of one dtype), for timing it beside the others."""
     if x.device.type == "cpu":
         return masked_matmul_ref(x, w, ok)
     if x.device.type != "cuda":
         raise ValueError(f"masked_matmul runs on cpu or cuda, got {x.device}")
     if w.dim() != 2 or ok.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"bad shapes x{tuple(x.shape)} w{tuple(w.shape)} ok{tuple(ok.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"masked_matmul takes float32 or bfloat16 x and w alike, got {x.dtype}, {w.dtype}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"masked_matmul takes float32 or bfloat16 x, got {x.dtype}")
+    _check_dtypes(x, w)
     if ok.dtype != torch.float32 or not ok.is_contiguous():
         raise TypeError("ok must be a contiguous float32 (R, C) mask")
     if w.device != x.device or ok.device != x.device or x.device.index != torch.cuda.current_device():
@@ -93,19 +194,33 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> torch.T
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kdim).contiguous()
     m = x2.shape[0]
+    kind = pick_variant(x.dtype, m, variant)
+    if kind == "v1" and w.dtype != x.dtype:
+        raise TypeError("the v1 kernel takes x and w of one dtype")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
-        splits, scratch_bytes = _split_plan(m, n, kdim, _num_sms(x.device.index))
+        sms = _num_sms(x.device.index)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "v1":  # its scratch holds its own counters; it reads the float mask
+            splits, scratch_bytes = _split_plan(m, n, kdim, sms)
+            bits = bits_t = counters = ok
+        else:
+            bits, bits_t = packed_mask(ok)
+            splits, scratch_bytes, tiles = _plan(kind, m, n, kdim, w.stride(1) != 1, sms)
+            counters = _counters(x.device, stream, tiles)
         scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device)
         fn = load_kernel("masked_matmul", _ARGTYPES)
         err = fn(
-            _DTYPES[x.dtype], x2.data_ptr(), w.data_ptr(), ok.data_ptr(), y.data_ptr(),
+            VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], x2.data_ptr(), w.data_ptr(),
+            ok.data_ptr(), bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
             m, n, kdim, w.stride(0), w.stride(1), ok.shape[0], ok.shape[1],
-            splits, scratch.data_ptr(), scratch_bytes, torch.cuda.current_stream().cuda_stream,
+            splits, scratch.data_ptr(), scratch_bytes, counters.data_ptr(), counters.numel(), stream,
         )
         check_launch("masked_matmul", err)
         masked_matmul.launches += 1
+        masked_matmul.launches_by_variant[kind] += 1
     return y.reshape(*lead, n)
 
 
 masked_matmul.launches = 0
+masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)

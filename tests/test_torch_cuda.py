@@ -95,6 +95,190 @@ def test_masked_matmul_split_k_is_deterministic(cuda):
     assert torch.equal(masked_matmul(x, w, ok), masked_matmul(x, w, ok))
 
 
+# ---------------------------------------------------------------------------
+# the bf16 kernels: decode (M <= 16) and mma (M > 16) masked GEMMs, mma flash
+# ---------------------------------------------------------------------------
+
+def _gemm_inputs(cuda, m, k, n, transposed, seed=0):
+    """bf16 x and the fp32 master w (row-major, or a transposed view as the
+    tied unembedding's embed.T), scaled so y has an RMS of about 1."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(n, k, generator=g, device=cuda) / k ** 0.5
+    w = w.T if transposed else w.T.contiguous()
+    ok = torch.from_numpy(random_fault_map(seed, 256, 256, 0.3).ok_mask).to(cuda)
+    return x, w, ok
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("n", [132, 288, 32001])
+@pytest.mark.parametrize("k", [100, 576, 1600])
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 512])
+def test_bf16_masked_matmul_kernels_match_plain_and_read_fp32_w_in_place(cuda, m, k, n, transposed):
+    """The decode and mma kernels against the plain version, with the fp32
+    master read in place: bit for bit the launch on the bf16 copy of w."""
+    x, w32, ok = _gemm_inputs(cuda, m, k, n, transposed, seed=m + k + n)
+    w16 = w32.to(torch.bfloat16)  # keeps embed.T's strides
+    assert w16.stride() == w32.stride()
+    want = "decode" if m <= 16 else "mma"
+    before = dict(masked_matmul.launches_by_variant)
+    got32 = masked_matmul(x, w32, ok)
+    got16 = masked_matmul(x, w16, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant[want] == before[want] + 2
+    assert masked_matmul.launches_by_variant["v1"] == before["v1"]
+    assert got32.dtype == torch.bfloat16 and got32.shape == (m, n)
+    assert torch.equal(got32, got16)
+    assert_close(got32, masked_matmul_ref(x, w32, ok), torch.bfloat16)
+    assert torch.equal(masked_matmul_ref(x, w32, ok), masked_matmul_ref(x, w16, ok))
+
+
+@pytest.mark.parametrize("m", [4, 512])
+def test_bf16_masked_matmul_split_k_is_deterministic(cuda, m):
+    x, w, ok = _gemm_inputs(cuda, m, 8192, 288, False, seed=2)
+    first = masked_matmul(x, w, ok)
+    for _ in range(3):
+        assert torch.equal(masked_matmul(x, w, ok), first)
+
+
+def test_masked_matmul_v1_variant_is_reachable_and_agrees(cuda):
+    x, w32, ok = _gemm_inputs(cuda, 4, 576, 576, False)
+    w16 = w32.to(torch.bfloat16)
+    before = masked_matmul.launches_by_variant["v1"]
+    got = masked_matmul(x, w16, ok, variant="v1")
+    assert masked_matmul.launches_by_variant["v1"] == before + 1
+    assert_close(got, masked_matmul(x, w16, ok), torch.bfloat16)
+    with pytest.raises(TypeError):
+        masked_matmul(x, w32, ok, variant="v1")  # v1 takes x and w of one dtype
+    with pytest.raises(TypeError):
+        masked_matmul(x.float(), w16, ok)  # float32 x with a bf16 w
+
+
+@pytest.mark.parametrize("m,k,n,contig", [
+    (4, 576, 576, False), (4, 8192, 288, False), (4, 4096, 65024, False), (4, 576, 49152, True),
+    (1, 100, 3200, False), (16, 64, 20000, False), (4, 8, 8, False), (4, 4096, 16384, False),
+])
+def test_decode_plan_fills_one_wave_without_empty_slices(cuda, m, k, n, contig):
+    from repro_torch.kernels.masked_matmul.ops import _plan
+
+    splits, part_bytes, tiles_out = _plan("decode", m, n, k, contig, 132)
+    assert tiles_out == -(-n // (32 if contig else 256))
+    tiles_k = -(-k // 64)
+    per = -(-tiles_k // splits)
+    assert 1 <= splits <= tiles_k and (splits - 1) * per < tiles_k
+    assert part_bytes == (0 if splits == 1 else 4 * splits * m * n)
+    # within one wave of two blocks per SM and at most 32 slices, and not far below either
+    assert splits <= 32 and (splits == 1 or tiles_out * splits <= 2 * 132)
+    assert splits >= min(32, 2 * 132 // tiles_out, tiles_k) // 2
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 576, 192), (8192, 576, 576), (512, 8192, 16384), (17, 100, 132),
+                                   (8192, 5504, 1600), (1024, 576, 49152), (512, 1536, 576)])
+def test_mma_plan_keeps_four_k_tiles_per_slice(cuda, m, k, n):
+    from repro_torch.kernels.masked_matmul.ops import _plan
+
+    splits, part_bytes, tiles_out = _plan("mma", m, n, k, False, 132)
+    assert tiles_out == -(-m // 128) * -(-n // 128)
+    tiles_k = -(-k // 32)
+    per = -(-tiles_k // splits)
+    assert 1 <= splits and (splits - 1) * per < tiles_k
+    assert splits == 1 or (per >= 4 and tiles_out * splits <= 2 * 132)
+    assert part_bytes == (0 if splits == 1 else 4 * splits * m * n)
+    if tiles_out <= 66 and tiles_k >= 8:
+        assert splits > 1
+
+
+def test_the_plan_refuses_what_no_bf16_kernel_runs(cuda):
+    from repro_torch.kernels.masked_matmul.ops import _plan
+
+    for args in (("decode", 17, 288, 576), ("v1", 4, 288, 576), ("mma", 512, 0, 576)):
+        with pytest.raises(RuntimeError):
+            _plan(*args, False, 132)
+
+
+@pytest.mark.parametrize("m", [4, 512])
+def test_split_k_launches_on_two_streams_at_once_agree(cuda, m):
+    """Each stream has its own split-K counters, so launches that overlap on
+    two streams give the bits of launches one at a time."""
+    from repro_torch.kernels.masked_matmul.ops import _counters
+
+    x, w, ok = _gemm_inputs(cuda, m, 8192, 288, False, seed=4)
+    want = masked_matmul(x, w, ok)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(masked_matmul(x, w, ok))
+    torch.cuda.synchronize()
+    for got in outs[0] + outs[1]:
+        assert torch.equal(got, want)
+    bufs = [_counters(cuda, st.cuda_stream, 1) for st in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert not bufs[0].any() and not bufs[1].any()
+
+
+def test_packed_mask_is_cached_and_repacked_after_an_in_place_change(cuda):
+    from repro_torch.kernels.masked_matmul.ops import packed_mask
+
+    ok = torch.from_numpy(random_fault_map(3, 256, 256, 0.1).ok_mask).to(cuda)
+    bits, bits_t = packed_mask(ok)
+    assert packed_mask(ok)[0] is bits
+    ok[0, 0] = 1.0 - ok[0, 0]
+    again, _ = packed_mask(ok)
+    assert again is not bits and int(again[0, 0] ^ bits[0, 0]) == 1
+
+
+@pytest.mark.parametrize("hq,hkv", [(9, 9), (9, 3), (25, 5)])
+@pytest.mark.parametrize("sq,skv,q_offset,window", [
+    (1, 1, 0, None), (63, 63, 0, None), (65, 65, 0, None), (200, 200, 0, None), (200, 200, 0, 64),
+    (65, 200, 135, None), (63, 200, 100, 37), (200, 1100, 900, 1024),
+])
+def test_bf16_flash_kernel_matches_plain(cuda, hq, hkv, sq, skv, q_offset, window):
+    g = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q = torch.randn(2, sq, hq, 64, generator=g, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    k = torch.randn(2, skv, hkv, 64, generator=g, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    v = torch.randn(2, skv, hkv, 64, generator=g, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = dict(flash_attention.launches_by_variant)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_variant == {**before, "mma": before["mma"] + 1}
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(), rtol=2e-2, atol=1e-2)
+    v1 = flash_attention(q, k, v, variant="v1", **kw)
+    assert flash_attention.launches_by_variant["v1"] == before["v1"] + 1
+    torch.testing.assert_close(got.float(), v1.float(), rtol=2e-2, atol=1e-2)
+
+
+def test_bf16_flash_kernel_zero_mass_rows_are_exact_zero(cuda):
+    q = torch.randn(1, 6, 70, 64, device=cuda).to(torch.bfloat16)
+    k = torch.randn(1, 2, 40, 64, device=cuda).to(torch.bfloat16)
+    # rows at positions 100..169 with a window of 4 over 40 keys keep nothing
+    got = flash_attention(q, k, k, causal=False, window=4, q_offset=100)
+    assert not got.abs().any()
+    # the first rows keep keys, the rest keep none
+    got = flash_attention(q, k, k, causal=True, window=8, q_offset=30)
+    ref = attention_ref(q, k, k, causal=True, window=8, q_offset=30)
+    assert not got[:, :, 18:].abs().any() and not ref[:, :, 18:].abs().any()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=1e-2)
+
+
+def test_bf16_flash_kernel_refuses_a_misaligned_view(cuda):
+    base = torch.randn(2, 65, 3, 64, device=cuda).to(torch.bfloat16)
+    q = base[:, 1:].transpose(1, 2)  # fine: every stride a multiple of 8
+    k = base.reshape(-1)[4:4 + 2 * 64 * 3 * 64].view(2, 64, 3, 64).transpose(1, 2)  # 8-byte offset
+    before = flash_attention.launches
+    flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, k)
+    odd = torch.randn(2, 64, 3 * 64 + 4, device=cuda).to(torch.bfloat16)[..., :192].view(2, 64, 3, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, odd.transpose(1, 2), odd.transpose(1, 2))  # row stride 196
+    assert flash_attention.launches == before + 1
+    flash_attention(q.float(), k.float(), k.float())  # float32 runs v1, which takes any stride
+
+
 def _scan_inputs(cuda, b, l, d, n, u_dtype, seed=0):
     """As the model gives them: dt fp32 from a softplus, B and C strided
     slices of one (B, L, r + 2N) tensor in u's dtype."""

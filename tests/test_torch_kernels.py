@@ -21,9 +21,16 @@ from repro_torch.convert import context_from_ok
 from repro_torch.core.masking import fault_linear
 from repro_torch.kernels.common import assert_close
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
-from repro_torch.kernels.masked_matmul.ops import _split_plan, masked_matmul
+from repro_torch.kernels.masked_matmul.ops import (
+    _pack_bits,
+    _split_plan,
+    masked_matmul,
+    masked_matmul_ref,
+    pick_variant,
+)
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 
 
 def _ok(seed, rate=0.3, r=16, c=16):
@@ -94,6 +101,99 @@ def test_fault_linear_matches_reference_per_mode(mode):
     assert ctx.mode == {"none": "none", "fap": "fap", "pallas": "kernel"}[mode]
     got = fault_linear(torch.from_numpy(x), torch.from_numpy(w), ctx)
     assert_close(got, np.asarray(ref), F32)
+
+
+# the fp32 master read in place by kernel mode: bf16 x, fp32 w
+
+MIXED_CASES = [  # (M, K, N, w given as a transposed view)
+    (4, 48, 40, False),
+    (4, 48, 97, True),  # tied-unembed layout: w = embed.T
+    (17, 100, 132, False),  # hymba's dt_w and x_proj widths
+    (3, 33, 16, False),
+]
+
+
+def _mixed(m, k, n, transposed, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k), np.float32)
+    w = (rng.standard_normal((k, n), np.float32) / np.sqrt(k)).astype(np.float32)
+    w_t = torch.from_numpy(np.ascontiguousarray(w.T)).T if transposed else torch.from_numpy(w)
+    return x, w, w_t, torch.from_numpy(x).to(BF16)
+
+
+@pytest.mark.parametrize("m,k,n,transposed", MIXED_CASES)
+def test_fp32_w_with_bf16_x_is_the_cast_first_product_exactly(m, k, n, transposed):
+    x, w, w_t, xb = _mixed(m, k, n, transposed, m * 100 + n)
+    ok = torch.from_numpy(_ok(n))
+    got = masked_matmul_ref(xb, w_t, ok)
+    assert got.dtype == BF16 and got.shape == (m, n)
+    assert torch.equal(got, masked_matmul_ref(xb, w_t.to(BF16), ok))
+    ctx = context_from_ok(_ok(n), "pallas", device="cpu")
+    via_path = fault_linear(xb, w_t, ctx)  # kernel mode hands the fp32 master over, uncast
+    assert torch.equal(via_path, got)
+    assert torch.equal(masked_matmul(xb, w_t, ok), got)
+
+
+@pytest.mark.parametrize("mode", ["fap", "pallas"])
+@pytest.mark.parametrize("m,k,n,transposed", MIXED_CASES)
+def test_fp32_w_with_bf16_x_matches_reference_fault_linear(m, k, n, transposed, mode):
+    x, w, w_t, xb = _mixed(m, k, n, transposed, m * 100 + n + 1)
+    ok = _ok(k + n)
+    jx = jnp.asarray(x, dtype=jnp.bfloat16)
+    ref = jax_fault_linear(jx, jnp.asarray(w), JaxFaultContext(ok=jnp.asarray(ok), mode=mode))
+    got = fault_linear(xb, w_t, context_from_ok(ok, mode, device="cpu"))
+    assert got.dtype == BF16
+    assert_close(got, np.asarray(ref.astype(jnp.float32)), BF16)
+
+
+def test_float32_x_with_bf16_w_is_refused():
+    x = torch.randn(4, 48)
+    w = torch.randn(48, 40).to(BF16)
+    ok = torch.from_numpy(_ok(1))
+    with pytest.raises(TypeError, match="float32 w with a bfloat16 x"):
+        masked_matmul_ref(x, w, ok)
+    with pytest.raises(TypeError, match="float32 w with a bfloat16 x"):
+        masked_matmul(x, w, ok)
+    # fault_linear casts such a w first in kernel mode, as the plain modes do
+    got = fault_linear(x, w, context_from_ok(_ok(1), "pallas", device="cpu"))
+    assert got.dtype == F32
+    assert torch.equal(got, fault_linear(x, w, context_from_ok(_ok(1), "fap", device="cpu")))
+
+
+@pytest.mark.parametrize("w_dtype", [BF16, torch.float16])
+@pytest.mark.parametrize("m,k,n,transposed", MIXED_CASES)
+def test_kernel_mode_casts_a_w_the_kernels_do_not_take(m, k, n, transposed, w_dtype):
+    """A bf16 param_dtype with a float32 dtype: kernel mode gives the fap
+    result, and the reference's fault_linear at float32 tolerance."""
+    x, w, w_t, _ = _mixed(m, k, n, transposed, m * 100 + n + 2)
+    ok = _ok(k * n)
+    xf, wl = torch.from_numpy(x), w_t.to(w_dtype)
+    got = fault_linear(xf, wl, context_from_ok(ok, "pallas", device="cpu"))
+    assert got.dtype == F32
+    assert torch.equal(got, fault_linear(xf, wl, context_from_ok(ok, "fap", device="cpu")))
+    jw = jnp.asarray(wl.float().numpy(), dtype=jnp.bfloat16 if w_dtype == BF16 else jnp.float16)
+    ref = jax_fault_linear(jnp.asarray(x), jw, JaxFaultContext(ok=jnp.asarray(ok), mode="pallas"))
+    assert_close(got, np.asarray(ref), F32)
+
+
+@pytest.mark.parametrize("r,c", [(16, 16), (256, 256), (5, 13)])
+def test_packed_mask_bits_hold_the_mask(r, c):
+    ok = torch.from_numpy(jax_random_fault_map(r * c, r, c, 0.3).ok_mask)
+    for mat in (ok, ok.T):
+        bits = _pack_bits(mat)
+        assert bits.dtype == torch.uint8 and bits.shape == (mat.shape[0], -(-mat.shape[1] // 8))
+        assert bits.is_contiguous()
+        cols = torch.arange(mat.shape[1])
+        unpacked = (bits[:, cols // 8].int() >> (cols % 8)) & 1
+        assert torch.equal(unpacked.float(), mat)
+
+
+@pytest.mark.parametrize("m,variant,dtype,want", [
+    (1, "auto", BF16, "decode"), (16, "auto", BF16, "decode"), (17, "auto", BF16, "mma"),
+    (8192, "auto", BF16, "mma"), (4, "auto", F32, "v1"), (512, "auto", F32, "v1"), (4, "v1", BF16, "v1"),
+])
+def test_the_dtype_and_m_pick_the_kernel(m, variant, dtype, want):
+    assert pick_variant(dtype, m, variant) == want
 
 
 def test_wrapper_refuses_devices_it_has_no_kernel_for():
