@@ -33,26 +33,35 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    tune-suite shape), SmolLM-135M's decode (4, 9, 3, 2048, 64) at valid
    lengths 2048, 1000 and 0, the same heads at B = 32, and hymba-1.5b's
    (4, 25, 5, 1024, 64) (its KV ring holds 1024 tokens). Each cell prints the
-   kernel's time at the heuristic bkv, its bytes bound at 3.35 TB/s (the
-   valid prefix of int8 K and V with their fp32 scales, q and o in q's
-   dtype), the plain version's time and a library yardstick labelled as
-   such: SDPA on K/V already dequantized, which reads more than twice the
-   bytes and is not a port. Then every bkv of each cell's lattice that the
-   geometry lint accepts is launched and held to the plain version with
-   float32 q at the table's tolerance (a key dropped or counted twice per
-   tile moves an output by about 1e-3, which bf16's tolerance would pass)
-   and with bf16 q, and the rejected ones are listed with their codes;
+   kernel's time at the heuristic bkv with the split count and blocks of
+   its split-KV grid, its bytes bound at 3.35 TB/s (the valid prefix of
+   int8 K and V with their fp32 scales, q and o in q's dtype), the plain
+   version's time and a library yardstick labelled as such: SDPA on K/V
+   already dequantized, which reads more than twice the bytes and is not a
+   port. A cell whose cache holds more than one tile and whose (sequence,
+   KV head)s are fewer than two per SM must launch more blocks than it has
+   (sequence, KV head)s; two launches, and an int length against a
+   device-resident one, must give the same bits. At the heuristic bkv the
+   splits are also forced to 1 and to one per tile (held to the plain
+   version and timed, beside the plan's). Then every bkv of each cell's
+   lattice that the geometry lint accepts is launched and held to the
+   plain version with float32 q at the table's tolerance (a key dropped or
+   counted twice per tile moves an output by about 1e-3, which bf16's
+   tolerance would pass) and with bf16 q, with its split count, and the
+   rejected ones are listed with their codes;
 4. paged decode attention (kernel #4) over a pool of 8-token pages laid out
    by ``PageAllocator`` (every other chain freed and allocated again, so
    the ids are out of order): SmolLM's heads, 32 slots with ragged lengths
    up to 2048, one of 0 and one ending mid-page, stale page ids past each
    chain. One call is the main path; it is held to the plain version, and
    the same call with the stale ids replaced by ids far outside the pool
-   must give the same bits;
+   must give the same bits; the splits and blocks are logged, and the
+   splits forced to 1 and to one per tile are held to the plain version;
 5. the kernel autotuner (``repro_torch.tune.tune_many``) from an empty
    cache over the dense cells (bf16; the tune-suite shape in float32, as
-   the reference tunes it), printing the heuristic and tuned bkv and their
-   microseconds, the speedup, the H100 roofline fraction, the evaluated and
+   the reference tunes it), printing the heuristic and tuned bkv with their
+   split counts and their microseconds, the speedup, the H100 roofline
+   fraction, the evaluated and
    rejected candidates with their codes, and the recorder's span count.
    With the tuned table as the process cache, ``decode_attention`` called
    with no bkv must launch the tuned tile and still match the plain
@@ -204,6 +213,7 @@ def main(argv=None) -> int:
 
 
 def run(args, torch) -> int:
+    from repro_torch.analysis.kernelgeom import decode_attention_launch
     from repro_torch.configs import get_arch
     from repro_torch.core import from_fault_map, random_fault_map
     from repro_torch.kernels.common import build_kernels, dtype_tol
@@ -505,7 +515,12 @@ def run(args, torch) -> int:
         vi, vs = da.quantize_kv(torch.randn(b, hkv, skv, d, generator=gen, device=dev))
         return ki, ks, vi, vs
 
+    def split_grid(b, hq, hkv, splits):
+        """Blocks of a split-KV launch: (sequence, KV head, head chunk) x splits."""
+        return b * hkv * da.head_chunks(hq // hkv) * splits
+
     prev_cache = set_tuning_cache(TuningCache(source="<chip_smoke: heuristic>"))
+    sms = da.sm_count(dev)
     da_err, da_rows, da_inputs = 0.0, {}, {}
     for label, (b, hq, hkv, skv, d), valids in DECODE_CELLS:
         cache = int8_cache(b, hkv, skv, d)
@@ -515,10 +530,21 @@ def run(args, torch) -> int:
             tol = DECODE_TOL[name_of(dtype)]
             for valid in valids:
                 got = da.decode_attention(q, *cache, valid)
+                splits = da.decode_attention.last_splits
                 err, good = worst(got, da.decode_attention_ref(q, *cache, kv_valid_len=valid), tol)
                 da_err = max(da_err, err)
                 if not good or (valid == 0 and bool(got.abs().any())):
                     failures.append(f"decode_attention {label} {dtype} valid {valid}: {err}")
+                # the merge runs in split order and the plan reads no device value: same bits
+                dev_len = torch.tensor([valid], dtype=torch.int32, device=dev)
+                if not (torch.equal(da.decode_attention(q, *cache, valid), got)
+                        and torch.equal(da.decode_attention(q, *cache, dev_len), got)):
+                    failures.append(f"decode_attention {label} {dtype} valid {valid}: two launches, or an "
+                                    "int and a device length, gave different bits")
+                tiles = -(-skv // da.decode_attention.last_bkv)
+                if tiles > 1 and b * hkv < 2 * sms and split_grid(b, hq, hkv, splits) <= b * hkv:
+                    failures.append(f"decode_attention {label}: {splits} splits launch no more blocks than "
+                                    f"{b * hkv} (sequence, KV head)s")
                 if valid == 0:
                     log(f"decode_attention {label:10s} {name_of(dtype):8s} valid 0: output all zero "
                         f"{not bool(got.abs().any())}, err<= {err:.3g}")
@@ -532,14 +558,26 @@ def run(args, torch) -> int:
                     plain_ms=time_ms(lambda: da.decode_attention_ref(q, *cache, kv_valid_len=valid), reps=3),
                     library_ms=time_ms(lambda: sdpa_gqa(q, kd, vd)),
                     bound_ms=bound, bound_by=bound_by, mbytes=nbytes / 1e6, max_abs_err=err,
-                    bkv=da.decode_attention.last_bkv,
+                    bkv=da.decode_attention.last_bkv, splits=splits, blocks=split_grid(b, hq, hkv, splits),
                 )
+                # the split rule on the card: the plan's count against 1 and one split per tile
+                for forced in sorted({1, tiles} - {splits}):
+                    again = da.decode_attention(q, *cache, valid, splits=forced)
+                    f_err, f_good = worst(again, da.decode_attention_ref(q, *cache, kv_valid_len=valid), tol)
+                    da_err = max(da_err, f_err)
+                    if not f_good:
+                        failures.append(f"decode_attention {label} {dtype} valid {valid} splits {forced}: {f_err}")
+                    row[f"ms_splits_{forced}"] = time_ms(
+                        lambda: da.decode_attention(q, *cache, valid, splits=forced))
                 da_rows[(label, name_of(dtype), valid)] = row
+                forced_txt = ", ".join(f"{k[10:]} splits {v:.4f} ms" for k, v in row.items()
+                                       if k.startswith("ms_splits_"))
                 log(f"decode_attention {label:10s} {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} S={skv} "
-                    f"D={d} valid {valid:4d} bkv {row['bkv']}: err<= {err:.3g} (rtol, atol {tol}) "
+                    f"D={d} valid {valid:4d} bkv {row['bkv']}, {splits} splits, {row['blocks']} blocks: "
+                    f"err<= {err:.3g} (rtol, atol {tol}) "
                     f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library yardstick (SDPA "
                     f"on K/V dequantized to {name_of(dtype)}, not a port) {row['library_ms']:.4f} ms  "
-                    f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB)")
+                    f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB); forced: {forced_txt}")
 
     # every tile the lint accepts launches and agrees, in float32 at the table's tolerance (where a
     # key dropped or counted twice per tile shows) and in bf16; the rejected ones are never launched
@@ -548,7 +586,7 @@ def run(args, torch) -> int:
         for dname in ("float32", "bfloat16"):
             q, cache = da_inputs[(label, dname)]
             ref = da.decode_attention_ref(q, *cache, kv_valid_len=valids[0])
-            accepted, rejected, lat_err = [], {}, 0.0
+            accepted, rejected, lat_err, lat_splits = [], {}, 0.0, {}
             for bkv in pow2_lattice(skv, lo=8):
                 findings, smem = lint_candidate("decode_attention", dict(b=b, hq=hq, hkv=hkv, skv=skv, d=d),
                                                 q.dtype, dict(bkv=bkv))
@@ -563,9 +601,12 @@ def run(args, torch) -> int:
                     failures.append(f"decode_attention {label} {dname} bkv {bkv} ({smem} B of shared "
                                     f"memory): {err}")
                 accepted.append(bkv)
-            lattice_report[(label, dname)] = dict(accepted=accepted, rejected=rejected, max_abs_err=lat_err)
+                lat_splits[bkv] = da.decode_attention.last_splits
+            lattice_report[(label, dname)] = dict(accepted=accepted, rejected=rejected, max_abs_err=lat_err,
+                                                  splits=lat_splits)
             log(f"decode_attention {label:10s} {dname:8s} lattice: launched and agreed at bkv {accepted} "
-                f"(err<= {lat_err:.3g}, rtol, atol {DECODE_TOL[dname]}); lint-rejected {rejected}")
+                f"(err<= {lat_err:.3g}, rtol, atol {DECODE_TOL[dname]}), splits by bkv {lat_splits}; "
+                f"lint-rejected {rejected}")
     if failures:
         raise Failed("decode attention parity: " + "; ".join(failures))
 
@@ -612,8 +653,12 @@ def run(args, torch) -> int:
         got = da.paged_decode_attention(*args_)
         torch.cuda.synchronize()
         pg_launches = da.paged_decode_attention.launches
+        pg_splits = da.paged_decode_attention.last_splits
         if pg_launches != 1:
             raise Failed(f"paged_decode_attention: {pg_launches} launches for one call")
+        pg_tiles = -(-maxp * page // da.paged_tile(page))
+        if pg_tiles > 1 and b * hkv < 2 * sms and split_grid(b, hq, hkv, pg_splits) <= b * hkv:
+            raise Failed(f"paged_decode_attention: {pg_splits} splits launch no more blocks than {b * hkv}")
         tol = DECODE_TOL[name_of(dtype)]
         err, good = worst(got, da.paged_decode_attention_ref(*args_), tol)
         # page ids past a chain are never read: out-of-pool ids there change nothing
@@ -622,6 +667,12 @@ def run(args, torch) -> int:
         if not good or not untouched or bool(got[0].abs().any()):
             raise Failed(f"paged_decode_attention {dtype}: err {err} (tol {tol}), stale ids never read "
                          f"{untouched}, empty slot zero {not bool(got[0].abs().any())}")
+        for forced in sorted({1, pg_tiles} - {pg_splits}):  # the splits forced to 1 and one per tile
+            f_err, f_good = worst(da.paged_decode_attention(*args_, splits=forced),
+                                  da.paged_decode_attention_ref(*args_), tol)
+            if not f_good:
+                raise Failed(f"paged_decode_attention {dtype} splits {forced}: err {f_err} (tol {tol})")
+            err = max(err, f_err)
         dense_k, dense_v = (da.gather_pages(da.dequantize_kv(pool[i], pool[i + 1], dtype), tables)
                             for i in (0, 2))
         mask = (torch.arange(maxp * page, device=dev)[None] < lens[:, None])[:, None, None, :]
@@ -634,10 +685,12 @@ def run(args, torch) -> int:
             plain_ms=time_ms(lambda: da.paged_decode_attention_ref(*args_), reps=3),
             library_ms=time_ms(lambda: sdpa_gqa(q, dense_k, dense_v, mask)),
             bound_ms=bound, bound_by=bound_by, mbytes=nbytes / 1e6, max_abs_err=err,
-            launches=pg_launches, tokens=tokens,
+            launches=pg_launches, tokens=tokens, splits=pg_splits, blocks=split_grid(b, hq, hkv, pg_splits),
         )
         log(f"paged_decode_attention {name_of(dtype):8s} {b} slots x Hq={hq} Hkv={hkv} D={d}, "
-            f"{tokens} tokens in {sum(chains)} pages: err<= {err:.3g} (rtol, atol {tol}); stale ids never "
+            f"{tokens} tokens in {sum(chains)} pages, {pg_splits} splits of {pg_tiles} {da.paged_tile(page)}-token "
+            f"tiles, {row['blocks']} blocks: err<= {err:.3g} (rtol, atol {tol}; the forced splits too); "
+            f"stale ids never "
             f"read; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library yardstick (SDPA on "
             f"the gathered cache dequantized to {name_of(dtype)}, not a port) {row['library_ms']:.4f} ms  "
             f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB)")
@@ -663,12 +716,19 @@ def run(args, torch) -> int:
         raise Failed(f"tuner: {tune_launches} launches, {spans} spans")
     tune_report = []
     for r in tune_results:
+        grids = {k: decode_attention_launch(*(r.shape[f] for f in ("b", "hq", "hkv", "skv", "d")),
+                                            bkv=blk["bkv"], sm_count=sms).grid
+                 for k, blk in (("heuristic", r.heuristic_blocks), ("tuned", r.best_blocks))}
         tune_report.append(dict(key=r.key, heuristic=r.heuristic_blocks, heuristic_us=r.heuristic_s * 1e6,
                                 tuned=r.best_blocks, tuned_us=r.best_s * 1e6, speedup=r.speedup,
                                 roofline_fraction=r.roofline_fraction, smem_bytes=r.smem_bytes,
-                                evaluated=r.evaluated, rejected=r.rejected_configs))
-        log(f"tune {r.key}: heuristic bkv {r.heuristic_blocks['bkv']} {r.heuristic_s * 1e6:.2f} us, tuned "
-            f"bkv {r.best_blocks['bkv']} {r.best_s * 1e6:.2f} us (x{r.speedup:.3f}; H100 roofline fraction "
+                                evaluated=r.evaluated, rejected=r.rejected_configs,
+                                heuristic_splits=grids["heuristic"][1], tuned_splits=grids["tuned"][1],
+                                tuned_blocks=grids["tuned"][0] * grids["tuned"][1]))
+        log(f"tune {r.key}: heuristic bkv {r.heuristic_blocks['bkv']} ({grids['heuristic'][1]} splits) "
+            f"{r.heuristic_s * 1e6:.2f} us, tuned bkv {r.best_blocks['bkv']} ({grids['tuned'][1]} splits, "
+            f"{grids['tuned'][0] * grids['tuned'][1]} blocks) {r.best_s * 1e6:.2f} us (x{r.speedup:.3f}; "
+            f"H100 roofline fraction "
             f"{r.roofline_fraction:.4f}; {r.smem_bytes} B shared memory); evaluated {r.evaluated}, "
             f"rejected {r.rejected} {[(x['blocks']['bkv'], x['codes']) for x in r.rejected_configs]}")
     log(f"tuner: {len(tune_results)} cells in {tune_s:.2f} s, {tune_launches} kernel launches, {spans} "
@@ -691,7 +751,9 @@ def run(args, torch) -> int:
         row = da_rows.get((label, dname, valids[0]))
         if row is not None:
             row["tuned_bkv"], row["tuned_ms"] = want, time_ms(lambda: da.decode_attention(q, *cache, valids[0]))
-        log(f"tuned table in use, {label} {dname}: launched bkv {want}, err<= {err:.3g}"
+            row["tuned_splits"] = da.decode_attention.last_splits
+        log(f"tuned table in use, {label} {dname}: launched bkv {want} ({da.decode_attention.last_splits} "
+            f"splits), err<= {err:.3g}"
             + (f"; kernel {row['tuned_ms']:.4f} ms (heuristic {row['ms']:.4f} ms)" if row else ""))
     set_tuning_cache(prev_cache)
     del da_inputs

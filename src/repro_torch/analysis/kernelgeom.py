@@ -22,7 +22,15 @@ from dataclasses import dataclass
 
 from repro_torch.analysis.findings import Finding
 from repro_torch.kernels.common import SMEM_LIMIT_BYTES
-from repro_torch.kernels.decode_attention.ops import launch_bkv, paged_tile, smem_bytes
+from repro_torch.kernels.decode_attention.ops import (
+    GMAX,
+    H100_SMS,
+    head_chunks,
+    launch_bkv,
+    paged_tile,
+    smem_bytes,
+    split_plan,
+)
 
 __all__ = ["KernelLaunch", "lint_launch", "decode_attention_launch"]
 
@@ -31,13 +39,15 @@ __all__ = ["KernelLaunch", "lint_launch", "decode_attention_launch"]
 class KernelLaunch:
     """Static description of one kernel launch. ``dims`` are the logical
     axes the launch covers (blocks first, then the axis the block walks in
-    tiles), ``blocks`` the extent of one block or step along each, and
-    ``smem_bytes`` the dynamic shared memory one block requests."""
+    tiles), ``blocks`` the extent of one block or step along each,
+    ``smem_bytes`` the dynamic shared memory one block requests, and
+    ``grid`` the CUDA grid the wrapper launches (empty where not modelled)."""
 
     kernel: str
     dims: tuple
     blocks: tuple
     smem_bytes: int
+    grid: tuple = ()
 
 
 def lint_launch(launch: KernelLaunch) -> list:
@@ -68,19 +78,25 @@ def decode_attention_launch(
     bkv: int = 128,
     paged: bool = False,
     page_size: int = 0,
+    sm_count: int = H100_SMS,
 ) -> KernelLaunch:
     """Geometry of ``decode_attention`` (int8 KV, ``skv`` the cache length)
     or, with ``paged=True``, of ``paged_decode_attention`` (``skv`` the
-    longest chain in tokens, ``page_size`` the pool's page): one block per
-    (sequence, KV head) walking the keys in tiles."""
+    table's span ``maxp * page`` in tokens, ``page_size`` the pool's page):
+    one block per (sequence, KV head, chunk of at most GMAX query heads,
+    split), each split whole tiles of keys (``split_plan`` on ``sm_count``
+    SMs); ``grid`` is (sequence x KV head x head chunk, splits)."""
     group = hq // hkv if hkv > 0 else 0
     if paged:
         tile = paged_tile(page_size) if page_size > 0 else 0
     else:
         tile = launch_bkv(bkv, skv)
+    live = min(batch, hkv, group, skv, tile) > 0
+    splits = split_plan(batch, hkv, skv, tile, sm_count) if live else 0
     return KernelLaunch(
         kernel="paged_decode_attention" if paged else "decode_attention",
         dims=(batch * hkv, skv, group),
-        blocks=(1, tile, group),
+        blocks=(1, tile, min(group, GMAX)),
         smem_bytes=smem_bytes(max(tile, 0), head_dim, max(group, 0)),
+        grid=(batch * hkv * head_chunks(max(group, 0)), splits),
     )

@@ -1,6 +1,7 @@
 """Shared kernel-runtime layer: the per-dtype tolerance table, the build and
-binding of the hand-written CUDA kernels, the card's shared-memory limit and
-the ``tuned_block`` seam between the wrappers and the tuning cache.
+binding of the hand-written CUDA kernels, the zeroed counters of split
+launches, the card's shared-memory limit and the ``tuned_block`` seam between
+the wrappers and the tuning cache.
 
 Kernels live in ``kernels/csrc/*.cu``, each with a plain C entry point. At
 first use ``nvcc`` compiles a source for ``sm_90a`` into a shared library
@@ -36,6 +37,7 @@ __all__ = [
     "dtype_name",
     "backend_tag",
     "tuned_block",
+    "split_counters",
 ]
 
 # ---------------------------------------------------------------------------
@@ -148,6 +150,24 @@ def check_launch(name: str, err: int) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def split_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 counters for one split launch on ``stream`` of
+    ``device``: the last block of each group to arrive merges the group's
+    partials and sets its counter back to 0, so a buffer is zeroed once (and
+    again only when it grows), not per launch. Launches that share a buffer
+    must run one at a time, so each stream has its own: launches on two
+    streams may overlap. The masked GEMM and decode attention share it."""
+    device = torch.device(device)
+    key = (torch.cuda.current_device() if device.index is None else device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1 << 14), dtype=torch.int32, device=device)
+    return buf
 
 
 # ---------------------------------------------------------------------------

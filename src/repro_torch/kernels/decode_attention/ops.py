@@ -6,10 +6,20 @@ Kernels: ``kernels/csrc/decode_attention.cu``. They replace the TPU kernels
 (dense) and ``::paged_decode_attention_pallas`` (paged).
 
 Bound on an H100: bytes. One query token per head reads the whole valid
-cache once: int8 K and V and their f32 scales. The kernels dequantize in
-shared memory and keep scores, softmax statistics and the accumulator on
-chip, and one block serves a KV head's whole query group, so each K/V tile
-is read once per group, not once per query head.
+cache once: int8 K and V and their f32 scales, a few MB at the serving
+shapes, so what sets the time is how many SMs read at once. The kernels split
+the keys over blocks (flash-decoding): the grid is (sequence, KV head, chunk
+of at most 8 query heads) x ``splits``, where ``split_plan`` picks the split
+count from host-known shapes alone (about two blocks per SM, whole tiles of
+``bkv`` keys each). Each block streams its share of the keys through
+per-warp cp.async rings, keeps scores, softmax statistics and the
+accumulator on chip, and serves a KV head's whole query group, so each key
+is read once per group, not once per query head. With more than one split,
+each block writes its partial (max, sum, accumulator) to an fp32 workspace of
+``B * Hq * splits * (D + 2)`` floats from PyTorch's caching allocator, and
+the last block of each (sequence, KV head, head chunk) merges them in split
+order, counted by a zeroed counter buffer per (device, stream) that every
+launch leaves zeroed. A call is one launch.
 
 ``decode_attention`` and ``paged_decode_attention`` launch their kernel for
 a CUDA tensor and count the launch in ``.launches``; for a CPU tensor they
@@ -31,7 +41,13 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels.common import SMEM_LIMIT_BYTES, check_launch, load_kernel, tuned_block
+from repro_torch.kernels.common import (
+    SMEM_LIMIT_BYTES,
+    check_launch,
+    load_kernel,
+    split_counters,
+    tuned_block,
+)
 
 __all__ = [
     "quantize_kv",
@@ -47,20 +63,31 @@ __all__ = [
     "launch_bkv",
     "paged_tile",
     "resolve_bkv",
+    "ring_slots",
+    "head_chunks",
+    "split_plan",
+    "sm_count",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
 DEFAULT_BKV = 128  # the heuristic tile of the dense kernel (the reference's)
-THREADS = 256  # threads per block of both kernels (NT in the CUDA source)
+# the CUDA source's block geometry: NW warps of 32 lanes, KC keys per warp chunk, at most GMAX
+# query heads per block
+NW, KC, GMAX = 4, 32, 8
+H100_SMS = 132
+BLOCKS_PER_SM = 2  # the split plan's target
+# the split count, the workspace pointer and bytes, the counters and their number, the stream
+_SPLIT_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p]
 _DENSE_ARGTYPES = (
     [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong] + _SPLIT_ARGTYPES
 )
 _PAGED_ARGTYPES = (
     [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-       ctypes.c_longlong, ctypes.c_void_p]
+       ctypes.c_longlong] + _SPLIT_ARGTYPES
 )
 
 
@@ -141,19 +168,57 @@ def paged_decode_attention_ref(
 # ---------------------------------------------------------------------------
 
 
+def ring_slots(bkv: int) -> int:
+    """Chunks of KC keys each warp's cp.async ring holds: a block keeps
+    about ``bkv`` keys in flight, and every warp at least two chunks."""
+    return max(2, -(-int(bkv) // (NW * KC)))
+
+
 def smem_bytes(bkv: int, d: int, group: int) -> int:
-    """Dynamic shared memory one block of either kernel requests: q and the
-    accumulator (group x D fp32), one float4 of partial sums per thread, the
-    scores (group x bkv fp32), the softmax statistics (3 x group fp32), the
-    tile's K and V scales (bkv fp32 each) and its int8 K and V (bkv x D
-    each), every region 16-byte aligned. The C entry points compute the same
-    sum and refuse a launch that disagrees."""
+    """Dynamic shared memory one block of either kernel requests: q for up
+    to GMAX query heads (fp32), each warp's p for a chunk (KC x GMAX fp32),
+    the last-block flag, and the warps' cp.async rings (``ring_slots(bkv)`` slots each of KC int8 K rows
+    padded to D + 16 bytes, KC int8 V rows and 2 x KC fp32 scales), every
+    region 16-byte aligned. The C entry points compute the same sum and
+    refuse a launch that disagrees."""
     def a16(n):
         return -(-int(n) // 16) * 16
 
-    g, d, bkv = int(group), int(d), int(bkv)
-    return (2 * a16(4 * g * d) + a16(16 * THREADS) + a16(4 * g * bkv) + a16(12 * g)
-            + 2 * a16(4 * bkv) + 2 * a16(bkv * d))
+    g, d = min(int(group), GMAX), int(d)
+    return (a16(4 * g * d) + a16(4 * NW * KC * GMAX) + a16(4)
+            + NW * ring_slots(bkv) * KC * (2 * d + 24))
+
+
+def head_chunks(group: int) -> int:
+    """Blocks per (sequence, KV head, split): one per GMAX query heads."""
+    return -(-int(group) // GMAX)
+
+
+def split_plan(b: int, hkv: int, skv: int, bkv: int, sm_count: int) -> int:
+    """The number of key splits of a launch, from host-known shapes alone
+    (``skv`` is S, or ``maxp * page`` for the paged kernel; a length held on
+    the device is never read). Each split is at least one whole tile of
+    ``bkv`` keys, there are never more splits than tiles, and the grid aims
+    at BLOCKS_PER_SM blocks per SM; the split count is then the fewest that
+    keeps each split's share of tiles, so no split starts past S."""
+    tiles = -(-int(skv) // max(int(bkv), 1))
+    if tiles <= 1:
+        return 1
+    want = max(1, -(-BLOCKS_PER_SM * int(sm_count) // max(int(b) * int(hkv), 1)))
+    per = -(-tiles // min(tiles, want))
+    return -(-tiles // per)
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count, read once per device."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def launch_bkv(bkv: int, skv: int) -> int:
@@ -201,6 +266,30 @@ def _check_common(q, hkv, d, kv, scales):
         raise ValueError("every input must lie on the current CUDA device")
 
 
+def _splits(splits, b, hkv, keys, tile, device) -> int:
+    """An explicit split count, checked, else the plan's."""
+    tiles = -(-keys // tile)
+    if splits is None:
+        return split_plan(b, hkv, keys, tile, sm_count(device))
+    if not 1 <= int(splits) <= tiles:
+        raise ValueError(f"splits must be in [1, {tiles}] (whole {tile}-key tiles), got {splits}")
+    return int(splits)
+
+
+def _merge_scratch(q, hkv, group, splits):
+    """(workspace, its bytes, counters, their number) for a launch of
+    ``splits`` splits: nothing with one split, else B * Hq * splits * (D + 2)
+    fp32 from the caching allocator and the stream's zeroed counters, one
+    per (sequence, KV head, head chunk)."""
+    if splits == 1:
+        return None, 0, None, 0
+    b, hq, _, d = q.shape
+    ws = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
+    groups = b * hkv * head_chunks(group)
+    cnt = split_counters(q.device, torch.cuda.current_stream().cuda_stream, groups)
+    return ws, ws.numel() * 4, cnt, cnt.numel()
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, 1, D)
     k_i8: torch.Tensor,  # (B, Hkv, S, D) int8
@@ -211,12 +300,14 @@ def decode_attention(
     *,
     scale: Optional[float] = None,
     bkv: Optional[int] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """One-token attention over the first ``kv_valid_len`` positions of an
     int8 KV cache, shared by the batch. ``kv_valid_len`` is an int or a
     one-element integer tensor on q's device; it is never read on the host.
-    ``bkv`` (the keys staged per step) defaults to the tuning cache's
-    winner for this launch, else 128."""
+    ``bkv`` (the tile: the split granularity, and about the keys a block
+    keeps in flight) defaults to the tuning cache's winner for this launch,
+    else 128; ``splits`` defaults to ``split_plan``'s."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_i8, k_scale, v_i8, v_scale, kv_valid_len=kv_valid_len, scale=scale)
     if q.device.type != "cuda":
@@ -246,6 +337,8 @@ def decode_attention(
     if b and hq:
         if not skv:
             return o.zero_()
+        nsplit = _splits(splits, b, hkv, skv, tile, q.device)
+        ws, ws_bytes, cnt, n_cnt = _merge_scratch(q, hkv, group, nsplit)
         fn = load_kernel("decode_attention", _DENSE_ARGTYPES)
         err = fn(
             _DTYPES[q.dtype], d, q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(),
@@ -253,16 +346,20 @@ def decode_attention(
             b, hkv, group, skv, tile,
             len_t.data_ptr() if len_t is not None else None, len_v,
             scale if scale is not None else 1.0 / math.sqrt(d), smem,
+            nsplit, ws.data_ptr() if ws is not None else None, ws_bytes,
+            cnt.data_ptr() if cnt is not None else None, n_cnt,
             torch.cuda.current_stream().cuda_stream,
         )
         check_launch("decode_attention", err)
         decode_attention.launches += 1
         decode_attention.last_bkv = tile
+        decode_attention.last_splits = nsplit
     return o
 
 
 decode_attention.launches = 0
 decode_attention.last_bkv = None
+decode_attention.last_splits = None
 
 
 def paged_decode_attention(
@@ -275,11 +372,14 @@ def paged_decode_attention(
     seq_lens: torch.Tensor,  # (B,) int32
     *,
     scale: Optional[float] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode attention straight off a paged int8 pool: each sequence reads
     its own page chain at its own length. Pages of a chain at or past
     ``ceil(seq_len / page)`` are never read, so table entries there may be
-    stale. A sequence is read at most ``maxp * page`` tokens long."""
+    stale. A sequence is read at most ``maxp * page`` tokens long. The keys
+    are split on whole tiles of pages; ``splits`` defaults to
+    ``split_plan``'s over ``maxp * page``."""
     b, hq, sq, d = q.shape
     if sq != 1:
         raise ValueError(f"paged decode attention takes one query token, got sq={sq}")
@@ -308,19 +408,28 @@ def paged_decode_attention(
         raise ValueError(f"a {tile}-token tile needs {smem} bytes of shared memory")
     q = q.contiguous()
     o = torch.empty_like(q)
+    maxp = tables.shape[1]
     if b and hq:
+        if not maxp:
+            return o.zero_()
+        nsplit = _splits(splits, b, hkv, maxp * page, tile, q.device)
+        ws, ws_bytes, cnt, n_cnt = _merge_scratch(q, hkv, group, nsplit)
         fn = load_kernel("paged_decode_attention", _PAGED_ARGTYPES, source="decode_attention")
         err = fn(
             _DTYPES[q.dtype], d, q.data_ptr(), k_pages_i8.data_ptr(), k_scale.data_ptr(),
             v_pages_i8.data_ptr(), v_scale.data_ptr(), o.data_ptr(),
             b, hkv, group, pages, page,
-            tables.data_ptr(), tables.shape[1], lens.data_ptr(), tile,
+            tables.data_ptr(), maxp, lens.data_ptr(), tile,
             scale if scale is not None else 1.0 / math.sqrt(d), smem,
+            nsplit, ws.data_ptr() if ws is not None else None, ws_bytes,
+            cnt.data_ptr() if cnt is not None else None, n_cnt,
             torch.cuda.current_stream().cuda_stream,
         )
         check_launch("paged_decode_attention", err)
         paged_decode_attention.launches += 1
+        paged_decode_attention.last_splits = nsplit
     return o
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.last_splits = None

@@ -40,7 +40,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.mapping import periodic_mask
-from repro_torch.kernels.common import check_launch, load_kernel
+from repro_torch.kernels.common import check_launch, load_kernel, split_counters
 
 __all__ = ["masked_matmul", "masked_matmul_ref", "packed_mask", "pick_variant", "VARIANTS"]
 
@@ -90,22 +90,6 @@ def _plan(kind: str, m: int, n: int, k: int, k_contiguous: bool, sms: int) -> tu
     fn = load_kernel("masked_matmul_plan", _PLAN_ARGTYPES, source="masked_matmul")
     check_launch("masked_matmul_plan", fn(VARIANTS[kind], m, n, k, int(k_contiguous), sms, out))
     return out[0], out[1], out[2]
-
-
-_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
-    """Zeroed int32 split-K counters for one launch on ``stream`` of
-    ``device``. The bf16 kernels leave every counter they use at 0, so a
-    buffer is zeroed once (and again only when it grows), not per launch.
-    Launches that share a buffer must run one at a time, so each stream has
-    its own: launches on two streams may overlap."""
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = _COUNTERS[key] = torch.zeros(max(tiles, 1 << 14), dtype=torch.int32, device=device)
-    return buf
 
 
 def pick_variant(x_dtype: torch.dtype, m: int, variant: str = "auto") -> str:
@@ -207,7 +191,7 @@ def masked_matmul(
         else:
             bits, bits_t = packed_mask(ok)
             splits, scratch_bytes, tiles = _plan(kind, m, n, kdim, w.stride(1) != 1, sms)
-            counters = _counters(x.device, stream, tiles)
+            counters = split_counters(x.device, stream, tiles)
         scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device)
         fn = load_kernel("masked_matmul", _ARGTYPES)
         err = fn(

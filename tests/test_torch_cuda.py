@@ -200,7 +200,7 @@ def test_the_plan_refuses_what_no_bf16_kernel_runs(cuda):
 def test_split_k_launches_on_two_streams_at_once_agree(cuda, m):
     """Each stream has its own split-K counters, so launches that overlap on
     two streams give the bits of launches one at a time."""
-    from repro_torch.kernels.masked_matmul.ops import _counters
+    from repro_torch.kernels.common import split_counters
 
     x, w, ok = _gemm_inputs(cuda, m, 8192, 288, False, seed=4)
     want = masked_matmul(x, w, ok)
@@ -214,7 +214,7 @@ def test_split_k_launches_on_two_streams_at_once_agree(cuda, m):
     torch.cuda.synchronize()
     for got in outs[0] + outs[1]:
         assert torch.equal(got, want)
-    bufs = [_counters(cuda, st.cuda_stream, 1) for st in streams]
+    bufs = [split_counters(cuda, st.cuda_stream, 1) for st in streams]
     assert bufs[0].data_ptr() != bufs[1].data_ptr()
     assert not bufs[0].any() and not bufs[1].any()
 
@@ -393,6 +393,70 @@ def test_paged_decode_attention_kernel_matches_plain_on_card(cuda, dtype, hq, hk
     assert not got[0].abs().any()
 
 
+# (B, Hq, Hkv, S, D, bkv): the tune-suite shape, SmolLM-135M's and hymba-1.5b's head groups, a
+# group over GMAX query heads (two head chunks) at D = 128
+SPLIT_CASES = [(1, 2, 2, 512, 32, 128), (4, 9, 3, 2048, 64, 128), (4, 25, 5, 1024, 64, 128),
+               (2, 40, 4, 700, 128, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,bkv", SPLIT_CASES)
+def test_decode_attention_split_counts_agree_on_card(cuda, dtype, b, hq, hkv, s, d, bkv):
+    """Splits forced to 1, to the plan's and to one per tile, at lengths that
+    end on a split boundary, inside the last split, at one key and at 0 (every
+    split empty: exact zeros); two launches, and an int against a device
+    length, give the same bits; one counted launch per call."""
+    from repro_torch.kernels.decode_attention.ops import sm_count, split_plan
+
+    cache = _int8_cache(cuda, b, hkv, s, d, seed=s + hq)
+    q = torch.randn(b, hq, 1, d, device=cuda).to(dtype)
+    tiles = -(-s // bkv)
+    plan = split_plan(b, hkv, s, bkv, sm_count(cuda))
+    rtol, atol = DECODE_TOL[dtype]
+    for splits in sorted({1, plan, tiles}):
+        per = -(-tiles // splits) * bkv  # keys per split
+        for valid in sorted({0, 1, min(per, s), s - 5, s}):
+            before = decode_attention.launches
+            got = decode_attention(q, *cache, valid, bkv=bkv, splits=splits)
+            torch.cuda.synchronize()
+            assert decode_attention.launches == before + 1 and decode_attention.last_splits == splits
+            ref = decode_attention_ref(q, *cache, kv_valid_len=valid)
+            torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+            if valid == 0:
+                assert not got.abs().any()
+            dev_len = torch.tensor([valid], dtype=torch.int32, device=cuda)
+            assert torch.equal(decode_attention(q, *cache, valid, bkv=bkv, splits=splits), got)
+            assert torch.equal(decode_attention(q, *cache, dev_len, bkv=bkv, splits=splits), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_split_counts_agree_on_card(cuda, dtype):
+    """Chains whose lengths end in different splits (and on a split edge),
+    stale ids past each chain out of the pool (never read), the splits forced
+    to 1 and to one per tile; two launches give the same bits."""
+    b, hq, hkv, d, page, maxp, pool = 8, 9, 3, 64, 8, 64, 600
+    tile = 128  # paged_tile(8): 4 tiles of the 512-token table span
+    lens = torch.tensor([0, 3, 128, 129, 256, 300, 511, 512], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ki, ks = quantize_kv(torch.randn(hkv, pool, page, d, generator=g, device=cuda))
+    vi, vs = quantize_kv(torch.randn(hkv, pool, page, d, generator=g, device=cuda))
+    ids = torch.randperm(pool - 1, generator=g, device=cuda)[: b * maxp].reshape(b, maxp) + 1
+    used = (lens + page - 1) // page
+    stale = torch.arange(maxp, device=cuda)[None] >= used[:, None]
+    tables = torch.where(stale, torch.full_like(ids, 2**30), ids).to(torch.int32)
+    q = torch.randn(b, hq, 1, d, generator=g, device=cuda).to(dtype)
+    ref = paged_decode_attention_ref(q, ki, ks, vi, vs, ids.to(torch.int32), lens)
+    rtol, atol = DECODE_TOL[dtype]
+    for splits in (None, 1, 2, maxp * page // tile):
+        before = paged_decode_attention.launches
+        got = paged_decode_attention(q, ki, ks, vi, vs, tables, lens, splits=splits)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+        assert not got[0].abs().any()
+        assert torch.equal(paged_decode_attention(q, ki, ks, vi, vs, tables, lens, splits=splits), got)
+
+
 def test_decode_attention_refuses_what_it_does_not_take(cuda):
     ki, ks, vi, vs = _int8_cache(cuda, 1, 2, 64, 48)
     q = torch.randn(1, 4, 1, 48, device=cuda)
@@ -409,6 +473,9 @@ def test_decode_attention_refuses_what_it_does_not_take(cuda):
         decode_attention(torch.randn(1, 4, 1, 64, device=cuda).half(), ki, ks, vi, vs, 64)
     with pytest.raises(ValueError, match="int8"):
         decode_attention(torch.randn(1, 4, 1, 64, device=cuda), ki.float(), ks, vi, vs, 64)
+    for splits in (0, 2):  # at least one split, and no more splits than 64-key tiles
+        with pytest.raises(ValueError, match="splits must be in"):
+            decode_attention(torch.randn(1, 4, 1, 64, device=cuda), ki, ks, vi, vs, 64, bkv=64, splits=splits)
     assert decode_attention.launches == before
 
 

@@ -5,6 +5,10 @@ Pallas kernels in interpret mode, and through the port's wrappers on CPU
 tensors (their plain PyTorch versions). The CUDA kernels are held to the
 plain versions on the card by ``tests/test_torch_cuda.py``.
 """
+import functools
+import inspect
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,14 +29,19 @@ from repro.serve.kvcache import chain_layout as jax_chain_layout
 from repro_torch.analysis.kernelgeom import decode_attention_launch, lint_launch
 from repro_torch.kernels.common import SMEM_LIMIT_BYTES, dtype_tol
 from repro_torch.kernels.decode_attention.ops import (
+    GMAX,
+    H100_SMS,
     decode_attention,
     decode_attention_ref,
     dequantize_kv,
     gather_pages,
+    head_chunks,
     paged_decode_attention,
     paged_decode_attention_ref,
     quantize_kv,
+    ring_slots,
     smem_bytes,
+    split_plan,
 )
 from repro_torch.serve.kvcache import PageAllocator, chain_layout
 
@@ -290,3 +299,150 @@ def test_lint_rejects_exactly_the_tiles_over_the_smem_limit(d, group):
     paged = decode_attention_launch(4, 2 * group, 2, 2048, d, paged=True, page_size=8)
     assert paged.kernel == "paged_decode_attention" and paged.blocks[1] == 128
     assert not lint_launch(paged)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV plan and merge the CUDA kernels run
+# ---------------------------------------------------------------------------
+
+
+def _split_merge(q, k, v, valid, bkv, splits):
+    """A plain emulation of the kernels' split-KV schedule, in fp32: the
+    keys are cut into ``splits`` ranges of whole ``bkv`` tiles; each range
+    past ``valid`` is empty (max -inf, sum 0); each other range keeps its
+    max, sum and unnormalized accumulator; the merge rescales every
+    non-empty partial by exp(m_i - M) in split order, and gives 0 where
+    every range is empty. q (B, Hq, 1, D); k, v dequantized (B, Hkv, S, D)."""
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, d) / math.sqrt(d)
+    tiles = -(-skv // bkv)
+    per = -(-tiles // splits) * bkv
+    m = torch.full((splits, b, hkv, hq // hkv), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros((splits, b, hkv, hq // hkv, d))
+    for i in range(splits):
+        lo, hi = i * per, min(i * per + per, valid)
+        if hi <= lo:
+            continue
+        sc = torch.einsum("bhgd,bhkd->bhgk", qg, k[:, :, lo:hi])
+        m[i] = sc.amax(-1)
+        p = torch.exp(sc - m[i][..., None])
+        l[i] = p.sum(-1)
+        acc[i] = torch.einsum("bhgk,bhkd->bhgd", p, v[:, :, lo:hi])
+    big = m.amax(0)
+    out = torch.zeros((b, hkv, hq // hkv, d))
+    total = torch.zeros((b, hkv, hq // hkv))
+    for i in range(splits):  # split order; an empty split is skipped, never exp(-inf - -inf)
+        keep = torch.isfinite(m[i])
+        w = torch.where(keep, torch.exp(torch.where(keep, m[i] - big, 0.0)), 0.0)
+        total = total + w * l[i]
+        out = out + w[..., None] * acc[i]
+    out = torch.where(torch.isfinite(big)[..., None], out / torch.where(total > 0, total, 1.0)[..., None], 0.0)
+    return out.reshape(b, hq, 1, d)
+
+
+SPLIT_SHAPES = {  # (b, hq, hkv, skv, d, bkv)
+    "smollm": (2, 9, 3, 320, 64, 64),
+    "tune-suite": (1, 2, 2, 256, 32, 32),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(shape, valid):
+    b, hq, hkv, skv, d, _ = SPLIT_SHAPES[shape]
+    q, k, v, jq, tq = _dense_inputs(b, hq, hkv, skv, d, "float32", seed=skv + valid + hq)
+    ki, ks = jax_quantize_kv(jnp.asarray(k))
+    vi, vs = jax_quantize_kv(jnp.asarray(v))
+    kern = np.asarray(jax_decode_attention(jq, ki, ks, vi, vs, valid, bkv=64, interpret=True))
+    cache = tuple(_t(a) for a in (ki, ks, vi, vs))
+    return tq, cache, kern
+
+
+@pytest.mark.parametrize("splits", ["one", "two", "max"])
+@pytest.mark.parametrize("where", ["empty", "one key", "split edge", "ragged"])
+@pytest.mark.parametrize("shape", sorted(SPLIT_SHAPES))
+def test_split_merge_emulation_matches_plain_and_pallas_kernel(shape, where, splits):
+    b, hq, hkv, skv, d, bkv = SPLIT_SHAPES[shape]
+    tiles = -(-skv // bkv)
+    n = {"one": 1, "two": 2, "max": tiles}[splits]
+    per = -(-tiles // n) * bkv
+    valid = {"empty": 0, "one key": 1, "split edge": per if n > 1 else skv, "ragged": per + 13}[where]
+    tq, cache, kern = _split_case(shape, valid)
+    k, v = dequantize_kv(*cache[:2]), dequantize_kv(*cache[2:])
+    got = _split_merge(tq, k, v, valid, bkv, n)
+    rtol, atol = dtype_tol(torch.float32)
+    np.testing.assert_allclose(_np(got), _np(decode_attention_ref(tq, *cache, kv_valid_len=valid)),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(_np(got), kern, rtol=rtol, atol=atol)
+    if valid == 0:  # every split empty: exact zeros
+        assert not got.abs().any()
+
+
+@pytest.mark.parametrize("b,hkv,skv,bkv", [
+    (1, 2, 512, 128), (1, 2, 512, 8), (4, 3, 2048, 128), (4, 3, 2048, 8), (32, 3, 2048, 128),
+    (4, 5, 1024, 128), (4, 5, 1024, 1024), (32, 3, 2048, 1), (264, 1, 4096, 64), (1, 1, 100, 7),
+    (3, 4, 96, 32), (1, 1, 1, 128),
+])
+def test_split_plan_takes_whole_tiles_and_fills_the_card(b, hkv, skv, bkv):
+    tiles = -(-skv // bkv)
+    n = split_plan(b, hkv, skv, bkv, H100_SMS)
+    per = -(-tiles // n)  # tiles per split, as the C launch cuts them
+    assert 1 <= n <= tiles and per >= 1
+    assert (n - 1) * per < tiles  # at full length no split is empty
+    if tiles > 1 and b * hkv < 2 * H100_SMS:  # a small batch gets more blocks than (sequence, KV head)s
+        assert b * hkv * n > b * hkv
+    assert b * hkv * n <= max(b * hkv, 2 * H100_SMS + b * hkv)
+    assert split_plan(b, hkv, skv, bkv, H100_SMS) == n  # a pure function of host shapes
+
+
+def test_split_plan_reads_only_host_shapes(monkeypatch):
+    """The wrappers plan from S (dense) or maxp * page (paged) and the card's
+    SM count: a length is not an argument of the plan, so a length held on
+    the device is never read on the host. An explicit split count is taken
+    as it is, within [1, tiles]."""
+    from repro_torch.kernels.decode_attention import ops
+
+    assert list(inspect.signature(split_plan).parameters) == ["b", "hkv", "skv", "bkv", "sm_count"]
+    monkeypatch.setattr(ops, "sm_count", lambda device: H100_SMS)
+    assert ops._splits(None, 4, 3, 2048, 128, "cuda") == split_plan(4, 3, 2048, 128, H100_SMS) == 16
+    assert ops._splits(None, 32, 3, 256 * 8, 128, "cuda") == 3  # the paged pool of 32 slots
+    assert ops._splits(1, 4, 3, 2048, 128, "cuda") == 1
+    assert ops._splits(16, 4, 3, 2048, 128, "cuda") == 16
+    for bad in (0, 17):
+        with pytest.raises(ValueError, match="splits must be in"):
+            ops._splits(bad, 4, 3, 2048, 128, "cuda")
+
+
+@pytest.mark.parametrize("b,hq,hkv,skv,d,bkv", [
+    (4, 9, 3, 2048, 64, 128), (32, 9, 3, 2048, 64, 1024), (4, 25, 5, 1024, 64, 64),
+    (1, 2, 2, 512, 32, 8), (2, 32, 2, 700, 128, 256),
+])
+def test_kernelgeom_mirrors_the_split_grid_and_shared_memory(b, hq, hkv, skv, d, bkv):
+    launch = decode_attention_launch(b, hq, hkv, skv, d, bkv=bkv)
+    group = hq // hkv
+    tile = min(bkv, skv)
+    assert launch.grid == (b * hkv * head_chunks(group), split_plan(b, hkv, skv, tile, H100_SMS))
+    assert launch.blocks == (1, tile, min(group, GMAX))
+    assert launch.smem_bytes == smem_bytes(tile, d, group)
+    assert head_chunks(group) == -(-group // GMAX)
+    paged = decode_attention_launch(b, hq, hkv, 256 * 8, d, paged=True, page_size=8)
+    assert paged.grid == (b * hkv * head_chunks(group), split_plan(b, hkv, 2048, 128, H100_SMS))
+    # the shared memory grows with the ring (about bkv keys a block, two chunks a warp at least)
+    assert ring_slots(8) == ring_slots(256) == 2 and ring_slots(1024) == 8
+    assert smem_bytes(8, d, group) == smem_bytes(256, d, group) < smem_bytes(512, d, group)
+    assert smem_bytes(128, d, 8) == smem_bytes(128, d, 40)  # a large group takes head chunks
+    assert decode_attention_launch(0, hq, hkv, skv, d).grid[1] == 0  # nothing to launch
+
+
+def test_cpu_wrappers_take_a_split_count_and_run_the_plain_version(paged_pool):
+    q, k, v, _, tq = _dense_inputs(2, 9, 3, 96, 64, "float32", seed=9)
+    cache = (*quantize_kv(torch.from_numpy(k)), *quantize_kv(torch.from_numpy(v)))
+    before = decode_attention.launches
+    a = decode_attention(tq, *cache, 50, splits=3)
+    torch.testing.assert_close(a, decode_attention_ref(tq, *cache, kv_valid_len=50), rtol=0, atol=0)
+    q, _, pool, tbl, lens = paged_pool
+    got = paged_decode_attention(*(_t(x) for x in (q, *pool, tbl, lens)), splits=2)
+    torch.testing.assert_close(got, paged_decode_attention_ref(*(_t(x) for x in (q, *pool, tbl, lens))),
+                               rtol=0, atol=0)
+    assert decode_attention.launches == before
