@@ -20,19 +20,26 @@ Phases; any failure ends the run with a nonzero exit and no result line:
      is packed to bits once (timed), and a bf16 kernel's bound counts those
      bits, v1's the float mask;
    - flash attention at SmolLM's heads, S = 128 and 2048, and at hymba's
-     (25 / 5, window 1024) at S = 2048; in bf16 the mma kernel and v1 are
-     both held and timed;
+     (25 / 5, window 1024) at S = 2048, then at the reference zoo's other
+     head dims at 4 x 2048: hubert-xlarge's 16 heads at D = 80 (an encoder,
+     not causal), phi3-mini's 32 / 32 at D = 96 and qwen3-0.6b's 16 / 8 at
+     D = 128; in bf16 the mma kernel and v1 are both held and timed;
    - the selective scan at (B, L, D, N) = (4, 128, 8192, 16) (falcon-mamba's
      serving prefill), (4, 128, 3200, 16) (hymba's), (4, 2048, 3200, 16)
-     (hymba's long prefill) and a ragged (2, 37, 11, 4), with u, B and C in
-     bf16 and dt in fp32 as the model gives them, and all in float32;
+     and (4, 2048, 8192, 16) (the two long prefills), a ragged (2, 37, 11,
+     4), a larger state (2, 256, 1024, 64) and an odd one (2, 100, 300, 17),
+     with u, B and C in bf16 and dt in fp32 as the model gives them, and all
+     in float32; each row prints its launch plan (``scan_plan``), and its
+     bound is the largest of its bytes, its fp32 operations and its
+     exponentials on the special-function units;
    - the masked GEMM in bf16 at every falcon-mamba-7b and hymba-1.5b GEMM
      shape at M = 4 and 512, and at hymba's layer shapes at M = 8192;
 3. int8 decode attention (kernel #3) against its plain version, float32
    and bf16 q, at (B, Hq, Hkv, S, D) = (1, 2, 2, 512, 32) (the reference's
    tune-suite shape), SmolLM-135M's decode (4, 9, 3, 2048, 64) at valid
-   lengths 2048, 1000 and 0, the same heads at B = 32, and hymba-1.5b's
-   (4, 25, 5, 1024, 64) (its KV ring holds 1024 tokens). Each cell prints the
+   lengths 2048, 1000 and 0, the same heads at B = 32, hymba-1.5b's
+   (4, 25, 5, 1024, 64) (its KV ring holds 1024 tokens) and phi3-mini's
+   (4, 32, 32, 2048, 96). Each cell prints the
    kernel's time at the heuristic bkv with the split count and blocks of
    its split-KV grid, its bytes bound at 3.35 TB/s (the valid prefix of
    int8 K and V with their fp32 scales, q and o in q's dtype), the plain
@@ -56,7 +63,9 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    chain. One call is the main path; it is held to the plain version, and
    the same call with the stale ids replaced by ids far outside the pool
    must give the same bits; the splits and blocks are logged, and the
-   splits forced to 1 and to one per tile are held to the plain version;
+   splits forced to 1 and to one per tile are held to the plain version.
+   The same runs at phi3-mini's heads (32 / 32, D = 96) over a pool of its
+   own;
 5. the kernel autotuner (``repro_torch.tune.tune_many``) from an empty
    cache over the dense cells (bf16; the tune-suite shape in float32, as
    the reference tunes it), printing the heuristic and tuned bkv with their
@@ -148,6 +157,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -166,7 +176,13 @@ FLASH_BF16_TOL = (2e-2, 1e-2)  # (rtol, atol); see the module docstring
 SCAN_F32_TOL = (2e-5, 1e-4)
 MAX_REL_L2 = 5e-2
 ANCHOR_RATIO = 1.5  # see serve(): bf16 paths held against the float32 plain path
-SCAN_SHAPES = [(4, 128, 8192, 16), (4, 128, 3200, 16), (4, LONG, 3200, 16), (2, 37, 11, 4)]
+# the scan: falcon-mamba's and hymba's serving prefills, their long prefills, a ragged case, a
+# larger state and an odd one
+SCAN_SHAPES = [(4, 128, 8192, 16), (4, 128, 3200, 16), (4, LONG, 3200, 16), (4, LONG, 8192, 16),
+               (2, 37, 11, 4), (2, 256, 1024, 64), (2, 100, 300, 17)]
+# flash attention at the reference zoo's other head dims, at 4 x 2048: (model, Hq, Hkv, D, causal)
+FLASH_WIDE = [("hubert-xlarge", 16, 16, 80, False), ("phi3-mini-3.8b", 32, 32, 96, True),
+              ("qwen3-0.6b", 16, 8, 128, True)]
 # int8 decode attention: (label, (B, Hq, Hkv, S, D), valid lengths); the first is the
 # reference's tune-suite shape, then SmolLM-135M's decode at batch 4 and 32 and hymba-1.5b's,
 # whose KV ring holds 1024 tokens
@@ -175,6 +191,7 @@ DECODE_CELLS = [
     ("smollm-b4", (4, 9, 3, LONG, 64), (LONG, 1000, 0)),
     ("smollm-b32", (32, 9, 3, LONG, 64), (LONG,)),
     ("hymba-b4", (4, 25, 5, 1024, 64), (1024,)),
+    ("phi3-b4", (4, 32, 32, LONG, 96), (LONG, 1000)),
 ]
 DECODE_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-2)}  # dtype_tol; the flash rule
 PAGED_SLOTS = 32
@@ -245,10 +262,16 @@ def run(args, torch) -> int:
     t0 = time.perf_counter()
     logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan", "decode_attention"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}")
-    for name, text in logs.items():
+    for name, text in logs.items():  # ptxas's registers and spills, by kernel instance
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:  # the mangled name without its anonymous namespace (_ZN<length><name>)
+                fn = m.group(1)
+                ns = re.match(r"_ZN(\d+)_GLOBAL__N_", fn)
+                fn = fn[ns.end(1) + int(ns.group(1)):] if ns else fn
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}: {fn}: {line.strip()}")
 
     # 1 GiB: overwriting it evicts the 50 MB L2 and keeps the card busy for about
     # 0.3 ms, longer than the host takes to enqueue the timed launch, so the
@@ -395,23 +418,25 @@ def run(args, torch) -> int:
             mm_err = max(mm_err, gemm_case(cfg.name, idx, k, n, uses, tied, dtype, ms_list))
 
     fa_err, fa_rows = 0.0, {}
-    b, d = BATCH, cfg.resolved_head_dim
-    # (model, Hq, Hkv, S, case, window, Sq): SmolLM's heads at the serving and long-prefill
-    # lengths, hymba's (window 1024) at its long prefill; q_offset cases put Sq = S / 2 queries
-    # at the end of the keys
-    flash_cells = [(cfg.name, cfg.num_heads, cfg.num_kv_heads, s, case, window, sq)
+    b, d64 = BATCH, cfg.resolved_head_dim
+    # (model, Hq, Hkv, S, case, window, Sq, D, causal): SmolLM's heads at the serving and
+    # long-prefill lengths, hymba's (window 1024) at its long prefill; q_offset cases put Sq = S / 2
+    # queries at the end of the keys; then the zoo's other head dims (FLASH_WIDE) at 4 x 2048
+    flash_cells = [(cfg.name, cfg.num_heads, cfg.num_kv_heads, s, case, window, sq, d64, True)
                    for s in (128, LONG)
                    for case, window, sq in (("causal", None, s), ("window256", 256, s), ("q_offset", None, s // 2))]
-    flash_cells += [(hymba.name, hymba.num_heads, hymba.num_kv_heads, LONG, case, hymba.sliding_window, sq)
-                    for case, sq in (("window1024", LONG), ("window1024_q_offset", LONG // 2))]
+    flash_cells += [(hymba.name, hymba.num_heads, hymba.num_kv_heads, LONG, case, hymba.sliding_window, sq, d64,
+                     True) for case, sq in (("window1024", LONG), ("window1024_q_offset", LONG // 2))]
+    flash_cells += [(model, hq, hkv, LONG, f"{'causal' if causal else 'encoder'}_d{d}", None, LONG, d, causal)
+                    for model, hq, hkv, d, causal in FLASH_WIDE]
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
-        for model, hq, hkv, s, case, window, sq in flash_cells:
+        for model, hq, hkv, s, case, window, sq, d, causal in flash_cells:
             off = s - sq
             q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
             kk = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
             vv = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
-            kw = dict(causal=True, window=window, q_offset=off)
+            kw = dict(causal=causal, window=window, q_offset=off)
             tol = FLASH_BF16_TOL if bf16 else dtype_tol(dtype)
             ref = attention_ref(q, kk, vv, **kw)
             err, good = worst(flash_attention(q, kk, vv, **kw), ref, tol)
@@ -423,7 +448,7 @@ def run(args, torch) -> int:
                 failures.append(f"flash_attention {model} {dtype} S={s} {case}: {err}")
             rows = torch.arange(sq, device=dev)[:, None] + off
             cols = torch.arange(s, device=dev)[None, :]
-            keep = cols <= rows
+            keep = cols <= rows if causal else torch.ones(sq, s, dtype=torch.bool, device=dev)
             if window:
                 keep &= cols > rows - window
             pairs = int(keep.sum())
@@ -437,12 +462,12 @@ def run(args, torch) -> int:
                 ms=time_ms(lambda: flash_attention(q, kk, vv, **kw)),
                 plain_ms=time_ms(lambda: attention_ref(q, kk, vv, **kw), reps=3),
                 library_ms=time_ms(lambda: sdpa(q, kr, vr, attn_mask=keep)),
-                bound_ms=bound, max_abs_err=err,
+                bound_ms=bound, max_abs_err=err, d=d,
             )
             if bf16:
                 row["v1_ms"] = time_ms(lambda: flash_attention(q, kk, vv, variant="v1", **kw))
             fa_rows[(name_of(dtype), model, s, case)] = row
-            log(f"flash_attention {model:11s} {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} Sq={sq:5d} "
+            log(f"flash_attention {model:11s} {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} D={d} Sq={sq:5d} "
                 f"Skv={s:5d} {case:19s}: err<= {err:.3g} (rtol, atol {tol}) {row['variant']} {row['ms']:.4f} ms"
                 + (f"  v1 {row['v1_ms']:.4f} ms" if bf16 else "")
                 + f"  plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  bound {bound:.4f} ms")
@@ -461,6 +486,7 @@ def run(args, torch) -> int:
             d_skip = torch.randn(dim, generator=gen, device=dev)
             args_ = (u, dt, a, bm, cm, d_skip)
             y, h = selective_scan(*args_)
+            plan = selective_scan.last_plan  # scan_plan's, on this card's SM count
             ref_y, ref_h = selective_scan_ref(*args_)
             y_tol = SCAN_F32_TOL if u_dtype == torch.float32 else \
                 (2e-2, 1e-2 * float(ref_y.float().pow(2).mean().sqrt()))
@@ -474,20 +500,25 @@ def run(args, torch) -> int:
             elems = bsz * length * dim * n
             nbytes = (bsz * length * dim * (2 * size + 4) + 2 * bsz * length * n * size
                       + dim * n * 4 + dim * 4 + bsz * dim * n * 4)
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 7 * elems / PEAK_OPS["float32"] * 1e3
+            # the bound: bytes at the HBM rate, 7 fp32 operations per (b, t, d, n) at the fp32 rate,
+            # or one exponential per (b, t, d, n) on the SFUs, whichever takes longest
+            sides = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": 7 * elems / PEAK_OPS["float32"] * 1e3,
+                     "exps": elems / SFU_PER_S * 1e3}
+            by = max(sides, key=sides.get)
             row = dict(
                 ms=time_ms(lambda: selective_scan(*args_)),
                 plain_ms=time_ms(lambda: selective_scan_ref(*args_), reps=3),
-                bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes_ms=bytes_ms, ops_ms=ops_ms, exp_ms=elems / SFU_PER_S * 1e3,
-                y_err=y_err, y_tol=y_tol, h_err=h_err, mbytes=nbytes / 1e6,
+                bound_ms=sides[by], bound_by=by, bytes_ms=sides["bytes"], ops_ms=sides["operations"],
+                exp_ms=sides["exps"], y_err=y_err, y_tol=y_tol, h_err=h_err, mbytes=nbytes / 1e6,
+                plan=plan._asdict(),
             )
             scan_rows[key] = row
             log(f"selective_scan {key:24s}: y err {y_err:.3g} (rtol, atol {y_tol[0]}, {y_tol[1]:.3g}), "
-                f"h_last err {h_err:.3g} (rtol, atol {SCAN_F32_TOL}); kernel {row['ms']:.4f} ms  "
-                f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-                f"{row['mbytes']:.1f} MB {bytes_ms:.4f} ms, 7 fp32 ops/elem {ops_ms:.4f} ms; "
-                f"exps on the SFUs {row['exp_ms']:.4f} ms)")
+                f"h_last err {h_err:.3g} (rtol, atol {SCAN_F32_TOL}); plan {plan.lanes} lanes x {plan.states} "
+                f"states a channel, {plan.blocks} blocks; kernel {row['ms']:.4f} ms  "
+                f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({by}; bytes "
+                f"{row['mbytes']:.1f} MB {sides['bytes']:.4f} ms, 7 fp32 ops/elem {sides['operations']:.4f} ms, "
+                f"exps on the SFUs {sides['exps']:.4f} ms)")
     del u, dt, a, dbc, bm, cm, args_, y, h, ref_y, ref_h
 
     # the masked GEMM at the SSM models' shapes, bf16, as their serving paths run it
@@ -611,90 +642,93 @@ def run(args, torch) -> int:
         raise Failed("decode attention parity: " + "; ".join(failures))
 
     # ---- phase 4: paged decode attention over a PageAllocator pool ---------
-    b, hq, hkv, d, page = PAGED_SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 8
-    lens = torch.randint(1, LONG + 1, (b,), generator=gen, device=dev)
-    lens[0], lens[1], lens[2] = 0, 1001, LONG  # empty, ending mid-page, a full chain
-    lens_host = lens.tolist()
-    chains = [pages_needed(n, page) for n in lens_host]
-    alloc = PageAllocator(1 + sum(chains) + 64, page)
-    owned = [alloc.alloc(n) if n else [] for n in chains]
-    for slot in range(0, b, 2):  # free every other chain and allocate them again, newest first
-        if owned[slot]:
-            alloc.free(owned[slot])
-    for slot in reversed(range(0, b, 2)):
-        owned[slot] = alloc.alloc(chains[slot]) if chains[slot] else []
-    maxp = max(chains)
-    pool = [torch.zeros(hkv, alloc.num_pages, page, d, dtype=torch.int8, device=dev),
-            torch.zeros(hkv, alloc.num_pages, page, device=dev)]
-    pool = pool + [t.clone() for t in pool]  # k, k scales, v, v scales
-    # stale table entries past each chain: pages other chains own, as a freed slot leaves them
-    stale = torch.randint(1, alloc.num_pages, (b, maxp), generator=gen, device=dev, dtype=torch.int32)
-    tables = stale.clone()
-    for slot, ids in enumerate(owned):
-        if not ids:
-            continue
-        tables[slot, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
-        ids_t = torch.tensor(ids, device=dev)
-        for which in (0, 2):
-            ki, ks = da.quantize_kv(torch.randn(1, 1, hkv, lens_host[slot], d, generator=gen, device=dev))
-            pool[which][:, ids_t] = chain_layout(ki, page, len(ids))[0].movedim(0, 1)
-            pool[which + 1][:, ids_t] = chain_layout(ks[..., None], page, len(ids))[0, ..., 0].movedim(0, 1)
-    lens32 = lens.to(torch.int32)
-    past_chain = torch.arange(maxp, device=dev)[None] >= torch.tensor(chains, device=dev)[:, None]
-    log(f"paged pool: {alloc.num_pages} pages of {page} tokens, {alloc.pages_in_use} in use "
-        f"(high water {alloc.high_water}); {b} slots, lengths {min(lens_host)}..{max(lens_host)}, "
-        f"maxp {maxp}; first chain ids {owned[2][:6]}")
-
+    # SmolLM-135M's heads (the main path of kernel #4), then phi3-mini's head dim 96 over the same kind of pool
     pg_rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(dtype)
-        args_ = (q, *pool, tables, lens32)
-        da.paged_decode_attention.launches = 0  # the main path of kernel #4: one decode read
-        got = da.paged_decode_attention(*args_)
-        torch.cuda.synchronize()
-        pg_launches = da.paged_decode_attention.launches
-        pg_splits = da.paged_decode_attention.last_splits
-        if pg_launches != 1:
-            raise Failed(f"paged_decode_attention: {pg_launches} launches for one call")
-        pg_tiles = -(-maxp * page // da.paged_tile(page))
-        if pg_tiles > 1 and b * hkv < 2 * sms and split_grid(b, hq, hkv, pg_splits) <= b * hkv:
-            raise Failed(f"paged_decode_attention: {pg_splits} splits launch no more blocks than {b * hkv}")
-        tol = DECODE_TOL[name_of(dtype)]
-        err, good = worst(got, da.paged_decode_attention_ref(*args_), tol)
-        # page ids past a chain are never read: out-of-pool ids there change nothing
-        wild = torch.where(past_chain, torch.full_like(tables, 2**30), tables)
-        untouched = torch.equal(da.paged_decode_attention(q, *pool, wild, lens32), got)
-        if not good or not untouched or bool(got[0].abs().any()):
-            raise Failed(f"paged_decode_attention {dtype}: err {err} (tol {tol}), stale ids never read "
-                         f"{untouched}, empty slot zero {not bool(got[0].abs().any())}")
-        for forced in sorted({1, pg_tiles} - {pg_splits}):  # the splits forced to 1 and one per tile
-            f_err, f_good = worst(da.paged_decode_attention(*args_, splits=forced),
-                                  da.paged_decode_attention_ref(*args_), tol)
-            if not f_good:
-                raise Failed(f"paged_decode_attention {dtype} splits {forced}: err {f_err} (tol {tol})")
-            err = max(err, f_err)
-        dense_k, dense_v = (da.gather_pages(da.dequantize_kv(pool[i], pool[i + 1], dtype), tables)
-                            for i in (0, 2))
-        mask = (torch.arange(maxp * page, device=dev)[None] < lens[:, None])[:, None, None, :]
-        tokens = sum(lens_host)
-        nbytes = (2 * hkv * tokens * (d + 4) + 2 * b * hq * d * q.element_size()
-                  + 4 * sum(chains) + 4 * b)
-        bound, bound_by = decode_bound(nbytes, 4.0 * hq * tokens * d)
-        row = pg_rows[name_of(dtype)] = dict(
-            ms=time_ms(lambda: da.paged_decode_attention(*args_)),
-            plain_ms=time_ms(lambda: da.paged_decode_attention_ref(*args_), reps=3),
-            library_ms=time_ms(lambda: sdpa_gqa(q, dense_k, dense_v, mask)),
-            bound_ms=bound, bound_by=bound_by, mbytes=nbytes / 1e6, max_abs_err=err,
-            launches=pg_launches, tokens=tokens, splits=pg_splits, blocks=split_grid(b, hq, hkv, pg_splits),
-        )
-        log(f"paged_decode_attention {name_of(dtype):8s} {b} slots x Hq={hq} Hkv={hkv} D={d}, "
-            f"{tokens} tokens in {sum(chains)} pages, {pg_splits} splits of {pg_tiles} {da.paged_tile(page)}-token "
-            f"tiles, {row['blocks']} blocks: err<= {err:.3g} (rtol, atol {tol}; the forced splits too); "
-            f"stale ids never "
-            f"read; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library yardstick (SDPA on "
-            f"the gathered cache dequantized to {name_of(dtype)}, not a port) {row['library_ms']:.4f} ms  "
-            f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB)")
-    del pool, dense_k, dense_v, mask
+    for pg_label, (hq, hkv, d) in (("smollm", (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)),
+                                   ("phi3", (32, 32, 96))):
+        b, page = PAGED_SLOTS, 8
+        lens = torch.randint(1, LONG + 1, (b,), generator=gen, device=dev)
+        lens[0], lens[1], lens[2] = 0, 1001, LONG  # empty, ending mid-page, a full chain
+        lens_host = lens.tolist()
+        chains = [pages_needed(n, page) for n in lens_host]
+        alloc = PageAllocator(1 + sum(chains) + 64, page)
+        owned = [alloc.alloc(n) if n else [] for n in chains]
+        for slot in range(0, b, 2):  # free every other chain and allocate them again, newest first
+            if owned[slot]:
+                alloc.free(owned[slot])
+        for slot in reversed(range(0, b, 2)):
+            owned[slot] = alloc.alloc(chains[slot]) if chains[slot] else []
+        maxp = max(chains)
+        pool = [torch.zeros(hkv, alloc.num_pages, page, d, dtype=torch.int8, device=dev),
+                torch.zeros(hkv, alloc.num_pages, page, device=dev)]
+        pool = pool + [t.clone() for t in pool]  # k, k scales, v, v scales
+        # stale table entries past each chain: pages other chains own, as a freed slot leaves them
+        stale = torch.randint(1, alloc.num_pages, (b, maxp), generator=gen, device=dev, dtype=torch.int32)
+        tables = stale.clone()
+        for slot, ids in enumerate(owned):
+            if not ids:
+                continue
+            tables[slot, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
+            ids_t = torch.tensor(ids, device=dev)
+            for which in (0, 2):
+                ki, ks = da.quantize_kv(torch.randn(1, 1, hkv, lens_host[slot], d, generator=gen, device=dev))
+                pool[which][:, ids_t] = chain_layout(ki, page, len(ids))[0].movedim(0, 1)
+                pool[which + 1][:, ids_t] = chain_layout(ks[..., None], page, len(ids))[0, ..., 0].movedim(0, 1)
+        lens32 = lens.to(torch.int32)
+        past_chain = torch.arange(maxp, device=dev)[None] >= torch.tensor(chains, device=dev)[:, None]
+        log(f"paged pool: {alloc.num_pages} pages of {page} tokens, {alloc.pages_in_use} in use "
+            f"(high water {alloc.high_water}); {b} slots, lengths {min(lens_host)}..{max(lens_host)}, "
+            f"maxp {maxp}; first chain ids {owned[2][:6]}")
+
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(dtype)
+            args_ = (q, *pool, tables, lens32)
+            da.paged_decode_attention.launches = 0  # the main path of kernel #4: one decode read
+            got = da.paged_decode_attention(*args_)
+            torch.cuda.synchronize()
+            pg_launches = da.paged_decode_attention.launches
+            pg_splits = da.paged_decode_attention.last_splits
+            if pg_launches != 1:
+                raise Failed(f"paged_decode_attention: {pg_launches} launches for one call")
+            pg_tiles = -(-maxp * page // da.paged_tile(page))
+            if pg_tiles > 1 and b * hkv < 2 * sms and split_grid(b, hq, hkv, pg_splits) <= b * hkv:
+                raise Failed(f"paged_decode_attention: {pg_splits} splits launch no more blocks than {b * hkv}")
+            tol = DECODE_TOL[name_of(dtype)]
+            err, good = worst(got, da.paged_decode_attention_ref(*args_), tol)
+            # page ids past a chain are never read: out-of-pool ids there change nothing
+            wild = torch.where(past_chain, torch.full_like(tables, 2**30), tables)
+            untouched = torch.equal(da.paged_decode_attention(q, *pool, wild, lens32), got)
+            if not good or not untouched or bool(got[0].abs().any()):
+                raise Failed(f"paged_decode_attention {dtype}: err {err} (tol {tol}), stale ids never read "
+                             f"{untouched}, empty slot zero {not bool(got[0].abs().any())}")
+            for forced in sorted({1, pg_tiles} - {pg_splits}):  # the splits forced to 1 and one per tile
+                f_err, f_good = worst(da.paged_decode_attention(*args_, splits=forced),
+                                      da.paged_decode_attention_ref(*args_), tol)
+                if not f_good:
+                    raise Failed(f"paged_decode_attention {dtype} splits {forced}: err {f_err} (tol {tol})")
+                err = max(err, f_err)
+            dense_k, dense_v = (da.gather_pages(da.dequantize_kv(pool[i], pool[i + 1], dtype), tables)
+                                for i in (0, 2))
+            mask = (torch.arange(maxp * page, device=dev)[None] < lens[:, None])[:, None, None, :]
+            tokens = sum(lens_host)
+            nbytes = (2 * hkv * tokens * (d + 4) + 2 * b * hq * d * q.element_size()
+                      + 4 * sum(chains) + 4 * b)
+            bound, bound_by = decode_bound(nbytes, 4.0 * hq * tokens * d)
+            row = pg_rows[f"{pg_label} {name_of(dtype)}"] = dict(
+                ms=time_ms(lambda: da.paged_decode_attention(*args_)),
+                plain_ms=time_ms(lambda: da.paged_decode_attention_ref(*args_), reps=3),
+                library_ms=time_ms(lambda: sdpa_gqa(q, dense_k, dense_v, mask)),
+                bound_ms=bound, bound_by=bound_by, mbytes=nbytes / 1e6, max_abs_err=err,
+                launches=pg_launches, tokens=tokens, splits=pg_splits, blocks=split_grid(b, hq, hkv, pg_splits),
+            )
+            log(f"paged_decode_attention {pg_label} {name_of(dtype):8s} {b} slots x Hq={hq} Hkv={hkv} D={d}, "
+                f"{tokens} tokens in {sum(chains)} pages, {pg_splits} splits of {pg_tiles} {da.paged_tile(page)}-token "
+                f"tiles, {row['blocks']} blocks: err<= {err:.3g} (rtol, atol {tol}; the forced splits too); "
+                f"stale ids never "
+                f"read; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library yardstick (SDPA on "
+                f"the gathered cache dequantized to {name_of(dtype)}, not a port) {row['library_ms']:.4f} ms  "
+                f"bound {bound:.5f} ms ({bound_by}, {row['mbytes']:.3f} MB)")
+        del pool, dense_k, dense_v, mask
 
     # ---- phase 5: the kernel autotuner over the dense cells ----------------
     rec = Recorder()
@@ -1098,7 +1132,7 @@ def run(args, torch) -> int:
     fa32 = fa_rows[("float32", cfg.name, LONG, "causal")]
     sc = scan_rows["bfloat16 4x128x8192x16"]
     dec = da_rows[("smollm-b4", "bfloat16", LONG)]
-    pg = pg_rows["bfloat16"]
+    pg = pg_rows["smollm bfloat16"]
     mm_src = dict(route="cuda", source="src/repro_torch/kernels/csrc/masked_matmul.cu",
                   replaces="src/repro/kernels/masked_matmul/masked_matmul.py:66", max_abs_err=mm_err)
     fa_src = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -1,7 +1,7 @@
 """Shared kernel-runtime layer: the per-dtype tolerance table, the build and
 binding of the hand-written CUDA kernels, the zeroed counters of split
-launches, the card's shared-memory limit and the ``tuned_block`` seam between
-the wrappers and the tuning cache.
+launches, the card's SM count and shared-memory limit and the ``tuned_block``
+seam between the wrappers and the tuning cache.
 
 Kernels live in ``kernels/csrc/*.cu``, each with a plain C entry point. At
 first use ``nvcc`` compiles a source for ``sm_90a`` into a shared library
@@ -34,6 +34,7 @@ __all__ = [
     "load_kernel",
     "check_launch",
     "SMEM_LIMIT_BYTES",
+    "sm_count",
     "dtype_name",
     "backend_tag",
     "tuned_block",
@@ -171,8 +172,21 @@ def split_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The card's shared memory, and the tuning-cache seam
+# The card's SMs and shared memory, and the tuning-cache seam
 # ---------------------------------------------------------------------------
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count, read once per device; the wrappers' launch
+    plans take it."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
 
 # Dynamic shared memory one block of an H100 may use: 227 KiB of the SM's
 # 256 KiB, above 48 KiB only after cudaFuncSetAttribute(...,

@@ -28,12 +28,15 @@
 // exact, not I2F, which Hopper runs at a quarter of the FMA rate) and computes its score for every
 // query head of the chunk against q in shared memory (pre-scaled by scale * log2 e, read as a
 // broadcast); the online softmax runs per warp in registers (a warp max by shuffles, exp2); then
-// lanes take four head dims of every (32 / (D / 4))-th key and accumulate p * v_scale * v in
-// registers. The warps of a block combine once, at the end of their range, through shared memory.
-// The group size (1-8) is a template parameter, so every head loop is straight-line code; one
-// kernel per (D, group size) serves the dense and the paged layout and both q dtypes. Nothing is
-// dequantized to device memory, and the tensor cores are not used: with G <= 8 query rows per KV
-// head a 16-row mma tile would be mostly padding.
+// each key's V row is taken by the largest power-of-two number of lanes that divides its D / 4
+// 32-bit words, so a warp takes whole keys, and each lane accumulates p * v_scale * v in registers
+// for four head dims a word (D = 32, 64, 128: one word a lane, 4, 2, 1 keys a step; D = 96: 8
+// lanes of three words each, 4 keys a step). The warps of a block combine once, at the end of
+// their range, through shared memory. The group size (1-8) is a template parameter, so every head
+// loop is straight-line code; one kernel per (D in {32, 64, 96, 128}, group size) serves the dense
+// and the paged layout and both q dtypes (32 kernels). Nothing is dequantized to device memory,
+// and the tensor cores are not used: with G <= 8 query rows per KV head a 16-row mma tile would be
+// mostly padding.
 //
 // The merge. With one split a block writes the output itself. Otherwise each block writes its
 // partial (running max m, running sum l, unnormalized accumulator, fp32) to a workspace of
@@ -278,8 +281,12 @@ template <int D, int GP>
 __global__ void __launch_bounds__(NT, 3) decode_kernel(const Args a) {
   constexpr int LK = D / 16;    // 16-byte pieces per int8 row
   constexpr int KR = D + 16;    // K row stride in a slot
-  constexpr int W4 = D / 4;     // 32-bit words per V row: the lanes of one key in the PV phase
-  constexpr int KPS = 32 / W4;  // keys per PV step
+  constexpr int W4 = D / 4;     // 32-bit words (four head dims each) per V row
+  // lanes of one key in the PV phase: the largest power of two dividing W4, at most a warp, so
+  // that a warp takes whole keys (D = 96: 8 lanes of 3 words each, 4 keys a step)
+  constexpr int LPK = (W4 & -W4) < 32 ? (W4 & -W4) : 32;
+  constexpr int VW = W4 / LPK;   // words a lane takes per key: lane w4 takes w4, w4 + LPK, ...
+  constexpr int KPS = 32 / LPK;  // keys per PV step
   constexpr int PS = GP <= 4 ? 4 : 8;  // floats of p per key
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(a.bkv, D, a.G);
@@ -338,14 +345,15 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(const Args a) {
   __syncthreads();
 
   float m[GP], l[GP];
-  float4 acc[GP];
+  float4 acc[GP][VW];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
-    acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[g][v] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const int w4 = lane % W4, kslot = lane / W4;
+  const int w4 = lane % LPK, kslot = lane / LPK;
 
   for (int i = 0; i < mine; ++i) {
     cp_async_wait_upto(slots - 1);  // this lane's copies of chunk i have landed
@@ -390,10 +398,13 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(const Args a) {
       const float alpha = exp2f(m[g] - mn);  // 0 on the warp's first chunk
       const float pg = valid ? exp2f(x[g] - mn) : 0.f;
       l[g] = fmaf(l[g], alpha, pg);  // this lane's share; summed over the warp at the end
-      acc[g].x *= alpha;
-      acc[g].y *= alpha;
-      acc[g].z *= alpha;
-      acc[g].w *= alpha;
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        acc[g][v].x *= alpha;
+        acc[g][v].y *= alpha;
+        acc[g][v].z *= alpha;
+        acc[g][v].w *= alpha;
+      }
       m[g] = mn;
       p[g] = pg * sv;  // v's scale folded into the weight
     }
@@ -402,13 +413,16 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(const Args a) {
       reinterpret_cast<float4*>(p_w + lane * PS + g)[0] = make_float4(p[g], p[g + 1], p[g + 2], p[g + 3]);
     __syncwarp();
 
-    // accumulator: lane (kslot, w4) sums p * v over keys kslot, kslot + KPS, ... for four dims;
-    // a key past the range has p = 0 (and its stale int8 row is finite), so the loop runs whole
+    // accumulator: lane (kslot, w4) sums p * v over keys kslot, kslot + KPS, ... for the four dims
+    // of each of its VW words; a key past the range has p = 0 (and its stale int8 row is finite),
+    // so the loop runs whole
     const int* vw = reinterpret_cast<const int*>(sl + KC * KR) + w4;
 #pragma unroll
     for (int jj = 0; jj < KC / KPS; ++jj) {
       const int j = kslot + jj * KPS;
-      const float4 vv = i8x4_to_f32(vw[j * W4]);
+      float4 vv[VW];
+#pragma unroll
+      for (int v = 0; v < VW; ++v) vv[v] = i8x4_to_f32(vw[j * W4 + v * LPK]);
       float pj[PS];
 #pragma unroll
       for (int g = 0; g < PS; g += 4) {
@@ -419,12 +433,14 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(const Args a) {
         pj[g + 3] = t.w;
       }
 #pragma unroll
-      for (int g = 0; g < GP; ++g) {
-        acc[g].x = fmaf(pj[g], vv.x, acc[g].x);
-        acc[g].y = fmaf(pj[g], vv.y, acc[g].y);
-        acc[g].z = fmaf(pj[g], vv.z, acc[g].z);
-        acc[g].w = fmaf(pj[g], vv.w, acc[g].w);
-      }
+      for (int g = 0; g < GP; ++g)
+#pragma unroll
+        for (int v = 0; v < VW; ++v) {
+          acc[g][v].x = fmaf(pj[g], vv[v].x, acc[g][v].x);
+          acc[g][v].y = fmaf(pj[g], vv[v].y, acc[g][v].y);
+          acc[g][v].z = fmaf(pj[g], vv[v].z, acc[g][v].z);
+          acc[g][v].w = fmaf(pj[g], vv[v].w, acc[g][v].w);
+        }
     }
     __syncwarp();  // the slot and p_w are read; refill the slot
     load_chunk(i + slots);
@@ -438,18 +454,22 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(const Args a) {
 #pragma unroll
     for (int g = 0; g < GP; ++g) l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
 #pragma unroll
-  for (int off = W4; off < 32; off <<= 1)
+  for (int off = LPK; off < 32; off <<= 1)
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      acc[g].x += __shfl_xor_sync(0xffffffffu, acc[g].x, off);
-      acc[g].y += __shfl_xor_sync(0xffffffffu, acc[g].y, off);
-      acc[g].z += __shfl_xor_sync(0xffffffffu, acc[g].z, off);
-      acc[g].w += __shfl_xor_sync(0xffffffffu, acc[g].w, off);
-    }
+    for (int g = 0; g < GP; ++g)
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        acc[g][v].x += __shfl_xor_sync(0xffffffffu, acc[g][v].x, off);
+        acc[g][v].y += __shfl_xor_sync(0xffffffffu, acc[g][v].y, off);
+        acc[g][v].z += __shfl_xor_sync(0xffffffffu, acc[g][v].z, off);
+        acc[g][v].w += __shfl_xor_sync(0xffffffffu, acc[g][v].w, off);
+      }
   float* part = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
-    if (lane < W4) reinterpret_cast<float4*>(part + 2 * GMAX + g * D)[lane] = acc[g];
+    if (lane < LPK)
+#pragma unroll
+      for (int v = 0; v < VW; ++v) reinterpret_cast<float4*>(part + 2 * GMAX + g * D)[lane + v * LPK] = acc[g][v];
     if (lane == 0) {
       part[g] = m[g];
       part[GMAX + g] = l[g];
@@ -565,13 +585,14 @@ int launch(int dtype, int d, const void* q, const void* k, const void* ks, const
   a.src = src;
   if (d == 32) return launch_d<32>(a, (int)groups, smem, st);
   if (d == 64) return launch_d<64>(a, (int)groups, smem, st);
+  if (d == 96) return launch_d<96>(a, (int)groups, smem, st);
   if (d == 128) return launch_d<128>(a, (int)groups, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 for q and o; d in {32, 64, 128}. q and o (B, Hkv * G, 1, D),
+// dtype: 0 = float32, 1 = bfloat16 for q and o; d in {32, 64, 96, 128}. q and o (B, Hkv * G, 1, D),
 // k and v int8 (B, Hkv, S, D), scales f32 (B, Hkv, S), all contiguous. The valid length is
 // len_ptr[0] (an int32 on the device) when len_ptr is not null, else len_value; it is clamped to
 // [0, S]. The keys are split into `splits` ranges of whole bkv tiles; ws and counters are the

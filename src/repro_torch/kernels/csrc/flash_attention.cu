@@ -20,8 +20,9 @@
 //   to bf16 in registers and fed straight back as the A operand of PV (the one rounding step the
 //   fp32 reference does not take, as in FlashAttention-2). K and V tiles of 64 keys go through a
 //   two-stage shared-memory ring by cp.async (16-byte chunks, zero-filled past Skv), so the next
-//   tile loads while this one is multiplied; rows are padded to 144 bytes, so ldmatrix is free of
-//   bank conflicts. q, k, v and their strides must be 16-byte aligned (the wrapper checks).
+//   tile loads while this one is multiplied; rows are padded to D + 8 bf16 (an odd number of
+//   16-byte units), so ldmatrix is free of bank conflicts. q, k, v and their strides must be
+//   16-byte aligned (the wrapper checks).
 // - v1 (float32): the first version, SIMT with fp32 FMAs and four threads per query row
 //   (tensor cores would round fp32 to tf32, which misses the float32 tolerances). It also stays
 //   reachable for bf16 by an explicit variant, to be timed beside the mma kernel.
@@ -29,8 +30,13 @@
 // Both skip every kv tile that the causal and window masks exclude for all rows of the block,
 // read the kv head h // (Hq / Hkv) without repeating K and V per query head, take q, k, v and o
 // through their batch/head/sequence strides (the caller's (B, S, H, D) projections need no
-// copy), and mask ragged Sq and Skv here. Left for later work: wgmma and TMA, with a producer
-// warp keeping the ring full.
+// copy), and mask ragged Sq and Skv here. Both take the head dim D as a template parameter and are
+// built for D = 64, 80, 96 and 128 (the reference's model zoo: SmolLM and hymba 64, hubert-xlarge
+// 80, phi3-mini 96, qwen3, llama3, mixtral, llama4 and internvl2 128); the fragments, chunk loops
+// and padded rows follow D, and the tiles live in dynamic shared memory (mma 45 KiB at D = 64 and
+// 85 KiB at 128, v1 32 and 64 KiB), its limit raised at each launch that needs more than 48 KiB
+// (per launch, not once per instance: the attribute belongs to the current device). Left for
+// later work: wgmma and TMA, with a producer warp keeping the ring full.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,8 +74,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                        int causal, int window, int q_offset) {
   constexpr int DP = D / TPR;  // head dims per thread
-  __shared__ float k_s[BKV][D];
-  __shared__ float v_s[BKV][D];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*k_s)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*v_s)[D] = k_s + BKV;
 
   const int tid = threadIdx.x;
   const int r = tid / TPR, part = tid % TPR;
@@ -150,14 +157,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-            int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
-            int window, int q_offset, cudaStream_t stream) {
+// K and V tiles in fp32: 32 KiB at D = 64, 64 KiB at D = 128 (dynamic shared memory)
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+           int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+           int window, int q_offset, cudaStream_t stream) {
+  constexpr int smem = 2 * BKV * D * 4;
+  auto kern = flash_attention_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  flash_attention_kernel<T, 64><<<grid, NT, 0, stream>>>(
+  kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace v1
@@ -168,9 +183,12 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
 
 constexpr int F_BQ = 64;      // query rows per block, 16 per warp
 constexpr int F_BKV = 64;     // keys per kv tile
-constexpr int F_D = 64;       // head dim
-constexpr int F_LD = F_D + 8; // padded shared-memory row: 144 bytes
 constexpr int F_THREADS = 128;
+// A padded shared-memory row of head dim D: D + 8 bf16, an odd number of 16-byte units (144 bytes at
+// D = 64, 272 at 128), so the eight rows an ldmatrix reads fall in eight different bank groups.
+template <int D> __host__ __device__ constexpr int f_ld() { return D + 8; }
+// Q, then the two-stage K and V rings: 46,080 bytes at D = 64, 87,040 at D = 128
+template <int D> __host__ __device__ constexpr int f_smem() { return (F_BQ + 4 * F_BKV) * f_ld<D>() * 2; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -201,14 +219,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+template <int D>
 __global__ void __launch_bounds__(F_THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
                  int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
                  int causal, int window, int q_offset) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[F_BQ * F_LD];
-  __shared__ __align__(16) __nv_bfloat16 Ks[2][F_BKV * F_LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[2][F_BKV * F_LD];
+  constexpr int F_LD = f_ld<D>();
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto Ks = [&](int stage) { return Qs + (F_BQ + stage * F_BKV) * F_LD; };
+  auto Vs = [&](int stage) { return Qs + (F_BQ + (2 + stage) * F_BKV) * F_LD; };
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -233,32 +255,32 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int w_lo = lo + warp * 16, w_hi = w_lo + 15;
   const int r0 = w_lo + g, r1 = r0 + 8;
 
-  // 64 rows x 8 chunks of 16 bytes per tile: 4 chunks per thread
+  // 64 rows x D / 8 chunks of 16 bytes per tile: D / 16 chunks per thread
   auto load_kv = [&](int tile, int stage) {
     const int t0 = tile * F_BKV;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < D / 16; ++i) {
       const int c = tid + i * F_THREADS;
-      const int r = c >> 3, ch = (c & 7) * 8;
+      const int r = c / CH, ch = (c % CH) * 8;
       const bool in = t0 + r < Skv;
-      cp_async16(&Ks[stage][r * F_LD + ch], in ? kp + (long long)(t0 + r) * ks.s + ch : kp, in ? 16 : 0);
-      cp_async16(&Vs[stage][r * F_LD + ch], in ? vp + (long long)(t0 + r) * vs.s + ch : vp, in ? 16 : 0);
+      cp_async16(Ks(stage) + r * F_LD + ch, in ? kp + (long long)(t0 + r) * ks.s + ch : kp, in ? 16 : 0);
+      cp_async16(Vs(stage) + r * F_LD + ch, in ? vp + (long long)(t0 + r) * vs.s + ch : vp, in ? 16 : 0);
     }
   };
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < D / 16; ++i) {
     const int c = tid + i * F_THREADS;
-    const int r = c >> 3, ch = (c & 7) * 8;
+    const int r = c / CH, ch = (c % CH) * 8;
     const bool in = q0 + r < Sq;
     cp_async16(&Qs[r * F_LD + ch], in ? qp + (long long)(q0 + r) * qs.s + ch : qp, in ? 16 : 0);
   }
   if (n_tiles > 0) load_kv(t_first, 0);
   cp_async_commit();
 
-  uint32_t qf[4][4];  // this warp's 16 x 64 q tile as four A fragments
-  float oacc[8][4];   // 16 x 64 output: 8 blocks of 8 head dims
+  uint32_t qf[D / 16][4];  // this warp's 16 x D q tile as D / 16 A fragments
+  float oacc[D / 8][4];    // 16 x D output: D / 8 blocks of 8 head dims
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows r0 and r1
@@ -269,7 +291,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     __syncthreads();  // tile it has landed; every warp is done with tile it - 1
     if (it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc)
+      for (int kc = 0; kc < D / 16; ++kc)
         ldsm_x4(qf[kc], &Qs[(warp * 16 + (lane & 15)) * F_LD + kc * 16 + (lane >> 4) * 8]);
     }
     if (it + 1 < n_tiles) {
@@ -286,9 +308,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-    const __nv_bfloat16* kt = Ks[st];
+    const __nv_bfloat16* kt = Ks(st);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
+    for (int kc = 0; kc < D / 16; ++kc)
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t r[4];
@@ -335,14 +357,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       l_run[hf] = l_run[hf] * alpha + sum;  // this thread's share; the quad is summed at the end
       m_run[hf] = m_new;
 #pragma unroll
-      for (int db = 0; db < 8; ++db) {
+      for (int db = 0; db < D / 8; ++db) {
         oacc[db][2 * hf] *= alpha;
         oacc[db][2 * hf + 1] *= alpha;
       }
     }
 
     // O += P V: P (16 x 64, bf16) as four A fragments straight from the S accumulators
-    const __nv_bfloat16* vt = Vs[st];
+    const __nv_bfloat16* vt = Vs(st);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t pa[4];
@@ -351,7 +373,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t r[4];
         ldsm_x4_t(r, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * F_LD + dp * 16 + (lane >> 4) * 8);
         mma16816(oacc[2 * dp], pa, r[0], r[1]);
@@ -370,7 +392,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     if (qi >= Sq) continue;
     __nv_bfloat16* op = o + b * os.b + h * os.h + (long long)qi * os.s + 2 * t4;
 #pragma unroll
-    for (int db = 0; db < 8; ++db)
+    for (int db = 0; db < D / 8; ++db)
       *reinterpret_cast<__nv_bfloat162*>(op + db * 8) =
           __floats2bfloat162_rn(oacc[db][2 * hf] * inv, oacc[db][2 * hf + 1] * inv);
   }
@@ -378,13 +400,44 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+               int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2, int causal,
+               int window, int q_offset, cudaStream_t stream) {
+  constexpr int smem = f_smem<D>();
+  auto kern = flash_mma_kernel<D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((Sq + F_BQ - 1) / F_BQ, B * Hq);
+  kern<<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, qs,
+      ks, vs, os, scale_log2, causal, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_v1(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+              int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+              int window, int q_offset, cudaStream_t st) {
+  switch (D) {
+    case 64: return v1::launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
+    case 80: return v1::launch<T, 80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
+    case 96: return v1::launch<T, 96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
+    case 128: return v1::launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // variant: 1 = v1 (float32 or bfloat16), 2 = mma (bfloat16 only, q, k and v 16-byte aligned with
 // strides that are multiples of 8 elements). dtype: 0 = float32, 1 = bfloat16 for q, k, v and o
 // alike. Layouts (B, H, S, D) addressed by (batch, head, sequence) strides with a unit head-dim
-// stride; only D = 64 is built. window <= 0 means no window. Returns cudaGetLastError() after the
-// launch.
+// stride; D is 64, 80, 96 or 128 (the head dims built). window <= 0 means no window. Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention(int variant, int dtype, const void* q, const void* k, const void* v,
                                void* o, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                long long qsb, long long qsh, long long qss,
@@ -392,19 +445,17 @@ extern "C" int flash_attention(int variant, int dtype, const void* q, const void
                                long long vsb, long long vsh, long long vss,
                                long long osb, long long osh, long long oss,
                                float scale, int causal, int window, int q_offset, void* stream) {
-  if (D != 64 || Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   if (variant == 1) {
     if (dtype == 0)
-      v1::launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window,
-                        q_offset, st);
-    else if (dtype == 1)
-      v1::launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal,
-                                window, q_offset, st);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(cudaGetLastError());
+      return launch_v1<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal,
+                              window, q_offset, st);
+    if (dtype == 1)
+      return launch_v1<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale,
+                                      causal, window, q_offset, st);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 2 || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long strides[] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
@@ -412,10 +463,12 @@ extern "C" int flash_attention(int variant, int dtype, const void* q, const void
     if (s % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const dim3 grid((Sq + F_BQ - 1) / F_BQ, B * Hq);
-  flash_mma_kernel<<<grid, F_THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, qs,
-      ks, vs, os, scale * 1.4426950408889634f, causal, window, q_offset);
-  return static_cast<int>(cudaGetLastError());
+  const float sl = scale * 1.4426950408889634f;
+  switch (D) {
+    case 64: return launch_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 80: return launch_mma<80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 96: return launch_mma<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 128: return launch_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -45,6 +45,7 @@ from repro_torch.kernels.common import (
     SMEM_LIMIT_BYTES,
     check_launch,
     load_kernel,
+    sm_count,
     split_counters,
     tuned_block,
 )
@@ -70,7 +71,7 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
+HEAD_DIMS = (32, 64, 96, 128)  # the head dims the kernels are built for
 DEFAULT_BKV = 128  # the heuristic tile of the dense kernel (the reference's)
 # the CUDA source's block geometry: NW warps of 32 lanes, KC keys per warp chunk, at most GMAX
 # query heads per block
@@ -207,18 +208,6 @@ def split_plan(b: int, hkv: int, skv: int, bkv: int, sm_count: int) -> int:
     want = max(1, -(-BLOCKS_PER_SM * int(sm_count) // max(int(b) * int(hkv), 1)))
     per = -(-tiles // min(tiles, want))
     return -(-tiles // per)
-
-
-_SMS: dict[int, int] = {}
-
-
-def sm_count(device) -> int:
-    """The card's SM count, read once per device."""
-    idx = torch.device(device).index
-    idx = torch.cuda.current_device() if idx is None else idx
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def launch_bkv(bkv: int, skv: int) -> int:

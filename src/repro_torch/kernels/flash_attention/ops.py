@@ -32,9 +32,10 @@ import torch
 
 from repro_torch.kernels.common import check_launch, load_kernel
 
-__all__ = ["flash_attention", "attention_ref"]
+__all__ = ["flash_attention", "attention_ref", "HEAD_DIMS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 80, 96, 128)  # the head dims both kernels are built for
 VARIANTS = {"v1": 1, "mma": 2}  # the C entry point's variant codes
 _ARGTYPES = (
     [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
@@ -98,7 +99,7 @@ def flash_attention(
     """Blocked online-softmax attention (causal / sliding window / GQA).
 
     On CUDA: q, k and v share a dtype (float32 or bfloat16) and a unit
-    stride on the head dim, D is 64; in bfloat16 they are 16-byte aligned
+    stride on the head dim, D is one of ``HEAD_DIMS``; in bfloat16 they are 16-byte aligned
     with strides that are multiples of 8 elements. The output is a
     (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, so the caller's merge of
     the heads is free. ``variant="v1"`` forces the first SIMT kernel."""
@@ -112,8 +113,8 @@ def flash_attention(
     hkv, skv = k.shape[1], k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} are not a multiple of kv heads {hkv}")
-    if d != 64:
-        raise ValueError(f"the CUDA kernel is built for head_dim 64, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels are built for head_dim in {HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v alike, got {q.dtype}")
     if not (q.stride(3) == k.stride(3) == v.stride(3) == 1):

@@ -1,15 +1,19 @@
 """Mamba-1 selective scan: the CUDA kernel's wrapper, its plain PyTorch
-version, the one-step decode update and the launch count.
+version, its launch plan, the one-step decode update and the launch count.
 
 Kernel: ``kernels/csrc/selective_scan.cu``. It replaces the TPU kernel
 ``repro/kernels/mamba_scan/mamba_scan.py::selective_scan_pallas``.
 
-Bound on an H100: bytes at the serving prefill (each input read once, y
-written once); the one ``expf`` per (batch, step, channel, state) on the
-special-function units can bound it instead at long prompts. The kernel
-keeps each channel's state in registers for the whole sequence, stages the
-shared B and C rows in shared memory and writes no intermediate to device
-memory; one thread per channel leaves most of each SM idle (see the source).
+Bound on an H100: the one exponential per (batch, step, channel, state) on
+the special-function units, which takes longer than the bytes at every
+shape the serving paths give it. The kernel splits each channel's N states
+over ``lanes`` lanes of a warp (``states`` a lane, in registers), reduces y
+over them with a fixed shuffle tree, copies the next chunk of time steps
+into a shared-memory ring by ``cp.async`` while this one runs, and writes no
+intermediate to device memory. ``scan_plan`` picks the lanes from host
+shapes and the card's SM count alone, so that the grid puts about
+``TARGET_WARPS_PER_SM`` warps on each SM; the chunk of time steps a ring
+stage holds, and so the shared memory, is the C source's.
 
 ``selective_scan`` launches the kernel for a CUDA tensor and counts the
 launch in ``selective_scan.launches``; for a CPU tensor it runs
@@ -23,19 +27,87 @@ reference runs its plain step at decode on the TPU too, with no kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernel
+from repro_torch.kernels.common import check_launch, load_kernel, sm_count
 
-__all__ = ["selective_scan", "selective_scan_ref", "selective_step"]
+__all__ = [
+    "selective_scan",
+    "selective_scan_ref",
+    "selective_step",
+    "scan_plan",
+    "ScanPlan",
+    "MAX_STATE",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+    [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
     + [ctypes.c_void_p]
 )
-MAX_STATE = 16  # the kernel keeps at most 16 states per channel in registers
+# the CUDA source's geometry: THREADS per block; a channel takes 1-32 lanes (a power of two),
+# each holding 1, 2, 4 or 8 states in registers, so at most 32 x 8 states a channel
+THREADS, WARP = 128, 32
+MAX_STATES_PER_LANE = 8
+MAX_STATE = WARP * MAX_STATES_PER_LANE
+TARGET_WARPS_PER_SM = 12  # the plan's aim with 4 or more states a lane; an SM holds at most 64
+FLOOR_WARPS_PER_SM = 4  # below this the plan takes lanes down to one state a lane
+
+
+class ScanPlan(NamedTuple):
+    lanes: int  # lanes of a warp per channel
+    states: int  # states per lane; lanes * states >= N
+    channels: int  # channels per block: THREADS // lanes
+    blocks: int  # the grid: B x ceil(D / channels)
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _check_states(n: int) -> int:
+    n = int(n)
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"the CUDA scan takes 1 to {MAX_STATE} states, got {n}")
+    return n
+
+
+def _plan(b: int, d: int, n: int, lanes: int) -> ScanPlan:
+    """The launch at ``lanes`` lanes a channel: the fewest states a lane
+    (a power of two) that hold N, and the grid."""
+    if lanes not in (1, 2, 4, 8, 16, 32) or _pow2_at_least(-(-n // lanes)) > MAX_STATES_PER_LANE:
+        raise ValueError(f"no scan kernel for {n} states at {lanes} lanes a channel")
+    states = _pow2_at_least(-(-n // lanes))
+    channels = THREADS // lanes
+    return ScanPlan(lanes, states, channels, int(b) * -(-int(d) // channels))
+
+
+def scan_plan(b: int, d: int, n: int, sm_count: int) -> ScanPlan:
+    """The launch plan of the scan kernel, from host-known shapes and the
+    card's SM count alone (the length L does not move it).
+
+    The lanes per channel start at the fewest that hold N in at most
+    ``MAX_STATES_PER_LANE`` states a lane and double, while lanes stay under
+    N and under a warp, as long as the grid's threads (B x D x lanes) put
+    under ``FLOOR_WARPS_PER_SM`` warps on each SM, or under
+    ``TARGET_WARPS_PER_SM`` with more than 4 states a lane: more lanes fill
+    the card, more states a lane give each warp more independent chains and
+    cost less per state (on the H100, 2 lanes of 8 states beat 4 of 4 at
+    falcon-mamba's 4 x 8192 channels, and 4 of 4 beat 8 of 2 at hymba's 4 x
+    3200). Raises ``ValueError`` outside 1 <= N <= ``MAX_STATE``."""
+    n = _check_states(n)
+    lanes = _pow2_at_least(-(-n // MAX_STATES_PER_LANE))
+
+    def warps(lanes):
+        return int(b) * int(d) * lanes / WARP / int(sm_count)
+
+    while lanes < WARP and lanes < n and (
+            warps(lanes) < FLOOR_WARPS_PER_SM
+            or (warps(lanes) < TARGET_WARPS_PER_SM and -(-n // lanes) > 4)):
+        lanes *= 2
+    return _plan(b, d, n, lanes)
 
 
 def selective_scan_ref(u, dt, a, b, c, d):
@@ -62,14 +134,16 @@ def selective_step(h, u_t, dt_t, a, b_t, c_t, d):
     return y.to(u_t.dtype), h
 
 
-def selective_scan(u, dt, a, b, c, d):
+def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
     """(y, h_last) of the selective scan; shapes as ``selective_scan_ref``.
 
     On CUDA: u, b and c share a dtype (float32 or bfloat16); dt, a and d
     are float32 (the model's dt is fp32: a bf16 GEMM output plus the fp32
     bias). u, dt, b and c have a unit stride on their last axis and are
     read through their other strides, so b and c may be slices of one
-    tensor; a and d are contiguous; N is at most 16."""
+    tensor; a and d are contiguous; 1 <= N <= ``MAX_STATE``. ``lanes``
+    forces the lanes a channel takes (the rest of the plan follows), else
+    ``scan_plan``'s."""
     if u.device.type == "cpu":
         return selective_scan_ref(u, dt, a, b, c, d)
     if u.device.type != "cuda":
@@ -85,8 +159,6 @@ def selective_scan(u, dt, a, b, c, d):
             f"bad shapes u{tuple(u.shape)} dt{tuple(dt.shape)} a{tuple(a.shape)} "
             f"b{tuple(b.shape)} c{tuple(c.shape)} d{tuple(d.shape)}"
         )
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"the CUDA kernel takes 1 to {MAX_STATE} states, got {n}")
     if u.dtype not in _DTYPES or b.dtype != u.dtype or c.dtype != u.dtype:
         raise TypeError(f"u, b and c must share float32 or bfloat16, got {u.dtype}, {b.dtype}, {c.dtype}")
     if dt.dtype != torch.float32 or a.dtype != torch.float32 or d.dtype != torch.float32:
@@ -95,6 +167,8 @@ def selective_scan(u, dt, a, b, c, d):
         raise ValueError("u, dt, a, b, c and d must lie on the current CUDA device")
     if any(t.stride(-1) != 1 for t in (u, dt, b, c)) or not (a.is_contiguous() and d.is_contiguous()):
         raise ValueError("u, dt, b and c need a unit last stride; a and d must be contiguous")
+    n = _check_states(n)
+    plan = scan_plan(bsz, dim, n, sm_count(u.device)) if lanes is None else _plan(bsz, dim, n, int(lanes))
     y = torch.empty((bsz, length, dim), dtype=u.dtype, device=u.device)
     h_last = torch.empty((bsz, dim, n), dtype=torch.float32, device=u.device)
     if bsz and dim:
@@ -102,13 +176,15 @@ def selective_scan(u, dt, a, b, c, d):
         err = fn(
             _DTYPES[u.dtype], u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), d.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            bsz, length, dim, n, u.stride(0), u.stride(1), dt.stride(0), dt.stride(1),
+            bsz, length, dim, n, plan.lanes, plan.states, u.stride(0), u.stride(1), dt.stride(0), dt.stride(1),
             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             torch.cuda.current_stream().cuda_stream,
         )
         check_launch("selective_scan", err)
         selective_scan.launches += 1
+        selective_scan.last_plan = plan
     return y, h_last
 
 
 selective_scan.launches = 0
+selective_scan.last_plan = None

@@ -40,7 +40,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.mapping import periodic_mask
-from repro_torch.kernels.common import check_launch, load_kernel, split_counters
+from repro_torch.kernels.common import check_launch, load_kernel, sm_count, split_counters
 
 __all__ = ["masked_matmul", "masked_matmul_ref", "packed_mask", "pick_variant", "VARIANTS"]
 
@@ -58,11 +58,6 @@ VARIANTS = {"v1": 1, "decode": 2, "mma": 3}
 _SMALL_M = 16
 _TILES = {True: (16, 64, 32), False: (64, 64, 16)}
 _PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-
-
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,7 +178,7 @@ def masked_matmul(
         raise TypeError("the v1 kernel takes x and w of one dtype")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
-        sms = _num_sms(x.device.index)
+        sms = sm_count(x.device)
         stream = torch.cuda.current_stream().cuda_stream
         if kind == "v1":  # its scratch holds its own counters; it reads the float mask
             splits, scratch_bytes = _split_plan(m, n, kdim, sms)

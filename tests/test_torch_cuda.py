@@ -251,6 +251,56 @@ def test_bf16_flash_kernel_matches_plain(cuda, hq, hkv, sq, skv, q_offset, windo
     torch.testing.assert_close(got.float(), v1.float(), rtol=2e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,q_offset,window", [(65, 65, 0, None), (200, 200, 0, 64), (63, 200, 100, 37)])
+def test_flash_kernels_take_every_built_head_dim(cuda, d, dtype, sq, skv, q_offset, window):
+    """Both kernels (mma and v1 in bf16, v1 in float32) at each head dim the
+    source builds, on the (B, S, H, D) projections' layout."""
+    g = torch.Generator(device=cuda).manual_seed(d + sq)
+    q = torch.randn(2, sq, 6, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    k = torch.randn(2, skv, 2, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn(2, skv, 2, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ref = attention_ref(q, k, v, **kw).float()
+    rtol, atol = (2e-2, 1e-2) if dtype == torch.bfloat16 else dtype_tol(dtype)
+    variants = ("auto", "v1") if dtype == torch.bfloat16 else ("auto",)
+    for variant in variants:
+        kind = "mma" if variant == "auto" and dtype == torch.bfloat16 else "v1"
+        before = dict(flash_attention.launches_by_variant)
+        got = flash_attention(q, k, v, variant=variant, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_variant == {**before, kind: before[kind] + 1}
+        assert got.shape == (2, 6, sq, d)
+        torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "auto"), (torch.bfloat16, "v1"), (torch.float32, "auto")])
+def test_flash_kernels_zero_mass_rows_at_every_head_dim(cuda, d, dtype, variant):
+    q = torch.randn(1, 6, 70, d, device=cuda).to(dtype)
+    k = torch.randn(1, 2, 40, d, device=cuda).to(dtype)
+    got = flash_attention(q, k, k, causal=False, window=4, q_offset=100, variant=variant)
+    assert not got.abs().any()
+    got = flash_attention(q, k, k, causal=True, window=8, q_offset=30, variant=variant)
+    ref = attention_ref(q, k, k, causal=True, window=8, q_offset=30)
+    assert not got[:, :, 18:].abs().any()
+    rtol, atol = (2e-2, 1e-2) if dtype == torch.bfloat16 else dtype_tol(dtype)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_refuses_head_dims_it_does_not_build(cuda):
+    q = torch.randn(1, 2, 8, 48, device=cuda).to(torch.bfloat16)
+    before = flash_attention.launches
+    for variant in ("auto", "v1"):
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(q, q, q, variant=variant)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q.float()[..., :32].contiguous(), q.float()[..., :32].contiguous(),
+                        q.float()[..., :32].contiguous())
+    assert flash_attention.launches == before
+
+
 def test_bf16_flash_kernel_zero_mass_rows_are_exact_zero(cuda):
     q = torch.randn(1, 6, 70, 64, device=cuda).to(torch.bfloat16)
     k = torch.randn(1, 2, 40, 64, device=cuda).to(torch.bfloat16)
@@ -308,6 +358,8 @@ def test_selective_scan_kernel_matches_plain_on_card(cuda, b, l, d, n, u_dtype):
 
 
 def test_selective_scan_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.mamba_scan.ops import MAX_STATE
+
     u, dt, a, bm, cm, d_skip = _scan_inputs(cuda, 2, 16, 64, 16, torch.bfloat16)
     before = selective_scan.launches
     with pytest.raises(TypeError):
@@ -316,9 +368,77 @@ def test_selective_scan_refuses_what_it_does_not_take(cuda):
         selective_scan(u, dt, a, bm.float(), cm, d_skip)  # b in another dtype than u
     with pytest.raises(ValueError):
         selective_scan(u, dt, a.cpu(), bm, cm, d_skip)  # a on the host
-    with pytest.raises(ValueError):
-        selective_scan(u, dt, torch.cat([a, a], 1), *_scan_inputs(cuda, 2, 16, 64, 32, torch.bfloat16)[3:])
+    big = _scan_inputs(cuda, 2, 16, 64, MAX_STATE + 1, torch.bfloat16)
+    with pytest.raises(ValueError, match=f"1 to {MAX_STATE} states"):
+        selective_scan(*big)  # more states than the kernel's cap
+    with pytest.raises(ValueError, match="no scan kernel"):
+        selective_scan(u, dt, a, bm, cm, d_skip, lanes=1)  # 16 states a lane: more than 8
+    with pytest.raises(ValueError, match="no scan kernel"):
+        selective_scan(u, dt, a, bm, cm, d_skip, lanes=3)  # not a power of two
     assert selective_scan.launches == before
+
+
+# (B, L, D, N): every state count from 1 to the cap, at ragged D and L
+SCAN_STATE_CASES = [(2, 37, 11, 1), (3, 70, 100, 4), (2, 45, 130, 16), (2, 33, 77, 17), (2, 50, 64, 32),
+                    (2, 256, 1024, 64), (1, 19, 13, 256), (2, 100, 300, 17)]
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n", SCAN_STATE_CASES)
+def test_selective_scan_kernel_takes_every_state_count(cuda, b, l, d, n, u_dtype):
+    args = _scan_inputs(cuda, b, l, d, n, u_dtype, seed=n)
+    before = selective_scan.launches
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    ref_y, ref_h = selective_scan_ref(*args)
+    rtol, atol = SCAN_TOL[u_dtype]
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, ref_h, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_selective_scan_every_plan_agrees_and_repeats_its_bits(cuda, lanes, u_dtype):
+    """Each lane count a channel may take against the plain version; two
+    launches of one plan give the same bits. At 1 and 2 lanes in float32 (and
+    1 in bf16) four blocks of 32-step chunks would not fit an SM, so the
+    kernel stages 16 steps: both chunk lengths run."""
+    b, l, d, n = 2, 75, 200, 8
+    args = _scan_inputs(cuda, b, l, d, n, u_dtype, seed=lanes)
+    ref_y, ref_h = selective_scan_ref(*args)
+    rtol, atol = SCAN_TOL[u_dtype]
+    y, h = selective_scan(*args, lanes=lanes)
+    torch.cuda.synchronize()
+    plan = selective_scan.last_plan
+    assert (plan.lanes, plan.states, plan.channels) == (lanes, max(1, n // lanes), 128 // lanes)
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, ref_h, rtol=2e-5, atol=1e-4)
+    y2, h2 = selective_scan(*args, lanes=lanes)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_takes_unaligned_slices(cuda, u_dtype):
+    """u a slice of a wider tensor (the in_proj output's first half), B and C
+    slices at an odd element (2-byte copies in bf16) and L = 0."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, l, d, n = 2, 40, 96, 16
+    xz = torch.randn(b, l, 2 * d, generator=g, device=cuda).to(u_dtype)
+    u = xz[..., :d]
+    dt = torch.nn.functional.softplus(torch.randn(b, l, d, generator=g, device=cuda) - 3.0)
+    a = -torch.exp(torch.randn(d, n, generator=g, device=cuda))
+    dbc = torch.randn(b, l, 3 + 2 * n, generator=g, device=cuda).to(u_dtype)
+    _, bm, cm = torch.split(dbc, [3, n, n], dim=-1)
+    d_skip = torch.randn(d, generator=g, device=cuda)
+    y, h = selective_scan(u, dt, a, bm, cm, d_skip)
+    ref_y, ref_h = selective_scan_ref(u, dt, a, bm, cm, d_skip)
+    rtol, atol = SCAN_TOL[u_dtype]
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, ref_h, rtol=2e-5, atol=1e-4)
+    y0, h0 = selective_scan(u[:, :0], dt[:, :0], a, bm[:, :0], cm[:, :0], d_skip)
+    torch.cuda.synchronize()
+    assert y0.shape == (b, 0, d) and not h0.any()
 
 
 def test_selective_scan_is_deterministic(cuda):
@@ -370,7 +490,7 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype, b, hq, hkv, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv,d", [(9, 3, 64), (4, 2, 32), (8, 8, 128)])
+@pytest.mark.parametrize("hq,hkv,d", [(9, 3, 64), (4, 2, 32), (8, 8, 128), (12, 4, 96), (32, 32, 96)])
 def test_paged_decode_attention_kernel_matches_plain_on_card(cuda, dtype, hq, hkv, d):
     b, page, maxp, pool = 6, 8, 40, 400
     lens = torch.tensor([0, 1, 77, 320, 8, 200], dtype=torch.int32, device=cuda)
@@ -394,9 +514,12 @@ def test_paged_decode_attention_kernel_matches_plain_on_card(cuda, dtype, hq, hk
 
 
 # (B, Hq, Hkv, S, D, bkv): the tune-suite shape, SmolLM-135M's and hymba-1.5b's head groups, a
-# group over GMAX query heads (two head chunks) at D = 128
+# group over GMAX query heads (two head chunks) at D = 128, then every group size at D = 96
+# (phi3-mini's heads, 32 / 32, are the group of 1): each is its own compile-time instance
 SPLIT_CASES = [(1, 2, 2, 512, 32, 128), (4, 9, 3, 2048, 64, 128), (4, 25, 5, 1024, 64, 128),
-               (2, 40, 4, 700, 128, 64)]
+               (2, 40, 4, 700, 128, 64), (2, 32, 32, 700, 96, 128), (2, 4, 2, 700, 96, 64),
+               (4, 12, 4, 1000, 96, 64), (2, 8, 2, 700, 96, 128), (2, 40, 8, 700, 96, 128),
+               (2, 12, 2, 300, 96, 64), (2, 14, 2, 300, 96, 64), (2, 8, 1, 700, 96, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -455,6 +578,30 @@ def test_paged_decode_attention_split_counts_agree_on_card(cuda, dtype):
         torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
         assert not got[0].abs().any()
         assert torch.equal(paged_decode_attention(q, ki, ks, vi, vs, tables, lens, splits=splits), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (40, 8), (8, 1)])
+def test_paged_decode_attention_at_d96_with_forced_splits(cuda, dtype, hq, hkv):
+    """phi3-mini's head dim over a paged pool, at its heads (a group of 1)
+    and at groups of 5 and 8: the splits forced to 1 and to one per tile,
+    and the plan's, against the plain version."""
+    b, d, page, maxp, pool = 4, 96, 16, 32, 200
+    tile = 128  # paged_tile(16): 4 tiles of the 512-token table span
+    lens = torch.tensor([0, 129, 300, 512], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(96)
+    ki, ks = quantize_kv(torch.randn(hkv, pool, page, d, generator=g, device=cuda))
+    vi, vs = quantize_kv(torch.randn(hkv, pool, page, d, generator=g, device=cuda))
+    ids = (torch.randperm(pool - 1, generator=g, device=cuda)[: b * maxp].reshape(b, maxp) + 1).to(torch.int32)
+    q = torch.randn(b, hq, 1, d, generator=g, device=cuda).to(dtype)
+    ref = paged_decode_attention_ref(q, ki, ks, vi, vs, ids, lens)
+    rtol, atol = DECODE_TOL[dtype]
+    for splits in (None, 1, maxp * page // tile):
+        got = paged_decode_attention(q, ki, ks, vi, vs, ids, lens, splits=splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+        assert not got[0].abs().any()
+        assert torch.equal(paged_decode_attention(q, ki, ks, vi, vs, ids, lens, splits=splits), got)
 
 
 def test_decode_attention_refuses_what_it_does_not_take(cuda):
