@@ -91,11 +91,30 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     flash with its 1024-token window, the scan) against the plain path
     (``fap`` context, dense attention and the scan's plain version), in bf16
     and in float32: logits, KV ring, conv tail and SSM state;
-11. the record: each model's bf16 decode step of masked GEMMs as kernel
+11. eFAT on the card (``efat_phase``): the sequence of
+    ``examples/fleet_retraining.py`` through the port — paper-mlp
+    pretrained 600 steps, the constraint its accuracy less 0.03, 100
+    correlated chips (``correlated_family(0, 100, 32, 32, 0.07, 0.025)``),
+    Step 1 (5 repeats, 400 steps at most), ``EFAT.run`` and the baselines
+    ``individual``, ``fixed`` (80 steps a chip) and ``random-merge``. It
+    prints the Step-1 map, the comparison table, the scheduler's report,
+    each stage's wall time, population steps per second at width 16 beside
+    serial, and device ops (kernel launches) per population step from two
+    ``torch.profiler`` traces. Gates: the reference's serial/population pin
+    on the card (5 chips at rates 0.02-0.22, equal steps to baseline - 0.05,
+    ``train_batch`` at [25, 40, 10] within ``dtype_tol(float32,
+    atol_scale=100)``, metrics within 2e-3); every shipped weight exactly 0
+    on its job's faulty PEs; every chip's shipped weights through
+    ``classifier_forward`` in ``kernel`` mode (the masked GEMM's ``v1``)
+    against ``fap`` mode on the 4 eval batches at ``dtype_tol(float32)``,
+    accuracy within 1/2048 and 4 x chips x batches ``v1`` launches; eFAT's
+    total steps at most ``individual``'s;
+12. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
     GEMMs; then a ``{"kernels": [...]}`` line with one entry per kernel
-    variant (``masked_matmul.decode``, ``.mma``, ``.v1``,
+    variant (``masked_matmul.decode``, ``.mma``, ``.v1`` with phase 11's
+    launches as ``launches_efat_deploy``,
     ``flash_attention.mma``, ``.v1``, and the scan and decode kernels), the
     card's line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -107,8 +126,9 @@ over the untraced wall time.
 
 Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
-generate calls of phases 6, 8 and 9 and the kernel-path prefills of phases
-7 and 10, bf16 and hymba's float32) and read just after it; parity and
+generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
+7 and 10, bf16 and hymba's float32, and phase 11's deployment check) and
+read just after it; parity and
 timing launches are not counted. The masked GEMM and flash count launches
 per variant: bf16 runs must launch only the bf16 kernels, float32 runs only
 v1, and every variant must be launched on its main path. A bf16 serve in
@@ -208,6 +228,247 @@ def fail(msg: str) -> int:
 
 class Failed(Exception):
     pass
+
+
+# ---------------------------------------------------------------------------
+# phase 11: eFAT on the card
+# ---------------------------------------------------------------------------
+
+EFAT_CHIPS = 100  # the fleet of examples/fleet_retraining.py
+EFAT_PRETRAIN_STEPS = 600  # the example's pretraining
+EFAT_PIN_PRETRAIN_STEPS = 300  # tests/test_population.py's pin trainer
+EFAT_PIN_RATES = (0.02, 0.08, 0.12, 0.18, 0.22)  # the reference's serial/population pin
+EFAT_PIN_BUDGETS = [25, 40, 10]
+EFAT_METRIC_TOL = 2e-3
+EFAT_TIMED_STEPS = 50  # steps a timed fit takes
+EFAT_TIMED_FITS = 5  # timed fits each of population and serial; median and spread
+
+
+def efat_phase(torch, log):
+    """eFAT Steps 1-4 and the SIV-C baselines through the port on the card,
+    as ``examples/fleet_retraining.py`` runs them, with its gates; returns
+    the phase's report and raises ``Failed`` on a missed gate. Turns TF32
+    off for float32 matmuls, as ``run`` does, since gate 3 holds the kernel
+    to the plain product at ``dtype_tol(float32)``."""
+    import gc
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (
+        EFAT, EFATConfig, correlated_family, from_fault_map, healthy, periodic_mask, random_fault_map,
+    )
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.models.classifier import classifier_forward
+    from repro_torch.train.fat_trainer import ClassifierFATTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("paper-mlp")
+    chips = EFAT_CHIPS
+    t_phase = time.perf_counter()
+    stages, report = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    # -- gate 1: population against serial, the reference's own pin ----------
+    def pin():
+        pop = ClassifierFATTrainer(cfg, pretrain_steps=EFAT_PIN_PRETRAIN_STEPS, eval_batches=2)
+        ser = ClassifierFATTrainer(cfg, pretrain_steps=0, eval_batches=2, engine="serial")
+        ser.base_params = pop.base_params
+        ser.baseline_accuracy = ser.evaluate_params(ser.base_params, healthy())
+        rng = np.random.default_rng(0)
+        fleet5 = [random_fault_map(rng, 32, 32, r) for r in EFAT_PIN_RATES]
+        constraint = pop.baseline_accuracy - 0.05
+        steps = [tr.steps_to_constraint_batch(fleet5, constraint, 200) for tr in (pop, ser)]
+        params = [tr.train_batch(fleet5[:3], EFAT_PIN_BUDGETS) for tr in (pop, ser)]
+        metrics = [tr.evaluate_batch(p, fleet5[:3]) for tr, p in zip((pop, ser), params)]
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        err, within = 0.0, True
+        for a, b in zip(*params):
+            for k in a:
+                diff = (a[k] - b[k]).abs()
+                err = max(err, float(diff.max()))
+                within &= bool((diff <= atol + rtol * b[k].abs()).all())
+        m_err = max(abs(x - y) for x, y in zip(*metrics))
+        log(f"efat pin (5 chips, rates {list(EFAT_PIN_RATES)}, baseline {pop.baseline_accuracy:.4f} - 0.05, "
+            f"200 steps): steps population {steps[0]} serial {steps[1]}; train_batch {EFAT_PIN_BUDGETS} max abs "
+            f"err {err:.3g} (rtol {rtol}, atol {atol}); metrics {metrics[0]} vs {metrics[1]} (max diff {m_err:.3g}, "
+            f"tol {EFAT_METRIC_TOL})")
+        if steps[0] != steps[1]:
+            raise Failed(f"efat pin: steps-to-constraint population {steps[0]} != serial {steps[1]}")
+        if not within:
+            raise Failed(f"efat pin: train_batch params differ by {err:.3g} (rtol {rtol}, atol {atol})")
+        if m_err > EFAT_METRIC_TOL:
+            raise Failed(f"efat pin: metrics differ by {m_err:.3g} > {EFAT_METRIC_TOL}")
+        return dict(steps=steps[0], params_err=err, metric_err=m_err), ser
+
+    report["pin"], ser = timed("pin", pin)
+
+    # -- the pipeline of examples/fleet_retraining.py ------------------------
+    trainer = timed("pretrain", lambda: ClassifierFATTrainer(cfg, pretrain_steps=EFAT_PRETRAIN_STEPS, eval_batches=4))
+    constraint = trainer.baseline_accuracy - 0.03
+    fleet = correlated_family(0, chips, 32, 32, base_rate=0.07, idio_rate=0.025, chip_prefix="chip")
+    rates = [fm.fault_rate for fm in fleet]
+    log(f"efat: pretrained {EFAT_PRETRAIN_STEPS} steps on {trainer.device}, baseline accuracy "
+        f"{trainer.baseline_accuracy:.4f}, constraint {constraint:.4f}; fleet {chips} correlated chips, "
+        f"rates {min(rates):.3f}..{max(rates):.3f}")
+    ef = EFAT(trainer, EFATConfig(
+        constraint=constraint, max_fr=0.35, max_interval=0.05, step_ratio=0.6,
+        repeats=5, max_steps=400, m_comparisons=8, k_iterations=2, stat="max",
+    ))
+    table = timed("step1_resilience", lambda: ef.build_resilience_table(fleet))
+    for r, mn, mean, mx in zip(table.rates, table.min_steps, table.mean_steps, table.max_steps_stat):
+        log(f"efat step 1: rate={r:.3f} -> steps min {mn:.0f} mean {mean:.1f} max {mx:.0f}")
+    results = {"eFAT": timed("efat_steps_2_4", lambda: ef.run(fleet))}
+    for method, kw in (("individual", {}), ("fixed", dict(steps_per_chip=80)), ("random-merge", {})):
+        results[method] = timed(method, lambda: ef.run_baseline(fleet, method, **kw))
+    log(f"efat comparison: {'method':14s} {'jobs':>5s} {'total_steps':>12s} {'steps/chip':>11s} {'satisfied':>10s}")
+    summaries = {}
+    for name, res in results.items():
+        s = summaries[name] = res.summary()
+        log(f"efat comparison: {name:14s} {s['jobs']:5d} {s['total_steps']:12.0f} "
+            f"{s['mean_steps_per_chip']:11.1f} {s['satisfied_fraction']:9.0%}")
+    sched = results["eFAT"].scheduling
+    log(f"efat scheduler ({sched['policy']}, chunks of {sched['population_size']}): {sched['jobs']} jobs -> "
+        f"{sched['chunks']} chunks, wasted lane-steps {sched['wasted_steps']:.0f} (arrival order: "
+        f"{sched['arrival_wasted_steps']:.0f}, saved {sched['wasted_steps_reduction']:.0f})")
+
+    # -- gate 2: every shipped weight is exactly 0 on its job's faulty PEs ------
+    for name, res in results.items():
+        for g, (params, fm) in enumerate(zip(res.job_params, res.plan.fault_maps)):
+            ok = torch.as_tensor(fm.ok_mask, device=trainer.device)
+            for k, w in params.items():
+                if w.dim() == 2 and not torch.equal(w * periodic_mask(w.shape, ok), w):
+                    raise Failed(f"efat {name} job {g}: shipped {k} is not zero on the job's faulty PEs")
+
+    # -- gate 3: each chip's deployment through the masked-GEMM kernel ---------
+    def deploy():
+        efat = results["eFAT"]
+        job_of = {chip: g for g, chips_ in enumerate(efat.plan.links) for chip in chips_}
+        masked_matmul.launches = flash_attention.launches = selective_scan.launches = 0
+        for fn in (masked_matmul, flash_attention):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+        rtol, atol = dtype_tol(torch.float32)
+        err, bad, acc_gap = 0.0, [], 0.0
+        n_eval = sum(int(b["labels"].numel()) for b in trainer._evals)
+        for chip, fm in enumerate(fleet):
+            params = efat.job_params[job_of[chip]]
+            ctx_k = from_fault_map(fm, "kernel", device=trainer.device)
+            ctx_f = from_fault_map(fm, "fap", device=trainer.device)
+            hits = [0, 0]
+            for b in trainer._evals:
+                got = classifier_forward(params, b["x"], cfg, ctx_k)
+                ref = classifier_forward(params, b["x"], cfg, ctx_f)
+                diff = (got - ref).abs()
+                err = max(err, float(diff.max()))
+                if not bool((diff <= atol + rtol * ref.abs()).all()):
+                    bad.append(chip)
+                for i, logits in enumerate((got, ref)):
+                    hits[i] += int((logits.argmax(-1) == b["labels"]).sum())
+            acc_gap = max(acc_gap, abs(hits[0] - hits[1]) / n_eval)
+        torch.cuda.synchronize()
+        v1 = masked_matmul.launches_by_variant["v1"]
+        return dict(err=err, bad=bad, acc_gap=acc_gap, n_eval=n_eval, v1=v1,
+                    launches=dict(masked_matmul=masked_matmul.launches, flash_attention=flash_attention.launches,
+                                  selective_scan=selective_scan.launches,
+                                  variants=dict(masked_matmul.launches_by_variant)))
+
+    dep = report["deploy"] = timed("deploy", deploy)
+    want_v1 = cfg.num_layers * chips * len(trainer._evals)
+    log(f"efat deployment: {chips} chips x {len(trainer._evals)} eval batches through classifier_forward in "
+        f"kernel mode (masked_matmul v1) against fap mode: logits max abs err {dep['err']:.3g} "
+        f"(rtol, atol {dtype_tol(torch.float32)}); accuracy gap {dep['acc_gap']:.3g} (tol 1/{dep['n_eval']}); "
+        f"launches {dep['launches']}, v1 {dep['v1']} (want {want_v1})")
+    if dep["bad"]:
+        raise Failed(f"efat deployment: kernel-mode logits off fap mode on chips {dep['bad'][:10]}")
+    if dep["acc_gap"] > 1 / dep["n_eval"]:
+        raise Failed(f"efat deployment: kernel-mode accuracy differs from fap by {dep['acc_gap']}")
+    if dep["v1"] != want_v1 or dep["launches"]["masked_matmul"] != want_v1:
+        raise Failed(f"efat deployment: {dep['launches']} masked-GEMM launches, want {want_v1} v1")
+
+    # -- gate 4: the pipeline's invariant -------------------------------------
+    e_steps, i_steps = results["eFAT"].plan.total_steps, results["individual"].plan.total_steps
+    log(f"efat: eFAT {results['eFAT'].plan.num_jobs} jobs for {chips} chips, {e_steps:.0f} total steps; "
+        f"individual {i_steps:.0f}")
+    if e_steps > i_steps:
+        raise Failed(f"efat: eFAT's total steps {e_steps} exceed individual's {i_steps}")
+
+    # -- population steps per second at width 16, against serial ---------------
+    def speed_run():
+        eng = trainer.engine
+        ctxs = [from_fault_map(fm, device=trainer.device) for fm in fleet[:eng.population_size]]
+        width = len(ctxs)
+
+        def fit(n):
+            return eng.fit_batch(trainer.base_params, ctxs, [n] * width, trainer._train_batch_fn)
+
+        def fit_serial(n):
+            return ser.engine.fit_batch(trainer.base_params, ctxs[:1], [n], trainer._train_batch_fn)
+
+        def step_ms(f):
+            """Milliseconds a step over EFAT_TIMED_FITS fits of EFAT_TIMED_STEPS
+            steps, after a warm fit, a garbage collection and an emptied cache."""
+            f(2)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(EFAT_TIMED_FITS):
+                t0 = time.perf_counter()
+                f(EFAT_TIMED_STEPS)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) / EFAT_TIMED_STEPS * 1e3)
+            return ms
+
+        pop_ms, ser_ms = step_ms(fit), step_ms(fit_serial)
+        pop, ser_ = statistics.median(pop_ms), statistics.median(ser_ms)
+        out = dict(width=width, pop_step_ms_fits=pop_ms, serial_step_ms_fits=ser_ms, pop_step_ms=pop,
+                   serial_step_ms=ser_, pop_steps_per_s=1e3 / pop, member_steps_per_s=width * 1e3 / pop,
+                   serial_steps_per_s=1e3 / ser_)
+        # device ops a population step: the difference of two traced fits (1 and 11 steps)
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        traced = []
+        for n in (1, 11):
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fit(n)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            traced.append((sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3))
+        out["device_ops_per_step"] = (traced[1][0] - traced[0][0]) / 10
+        out["device_ms_per_step"] = (traced[1][1] - traced[0][1]) / 10
+        out["busy_share"] = out["device_ms_per_step"] / pop
+        return out
+
+    speed = report["speed"] = timed("timing", speed_run)
+
+    def spread(ms):
+        return f"median of {len(ms)} fits, min {min(ms):.3f} max {max(ms):.3f}"
+
+    log(f"efat speed: population width {speed['width']}: {speed['pop_steps_per_s']:.1f} population steps/s "
+        f"({speed['pop_step_ms']:.3f} ms a step, {spread(speed['pop_step_ms_fits'])}; "
+        f"{speed['member_steps_per_s']:.1f} member steps/s); serial {speed['serial_steps_per_s']:.1f} steps/s "
+        f"({speed['serial_step_ms']:.3f} ms, {spread(speed['serial_step_ms_fits'])}); "
+        f"{speed['device_ops_per_step']:.1f} kernel launches (device ops) a population step, "
+        f"{speed['device_ms_per_step']:.4f} ms device time, busy {speed['busy_share']:.1%} of the untraced "
+        "median step")
+    seconds = time.perf_counter() - t_phase
+    log("efat stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; phase {seconds:.2f} s")
+    report.update(
+        chips=chips, baseline_accuracy=trainer.baseline_accuracy, constraint=constraint,
+        table=json.loads(table.to_json()), summaries=summaries, scheduling=sched, stages=stages,
+        seconds=seconds,
+    )
+    return report
 
 
 def main(argv=None) -> int:
@@ -1103,8 +1364,14 @@ def run(args, torch) -> int:
     # ---- phase 10: hymba long prefill ---------------------------------------
     long_report[hymba.name] = long_prefill(hymba, params, anchored=True)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- phase 11: the record -----------------------------------------------
+    # ---- phase 11: eFAT on the card -----------------------------------------
+    efat_report = efat_phase(torch, log)
+
+    # ---- phase 12: the record -----------------------------------------------
     def gemm_sum(arch, dtype, m, layers_only=False):
         """One step's masked GEMMs at M = m, each launch timed alone, times its uses."""
         shapes = arch.gemm_shapes()
@@ -1151,6 +1418,7 @@ def run(args, torch) -> int:
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
              bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
         dict(name="masked_matmul.v1", **mm_src, launches=variant_launches["masked_matmul.v1"],
+             launches_efat_deploy=efat_report["deploy"]["v1"],
              ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
              bound_by=bound_by(f32_step), library_ms=f32_step["library_ms"]),
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
@@ -1193,7 +1461,7 @@ def run(args, torch) -> int:
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
-        long_prefill=long_report, seconds=time.perf_counter() - t_start,
+        long_prefill=long_report, efat=efat_report, seconds=time.perf_counter() - t_start,
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
                                 for k in kernels))

@@ -19,7 +19,7 @@ class ArchConfig:
     family-specific ones are zero/None when unused)."""
 
     name: str
-    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | vlm | audio | classifier
     num_layers: int
     d_model: int
     d_ff: int
@@ -110,7 +110,7 @@ class ArchConfig:
         return shapes + [(d, self.vocab_size, 1)]
 
 
-_ARCH_MODULES = ["falcon_mamba_7b", "smollm_135m", "hymba_1_5b"]
+_ARCH_MODULES = ["falcon_mamba_7b", "smollm_135m", "hymba_1_5b", "paper_mlp"]
 
 
 def _norm(name: str) -> str:

@@ -16,7 +16,7 @@ from repro_torch.core.masking import FaultContext, healthy
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 
-__all__ = ["params_from_jax", "context_from_ok"]
+__all__ = ["params_from_jax", "classifier_params_from_jax", "context_from_ok"]
 
 # the reference's FaultContext mode names -> the port's
 _MODES = {"none": "none", "fap": "fap", "pallas": "kernel"}
@@ -49,6 +49,13 @@ def params_from_jax(cfg, tree: Mapping, *, device=None) -> Model:
             raise ValueError(f"{name}: reference shape {arr.shape} vs port {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return model
+
+
+def classifier_params_from_jax(tree: Mapping, *, device=None) -> dict:
+    """The reference classifier's params (``{"w0", "b0", ...}`` with numpy
+    leaves) as the port's dict of tensors, name for name."""
+    dev = resolve_device(device)
+    return {name: torch.tensor(np.asarray(arr)).to(dev) for name, arr in tree.items()}
 
 
 def context_from_ok(ok: Optional[np.ndarray], mode: str, *, device=None) -> FaultContext:

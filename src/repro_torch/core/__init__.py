@@ -1,8 +1,24 @@
+"""eFAT core: fault maps, systolic mapping, the fault context, resilience
+analysis, grouping & fusion, and the end-to-end orchestrator (paper Fig. 7).
+The FAM functions of ``mapping``, ``fault_einsum`` and ``dual`` wait
+(ROADMAP.md §1.1)."""
+from repro_torch.core.efat import EFAT, BatchFATTrainerFull, EFATConfig, EFATResult
 from repro_torch.core.faults import (
     FaultMap,
     clustered_fault_map,
+    correlated_family,
+    expected_merged_rate,
+    gaussian_chip_rates,
     merge_fault_maps,
+    overlap_rate,
     random_fault_map,
+)
+from repro_torch.core.grouping import (
+    RetrainingPlan,
+    fixed_policy_plan,
+    group_and_fuse,
+    individual_plan,
+    random_pair_merge_plan,
 )
 from repro_torch.core.mapping import masked_weight, periodic_mask
 from repro_torch.core.masking import (
@@ -14,21 +30,48 @@ from repro_torch.core.masking import (
     healthy,
     mask_params,
     mask_selected_params,
+    stack_contexts,
+)
+from repro_torch.core.resilience import (
+    BatchFATTrainer,
+    ResilienceTable,
+    ResilienceTable2D,
+    fault_rate_list,
+    measure_resilience,
 )
 
 __all__ = [
+    "EFAT",
+    "EFATConfig",
+    "EFATResult",
+    "BatchFATTrainer",
+    "BatchFATTrainerFull",
     "FaultMap",
-    "clustered_fault_map",
-    "merge_fault_maps",
-    "random_fault_map",
-    "masked_weight",
-    "periodic_mask",
-    "MASKABLE_KEYS",
     "FaultContext",
+    "MASKABLE_KEYS",
+    "RetrainingPlan",
+    "ResilienceTable",
+    "ResilienceTable2D",
+    "clustered_fault_map",
     "context_leak_reason",
+    "correlated_family",
+    "expected_merged_rate",
     "fault_linear",
+    "fault_rate_list",
+    "fixed_policy_plan",
     "from_fault_map",
+    "gaussian_chip_rates",
+    "group_and_fuse",
     "healthy",
+    "individual_plan",
     "mask_params",
     "mask_selected_params",
+    "masked_weight",
+    "measure_resilience",
+    "merge_fault_maps",
+    "overlap_rate",
+    "periodic_mask",
+    "random_fault_map",
+    "random_pair_merge_plan",
+    "stack_contexts",
 ]

@@ -9,12 +9,22 @@ seed draws the same map on both sides, bit for bit.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["FaultMap", "random_fault_map", "clustered_fault_map", "merge_fault_maps"]
+__all__ = [
+    "FaultMap",
+    "random_fault_map",
+    "clustered_fault_map",
+    "correlated_family",
+    "merge_fault_maps",
+    "expected_merged_rate",
+    "overlap_rate",
+    "gaussian_chip_rates",
+]
 
 
 @dataclass(frozen=True)
@@ -55,6 +65,27 @@ class FaultMap:
             self.faulty | other.faulty,
             chip_id=f"{self.chip_id}+{other.chip_id}" if self.chip_id else other.chip_id,
         )
+
+    def __or__(self, other: "FaultMap") -> "FaultMap":
+        return self.merge(other)
+
+    # --- serialization -------------------------------------------------
+    # The reference's .npz keys (``faulty``, ``chip_id``), so a map written
+    # by either package loads in the other. np.savez_compressed appends
+    # '.npz' to suffix-less paths, so save and load both normalize the
+    # suffix: load(p) always reads what save(p) wrote.
+    @staticmethod
+    def _npz_path(path) -> str:
+        path = os.fspath(path)
+        return path if path.endswith(".npz") else path + ".npz"
+
+    def save(self, path) -> None:
+        np.savez_compressed(self._npz_path(path), faulty=self.faulty, chip_id=self.chip_id)
+
+    @staticmethod
+    def load(path) -> "FaultMap":
+        z = np.load(FaultMap._npz_path(path), allow_pickle=False)
+        return FaultMap(z["faulty"], chip_id=str(z["chip_id"]))
 
 
 def random_fault_map(
@@ -108,6 +139,46 @@ def clustered_fault_map(
     return FaultMap(faulty, chip_id=chip_id)
 
 
+def correlated_family(
+    rng: np.random.Generator | int,
+    n_chips: int,
+    rows: int = 256,
+    cols: int = 256,
+    base_rate: float = 0.05,
+    idio_rate: float = 0.02,
+    chip_prefix: str = "chip",
+) -> list[FaultMap]:
+    """Chips from the same wafer region: shared base defects + per-chip
+    idiosyncratic faults. Fusion of such maps is profitable (Eq. 3 with
+    Pr_A AND Pr_B >> Pr_A * Pr_B)."""
+    rng = np.random.default_rng(rng) if isinstance(rng, (int, np.integer)) else rng
+    base = random_fault_map(rng, rows, cols, base_rate)
+    out = []
+    for i in range(n_chips):
+        idio = random_fault_map(rng, rows, cols, idio_rate)
+        out.append(FaultMap(base.faulty | idio.faulty, chip_id=f"{chip_prefix}{i}"))
+    return out
+
+
+def gaussian_chip_rates(
+    rng: np.random.Generator | int,
+    n_chips: int,
+    mean: float = 0.1,
+    sigma: float = 0.02,
+    lo: float = 0.0,
+    hi: float = 1.0,
+) -> np.ndarray:
+    """Fault-rate distribution of the paper's SIV-C fleet experiment
+    (Gaussian, mean 0.1, sigma 0.02), clipped to [lo, hi]."""
+    rng = np.random.default_rng(rng) if isinstance(rng, (int, np.integer)) else rng
+    return np.clip(rng.normal(mean, sigma, size=n_chips), lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# Fusion algebra (paper Eq. 3)
+# ---------------------------------------------------------------------------
+
+
 def merge_fault_maps(maps: Sequence[FaultMap]) -> FaultMap:
     if not maps:
         raise ValueError("no fault maps to merge")
@@ -115,3 +186,16 @@ def merge_fault_maps(maps: Sequence[FaultMap]) -> FaultMap:
     for m in maps[1:]:
         out = out.merge(m)
     return out
+
+
+def expected_merged_rate(pr_a: float, pr_b: float, pr_ab: Optional[float] = None) -> float:
+    """Eq. 3: Pr_comb = Pr_A + Pr_B - Pr_{A AND B}; independent maps give
+    Pr_{A AND B} = Pr_A * Pr_B."""
+    if pr_ab is None:
+        pr_ab = pr_a * pr_b
+    return pr_a + pr_b - pr_ab
+
+
+def overlap_rate(a: FaultMap, b: FaultMap) -> float:
+    """Measured Pr_{A AND B}: fraction of PEs faulty in both maps."""
+    return float((a.faulty & b.faulty).mean())

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, TypeVar
 
 import torch
 from torch import nn
@@ -31,6 +31,7 @@ __all__ = [
     "fault_linear",
     "healthy",
     "from_fault_map",
+    "stack_contexts",
     "context_leak_reason",
     "mask_params",
     "mask_selected_params",
@@ -42,9 +43,16 @@ MODES = ("none", "fap", "kernel")
 
 @dataclass
 class FaultContext:
-    """Carries the chip's healthy mask (1=healthy PE, 0=faulty) + mode."""
+    """Carries the chip's healthy mask (1=healthy PE, 0=faulty) + mode.
 
-    ok: Optional[torch.Tensor]  # (R, C) float mask, or None
+    ``ok`` is normally the single chip's (R, C) mask. A *batched* context
+    (built with :func:`stack_contexts`) carries an (N, R, C) stack of N
+    chips' masks behind one mode; the population engines hand its members
+    to ``torch.func.vmap``, under which each member sees an ordinary (R, C)
+    mask. A stack that reaches a masked GEMM outside vmap raises.
+    """
+
+    ok: Optional[torch.Tensor]  # (R, C) float mask, (N, R, C) stack, or None
     mode: str = "none"  # none | fap | kernel
 
     def __post_init__(self):
@@ -76,6 +84,36 @@ def from_fault_map(
     return FaultContext(ok=ok, mode=mode)
 
 
+def stack_contexts(ctxs: Sequence[FaultContext]) -> FaultContext:
+    """Stack N per-chip contexts into one batched context.
+
+    The result carries a leading population axis on ``ok`` and the members'
+    shared mode. Healthy members are upcast to an all-ones mask (FAP with no
+    faulty PE is exactly the healthy matmul), so a population can mix
+    healthy and faulty chips; an all-healthy stack collapses to
+    ``healthy()``.
+    """
+    if len(ctxs) == 0:
+        raise ValueError(
+            "stack_contexts: empty population — need at least one FaultContext "
+            "(a single-member sequence is fine and stacks to population=1)"
+        )
+    active = [c for c in ctxs if c.active]
+    if not active:
+        return healthy()
+    modes = {c.mode for c in active}
+    if len(modes) != 1:
+        raise ValueError(f"cannot stack contexts with mixed modes {sorted(modes)}")
+    if any(c.ok.ndim != 2 for c in active):
+        raise ValueError("stack_contexts takes per-chip (R, C) contexts, not batched ones")
+    shapes = {tuple(c.ok.shape) for c in active}
+    if len(shapes) != 1:
+        raise ValueError(f"cannot stack contexts with mixed mask shapes {sorted(shapes)}")
+    ok0 = active[0].ok
+    oks = [c.ok if c.active else torch.ones_like(ok0) for c in ctxs]
+    return FaultContext(ok=torch.stack(oks), mode=modes.pop())
+
+
 def context_leak_reason(ctx: Optional[FaultContext]) -> Optional[str]:
     """The reason a context would be rejected by the masked-GEMM entry
     points, or None when it is safe."""
@@ -84,7 +122,8 @@ def context_leak_reason(ctx: Optional[FaultContext]) -> Optional[str]:
     if ctx.population is not None:
         return (
             f"batched FaultContext (population={ctx.population}) reached a "
-            "masked GEMM; each member must see an (R, C) mask"
+            "masked GEMM; consume it under torch.func.vmap so each member sees "
+            "an (R, C) mask (e.g. via PopulationFATEngine)"
         )
     if ctx.ok.ndim != 2:
         return f"FaultContext.ok must be (R, C) or (N, R, C), got ndim={ctx.ok.ndim}"
@@ -137,12 +176,20 @@ MASKABLE_KEYS = frozenset(
 )
 
 
+Params = TypeVar("Params", nn.Module, dict)
+
+
 def _mask_module(
-    params: nn.Module, ctx: FaultContext, pred: Callable[[str, torch.Tensor], bool]
-) -> nn.Module:
+    params: Params, ctx: FaultContext, pred: Callable[[str, torch.Tensor], bool]
+) -> Params:
     if not ctx.active:
         return params
     _require_per_chip(ctx)
+    if isinstance(params, dict):  # a dict of tensors, as the classifier's
+        return {
+            name: masked_weight(p, ctx.ok.to(p.device, p.dtype)) if pred(name, p) else p
+            for name, p in params.items()
+        }
     out = copy.deepcopy(params)
     with torch.no_grad():
         for name, p in out.named_parameters():
@@ -151,7 +198,7 @@ def _mask_module(
     return out
 
 
-def mask_selected_params(params: nn.Module, ctx: FaultContext) -> nn.Module:
+def mask_selected_params(params: Params, ctx: FaultContext) -> Params:
     """A copy of ``params`` with the FAP mask applied ONCE to every
     array-mapped weight (names in ``MASKABLE_KEYS``). Tied embeddings are
     excluded: the lookup must see unmasked rows; the tied unembed GEMM keeps
@@ -161,8 +208,9 @@ def mask_selected_params(params: nn.Module, ctx: FaultContext) -> nn.Module:
     )
 
 
-def mask_params(params: nn.Module, ctx: FaultContext, is_mapped=None) -> nn.Module:
-    """A copy of ``params`` with FAP masks on every array-mapped parameter.
+def mask_params(params: Params, ctx: FaultContext, is_mapped=None) -> Params:
+    """A copy of ``params`` (a module, or a dict of tensors) with FAP masks
+    on every array-mapped parameter.
     ``is_mapped(name, param) -> bool`` decides which; default: every float
     parameter with ndim >= 2."""
     return _mask_module(

@@ -1,0 +1,95 @@
+"""AdamW on dicts of tensors, written by hand (not ``torch.optim.AdamW``)
+so that every step is the reference's ``train/optimizer.py`` step:
+
+* gradients are clipped by ``grad_clip_norm / (gnorm + 1e-9)``, capped at 1;
+* weight decay sits *inside* the step:
+  ``p -= lr * (mhat / (sqrt(vhat) + eps) + wd * p)``;
+* the bias correction raises b1 and b2 to ``count`` as float32;
+* ``moment_dtype`` sets the dtype m and v are kept in (the math is float32);
+* a callable learning rate is called with the new count.
+
+The update is a pure function of its inputs, so ``torch.func.vmap`` runs it
+for a whole population of members at once.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Union
+
+import torch
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "constant_schedule"]
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    learning_rate: Union[float, Schedule] = 1e-3
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip_norm: Optional[float] = 1.0
+    moment_dtype: str = "float32"  # 'bfloat16' halves optimizer memory
+
+
+def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
+    mdt = getattr(torch, cfg.moment_dtype)
+    return dict(
+        m={k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()},
+        v={k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()},
+        count=torch.zeros((), dtype=torch.int32, device=next(iter(params.values())).device),
+    )
+
+
+def _global_norm(tree: dict) -> torch.Tensor:
+    # summed in sorted-key order, the order of the reference's tree leaves
+    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float())) for k in sorted(tree)))
+
+
+def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
+    """Returns (new_params, new_state, info dict)."""
+    count = state["count"] + 1
+    lr = cfg.learning_rate(count) if callable(cfg.learning_rate) else cfg.learning_rate
+    gnorm = _global_norm(grads)
+    if cfg.grad_clip_norm is not None:
+        scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
+        grads = {k: g * scale for k, g in grads.items()}
+    mdt = getattr(torch, cfg.moment_dtype)
+    c32 = count.float()
+    bc1 = 1 - cfg.b1**c32
+    bc2 = 1 - cfg.b2**c32
+    new_params, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g32 = grads[k].float()
+        m32 = cfg.b1 * state["m"][k].float() + (1 - cfg.b1) * g32
+        v32 = cfg.b2 * state["v"][k].float() + (1 - cfg.b2) * g32 * g32
+        mhat = m32 / bc1
+        vhat = v32 / bc2
+        step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        new_params[k] = (p.float() - lr * step).to(p.dtype)
+        new_m[k], new_v[k] = m32.to(mdt), v32.to(mdt)
+    info = dict(grad_norm=gnorm, lr=lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32))
+    return new_params, dict(m=new_m, v=new_v, count=count), info
+
+
+# ---------------------------------------------------------------------------
+# LR schedules
+# ---------------------------------------------------------------------------
+
+
+def cosine_schedule(peak: float, warmup: int, total: int, floor: float = 0.1) -> Schedule:
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = peak * step / max(1, warmup)
+        prog = torch.clamp((step - warmup) / max(1, total - warmup), 0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, peak * cos)
+
+    return fn
+
+
+def constant_schedule(lr: float) -> Schedule:
+    return lambda step: torch.full((), lr, dtype=torch.float32, device=step.device)

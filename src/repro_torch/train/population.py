@@ -1,0 +1,441 @@
+"""Population FAT engines — train a fleet of fault maps as one batched step.
+
+The whole point of eFAT is amortizing retraining over many faulty chips,
+yet a naive pipeline trains one fault map at a time: the Step-1 resilience
+sweep, Step-4 plan execution and every SIV-C baseline differ per job only
+in a tiny (R, C) mask. So a population of N jobs is a batched context
+(leading population axis on ``ok``, one shared mode) plus per-member
+``(params, opt_state)`` stacked on a leading axis, and ``torch.func.vmap``
+turns one member's step into one batched step for all of them:
+
+* :class:`PopulationFATEngine` — one member's step is
+  ``torch.func.grad_and_value`` of the loss followed by ``adamw_update``;
+  the population's step is ``vmap`` of that, the mask on ``in_dims=0`` and
+  the batch shared. ``fit_batch`` runs ``max(budgets)`` steps and selects
+  each member's new state with ``torch.where(i < budget)``, so a member
+  stops exactly at its own budget, as if it had been trained alone.
+  ``steps_to_constraint_batch`` runs eval-period chunks and latches each
+  member's first constraint crossing on the device; the host reads one
+  boolean per eval period (has every member crossed?), which is the
+  reference's ``while_loop`` condition and the loop's only sync.
+* :class:`SerialFATEngine` — the reference implementation (one Python loop
+  per member), kept behind ``engine="serial"`` to prove the population
+  engine equivalent.
+
+This is the reference's ``train/population.py``: the same interface,
+chunking, padding and recorder spans, counts and instants. The sharded
+engine waits (ROADMAP.md §1.4). Training always runs the plain masked
+product under autograd, as the reference's does: its masked-GEMM kernel is
+forward only, and neither package has a masked-GEMM backward. So a
+``kernel``-mode population on a CUDA device raises ``NotImplementedError``
+instead of running another mode quietly; on the CPU, ``kernel`` mode runs
+the kernel's plain version (``masked_matmul_ref``) under vmap and grad, as
+the reference's ``pallas`` mode runs ``fap`` math off the TPU.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.core.masking import FaultContext, healthy, stack_contexts
+from repro_torch.obs.recorder import NULL_RECORDER, Recorder
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+__all__ = ["PopulationFATEngine", "SerialFATEngine", "make_fat_engine"]
+
+# steps-to-constraint bucket ladder (training steps, not seconds)
+STEPS_BUCKETS = (0.0, 5.0, 10.0, 20.0, 40.0, 80.0, 160.0, 320.0, 640.0, 1280.0)
+
+# batch_fn(step) -> batch dict of tensors on the engine's device
+BatchFn = Callable[[int], dict]
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stack_trees(trees: Sequence[Any]):
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _member_slice(tree, i: int):
+    return _tree_map(lambda x: x[i], tree)
+
+
+def _device_of(params: dict) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _refuse_kernel_on_card(ctx: Optional[FaultContext], what: str) -> None:
+    if ctx is not None and ctx.active and ctx.mode == "kernel" and ctx.ok.device.type == "cuda":
+        raise NotImplementedError(
+            f"{what} in 'kernel' mode on a CUDA device: training runs the plain masked "
+            "product with autograd, as the reference does (its masked-GEMM kernel is "
+            "forward only), and no masked-GEMM backward exists in either package; "
+            "train in 'fap' mode and deploy the shipped weights through 'kernel' mode "
+            "one chip at a time"
+        )
+
+
+class PopulationFATEngine:
+    """vmap FAT over a population of fault maps.
+
+    Parameters
+    ----------
+    loss_fn : ``(params, batch, ctx) -> (loss, metrics)`` — the per-member
+        training objective; ``metrics[metric]`` is the constraint metric.
+    opt_cfg : AdamW settings shared by every member.
+    eval_batches : the fixed eval batches, evaluated for every member.
+    metric / higher_is_better : constraint metric key and its direction
+        (``loss`` style metrics are negated so 'metric >= constraint' is
+        uniform, matching the serial engine's protocol).
+    eval_every : periodic-eval interval inside ``steps_to_constraint_batch``.
+    population_size : max members per batched step; larger batches are
+        chunked (memory trade-off).
+    recorder : optional :class:`repro_torch.obs.recorder.Recorder`. Per-lane
+        telemetry is collected on the host at chunk boundaries — chunk spans
+        with lane widths and wasted lane-steps, per-member
+        constraint-crossing instants, steps-consumed-vs-budget counters.
+    """
+
+    kind = "population"
+
+    def __init__(
+        self,
+        *,
+        loss_fn,
+        opt_cfg: AdamWConfig,
+        eval_batches: Sequence[dict],
+        metric: str = "accuracy",
+        higher_is_better: bool = True,
+        eval_every: int = 5,
+        population_size: int = 16,
+        recorder: Optional[Recorder] = None,
+    ):
+        self.loss_fn = loss_fn
+        self.opt_cfg = opt_cfg
+        self.metric = metric
+        self.higher_is_better = higher_is_better
+        self.eval_every = int(eval_every)
+        self.population_size = max(1, int(population_size))
+        self.obs = recorder if recorder is not None else NULL_RECORDER
+        self.eval_batches = list(eval_batches)
+        self._grad = grad_and_value(loss_fn, has_aux=True)
+
+    # -- per-member building blocks (always run under vmap) ---------------
+
+    @staticmethod
+    def _ctx(ok, mode: str) -> FaultContext:
+        return healthy() if ok is None else FaultContext(ok=ok, mode=mode)
+
+    def _member_eval(self, params, ok, mode: str):
+        ctx = self._ctx(ok, mode)
+        vals = [self.loss_fn(params, b, ctx)[1][self.metric] for b in self.eval_batches]
+        v = torch.stack(vals).mean()
+        return v if self.higher_is_better else -v
+
+    def _member_update(self, params, opt, ok, batch, mode: str):
+        grads, _ = self._grad(params, batch, self._ctx(ok, mode))
+        params, opt, _ = adamw_update(grads, opt, params, self.opt_cfg)
+        return params, opt
+
+    def _update(self, mode: str, ok_pop):
+        """The population's step: ``(params, opt, ok, batch) -> (params, opt)``."""
+        return vmap(
+            lambda p, o, ok, b: self._member_update(p, o, ok, b, mode),
+            in_dims=(0, 0, None if ok_pop is None else 0, None),
+        )
+
+    @torch.no_grad()
+    def _eval_pop(self, params_pop, ok_pop, mode: str) -> torch.Tensor:
+        return vmap(
+            lambda p, ok: self._member_eval(p, ok, mode),
+            in_dims=(0, None if ok_pop is None else 0),
+        )(params_pop, ok_pop)
+
+    def _broadcast_members(self, params0: dict, n: int):
+        def bcast(x):
+            return x.unsqueeze(0).expand(n, *x.shape)
+
+        return _tree_map(bcast, params0), _tree_map(bcast, adamw_init(params0, self.opt_cfg))
+
+    # -- the run bodies, one population chunk each -------------------------
+
+    def _fit_run(self, params0, ok_pop, mode: str, budgets: list[int], batch_fn: BatchFn):
+        """Every member trained to its own step budget: updates are computed
+        for the whole population and select-masked off once a member's
+        budget is spent — the same trajectory as training each member alone
+        for ``budgets[i]`` steps on the same batch schedule."""
+        n = len(budgets)
+        params, opt = self._broadcast_members(params0, n)
+        update = self._update(mode, ok_pop)
+        budgets_t = torch.tensor(budgets, device=_device_of(params0))
+        for i in range(max(budgets)):
+            new_params, new_opt = update(params, opt, ok_pop, batch_fn(i))
+            active = i < budgets_t  # (n,)
+
+            def sel(new, old):
+                return torch.where(active.view((n,) + (1,) * (new.dim() - 1)), new, old)
+
+            params = _tree_map(sel, new_params, params)
+            opt = _tree_map(sel, new_opt, opt)
+        return params
+
+    def _steps_run(self, params0, ok_pop, mode: str, constraint: float, max_steps: int,
+                   batch_fn: BatchFn) -> np.ndarray:
+        """Steps-to-constraint for a whole chunk in eval-period chunks.
+        ``crossed[i]`` latches the first step at which member i's metric
+        reached the constraint (sentinel max_steps + 1 when never); the loop
+        ends as soon as every member has crossed, or at max_steps."""
+        ee = self.eval_every
+        params, opt = self._broadcast_members(params0, ok_pop.shape[0])
+        update = self._update(mode, ok_pop)
+        base = self._eval_pop(params, ok_pop, mode)
+        crossed = torch.where(base >= constraint, 0, max_steps + 1)
+        step = 0
+        # the reference's while_loop condition; the one host read per period
+        while step < max_steps and bool((crossed > max_steps).any()):
+            for i in range(ee):
+                params, opt = update(params, opt, ok_pop, batch_fn(step + i + 1))
+            step += ee
+            # a chunk overshooting max_steps is a step the serial reference
+            # never evaluated, so it cannot cross
+            if step <= max_steps:
+                metric = self._eval_pop(params, ok_pop, mode)
+                hit = (metric >= constraint) & (crossed > max_steps)
+                crossed = torch.where(hit, step, crossed)
+        return crossed.cpu().numpy()
+
+    # -- chunking ---------------------------------------------------------
+
+    def _chunks(self, n: int):
+        size = max(1, min(self.population_size, n))
+        for lo in range(0, n, size):
+            keep = min(size, n - lo)
+            yield lo, keep, size
+
+    # -- engine interface -------------------------------------------------
+
+    def fit_batch(
+        self,
+        params0: dict,
+        contexts: Sequence[Optional[FaultContext]],
+        budgets: Sequence[int],
+        batch_fn: BatchFn,
+    ) -> list:
+        """Train one member per context from ``params0`` for its own budget
+        of steps (batches ``batch_fn(0..budget-1)``); returns per-member
+        params (NOT FAP-masked — shipping policy belongs to the trainer)."""
+        if len(contexts) != len(budgets):
+            raise ValueError("contexts and budgets must align")
+        out: list = []
+        for lo, keep, size in self._chunks(len(contexts)):
+            chunk = list(contexts[lo : lo + keep])
+            chunk_budgets = [int(b) for b in budgets[lo : lo + keep]]
+            # pad with zero-budget copies: they ride along untouched
+            chunk += [chunk[-1]] * (size - keep)
+            chunk_budgets += [0] * (size - keep)
+            stacked = stack_contexts([c or healthy() for c in chunk])
+            _refuse_kernel_on_card(stacked, "PopulationFATEngine.fit_batch")
+            t0 = self.obs.now() if self.obs else 0.0
+            trained = self._fit_run(params0, stacked.ok, stacked.mode, chunk_budgets, batch_fn)
+            if self.obs:
+                _sync(_device_of(params0))
+                maxb = max(chunk_budgets) if chunk_budgets else 0
+                lane_steps = size * maxb  # padding lanes occupy real width
+                wasted = lane_steps - sum(chunk_budgets)
+                self.obs.span(
+                    "fit_chunk", proc="train", track="engine", t0=t0,
+                    args=dict(members=keep, width=size, max_budget=maxb,
+                              budget_steps=sum(chunk_budgets),
+                              wasted_lane_steps=wasted),
+                )
+                self.obs.count("train.members_trained", keep)
+                self.obs.count("train.lane_steps", lane_steps)
+                self.obs.count("train.budget_steps", sum(chunk_budgets))
+                self.obs.count("train.wasted_lane_steps", wasted)
+            out.extend(_member_slice(trained, i) for i in range(keep))
+        return out
+
+    def steps_to_constraint_batch(
+        self,
+        params0: dict,
+        contexts: Sequence[FaultContext],
+        constraint: float,
+        max_steps: int,
+        batch_fn: BatchFn,
+    ) -> list[Optional[int]]:
+        """Per-member steps until metric >= constraint (eval every
+        ``eval_every`` steps, batches ``batch_fn(1..max_steps)``), or None
+        when not reached within ``max_steps`` — one batched loop per chunk
+        instead of per-member Python loops."""
+        max_steps = int(max_steps)
+        out: list[Optional[int]] = []
+        for lo, keep, size in self._chunks(len(contexts)):
+            chunk = list(contexts[lo : lo + keep])
+            chunk += [chunk[-1]] * (size - keep)
+            stacked = stack_contexts(chunk)
+            if stacked.ok is None:
+                raise ValueError("steps_to_constraint needs fault contexts")
+            _refuse_kernel_on_card(stacked, "PopulationFATEngine.steps_to_constraint_batch")
+            t0 = self.obs.now() if self.obs else 0.0
+            crossed = self._steps_run(
+                params0, stacked.ok, stacked.mode, constraint, max_steps, batch_fn
+            )
+            if self.obs:
+                # Every lane runs until the slowest member crosses (or
+                # max_steps): realized lane-steps = width * max(realized).
+                realized = [min(int(c), max_steps) for c in crossed[:keep]]
+                worst = max(realized) if realized else 0
+                lane_steps = size * worst
+                wasted = lane_steps - sum(realized)
+                self.obs.span(
+                    "probe_chunk", proc="train", track="engine", t0=t0,
+                    args=dict(members=keep, width=size, max_steps=max_steps,
+                              realized_steps=worst, wasted_lane_steps=wasted),
+                )
+                self.obs.count("train.probe_lane_steps", lane_steps)
+                self.obs.count("train.probe_wasted_lane_steps", wasted)
+                for i, c in enumerate(crossed[:keep]):
+                    if int(c) > max_steps:
+                        self.obs.count("train.members_never_crossed")
+                    else:
+                        self.obs.observe(
+                            "train.steps_to_constraint", float(c),
+                            buckets=STEPS_BUCKETS,
+                        )
+                        self.obs.instant(
+                            "constraint_crossed", proc="train", track="engine",
+                            args=dict(member=lo + i, steps=int(c)),
+                        )
+            out.extend(None if int(c) > max_steps else int(c) for c in crossed[:keep])
+        return out
+
+    def evaluate_batch(
+        self, params_list: Sequence[Any], contexts: Sequence[Optional[FaultContext]]
+    ) -> list[float]:
+        """Signed constraint metric of params_list[i] under contexts[i],
+        vmapped across the population (chunked like training)."""
+        if len(params_list) != len(contexts):
+            raise ValueError("params and contexts must align")
+        out: list[float] = []
+        for lo, keep, size in self._chunks(len(contexts)):
+            chunk_params = list(params_list[lo : lo + keep])
+            chunk_ctx = list(contexts[lo : lo + keep])
+            chunk_params += [chunk_params[-1]] * (size - keep)
+            chunk_ctx += [chunk_ctx[-1]] * (size - keep)
+            stacked = stack_contexts([c or healthy() for c in chunk_ctx])
+            _refuse_kernel_on_card(stacked, "PopulationFATEngine.evaluate_batch")
+            vals = self._eval_pop(_stack_trees(chunk_params), stacked.ok, stacked.mode)
+            out.extend(float(v) for v in vals[:keep].cpu())
+        return out
+
+    def evaluate_one(self, params, ctx: Optional[FaultContext]) -> float:
+        return self.evaluate_batch([params], [ctx])[0]
+
+
+class SerialFATEngine:
+    """Reference serial implementation of the engine interface — one map at
+    a time (``torch.func`` grad, eager optimizer, host-side periodic eval).
+    Kept behind ``engine="serial"`` for equivalence tests and timing."""
+
+    kind = "serial"
+
+    def __init__(
+        self,
+        *,
+        loss_fn,
+        opt_cfg: AdamWConfig,
+        eval_batches: Sequence[dict],
+        metric: str = "accuracy",
+        higher_is_better: bool = True,
+        eval_every: int = 5,
+        population_size: int = 16,  # interface parity; serial chunks are 1-wide
+        recorder: Optional[Recorder] = None,  # interface parity with population
+    ):
+        self.population_size = 1  # one member at a time — schedulers see no packing
+        self.obs = recorder if recorder is not None else NULL_RECORDER
+        self.loss_fn = loss_fn
+        self.opt_cfg = opt_cfg
+        self.metric = metric
+        self.higher_is_better = higher_is_better
+        self.eval_every = int(eval_every)
+        self.eval_batches = list(eval_batches)
+        self._grad = grad_and_value(loss_fn, has_aux=True)
+
+    @torch.no_grad()
+    def evaluate_one(self, params, ctx: Optional[FaultContext]) -> float:
+        ctx = ctx or healthy()
+        vals = [float(self.loss_fn(params, b, ctx)[1][self.metric]) for b in self.eval_batches]
+        v = float(np.mean(vals))
+        return v if self.higher_is_better else -v
+
+    def _step(self, params, opt, ctx: FaultContext, batch: dict):
+        grads, _ = self._grad(params, batch, ctx)
+        params, opt, _ = adamw_update(grads, opt, params, self.opt_cfg)
+        return params, opt
+
+    def _fit_one(self, params0, ctx: FaultContext, steps: int, batch_fn: BatchFn):
+        _refuse_kernel_on_card(ctx, "SerialFATEngine.fit_batch")
+        params, opt = params0, adamw_init(params0, self.opt_cfg)
+        for s in range(int(steps)):
+            params, opt = self._step(params, opt, ctx, batch_fn(s))
+        return params
+
+    def fit_batch(self, params0, contexts, budgets, batch_fn: BatchFn) -> list:
+        if len(contexts) != len(budgets):
+            raise ValueError("contexts and budgets must align")
+        return [
+            self._fit_one(params0, ctx or healthy(), steps, batch_fn)
+            for ctx, steps in zip(contexts, budgets)
+        ]
+
+    def steps_to_constraint_batch(
+        self, params0, contexts, constraint, max_steps, batch_fn: BatchFn
+    ) -> list[Optional[int]]:
+        out: list[Optional[int]] = []
+        for ctx in contexts:
+            _refuse_kernel_on_card(ctx, "SerialFATEngine.steps_to_constraint_batch")
+            if self.evaluate_one(params0, ctx) >= constraint:
+                out.append(0)  # paper Fig. 3: relaxed constraints may need no retraining
+                continue
+            params, opt = params0, adamw_init(params0, self.opt_cfg)
+            found: Optional[int] = None
+            for s in range(1, int(max_steps) + 1):
+                params, opt = self._step(params, opt, ctx, batch_fn(s))
+                if s % self.eval_every == 0 and self.evaluate_one(params, ctx) >= constraint:
+                    found = s
+                    break
+            out.append(found)
+        return out
+
+    def evaluate_batch(self, params_list, contexts) -> list[float]:
+        if len(params_list) != len(contexts):
+            raise ValueError("params and contexts must align")
+        return [self.evaluate_one(p, c) for p, c in zip(params_list, contexts)]
+
+
+def make_fat_engine(kind: str, **kwargs):
+    if kind == "population":
+        return PopulationFATEngine(**kwargs)
+    if kind == "serial":
+        return SerialFATEngine(**kwargs)
+    if kind == "sharded":
+        raise NotImplementedError(
+            "the sharded population engine is not ported yet (ROADMAP.md §1.4, fleet); "
+            "use 'population' or 'serial'"
+        )
+    raise ValueError(
+        f"unknown FAT engine {kind!r} (use 'population', 'serial', or 'sharded')"
+    )

@@ -5,10 +5,13 @@ is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import random_fault_map
+from repro_torch.configs import get_arch
+from repro_torch.core import from_fault_map, healthy, random_fault_map
+from repro_torch.data.synthetic import make_classification_task
 from repro_torch.kernels.common import assert_close, dtype_tol
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention,
@@ -20,6 +23,10 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
 from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+from repro_torch.models.classifier import classifier_forward, classifier_loss, init_classifier
+from repro_torch.train.fat_trainer import ClassifierFATTrainer
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.population import PopulationFATEngine, SerialFATEngine
 
 MM_CASES = [  # (M, K, N, w given as a transposed view)
     (5, 48, 40, False),
@@ -664,3 +671,86 @@ def test_tuner_on_card_beats_or_ties_heuristic(cuda):
     assert all("KRN002" in r["codes"] for r in res.rejected_configs)
     assert decode_attention.launches > before
     assert table.get(res.key)["blocks"] == res.best_blocks
+
+
+# ---------------------------------------------------------------------------
+# fault-aware training of paper-mlp, and its deployment through the kernel
+# ---------------------------------------------------------------------------
+
+MLP = get_arch("paper-mlp")
+FAT_RATES = [0.02, 0.08, 0.12, 0.18, 0.22]
+
+
+def _fat(device, kind, base=None):
+    """An engine, its base params (pretrained 100 steps on the CPU unless
+    given), the FAT stream and the 5-rate fleet's contexts, on ``device``."""
+    data = make_classification_task(MLP, seed=0, device=device)
+    kw = dict(loss_fn=lambda p, b, ctx: classifier_loss(p, b, MLP, ctx),
+              opt_cfg=AdamWConfig(learning_rate=3e-3, weight_decay=0.0, grad_clip_norm=1.0),
+              eval_batches=data.eval_batches(2), eval_every=5)
+    engine = PopulationFATEngine(**kw) if kind == "population" else SerialFATEngine(**kw)
+    if base is None:
+        base = engine.fit_batch(init_classifier(MLP, 0, data.dim, device), [healthy()], [100],
+                                lambda s: data.batch_at(s, 256))[0]
+    rng = np.random.default_rng(0)
+    fleet = [random_fault_map(rng, 32, 32, r) for r in FAT_RATES]
+    ctxs = [from_fault_map(fm, device=device) for fm in fleet]
+    return engine, {k: v.to(device) for k, v in base.items()}, (lambda s: data.batch_at(s + 1_000_003, 256)), ctxs
+
+
+@pytest.mark.parametrize("kind", ["population", "serial"])
+def test_fat_engines_on_the_card_match_the_cpu(cuda, kind):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_engine, base, cpu_fn, cpu_ctxs = _fat(torch.device("cpu"), kind)
+    engine, base_c, fn, ctxs = _fat(cuda, kind, base)
+    want = cpu_engine.fit_batch(base, cpu_ctxs[:3], [25, 40, 10], cpu_fn)
+    got = engine.fit_batch(base_c, ctxs[:3], [25, 40, 10], fn)
+    for g, w in zip(got, want):
+        assert g["w0"].device.type == cuda.type
+        for k in w:
+            assert_close(g[k], w[k], torch.float32, atol_scale=100)
+    assert engine.evaluate_batch(got, ctxs[:3]) == pytest.approx(
+        cpu_engine.evaluate_batch(want, cpu_ctxs[:3]), abs=2e-3)
+
+
+def test_population_matches_serial_on_the_card(cuda):
+    """The reference's pin, on the card: equal steps-to-constraint."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pop = ClassifierFATTrainer(MLP, pretrain_steps=300, eval_batches=2)
+    assert pop.device.type == "cuda"  # the card is the default
+    ser = ClassifierFATTrainer(MLP, pretrain_steps=0, eval_batches=2, engine="serial")
+    ser.base_params = pop.base_params
+    rng = np.random.default_rng(0)
+    fleet = [random_fault_map(rng, 32, 32, r) for r in FAT_RATES]
+    constraint = pop.baseline_accuracy - 0.05
+    assert pop.steps_to_constraint_batch(fleet, constraint, 200) == (
+        ser.steps_to_constraint_batch(fleet, constraint, 200))
+
+
+def test_kernel_mode_deployment_matches_fap_on_the_card(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine, base, fn, ctxs = _fat(cuda, "population")
+    params = engine.fit_batch(base, ctxs[2:3], [20], fn)[0]
+    fm = random_fault_map(2, 32, 32, 0.12)
+    x = torch.randn(512, 32, device=cuda)
+    before = masked_matmul.launches_by_variant["v1"]
+    got = classifier_forward(params, x, MLP, from_fault_map(fm, "kernel", device=cuda))
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant["v1"] == before + MLP.num_layers
+    assert_close(got, classifier_forward(params, x, MLP, from_fault_map(fm, "fap", device=cuda)), torch.float32)
+
+
+def test_kernel_mode_population_on_the_card_raises(cuda):
+    engine, base, fn, ctxs = _fat(cuda, "population", base=init_classifier(MLP, 0, 32, "cpu"))
+    kctxs = [from_fault_map(random_fault_map(i, 32, 32, 0.1), "kernel", device=cuda) for i in range(3)]
+    with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
+        engine.fit_batch(base, kctxs, [1, 1, 1], fn)
+    with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
+        engine.steps_to_constraint_batch(base, kctxs, 0.5, 5, fn)
+    with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
+        engine.evaluate_batch([base] * 3, kctxs)
+    serial = _fat(cuda, "serial", base=base)[0]
+    with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
+        serial.fit_batch(base, kctxs[:1], [1], fn)
+    # one chip's forward in kernel mode is the deployment path, and runs
+    assert 0.0 <= serial.evaluate_one(base, kctxs[0]) <= 1.0
