@@ -109,13 +109,53 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     against ``fap`` mode on the 4 eval batches at ``dtype_tol(float32)``,
     accuracy within 1/2048 and 4 x chips x batches ``v1`` launches; eFAT's
     total steps at most ``individual``'s;
-12. the record: each model's bf16 decode step of masked GEMMs as kernel
+12. LM fault-aware training on the card (``lm_phase``): SmolLM-135M at
+    full width, batch 8 x 64, on ``random_fault_map(0, 256, 256, 0.1)``.
+    (a) the training CLI (``repro_torch.launch.train.main``) in process: 40
+    steps with checkpoints every 10 under ``build/lm_ckpt``, interrupted
+    after 30 as a preemption would stop it (a ``KeyboardInterrupt`` from
+    the train step), then the same command run again, which resumes from
+    the step-30 checkpoint; the resumed params must equal a straight
+    40-step run's within ``dtype_tol(float32, atol_scale=100)``, no step
+    retried or restarted and every loss finite; it prints train steps/s
+    (host clock, card synchronized).
+    (b) ``LMFATTrainer`` on both engines (TF32 off, the mean loss as the
+    metric): ``train_batch`` on 3 chips (rates 0.05-0.2, budgets [5, 8,
+    3]), ``evaluate_batch`` within 2e-3. In float64 (``dtype`` and
+    ``param_dtype``) every param must agree within ``dtype_tol(float32,
+    atol_scale=100)``. In float32 at most 10 elements may pass that atol,
+    each by at most 2 x lr: the two engines' first gradients disagree in
+    sign on a few hundred of 134.5M elements whose gradient is at
+    float32's noise floor (about 1e-9), and Adam's first step turns each
+    sign into a step of the full learning rate either way; in float64 the
+    gradients sit far above that noise and no sign flips.
+    (c) ``LMFATTrainer`` at the reference's defaults in bf16 (pretraining
+    150 steps, population 4) with the mean loss as the metric (the
+    accuracy stays 0 at vocab 49152): steps-to-constraint for 4 chips
+    (``random_fault_map(i, 256, 256, 0.1)``, 40 steps at most), then FAT
+    to those steps. The constraint lies halfway between the healthy loss
+    and the least-hurt chip's, so every chip trains; the faults must raise
+    the loss and no chip may stop at step 0; the losses are printed.
+    (d) each chip's trained weights through the card kernels (``kernel``
+    mode) against ``fap`` mode on the eval batches, bf16 anchored (as the
+    serving gates) and float32 at ``atol_scale=50``, the metrics of
+    ``evaluate_batch(mode="kernel")`` within 2e-3; one 4 x 2048 forward and
+    ``loss_fn`` with ``attn_impl="kernel"`` against ``fap`` with dense
+    attention in bf16 and float32, its loss and accuracy within 2e-3.
+    Every run must launch 211 masked GEMMs a
+    forward (only ``mma`` in bf16, only ``v1`` in float32) and, at 4 x 2048,
+    30 flash kernels (``mma`` / ``v1``). (e) the population step at width
+    4 (median of timed fits), device ops and busy share from two
+    ``torch.profiler`` traces, peak device memory, each stage's seconds;
+13. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
     GEMMs; then a ``{"kernels": [...]}`` line with one entry per kernel
     variant (``masked_matmul.decode``, ``.mma``, ``.v1`` with phase 11's
     launches as ``launches_efat_deploy``,
-    ``flash_attention.mma``, ``.v1``, and the scan and decode kernels), the
+    ``flash_attention.mma``, ``.v1``, and the scan and decode kernels;
+    the masked GEMM's ``mma`` and ``v1`` and flash carry phase 12's
+    deployment launches as ``launches_lm_eval``), the
     card's line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
@@ -127,8 +167,8 @@ over the untraced wall time.
 Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
-7 and 10, bf16 and hymba's float32, and phase 11's deployment check) and
-read just after it; parity and
+7 and 10, bf16 and hymba's float32, phase 11's deployment check and
+each of phase 12's kernel-mode runs) and read just after it; parity and
 timing launches are not counted. The masked GEMM and flash count launches
 per variant: bf16 runs must launch only the bf16 kernels, float32 runs only
 v1, and every variant must be launched on its main path. A bf16 serve in
@@ -468,6 +508,385 @@ def efat_phase(torch, log):
         table=json.loads(table.to_json()), summaries=summaries, scheduling=sched, stages=stages,
         seconds=seconds,
     )
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 12: LM fault-aware training on the card
+# ---------------------------------------------------------------------------
+
+LM_CLI_STEPS, LM_RESUME_STEPS = 30, 40  # the CLI run, interrupted at 30 of 40 steps and resumed
+LM_PIN_RATES = (0.05, 0.1, 0.2)
+LM_PIN_BUDGETS = [5, 8, 3]
+LM_PIN_PRETRAIN_STEPS = 0
+LM_PIN_F32_MAX_OVER = 10  # float32 pin: elements past atol, each within 2 x lr + atol (Adam's sign-flip step)
+LM_METRIC = "loss"  # accuracy stays 0 at vocab 49152 after 150 steps; the mean loss moves
+LM_CHIPS = 4  # the population: random_fault_map(i, 256, 256, 0.1), i < 4
+LM_MAX_STEPS = 40
+LM_TIMED_STEPS = 3  # steps a timed population fit takes
+LM_TIMED_FITS = 3
+LM_METRIC_TOL = 2e-3
+LM_F32_ATOL_SCALE = 50.0  # whole-model float32 logits (the serving gates' rule)
+
+
+def lm_phase(torch, log):
+    """Fault-aware training of SmolLM-135M at full width through the port's
+    entry points, with its gates; returns the phase's report and raises
+    ``Failed`` on a missed gate.
+
+    (a) the training CLI for 40 steps with checkpoints every 10, interrupted
+    after 30 as a preemption would stop it, the same command run again to
+    resume, and the result held to a straight 40-step run; (b)
+    ``LMFATTrainer`` on both engines (the serial/population pin), in float64
+    and float32; (c) the trainer at the reference's defaults in bf16
+    (pretraining 150 steps, population 4) with the mean loss as its metric,
+    steps-to-constraint and FAT for 4 chips, the constraint halfway between
+    the healthy loss and the least-hurt chip's, so every chip trains; (d) each chip's trained weights
+    through the card kernels (``kernel`` mode) against ``fap`` mode, and a
+    4 x 2048 ``loss_fn`` through the masked GEMM and flash; (e) the
+    population step's time, device ops and busy share, peak memory."""
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import from_fault_map, random_fault_map
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.fat_trainer import LMFATTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("smollm-135m")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    per_forward = sum(uses for _, _, uses in cfg.gemm_shapes())
+    t_phase = time.perf_counter()
+    stages, report = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the phases before this one
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    def within(a, b, rtol, atol):
+        diff = (a.float() - b.float()).abs()
+        return float(diff.max()), bool((diff <= atol + rtol * b.float().abs()).all())
+
+    def rel_l2(got, ref):
+        return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+    def params_err(a, b, rtol, atol):
+        err, ok = 0.0, True
+        for k in a:
+            e, w = within(a[k], b[k], rtol, atol)
+            err, ok = max(err, e), ok and w
+        return err, ok
+
+    # -- (a) the CLI: 40 steps interrupted at 30, run again, against a straight run ---
+    def interrupt_at(n, seen):
+        """The CLI's train step, made to stop the run as a preemption would
+        once the optimizer has taken ``n`` steps; ``seen`` collects each
+        call's (optimizer count, loss), so a retried step shows."""
+        make = step_lib.make_jit_train_step
+
+        def make_stoppable(*args, **kw):
+            step = make(*args, **kw)
+
+            def stoppable(p, o, b, ctx):
+                count = int(o["count"])
+                if count == n:
+                    raise KeyboardInterrupt
+                p, o, metrics = step(p, o, b, ctx)
+                seen.append((count, float(metrics["loss"])))
+                return p, o, metrics
+
+            return stoppable
+
+        return make_stoppable
+
+    def cli():
+        ckpt = OUT_DIR / "lm_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = ["--arch", cfg.name, "--steps", str(LM_RESUME_STEPS), "--batch", "8", "--seq", "64",
+                "--fault-rate", "0.1", "--ckpt-every", "10", "--eval-every", "10"]
+        make, seen = step_lib.make_jit_train_step, []
+        step_lib.make_jit_train_step = interrupt_at(LM_CLI_STEPS, seen)
+        try:
+            train_cli.main(argv + ["--ckpt-dir", str(ckpt)])
+            raise Failed(f"lm cli: the run was not interrupted at step {LM_CLI_STEPS}")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            step_lib.make_jit_train_step = make
+        stopped_at = ckpt_lib.latest_step(str(ckpt))
+        if stopped_at != LM_CLI_STEPS or [c for c, _ in seen] != list(range(LM_CLI_STEPS)):
+            raise Failed(f"lm cli: interrupted at {LM_CLI_STEPS}, latest checkpoint {stopped_at}, "
+                         f"optimizer counts {[c for c, _ in seen]}")
+        resumed, _, second = train_cli.main(argv + ["--ckpt-dir", str(ckpt)])
+        straight, _, third = train_cli.main(argv)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        err, ok = params_err(resumed, straight, rtol, atol)
+        losses = [x for _, x in seen] + [m["loss"] for st in (second, third) for _, m in st.metrics_history
+                                         if "loss" in m]
+        step_ms = statistics.median(third.step_times) * 1e3
+        out = dict(resume_err=err, resume_within=ok, restarts=[st.restarts for st in (second, third)],
+                   losses=losses, steps=[stopped_at, second.step, third.step],
+                   resumed_steps=len(second.step_times), step_ms=step_ms,
+                   steps_per_s=1e3 / step_ms, stragglers=len(third.straggler_events))
+        log(f"lm cli: {LM_RESUME_STEPS} steps interrupted at {stopped_at} (its latest checkpoint; each of its steps "
+            f"ran once), the same "
+            f"command run again ({out['resumed_steps']} steps), against a straight {LM_RESUME_STEPS}-step run: "
+            f"params max abs err {err:.3g} (rtol {rtol}, atol {atol}); restarts "
+            f"{out['restarts']}; {len(losses)} losses, all finite: {all(math.isfinite(x) for x in losses)} (the first "
+            f"{losses[0]:.4f}, the last {losses[-1]:.4f}); straight run {out['steps_per_s']:.2f} "
+            f"train steps/s (median step {step_ms:.2f} ms, host clock, card synchronized), stragglers "
+            f"{out['stragglers']}")
+        if not ok:
+            raise Failed(f"lm cli: resumed params differ from the straight run by {err:.3g}")
+        if any(out["restarts"]) or not all(math.isfinite(x) for x in losses):
+            raise Failed(f"lm cli: restarts {out['restarts']}, losses {losses}")
+        if out["steps"] != [LM_CLI_STEPS, LM_RESUME_STEPS, LM_RESUME_STEPS] or \
+                out["resumed_steps"] != LM_RESUME_STEPS - LM_CLI_STEPS:
+            raise Failed(f"lm cli: ran {out['steps']} steps, {out['resumed_steps']} after the resume")
+        return out
+
+    report["cli"] = timed("cli", cli)
+
+    # -- (b) the pin: population against serial, in float64 and float32 ---------
+    def pin():
+        rng = np.random.default_rng(0)
+        fleet3 = [random_fault_map(rng, 256, 256, r) for r in LM_PIN_RATES]
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        out = {}
+        for dt in ("float64", "float32"):  # the float32 trainer is kept for (d)
+            c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+            pop = LMFATTrainer(c, pretrain_steps=LM_PIN_PRETRAIN_STEPS, metric=LM_METRIC)
+            ser = LMFATTrainer(c, pretrain_steps=0, engine="serial", metric=LM_METRIC)
+            ser.base_params = pop.base_params
+            params = [tr.train_batch(fleet3, LM_PIN_BUDGETS) for tr in (pop, ser)]
+            metrics = [tr.evaluate_batch(p, fleet3) for tr, p in zip((pop, ser), params)]
+            err, over = 0.0, 0
+            for a, b in zip(*params):
+                for k in a:
+                    diff = (a[k].double() - b[k].double()).abs()
+                    err = max(err, float(diff.max()))
+                    over += int((diff > atol + rtol * b[k].double().abs()).sum())
+            m_err = max(abs(x - y) for x, y in zip(*metrics))
+            # float64: every element within tolerance. float32: the two engines' first gradients
+            # differ in sign on a few noise-level elements, and Adam turns each into a step of
+            # up to lr either way, so a few may land up to 2 x lr + atol apart
+            max_over, max_err = (0, math.inf) if dt == "float64" else \
+                (LM_PIN_F32_MAX_OVER, 2 * pop.opt_cfg.learning_rate + atol)
+            out[dt] = dict(params_err=err, elements_over_tol=over, metric_err=m_err, metrics=metrics[0],
+                           max_over=max_over, max_err=max_err)
+            log(f"lm pin ({dt}, 3 chips, rates {list(LM_PIN_RATES)}, budgets {LM_PIN_BUDGETS}): train_batch "
+                f"population against serial max abs err {err:.3g} (limit {max_err:.3g}), {over} of "
+                f"{sum(t.numel() for t in params[0][0].values()) * len(fleet3)} elements over (rtol {rtol}, atol "
+                f"{atol}; limit {max_over}); {LM_METRIC} {[round(-x, 5) for x in metrics[0]]} vs "
+                f"{[round(-x, 5) for x in metrics[1]]} (max diff {m_err:.3g}, tol {LM_METRIC_TOL})")
+            if m_err > LM_METRIC_TOL:
+                raise Failed(f"lm pin {dt}: metrics differ by {m_err:.3g}")
+            if over > max_over or err > max_err:
+                raise Failed(f"lm pin {dt}: train_batch params differ by {err:.3g}, {over} elements over")
+            del ser, params
+        return out, pop
+
+    report["pin"], trainer32 = timed("pin", pin)
+
+    # -- (c) the main path in bf16 at the reference's defaults, the loss as metric ---
+    trainer = timed("pretrain", lambda: LMFATTrainer(cfg, metric=LM_METRIC))
+    fleet = [random_fault_map(i, 256, 256, 0.1) for i in range(LM_CHIPS)]
+
+    def fat():
+        # signed metrics (the loss negated): higher is better
+        before = trainer.evaluate_batch([trainer.base_params] * LM_CHIPS, fleet)
+        gap = trainer.baseline_metric - max(before)
+        if not gap > 0:
+            raise Failed(f"lm fat: the faults did not raise the loss: healthy {-trainer.baseline_metric:.5f}, "
+                         f"faulty {[round(-x, 5) for x in before]}")
+        constraint = trainer.baseline_metric - gap / 2  # no chip meets it before FAT
+        steps = trainer.steps_to_constraint_batch(fleet, constraint, LM_MAX_STEPS)
+        if not all(s is None or s > 0 for s in steps):
+            raise Failed(f"lm fat: steps {steps} against a constraint no chip met before FAT")
+        trained = trainer.train_batch(fleet, [LM_MAX_STEPS if s is None else s for s in steps])
+        after = trainer.evaluate_batch(trained, fleet)
+        return constraint, steps, before, after, trained
+
+    constraint, steps, before, after, trained = timed("fat", fat)
+    log(f"lm fat (bf16, pretrained 150 steps, healthy loss {-trainer.baseline_metric:.5f}, constraint loss "
+        f"{-constraint:.5f}, halfway to the least-hurt chip, {LM_MAX_STEPS} steps at most): steps {steps}; loss "
+        f"faulty before FAT {[round(-x, 5) for x in before]}, after {[round(-x, 5) for x in after]}")
+    report["fat"] = dict(metric=LM_METRIC, baseline=-trainer.baseline_metric, constraint=-constraint, steps=steps,
+                         before=[-x for x in before], after=[-x for x in after])
+
+    # -- (d) deployment through the card kernels ------------------------------------
+    def reset():
+        masked_matmul.launches = flash_attention.launches = 0
+        for fn in (masked_matmul, flash_attention):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+
+    main_path = {"masked_matmul": {}, "flash_attention": {}}  # every kernel-mode run's launches
+
+    def counts():
+        torch.cuda.synchronize()
+        got = dict(masked_matmul=dict(masked_matmul.launches_by_variant),
+                   flash_attention=dict(flash_attention.launches_by_variant))
+        for kernel, by_variant in got.items():
+            for variant, n in by_variant.items():
+                main_path[kernel][variant] = main_path[kernel].get(variant, 0) + n
+        return got
+
+    def check_counts(what, got, forwards, gemm, flash=None):
+        want_mm = {k: (per_forward * forwards if k == gemm else 0) for k in got["masked_matmul"]}
+        want_fa = {k: (cfg.num_layers * forwards if k == flash else 0) for k in got["flash_attention"]}
+        if got["masked_matmul"] != want_mm or got["flash_attention"] != want_fa:
+            raise Failed(f"lm deploy {what}: launches {got}, want {want_mm} and {want_fa}")
+
+    def deploy():
+        out = {}
+        f32_atol = dtype_tol(torch.float32, atol_scale=LM_F32_ATOL_SCALE)
+        for c, tr in ((cfg, trainer), (cfg32, trainer32)):
+            dt = c.dtype
+            worst, ratio, forwards = 0.0, 0.0, 0
+            reset()
+            with torch.no_grad():
+                for params, fm in zip(trained, fleet):
+                    ctx_k = from_fault_map(fm, "kernel", device=trainer.device)
+                    ctx_f = from_fault_map(fm, "fap", device=trainer.device)
+                    for b in tr._evals:
+                        got = M.forward(params, b, c, ctx_k)[0]
+                        forwards += 1
+                        ref = M.forward(params, b, c, ctx_f)[0]
+                        if dt == "bfloat16":
+                            anchor = M.forward(params, b, cfg32, ctx_f)[0]
+                            r = rel_l2(got, anchor) / max(rel_l2(ref, anchor), 1e-12)
+                            ratio = max(ratio, r)
+                            worst = max(worst, rel_l2(got, anchor))
+                        else:
+                            e, w = within(got, ref, *f32_atol)
+                            worst = max(worst, e)
+                            if not w:
+                                raise Failed(f"lm deploy float32: kernel-mode logits off fap by {e:.3g}")
+            gemm = "mma" if dt == "bfloat16" else "v1"
+            launches = counts()
+            check_counts(f"{dt} eval", launches, forwards, gemm)
+            if dt == "bfloat16" and ratio > ANCHOR_RATIO:
+                raise Failed(f"lm deploy bf16: kernel path {ratio:.3f}x the plain bf16 path's error")
+            reset()
+            m_k = tr.evaluate_batch(trained, fleet, mode="kernel")
+            m_launches = counts()
+            check_counts(f"{dt} evaluate_batch", m_launches, LM_CHIPS * len(tr._evals), gemm)
+            m_f = tr.evaluate_batch(trained, fleet)
+            m_err = max(abs(x - y) for x, y in zip(m_k, m_f))
+            if m_err > LM_METRIC_TOL:
+                raise Failed(f"lm deploy {dt}: kernel-mode metrics {m_k} vs fap {m_f}")
+            out[dt] = dict(worst=worst, anchor_ratio=ratio, forwards=forwards, launches=launches,
+                           metrics_kernel=m_k, metrics_fap=m_f, metric_err=m_err,
+                           evaluate_launches=m_launches)
+            log(f"lm deploy {dt}: {LM_CHIPS} chips x {len(tr._evals)} eval batches, kernel mode against fap: "
+                + (f"relative L2 to plain float32 {worst:.3g}, {ratio:.3f}x the plain bf16 path's (limit "
+                   f"{ANCHOR_RATIO})" if dt == "bfloat16" else f"logits max abs err {worst:.3g} (rtol, atol "
+                   f"{f32_atol})")
+                + f"; {LM_METRIC} kernel {[round(-x, 5) for x in m_k]} fap {[round(-x, 5) for x in m_f]} (max diff "
+                f"{m_err:.3g}); launches {launches['masked_matmul']} ({per_forward} a forward)")
+        # one 4 x 2048 loss through the masked GEMM and flash against fap with dense attention
+        long_batch = TokenStream(cfg.vocab_size, 2048, 4, seed=0, device=trainer.device).batch_at(10_000_000)
+        ctx_k = from_fault_map(fleet[0], "kernel", device=trainer.device)
+        ctx_f = from_fault_map(fleet[0], "fap", device=trainer.device)
+        params = trained[0]
+        with torch.no_grad():
+            anchor = M.forward(params, long_batch, cfg32, ctx_f, attn_impl="dense")[0]
+            for c in (cfg, cfg32):
+                dt = c.dtype
+                variant = "mma" if dt == "bfloat16" else "v1"  # of both kernels
+                reset()
+                got = M.forward(params, long_batch, c, ctx_k, attn_impl="kernel")[0]
+                loss_k, met_k = M.loss_fn(params, long_batch, c, ctx_k, attn_impl="kernel")
+                launches = counts()
+                check_counts(f"{dt} 4x2048", launches, 2, variant, variant)
+                ref = M.forward(params, long_batch, c, ctx_f, attn_impl="dense")[0]
+                loss_f, met_f = M.loss_fn(params, long_batch, c, ctx_f, attn_impl="dense")
+                row = dict(loss_kernel=float(loss_k), loss_fap=float(loss_f), acc_kernel=float(met_k["accuracy"]),
+                           acc_fap=float(met_f["accuracy"]), launches=launches)
+                if dt == "bfloat16":
+                    r = rel_l2(got, anchor) / max(rel_l2(ref, anchor), 1e-12)
+                    row.update(rel_l2=rel_l2(got, anchor), plain_rel_l2=rel_l2(ref, anchor), anchor_ratio=r)
+                    bad = r > ANCHOR_RATIO
+                else:
+                    e, w = within(got, ref, *dtype_tol(torch.float32, atol_scale=LM_F32_ATOL_SCALE))
+                    row.update(err=e)
+                    bad = not w
+                acc_gap = abs(row["acc_kernel"] - row["acc_fap"])
+                loss_gap = abs(row["loss_kernel"] - row["loss_fap"])
+                log(f"lm long loss {dt} (4x2048, kernel mode + flash against fap + dense attention): loss "
+                    f"{row['loss_kernel']:.5f} vs {row['loss_fap']:.5f}, accuracy {row['acc_kernel']:.5f} vs "
+                    f"{row['acc_fap']:.5f}; " + (f"relative L2 to plain float32 {row['rel_l2']:.3g}, "
+                    f"{r:.3f}x the plain bf16 path's" if dt == "bfloat16" else f"logits max abs err {e:.3g}")
+                    + f"; launches {launches}")
+                if bad or acc_gap > LM_METRIC_TOL or loss_gap > LM_METRIC_TOL:
+                    raise Failed(f"lm long loss {dt}: kernel path off the plain path: {row}")
+                out[f"long_{dt}"] = row
+                del got, ref
+        out["launches"] = main_path
+        return out
+
+    report["deploy"] = timed("deploy", deploy)
+
+    # -- (e) the population step: time, device ops, busy share --------------------
+    def speed():
+        eng = trainer.engine
+        ctxs = [from_fault_map(fm, device=trainer.device) for fm in fleet]
+
+        def fit(n):
+            return eng.fit_batch(trainer.base_params, ctxs, [n] * len(ctxs), trainer._train_batch_fn)
+
+        fit(1)
+        gc.collect()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(LM_TIMED_FITS):
+            t0 = time.perf_counter()
+            fit(LM_TIMED_STEPS)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / LM_TIMED_STEPS * 1e3)
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        traced = []
+        for n in (1, 3):
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fit(n)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            traced.append((sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3))
+        step = statistics.median(ms)
+        out = dict(width=len(ctxs), step_ms_fits=ms, step_ms=step, member_steps_per_s=len(ctxs) * 1e3 / step,
+                   device_ops_per_step=(traced[1][0] - traced[0][0]) / 2,
+                   device_ms_per_step=(traced[1][1] - traced[0][1]) / 2)
+        out["busy_share"] = out["device_ms_per_step"] / step
+        log(f"lm speed: population width {len(ctxs)}: {step:.2f} ms a population step (median of {LM_TIMED_FITS} "
+            f"fits of {LM_TIMED_STEPS}, min {min(ms):.2f} max {max(ms):.2f}), {out['member_steps_per_s']:.1f} member "
+            f"steps/s; {out['device_ops_per_step']:.1f} device ops a step, {out['device_ms_per_step']:.3f} ms device "
+            f"time, busy {out['busy_share']:.1%} of the untraced median step")
+        return out
+
+    report["speed"] = timed("timing", speed)
+    report["peak_memory_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    seconds = time.perf_counter() - t_phase
+    log(f"lm peak device memory {report['peak_memory_gib']:.2f} GiB over the {held / 2**30:.2f} GiB held "
+        "when the phase began; stages (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; phase {seconds:.2f} s")
+    report.update(stages=stages, seconds=seconds)
     return report
 
 
@@ -1153,7 +1572,7 @@ def run(args, torch) -> int:
 
         def teacher_forced(cc, ctx):
             with torch.no_grad():
-                logits = M.forward(params, {"tokens": seq[:, :-1]}, cc, ctx, attn_impl="dense")[:, steps].float()
+                logits = M.forward(params, {"tokens": seq[:, :-1]}, cc, ctx, attn_impl="dense")[0][:, steps].float()
             return logits, torch.log_softmax(logits, -1).gather(-1, seq[:, PROMPT:, None])[..., 0]
 
         ref, ref_lp = teacher_forced(c, ctx_f)
@@ -1371,7 +1790,12 @@ def run(args, torch) -> int:
     # ---- phase 11: eFAT on the card -----------------------------------------
     efat_report = efat_phase(torch, log)
 
-    # ---- phase 12: the record -----------------------------------------------
+    # ---- phase 12: LM fault-aware training on the card ----------------------
+    lm_report = lm_phase(torch, log)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the record -----------------------------------------------
     def gemm_sum(arch, dtype, m, layers_only=False):
         """One step's masked GEMMs at M = m, each launch timed alone, times its uses."""
         shapes = arch.gemm_shapes()
@@ -1410,21 +1834,26 @@ def run(args, torch) -> int:
         """The side of a summed bound that weighs more."""
         return "bytes" if st[f"{prefix}bytes_ms"] >= st[f"{prefix}ops_ms"] else "operations"
 
+    lm_launches = lm_report["deploy"]["launches"]
     kernels = [
         dict(name="masked_matmul.decode", **mm_src, launches=variant_launches["masked_matmul.decode"],
              ms=dstep["f32w_ms"], plain_ms=dstep["plain_ms"], bound_ms=dstep["f32w_bound_ms"],
              bound_by=bound_by(dstep, "f32w_"), library_ms=dstep["library_ms"]),
         dict(name="masked_matmul.mma", **mm_src, launches=variant_launches["masked_matmul.mma"],
+             launches_lm_eval=lm_launches["masked_matmul"]["mma"],
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
              bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
         dict(name="masked_matmul.v1", **mm_src, launches=variant_launches["masked_matmul.v1"],
              launches_efat_deploy=efat_report["deploy"]["v1"],
+             launches_lm_eval=lm_launches["masked_matmul"]["v1"],
              ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
              bound_by=bound_by(f32_step), library_ms=f32_step["library_ms"]),
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
+             launches_lm_eval=lm_launches["flash_attention"]["mma"],
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
              bound_by="operations", library_ms=fa["library_ms"]),
         dict(name="flash_attention.v1", **fa_src, launches=variant_launches["flash_attention.v1"],
+             launches_lm_eval=lm_launches["flash_attention"]["v1"],
              ms=fa32["ms"], plain_ms=fa32["plain_ms"], bound_ms=fa32["bound_ms"],
              bound_by="operations", library_ms=fa32["library_ms"]),
         dict(name="selective_scan", route="cuda",
@@ -1461,7 +1890,7 @@ def run(args, torch) -> int:
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
-        long_prefill=long_report, efat=efat_report, seconds=time.perf_counter() - t_start,
+        long_prefill=long_report, efat=efat_report, lm_fat=lm_report, seconds=time.perf_counter() - t_start,
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
                                 for k in kernels))

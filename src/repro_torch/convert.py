@@ -14,9 +14,16 @@ import torch
 
 from repro_torch.core.masking import FaultContext, healthy
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, param_dict
 
-__all__ = ["params_from_jax", "classifier_params_from_jax", "context_from_ok"]
+__all__ = [
+    "params_from_jax",
+    "param_dict_from_jax",
+    "opt_state_from_jax",
+    "checkpoint_from_jax",
+    "classifier_params_from_jax",
+    "context_from_ok",
+]
 
 # the reference's FaultContext mode names -> the port's
 _MODES = {"none": "none", "fap": "fap", "pallas": "kernel"}
@@ -49,6 +56,48 @@ def params_from_jax(cfg, tree: Mapping, *, device=None) -> Model:
             raise ValueError(f"{name}: reference shape {arr.shape} vs port {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return model
+
+
+def param_dict_from_jax(cfg, tree: Mapping, *, device=None) -> dict:
+    """The reference's param tree as the port's flat dict of tensors
+    (``repro_torch.models.model.param_dict`` of :func:`params_from_jax`)."""
+    return param_dict(params_from_jax(cfg, tree, device=device))
+
+
+def opt_state_from_jax(cfg, state: Mapping, *, device=None) -> dict:
+    """The reference's AdamW state (``m`` and ``v`` shaped as the param
+    tree, an int32 ``count``) as the port's: flat dicts of tensors."""
+    return dict(
+        m=param_dict_from_jax(cfg, state["m"], device=device),
+        v=param_dict_from_jax(cfg, state["v"], device=device),
+        count=torch.tensor(np.asarray(state["count"]), dtype=torch.int32, device=resolve_device(device)),
+    )
+
+
+def _unflatten(flat: Mapping, sep: str = "/") -> dict:
+    tree: dict = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split(sep)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return tree
+
+
+def checkpoint_from_jax(cfg, flat: Mapping) -> dict:
+    """A checkpoint the reference's loop wrote (``{"params": ..., "opt":
+    ...}`` flattened by ``load_checkpoint``, layers stacked) as the flat
+    arrays the port's ``restore_sharded`` reads for its own template (one
+    entry per layer and leaf)."""
+    tree = _unflatten(flat)
+    params = param_dict_from_jax(cfg, tree["params"], device="cpu")
+    opt = opt_state_from_jax(cfg, tree["opt"], device="cpu")
+    out = {f"params/{k}": t.numpy() for k, t in params.items()}
+    for part in ("m", "v"):
+        out.update({f"opt/{part}/{k}": t.numpy() for k, t in opt[part].items()})
+    out["opt/count"] = opt["count"].numpy()
+    return out
 
 
 def classifier_params_from_jax(tree: Mapping, *, device=None) -> dict:

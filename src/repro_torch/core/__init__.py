@@ -1,7 +1,8 @@
-"""eFAT core: fault maps, systolic mapping, the fault context, resilience
-analysis, grouping & fusion, and the end-to-end orchestrator (paper Fig. 7).
-The FAM functions of ``mapping``, ``fault_einsum`` and ``dual`` wait
-(ROADMAP.md §1.1)."""
+"""eFAT core: fault maps, systolic mapping and the FAM baseline, the fault
+context, dual fault types, resilience analysis, grouping & fusion, and the
+end-to-end orchestrator (paper Fig. 7). ``fault_einsum`` waits for the MoE
+family (ROADMAP.md §1.5)."""
+from repro_torch.core.dual import dual_fault_weight, measure_resilience_2d, project_params
 from repro_torch.core.efat import EFAT, BatchFATTrainerFull, EFATConfig, EFATResult
 from repro_torch.core.faults import (
     FaultMap,
@@ -20,7 +21,13 @@ from repro_torch.core.grouping import (
     individual_plan,
     random_pair_merge_plan,
 )
-from repro_torch.core.mapping import masked_weight, periodic_mask
+from repro_torch.core.mapping import (
+    apply_fam,
+    expected_weight_loss,
+    fam_permutation,
+    masked_weight,
+    periodic_mask,
+)
 from repro_torch.core.masking import (
     MASKABLE_KEYS,
     FaultContext,
@@ -52,10 +59,14 @@ __all__ = [
     "RetrainingPlan",
     "ResilienceTable",
     "ResilienceTable2D",
+    "apply_fam",
     "clustered_fault_map",
     "context_leak_reason",
     "correlated_family",
+    "dual_fault_weight",
     "expected_merged_rate",
+    "expected_weight_loss",
+    "fam_permutation",
     "fault_linear",
     "fault_rate_list",
     "fixed_policy_plan",
@@ -68,9 +79,11 @@ __all__ = [
     "mask_selected_params",
     "masked_weight",
     "measure_resilience",
+    "measure_resilience_2d",
     "merge_fault_maps",
     "overlap_rate",
     "periodic_mask",
+    "project_params",
     "random_fault_map",
     "random_pair_merge_plan",
     "stack_contexts",

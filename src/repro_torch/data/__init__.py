@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import ClusterData, make_classification_task
+from repro_torch.data.synthetic import ClusterData, TokenStream, make_classification_task
 
-__all__ = ["ClusterData", "make_classification_task"]
+__all__ = ["ClusterData", "TokenStream", "make_classification_task"]

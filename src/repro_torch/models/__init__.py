@@ -4,7 +4,11 @@ from repro_torch.models.model import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
+    param_dict,
     prefill,
 )
 
-__all__ = ["Model", "decode_step", "forward", "init_cache", "init_params", "prefill"]
+__all__ = [
+    "Model", "decode_step", "forward", "init_cache", "init_params", "loss_fn", "param_dict", "prefill",
+]

@@ -1,5 +1,5 @@
 """Model assembly for the dense, ssm and hybrid families: parameters,
-forward, prefill, decode.
+forward, loss, prefill, decode.
 
 Parameters are ``nn.Module``s; the layers are an ``nn.ModuleList`` walked by
 a Python loop (the reference stacks them on a leading axis and scans). Every
@@ -7,17 +7,26 @@ GEMM weight keeps the reference's ``(d_in, d_out)`` layout, because the
 chip's fault mask is defined on that view; ``nn.Linear``'s ``(out, in)``
 would mask other weights. Every parameterized GEMM goes through
 ``fault_linear``.
+
+``forward`` and ``loss_fn`` also take the parameters as a flat dict of
+tensors named as ``Model.named_parameters()`` names them (``embed``,
+``layers.3.attn.wq``, ...; :func:`param_dict`): the functional form the
+optimizer, the FAT engines and ``torch.func.vmap`` work on. The dict is read
+through a view with the module's attribute names, so both forms run one
+code path.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from types import SimpleNamespace
+from typing import Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.masking import FaultContext, fault_linear, healthy
+from repro_torch.core.masking import FaultContext, fault_linear, healthy, mask_selected_params
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import KVCache, apply_norm, attention_block, mlp_block, rope_tables
 from repro_torch.models.ssm import SSMCache, ssm_block
@@ -149,6 +158,36 @@ def init_params(cfg, seed: int = 0, *, device=None) -> Model:
     return model
 
 
+def param_dict(model: Model) -> dict[str, Tensor]:
+    """The model's parameters as a flat dict of plain tensors (no autograd
+    leaves), keyed by their ``named_parameters`` names."""
+    return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def _view(flat: dict[str, Tensor]) -> SimpleNamespace:
+    """A flat parameter dict seen with the ``Model``'s attribute names:
+    ``view.layers[3].attn.wq`` is ``flat["layers.3.attn.wq"]``."""
+    root: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [build(node[k]) for k in sorted(node, key=int)]
+        return SimpleNamespace(**{k: build(v) for k, v in node.items()})
+
+    return build(root)
+
+
+Params = Union[Model, dict]
+
+
 # ---------------------------------------------------------------------------
 # Blocks, embedding, unembedding
 # ---------------------------------------------------------------------------
@@ -178,7 +217,7 @@ def _block(lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=(None, None), build
     return x + mlp_block(lp.mlp, h2, cfg, ctx), pieces
 
 
-def embed_inputs(cfg, params: Model, batch: dict, ctx: FaultContext) -> tuple[Tensor, Tensor]:
+def embed_inputs(cfg, params, batch: dict, ctx: FaultContext) -> tuple[Tensor, Tensor]:
     """Returns (x (B, S, d) in compute dtype, positions (B, S))."""
     tokens = batch["tokens"]
     x = params.embed[tokens].to(getattr(torch, cfg.dtype))
@@ -189,7 +228,7 @@ def embed_inputs(cfg, params: Model, batch: dict, ctx: FaultContext) -> tuple[Te
     return x, positions
 
 
-def unembed(cfg, params: Model, x: Tensor, ctx: FaultContext) -> Tensor:
+def unembed(cfg, params, x: Tensor, ctx: FaultContext) -> Tensor:
     # tied: a transposed view; the masked-GEMM kernel reads it in place
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     return fault_linear(x, w, ctx)
@@ -206,17 +245,101 @@ def _rope(cfg, positions: Tensor):
 # ---------------------------------------------------------------------------
 
 
+REMAT = ("none", "dots", "full")
+
+
 def forward(
-    params: Model, batch: dict, cfg, ctx: Optional[FaultContext] = None, *, attn_impl: str = "auto"
-) -> Tensor:
-    """Full-sequence forward. Returns logits (B, S, V)."""
+    params: Params,
+    batch: dict,
+    cfg,
+    ctx: Optional[FaultContext] = None,
+    *,
+    attn_impl: str = "auto",
+    remat: str = "dots",
+    fault_apply: str = "per_use",
+) -> tuple[Tensor, Tensor]:
+    """Full-sequence forward. Returns (logits (B, S, V), aux_loss); aux is 0
+    for the dense, ssm and hybrid families (only MoE routing adds one).
+
+    ``params`` is a ``Model`` or a flat dict of tensors (:func:`param_dict`).
+
+    fault_apply: 'per_use' masks inside every matmul (paper-faithful);
+    'per_step' masks the array-mapped params once (identical math, one
+    weight-sized pass per step instead of per use). The tied unembed keeps
+    its use-site mask: the lookup needs the unmasked rows.
+
+    remat: 'none', or 'dots' / 'full' (the reference's two policies), which
+    here both recompute each layer in the backward pass
+    (``torch.utils.checkpoint``); the numbers are the same. It applies only
+    where autograd records: ``torch.func`` transforms take no checkpoints,
+    so the FAT engines pass 'none', as the reference's trainer does.
+    """
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}; expected one of {REMAT}")
+    if fault_apply not in ("per_use", "per_step"):
+        raise ValueError(f"unknown fault_apply {fault_apply!r}")
     ctx = ctx or healthy()
+    ctx_unembed = ctx
+    if fault_apply == "per_step" and ctx.active:
+        flat = params if isinstance(params, dict) else dict(params.named_parameters())
+        params = mask_selected_params(flat, ctx)
+        ctx = healthy()
+    if isinstance(params, dict):
+        params = _view(params)
     x, positions = embed_inputs(cfg, params, batch, ctx)
     rope = _rope(cfg, positions)
     for lp in params.layers:
-        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl)
+        if remat != "none" and torch.is_grad_enabled():
+            x = checkpoint(
+                lambda h, lp=lp: _block(lp, h, cfg, ctx, rope=rope, attn_impl=attn_impl)[0],
+                x, use_reentrant=False,
+            )
+        else:
+            x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl)
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
-    return unembed(cfg, params, x, ctx)
+    logits = unembed(cfg, params, x, ctx_unembed if cfg.tie_embeddings else ctx)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(
+    params: Params,
+    batch: dict,
+    cfg,
+    ctx: Optional[FaultContext] = None,
+    *,
+    attn_impl: str = "auto",
+    remat: str = "dots",
+    aux_weight: float = 0.01,
+    fault_apply: str = "per_use",
+) -> tuple[Tensor, dict]:
+    """Next-token cross-entropy in float32 (``logsumexp``), weighted by
+    ``batch["loss_mask"]`` where given. Returns (loss, dict(loss, ce, aux,
+    accuracy))."""
+    logits, aux = forward(
+        params, batch, cfg, ctx, attn_impl=attn_impl, remat=remat, fault_apply=fault_apply
+    )
+    labels = batch["labels"]
+    # frontends may prepend non-text positions: align to the tail
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1] :]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.take_along_dim(logits32, labels[..., None], dim=-1)[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / denom
+    acc = (torch.argmax(logits32, dim=-1) == labels).float()
+    acc = (acc * mask).sum() / denom
+    loss = ce + aux_weight * aux
+    return loss, dict(loss=loss, ce=ce, aux=aux, accuracy=acc)
 
 
 # ---------------------------------------------------------------------------

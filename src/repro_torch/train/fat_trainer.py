@@ -6,18 +6,27 @@ the Gaussian-cluster task; steps-to-constraint at a given fault rate is
 measurable in seconds, so the full Step-1 resilience sweep (rates x
 repeats) runs in minutes like the paper's CIFAR runs.
 
-The trainer delegates every training loop to a FAT *engine*
+Both trainers delegate every training loop to a FAT *engine*
 (``repro_torch.train.population``): ``engine="population"`` (default)
 trains a whole batch of fault maps as one vmapped step;
 ``engine="serial"`` is the one-map-at-a-time reference the population path
 is proven equivalent to. On top of the single-map ``FATTrainerFull``
-protocol it exposes the batch protocol (``steps_to_constraint_batch`` /
+protocol they expose the batch protocol (``steps_to_constraint_batch`` /
 ``train_batch`` / ``evaluate_batch``) that the Step-1 sweep and Step-4 plan
 execution use to submit entire populations.
 
 It runs on the card unless ``device="cpu"`` is asked for: with no card and
-no device named, it raises. ``LMFATTrainer`` waits for the port of
-``models/model.py::loss_fn`` (ROADMAP.md §1.1).
+no device named, it raises.
+
+``LMFATTrainer`` — the same protocol over a language model with the
+``TokenStream`` data pipeline: a reduced arch in the CPU tests, SmolLM-135M
+at full width on the card.
+
+Evaluation takes ``mode="kernel"`` for the deployment check: each chip's
+weights run one chip at a time through the masked-GEMM kernel under
+``torch.no_grad`` (the kernels take no vmap). Training always runs the
+plain masked product: a ``kernel``-mode fit on the card raises in the
+engines.
 """
 from __future__ import annotations
 
@@ -26,15 +35,16 @@ from typing import Any, Optional, Sequence
 from torch.func import grad_and_value
 
 from repro_torch.core.faults import FaultMap
-from repro_torch.core.masking import from_fault_map, healthy, mask_params
-from repro_torch.data.synthetic import make_classification_task
+from repro_torch.core.masking import from_fault_map, healthy, mask_params, mask_selected_params
+from repro_torch.data.synthetic import TokenStream, make_classification_task
 from repro_torch.device import resolve_device
 from repro_torch.fleet.scheduler import FleetScheduler
 from repro_torch.models.classifier import classifier_loss, init_classifier
+from repro_torch.models.model import init_params, loss_fn, param_dict
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.population import make_fat_engine
+from repro_torch.train.population import evaluate_metric, make_fat_engine
 
-__all__ = ["ClassifierFATTrainer"]
+__all__ = ["ClassifierFATTrainer", "LMFATTrainer"]
 
 
 class _EngineBackedTrainer:
@@ -56,8 +66,8 @@ class _EngineBackedTrainer:
     def _make_scheduler(self, policy: str) -> FleetScheduler:
         return FleetScheduler.for_engine(self.engine, policy=policy)
 
-    def _context(self, fm: FaultMap):
-        return from_fault_map(fm, device=self.device)
+    def _context(self, fm: FaultMap, mode: str = "fap"):
+        return from_fault_map(fm, mode, device=self.device)
 
     def evaluate_params(self, params, ctx) -> float:
         return self.engine.evaluate_one(params, ctx)
@@ -125,15 +135,25 @@ class _EngineBackedTrainer:
         )
         trained = sched.unpermute(trained)
         # ship FAP'd weights: weights on faulty PEs are zero in the artifact
-        return [mask_params(p, ctx) for p, ctx in zip(trained, ctxs)]
+        return [self._ship(p, ctx) for p, ctx in zip(trained, ctxs)]
 
-    def evaluate(self, params, fault_map: FaultMap) -> float:
-        return self.evaluate_batch([params], [fault_map])[0]
+    @staticmethod
+    def _ship(params: dict, ctx) -> dict:
+        return mask_params(params, ctx)
+
+    def evaluate(self, params, fault_map: FaultMap, mode: str = "fap") -> float:
+        return self.evaluate_batch([params], [fault_map], mode)[0]
 
     def evaluate_batch(
-        self, params_list: Sequence[Any], fault_maps: Sequence[FaultMap]
+        self, params_list: Sequence[Any], fault_maps: Sequence[FaultMap], mode: str = "fap"
     ) -> list[float]:
-        ctxs = [self._context(fm) for fm in fault_maps]
+        """Each chip's metric with its params under its own map. ``mode``
+        is the fault context's: ``fap`` (the engine's batched evaluation)
+        or ``kernel`` (the deployment path: one chip at a time through the
+        masked-GEMM kernel)."""
+        ctxs = [self._context(fm, mode) for fm in fault_maps]
+        if mode == "kernel":
+            return [evaluate_metric(self.engine, p, c) for p, c in zip(params_list, ctxs)]
         return self.engine.evaluate_batch(list(params_list), ctxs)
 
 
@@ -193,3 +213,76 @@ class ClassifierFATTrainer(_EngineBackedTrainer):
             self.base_params, [healthy()], [pretrain_steps], self._pretrain_batch_fn
         )[0]
         self.baseline_accuracy = self.evaluate_params(self.base_params, healthy())
+
+
+class LMFATTrainer(_EngineBackedTrainer):
+    """The same protocol over a language model (a reduced arch for CPU
+    tests), with the reference's batch salts and defaults.
+
+    It ships FAP on the array-mapped GEMM weights only
+    (``mask_selected_params``): the embedding stays whole (the lookup reads
+    unmasked rows; the tied unembed masks at use) and so do the norm
+    scales, so a shipped model evaluates as it was trained. The reference
+    ships ``mask_params``, which on its layer-stacked tree also zeroes
+    embedding entries and norm scales (ROADMAP.md §3)."""
+
+    def __init__(
+        self,
+        cfg,
+        *,
+        seed: int = 0,
+        batch_size: int = 8,
+        seq_len: int = 64,
+        lr: float = 1e-3,
+        pretrain_steps: int = 150,
+        eval_every: int = 10,
+        eval_batches: int = 2,
+        metric: str = "accuracy",
+        engine: str = "population",
+        population_size: int = 4,
+        schedule: str = "lpt",
+        engine_kwargs: Optional[dict] = None,
+        device=None,
+    ):
+        self.cfg = cfg
+        self.metric = metric
+        self.device = resolve_device(device)
+        self.stream = TokenStream(cfg.vocab_size, seq_len, batch_size, seed=seed, device=self.device)
+        self.eval_every = eval_every
+        self.opt_cfg = AdamWConfig(learning_rate=lr, weight_decay=0.0)
+
+        def probe_batch(s):
+            return self.stream.batch_at(s)
+
+        def fat_batch(s):
+            return self.stream.batch_at(s + 999_983)
+
+        def pretrain_batch(s):
+            return self.stream.batch_at(s + 999_983 * 7)
+
+        self._probe_batch_fn = probe_batch
+        self._train_batch_fn = fat_batch
+        self._pretrain_batch_fn = pretrain_batch
+
+        self.base_params = param_dict(init_params(cfg, seed, device=self.device))
+        self._evals = [self.stream.batch_at(10_000_000 + i) for i in range(eval_batches)]
+        self.engine = make_fat_engine(
+            engine,
+            loss_fn=lambda p, b, ctx: loss_fn(p, b, cfg, ctx, remat="none"),
+            opt_cfg=self.opt_cfg,
+            eval_batches=self._evals,
+            metric=metric,
+            higher_is_better=metric != "loss",  # higher-is-better protocol
+            eval_every=eval_every,
+            population_size=population_size,
+            **(engine_kwargs or {}),
+        )
+        self.scheduler = self._make_scheduler(schedule)
+        self.base_params = self.engine.fit_batch(
+            self.base_params, [healthy()], [pretrain_steps], self._pretrain_batch_fn
+        )[0]
+        self.baseline_metric = self.evaluate_params(self.base_params, healthy())
+
+    @staticmethod
+    def _ship(params: dict, ctx) -> dict:
+        return mask_selected_params(params, ctx)

@@ -44,7 +44,7 @@ from repro_torch.core.masking import FaultContext, healthy, stack_contexts
 from repro_torch.obs.recorder import NULL_RECORDER, Recorder
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["PopulationFATEngine", "SerialFATEngine", "make_fat_engine"]
+__all__ = ["PopulationFATEngine", "SerialFATEngine", "evaluate_metric", "make_fat_engine"]
 
 # steps-to-constraint bucket ladder (training steps, not seconds)
 STEPS_BUCKETS = (0.0, 5.0, 10.0, 20.0, 40.0, 80.0, 160.0, 320.0, 640.0, 1280.0)
@@ -78,9 +78,11 @@ def _sync(device: torch.device) -> None:
 
 
 def _refuse_kernel_on_card(ctx: Optional[FaultContext], what: str) -> None:
-    if ctx is not None and ctx.active and ctx.mode == "kernel" and ctx.ok.device.type == "cuda":
+    """Off the CPU a ``kernel`` context reaches the card kernel, which has
+    no backward and takes no vmap; only the CPU runs its plain version."""
+    if ctx is not None and ctx.active and ctx.mode == "kernel" and ctx.ok.device.type != "cpu":
         raise NotImplementedError(
-            f"{what} in 'kernel' mode on a CUDA device: training runs the plain masked "
+            f"{what} in 'kernel' mode on a {ctx.ok.device.type} device: training runs the plain masked "
             "product with autograd, as the reference does (its masked-GEMM kernel is "
             "forward only), and no masked-GEMM backward exists in either package; "
             "train in 'fap' mode and deploy the shipped weights through 'kernel' mode "
@@ -374,12 +376,8 @@ class SerialFATEngine:
         self.eval_batches = list(eval_batches)
         self._grad = grad_and_value(loss_fn, has_aux=True)
 
-    @torch.no_grad()
     def evaluate_one(self, params, ctx: Optional[FaultContext]) -> float:
-        ctx = ctx or healthy()
-        vals = [float(self.loss_fn(params, b, ctx)[1][self.metric]) for b in self.eval_batches]
-        v = float(np.mean(vals))
-        return v if self.higher_is_better else -v
+        return evaluate_metric(self, params, ctx)
 
     def _step(self, params, opt, ctx: FaultContext, batch: dict):
         grads, _ = self._grad(params, batch, ctx)
@@ -424,6 +422,18 @@ class SerialFATEngine:
         if len(params_list) != len(contexts):
             raise ValueError("params and contexts must align")
         return [self.evaluate_one(p, c) for p, c in zip(params_list, contexts)]
+
+
+@torch.no_grad()
+def evaluate_metric(engine, params, ctx: Optional[FaultContext]) -> float:
+    """One member's signed constraint metric under ``ctx``, averaged over
+    ``engine``'s eval batches outside any vmap: the serial engine's
+    evaluation, and the deployment check's, whose card kernels take no
+    vmap."""
+    ctx = ctx or healthy()
+    vals = [float(engine.loss_fn(params, b, ctx)[1][engine.metric]) for b in engine.eval_batches]
+    v = float(np.mean(vals))
+    return v if engine.higher_is_better else -v
 
 
 def make_fat_engine(kind: str, **kwargs):

@@ -5,13 +5,15 @@ is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, reduce_config
 from repro_torch.core import from_fault_map, healthy, random_fault_map
-from repro_torch.data.synthetic import make_classification_task
+from repro_torch.data.synthetic import TokenStream, make_classification_task
 from repro_torch.kernels.common import assert_close, dtype_tol
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention,
@@ -23,8 +25,9 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
 from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+from repro_torch.models import model as M
 from repro_torch.models.classifier import classifier_forward, classifier_loss, init_classifier
-from repro_torch.train.fat_trainer import ClassifierFATTrainer
+from repro_torch.train.fat_trainer import ClassifierFATTrainer, LMFATTrainer
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.population import PopulationFATEngine, SerialFATEngine
 
@@ -754,3 +757,81 @@ def test_kernel_mode_population_on_the_card_raises(cuda):
         serial.fit_batch(base, kctxs[:1], [1], fn)
     # one chip's forward in kernel mode is the deployment path, and runs
     assert 0.0 <= serial.evaluate_one(base, kctxs[0]) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# LM training and its deployment through the kernels
+# ---------------------------------------------------------------------------
+
+SMOLLM = get_arch("smollm-135m")
+
+
+def _rel_l2(got, ref):
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_lm_loss_in_kernel_mode_matches_fap_on_the_card(cuda, width, dtype):
+    """Every masked GEMM of a forward through the kernel (7 a layer and the
+    tied unembed), against the plain ``fap`` path: float32 logits at
+    ``atol_scale=50``; bf16 anchored to the plain float32 path (at most 1.5x
+    the plain bf16 path's relative L2 error), the loss within bf16's rtol."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = reduce_config(SMOLLM) if width == "reduced" else SMOLLM
+    cfg, cfg32 = dataclasses.replace(base, dtype=dtype), dataclasses.replace(base, dtype="float32")
+    params = M.param_dict(M.init_params(cfg, 0, device=cuda))
+    fm = random_fault_map(0, cfg.array_rows, cfg.array_cols, 0.1)
+    ctx_k, ctx_f = from_fault_map(fm, "kernel", device=cuda), from_fault_map(fm, "fap", device=cuda)
+    batch = TokenStream(cfg.vocab_size, 64, 8, seed=0, device=cuda).batch_at(1)
+    before = dict(masked_matmul.launches_by_variant)
+    with torch.no_grad():
+        got = M.forward(params, batch, cfg, ctx_k)[0]
+        torch.cuda.synchronize()
+        variant = "mma" if dtype == "bfloat16" else "v1"
+        assert masked_matmul.launches_by_variant[variant] - before[variant] == sum(u for _, _, u in cfg.gemm_shapes())
+        ref = M.forward(params, batch, cfg, ctx_f)[0]
+        loss_k, _ = M.loss_fn(params, batch, cfg, ctx_k)
+        loss_f, _ = M.loss_fn(params, batch, cfg, ctx_f)
+        if dtype == "float32":
+            assert_close(got, ref, torch.float32, atol_scale=50)
+            assert_close(loss_k, loss_f, torch.float32)
+        else:
+            anchor = M.forward(params, batch, cfg32, ctx_f)[0]
+            assert _rel_l2(got, anchor) <= 1.5 * _rel_l2(ref, anchor)
+            assert float(loss_k) == pytest.approx(float(loss_f), rel=2e-2)
+
+
+def test_lm_population_step_on_the_card_matches_the_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_config(SMOLLM)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = M.param_dict(M.init_params(cfg, 0, device="cpu"))
+        params = {k: v.to(dev) for k, v in params.items()}
+        stream = TokenStream(cfg.vocab_size, 16, 4, seed=0, device=dev)
+        engine = PopulationFATEngine(
+            loss_fn=lambda p, b, ctx: M.loss_fn(p, b, cfg, ctx, remat="none"),
+            opt_cfg=AdamWConfig(learning_rate=1e-3, weight_decay=0.0), eval_batches=[stream.batch_at(99)],
+        )
+        ctxs = [from_fault_map(random_fault_map(i, 16, 16, 0.1 * (i + 1)), device=dev) for i in range(3)]
+        out[dev.type] = engine.fit_batch(params, ctxs, [2, 3, 1], stream.batch_at)
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g["embed"].device.type == "cuda"
+        for k in w:
+            assert_close(g[k], w[k], torch.float32, atol_scale=100)
+
+
+def test_lm_kernel_mode_fit_on_the_card_raises_and_kernel_eval_runs(cuda):
+    cfg = reduce_config(SMOLLM)
+    tr = LMFATTrainer(cfg, pretrain_steps=2, batch_size=2, seq_len=16, eval_batches=1)
+    assert tr.device.type == "cuda"  # the card is the default
+    fleet = [random_fault_map(i, 16, 16, 0.1) for i in range(2)]
+    kctxs = [from_fault_map(fm, "kernel", device=cuda) for fm in fleet]
+    with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
+        tr.engine.fit_batch(tr.base_params, kctxs, [1, 1], tr._train_batch_fn)
+    before = masked_matmul.launches_by_variant["v1"]
+    got = tr.evaluate_batch([tr.base_params] * 2, fleet, mode="kernel")
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant["v1"] - before == 2 * sum(u for _, _, u in cfg.gemm_shapes())
+    assert got == pytest.approx(tr.evaluate_batch([tr.base_params] * 2, fleet), abs=2e-3)

@@ -68,7 +68,7 @@ def test_forward_logits_match(setup, mode):
     jctx, ctx = _ctxs(ok, mode)
     ref, _ = JM.forward(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, jctx)
     with torch.no_grad():
-        got = M.forward(params, {"tokens": _tok(tokens)}, cfg, ctx)
+        got, _ = M.forward(params, {"tokens": _tok(tokens)}, cfg, ctx)
     assert_close(got, np.asarray(ref), F32)
 
 
