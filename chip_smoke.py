@@ -147,7 +147,38 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     30 flash kernels (``mma`` / ``v1``). (e) the population step at width
     4 (median of timed fits), device ops and busy share from two
     ``torch.profiler`` traces, peak device memory, each stage's seconds;
-13. the record: each model's bf16 decode step of masked GEMMs as kernel
+13. continuous serving with online fault detection (``continuous_phase``):
+    SmolLM-135M at full width through ``ContinuousBatchingEngine`` in
+    ``kernel`` mode on the same chip, 8 slots, 8-token pages, a pool of 1024
+    pages (189 MB in bf16), chains of up to 96 pages, buckets 32-256,
+    chunks of 256, packs of up to 4. Traffic (``continuous_traffic``): 24
+    requests from ``np.random.default_rng(0)``, 16 prompts of 8-120 tokens,
+    5 of 121-256, and 300, 513 and 700 (2, 3 and 3 chunks), greedy budgets
+    of 4-48, 12 arriving at 0 and the rest at dispatches 1-40. First the
+    masked GEMM's wrapper is held to ``masked_matmul_ref`` at ``dtype_tol``
+    on the same x, w and ok at every M the path launches, in bf16 (the fp32
+    master, as kernel mode hands it over) and float32, on the model's own
+    weights: layer 0's seven GEMMs at M = 8 (a decode dispatch) and 32, 64,
+    128 and 256 (packed admissions and chunks), the tied unembed at M = 8,
+    4 and 1, and ``masked_matmul_checksummed`` on the probe weight at M =
+    4 + 1 and 256 + 1 under the chip's map and the injected one. Each run
+    first warms the closed program set (``warmup()``; no program may then
+    be first run during traffic). (a) bf16 without probes: the served
+    logprobs against the plain path teacher-forced, anchored to plain
+    float32 (RMS at most 1.5 times plain bf16's own); (b) float32 without
+    probes: the served logprobs elementwise, every request's tokens equal to
+    the static ``ServeEngine``'s but past a near-tie of 1e-3; (c) bf16 with a
+    probe every 8 dispatches and ``default_slo_rules()`` on unchanged
+    silicon: (a)'s tokens and logprob bits, no detection, no alert; (d)
+    bf16 with ``random_fault_map(42, 256, 256, 0.02)`` joining the map at
+    dispatch 24 (``set_silicon``): detected by dispatch 48, the
+    reconstructed delta within the true new faults, ``detect.new_faults``
+    fired. It prints each run's stats, tokens/s, ms a decode dispatch, TTFT
+    p50 and p99 (all with a ``Recorder`` attached, which synchronizes after
+    each admission and chunk) and the program counts; with ``--profile``
+    run (a)'s busy share and, from a trace of the CPU too, the host's cost
+    of a decode dispatch by op group (``host_costs``);
+14. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
     GEMMs; then a ``{"kernels": [...]}`` line with one entry per kernel
@@ -155,21 +186,36 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     launches as ``launches_efat_deploy``,
     ``flash_attention.mma``, ``.v1``, and the scan and decode kernels;
     the masked GEMM's ``mma`` and ``v1`` and flash carry phase 12's
-    deployment launches as ``launches_lm_eval``), the
-    card's line, and last the ``{"ok": true, "device": ...}`` line.
+    deployment launches as ``launches_lm_eval``, and the masked GEMM's
+    three variants phase 13's as ``launches_continuous``), the card's line,
+    and last the ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
-hymba), a run of 8 new tokens once untraced (wall time) and once under
+hymba, and phase 13's run (a)), a run of 8 new tokens (phase 13: its whole
+traffic) once untraced (wall time) and once under
 ``torch.profiler`` tracing the card alone; device time by kernel goes to
 ``build/profile_serve.txt``, and the busy share is the traced kernel time
-over the untraced wall time.
+over the untraced wall time. Phase 13 then serves its traffic once more
+under a trace of the CPU and the card, with each decode dispatch's enqueue
+and the model's op groups (the masked GEMM's ``fault_linear``, norms, RoPE,
+the attention block's page scatter and chain gather, dense attention, the
+MLP's elementwise ops, the unembed) in ``record_function`` ranges, and
+prints each group's calls, host microseconds and torch ops a dispatch.
 
 Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
-7 and 10, bf16 and hymba's float32, phase 11's deployment check and
-each of phase 12's kernel-mode runs) and read just after it; parity and
-timing launches are not counted. The masked GEMM and flash count launches
+7 and 10, bf16 and hymba's float32, phase 11's deployment check,
+each of phase 12's kernel-mode runs and each of phase 13's four serves)
+and read just after it; parity and timing launches are not counted.
+Phase 13 gates each variant's count against its dispatches: 211 ``decode``
+a decode dispatch (30 layers x 7 at M = 8, and the tied unembed), 210
+``mma`` and one ``decode`` (the unembed at M = 4 or 1) a packed admission
+or a chunk, one ``decode`` a canary probe (M = 5) and one ``mma`` a
+structured probe (M = 257); in float32 every one is ``v1``; flash
+attention, the scan and the int8 decode kernels are not launched (the
+paged decode gathers each slot's chain and runs dense attention in the
+model's dtype, as the reference does). The masked GEMM and flash count launches
 per variant: bf16 runs must launch only the bf16 kernels, float32 runs only
 v1, and every variant must be launched on its main path. A bf16 serve in
 kernel mode is also watched for one short run: no fp32 -> bf16 conversion of
@@ -259,6 +305,15 @@ PAGED_SLOTS = 32
 
 def log(*a):
     print(*a, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def fail(msg: str) -> int:
@@ -890,6 +945,511 @@ def lm_phase(torch, log):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 13: continuous serving with online fault detection
+# ---------------------------------------------------------------------------
+
+CONT_ENGINE = dict(num_slots=8, page_size=8, num_pages=1024, max_pages_per_seq=96,
+                   prefill_buckets=(32, 64, 128, 256), chunk_size=256, max_pack=4)
+CONT_PROBE_EVERY = 8
+CONT_INJECT_AT = 24  # the dispatch at which set_silicon adds random_fault_map(42, 256, 256, 0.02)
+CONT_LONG = (300, 513, 700)  # chunked prompts: 2, 3 and 3 chunks of 256, the 513's last of 1 token
+CONT_TIE = 1e-3  # float32 tokens may part from the static engine's only at a near-tie this close
+
+
+def continuous_traffic(np, vocab):
+    """The phase's 24 requests, from ``np.random.default_rng(0)``: 16
+    prompts of 8-120 tokens, 5 of 121-256 and the 3 long ones, greedy
+    budgets of 4-48 (the 700-token prompt's 48, so its chain is the largest,
+    94 pages), 12 arriving at 0 and the rest at dispatches 1-40 (the last at
+    40). Returns ``(rid, prompt, budget, arrival)`` tuples."""
+    rng = np.random.default_rng(0)
+    lens = ([int(n) for n in rng.integers(8, 121, 16)] + [int(n) for n in rng.integers(121, 257, 5)]
+            + list(CONT_LONG))
+    budgets = [int(b) for b in rng.integers(4, 49, len(lens))]
+    budgets[lens.index(max(CONT_LONG))] = 48
+    arrivals = [0] * 12 + sorted(int(a) for a in rng.integers(1, 41, 11)) + [40]
+    order = rng.permutation(len(lens))
+    return [(i, rng.integers(0, vocab, lens[j]).astype(np.int32), budgets[j], arrivals[i])
+            for i, j in enumerate(order)]
+
+
+def weight_cast_watch(torch, shapes):
+    """A dispatch mode that records every fp32 -> bf16 conversion of a
+    tensor with a GEMM weight's shape (``.seen``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class WeightCasts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default):
+                src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+                dst = args[0] if func is torch.ops.aten.copy_.default else out
+                if (isinstance(src, torch.Tensor) and src.dtype == torch.float32
+                        and dst.dtype == torch.bfloat16 and tuple(src.shape) in shapes):
+                    self.seen.append(tuple(src.shape))
+            return out
+
+    return WeightCasts()
+
+
+_MISSING = object()
+
+
+class labelled:
+    """Within the block, each ``(owner, attr, label)`` call runs inside a
+    ``torch.profiler.record_function`` range named ``label``; the attributes
+    are put back on exit (an instance's own attribute is deleted again)."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.saved = torch, targets, []
+
+    def __enter__(self):
+        for owner, attr, label in self.targets:
+            own = vars(owner).get(attr, _MISSING)
+            fn = getattr(owner, attr)
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with self.torch.profiler.record_function(_label):
+                    return _fn(*a, **k)
+
+            self.saved.append((owner, attr, own))
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, own in reversed(self.saved):
+            if own is _MISSING:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, own)
+        self.saved.clear()
+
+
+def host_costs(events, root, labels):
+    """Host cost of each ``root`` range (one decode dispatch) by the
+    ``labels`` ranges nested in it, from a profiler's CPU events
+    (``prof.events()``). Returns ``(dispatches, groups)``: per label, per
+    dispatch, its calls, its host microseconds less those of the labelled
+    ranges inside it (``host_us``), of that the torch ops directly under it
+    (``op_us``, ``ops``, the most frequent op names in ``top_ops``), the
+    other traced calls directly under it (``runtime_calls``: the CUDA
+    runtime's, such as a kernel launch made outside any torch op) and the
+    runtime's kernel launch calls anywhere under it (``launch_calls``). The
+    root's own row is what the dispatch runs outside every label."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    names = set(labels) | {root}
+    # a range traced with the card is mirrored on its stream: only the host's copy has children
+    roots = [e for e in events if e.name == root and e.device_type == DeviceType.CPU]
+    rows = {k: dict(calls=0, incl_us=0.0, inner_us=0.0, op_us=0.0, ops=0, runtime_calls=0, launch_calls=0,
+                    names=Counter()) for k in [root, *labels]}
+
+    def launches(e):
+        return int("LaunchKernel" in e.name) + sum(launches(c) for c in e.cpu_children)
+
+    def walk(e, label):
+        row = rows[label]
+        row["calls"] += 1
+        row["incl_us"] += e.cpu_time_total
+        for c in e.cpu_children:
+            if c.name in names and c.name != root:
+                rows[label]["inner_us"] += c.cpu_time_total
+                walk(c, c.name)
+            elif c.name.startswith("aten::"):
+                row["ops"] += 1
+                row["op_us"] += c.cpu_time_total
+                row["names"][c.name] += 1
+                row["launch_calls"] += launches(c)
+            else:
+                row["runtime_calls"] += 1
+                row["launch_calls"] += launches(c)
+
+    for e in roots:
+        walk(e, root)
+    n = max(len(roots), 1)
+    groups = {
+        k: dict(calls=r["calls"] / n, host_us=(r["incl_us"] - r["inner_us"]) / n, op_us=r["op_us"] / n,
+                ops=r["ops"] / n, runtime_calls=r["runtime_calls"] / n, launch_calls=r["launch_calls"] / n,
+                top_ops={name: c / n for name, c in r["names"].most_common(6)})
+        for k, r in rows.items()
+    }
+    return len(roots), groups
+
+
+def continuous_phase(torch, log, profile=False):
+    """Continuous serving of SmolLM-135M at full width through
+    ``ContinuousBatchingEngine`` in ``kernel`` mode on the chip
+    ``random_fault_map(0, 256, 256, 0.1)``, with its gates; returns the
+    phase's report and raises ``Failed`` on a missed gate.
+
+    Every run warms the closed program set first (``warmup()``, after which
+    no program may be first run during traffic) and then serves
+    ``continuous_traffic``: (a) bf16 without probes, the served logprobs
+    held to the plain path teacher-forced (``fap``, dense attention) by the
+    anchored rule (RMS error against plain float32 at most ANCHOR_RATIO
+    times plain bf16's own); (b) float32 without probes, the served
+    logprobs elementwise at ``dtype_tol(float32, atol_scale=50)`` and every
+    request's tokens equal to the static ``ServeEngine``'s (kernel mode, the
+    same prompt and budget) but past a near-tie (the static sequence's top
+    two logprobs, teacher-forced through the kernel path, within CONT_TIE);
+    (c) bf16 with a probe every CONT_PROBE_EVERY dispatches and
+    ``default_slo_rules()`` on unchanged silicon: (a)'s tokens and logprob
+    bits, no detection, no alert; (d) bf16 with the chip's map joined by
+    ``random_fault_map(42, 256, 256, 0.02)`` at dispatch CONT_INJECT_AT:
+    detected by CONT_INJECT_AT + CONT_PROBE_EVERY x (suspect_after + 1), the
+    reconstructed delta non-empty and within the true new faults,
+    ``detect.new_faults`` fired. Each run's launches, per masked-GEMM
+    variant, must be what its dispatches make: 211 ``decode`` a decode
+    dispatch (M = 8), 210 ``mma`` and one ``decode`` (the unembed) a packed
+    admission or chunk, one ``decode`` a canary probe (M = 5), one ``mma`` a
+    structured probe (M = 257); float32 all ``v1``; no other kernel. A short
+    bf16 serve under the weight-cast watch converts no GEMM weight. Before
+    the serves, ``gemm_parity`` holds the masked GEMM to its plain version
+    at every shape the path launches. ``profile`` adds run (a)'s busy share
+    and the host's cost of a decode dispatch by op group."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import from_fault_map, random_fault_map
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.kernels.masked_matmul.ops import (
+        masked_matmul, masked_matmul_checksummed, masked_matmul_ref, pick_variant,
+    )
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.obs import HealthConfig, Recorder, default_slo_rules
+    from repro_torch.obs.abft import select_probe_weight
+    from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = get_arch("smollm-135m")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    layer_gemms = sum(uses for _, _, uses in cfg.gemm_shapes()) - 1  # the tied unembed is the last
+    params = M.init_params(cfg, 0, device=dev)
+    fm = random_fault_map(0, cfg.array_rows, cfg.array_cols, 0.1)
+    ctx_k = from_fault_map(fm, "kernel", device=dev)
+    ctx_f = from_fault_map(fm, "fap", device=dev)
+    new_map = fm.merge(random_fault_map(42, cfg.array_rows, cfg.array_cols, 0.02))
+    true_new = new_map.faulty & ~fm.faulty
+    traffic = continuous_traffic(np, cfg.vocab_size)
+    others = (flash_attention, selective_scan, da.decode_attention, da.paged_decode_attention)
+    report, stages = {}, {}
+    totals = dict.fromkeys(masked_matmul.launches_by_variant, 0)
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def reset():
+        masked_matmul.launches = 0
+        masked_matmul.launches_by_variant = dict.fromkeys(masked_matmul.launches_by_variant, 0)
+        for fn in others:
+            fn.launches = 0
+
+    def run(c, label, probe=False, inject=False):
+        """Build, warm and serve once; gate the launch counts. Returns the
+        engine, the outputs, the stats and the run's numbers."""
+        ctx_live = dict(ctx=ctx_k)
+        eng = ContinuousBatchingEngine(
+            c, params, ctx_k, recorder=Recorder(), **CONT_ENGINE,
+            probe_every=CONT_PROBE_EVERY if probe else None,
+            alert_rules=default_slo_rules() if probe else None,
+        )
+        t0 = time.perf_counter()
+        warmed = eng.warmup()
+        warm_s = time.perf_counter() - t0
+        counts_warm = eng.compile_counts()
+
+        def on_step(clock):
+            if inject and clock >= CONT_INJECT_AT and ctx_live["ctx"] is ctx_k:
+                ctx_live["ctx"] = from_fault_map(new_map, "kernel", device=dev)
+                eng.set_silicon(ctx_live["ctx"])
+
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        outs, stats = eng.serve([Request(*r) for r in traffic], on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(masked_matmul.launches_by_variant)
+        cc = eng.compile_counts()
+        if cc["jit_fallback"] or warmed != len(CONT_ENGINE["prefill_buckets"]) + 2:
+            raise Failed(f"continuous {label}: warmup() ran {warmed} programs; after traffic {cc}")
+        prefills = stats.prefill_dispatches
+        probes = eng.health.chips[0].probes if probe else 0
+        structured = stats.probe_dispatches - probes
+        per_decode = layer_gemms + 1
+        if c.dtype == "bfloat16":
+            want = dict(v1=0, decode=per_decode * stats.decode_dispatches + prefills + probes,
+                        mma=layer_gemms * prefills + structured)
+        else:
+            want = dict(v1=per_decode * (stats.decode_dispatches + prefills) + stats.probe_dispatches,
+                        decode=0, mma=0)
+        stray = {fn.__name__: fn.launches for fn in others if fn.launches}
+        if got != want or stray:
+            raise Failed(f"continuous {label}: launches {got} (and {stray}), expected {want} from "
+                         f"{stats.as_dict()} and {probes} probes")
+        for k in totals:
+            totals[k] += got[k]
+        hist = eng.obs.metrics.histogram("serve.decode_step_s")
+        ttft = np.array([o.ttft_wall_s for o in outs.values()])
+        numbers = dict(
+            stats=stats.as_dict(), wall_s=wall, warmup_s=warm_s, warmed=warmed,
+            compile_counts_after_warmup=counts_warm, compile_counts=cc,
+            tokens_per_s=stats.emitted_tokens / wall, decode_dispatch_ms=hist.mean * 1e3,
+            ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
+            launches=got, probes=probes, structured_probes=structured,
+        )
+        log(f"continuous {label} ({card}): {stats.emitted_tokens} tokens of {len(traffic)} requests in "
+            f"{wall:.3f} s ({numbers['tokens_per_s']:.1f} tokens/s); {numbers['decode_dispatch_ms']:.3f} ms a "
+            f"decode dispatch (mean of {hist.count}); TTFT p50 {numbers['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{numbers['ttft_p99_s'] * 1e3:.1f} ms (wall, queue wait included); warmup {warmed} programs in "
+            f"{warm_s:.2f} s, compile_counts after warmup {counts_warm}, after traffic {cc}; stats "
+            f"{stats.as_dict()}; launches {got} ({probes} probes, {structured} structured)")
+        return eng, outs, stats, numbers
+
+    def teacher_forced(c, ctx, emitted):
+        """Each request's prompt and emitted tokens (``emitted[rid]``) through
+        ``forward``: the logprobs of the emitted tokens and, per request, the
+        log-softmax rows that chose them."""
+        lps, rows = {}, {}
+        with torch.no_grad():
+            for rid, prompt, _, _ in traffic:
+                if rid not in emitted:
+                    continue
+                toks = np.concatenate([prompt, emitted[rid]]).astype(np.int64)
+                seq = torch.as_tensor(toks, device=dev)[None]
+                logits = M.forward(params, {"tokens": seq[:, :-1]}, c, ctx, attn_impl="dense")[0][0]
+                lp = torch.log_softmax(logits[len(prompt) - 1 :].float(), -1)
+                rows[rid] = lp
+                lps[rid] = lp.gather(-1, seq[0, len(prompt):, None])[:, 0]
+        return lps, rows
+
+    def flat(d):
+        """One request-ordered vector of per-token values (numpy or tensors)."""
+        return torch.cat([torch.as_tensor(d[rid]).to(dev).float().reshape(-1) for rid, *_ in traffic])
+
+    def gemm_parity():
+        """The masked GEMM's wrapper against ``masked_matmul_ref`` on the
+        same x, w and ok at ``dtype_tol``, at every M this path launches, on
+        the model's own weights: layer 0's seven GEMMs at M = num_slots (a
+        decode dispatch) and at each bucket (a packed admission; a chunk is
+        the top bucket), the tied unembed at M = num_slots, max_pack (an
+        admission's) and 1 (a chunk's), and ``masked_matmul_checksummed`` on
+        the probe weight at M = 4 + 1 (the canary) and 256 + 1 (the
+        structured probe), under the chip's map and the injected one. bf16 x
+        meets the fp32 master, as kernel mode hands it over; float32 x its
+        own dtype. Returns one row per case; raises ``Failed`` on a miss."""
+        attn, mlp = params.layers[0].attn, params.layers[0].mlp
+        ws = dict(wq=attn.wq, wk=attn.wk, wv=attn.wv, wo=attn.wo, wg=mlp.wg, wu=mlp.wu, wd=mlp.wd)
+        unembed_w = params.embed.T  # tied: the strided view the path reads
+        shapes = {tuple(w.shape) for w in ws.values()} | {tuple(unembed_w.shape)}
+        if shapes != {(k_, n_) for k_, n_, _ in cfg.gemm_shapes()}:
+            raise Failed(f"continuous parity: weights {sorted(shapes)} are not the config's GEMMs")
+        probe_name, probe_w = select_probe_weight(params)
+        slots, buckets = CONT_ENGINE["num_slots"], CONT_ENGINE["prefill_buckets"]
+        cases = [(name, w, m, False, ctx_k.ok) for name, w in ws.items() for m in (slots, *buckets)]
+        cases += [("unembed", unembed_w, m, False, ctx_k.ok) for m in (slots, CONT_ENGINE["max_pack"], 1)]
+        injected_ok = from_fault_map(new_map, "kernel", device=dev).ok
+        cases += [(probe_name, probe_w, m, True, ok) for m in (4, 256) for ok in (ctx_k.ok, injected_ok)]
+        g = torch.Generator(device=dev).manual_seed(1)
+        rows = []
+        with torch.no_grad():
+            for dtype in (torch.bfloat16, torch.float32):
+                rtol, atol = dtype_tol(dtype)
+                for name, w, m, checked, ok in cases:
+                    x = torch.randn(m, w.shape[0], generator=g, device=dev).to(dtype)
+                    if checked:  # the probe: 1^T x appended, one launch of the same GEMM
+                        y, chk = masked_matmul_checksummed(x, w, ok)
+                        got = torch.cat([y, chk[None]])
+                        ref = masked_matmul_ref(torch.cat([x, x.sum(0, keepdim=True).to(dtype)]), w, ok)
+                    else:
+                        got, ref = masked_matmul(x, w, ok), masked_matmul_ref(x, w, ok)
+                    diff = (got.float() - ref.float()).abs()
+                    good = bool((diff <= atol + rtol * ref.float().abs()).all())
+                    row = dict(dtype=str(dtype)[6:], weight=name, m=int(got.shape[0]), k=int(w.shape[0]),
+                               n=int(w.shape[1]), variant=pick_variant(dtype, int(got.shape[0])),
+                               checksummed=checked, max_abs_err=float(diff.max()), ok=good)
+                    rows.append(row)
+                    if not good:
+                        raise Failed(f"continuous parity: masked GEMM misses masked_matmul_ref at "
+                                     f"dtype_tol {(rtol, atol)}: {row}")
+        by = {}
+        for r in rows:
+            key = (r["dtype"], r["variant"])
+            ms, err = by.get(key, (set(), 0.0))
+            by[key] = (ms | {r["m"]}, max(err, r["max_abs_err"]))
+        log(f"continuous parity: the masked GEMM against masked_matmul_ref at the path's shapes, {len(rows)} cases "
+            f"(probe weight {probe_name}): " + "; ".join(
+                f"{dt} {v} at M {sorted(ms)} max err {err:.3g} (rtol, atol {dtype_tol(getattr(torch, dt))})"
+                for (dt, v), (ms, err) in by.items()))
+        return rows
+
+    report["parity"] = timed("masked GEMM parity", gemm_parity)
+
+    # -- (a) bf16, probes off: the anchored rule -------------------------------------
+    eng_a, outs_a, stats_a, report["a"] = timed("serve (a)", run, cfg, "(a) bf16")
+    served = flat({rid: o.logprobs for rid, o in outs_a.items()})
+    emitted_a = {rid: o.tokens for rid, o in outs_a.items()}
+    ref_lp, _ = timed("teacher-forced", teacher_forced, cfg, ctx_f, emitted_a)
+    ref32_lp, _ = timed("teacher-forced", teacher_forced, cfg32, ctx_f, emitted_a)
+    plain_rms = float((flat(ref_lp) - flat(ref32_lp)).pow(2).mean().sqrt())
+    served_rms = float((served - flat(ref32_lp)).pow(2).mean().sqrt())
+    report["a"].update(plain_lp_rms=plain_rms, served_lp_rms=served_rms,
+                       max_err_vs_plain=float((served - flat(ref_lp)).abs().max()))
+    log(f"continuous (a) bf16 against the plain path in float32: logprob RMS err plain bf16 teacher-forced "
+        f"{plain_rms:.4g}, served {served_rms:.4g} (ratio {served_rms / plain_rms:.3f} <= {ANCHOR_RATIO}); "
+        f"max err against plain bf16 {report['a']['max_err_vs_plain']:.3g}")
+    if not torch.isfinite(served).all() or served_rms > ANCHOR_RATIO * plain_rms:
+        raise Failed(f"continuous (a): served logprobs farther from plain float32 than plain bf16: {report['a']}")
+    shapes = {sh for k_, n_, _ in cfg.gemm_shapes() for sh in ((k_, n_), (n_, k_))}
+    watch = weight_cast_watch(torch, shapes)
+    t0 = time.perf_counter()
+    with watch:
+        eng_a.serve([Request(0, traffic[0][1][:40], 2), Request(1, traffic[1][1][:300], 2)])
+        torch.cuda.synchronize()
+    stages["weight-cast watch"] = time.perf_counter() - t0
+    report["weight_casts"] = len(watch.seen)
+    if watch.seen:
+        raise Failed(f"continuous: kernel mode cast GEMM weights to bf16: {watch.seen[:8]}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        t_prof = time.perf_counter()
+        reqs = [Request(*r) for r in traffic]
+        t0 = time.perf_counter()
+        eng_a.serve(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng_a.serve(reqs)
+            torch.cuda.synchronize()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        report["a"]["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+        log(f"continuous (a) profile ({card}): untraced wall {wall_ms:.2f} ms, traced device time "
+            f"{busy_ms:.2f} ms, busy {busy_ms / wall_ms:.1%}")
+        # the host's side: the same traffic traced on the CPU too, each decode dispatch's
+        # enqueue (the sampling and decode_step, not the wait for its tokens) and the
+        # model's op groups in labelled ranges
+        root = "decode dispatch"
+        targets = [
+            (eng_a, "_decode", root),
+            (M, "decode_step", "decode_step (embed, positions, lengths)"),
+            (M, "apply_norm", "RMSNorm"),
+            (M, "_rope", "RoPE tables"),
+            (M, "attention_block", "attention block (page scatter, chain gather, masks)"),
+            (L, "apply_rope", "RoPE"),
+            (L, "dense_attention", "dense attention"),
+            (M, "mlp_block", "MLP (SiLU, product)"),
+            (M, "unembed", "unembed"),
+            (L, "fault_linear", "masked GEMM (fault_linear)"),
+            (M, "fault_linear", "masked GEMM (fault_linear)"),
+        ]
+        with labelled(torch, targets), torch_profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_cpu:
+            eng_a.serve(reqs)
+            torch.cuda.synchronize()
+        n_disp, groups = host_costs(prof_cpu.events(), root, sorted({t[2] for t in targets[1:]}))
+        report["a"]["profile"]["host"] = dict(dispatches=n_disp, groups=groups)
+        total_us = sum(g["host_us"] for g in groups.values())
+        log(f"continuous (a) host per decode dispatch ({card}; traced, CPU and CUDA; {n_disp} dispatches): "
+            f"{total_us / 1e3:.3f} ms to enqueue, {sum(g['ops'] for g in groups.values()):.0f} torch ops, "
+            f"{sum(g['launch_calls'] for g in groups.values()):.0f} kernel launch calls seen by the runtime trace")
+        for label, g in sorted(groups.items(), key=lambda kv: -kv[1]["host_us"]):
+            log(f"  {label}: {g['calls']:.0f} calls, {g['host_us']:.1f} us host ({g['op_us']:.1f} in "
+                f"{g['ops']:.0f} torch ops; {g['runtime_calls']:.0f} other runtime calls, {g['launch_calls']:.0f} "
+                f"launch calls); ops {g['top_ops']}")
+        stages["profile"] = time.perf_counter() - t_prof
+    del eng_a
+
+    # -- (b) float32, probes off: elementwise, and pinned to the static engine --------
+    eng_b, outs_b, _, report["b"] = timed("serve (b)", run, cfg32, "(b) float32")
+    del eng_b
+    rtol, atol = dtype_tol(torch.float32, atol_scale=50.0)
+    ref_lp32, _ = timed("teacher-forced", teacher_forced, cfg32, ctx_f, {rid: o.tokens for rid, o in outs_b.items()})
+    got_b, want_b = flat({rid: o.logprobs for rid, o in outs_b.items()}), flat(ref_lp32)
+    err_b = float((got_b - want_b).abs().max())
+    static = ServeEngine(cfg32, params, ctx_k, max_len=None)
+    parted, static_outs = [], {}
+    t0 = time.perf_counter()
+    for rid, prompt, budget, _ in traffic:
+        res = static.generate(torch.as_tensor(prompt.astype(np.int64), device=dev)[None], max_new_tokens=budget)
+        static_outs[rid] = res.tokens[0, len(prompt):].cpu().numpy()
+    stages["static engine (b)"] = time.perf_counter() - t0
+    differ = {rid: t for rid, t in static_outs.items() if not np.array_equal(t, outs_b[rid].tokens)}
+    _, static_rows = timed("teacher-forced", teacher_forced, cfg32, ctx_k, differ) if differ else (None, {})
+    for rid, *_ in traffic:
+        a, b = outs_b[rid].tokens, static_outs[rid]
+        if rid in differ:
+            i = int(np.flatnonzero(a != b)[0])
+            top2 = static_rows[rid][i].topk(2).values
+            gap = float(top2[0] - top2[1])
+            parted.append(dict(rid=rid, at=i, gap=gap))
+            if gap > CONT_TIE:
+                raise Failed(f"continuous (b): request {rid} parts from the static engine at token {i}, "
+                             f"where its top two logprobs are {gap:.3g} apart (> {CONT_TIE})")
+    report["b"].update(logprob_err=err_b, parted_from_static=parted)
+    log(f"continuous (b) float32: served logprobs against plain float32 teacher-forced max err {err_b:.3g} "
+        f"(rtol {rtol}, atol {atol}); tokens against the static engine: "
+        f"{len(traffic) - len(parted)} of {len(traffic)} equal, near-ties {parted}")
+    if not bool(((got_b - want_b).abs() <= atol + rtol * want_b.abs()).all()):
+        raise Failed(f"continuous (b): served logprobs disagree with the plain path: max err {err_b:.3g}")
+
+    # -- (c) bf16 with probes on unchanged silicon ----------------------------------
+    eng_c, outs_c, stats_c, report["c"] = timed("serve (c)", run, cfg, "(c) bf16 probes", probe=True)
+    same = all(np.array_equal(outs_c[r].tokens, outs_a[r].tokens)
+               and np.array_equal(outs_c[r].logprobs, outs_a[r].logprobs) for r in outs_a)
+    health, alerts = eng_c.health.summary(), eng_c.alerts.summary()
+    report["c"].update(same_bits_as_a=same, health=health, alerts=alerts)
+    log(f"continuous (c) bf16 with probes: tokens and logprob bits as (a): {same}; health "
+        f"{eng_c.health.state(0)}, detections {eng_c.health.detections}, alerts fired {alerts['fired']}, "
+        f"probe dispatches {stats_c.probe_dispatches} (weight {eng_c._probe_weight})")
+    if (not same or eng_c.health.detections or eng_c.health.state(0) != "healthy" or alerts["fired"]
+            or not stats_c.probe_dispatches):
+        raise Failed(f"continuous (c): probes on unchanged silicon: same bits {same}, {health}, {alerts}")
+    del eng_c
+
+    # -- (d) bf16 with a silicon change injected at dispatch 24 ---------------------
+    eng_d, outs_d, stats_d, report["d"] = timed("serve (d)", run, cfg, "(d) bf16 injected", probe=True, inject=True)
+    hc = HealthConfig()
+    bound = CONT_INJECT_AT + CONT_PROBE_EVERY * (hc.suspect_after + 1)
+    at, delta = eng_d.health.detected_at(0), eng_d.health.last_delta(0)
+    fired = eng_d.alerts.summary()["fired"]
+    report["d"].update(
+        detected_at=at, bound=bound, delta_faults=int(delta.sum()) if delta is not None else 0,
+        true_new_faults=int(true_new.sum()), fired=fired, health=eng_d.health.summary(),
+    )
+    log(f"continuous (d) bf16 injected at dispatch {CONT_INJECT_AT}: detected at {at} (bound {bound}), "
+        f"delta {report['d']['delta_faults']} PEs of {report['d']['true_new_faults']} new faults, "
+        f"state {eng_d.health.state(0)}, alerts fired {fired}")
+    if (at is None or at > bound or delta is None or not delta.any() or (delta & ~true_new).any()
+            or "detect.new_faults" not in fired):
+        raise Failed(f"continuous (d): injection not detected as required: {report['d']}")
+    del eng_d, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(launches=totals, stages=stages, seconds=time.perf_counter() - t_phase)
+    log(f"continuous phase ({card}): {report['seconds']:.2f} s; stages (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; masked-GEMM launches {totals}")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -931,10 +1491,7 @@ def run(args, torch) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         "plain fp32 matmuls without TF32")
 
@@ -1498,24 +2055,6 @@ def run(args, torch) -> int:
     launches = {"masked_matmul": 0, "flash_attention": 0, "selective_scan": 0}
     variant_launches = dict.fromkeys(variant_counts(), 0)
 
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class WeightCasts(TorchDispatchMode):
-        """Records every fp32 -> bf16 conversion whose shape is a GEMM weight's."""
-
-        def __init__(self, shapes):
-            super().__init__()
-            self.shapes, self.seen = shapes, []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func in (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default):
-                src = args[1] if func is torch.ops.aten.copy_.default else args[0]
-                dst = args[0] if func is torch.ops.aten.copy_.default else out
-                if (isinstance(src, torch.Tensor) and src.dtype == torch.float32
-                        and dst.dtype == torch.bfloat16 and tuple(src.shape) in self.shapes):
-                    self.seen.append(tuple(src.shape))
-            return out
     serve_report, profile_report, profile_lines = {}, {}, []
 
     def serve(c, params, atol_scale, elementwise=True):
@@ -1554,7 +2093,7 @@ def run(args, torch) -> int:
         casts = None
         if c.dtype == "bfloat16":  # kernel mode reads the fp32 master in place: no weight is cast
             shapes = {sh for k_, n_, _ in c.gemm_shapes() for sh in ((k_, n_), (n_, k_))}
-            with WeightCasts(shapes) as watch:
+            with weight_cast_watch(torch, shapes) as watch:
                 eng.generate(prompts, max_new_tokens=2)
                 torch.cuda.synchronize()
             casts = len(watch.seen)
@@ -1795,7 +2334,10 @@ def run(args, torch) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase 13: the record -----------------------------------------------
+    # ---- phase 13: continuous serving with online fault detection -----------
+    cont_report = continuous_phase(torch, log, profile=args.profile)
+
+    # ---- phase 14: the record -----------------------------------------------
     def gemm_sum(arch, dtype, m, layers_only=False):
         """One step's masked GEMMs at M = m, each launch timed alone, times its uses."""
         shapes = arch.gemm_shapes()
@@ -1835,17 +2377,21 @@ def run(args, torch) -> int:
         return "bytes" if st[f"{prefix}bytes_ms"] >= st[f"{prefix}ops_ms"] else "operations"
 
     lm_launches = lm_report["deploy"]["launches"]
+    cont_launches = cont_report["launches"]
     kernels = [
         dict(name="masked_matmul.decode", **mm_src, launches=variant_launches["masked_matmul.decode"],
+             launches_continuous=cont_launches["decode"],
              ms=dstep["f32w_ms"], plain_ms=dstep["plain_ms"], bound_ms=dstep["f32w_bound_ms"],
              bound_by=bound_by(dstep, "f32w_"), library_ms=dstep["library_ms"]),
         dict(name="masked_matmul.mma", **mm_src, launches=variant_launches["masked_matmul.mma"],
              launches_lm_eval=lm_launches["masked_matmul"]["mma"],
+             launches_continuous=cont_launches["mma"],
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
              bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
         dict(name="masked_matmul.v1", **mm_src, launches=variant_launches["masked_matmul.v1"],
              launches_efat_deploy=efat_report["deploy"]["v1"],
              launches_lm_eval=lm_launches["masked_matmul"]["v1"],
+             launches_continuous=cont_launches["v1"],
              ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
              bound_by=bound_by(f32_step), library_ms=f32_step["library_ms"]),
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
@@ -1876,7 +2422,7 @@ def run(args, torch) -> int:
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
     for k in kernels:
-        if not k["launches"]:
+        if not k["launches"] or k.get("launches_continuous") == 0:
             raise Failed(f"{k['name']} was not launched on its main path")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
@@ -1890,7 +2436,8 @@ def run(args, torch) -> int:
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
-        long_prefill=long_report, efat=efat_report, lm_fat=lm_report, seconds=time.perf_counter() - t_start,
+        long_prefill=long_report, efat=efat_report, lm_fat=lm_report, continuous=cont_report,
+        seconds=time.perf_counter() - t_start,
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
                                 for k in kernels))

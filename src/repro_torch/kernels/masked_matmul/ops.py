@@ -42,7 +42,14 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.core.mapping import periodic_mask
 from repro_torch.kernels.common import check_launch, load_kernel, sm_count, split_counters
 
-__all__ = ["masked_matmul", "masked_matmul_ref", "packed_mask", "pick_variant", "VARIANTS"]
+__all__ = [
+    "masked_matmul",
+    "masked_matmul_checksummed",
+    "masked_matmul_ref",
+    "packed_mask",
+    "pick_variant",
+    "VARIANTS",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -203,3 +210,23 @@ def masked_matmul(
 
 masked_matmul.launches = 0
 masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def masked_matmul_checksummed(
+    x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """ABFT-augmented masked GEMM (Zhang et al., arxiv 1802.04657): append
+    the column-checksum row ``1^T x`` to the input and push the augmented
+    batch through the SAME :func:`masked_matmul` (one kernel launch on the
+    card, the plain version on the host), so the checksum row meets the same
+    silicon (mask) as the payload rows. Returns ``(y, check_row)``, where on
+    consistent hardware ``check_row[b] == sum_m y[m, b]`` up to float
+    reassociation; a permanent fault in PE column ``b % C`` perturbs both
+    through the identical mask, which is what lets ``obs/abft.py`` fold the
+    check-row syndrome back onto PE columns."""
+    lead = x.shape[:-1]
+    kdim = x.shape[-1]
+    x2 = x.reshape(-1, kdim)
+    xa = torch.cat([x2, x2.sum(dim=0, keepdim=True).to(x2.dtype)], dim=0)
+    ya = masked_matmul(xa, w, ok)
+    return ya[:-1].reshape(*lead, w.shape[1]), ya[-1]

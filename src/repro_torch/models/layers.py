@@ -75,18 +75,28 @@ def apply_rope(x: Tensor, rope: tuple[Tensor, Tensor]) -> Tensor:
 def dense_attention(
     q: Tensor, k: Tensor, v: Tensor, *, causal: bool, window: Optional[int],
     q_offset: Union[int, Tensor], kv_valid_len: Union[None, int, Tensor] = None,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, segments: Optional[Tensor] = None,
 ) -> Tensor:
     """Materializing attention. ``q_offset`` / ``kv_valid_len`` are ints, or
     per-sequence ``(B,)`` tensors where every sequence sits at its own
-    position."""
+    position (the paged decode, every slot in its own KV chain).
+
+    ``segments`` is a ``(B, S)`` int tensor for packed prefill (several
+    prompts in one row, ``serve/bucketing.py``): tokens attend only within
+    their own segment. It needs ``sq == skv``: the ids describe queries and
+    keys at once. Causal and window masks stay in packed-row index space,
+    which equals each segment's position space because packed positions
+    restart per segment (the pad tail is segment 0, so each pad row keeps
+    at least itself)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    if segments is not None and sq != skv:
+        raise ValueError(f"segment masking needs sq == skv, got {sq} vs {skv}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     group = hq // hkv
     qg = q.reshape(b, hkv, group, sq, d)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
-    per_seq = isinstance(q_offset, Tensor) or isinstance(kv_valid_len, Tensor)
+    per_seq = isinstance(q_offset, Tensor) or isinstance(kv_valid_len, Tensor) or segments is not None
     cols = torch.arange(skv, device=q.device)
     if per_seq:
         off = torch.as_tensor(q_offset, device=q.device).expand(b)
@@ -107,6 +117,8 @@ def dense_attention(
         if per_seq:
             vld = torch.as_tensor(vld, device=q.device).expand(b)[:, None, None]
         keep &= cols < vld
+    if segments is not None:
+        keep &= segments[:, :, None] == segments[:, None, :]
     keep = keep[:, None, None] if per_seq else keep
     s = s.masked_fill(~keep, -1e30)
     p = torch.softmax(s, dim=-1)
@@ -174,16 +186,23 @@ def blockwise_attention(
 
 
 def attention_impl(
-    q, k, v, *, causal, window, q_offset=0, impl="auto", kv_valid_len=None, scale=None
+    q, k, v, *, causal, window, q_offset=0, impl="auto", kv_valid_len=None, scale=None,
+    segments=None,
 ):
     sq = q.shape[2]
     if impl == "auto":
-        impl = "dense" if (sq <= 512 or kv_valid_len is not None) else "blockwise"
+        impl = (
+            "dense"
+            if (sq <= 512 or kv_valid_len is not None or segments is not None)
+            else "blockwise"
+        )
     if impl == "dense":
         return dense_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
-            kv_valid_len=kv_valid_len, scale=scale,
+            kv_valid_len=kv_valid_len, scale=scale, segments=segments,
         )
+    if segments is not None:
+        raise ValueError(f"segment-packed attention is dense-only, got impl {impl!r}")
     if impl.startswith("blockwise"):
         return blockwise_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale,
@@ -208,6 +227,28 @@ class KVCache:
     index: int  # absolute position of the next token
 
 
+@dataclass
+class PagedKVView:
+    """One layer's slice of a paged KV cache (``models/model.py::
+    init_paged_cache``).
+
+    The pool holds ``P`` pages of ``page_size`` tokens each; slot ``b``'s
+    history is the page chain ``block_tables[b]`` truncated to
+    ``seq_lens[b]`` tokens. Page 0 is reserved as a scratch page: writes of
+    masked-out slots (``write_mask`` False — retired slots between
+    retirement and re-admission) are redirected there so they can never
+    corrupt pages the allocator has already handed to another slot. Page 0
+    is never read as a valid key: unused block-table entries are 0 and lie
+    past ``seq_lens``.
+    """
+
+    k_pages: Tensor  # (P, Hkv, page_size, D), written in place
+    v_pages: Tensor
+    block_tables: Tensor  # (S, max_pages) int64 page ids
+    seq_lens: Tensor  # (S,) int64 tokens already cached per slot
+    write_mask: Optional[Tensor]  # (S,) bool; None = every slot writes
+
+
 def attention_block(
     p,
     x: Tensor,  # (B, S, d_model)
@@ -216,18 +257,26 @@ def attention_block(
     *,
     rope: tuple[Tensor, Tensor],
     impl: str = "auto",
-    cache: Optional[KVCache] = None,
+    cache: Union[None, KVCache, PagedKVView] = None,
     return_kv: bool = False,
+    segments: Optional[Tensor] = None,
 ):
     """``rope`` holds the ``rope_tables`` of the tokens' positions.
 
     Returns (out, new_cache). With ``return_kv`` (prefill) the second
     element is the raw (k, v) pair (B, Hkv, S, D) for cache assembly.
+    ``segments`` (packed prefill, cache-free path only) restricts attention
+    to same-segment tokens — see ``dense_attention``.
 
     With a ``cache`` the new keys and values are written INTO the caller's
-    buffers by slice assignment: the port's counterpart of the reference's
-    donated KV buffers, which XLA updates in place."""
+    buffers by indexed assignment: the port's counterpart of the reference's
+    donated KV buffers, which XLA updates in place. A ``PagedKVView`` (paged
+    decode, one token a slot) takes each slot's token into its current page,
+    a masked-out slot's into scratch page 0, then gathers every slot's chain
+    and attends at the slot's own position."""
     b, s, _ = x.shape
+    if segments is not None and cache is not None:
+        raise ValueError("segment-packed attention is a cache-free prefill path")
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = fault_linear(x, p.wq, ctx).view(b, s, hq, hd).transpose(1, 2)  # (B, H, S, D)
     k = fault_linear(x, p.wk, ctx).view(b, s, hkv, hd).transpose(1, 2)
@@ -236,7 +285,28 @@ def attention_block(
     k = apply_rope(k, rope)
 
     new_cache = None
-    if cache is not None:
+    if isinstance(cache, PagedKVView):
+        if s != 1:
+            raise ValueError(f"paged decode is one token per step, got s={s}")
+        page = cache.k_pages.shape[2]
+        maxp = cache.block_tables.shape[1]
+        pos = cache.seq_lens  # (S,)
+        chain_ix = (pos // page).clamp(0, maxp - 1)
+        page_ix = cache.block_tables.gather(1, chain_ix[:, None])[:, 0]
+        if cache.write_mask is not None:
+            page_ix = torch.where(cache.write_mask, page_ix, 0)  # page 0 = scratch
+        off = pos % page
+        # the two indices around the Hkv slice put the slot dim first: (S, Hkv, D)
+        cache.k_pages[page_ix, :, off] = k[:, :, 0].to(cache.k_pages.dtype)
+        cache.v_pages[page_ix, :, off] = v[:, :, 0].to(cache.v_pages.dtype)
+        # (S, maxp, Hkv, page, D) -> (S, Hkv, maxp * page, D)
+        kg = cache.k_pages[cache.block_tables].movedim(2, 1).reshape(b, hkv, maxp * page, hd)
+        vg = cache.v_pages[cache.block_tables].movedim(2, 1).reshape(b, hkv, maxp * page, hd)
+        o = dense_attention(
+            q, kg, vg, causal=True, window=cfg.sliding_window, q_offset=pos, kv_valid_len=pos + 1
+        )
+        new_cache = cache
+    elif cache is not None:
         s_buf = cache.k.shape[2]
         window = cfg.sliding_window
         ring = bool(window) and s_buf == window
@@ -260,7 +330,10 @@ def attention_block(
                 q_offset=cache.index, kv_valid_len=cache.index + s,
             )
     else:
-        o = attention_impl(q, k, v, causal=True, window=cfg.sliding_window, q_offset=0, impl=impl)
+        o = attention_impl(
+            q, k, v, causal=True, window=cfg.sliding_window, q_offset=0, impl=impl,
+            segments=segments,
+        )
         if return_kv:
             new_cache = (k, v)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)

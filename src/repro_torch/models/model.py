@@ -23,12 +23,20 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.masking import FaultContext, fault_linear, healthy, mask_selected_params
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import KVCache, apply_norm, attention_block, mlp_block, rope_tables
+from repro_torch.models.layers import (
+    KVCache,
+    PagedKVView,
+    apply_norm,
+    attention_block,
+    mlp_block,
+    rope_tables,
+)
 from repro_torch.models.ssm import SSMCache, ssm_block
 
 Tensor = torch.Tensor
@@ -193,17 +201,21 @@ Params = Union[Model, dict]
 # ---------------------------------------------------------------------------
 
 
-def _block(lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=(None, None), build_cache=False):
-    """One layer. ``cache`` is the layer's (KVCache, SSMCache) decode state,
-    each None where the family has no such branch. Returns (x, pieces):
-    with ``build_cache`` (prefill) ``pieces["kv"]`` holds the raw (k, v) and
-    ``pieces["ssm"]`` the SSMCache the layer leaves behind."""
+def _block(
+    lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=(None, None), build_cache=False, segments=None
+):
+    """One layer. ``cache`` is the layer's (KVCache or PagedKVView, SSMCache)
+    decode state, each None where the family has no such branch. Returns
+    (x, pieces): with ``build_cache`` (prefill) ``pieces["kv"]`` holds the
+    raw (k, v) and ``pieces["ssm"]`` the SSMCache the layer leaves behind.
+    ``segments`` masks packed prefill rows (``dense_attention``)."""
     kv_cache, ssm_cache = cache
     pieces = {}
     h = apply_norm(x, lp.ln1, cfg.norm_eps)
     if cfg.has_attention:
         a, pieces["kv"] = attention_block(
-            lp.attn, h, cfg, ctx, rope=rope, impl=attn_impl, cache=kv_cache, return_kv=build_cache
+            lp.attn, h, cfg, ctx, rope=rope, impl=attn_impl, cache=kv_cache, return_kv=build_cache,
+            segments=segments,
         )
     if cfg.has_ssm:
         s, pieces["ssm"] = ssm_block(lp.ssm, h, cfg, ctx, cache=ssm_cache, build_cache=build_cache)
@@ -392,6 +404,9 @@ def prefill(
     cache_len: Optional[int] = None,
     attn_impl: str = "auto",
     valid_len: Optional[int] = None,
+    full_kv: bool = False,
+    return_hidden: bool = False,
+    segments: Optional[Tensor] = None,
 ) -> tuple[Tensor, dict]:
     """Full-sequence forward that also builds the decode cache.
 
@@ -400,18 +415,35 @@ def prefill(
     ``valid_len - 1``, the cache keeps the valid tokens (the SWA ring order
     follows ``valid_len``) and ``cache["index"] = valid_len``, so decode
     overwrites the pad. Causality alone keeps right-pad keys away from every
-    real query. SSM families take no ``valid_len``: right-pad tokens would
-    advance the scan.
+    real query. SSM families take none of the padded or packed options:
+    right-pad tokens would advance the scan.
+
+    ``full_kv`` skips the ring/tail truncation and returns the raw
+    ``(L, B, Hkv, S, hd)`` KV as the cache's k/v — the paged admission,
+    where window masking happens at the paged read instead.
+
+    ``return_hidden`` returns the post-norm hidden states ``(B, S, d)`` in
+    place of logits, so the caller can gather any positions (packed prefill
+    gathers one last-token row per segment) and unembed itself.
+
+    ``segments`` (``(B, S)`` int, with per-segment restarting
+    ``batch["positions"]``) packs several prompts into one row; attention is
+    masked to same-segment tokens (``models/layers.py``).
     """
-    if valid_len is not None and cfg.has_ssm:
-        raise ValueError("padded prefill supports causal attention families only")
+    if (full_kv or segments is not None or valid_len is not None) and cfg.has_ssm:
+        raise ValueError("padded/packed prefill supports causal attention families only")
     ctx = ctx or healthy()
     x, positions = embed_inputs(cfg, params, batch, ctx)
     b, s = x.shape[0], x.shape[1]
-    cache_len = cache_len or s
-    cache = init_cache(cfg, b, cache_len, device=x.device)
     total = s if valid_len is None else int(valid_len)
-    if cfg.has_attention:
+    if full_kv:
+        shape = (cfg.num_layers, b, cfg.num_kv_heads, s, cfg.resolved_head_dim)
+        kw = dict(dtype=getattr(torch, cfg.dtype), device=x.device)
+        cache = {"k": torch.empty(shape, **kw), "v": torch.empty(shape, **kw)}
+    else:
+        cache_len = cache_len or s
+        cache = init_cache(cfg, b, cache_len, device=x.device)
+    if cfg.has_attention and not full_kv:
         s_buf = cache["k"].shape[3]
         ring = bool(cfg.sliding_window) and s_buf == cfg.sliding_window
         if s >= s_buf:
@@ -421,10 +453,15 @@ def prefill(
             perm = torch.as_tensor(start + perm, device=x.device)
     rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
-        x, pieces = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True)
+        x, pieces = _block(
+            lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True, segments=segments
+        )
         if cfg.has_attention:
             k, v = pieces["kv"]
-            if s >= s_buf:
+            if full_kv:
+                cache["k"][i] = k
+                cache["v"][i] = v
+            elif s >= s_buf:
                 cache["k"][i] = k[:, :, perm]
                 cache["v"][i] = v[:, :, perm]
             else:
@@ -433,23 +470,100 @@ def prefill(
         if cfg.has_ssm:
             cache["conv"][i] = pieces["ssm"].conv
             cache["h"][i] = pieces["ssm"].h
+    cache["index"] = total
+    if return_hidden:
+        return apply_norm(x, params.final_ln, cfg.norm_eps), cache
     last = x[:, total - 1 : total]
     logits = unembed(cfg, params, apply_norm(last, params.final_ln, cfg.norm_eps), ctx)[:, 0]
-    cache["index"] = total
     return logits, cache
 
 
 @torch.no_grad()
-def decode_step(
-    params: Model, tokens: Tensor, cache: dict, cfg, ctx: Optional[FaultContext] = None
-) -> tuple[Tensor, dict]:
-    """One autoregressive step against the dense cache from :func:`prefill`
-    or :func:`init_cache`. Returns (logits (B, s_new, V), cache).
+def prefill_chunk(
+    params: Model,
+    tokens: Tensor,  # (1, C) — one chunk of one request's prompt
+    cfg,
+    ctx: Optional[FaultContext] = None,
+    *,
+    k_pages: Tensor,  # (L, P, Hkv, page, hd) shared pool
+    v_pages: Tensor,
+    row: Tensor,  # (max_pages_per_seq,) int — this slot's page chain
+    prefix_len: int,  # tokens already prefilled (a multiple of C)
+    valid_len: int,  # real tokens in this chunk (C except the last)
+) -> tuple[Tensor, Tensor, Tensor]:
+    """One chunked-prefill step: continue a prompt against its paged prefix.
 
-    The cache is updated IN PLACE (its k/v, conv and h buffers and its
-    index) and the same dict is returned: the counterpart of the reference
-    donating it."""
+    Gathers the slot's page chain into a dense buffer, runs the chunk as a
+    multi-token continuation (causal attention at ``q_offset=prefix_len``
+    over ``prefix + chunk`` keys — sliding windows are handled by the dense
+    window mask, never the ring buffer, so chunk boundaries crossing the
+    window are exact), and returns
+    ``(logits (1, V) at valid_len - 1, k_chunk, v_chunk (L, 1, Hkv, C, hd))``
+    for the caller to write into the pool. The pool is only read. Every
+    chunk of every prompt runs at the one width C over a chain of the
+    engine-wide ``max_pages_per_seq``.
+    """
     ctx = ctx or healthy()
+    if cfg.has_ssm:
+        raise ValueError("chunked prefill supports causal attention families only")
+    b, s = tokens.shape
+    if b != 1:
+        raise ValueError(f"chunked prefill is one request per dispatch, got batch {b}")
+    L, _, hkv, page, hd = k_pages.shape
+    cap = row.shape[0] * page
+    # the buffer must fit any chunk written at a chunk-aligned prefix, and
+    # must dodge attention_block's ring-buffer branch (its causal=False
+    # shortcut is for one decode token, wrong for a multi-token chunk)
+    w_buf = -(-cap // s) * s
+    if cfg.sliding_window and w_buf == cfg.sliding_window:
+        w_buf += page
+    prefix, vl = int(prefix_len), int(valid_len)
+    positions = (prefix + torch.arange(s, device=tokens.device))[None]
+    x = params.embed[tokens].to(getattr(torch, cfg.dtype))
+    row = row.long()
+
+    def chain_dense(pool):  # (L, P, Hkv, page, hd) -> (L, Hkv, w_buf, hd), a new buffer
+        g = pool[:, row].movedim(2, 1).reshape(L, hkv, cap, hd)
+        return F.pad(g, (0, 0, 0, w_buf - cap))
+
+    k_buf, v_buf = chain_dense(k_pages), chain_dense(v_pages)
+    rope = _rope(cfg, positions)
+    for i, lp in enumerate(params.layers):
+        kv = KVCache(k_buf[i][None], v_buf[i][None], prefix)
+        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=(kv, None))
+    last = apply_norm(x[:, vl - 1 : vl], params.final_ln, cfg.norm_eps)
+    logits = unembed(cfg, params, last, ctx)[:, 0]
+    return logits, k_buf[:, None, :, prefix : prefix + s], v_buf[:, None, :, prefix : prefix + s]
+
+
+@torch.no_grad()
+def decode_step(
+    params: Model,
+    tokens: Tensor,
+    cache: dict,
+    cfg,
+    ctx: Optional[FaultContext] = None,
+    *,
+    active: Optional[Tensor] = None,
+) -> tuple[Tensor, dict]:
+    """One autoregressive step against the cache. Returns (logits (B, s_new,
+    V), cache).
+
+    ``cache`` is either the dense cache from :func:`prefill` or
+    :func:`init_cache`, or a paged cache (:func:`init_paged_cache`),
+    detected by its ``k_pages`` key. The paged path reads each slot's page
+    chain with a gather and puts slot ``b`` at its own ``seq_lens[b]``;
+    with ``active`` (a per-slot bool mask) inactive slots neither write KV
+    (their token lands on the reserved scratch page 0) nor advance their
+    length. ``active`` is ignored on the dense path, whose single index
+    always advances.
+
+    The cache is updated IN PLACE (its k/v, conv and h buffers or pages, and
+    its index or lengths) and the same dict is returned: the counterpart of
+    the reference donating it."""
+    ctx = ctx or healthy()
+    if "k_pages" in cache:
+        return _decode_step_paged(params, tokens, cache, cfg, ctx, active=active)
     b, s = tokens.shape
     index = cache["index"]
     positions = (index + torch.arange(s, device=tokens.device))[None].expand(b, s)
@@ -461,4 +575,62 @@ def decode_step(
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
     logits = unembed(cfg, params, x, ctx)
     cache["index"] = index + s
+    return logits, cache
+
+
+def init_paged_cache(
+    cfg, num_pages: int, page_size: int, num_slots: int, max_pages_per_seq: int, *, device=None
+) -> dict:
+    """Zero paged KV cache: a shared page pool + per-slot block tables.
+
+    Layout: ``k_pages``/``v_pages`` are ``(L, num_pages, Hkv, page_size, hd)``
+    pools in the compute dtype (page 0 reserved as the scratch page — see
+    ``serve/kvcache.py::PageAllocator``), ``block_tables`` is
+    ``(num_slots, max_pages_per_seq)`` int32 page ids and ``seq_lens`` the
+    per-slot cached-token count. Attention families only: SSM state is O(1)
+    per slot and needs no paging.
+    """
+    if cfg.has_ssm:
+        raise ValueError(
+            f"paged KV cache supports attention families only; {cfg.family!r} "
+            "carries SSM state (which is O(1) per slot and needs no paging)"
+        )
+    dev = resolve_device(device)
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (L, num_pages, hkv, page_size, hd)
+    dtype = getattr(torch, cfg.dtype)
+    return {
+        "k_pages": torch.zeros(shape, dtype=dtype, device=dev),
+        "v_pages": torch.zeros(shape, dtype=dtype, device=dev),
+        "block_tables": torch.zeros((num_slots, max_pages_per_seq), dtype=torch.int32, device=dev),
+        "seq_lens": torch.zeros((num_slots,), dtype=torch.int32, device=dev),
+    }
+
+
+def _decode_step_paged(
+    params: Model,
+    tokens: Tensor,  # (S, 1) — one token per slot
+    cache: dict,
+    cfg,
+    ctx: FaultContext,
+    *,
+    active: Optional[Tensor] = None,
+) -> tuple[Tensor, dict]:
+    """Gather-based paged decode: per-slot positions, shared page pool,
+    updated in place."""
+    if cfg.has_ssm:
+        raise ValueError(f"paged decode supports attention families only, not {cfg.family!r}")
+    b, s = tokens.shape
+    lens = cache["seq_lens"].long()
+    bt = cache["block_tables"].long()
+    positions = lens[:, None] + torch.arange(s, device=tokens.device)[None]
+    x = params.embed[tokens].to(getattr(torch, cfg.dtype))
+    rope = _rope(cfg, positions)
+    for i, lp in enumerate(params.layers):
+        view = PagedKVView(cache["k_pages"][i], cache["v_pages"][i], bt, lens, active)
+        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=(view, None))
+    x = apply_norm(x, params.final_ln, cfg.norm_eps)
+    logits = unembed(cfg, params, x, ctx)
+    advanced = lens + s if active is None else torch.where(active, lens + s, lens)
+    cache["seq_lens"] = advanced.to(cache["seq_lens"].dtype)
     return logits, cache

@@ -1,8 +1,10 @@
 """Metrics primitives for the in-process observability layer.
 
-Two metric kinds, all host-side and allocation-light:
+Three metric kinds, all host-side and allocation-light:
 
 * :class:`Counter` — monotone count (events, tokens, stalls).
+* :class:`Gauge` — last-value sample with a high-water mark (free pages,
+  allocator in-use, compile counts bridged at serve end).
 * :class:`Histogram` — explicit-bucket distribution (``le`` semantics: a
   value lands in the first bucket whose upper edge is >= the value,
   Prometheus-style). Raw observations are additionally kept up to
@@ -11,10 +13,10 @@ Two metric kinds, all host-side and allocation-light:
   :meth:`Histogram.percentile` falls back to linear interpolation within
   the bucket that holds the requested rank.
 
-:class:`MetricsRegistry` is a get-or-create name → metric map, one per
-:class:`~repro_torch.obs.recorder.Recorder`. The port's copy of the
-reference's ``obs/metrics.py``; the kernel autotuner records its candidate
-times here.
+:class:`MetricsRegistry` is a get-or-create name → metric map; the serve
+and train stacks and the kernel autotuner share one registry per
+:class:`~repro_torch.obs.recorder.Recorder`, so every reader sees the same
+numbers. The port's copy of the reference's ``obs/metrics.py``.
 """
 from __future__ import annotations
 
@@ -23,9 +25,29 @@ from typing import Optional, Sequence
 
 __all__ = [
     "Counter",
+    "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "TTFT_BUCKETS_S",
+    "STEP_LATENCY_BUCKETS_S",
+    "TPOT_BUCKETS_S",
+    "QUEUE_WAIT_STEP_BUCKETS",
 ]
+
+# Default bucket ladders (seconds unless named otherwise). TTFT spans
+# warmed-AOT sub-millisecond dispatch up to cold multi-second admission;
+# per-dispatch/step latencies sit one decade lower; queue wait is measured
+# in scheduler steps (dispatch clock ticks), not seconds.
+TTFT_BUCKETS_S = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+STEP_LATENCY_BUCKETS_S = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0,
+)
+TPOT_BUCKETS_S = STEP_LATENCY_BUCKETS_S
+QUEUE_WAIT_STEP_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
+
 
 class Counter:
     """Monotone counter. ``inc`` only; negative increments are rejected."""
@@ -41,13 +63,40 @@ class Counter:
             raise ValueError(f"counter {self.name}: negative increment {n}")
         self.value += n
 
+    def as_dict(self) -> dict:
+        return dict(type="counter", name=self.name, value=self.value)
+
+
+class Gauge:
+    """Last-value gauge with a high-water mark."""
+
+    __slots__ = ("name", "value", "high_water", "_set")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0.0
+        self.high_water = 0.0
+        self._set = False
+
+    def set(self, v: float) -> None:
+        v = float(v)
+        self.value = v
+        self.high_water = v if not self._set else max(self.high_water, v)
+        self._set = True
+
+    def as_dict(self) -> dict:
+        return dict(
+            type="gauge", name=self.name, value=self.value,
+            high_water=self.high_water,
+        )
+
 
 class Histogram:
     """Explicit-bucket histogram with a bounded exact-sample store.
 
     ``buckets`` are the finite upper edges (``le``); one implicit +inf
     bucket catches the overflow. Edge values land in the bucket whose edge
-    they equal (``v <= edge``), as the reference's are.
+    they equal (``v <= edge``), as the reference's do.
     """
 
     __slots__ = (
@@ -141,7 +190,7 @@ class MetricsRegistry:
     """Get-or-create registry of named metrics; one per Recorder."""
 
     def __init__(self):
-        self._metrics: dict[str, Counter | Histogram] = {}
+        self._metrics: dict[str, Counter | Gauge | Histogram] = {}
 
     def _get(self, name: str, kind, *args, **kwargs):
         m = self._metrics.get(name)
@@ -158,9 +207,28 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str, buckets: Optional[Sequence[float]] = None) -> Histogram:
         if name in self._metrics:
             return self._get(name, Histogram)
         if buckets is None:
             raise ValueError(f"histogram {name!r} not registered and no buckets given")
         return self._get(name, Histogram, buckets)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._metrics
+
+    def names(self) -> list[str]:
+        return sorted(self._metrics)
+
+    def items(self):
+        """Live (name, metric) pairs — cheap iteration WITHOUT serializing
+        aggregates (``as_dict`` computes histogram percentiles; the alert
+        engine's per-tick path must not pay that for metrics it never
+        reads)."""
+        return self._metrics.items()
+
+    def as_dict(self) -> dict:
+        return {name: m.as_dict() for name, m in sorted(self._metrics.items())}

@@ -1,31 +1,40 @@
 """The Recorder — bounded structured-event log + metrics registry.
 
-The port's copy of the reference's ``obs/recorder.py``. One
-:class:`Recorder` is shared by everything a process observes (today the
-kernel autotuner); callers take it as an optional argument and fall back to
-the module-level :data:`NULL_RECORDER`, a permanently-disabled instance that
-makes every record call a cheap early return — so an uninstrumented run
-pays one truthiness check per hook site and nothing else.
+One :class:`Recorder` instance is shared by everything a process observes
+(serve engine, population trainer, kernel autotuner); engines take it as an
+optional constructor argument and fall back to the module-level
+:data:`NULL_RECORDER`, a permanently-disabled instance that makes every
+record call a cheap early return — so an uninstrumented run pays one
+truthiness check per hook site and nothing else.
 
 Events live in a **bounded ring buffer** (:class:`RingBuffer`): when the
 buffer is full the oldest event is overwritten and ``dropped`` increments,
 so a long-running server can never grow without bound. Metrics
 (:mod:`repro_torch.obs.metrics`) are aggregates and never dropped.
 
-Event kinds (mirroring the Chrome trace-event phases of the reference's
-exporter, which waits for the continuous-serving slice):
+Event kinds (mirroring the Chrome trace-event phases they export to —
+see :mod:`repro_torch.obs.export`):
 
-* ``span`` — a closed interval on a named track (``ph: "X"``): the
-  measurement of one tuner candidate.
-* ``instant`` — a point event (``ph: "i"``): a candidate's result.
+* ``span`` — a closed interval on a named track (``ph: "X"``): decode
+  dispatches, prefill admissions, per-request decode lifetimes, training
+  chunk submissions.
+* ``instant`` — a point event (``ph: "i"``): request retirement,
+  constraint crossings, schedule decisions.
+* ``sample`` — a timestamped numeric sample of a named series on a track
+  (``ph: "C"``): page-pool free/in-use, backpressure stalls.
 
-Every event carries a ``proc`` (process lane: "serve", "tune", …) and a
-``track`` (thread lane: "engine", a kernel name, …).
+Every event carries a ``proc`` (process lane: "serve", "fleet", "train")
+and a ``track`` (thread lane: "engine", "slot3", "chip1/slot0", …); the
+Chrome exporter maps those to pid/tid so Perfetto draws one swimlane per
+track.
 
 Timestamps are ``time.perf_counter()`` seconds relative to the recorder's
-construction (``t0``). The recorder accumulates its own cost in
-``self_time_s``: recording must stay a few percent of wall time, and every
-hook is host-side.
+construction (``t0``); ``wall0`` keeps the construction wall-clock epoch
+for cross-process alignment. The recorder accumulates its own cost in
+``self_time_s``: recording must stay a few percent of wall time, and
+enabling it must change zero sampled tokens (all hooks are host-side,
+outside the tensor code). The port's copy of the reference's
+``obs/recorder.py``.
 """
 from __future__ import annotations
 
@@ -38,18 +47,34 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 __all__ = ["Event", "RingBuffer", "Recorder", "NULL_RECORDER"]
 
+JSONL_VERSION = 1
+
+
 @dataclass(frozen=True)
 class Event:
     """One recorded event. ``ts``/``dur`` are seconds relative to the
-    recorder's ``t0``; ``dur`` is None for instants."""
+    recorder's ``t0``; ``dur`` is None for instants, ``value`` is set for
+    samples only."""
 
-    kind: str  # "span" | "instant"
+    kind: str  # "span" | "instant" | "sample"
     name: str
     proc: str
     track: str
     ts: float
     dur: Optional[float] = None
+    value: Optional[float] = None
     args: Optional[dict] = None
+
+    def as_dict(self) -> dict:
+        d = dict(kind=self.kind, name=self.name, proc=self.proc,
+                 track=self.track, ts=self.ts)
+        if self.dur is not None:
+            d["dur"] = self.dur
+        if self.value is not None:
+            d["value"] = self.value
+        if self.args:
+            d["args"] = self.args
+        return d
 
 
 @dataclass
@@ -90,6 +115,7 @@ class Recorder:
         self.events = RingBuffer(capacity)
         self.metrics = MetricsRegistry()
         self.t0 = time.perf_counter()
+        self.wall0 = time.time()
         self.self_time_s = 0.0
 
     def __bool__(self) -> bool:
@@ -144,6 +170,19 @@ class Recorder:
         self._emit(Event("instant", name, proc, track, s - self.t0, args=args))
         self.self_time_s += time.perf_counter() - s
 
+    def sample(self, name: str, value: float, *, proc: str = "serve",
+               track: str = "engine") -> None:
+        """Timestamped numeric sample (Chrome counter track); also mirrors
+        into the gauge of the same name so the last value + high-water are
+        queryable without scanning events."""
+        if not self.enabled:
+            return
+        s = time.perf_counter()
+        self._emit(Event("sample", name, proc, track, s - self.t0,
+                         value=float(value)))
+        self.metrics.gauge(name).set(value)
+        self.self_time_s += time.perf_counter() - s
+
     # -- metric shorthands (enabled-gated like event emission) ------------
 
     def count(self, name: str, n: int | float = 1) -> None:
@@ -158,8 +197,41 @@ class Recorder:
         self.metrics.histogram(name, buckets).observe(value)
         self.self_time_s += time.perf_counter() - s
 
+    def gauge_set(self, name: str, value: float) -> None:
+        if not self.enabled:
+            return
+        self.metrics.gauge(name).set(value)
+
+    # -- summaries --------------------------------------------------------
+
     def event_list(self) -> list[Event]:
         return list(self.events)
+
+    def summary(self) -> dict:
+        """Everything aggregate: metric dump + event accounting + the
+        recorder's own overhead model. When the ring overwrote events the
+        summary says so loudly (``ring`` subdict + a ``warnings`` entry) —
+        a trace built from this recorder is missing its oldest events."""
+        kinds: dict[str, int] = {}
+        for ev in self.events:
+            kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+        dropped = self.events.dropped
+        out = dict(
+            events=len(self.events),
+            events_dropped=dropped,
+            event_kinds=kinds,
+            self_time_s=self.self_time_s,
+            ring=dict(capacity=self.events.capacity, len=len(self.events),
+                      dropped=dropped),
+            metrics=self.metrics.as_dict(),
+        )
+        if dropped:
+            out["warnings"] = [
+                f"ring overwrote {dropped} event(s) (capacity "
+                f"{self.events.capacity}); the oldest events are missing — "
+                "grow Recorder(capacity=...) for complete traces"
+            ]
+        return out
 
 
 class _NullRecorder(Recorder):

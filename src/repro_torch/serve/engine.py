@@ -38,9 +38,12 @@ def make_sample_decode(cfg, *, pad_id: int = 0):
 
     With ``active`` (a per-slot bool mask) the step runs in *masked* form
     and returns ``(emitted, token_logprob, next_logits, cache, new_active,
-    new_remaining)``: inactive slots emit ``pad_id`` with logprob 0, and a
-    slot retires when it samples ``eos_id`` or exhausts its per-slot
-    ``remaining`` budget. The dense cache still advances every slot.
+    new_remaining)``: inactive slots emit ``pad_id`` with logprob 0, a slot
+    retires when it samples ``eos_id`` or exhausts its per-slot
+    ``remaining`` budget, and the new mask is forwarded to ``decode_step``,
+    so a retired slot stops writing KV (a paged cache takes its write on
+    the scratch page 0). ``cache`` is the dense cache, whose index still
+    advances every slot, or a paged one; ``decode_step`` dispatches on it.
     """
 
     def sample_decode(
@@ -64,7 +67,7 @@ def make_sample_decode(cfg, *, pad_id: int = 0):
         if remaining is not None:
             new_remaining = remaining - active.to(remaining.dtype)
             new_active = new_active & (new_remaining > 0)
-        step_logits, cache = M.decode_step(p, emitted[:, None], cache, cfg, ctx)
+        step_logits, cache = M.decode_step(p, emitted[:, None], cache, cfg, ctx, active=new_active)
         return emitted, tok_lp, step_logits[:, 0], cache, new_active, new_remaining
 
     return sample_decode

@@ -5,9 +5,9 @@ A paged pool is a shared set of fixed-size pages: each sequence owns a page
 chain, a row of block tables holding its page ids in order, truncated to
 its length; the host-side :class:`PageAllocator` hands page ids out of a
 free list and takes them back. ``kernels/decode_attention/ops.py::
-paged_decode_attention`` reads an int8 pool through such tables. The paged
-model cache and the continuous-batching engine wait for the
-continuous-serving slice.
+paged_decode_attention`` reads an int8 pool through such tables; the
+paged model cache (``models/model.py::init_paged_cache``) holds the pool
+the continuous-batching engine serves from, in the model's dtype.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ __all__ = [
     "pages_needed",
     "round_up_to_page",
     "dense_kv_bytes",
+    "page_bytes",
 ]
 
 DEFAULT_PAGE_SIZE = 8
@@ -127,9 +128,19 @@ def chain_layout(k_dense: torch.Tensor, page_size: int, chain_len: int) -> torch
     return k.reshape(L, hkv, chain_len, page_size, hd).movedim(1, 2)
 
 
+def _kv_entry_bytes(cfg) -> int:
+    """Bytes of one token's K+V across all layers."""
+    entry = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim
+    return entry * getattr(torch, cfg.dtype).itemsize
+
+
+def page_bytes(cfg, page_size: int) -> int:
+    """Resident bytes of ONE page (K+V, all layers)."""
+    return _kv_entry_bytes(cfg) * int(page_size)
+
+
 def dense_kv_bytes(cfg, batch: int, cache_len: int) -> int:
     """Resident bytes of a dense ``init_cache(cfg, batch, cache_len)``
     (window-bounded for SWA)."""
     buf = min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
-    entry = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim
-    return entry * getattr(torch, cfg.dtype).itemsize * int(batch) * int(buf)
+    return _kv_entry_bytes(cfg) * int(batch) * int(buf)

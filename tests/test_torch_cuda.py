@@ -24,7 +24,7 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
-from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_checksummed, masked_matmul_ref
 from repro_torch.models import model as M
 from repro_torch.models.classifier import classifier_forward, classifier_loss, init_classifier
 from repro_torch.train.fat_trainer import ClassifierFATTrainer, LMFATTrainer
@@ -835,3 +835,82 @@ def test_lm_kernel_mode_fit_on_the_card_raises_and_kernel_eval_runs(cuda):
     torch.cuda.synchronize()
     assert masked_matmul.launches_by_variant["v1"] - before == 2 * sum(u for _, _, u in cfg.gemm_shapes())
     assert got == pytest.approx(tr.evaluate_batch([tr.base_params] * 2, fleet), abs=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# Continuous serving: the ABFT probe GEMM, the paged decode, the engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,m", [(torch.bfloat16, 4), (torch.bfloat16, 256), (torch.float32, 4)])
+def test_checksummed_gemm_repeats_its_bits_and_matches_plain(cuda, dtype, m):
+    """The probe GEMMs at SmolLM-135M's probe weight (``wd``, 1536 x 576, the
+    fp32 master): the canary (M = 4 + 1, ``decode``) and the structured
+    probe (M = 256 + 1, ``mma``) in bf16, ``v1`` in float32. Two launches
+    give the same bits (the canary compares bits), and both outputs match
+    the plain version at ``dtype_tol``."""
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn(m, 1536, generator=gen).to(cuda, dtype)
+    w = (torch.randn(1536, 576, generator=gen) / 1536**0.5).to(cuda)
+    ok = from_fault_map(random_fault_map(0, 256, 256, 0.1), "kernel", device=cuda).ok
+    y, chk = masked_matmul_checksummed(x, w, ok)
+    y2, chk2 = masked_matmul_checksummed(x, w, ok)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(chk, chk2)
+    assert torch.equal(y, masked_matmul(x, w, ok))
+    ry, rchk = masked_matmul_checksummed(x.cpu(), w.cpu(), ok.cpu())
+    assert_close(y, ry, dtype)
+    assert_close(chk, rchk, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_step_in_kernel_mode_matches_fap_on_the_card(cuda, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduce_config(SMOLLM), dtype=dtype)
+    params = M.init_params(cfg, 0, device=cuda)
+    fm = random_fault_map(1, 16, 16, 0.1)
+    gen = torch.Generator().manual_seed(2)
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    pool = torch.randn(2, L, 24, hkv, 4, hd, generator=gen).to(cuda, getattr(torch, dtype))
+    tables = torch.tensor([[3, 7, 9, 0], [4, 0, 0, 0], [11, 2, 5, 6], [8, 10, 0, 0]], dtype=torch.int32)
+    active = torch.tensor([True, False, True, True], device=cuda)
+    outs = {}
+    for mode in ("kernel", "fap"):
+        cache = dict(k_pages=pool[0].clone(), v_pages=pool[1].clone(), block_tables=tables.to(cuda),
+                     seq_lens=torch.tensor([6, 1, 12, 0], dtype=torch.int32, device=cuda))
+        toks = torch.randint(0, cfg.vocab_size, (4, 1), generator=torch.Generator().manual_seed(3)).to(cuda)
+        outs[mode] = M.decode_step(params, toks, cache, cfg, from_fault_map(fm, mode, device=cuda), active=active)
+    (got, gc), (ref, rc) = outs["kernel"], outs["fap"]
+    assert_close(got, ref, getattr(torch, dtype))
+    assert torch.equal(gc["seq_lens"], rc["seq_lens"]) and gc["seq_lens"].tolist() == [7, 1, 13, 1]
+    for key in ("k_pages", "v_pages"):
+        assert_close(gc[key][:, 1:], rc[key][:, 1:], getattr(torch, dtype))
+
+
+def test_continuous_engine_on_the_card_pinned_to_the_static_engine(cuda):
+    """Reduced SmolLM in float32 ``kernel`` mode: packed, chunked and
+    mid-flight admissions give the static engine's tokens, and every
+    masked GEMM runs ``v1``."""
+    from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_config(SMOLLM)
+    params = M.init_params(cfg, 0, device=cuda)
+    ctx = from_fault_map(random_fault_map(0, 16, 16, 0.1), "kernel", device=cuda)
+    rng = np.random.default_rng(0)
+    spec = [(6, 5, 0), (13, 4, 0), (40, 6, 0), (3, 5, 2), (5, 4, 0), (21, 7, 3), (9, 3, 5)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n), b, a) for i, (n, b, a) in enumerate(spec)]
+    eng = ContinuousBatchingEngine(cfg, params, ctx, num_slots=2, page_size=4, num_pages=64,
+                                   prefill_buckets=(8, 16), chunk_size=8, max_pack=2, probe_every=2)
+    assert eng.warmup() == 4
+    before = dict(masked_matmul.launches_by_variant)
+    outs, stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    grew = {k: masked_matmul.launches_by_variant[k] - before[k] for k in before}
+    assert grew["decode"] == grew["mma"] == 0 and grew["v1"] > 0
+    assert eng.compile_counts()["jit_fallback"] == 0 and stats.chunk_dispatches == 8
+    assert eng.health.detections == 0
+    static = ServeEngine(cfg, params, ctx, max_len=None, page_size=4)
+    for r in reqs:
+        res = static.generate(torch.as_tensor(r.tokens, device=cuda)[None].long(), max_new_tokens=r.max_new_tokens)
+        assert np.array_equal(outs[r.rid].tokens, res.tokens[0, len(r.tokens):].cpu().numpy()), r.rid
