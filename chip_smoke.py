@@ -178,7 +178,35 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     each admission and chunk) and the program counts; with ``--profile``
     run (a)'s busy share and, from a trace of the CPU too, the host's cost
     of a decode dispatch by op group (``host_costs``);
-14. the record: each model's bf16 decode step of masked GEMMs as kernel
+14. fleet serving (``fleet_phase``): SmolLM-135M at full width in
+    ``kernel`` mode on chips ``random_fault_map(c, 256, 256, 0.05 * c)``.
+    (a) ``FleetServeEngine``, 8 chips (params from seed c // 4, chip 0
+    healthy), the four 128-token prompts shared, 32 greedy new tokens, in
+    bf16 and float32: each chip against its own ``ServeEngine``, float32
+    tokens equal but past a near-tie of 1e-3 and logprobs at
+    ``dtype_tol(float32, atol_scale=50)``, bf16 anchored; the faulty chips'
+    tokens differ from chip 0's; every masked GEMM one chip-batched launch,
+    211 a fused decode dispatch. (b) ``ShardedFleetServeEngine``, 4 chips
+    (chip 0 a zero-fault map), each its own stream of 12 requests from
+    ``default_rng(c)`` (8-256 tokens and one of 300, budgets 4-48, arrivals
+    at dispatches 0-20), 8 slots, 8-token pages, 512 pages a chip, buckets
+    32-256, chunks of 256, packs of 4: bf16 anchored, float32 tokens equal
+    to each chip's own ``ContinuousBatchingEngine``; probes every 8
+    dispatches on unchanged silicon detect nothing and change no bit; a 2%
+    map joined to chip 2's at dispatch 24 (``set_silicon``) is detected on
+    chip 2 alone within 3 probes, its delta within the true new faults,
+    the other chips' tokens those of the control run, ``detect.new_faults``
+    fired; 211 chip-batched launches a fused decode dispatch, admissions and
+    probes single-chip. (c) fleet tokens/s, ms a fused dispatch, TTFT p50 /
+    p99 per chip, the per-chip engines in turn and the dispatch
+    amortization; the chip-batched masked GEMM for 8 chips held to its
+    plain version at every shape (a) and (b) give it (M = 4, 8 and 512, bf16
+    x through ``decode`` and ``mma`` and float32 x through ``v1``, at
+    ``dtype_tol`` of the dtype, the tied unembed's weight k-contiguous),
+    and timed at a decode step's shapes (M = 4) and (a)'s prefill (M = 512) against its bound,
+    the same launches one chip at a time, ``torch.bmm`` on pre-masked bf16
+    w and the plain version; ``--profile`` adds (b)'s busy share;
+15. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
     GEMMs; then a ``{"kernels": [...]}`` line with one entry per kernel
@@ -187,8 +215,11 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     ``flash_attention.mma``, ``.v1``, and the scan and decode kernels;
     the masked GEMM's ``mma`` and ``v1`` and flash carry phase 12's
     deployment launches as ``launches_lm_eval``, and the masked GEMM's
-    three variants phase 13's as ``launches_continuous``), the card's line,
-    and last the ``{"ok": true, "device": ...}`` line.
+    three variants phase 13's as ``launches_continuous`` and phase 14's
+    chip-batched ones as ``launches_fleet``, and their worst chip-batched
+    error as ``max_abs_err_fleet``; ``masked_matmul.decode.chips8``
+    is phase 14's chip-batched decode step), the card's line, and last the
+    ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
 hymba, and phase 13's run (a)), a run of 8 new tokens (phase 13: its whole
@@ -206,8 +237,9 @@ Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
 7 and 10, bf16 and hymba's float32, phase 11's deployment check,
-each of phase 12's kernel-mode runs and each of phase 13's four serves)
-and read just after it; parity and timing launches are not counted.
+each of phase 12's kernel-mode runs, each of phase 13's four serves and
+each of phase 14's six fleet runs) and read just after it; parity and
+timing launches are not counted.
 Phase 13 gates each variant's count against its dispatches: 211 ``decode``
 a decode dispatch (30 layers x 7 at M = 8, and the tied unembed), 210
 ``mma`` and one ``decode`` (the unembed at M = 4 or 1) a packed admission
@@ -1450,6 +1482,494 @@ def continuous_phase(torch, log, profile=False):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 14: fleet serving
+# ---------------------------------------------------------------------------
+
+FLEET_CHIPS = 8  # (a): FleetServeEngine, random_fault_map(c, 256, 256, 0.05 * c), chip 0 healthy
+FLEET_STREAM_CHIPS = 4  # (b): ShardedFleetServeEngine, one request stream each
+FLEET_REQUESTS = 12  # per chip: 11 prompts of 8-256 tokens and one of 300 (two chunks)
+FLEET_ENGINE = dict(num_slots=8, page_size=8, num_pages=512, max_pages_per_seq=64,
+                    prefill_buckets=(32, 64, 128, 256), chunk_size=256, max_pack=4)
+FLEET_PROBE_EVERY = 8
+FLEET_INJECT_AT = 24  # the dispatch at which set_silicon joins random_fault_map(42, 256, 256, 0.02)
+FLEET_VICTIM = 2  # ... to this chip's map
+
+
+def fleet_traffic(np, vocab, chip):
+    """Chip ``chip``'s request stream, from ``np.random.default_rng(chip)``:
+    FLEET_REQUESTS - 1 prompts of 8-256 tokens and one of 300 (two chunks of
+    256) in a random place, greedy budgets of 4-48, arrivals at dispatches
+    0-20 with the first three at 0. Tuples (rid, prompt, budget, arrival)."""
+    rng = np.random.default_rng(chip)
+    lens = [*rng.integers(8, 257, FLEET_REQUESTS - 1), 300]
+    order = rng.permutation(FLEET_REQUESTS)
+    budgets = rng.integers(4, 49, FLEET_REQUESTS)
+    arrivals = np.sort(rng.integers(0, 21, FLEET_REQUESTS))
+    arrivals[:3] = 0
+    return [(rid, rng.integers(0, vocab, int(lens[order[rid]])), int(budgets[rid]), int(arrivals[rid]))
+            for rid in range(FLEET_REQUESTS)]
+
+
+def event_ms(torch, fn, flush, reps=10):
+    """Median of single calls timed by CUDA events, each with the L2 cache
+    overwritten first, as a serving step finds it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def fleet_phase(torch, log, profile=False):
+    """Fleet serving of SmolLM-135M at full width in ``kernel`` mode, chips
+    ``random_fault_map(c, 256, 256, 0.05 * c)``; returns the phase's report
+    and raises ``Failed`` on a missed gate.
+
+    (a) ``FleetServeEngine``, FLEET_CHIPS chips (params from seed c // 4,
+    chip 0 healthy), the four 128-token prompts of ``default_rng(0)`` shared,
+    32 greedy new tokens, in bf16 and float32. Each chip is held to its own
+    ``ServeEngine`` (exact-length prefill, the same cache): float32 tokens
+    equal but past a near-tie of CONT_TIE and logprobs within
+    ``dtype_tol(float32, atol_scale=50)``; bf16 logprobs anchored (RMS
+    error against plain float32 teacher-forced at most ANCHOR_RATIO times
+    plain bf16's own). The faulty chips' tokens must differ from chip 0's.
+    Every masked GEMM of the run is one chip-batched launch: 211 per fused
+    decode dispatch and 211 for the prefill, whatever the chip count.
+    (b) ``ShardedFleetServeEngine``, FLEET_STREAM_CHIPS chips (chip 0 a
+    zero-fault map, so every mask is live), each with its own stream
+    (``fleet_traffic``), FLEET_ENGINE: bf16 anchored, float32 tokens equal to
+    each chip's own ``ContinuousBatchingEngine`` on its stream (the near-tie
+    rule); a control run with a probe every FLEET_PROBE_EVERY dispatches
+    detects nothing and gives the no-probe run's bits; then chip
+    FLEET_VICTIM's map is joined by ``random_fault_map(42, 256, 256, 0.02)``
+    at dispatch FLEET_INJECT_AT (``set_silicon``): that chip must reach
+    SUSPECT or worse within the debounce bound, its delta non-empty and
+    within the true new faults; the other chips detect nothing and their
+    tokens are bit-equal to the control run's; ``detect.new_faults`` fires.
+    Each decode dispatch is 211 chip-batched launches; each admission and
+    probe a single-chip launch.
+    (c) Report: fleet tokens/s, ms a fused dispatch, TTFT p50/p99 per chip,
+    the per-chip engines on the same traffic in turn and the dispatch
+    amortization. The chip-batched masked GEMM at FLEET_CHIPS chips is held
+    to its plain version at ``dtype_tol`` of x's dtype at every shape (a)
+    and (b) launch it with: M = 4, the slot count and 512, bf16 x (decode,
+    mma) and float32 x (v1), one counted launch each; and timed at
+    one decode step's shapes (M = 4) and (a)'s prefill (M = 512) against
+    its bound (the chips' bytes, the fp32 master read in place), the same
+    launches one chip at a time, ``torch.bmm`` on pre-masked bf16 weights
+    (the library time) and the plain version. ``profile`` adds the busy
+    share of (b)'s bf16 run."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import from_fault_map, healthy, random_fault_map
+    from repro_torch.core.mapping import periodic_mask
+    from repro_torch.fleet import FleetServeEngine, ShardedFleetServeEngine
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref, pick_variant
+    from repro_torch.models import model as M
+    from repro_torch.obs import HEALTHY, HealthConfig, Recorder, default_slo_rules
+    from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = get_arch("smollm-135m")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    per_step = sum(u for _, _, u in cfg.gemm_shapes())  # 211: 30 layers x 7 and the tied unembed
+    rows_, cols_ = cfg.array_rows, cfg.array_cols
+    maps = [random_fault_map(c, rows_, cols_, 0.05 * c) for c in range(FLEET_CHIPS)]
+    models = [M.init_params(cfg, s, device=dev) for s in range(2)]
+    params = [models[c // 4] for c in range(FLEET_CHIPS)]
+    report, stages = {}, {}
+    fleet_totals = dict.fromkeys(masked_matmul.launches_by_variant, 0)
+    rtol32, atol32 = dtype_tol(torch.float32, atol_scale=50.0)
+
+    def reset():
+        masked_matmul.launches = 0
+        masked_matmul.launches_by_variant = dict.fromkeys(masked_matmul.launches_by_variant, 0)
+        masked_matmul.fleet_launches_by_variant = dict.fromkeys(masked_matmul.launches_by_variant, 0)
+
+    def counts():
+        return dict(masked_matmul.launches_by_variant), dict(masked_matmul.fleet_launches_by_variant)
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def forced(c_cfg, p, ctx, seq, start):
+        """log-softmax rows of ``seq`` (B, S) teacher-forced through
+        ``forward`` from position ``start - 1`` on: the rows that chose
+        ``seq[:, start:]``."""
+        with torch.no_grad():
+            logits = M.forward(p, {"tokens": seq[:, :-1]}, c_cfg, ctx, attn_impl="dense")[0]
+        return torch.log_softmax(logits[:, start - 1:].float(), -1)
+
+    def chosen(rows, seq, start):
+        return rows.gather(-1, seq[:, start:, None])[..., 0]
+
+    def anchored(label, c, served_lp, seq, start):
+        """The bf16 served logprobs against plain float32 teacher-forced on
+        the served sequence, beside plain bf16's own error: (plain, served)."""
+        ctx_f = from_fault_map(maps[c], "fap", device=dev)
+        lp16 = chosen(forced(cfg, params[c], ctx_f, seq, start), seq, start)
+        lp32 = chosen(forced(cfg32, params[c], ctx_f, seq, start), seq, start)
+        plain = float((lp16 - lp32).pow(2).mean().sqrt())
+        served = float((served_lp.float() - lp32).pow(2).mean().sqrt())
+        if not bool(torch.isfinite(served_lp).all()) or served > ANCHOR_RATIO * plain:
+            raise Failed(f"fleet {label} chip {c}: served logprobs RMS err {served:.4g} against plain float32, "
+                         f"more than {ANCHOR_RATIO} x plain bf16's {plain:.4g}")
+        return plain, served
+
+    def near_tie(label, c_cfg, c, ctx, seq, other, start):
+        """Where ``other``'s tokens part from ``seq``'s (both (S,), prompt
+        first), the gap of ``seq``'s top two logprobs there, teacher-forced
+        through the kernel path; raises past CONT_TIE. Returns the index of
+        the first parting token (in the generated part) or None."""
+        diff = np.flatnonzero(seq[start:] != other[start:])
+        if not diff.size:
+            return None
+        i = int(diff[0])
+        t = torch.as_tensor(seq[None].astype(np.int64), device=dev)
+        top2 = forced(c_cfg, params[c], ctx, t, start)[0, i].topk(2).values
+        gap = float(top2[0] - top2[1])
+        if gap > CONT_TIE:
+            raise Failed(f"fleet {label} chip {c}: tokens part from its own engine at token {i}, where the top "
+                         f"two logprobs are {gap:.3g} apart (> {CONT_TIE})")
+        return dict(chip=c, at=i, gap=gap)
+
+    # -- (a) FleetServeEngine: 8 chips, one shared prompt batch --------------------
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT)), device=dev)
+    ctxs_a = [healthy() if c == 0 else from_fault_map(maps[c], "kernel", device=dev) for c in range(FLEET_CHIPS)]
+    max_len = PROMPT + NEW
+    report["a"] = {}
+    for c_cfg in (cfg, cfg32):
+        dt = c_cfg.dtype
+        eng = FleetServeEngine(c_cfg, params, ctxs_a, max_len=max_len)
+        timed(f"(a) {dt} warm", eng.generate, prompts[:, :16], max_new_tokens=2)
+        reset()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stages[f"(a) {dt} fleet"] = wall
+        got, fleet = counts()
+        want = (dict(v1=per_step * (1 + NEW), decode=0, mma=0) if dt == "float32"
+                else dict(v1=0, decode=1 + per_step * NEW, mma=per_step - 1))
+        if got != want or fleet != got:
+            raise Failed(f"fleet (a) {dt}: launches {got}, chip-batched {fleet}, expected {want} (all "
+                         f"chip-batched: {per_step} a fused decode dispatch and {per_step} for the prefill)")
+        for k in fleet_totals:
+            fleet_totals[k] += fleet[k]
+        t0 = time.perf_counter()
+        refs = [ServeEngine(c_cfg, params[c], ctxs_a[c], max_len=max_len, prefill_buckets=None)
+                .generate(prompts, max_new_tokens=NEW) for c in range(FLEET_CHIPS)]
+        torch.cuda.synchronize()
+        serial = time.perf_counter() - t0
+        stages[f"(a) {dt} per-chip engines"] = serial
+        toks = out.tokens.cpu().numpy()
+        rec = dict(wall_s=wall, per_chip_engines_s=serial, tokens_per_s=FLEET_CHIPS * BATCH * NEW / wall,
+                   ms_per_dispatch=wall / (NEW + 1) * 1e3, launches=got, chip_batched=fleet,
+                   launches_per_decode_dispatch=(sum(got.values()) - per_step) / NEW)
+        for c in range(1, FLEET_CHIPS):
+            if np.array_equal(toks[c, :, PROMPT:], toks[0, :, PROMPT:]):
+                raise Failed(f"fleet (a) {dt}: chip {c} (rate {0.05 * c:.2f}) gives chip 0's tokens")
+        if dt == "float32":
+            parted, err = [], 0.0
+            for c in range(FLEET_CHIPS):
+                ref_t = refs[c].tokens.cpu().numpy()
+                for b in range(BATCH):
+                    p = near_tie("(a) float32", c_cfg, c, ctxs_a[c], ref_t[b], toks[c, b], PROMPT)
+                    upto = NEW if p is None else p["at"] + 1
+                    if p is not None:
+                        parted.append(dict(p, row=b))
+                    d = (out.logprobs[c, b, :upto] - refs[c].logprobs[b, :upto]).abs()
+                    err = max(err, float(d.max()))
+                    if not bool((d <= atol32 + rtol32 * refs[c].logprobs[b, :upto].abs()).all()):
+                        raise Failed(f"fleet (a) float32 chip {c} row {b}: logprobs differ from its ServeEngine "
+                                     f"by {float(d.max()):.3g} (rtol {rtol32}, atol {atol32})")
+            rec.update(logprob_err=err, parted=parted)
+            log(f"fleet (a) float32: every chip against its own ServeEngine: logprob max err {err:.3g} "
+                f"(rtol {rtol32}, atol {atol32}); tokens equal but {len(parted)} near-ties {parted}")
+        else:
+            anchors = [anchored("(a) bf16", c, out.logprobs[c], out.tokens[c], PROMPT) for c in range(FLEET_CHIPS)]
+            rec.update(anchors=anchors)
+            log(f"fleet (a) bf16: logprob RMS err against plain float32, (plain bf16, served) per chip: "
+                + ", ".join(f"{a[0]:.4g}/{a[1]:.4g}" for a in anchors) + f" (served <= {ANCHOR_RATIO} x plain)")
+        log(f"fleet (a) {dt} ({card}): {FLEET_CHIPS} chips x {BATCH} prompts x {NEW} tokens in {wall:.3f} s "
+            f"({rec['tokens_per_s']:.1f} tokens/s, {rec['ms_per_dispatch']:.2f} ms a fused dispatch, prefill "
+            f"included); the per-chip ServeEngines in turn {serial:.3f} s ({serial / wall:.2f}x); launches {got}, "
+            f"all chip-batched, {rec['launches_per_decode_dispatch']:.0f} a fused decode dispatch")
+        report["a"][dt] = rec
+        del eng, out, refs
+
+    # -- (b) ShardedFleetServeEngine: one ragged stream per chip -------------------
+    n_b = FLEET_STREAM_CHIPS
+    traffic = [fleet_traffic(np, cfg.vocab_size, c) for c in range(n_b)]
+    streams = [[Request(*r) for r in t] for t in traffic]
+    ctxs_b = [from_fault_map(maps[c], "kernel", device=dev) for c in range(n_b)]
+    new_map = maps[FLEET_VICTIM].merge(random_fault_map(42, rows_, cols_, 0.02))
+    true_new = new_map.faulty & ~maps[FLEET_VICTIM].faulty
+    hc = HealthConfig()
+
+    def run_b(c_cfg, label, probe=False, inject=False):
+        eng = ShardedFleetServeEngine(
+            c_cfg, params[:n_b], ctxs_b, devices=[dev], recorder=Recorder(), **FLEET_ENGINE,
+            probe_every=FLEET_PROBE_EVERY if probe else None,
+            alert_rules=default_slo_rules() if probe else None,
+        )
+        live = dict(done=False)
+
+        def on_step(clock):
+            if inject and clock >= FLEET_INJECT_AT and not live["done"]:
+                live["done"] = True
+                eng.set_silicon(FLEET_VICTIM, from_fault_map(new_map, "kernel", device=dev))
+
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        outs, stats = eng.serve(streams, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, fleet = counts()
+        probes = sum(eng.health.chips[c].probes for c in range(n_b)) if probe else 0
+        structured = stats.probe_dispatches - probes
+        pre = stats.prefill_dispatches
+        if c_cfg.dtype == "bfloat16":
+            want = dict(v1=0, decode=per_step * stats.decode_dispatches + pre + probes,
+                        mma=(per_step - 1) * pre + structured)
+            want_fleet = dict(v1=0, decode=per_step * stats.decode_dispatches, mma=0)
+        else:
+            want = dict(v1=per_step * (stats.decode_dispatches + pre) + stats.probe_dispatches, decode=0, mma=0)
+            want_fleet = dict(v1=per_step * stats.decode_dispatches, decode=0, mma=0)
+        if got != want or fleet != want_fleet:
+            raise Failed(f"fleet {label}: launches {got}, chip-batched {fleet}; expected {want} and {want_fleet} "
+                         f"from {stats.as_dict()} and {probes} probes")
+        for k in fleet_totals:
+            fleet_totals[k] += fleet[k]
+        hist = eng.obs.metrics.histogram("serve.decode_step_s")
+        ttft = [np.array([o.ttft_wall_s for o in outs[c].values()]) for c in range(n_b)]
+        numbers = dict(
+            stats=stats.as_dict(), wall_s=wall, tokens_per_s=stats.emitted_tokens / wall,
+            ms_per_dispatch=hist.mean * 1e3, launches=got, chip_batched=fleet, probes=probes,
+            ttft_p50_s=[float(np.percentile(t, 50)) for t in ttft],
+            ttft_p99_s=[float(np.percentile(t, 99)) for t in ttft],
+        )
+        log(f"fleet {label} ({card}): {n_b} chips, {stats.emitted_tokens} tokens of {n_b * FLEET_REQUESTS} "
+            f"requests in {wall:.3f} s ({numbers['tokens_per_s']:.1f} tokens/s); {stats.decode_dispatches} fused "
+            f"dispatches, {numbers['ms_per_dispatch']:.2f} ms each (mean of {hist.count}); {pre} admissions "
+            f"({stats.chunk_dispatches} chunks); TTFT p50 / p99 per chip (ms): "
+            + ", ".join(f"{a * 1e3:.0f}/{b * 1e3:.0f}" for a, b in zip(numbers["ttft_p50_s"], numbers["ttft_p99_s"]))
+            + f"; launches {got}, chip-batched {fleet}")
+        return eng, outs, stats, numbers
+
+    def per_chip(c_cfg):
+        outs, disp = [], 0
+        t0 = time.perf_counter()
+        for c in range(n_b):
+            o, st = ContinuousBatchingEngine(c_cfg, params[c], ctxs_b[c], **FLEET_ENGINE).serve(streams[c])
+            outs.append(o)
+            disp += st.decode_dispatches
+        torch.cuda.synchronize()
+        return outs, disp, time.perf_counter() - t0
+
+    def seq_of(c, rid, o):
+        return np.concatenate([traffic[c][rid][1], o.tokens]).astype(np.int64)
+
+    timed("(b) warm", ShardedFleetServeEngine(cfg, params[:n_b], ctxs_b, devices=[dev], **FLEET_ENGINE).serve,
+          [[Request(0, traffic[c][0][1][:40], 2), Request(1, np.resize(traffic[c][0][1], 300), 2)]
+           for c in range(n_b)])
+    report["b"] = {}
+    for c_cfg in (cfg, cfg32):
+        dt = c_cfg.dtype
+        eng, outs, stats, rec = timed(f"(b) {dt} fleet", run_b, c_cfg, f"(b) {dt}")
+        ref_outs, ref_disp, ref_wall = timed(f"(b) {dt} per-chip engines", per_chip, c_cfg)
+        rec.update(per_chip_engines_s=ref_wall, per_chip_dispatches=ref_disp,
+                   dispatch_amortization=ref_disp / stats.decode_dispatches, wall_ratio=ref_wall / rec["wall_s"])
+        log(f"fleet (b) {dt}: the per-chip ContinuousBatchingEngines on the same streams in turn: {ref_disp} decode "
+            f"dispatches in {ref_wall:.3f} s; dispatch amortization {rec['dispatch_amortization']:.2f}x, wall "
+            f"{rec['wall_ratio']:.2f}x")
+        if dt == "float32":
+            parted, err = [], 0.0
+            for c in range(n_b):
+                for rid, o in ref_outs[c].items():
+                    f = outs[c][rid]
+                    a, b = seq_of(c, rid, o), seq_of(c, rid, f)
+                    p = near_tie("(b) float32", c_cfg, c, ctxs_b[c], a, b, len(traffic[c][rid][1]))
+                    upto = len(o.tokens) if p is None else p["at"] + 1
+                    if p is not None:
+                        parted.append(dict(p, rid=rid))
+                    d = np.abs(f.logprobs[:upto] - o.logprobs[:upto])
+                    err = max(err, float(d.max()))
+                    if not bool((d <= atol32 + rtol32 * np.abs(o.logprobs[:upto])).all()):
+                        raise Failed(f"fleet (b) float32 chip {c} request {rid}: logprobs differ from its own "
+                                     f"engine's by {float(d.max()):.3g}")
+            rec.update(logprob_err=err, parted=parted)
+            log(f"fleet (b) float32: every chip against its own ContinuousBatchingEngine: logprob max err "
+                f"{err:.3g}; tokens equal but {len(parted)} near-ties {parted}")
+        else:
+            anchors = []
+            for c in range(n_b):
+                served, lp16, lp32 = [], [], []
+                for rid, o in outs[c].items():
+                    start = len(traffic[c][rid][1])
+                    seq = torch.as_tensor(seq_of(c, rid, o)[None], device=dev)
+                    ctx_f = from_fault_map(maps[c], "fap", device=dev)
+                    lp16.append(chosen(forced(cfg, params[c], ctx_f, seq, start), seq, start)[0])
+                    lp32.append(chosen(forced(cfg32, params[c], ctx_f, seq, start), seq, start)[0])
+                    served.append(torch.as_tensor(o.logprobs, device=dev))
+                s, p16, p32 = torch.cat(served), torch.cat(lp16), torch.cat(lp32)
+                plain = float((p16 - p32).pow(2).mean().sqrt())
+                got_rms = float((s - p32).pow(2).mean().sqrt())
+                anchors.append((plain, got_rms))
+                if not bool(torch.isfinite(s).all()) or got_rms > ANCHOR_RATIO * plain:
+                    raise Failed(f"fleet (b) bf16 chip {c}: served logprobs RMS err {got_rms:.4g} against plain "
+                                 f"float32, more than {ANCHOR_RATIO} x plain bf16's {plain:.4g}")
+            rec.update(anchors=anchors)
+            outs_b16 = outs
+            log(f"fleet (b) bf16: logprob RMS err against plain float32, (plain bf16, served) per chip: "
+                + ", ".join(f"{a[0]:.4g}/{a[1]:.4g}" for a in anchors) + f" (served <= {ANCHOR_RATIO} x plain)")
+            if profile:
+                from torch.profiler import ProfilerActivity, profile as torch_profile
+
+                t0 = time.perf_counter()
+                eng.serve(streams)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    eng.serve(streams)
+                    torch.cuda.synchronize()
+                busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+                rec["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+                log(f"fleet (b) bf16 profile ({card}): untraced wall {wall_ms:.2f} ms, traced device time "
+                    f"{busy_ms:.2f} ms, busy {busy_ms / wall_ms:.1%}")
+        report["b"][dt] = rec
+        del eng
+
+    # -- (b) probes: a control run, then one chip's silicon changes --------------------
+    ctl, outs_ctl, stats_ctl, report["b"]["control"] = timed("(b) control", run_b, cfg, "(b) bf16 probes", probe=True)
+    same = all(np.array_equal(outs_ctl[c][r].tokens, outs_b16[c][r].tokens)
+               and np.array_equal(outs_ctl[c][r].logprobs, outs_b16[c][r].logprobs)
+               for c in range(n_b) for r in outs_b16[c])
+    if ctl.health.detections or not same or not stats_ctl.probe_dispatches:
+        raise Failed(f"fleet (b) control: detections {ctl.health.detections}, bits as the run without probes "
+                     f"{same}, probes {stats_ctl.probe_dispatches}")
+    inj, outs_inj, _, report["b"]["inject"] = timed("(b) inject", run_b, cfg, "(b) bf16 injected", probe=True, inject=True)
+    bound = FLEET_INJECT_AT + FLEET_PROBE_EVERY * (hc.suspect_after + 1)
+    at, delta = inj.health.detected_at(FLEET_VICTIM), inj.health.last_delta(FLEET_VICTIM)
+    fired = inj.alerts.summary()["fired"]
+    others = [c for c in range(n_b) if c != FLEET_VICTIM]
+    quiet = all(inj.health.state(c) == HEALTHY and inj.health.last_delta(c) is None for c in others)
+    kept = all(np.array_equal(outs_inj[c][r].tokens, outs_ctl[c][r].tokens) for c in others for r in outs_ctl[c])
+    report["b"]["inject"].update(
+        detected_at=at, bound=bound, victim_state=inj.health.state(FLEET_VICTIM),
+        delta_faults=int(delta.sum()) if delta is not None else 0, true_new_faults=int(true_new.sum()),
+        others_quiet=quiet, others_tokens_as_control=kept, fired=fired, detections=inj.health.detections,
+    )
+    log(f"fleet (b) injected on chip {FLEET_VICTIM} at dispatch {FLEET_INJECT_AT}: detected at {at} (bound {bound}), "
+        f"state {inj.health.state(FLEET_VICTIM)}, delta {report['b']['inject']['delta_faults']} PEs of "
+        f"{int(true_new.sum())} new faults; chips {others} quiet {quiet}, tokens as the control run {kept}; "
+        f"detections {inj.health.detections}; alerts fired {fired}")
+    if (at is None or at > bound or inj.health.state(FLEET_VICTIM) == HEALTHY or delta is None
+            or not delta.any() or (delta & ~true_new).any() or not quiet or not kept
+            or inj.health.detections != 1 or "detect.new_faults" not in fired):
+        raise Failed(f"fleet (b): the injection was not detected on chip {FLEET_VICTIM} alone: {report['b']['inject']}")
+    del ctl, inj, outs_ctl, outs_inj, outs_b16
+
+    # -- (c) the chip-batched masked GEMM against its plain version at every shape the
+    # phase's dispatches give it: (a)'s decode (M = 4) and prefill (M = 512) and (b)'s
+    # decode over its slots, in bf16 (decode and mma) and float32 (v1), the layers'
+    # weights row-major and the tied unembed's embed.T k-contiguous --------------------
+    flush = torch.empty(2**28, dtype=torch.int32, device=dev)
+    oks = torch.stack([from_fault_map(maps[c], "kernel", device=dev).ok for c in range(FLEET_CHIPS)])
+    ok_list = list(oks.unbind(0))  # one lasting tensor per chip: each packs its bits once
+
+    def fleet_operands(dtype, m, k_, n_):
+        """FLEET_CHIPS chips' x (dtype) and fp32 master w, embed.T read in place."""
+        g = torch.Generator(device=dev).manual_seed(k_ + n_ + m)
+        x = torch.randn(FLEET_CHIPS, m, k_, generator=g, device=dev).to(dtype)
+        w = torch.randn(FLEET_CHIPS, n_, k_, generator=g, device=dev) / k_ ** 0.5
+        return x, (w.transpose(1, 2) if n_ == cfg.vocab_size else w.transpose(1, 2).contiguous())
+
+    fleet_err, parity = dict.fromkeys(("decode", "mma", "v1"), 0.0), []
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        rtol, atol = dtype_tol(dtype)
+        for m in (BATCH, FLEET_ENGINE["num_slots"], BATCH * PROMPT):
+            kind = pick_variant(dtype, m)
+            for k_, n_, _ in cfg.gemm_shapes():
+                x, w = fleet_operands(dtype, m, k_, n_)
+                before = masked_matmul.fleet_launches_by_variant[kind]
+                got = masked_matmul(x, w, oks).float()
+                ran = masked_matmul.fleet_launches_by_variant[kind] - before
+                ref = masked_matmul_ref(x, w, oks).float()
+                err = float((got - ref).abs().max())
+                fleet_err[kind] = max(fleet_err[kind], err)
+                parity.append(dict(dtype=str(dtype).split(".")[-1], m=m, k=k_, n=n_, variant=kind,
+                                   k_contiguous=w.stride(1) == 1, max_abs_err=err))
+                if ran != 1 or not bool(((got - ref).abs() <= atol + rtol * ref.abs()).all()):
+                    raise Failed(f"fleet (c): chip-batched masked GEMM, {dtype} x at M={m} ({k_}, {n_}): "
+                                 f"{ran} chip-batched {kind} launches (expected 1), max err {err:.3g} against "
+                                 f"the plain version (rtol {rtol}, atol {atol})")
+                del x, w, got, ref
+    stages["(c) chip-batched GEMM parity"] = time.perf_counter() - t0
+    log(f"fleet (c) chip-batched masked GEMM against its plain version, {FLEET_CHIPS} chips, fp32 master w "
+        f"(embed.T k-contiguous), at M = {BATCH}, {FLEET_ENGINE['num_slots']} and {BATCH * PROMPT}: max err by "
+        f"variant {fleet_err} (bf16 x: decode, mma; float32 x: v1; each within dtype_tol of its dtype)")
+
+    # -- (c) its time against its bound, one chip at a time and bmm --------------------
+    gemm = {}
+    t0 = time.perf_counter()
+    for m in (BATCH, BATCH * PROMPT):
+        rows = []
+        for k_, n_, uses in cfg.gemm_shapes():
+            x, w = fleet_operands(torch.bfloat16, m, k_, n_)
+            wm = (w.to(torch.bfloat16).float() * periodic_mask(w.shape, oks)).to(torch.bfloat16)
+            chip_bytes = 4 * k_ * n_ + 2 * m * k_ + 2 * m * n_ + rows_ * -(-cols_ // 8)
+            ops = 2 * m * k_ * n_
+            bytes_ms = FLEET_CHIPS * chip_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = FLEET_CHIPS * ops / PEAK_OPS["bfloat16"] * 1e3
+            rows.append(dict(
+                k=k_, n=n_, uses=uses,
+                ms=event_ms(torch, lambda: masked_matmul(x, w, oks), flush),
+                singles_ms=event_ms(torch, lambda: [masked_matmul(x[c], w[c], ok_list[c]) for c in range(FLEET_CHIPS)],
+                                    flush),
+                library_ms=event_ms(torch, lambda: torch.bmm(x, wm), flush),
+                plain_ms=event_ms(torch, lambda: masked_matmul_ref(x, w, oks), flush, reps=3),
+                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+            ))
+            del x, w, wm
+        step = {key: sum(r[key] * r["uses"] for r in rows) for key in rows[0] if key.endswith("ms")}
+        step["bound_by"] = "bytes" if step["bytes_ms"] >= step["ops_ms"] else "operations"
+        step["max_abs_err"] = fleet_err[pick_variant(torch.bfloat16, m)]
+        gemm[m] = dict(step=step, rows=rows)
+        log(f"fleet (c) chip-batched masked GEMM ({card}), {FLEET_CHIPS} chips, bf16 x, fp32 master read in place, "
+            f"one {'decode step' if m == BATCH else 'prefill'}'s {per_step} launches at M={m}: {step['ms']:.4f} ms "
+            f"(bound {step['bound_ms']:.4f} ms by {step['bound_by']}: the chips' bytes {step['bytes_ms']:.4f}, "
+            f"operations {step['ops_ms']:.4f}); the same launches one chip at a time {step['singles_ms']:.4f} ms; "
+            f"torch.bmm on pre-masked bf16 w {step['library_ms']:.4f} ms; plain {step['plain_ms']:.4f} ms")
+    stages["(c) chip-batched GEMM timing"] = time.perf_counter() - t0
+    del flush, oks, ok_list, models, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(gemm={str(m): v for m, v in gemm.items()}, parity=parity, max_abs_err=fleet_err,
+                  launches_fleet=fleet_totals, stages=stages, seconds=time.perf_counter() - t_phase)
+    log(f"fleet phase ({card}): {report['seconds']:.2f} s; stages (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; chip-batched launches {fleet_totals}")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2337,7 +2857,10 @@ def run(args, torch) -> int:
     # ---- phase 13: continuous serving with online fault detection -----------
     cont_report = continuous_phase(torch, log, profile=args.profile)
 
-    # ---- phase 14: the record -----------------------------------------------
+    # ---- phase 14: fleet serving ------------------------------------------------
+    fleet_report = fleet_phase(torch, log, profile=args.profile)
+
+    # ---- phase 15: the record -----------------------------------------------
     def gemm_sum(arch, dtype, m, layers_only=False):
         """One step's masked GEMMs at M = m, each launch timed alone, times its uses."""
         shapes = arch.gemm_shapes()
@@ -2378,22 +2901,34 @@ def run(args, torch) -> int:
 
     lm_launches = lm_report["deploy"]["launches"]
     cont_launches = cont_report["launches"]
+    fleet_launches = fleet_report["launches_fleet"]
+    fleet_err = fleet_report["max_abs_err"]
+    fstep = fleet_report["gemm"][str(BATCH)]["step"]
+
+    def mm_entry(variant):
+        """A masked-GEMM variant's source, and its worst error over phase 2's
+        single-chip cases and phase 14's chip-batched ones."""
+        return {**mm_src, "max_abs_err": max(mm_err, fleet_err[variant]), "max_abs_err_fleet": fleet_err[variant]}
+
     kernels = [
-        dict(name="masked_matmul.decode", **mm_src, launches=variant_launches["masked_matmul.decode"],
-             launches_continuous=cont_launches["decode"],
+        dict(name="masked_matmul.decode", **mm_entry("decode"), launches=variant_launches["masked_matmul.decode"],
+             launches_continuous=cont_launches["decode"], launches_fleet=fleet_launches["decode"],
              ms=dstep["f32w_ms"], plain_ms=dstep["plain_ms"], bound_ms=dstep["f32w_bound_ms"],
              bound_by=bound_by(dstep, "f32w_"), library_ms=dstep["library_ms"]),
-        dict(name="masked_matmul.mma", **mm_src, launches=variant_launches["masked_matmul.mma"],
+        dict(name="masked_matmul.mma", **mm_entry("mma"), launches=variant_launches["masked_matmul.mma"],
              launches_lm_eval=lm_launches["masked_matmul"]["mma"],
-             launches_continuous=cont_launches["mma"],
+             launches_continuous=cont_launches["mma"], launches_fleet=fleet_launches["mma"],
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
              bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
-        dict(name="masked_matmul.v1", **mm_src, launches=variant_launches["masked_matmul.v1"],
+        dict(name="masked_matmul.v1", **mm_entry("v1"), launches=variant_launches["masked_matmul.v1"],
              launches_efat_deploy=efat_report["deploy"]["v1"],
              launches_lm_eval=lm_launches["masked_matmul"]["v1"],
-             launches_continuous=cont_launches["v1"],
+             launches_continuous=cont_launches["v1"], launches_fleet=fleet_launches["v1"],
              ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
              bound_by=bound_by(f32_step), library_ms=f32_step["library_ms"]),
+        dict(name=f"masked_matmul.decode.chips{FLEET_CHIPS}", **{**mm_src, "max_abs_err": fstep["max_abs_err"]},
+             launches=fleet_launches["decode"], ms=fstep["ms"], plain_ms=fstep["plain_ms"],
+             bound_ms=fstep["bound_ms"], bound_by=fstep["bound_by"], library_ms=fstep["library_ms"]),
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
              launches_lm_eval=lm_launches["flash_attention"]["mma"],
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
@@ -2422,7 +2957,7 @@ def run(args, torch) -> int:
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
     for k in kernels:
-        if not k["launches"] or k.get("launches_continuous") == 0:
+        if not k["launches"] or k.get("launches_continuous") == 0 or k.get("launches_fleet") == 0:
             raise Failed(f"{k['name']} was not launched on its main path")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
@@ -2436,7 +2971,7 @@ def run(args, torch) -> int:
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
-        long_prefill=long_report, efat=efat_report, lm_fat=lm_report, continuous=cont_report,
+        long_prefill=long_report, efat=efat_report, lm_fat=lm_report, continuous=cont_report, fleet=fleet_report,
         seconds=time.perf_counter() - t_start,
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
@@ -2445,7 +2980,8 @@ def run(args, torch) -> int:
         f"{sum(u for _, _, u in cfg.gemm_shapes())} launches at M={BATCH}, the fp32 master read in place "
         f"(plain and torch.matmul on the bf16 copy); masked_matmul.mma: SmolLM-135M's layer GEMMs at "
         f"M={BATCH * LONG}, once per layer, fp32 master; masked_matmul.v1: the float32 decode step; "
-        f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
+        f"masked_matmul.decode.chips{FLEET_CHIPS}: the same decode step for {FLEET_CHIPS} chips, one chip-batched launch "
+        f"a GEMM (launches: phase 14's); flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
         f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "
         f"int8 tokens, bf16 q, the heuristic bkv (launches: the tuner's); paged_decode_attention: "
         f"one launch over {PAGED_SLOTS} slots of a paged pool, bf16 q; run time "

@@ -109,6 +109,25 @@ class ArchConfig:
             shapes += [(d, 2 * di, L), (di, r + 2 * n, L), (r, di, L), (di, d, L)]
         return shapes + [(d, self.vocab_size, 1)]
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula (the fleet
+        capacity planner sizes members with it)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        hd = self.resolved_head_dim
+        per_layer = 0
+        if self.has_attention:
+            per_layer += d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
+        if self.has_ssm:
+            di, n, r = self.d_inner, self.ssm_state, self.resolved_dt_rank
+            per_layer += d * 2 * di + di * self.ssm_conv + di * (r + 2 * n) + r * di + di + di * n + di + di * d
+        if self.has_moe:
+            per_layer += d * self.num_experts + self.num_experts * 3 * d * f
+        elif f > 0:
+            per_layer += (3 if self.activation == "swiglu" else 2) * d * f
+        per_layer += 2 * d  # two norms
+        head = 0 if self.tie_embeddings else v * d
+        return L * per_layer + v * d + head + d  # embedding, head, final norm
+
 
 _ARCH_MODULES = ["falcon_mamba_7b", "smollm_135m", "hymba_1_5b", "paper_mlp"]
 

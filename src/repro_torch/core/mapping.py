@@ -38,14 +38,15 @@ def periodic_mask(
     """Expand the (R, C) healthy mask to a weight's shape.
 
     The LAST TWO dims of the weight are the GEMM (d_in, d_out) view; leading
-    dims replicate the same chip mask.
+    dims replicate the same chip mask. A stack of masks (chips, R, C) gives
+    each chip's (chips, d_in, d_out) mask.
     """
     ok = ok.to(dtype)
-    r_, c_ = ok.shape
+    r_, c_ = ok.shape[-2:]
     d_in, d_out = weight_shape[-2], weight_shape[-1]
     rows = torch.arange(d_in, device=ok.device) % r_
     cols = torch.arange(d_out, device=ok.device) % c_
-    return ok[rows[:, None], cols[None, :]].expand(weight_shape)
+    return ok[..., rows[:, None], cols[None, :]].expand(weight_shape)
 
 
 def masked_weight(w: torch.Tensor, ok: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,11 +1,36 @@
-"""The fleet layer: how retraining jobs are packed into population chunks
-(``scheduler``). The sharded engine and fleet serving wait (ROADMAP.md
-§1.4)."""
+"""The fleet layer between the FAT engines and the serve stack.
+
+* :mod:`repro_torch.fleet.scheduler`: :class:`FleetScheduler`, budget-aware
+  (LPT) packing of retraining jobs into population chunks.
+* :mod:`repro_torch.fleet.capacity`: :func:`suggest_population_size`,
+  sizing population lanes against device memory.
+* :mod:`repro_torch.fleet.serve`: :class:`FleetServeEngine`, one engine
+  advancing N faulty chips' deployed models a token per dispatch, and
+  :class:`ShardedFleetServeEngine`, continuous-batch fleet serving with one
+  ragged request stream and paged-KV slot table per chip.
+
+The sharded population engine is the next slice (ROADMAP.md §1.4.3).
+"""
+from repro_torch.fleet.capacity import suggest_population_size
 from repro_torch.fleet.scheduler import (
     FleetSchedule,
     FleetScheduler,
     ScheduledChunk,
     round_up_to_multiple,
 )
+from repro_torch.fleet.serve import (
+    FleetGenerateResult,
+    FleetServeEngine,
+    ShardedFleetServeEngine,
+)
 
-__all__ = ["FleetSchedule", "FleetScheduler", "ScheduledChunk", "round_up_to_multiple"]
+__all__ = [
+    "FleetSchedule",
+    "FleetScheduler",
+    "ScheduledChunk",
+    "FleetGenerateResult",
+    "FleetServeEngine",
+    "ShardedFleetServeEngine",
+    "round_up_to_multiple",
+    "suggest_population_size",
+]

@@ -1,4 +1,5 @@
-// Fault-masked GEMM for Hopper (sm_90a):  y[M, N] = x[M, K] @ (w[K, N] * ok[k % R, n % C]).
+// Fault-masked GEMM for Hopper (sm_90a):  y[M, N] = x[M, K] @ (w[K, N] * ok[k % R, n % C]),
+// for one chip or for a fleet of chips in one launch: y[c] = x[c] @ (w[c] * ok[c] tiled).
 //
 // Replaces the TPU kernel src/repro/kernels/masked_matmul/masked_matmul.py::masked_matmul_pallas.
 //
@@ -37,7 +38,14 @@
 // as bits packed once per mask by the wrapper (8 KB for 256 x 256, L1-resident), 1 byte per 8
 // weights instead of 32 bytes of float mask. Where K is split, each slice writes an fp32 partial
 // and the last slice of each tile sums them in slice order, so results do not change from run to
-// run. Left for later work: wgmma and TMA (a warp-specialized producer ring) for the mma kernel,
+// run.
+//
+// A chip axis (the counterpart of the TPU kernel under jax.vmap, whose batching rule adds the
+// chip to the kernel's grid): every kernel takes `chips` stacks of x (chips, M, K), w (chip
+// stride swc, 0 for a weight shared by every chip), the mask and y (chips, M, N), and folds the
+// chip into grid.y. Each chip has its own split-K counters (the tile index counts chips x tiles)
+// and its own slices of the scratch, and the plan cuts K for chips x tiles output tiles. One
+// launch serves the whole fleet. Left for later work: wgmma and TMA (a warp-specialized producer ring) for the mma kernel,
 // and a CUDA graph of the decode step, whose small GEMMs are launch-bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,8 +74,8 @@ template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const float* __restrict__ ok, T* __restrict__ y, int M, int N, int K,
-                     long long swk, long long swn, int R, int C, int tiles_per_split,
-                     float* __restrict__ part, int* __restrict__ counters) {
+                     long long swk, long long swn, long long swc, int R, int C,
+                     int tiles_per_split, float* __restrict__ part, int* __restrict__ counters) {
   constexpr int TX = BN / TN;          // threads along N
   constexpr int NT = (BM / TM) * TX;   // threads per block
   constexpr int XL = BM * BK / NT;     // x elements each thread stages per tile
@@ -80,7 +88,14 @@ masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // grid.y walks chips x row tiles; each chip has its own x, w, mask, y and partials
+  const int m_tiles = (M + BM - 1) / BM, chip = blockIdx.y / m_tiles;
+  x += (long long)chip * M * K;
+  w += chip * swc;
+  ok += (long long)chip * R * C;
+  y += (long long)chip * M * N;
+  part += (long long)chip * gridDim.z * M * N;
+  const int m0 = (blockIdx.y % m_tiles) * BM, n0 = blockIdx.x * BN;
   // Neighbouring threads walk w along its unit-stride axis, so loads coalesce either way.
   // Each thread keeps one coordinate of its staged w elements fixed and steps the other.
   const bool n_contig = (swn == 1);
@@ -210,38 +225,39 @@ masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
-int launch(const void* x, const void* w, const void* ok, void* y, int M, int N, int K,
-           long long swk, long long swn, int R, int C, int splits, char* scratch,
+int launch(int chips, const void* x, const void* w, const void* ok, void* y, int M, int N, int K,
+           long long swk, long long swn, long long swc, int R, int C, int splits, char* scratch,
            long long scratch_bytes, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const dim3 grid((N + BN - 1) / BN, chips * ((M + BM - 1) / BM), splits);
   const int ntiles = (K + BK - 1) / BK;
   const int per = (ntiles + splits - 1) / splits;
-  // scratch: one int counter per output tile (16-byte aligned), then each slice's partial
+  // scratch: one int counter per output tile of every chip (16-byte aligned), then each chip's
+  // slices' partials
   const long long counter_bytes = (4LL * grid.x * grid.y + 15) / 16 * 16;
   int* counters = reinterpret_cast<int*>(scratch);
   float* part = reinterpret_cast<float*>(scratch + counter_bytes);
   if (splits > 1) {
-    if (scratch_bytes < counter_bytes + 4LL * splits * M * N)
+    if (scratch_bytes < counter_bytes + 4LL * splits * chips * M * N)
       return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = cudaMemsetAsync(counters, 0, 4LL * grid.x * grid.y, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   masked_matmul_kernel<T, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(ok),
-      static_cast<T*>(y), M, N, K, swk, swn, R, C, per, part, counters);
+      static_cast<T*>(y), M, N, K, swk, swn, swc, R, C, per, part, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, const void* ok, void* y, int M, int N, int K,
-             long long swk, long long swn, int R, int C, int splits, char* scratch,
-             long long scratch_bytes, cudaStream_t s) {
+int dispatch(int chips, const void* x, const void* w, const void* ok, void* y, int M, int N,
+             int K, long long swk, long long swn, long long swc, int R, int C, int splits,
+             char* scratch, long long scratch_bytes, cudaStream_t s) {
   // tile shapes; kernels/masked_matmul/ops.py::_TILES mirrors them to size the scratch
   if (M <= 16)  // decode: one 16-row tile covers the batch
-    return launch<T, 16, 64, 32, 2, 2>(x, w, ok, y, M, N, K, swk, swn, R, C, splits, scratch,
-                                        scratch_bytes, s);
-  return launch<T, 64, 64, 16, 4, 4>(x, w, ok, y, M, N, K, swk, swn, R, C, splits, scratch,
-                                      scratch_bytes, s);
+    return launch<T, 16, 64, 32, 2, 2>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits,
+                                        scratch, scratch_bytes, s);
+  return launch<T, 64, 64, 16, 4, 4>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits,
+                                      scratch, scratch_bytes, s);
 }
 
 }  // namespace v1
@@ -344,7 +360,8 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
 // merge is a tail on one SM, bound by L2 latency, so its threads keep many loads in flight (float4
 // loads where the columns allow). The tile's
 // counter is left at 0 for the next launch, so the caller zeroes the counters once, not per
-// launch.
+// launch. grid.y is the chip: `part` is the chip's own, and the counter index counts chips x
+// tiles.
 __device__ void merge_splits(const float* part, int* counters, __nv_bfloat16* y, int M, int N,
                              int m0, int rows, int n0, int cols) {
   __shared__ int is_last;
@@ -440,9 +457,16 @@ template <typename WT, int MT>
 __global__ void __launch_bounds__(DEC_THREADS, MT > 4 ? 1 : 2)
 decode_rows_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
                    const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ y, int M, int N,
-                   int K, long long swk, int R, int C, int cbytes, int rows_per_split, int vec,
-                   int x_aligned, float* __restrict__ part, int* __restrict__ counters) {
+                   int K, long long swk, long long swc, int R, int C, int cbytes,
+                   int rows_per_split, int vec, int x_aligned, float* __restrict__ part,
+                   int* __restrict__ counters) {
   constexpr int U = MT > 4 ? 4 : 8;  // consecutive rows per step
+  const int chip = blockIdx.y;
+  x += (long long)chip * M * K;
+  w += chip * swc;
+  bits += (long long)chip * R * cbytes;
+  y += (long long)chip * M * N;
+  part += (long long)chip * gridDim.z * M * N;
   __shared__ __align__(16) float red[MT * 8 * 32];  // [m][j][lane]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nb = blockIdx.x * DEC_BN_ROWS;
@@ -543,9 +567,16 @@ template <typename WT, int MT>
 __global__ void __launch_bounds__(DEC_THREADS, MT > 4 ? 1 : 2)
 decode_cols_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
                    const uint8_t* __restrict__ bits_t, __nv_bfloat16* __restrict__ y, int M, int N,
-                   int K, long long swn, int R, int C, int rbytes, int rows_per_split, int vec,
-                   float* __restrict__ part, int* __restrict__ counters) {
+                   int K, long long swn, long long swc, int R, int C, int rbytes,
+                   int rows_per_split, int vec, float* __restrict__ part,
+                   int* __restrict__ counters) {
   constexpr int U = MT > 4 ? 2 : 128 / (int)sizeof(WRaw<WT>);  // 128 bytes of w in flight at M <= 4
+  const int chip = blockIdx.y;
+  x += (long long)chip * M * K;
+  w += chip * swc;
+  bits_t += (long long)chip * C * rbytes;
+  y += (long long)chip * M * N;
+  part += (long long)chip * gridDim.z * M * N;
   constexpr int DEC_KC = dec_kc<MT>();
   __shared__ __align__(16) float xs[MT * DEC_KC];  // [m][k]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane & 7;
@@ -684,9 +715,15 @@ template <typename WT, bool KCONTIG>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
 mma_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
            const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ y, int M, int N, int K,
-           long long wstride, int R, int C, int bstride, int tiles_per_split, int x_async,
-           int w_vec, float* __restrict__ part, int* __restrict__ counters) {
+           long long wstride, long long swc, int R, int C, int bstride, int tiles_per_split,
+           int x_async, int w_vec, float* __restrict__ part, int* __restrict__ counters) {
   constexpr int BT = mma_b_elems<KCONTIG>();
+  const int chip = blockIdx.y;
+  x += (long long)chip * M * K;
+  w += chip * swc;
+  bits += (long long)chip * (KCONTIG ? C : R) * bstride;
+  y += (long long)chip * M * N;
+  part += (long long)chip * gridDim.z * M * N;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [3][BM * ALD]
   __nv_bfloat16* const Bs = As + MMA_A_STAGES * MMA_A_ELEMS;             // [2][BT]
@@ -890,12 +927,12 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
 // launches
 // ---------------------------------------------------------------------------
 
-// Scratch of the bf16 kernels: splits * M * N floats of partials where K is split; the counters
-// are the caller's, zero, one per output tile, and are left at zero.
-int check_split(int splits, long long tiles_out, int M, int N, long long scratch_bytes,
+// Scratch of the bf16 kernels: chips * splits * M * N floats of partials where K is split; the
+// counters are the caller's, zero, one per output tile of every chip, and are left at zero.
+int check_split(int chips, int splits, long long tiles_out, int M, int N, long long scratch_bytes,
                 int counters_len) {
   if (splits == 1) return 0;
-  if (scratch_bytes < 4LL * splits * M * N || counters_len < tiles_out)
+  if (scratch_bytes < 4LL * chips * splits * M * N || counters_len < chips * tiles_out)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -910,88 +947,89 @@ int split_count(int tiles_k, int want) {
   return (tiles_k + per - 1) / per;
 }
 
-// The bf16 kernels' plan: K slices and output tiles. Both keep the grid within one wave of two
-// blocks per SM (a second, partial wave would double the time). decode cuts K into whole
-// DEC_KQ-row granules, at most DEC_MAX_SPLITS slices; mma gives each slice at least
-// MMA_MIN_TILES k tiles.
-void plan(int variant, int M, int N, int K, bool kcontig, int sms, int* splits, int* tiles_out) {
+// The bf16 kernels' plan: K slices and output tiles (per chip). Both keep the grid of chips x
+// tiles x slices within one wave of two blocks per SM (a second, partial wave would double the
+// time), so a fleet's launch splits K less than one chip's. decode cuts K into whole DEC_KQ-row
+// granules, at most DEC_MAX_SPLITS slices; mma gives each slice at least MMA_MIN_TILES k tiles.
+void plan(int variant, int chips, int M, int N, int K, bool kcontig, int sms, int* splits,
+          int* tiles_out) {
   if (variant == 2) {
     const int bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS;
     *tiles_out = (N + bn - 1) / bn;
     *splits = split_count(std::max(1, (K + DEC_KQ - 1) / DEC_KQ),
-                          std::min(DEC_MAX_SPLITS, std::max(1, 2 * sms / *tiles_out)));
+                          std::min(DEC_MAX_SPLITS, std::max(1, 2 * sms / (chips * *tiles_out))));
   } else {
     *tiles_out = ((M + MMA_BM - 1) / MMA_BM) * ((N + MMA_BN - 1) / MMA_BN);
     const int tiles_k = std::max(1, (K + MMA_BK - 1) / MMA_BK);
-    *splits = split_count(tiles_k, std::min(tiles_k / MMA_MIN_TILES, 2 * sms / *tiles_out));
+    *splits = split_count(tiles_k, std::min(tiles_k / MMA_MIN_TILES, 2 * sms / (chips * *tiles_out)));
   }
 }
 
 template <typename WT>
-int launch_decode(const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t, void* y,
-                  int M, int N, int K, long long swk, long long swn, int R, int C, int splits,
-                  float* part, long long scratch_bytes, int* counters, int counters_len,
-                  cudaStream_t s) {
+int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
+                  void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
+                  int C, int splits, float* part, long long scratch_bytes, int* counters,
+                  int counters_len, cudaStream_t s) {
   if (M > 16) return static_cast<int>(cudaErrorInvalidValue);
   const bool kcontig = swn != 1;
   const int bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS;
-  const dim3 grid((N + bn - 1) / bn, 1, splits);
+  const dim3 grid((N + bn - 1) / bn, chips, splits);
   const int tiles_k = (K + DEC_KQ - 1) / DEC_KQ;
   const int rows = (tiles_k + splits - 1) / splits * DEC_KQ;
-  if (int err = check_split(splits, grid.x, M, N, scratch_bytes, counters_len)) return err;
+  if (int err = check_split(chips, splits, grid.x, M, N, scratch_bytes, counters_len)) return err;
   const long long unit = 16 / sizeof(WT);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wt = static_cast<const WT*>(w);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if (kcontig) {
-    const int vec = aligned16(w) && swn % unit == 0;
+    const int vec = aligned16(w) && swn % unit == 0 && swc % unit == 0;
     const int rbytes = (R + 7) / 8;
     if (M <= 4)
-      decode_cols_kernel<WT, 4><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits_t, yb, M, N, K, swn, R, C,
-                                                             rbytes, rows, vec, part, counters);
+      decode_cols_kernel<WT, 4><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits_t, yb, M, N, K, swn, swc, R,
+                                                             C, rbytes, rows, vec, part, counters);
     else
-      decode_cols_kernel<WT, 16><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits_t, yb, M, N, K, swn, R, C,
-                                                              rbytes, rows, vec, part, counters);
+      decode_cols_kernel<WT, 16><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits_t, yb, M, N, K, swn, swc,
+                                                              R, C, rbytes, rows, vec, part, counters);
   } else {
-    const int vec = aligned16(w) && swk % unit == 0;
+    const int vec = aligned16(w) && swk % unit == 0 && swc % unit == 0;
     const int cbytes = (C + 7) / 8;
-    const int xa = aligned16(x);
+    const int xa = aligned16(x) && (chips == 1 || (long long)M * K % 8 == 0);  // every chip's x
     if (M <= 4)
-      decode_rows_kernel<WT, 4><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits, yb, M, N, K, swk, R, C,
-                                                             cbytes, rows, vec, xa, part, counters);
+      decode_rows_kernel<WT, 4><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits, yb, M, N, K, swk, swc, R,
+                                                             C, cbytes, rows, vec, xa, part, counters);
     else
-      decode_rows_kernel<WT, 16><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits, yb, M, N, K, swk, R, C,
-                                                              cbytes, rows, vec, xa, part, counters);
+      decode_rows_kernel<WT, 16><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits, yb, M, N, K, swk, swc, R,
+                                                              C, cbytes, rows, vec, xa, part, counters);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT, bool KCONTIG>
 int launch_mma_layout(dim3 grid, const __nv_bfloat16* x, const WT* w, const uint8_t* bits,
-                      __nv_bfloat16* y, int M, int N, int K, long long wstride, int R, int C,
-                      int bstride, int per, int x_async, int w_vec, float* part, int* counters,
-                      cudaStream_t s) {
+                      __nv_bfloat16* y, int M, int N, int K, long long wstride, long long swc,
+                      int R, int C, int bstride, int per, int x_async, int w_vec, float* part,
+                      int* counters, cudaStream_t s) {
   constexpr int smem = mma_smem_bytes<KCONTIG>();
   // above 48 KB only after this attribute is set (on the current device)
   const cudaError_t err = cudaFuncSetAttribute(mma_kernel<WT, KCONTIG>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mma_kernel<WT, KCONTIG><<<grid, MMA_THREADS, smem, s>>>(x, w, bits, y, M, N, K, wstride, R, C,
-                                                          bstride, per, x_async, w_vec, part,
+  mma_kernel<WT, KCONTIG><<<grid, MMA_THREADS, smem, s>>>(x, w, bits, y, M, N, K, wstride, swc, R,
+                                                          C, bstride, per, x_async, w_vec, part,
                                                           counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT>
-int launch_mma(const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t, void* y,
-               int M, int N, int K, long long swk, long long swn, int R, int C, int splits,
-               float* part, long long scratch_bytes, int* counters, int counters_len,
-               cudaStream_t s) {
+int launch_mma(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
+               void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
+               int C, int splits, float* part, long long scratch_bytes, int* counters,
+               int counters_len, cudaStream_t s) {
   const bool kcontig = swn != 1;
-  const dim3 grid(((M + MMA_BM - 1) / MMA_BM) * ((N + MMA_BN - 1) / MMA_BN), 1, splits);
+  const dim3 grid(((M + MMA_BM - 1) / MMA_BM) * ((N + MMA_BN - 1) / MMA_BN), chips, splits);
   const int tiles_k = (K + MMA_BK - 1) / MMA_BK;
   const int per = (tiles_k + splits - 1) / splits;
-  if (int err = check_split(splits, grid.x, M, N, scratch_bytes, counters_len))
+  if (int err = check_split(chips, splits, grid.x, M, N, scratch_bytes, counters_len))
     return err;
   const long long unit = 16 / sizeof(WT);
   const int x_async = aligned16(x) && K % 8 == 0;
@@ -999,58 +1037,66 @@ int launch_mma(const void* x, const void* w, const uint8_t* bits, const uint8_t*
   const auto* wt = static_cast<const WT*>(w);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if (kcontig)
-    return launch_mma_layout<WT, true>(grid, xb, wt, bits_t, yb, M, N, K, swn, R, C, (R + 7) / 8, per,
-                                       x_async, aligned16(w) && swn % unit == 0, part, counters, s);
-  return launch_mma_layout<WT, false>(grid, xb, wt, bits, yb, M, N, K, swk, R, C, (C + 7) / 8, per,
-                                      x_async, aligned16(w) && swk % unit == 0, part, counters, s);
+    return launch_mma_layout<WT, true>(grid, xb, wt, bits_t, yb, M, N, K, swn, swc, R, C, (R + 7) / 8,
+                                       per, x_async, aligned16(w) && swn % unit == 0 && swc % unit == 0,
+                                       part, counters, s);
+  return launch_mma_layout<WT, false>(grid, xb, wt, bits, yb, M, N, K, swk, swc, R, C, (C + 7) / 8,
+                                      per, x_async, aligned16(w) && swk % unit == 0 && swc % unit == 0,
+                                      part, counters, s);
 }
 
 }  // namespace
 
-// The launch plan of a bf16 kernel (variant 2 = decode, 3 = mma) for x (M, K) and w (K, N), w
-// k-contiguous (embed.T) or not, on a card of `sms` SMs: out[0] = K slices, out[1] = the scratch
-// bytes a launch needs (the slices' fp32 partials; 0 for one slice), out[2] = output tiles, the
-// split-K counters it needs. The kernels' tiles and split rules live here alone.
-extern "C" int masked_matmul_plan(int variant, int M, int N, int K, int kcontig, int sms,
+// The launch plan of a bf16 kernel (variant 2 = decode, 3 = mma) for `chips` stacks of x (M, K)
+// and w (K, N), w k-contiguous (embed.T) or not, on a card of `sms` SMs: out[0] = K slices,
+// out[1] = the scratch bytes a launch needs (every chip's slices' fp32 partials; 0 for one
+// slice), out[2] = output tiles of all chips, the split-K counters it needs. The kernels' tiles
+// and split rules live here alone.
+extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, int kcontig, int sms,
                                   long long* out) {
-  if ((variant != 2 && variant != 3) || M < 1 || N < 1 || K < 1 || sms < 1 ||
+  if ((variant != 2 && variant != 3) || chips < 1 || M < 1 || N < 1 || K < 1 || sms < 1 ||
       (variant == 2 && M > 16))
     return static_cast<int>(cudaErrorInvalidValue);
   int splits = 1, tiles_out = 1;
-  plan(variant, M, N, K, kcontig != 0, sms, &splits, &tiles_out);
+  plan(variant, chips, M, N, K, kcontig != 0, sms, &splits, &tiles_out);
   out[0] = splits;
-  out[1] = splits == 1 ? 0 : 4LL * splits * M * N;
-  out[2] = tiles_out;
+  out[1] = splits == 1 ? 0 : 4LL * chips * splits * M * N;
+  out[2] = (long long)chips * tiles_out;
   return 0;
 }
 
 // variant: 1 = v1 (x and w share the dtype xdtype), 2 = decode (M <= 16), 3 = mma; 2 and 3 take
-// bf16 x and w in bf16 or float32. Dtypes: 0 = float32, 1 = bfloat16. ok is the float32 (R, C)
-// mask, contiguous (v1 reads it); bits is it packed 8 entries per byte along C ((R, ceil(C/8))
-// bytes) and bits_t the same of ok.T ((C, ceil(R/8)) bytes), which the bf16 kernels read. x is
-// (M, K) contiguous, y is (M, N) contiguous in x's dtype, w is (K, N) with strides (swk, swn),
-// one of them 1. splits > 1 cuts K into that many slices, one block each per output tile, and
-// needs the caller's scratch: for v1, one int per output tile rounded up to 16 bytes, then
-// splits * M * N floats; for the bf16 kernels splits * M * N floats, and `counters`, at least one
-// zero int per output tile (counters_len of them), which the kernels leave at zero, so launches
-// that share them must run one at a time: the wrapper keeps one buffer per stream.
+// bf16 x and w in bf16 or float32. Dtypes: 0 = float32, 1 = bfloat16. `chips` >= 1 stacks run in
+// one launch. ok is the float32 (chips, R, C) mask, contiguous (v1 reads it); bits is it packed 8
+// entries per byte along C ((chips, R, ceil(C/8)) bytes) and bits_t the same of each ok[c].T
+// ((chips, C, ceil(R/8)) bytes), which the bf16 kernels read. x is (chips, M, K) contiguous, y is
+// (chips, M, N) contiguous in x's dtype, w[c] is (K, N) with strides (swk, swn), one of them 1,
+// and chip c's starts swc elements after chip c - 1's (0: one w for every chip). splits > 1 cuts
+// K into that many slices, one block each per output tile, and needs the caller's scratch: for
+// v1, one int per output tile of every chip rounded up to 16 bytes, then chips * splits * M * N
+// floats; for the bf16 kernels chips * splits * M * N floats, and `counters`, at least one zero
+// int per output tile of every chip (counters_len of them), which the kernels leave at zero, so
+// launches that share them must run one at a time: the wrapper keeps one buffer per stream.
 // masked_matmul_plan gives the bf16 kernels' splits and sizes. Returns the first CUDA error, or
 // cudaGetLastError() after the launch.
-extern "C" int masked_matmul(int variant, int xdtype, int wdtype, const void* x, const void* w,
-                             const void* ok, const void* bits, const void* bits_t, void* y, int M,
-                             int N, int K, long long swk, long long swn, int R, int C, int splits,
-                             void* scratch, long long scratch_bytes, void* counters,
-                             int counters_len, void* stream) {
+extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, const void* x,
+                             const void* w, const void* ok, const void* bits, const void* bits_t,
+                             void* y, int M, int N, int K, long long swk, long long swn,
+                             long long swc, int R, int C, int splits, void* scratch,
+                             long long scratch_bytes, void* counters, int counters_len,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* sc = static_cast<char*>(scratch);
-  if (splits < 1 || (swk != 1 && swn != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || chips < 1 || chips > 65535 || (swk != 1 && swn != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 1) {
     if (xdtype != wdtype) return static_cast<int>(cudaErrorInvalidValue);
     if (xdtype == 0)
-      return v1::dispatch<float>(x, w, ok, y, M, N, K, swk, swn, R, C, splits, sc, scratch_bytes, s);
+      return v1::dispatch<float>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits, sc,
+                                 scratch_bytes, s);
     if (xdtype == 1)
-      return v1::dispatch<__nv_bfloat16>(x, w, ok, y, M, N, K, swk, swn, R, C, splits, sc,
-                                         scratch_bytes, s);
+      return v1::dispatch<__nv_bfloat16>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits,
+                                         sc, scratch_bytes, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (xdtype != 1 || (wdtype != 0 && wdtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
@@ -1060,15 +1106,15 @@ extern "C" int masked_matmul(int variant, int xdtype, int wdtype, const void* x,
   int* cnt = static_cast<int*>(counters);
   if (variant == 2)
     return wdtype == 1
-               ? launch_decode<__nv_bfloat16>(x, w, b, bt, y, M, N, K, swk, swn, R, C, splits, part,
-                                              scratch_bytes, cnt, counters_len, s)
-               : launch_decode<float>(x, w, b, bt, y, M, N, K, swk, swn, R, C, splits, part,
-                                      scratch_bytes, cnt, counters_len, s);
+               ? launch_decode<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C,
+                                              splits, part, scratch_bytes, cnt, counters_len, s)
+               : launch_decode<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+                                      part, scratch_bytes, cnt, counters_len, s);
   if (variant == 3)
     return wdtype == 1
-               ? launch_mma<__nv_bfloat16>(x, w, b, bt, y, M, N, K, swk, swn, R, C, splits, part,
-                                           scratch_bytes, cnt, counters_len, s)
-               : launch_mma<float>(x, w, b, bt, y, M, N, K, swk, swn, R, C, splits, part,
-                                   scratch_bytes, cnt, counters_len, s);
+               ? launch_mma<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C,
+                                           splits, part, scratch_bytes, cnt, counters_len, s)
+               : launch_mma<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+                                   part, scratch_bytes, cnt, counters_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

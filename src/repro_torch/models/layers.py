@@ -107,18 +107,19 @@ def dense_attention(
         rows = torch.arange(sq, device=q.device)[:, None] + q_offset
         keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
         cols = cols[None, :]
+    # out of place: under the fleet's vmap the masks are batched
     if causal:
-        keep &= cols <= rows
+        keep = keep & (cols <= rows)
     if window is not None:
-        keep &= cols > rows - window
+        keep = keep & (cols > rows - window)
     if kv_valid_len is not None:
         # a Python int stays on the host: a device copy of it would block
         vld = kv_valid_len
         if per_seq:
             vld = torch.as_tensor(vld, device=q.device).expand(b)[:, None, None]
-        keep &= cols < vld
+        keep = keep & (cols < vld)
     if segments is not None:
-        keep &= segments[:, :, None] == segments[:, None, :]
+        keep = keep & (segments[:, :, None] == segments[:, None, :])
     keep = keep[:, None, None] if per_seq else keep
     s = s.masked_fill(~keep, -1e30)
     p = torch.softmax(s, dim=-1)
@@ -168,9 +169,9 @@ def blockwise_attention(
             cols = ks + torch.arange(kv_chunk, device=q.device)[None, :]
             keep = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=q.device)
             if causal:
-                keep &= cols <= rows
+                keep = keep & (cols <= rows)
             if window is not None:
-                keep &= cols > rows - window
+                keep = keep & (cols > rows - window)
             s = s.masked_fill(~keep, -1e30)
             m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)

@@ -196,6 +196,13 @@ def _view(flat: dict[str, Tensor]) -> SimpleNamespace:
 Params = Union[Model, dict]
 
 
+def as_params(params: Params):
+    """A ``Model``, a namespace view, or a flat dict seen through its view:
+    the serving steps take all three, so ``torch.func.vmap`` can map them
+    over a dict of chip-stacked parameters (the fleet engines)."""
+    return _view(params) if isinstance(params, dict) else params
+
+
 # ---------------------------------------------------------------------------
 # Blocks, embedding, unembedding
 # ---------------------------------------------------------------------------
@@ -242,6 +249,7 @@ def embed_inputs(cfg, params, batch: dict, ctx: FaultContext) -> tuple[Tensor, T
 
 def unembed(cfg, params, x: Tensor, ctx: FaultContext) -> Tensor:
     # tied: a transposed view; the masked-GEMM kernel reads it in place
+    params = as_params(params)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     return fault_linear(x, w, ctx)
 
@@ -296,8 +304,7 @@ def forward(
         flat = params if isinstance(params, dict) else dict(params.named_parameters())
         params = mask_selected_params(flat, ctx)
         ctx = healthy()
-    if isinstance(params, dict):
-        params = _view(params)
+    params = as_params(params)
     x, positions = embed_inputs(cfg, params, batch, ctx)
     rope = _rope(cfg, positions)
     for lp in params.layers:
@@ -396,7 +403,7 @@ def _ring_perm(s_buf: int, total: int) -> np.ndarray:
 
 @torch.no_grad()
 def prefill(
-    params: Model,
+    params: Params,
     batch: dict,
     cfg,
     ctx: Optional[FaultContext] = None,
@@ -433,24 +440,25 @@ def prefill(
     if (full_kv or segments is not None or valid_len is not None) and cfg.has_ssm:
         raise ValueError("padded/packed prefill supports causal attention families only")
     ctx = ctx or healthy()
+    params = as_params(params)
     x, positions = embed_inputs(cfg, params, batch, ctx)
     b, s = x.shape[0], x.shape[1]
     total = s if valid_len is None else int(valid_len)
-    if full_kv:
-        shape = (cfg.num_layers, b, cfg.num_kv_heads, s, cfg.resolved_head_dim)
-        kw = dict(dtype=getattr(torch, cfg.dtype), device=x.device)
-        cache = {"k": torch.empty(shape, **kw), "v": torch.empty(shape, **kw)}
-    else:
-        cache_len = cache_len or s
-        cache = init_cache(cfg, b, cache_len, device=x.device)
-    if cfg.has_attention and not full_kv:
-        s_buf = cache["k"].shape[3]
-        ring = bool(cfg.sliding_window) and s_buf == cfg.sliding_window
-        if s >= s_buf:
+    cache_len = s if full_kv else cache_len or s
+    # the SSM state is written into zeroed buffers; the KV cache is built
+    # from the layers' keys and values without in-place writes, so that
+    # prefill maps over chips under torch.func.vmap (the fleet engines)
+    cache = init_cache(cfg, b, cache_len, device=x.device) if cfg.has_ssm else {}
+    if cfg.has_attention:
+        s_buf = s if full_kv else cache_buffer_len(cfg, cache_len)
+        perm = None
+        if s >= s_buf and not full_kv:
             # the last s_buf VALID tokens end at total
+            ring = bool(cfg.sliding_window) and s_buf == cfg.sliding_window
             start = min(max(total - s_buf, 0), s - s_buf)
-            perm = _ring_perm(s_buf, total) if ring and total >= s_buf else np.arange(s_buf)
-            perm = torch.as_tensor(start + perm, device=x.device)
+            order = _ring_perm(s_buf, total) if ring and total >= s_buf else np.arange(s_buf)
+            perm = torch.as_tensor(start + order, device=x.device)
+    ks, vs = [], []
     rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
         x, pieces = _block(
@@ -458,18 +466,21 @@ def prefill(
         )
         if cfg.has_attention:
             k, v = pieces["kv"]
-            if full_kv:
-                cache["k"][i] = k
-                cache["v"][i] = v
-            elif s >= s_buf:
-                cache["k"][i] = k[:, :, perm]
-                cache["v"][i] = v[:, :, perm]
-            else:
-                cache["k"][i, :, :, :s] = k
-                cache["v"][i, :, :, :s] = v
+            if perm is not None:
+                k, v = k[:, :, perm], v[:, :, perm]
+            ks.append(k)
+            vs.append(v)
         if cfg.has_ssm:
             cache["conv"][i] = pieces["ssm"].conv
             cache["h"][i] = pieces["ssm"].h
+    if cfg.has_attention:
+        # one pad of the stacked prompt: the peak is the cache and one copy
+        # of the prompt's keys and values
+        cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
+        del ks, vs
+        if s < s_buf:
+            tail = (0, 0, 0, s_buf - s)
+            cache["k"], cache["v"] = F.pad(cache["k"], tail), F.pad(cache["v"], tail)
     cache["index"] = total
     if return_hidden:
         return apply_norm(x, params.final_ln, cfg.norm_eps), cache
@@ -480,7 +491,7 @@ def prefill(
 
 @torch.no_grad()
 def prefill_chunk(
-    params: Model,
+    params: Params,
     tokens: Tensor,  # (1, C) — one chunk of one request's prompt
     cfg,
     ctx: Optional[FaultContext] = None,
@@ -504,6 +515,7 @@ def prefill_chunk(
     engine-wide ``max_pages_per_seq``.
     """
     ctx = ctx or healthy()
+    params = as_params(params)
     if cfg.has_ssm:
         raise ValueError("chunked prefill supports causal attention families only")
     b, s = tokens.shape
@@ -538,7 +550,7 @@ def prefill_chunk(
 
 @torch.no_grad()
 def decode_step(
-    params: Model,
+    params: Params,
     tokens: Tensor,
     cache: dict,
     cfg,
@@ -560,8 +572,12 @@ def decode_step(
 
     The cache is updated IN PLACE (its k/v, conv and h buffers or pages, and
     its index or lengths) and the same dict is returned: the counterpart of
-    the reference donating it."""
+    the reference donating it. ``params`` may be a flat dict
+    (:func:`param_dict`), so the step maps over chip-stacked parameters
+    under ``torch.func.vmap``; there, every in-place write lands in the
+    chip's own slice of the stacked cache."""
     ctx = ctx or healthy()
+    params = as_params(params)
     if "k_pages" in cache:
         return _decode_step_paged(params, tokens, cache, cfg, ctx, active=active)
     b, s = tokens.shape

@@ -298,6 +298,216 @@ class _State:
     remaining: torch.Tensor  # (S,) int32 budgets left
 
 
+def upload(arrays: dict, device: torch.device) -> dict:
+    """Host int32 index maps -> device int64 tensors, in one copy that does
+    not wait for the card (pinned memory, ``non_blocking``): the host goes
+    on enqueuing, as the reference's dispatch does."""
+    flat = torch.from_numpy(np.concatenate([np.asarray(a, np.int64).ravel() for a in arrays.values()]))
+    if device.type == "cuda":
+        flat = flat.pin_memory()
+    buf = flat.to(device, non_blocking=True)
+    out, off = {}, 0
+    for k, a in arrays.items():
+        n = int(np.size(a))
+        out[k] = buf[off : off + n].view(np.shape(a))
+        off += n
+    return out
+
+
+def admit_pack(cfg, params, ctx: FaultContext, st: _State, a: dict, n: int) -> None:
+    """Admit a PACK of ``n`` requests in one bucket-shaped dispatch: run
+    the segment-masked prefill over the packed row (``a``: the uploaded
+    ``build_pack`` maps), write every token's KV into its request's page
+    chain (pad tokens hit the scratch page 0), gather each segment's
+    last-token hidden state for its first logits (the unembed runs at the
+    pack's full width, ``max_pack``), and set the ``n`` used lanes' slot
+    state. ``st`` may hold views of one chip's slice of a fleet's stacked
+    state: every write lands in place."""
+    hidden, dense = M.prefill(
+        params, {"tokens": a["tokens"], "positions": a["positions"]}, cfg, ctx,
+        full_kv=True, return_hidden=True, segments=a["segments"], attn_impl="dense",
+    )
+    pool = st.cache
+    # (L, 1, Hkv, W, hd) -> (W, L, Hkv, hd): the two indices around the
+    # Hkv slice put the token dim first
+    pool["k_pages"][:, a["page_ix"], :, a["page_off"]] = dense["k"][:, 0].permute(2, 0, 1, 3)
+    pool["v_pages"][:, a["page_ix"], :, a["page_off"]] = dense["v"][:, 0].permute(2, 0, 1, 3)
+    h = hidden[0, a["gather_pos"]]  # (max_pack, d): one last-token row per segment
+    logits = M.unembed(cfg, params, h[None], ctx)[0]  # (max_pack, V)
+    slots = a["slots"][:n]
+    pool["block_tables"][slots] = a["rows"][:n].to(torch.int32)
+    pool["seq_lens"][slots] = a["seq_lens"][:n].to(torch.int32)
+    st.cur[slots] = logits[:n].to(st.cur.dtype)
+    st.active[slots] = True
+    st.remaining[slots] = a["budgets"][:n].to(torch.int32)
+
+
+def admit_chunk(
+    cfg, params, ctx: FaultContext, st: _State, slot: int, a: dict, step: PrefillStep, budget: int
+) -> None:
+    """One chunk of a long prompt (``a``: the uploaded chunk tokens, chain
+    row and ``chunk_step_maps``): continue against the slot's paged prefix
+    (``models/model.py::prefill_chunk``), write the chunk's KV into the
+    chain, and — on the final chunk — seed the slot's logits and budget and
+    flip it live."""
+    logits, kc, vc = M.prefill_chunk(
+        params, a["tokens"], cfg, ctx, k_pages=st.cache["k_pages"],
+        v_pages=st.cache["v_pages"], row=a["row"], prefix_len=step.start,
+        valid_len=step.valid,
+    )
+    pool = st.cache
+    pool["k_pages"][:, a["page_ix"], :, a["page_off"]] = kc[:, 0].permute(2, 0, 1, 3)
+    pool["v_pages"][:, a["page_ix"], :, a["page_off"]] = vc[:, 0].permute(2, 0, 1, 3)
+    pool["block_tables"][slot] = a["row"].to(torch.int32)
+    if step.final:
+        pool["seq_lens"][slot] = step.start + step.valid
+        st.cur[slot] = logits[0].to(st.cur.dtype)
+        st.active[slot] = True
+        st.remaining[slot] = budget
+
+
+def admission_settings(prefill_buckets, chunk_size, max_pack, page_size) -> tuple:
+    """The validated (buckets, chunk size, pack limit) of an engine's
+    planner; ``prefill_buckets=None`` disables it: exact-length admissions,
+    one request each, no chunks."""
+    if prefill_buckets is None:
+        return None, None, 1
+    buckets = validate_buckets(prefill_buckets)
+    chunk = int(chunk_size) if chunk_size else buckets[-1]
+    if chunk < page_size or chunk % page_size:
+        raise ValueError(
+            f"chunk_size {chunk} must be a positive multiple "
+            f"of page_size {page_size} (chunk starts must be page-aligned)"
+        )
+    if max_pack < 1:
+        raise ValueError(f"max_pack must be >= 1, got {max_pack}")
+    return buckets, chunk, int(max_pack)
+
+
+def admission_round(
+    eng, table: _SlotTable, clock: int, stats: ServeStats, tracer: RequestTracer,
+    dispatch_pack: Callable[[dict, int, int], None],
+    dispatch_chunk: Callable[[int, np.ndarray, np.ndarray, PrefillStep, Sequence[int], int], None],
+    **trace_args,
+) -> None:
+    """One chip's admission round at ``clock``, the policy both the
+    continuous and the fleet engines run: fill free slots with every
+    arrived request that fits, packing short prompts into shared bucket
+    dispatches (a pack is flushed at ``eng.max_pack`` requests, or when the
+    next prompt would overflow the top bucket) and streaming prompts longer
+    than the top bucket in chunks. ``eng`` supplies the planner settings,
+    the recorder and ``_sync``; ``dispatch_pack(arrays, n, width)`` runs
+    one packed admission of the host ``build_pack`` maps and
+    ``dispatch_chunk(slot, tokens, row, step, pages, budget)`` one chunk.
+    ``trace_args`` join each admission span's arguments."""
+    rec = eng.obs
+    buckets = eng.prefill_buckets
+    top = buckets[-1] if buckets else None
+    pack: list[PackItem] = []
+
+    def flush():
+        if not pack:
+            return
+        total = sum(len(it.tokens) for it in pack)
+        width = total if buckets is None else bucket_of(total, buckets)
+        arrays = build_pack(
+            pack, bucket=width, max_pack=eng.max_pack, page_size=eng.page_size,
+            max_pages_per_seq=eng.max_pages_per_seq, num_slots=eng.num_slots, pad_id=eng.pad_id,
+        )
+        t0 = rec.now() if rec else 0.0
+        dispatch_pack(arrays, len(pack), width)
+        stats.prefill_dispatches += 1
+        if rec:
+            eng._sync()
+            t1 = rec.now()
+            for it in pack:
+                tracer.admitted(
+                    it.rid, it.slot, t0, t1,
+                    args=dict(bucket=width, packed=len(pack), **trace_args, prompt_len=len(it.tokens)),
+                )
+        pack.clear()
+
+    def chunks(slot, r, pages):
+        steps = plan_prefill(len(r.tokens), buckets=buckets, chunk_size=eng.chunk_size)
+        toks = np.asarray(r.tokens, np.int32)
+        row = np.zeros((eng.max_pages_per_seq,), np.int32)
+        row[: len(pages)] = pages
+        for step in steps:
+            ct = np.full((step.size,), eng.pad_id, np.int32)
+            ct[: step.valid] = toks[step.start : step.start + step.valid]
+            t0 = rec.now() if rec else 0.0
+            dispatch_chunk(slot, ct, row, step, pages, r.max_new_tokens)
+            stats.prefill_dispatches += 1
+            stats.chunk_dispatches += 1
+            if rec:
+                eng._sync()
+                tracer.chunk(
+                    r.rid, slot, t0, rec.now(), final=step.final,
+                    args=dict(size=step.size, start=step.start, valid=step.valid),
+                )
+
+    table.stamp_arrivals(clock)
+    while True:
+        adm = table.pop_admission(clock)
+        if adm is None:
+            break
+        slot, r, pages = adm
+        table.outputs_admitted[r.rid] = clock
+        stats.admitted += 1
+        plen = len(r.tokens)
+        if top is not None and plen > top:
+            flush()
+            chunks(slot, r, pages)
+            continue
+        if pack and (
+            len(pack) >= eng.max_pack
+            or (top is not None and sum(len(i.tokens) for i in pack) + plen > top)
+        ):
+            flush()
+        pack.append(
+            PackItem(np.asarray(r.tokens, np.int32), slot, tuple(pages), r.max_new_tokens, rid=r.rid)
+        )
+    flush()
+
+
+def record_decode(
+    table: _SlotTable, chip: int, em: np.ndarray, lp: np.ndarray, ac: np.ndarray, clock: int,
+    eos_id: Optional[int], rec, tracer: RequestTracer, pool: PoolMonitor,
+    health: Optional[HealthTracker],
+) -> None:
+    """One chip's bookkeeping after a decode dispatch, shared by the
+    continuous and the fleet engines: score the step's mean logprob for
+    health, record every slot's token, retire the finished requests and
+    trace them."""
+    if rec:
+        slot_of = {r.rid: s for s, r in enumerate(table.slots) if r is not None}
+    if health is not None:
+        msk = table.active  # the mask this dispatch computed under
+        health.observe_decode(
+            chip, clock=clock,
+            mean_logprob=float(lp[msk].mean()) if msk.any() else None,
+            alloc_failures=table.alloc.alloc_failures,
+        )
+    retired = table.record_step(em, lp, ac, clock, eos_id=eos_id)
+    if rec and retired:
+        t1 = rec.now()
+        for rid in retired:
+            tracer.retired(table.outputs[rid], slot_of[rid], t1)
+        pool.sample()
+
+
+def run_probe(prober, chip: int, clock: int, stats: ServeStats, rec, health: HealthTracker,
+              *, proc: str, track: str) -> None:
+    """One ABFT probe of one chip, traced and scored."""
+    t0 = rec.now() if rec else 0.0
+    res = prober.probe(clock=clock)
+    stats.probe_dispatches += res.dispatches
+    if rec:
+        rec.span("probe", proc=proc, track=track, t0=t0, t1=rec.now(), args=res.as_dict())
+        rec.count("probe.dispatches", res.dispatches)
+    health.observe_probe(chip, res, clock=clock)
+
+
 class ContinuousBatchingEngine:
     """Continuous batching on one chip: paged KV + slot table + one masked
     decode step per token across all in-flight requests, admitted through
@@ -306,7 +516,8 @@ class ContinuousBatchingEngine:
     ``prefill_buckets=None`` disables the planner (one exact-length
     admission program per distinct prompt length, the unbucketed baseline).
 
-    The engine runs on the device of ``params``. Program keys:
+    The engine runs on the device of ``params`` (a ``Model`` or its flat
+    dict). Program keys:
     ``("prefill_admit", width)``, ``("prefill_chunk", chunk_size)`` and
     ``("decode",)``; :meth:`compile_counts` reports the ones :meth:`warmup`
     ran and the ones first run during traffic.
@@ -342,7 +553,7 @@ class ContinuousBatchingEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.cfg = cfg
         self.params = params
-        self.device = params.embed.device
+        self.device = M.as_params(params).embed.device
         self.ctx = ctx or healthy()
         self.num_slots = num_slots
         self.page_size = page_size
@@ -354,21 +565,9 @@ class ContinuousBatchingEngine:
         # check per dispatch and recording cannot touch the served tensors
         self.obs = recorder if recorder is not None else NULL_RECORDER
         self._page_bytes = page_bytes(cfg, page_size)
-        if prefill_buckets is None:
-            self.prefill_buckets = None
-            self.chunk_size: Optional[int] = None
-            self.max_pack = 1
-        else:
-            self.prefill_buckets = validate_buckets(prefill_buckets)
-            self.chunk_size = int(chunk_size) if chunk_size else self.prefill_buckets[-1]
-            if self.chunk_size < page_size or self.chunk_size % page_size:
-                raise ValueError(
-                    f"chunk_size {self.chunk_size} must be a positive multiple "
-                    f"of page_size {page_size} (chunk starts must be page-aligned)"
-                )
-            if max_pack < 1:
-                raise ValueError(f"max_pack must be >= 1, got {max_pack}")
-            self.max_pack = int(max_pack)
+        self.prefill_buckets, self.chunk_size, self.max_pack = admission_settings(
+            prefill_buckets, chunk_size, max_pack, page_size
+        )
         self._sample_decode = make_sample_decode(cfg, pad_id=pad_id)
         # program keys run by warmup(), and keys first run during traffic
         # without a warmup: the counterparts of the reference's AOT
@@ -442,73 +641,16 @@ class ContinuousBatchingEngine:
 
     # -- the programs -------------------------------------------------------
 
-    def _upload(self, arrays: dict) -> dict:
-        """Host int32 index maps -> device int64 tensors, in one copy that
-        does not wait for the card (pinned memory, ``non_blocking``): the
-        host goes on enqueuing, as the reference's dispatch does."""
-        flat = torch.from_numpy(np.concatenate([np.asarray(a, np.int64).ravel() for a in arrays.values()]))
-        if self.device.type == "cuda":
-            flat = flat.pin_memory()
-        buf = flat.to(self.device, non_blocking=True)
-        out, off = {}, 0
-        for k, a in arrays.items():
-            n = int(np.size(a))
-            out[k] = buf[off : off + n].view(np.shape(a))
-            off += n
-        return out
-
     def _packed_admit(self, st: _State, arrays: dict, n: int) -> None:
-        """Admit a PACK of ``n`` requests in one bucket-shaped dispatch: run
-        the segment-masked prefill over the packed row, write every token's
-        KV into its request's page chain (pad tokens hit the scratch page
-        0), gather each segment's last-token hidden state for its first
-        logits (the unembed runs at the pack's full width, ``max_pack``),
-        and set the ``n`` used lanes' slot state."""
-        cfg, params, ctx = self.cfg, self.params, self.ctx
-        a = self._upload(arrays)
-        hidden, dense = M.prefill(
-            params, {"tokens": a["tokens"], "positions": a["positions"]}, cfg, ctx,
-            full_kv=True, return_hidden=True, segments=a["segments"], attn_impl="dense",
-        )
-        pool = st.cache
-        # (L, 1, Hkv, W, hd) -> (W, L, Hkv, hd): the two indices around the
-        # Hkv slice put the token dim first
-        pool["k_pages"][:, a["page_ix"], :, a["page_off"]] = dense["k"][:, 0].permute(2, 0, 1, 3)
-        pool["v_pages"][:, a["page_ix"], :, a["page_off"]] = dense["v"][:, 0].permute(2, 0, 1, 3)
-        h = hidden[0, a["gather_pos"]]  # (max_pack, d): one last-token row per segment
-        logits = M.unembed(cfg, params, h[None], ctx)[0]  # (max_pack, V)
-        slots = a["slots"][:n]
-        pool["block_tables"][slots] = a["rows"][:n].to(torch.int32)
-        pool["seq_lens"][slots] = a["seq_lens"][:n].to(torch.int32)
-        st.cur[slots] = logits[:n].to(st.cur.dtype)
-        st.active[slots] = True
-        st.remaining[slots] = a["budgets"][:n].to(torch.int32)
+        admit_pack(self.cfg, self.params, self.ctx, st, upload(arrays, self.device), n)
 
     def _prefill_chunk(
         self, st: _State, slot: int, tokens: np.ndarray, row: np.ndarray, step: PrefillStep,
         pages: Sequence[int], budget: int,
     ) -> None:
-        """One chunk of a long prompt: continue against the slot's paged
-        prefix (``models/model.py::prefill_chunk``), write the chunk's KV
-        into the chain, and — on the final chunk — seed the slot's logits
-        and budget and flip it live."""
-        cfg, params, ctx = self.cfg, self.params, self.ctx
         maps = chunk_step_maps(step, pages, page_size=self.page_size)
-        a = self._upload(dict(tokens=tokens[None], row=row, **maps))
-        logits, kc, vc = M.prefill_chunk(
-            params, a["tokens"], cfg, ctx, k_pages=st.cache["k_pages"],
-            v_pages=st.cache["v_pages"], row=a["row"], prefix_len=step.start,
-            valid_len=step.valid,
-        )
-        pool = st.cache
-        pool["k_pages"][:, a["page_ix"], :, a["page_off"]] = kc[:, 0].permute(2, 0, 1, 3)
-        pool["v_pages"][:, a["page_ix"], :, a["page_off"]] = vc[:, 0].permute(2, 0, 1, 3)
-        pool["block_tables"][slot] = a["row"].to(torch.int32)
-        if step.final:
-            pool["seq_lens"][slot] = step.start + step.valid
-            st.cur[slot] = logits[0].to(st.cur.dtype)
-            st.active[slot] = True
-            st.remaining[slot] = budget
+        a = upload(dict(tokens=tokens[None], row=row, **maps), self.device)
+        admit_chunk(self.cfg, self.params, self.ctx, st, slot, a, step, budget)
 
     def _decode(self, st: _State, gen, temperature: float, eos_id: Optional[int]):
         """The masked sampling + decode step over every slot; returns the
@@ -619,60 +761,18 @@ class ContinuousBatchingEngine:
 
         st = self._state()
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        buckets = self.prefill_buckets
-        top = buckets[-1] if buckets else None
-        pack: list[PackItem] = []
 
-        def flush_pack():
-            if not pack:
-                return
-            total = sum(len(it.tokens) for it in pack)
-            width = total if buckets is None else bucket_of(total, buckets)
-            arrays = build_pack(
-                pack, bucket=width, max_pack=self.max_pack,
-                page_size=self.page_size, max_pages_per_seq=self.max_pages_per_seq,
-                num_slots=self.num_slots, pad_id=self.pad_id,
-            )
-            t0 = rec.now() if rec else 0.0
-            self._run(("prefill_admit", width), self._packed_admit, st, arrays, len(pack))
-            stats.prefill_dispatches += 1
-            if rec:
-                self._sync()
-                t1 = rec.now()
-                for it in pack:
-                    tracer.admitted(
-                        it.rid, it.slot, t0, t1,
-                        args=dict(bucket=width, packed=len(pack), prompt_len=len(it.tokens)),
-                    )
-            pack.clear()
+        def dispatch_pack(arrays, n, width):
+            self._run(("prefill_admit", width), self._packed_admit, st, arrays, n)
 
-        def run_chunks(slot, r, pages):
-            steps = plan_prefill(len(r.tokens), buckets=buckets, chunk_size=self.chunk_size)
-            toks = np.asarray(r.tokens, np.int32)
-            row = np.zeros((self.max_pages_per_seq,), np.int32)
-            row[: len(pages)] = pages
-            for step in steps:
-                ct = np.full((step.size,), self.pad_id, np.int32)
-                ct[: step.valid] = toks[step.start : step.start + step.valid]
-                t0 = rec.now() if rec else 0.0
-                self._run(
-                    ("prefill_chunk", step.size), self._prefill_chunk, st, slot, ct, row, step,
-                    pages, r.max_new_tokens,
-                )
-                stats.prefill_dispatches += 1
-                stats.chunk_dispatches += 1
-                if rec:
-                    self._sync()
-                    tracer.chunk(
-                        r.rid, slot, t0, rec.now(), final=step.final,
-                        args=dict(size=step.size, start=step.start, valid=step.valid),
-                    )
+        def dispatch_chunk(slot, tokens, row, step, pages, budget):
+            self._run(("prefill_chunk", step.size), self._prefill_chunk, st, slot, tokens, row, step,
+                      pages, budget)
 
         clock = 0  # decode-dispatch index
         while not table.done:
             if on_step is not None:
                 on_step(clock)
-            table.stamp_arrivals(clock)
             if rec:
                 for r in table.pending:
                     if r.arrival > clock:
@@ -683,28 +783,7 @@ class ContinuousBatchingEngine:
                                     args=dict(rid=r.rid, arrival=r.arrival, clock=clock))
             # admissions: fill free slots with every arrived request we can,
             # packing short prompts into shared bucket dispatches
-            while True:
-                adm = table.pop_admission(clock)
-                if adm is None:
-                    break
-                slot, r, pages = adm
-                table.outputs_admitted[r.rid] = clock
-                stats.admitted += 1
-                plen = len(r.tokens)
-                if top is not None and plen > top:
-                    flush_pack()
-                    run_chunks(slot, r, pages)
-                    continue
-                if pack and (
-                    len(pack) >= self.max_pack
-                    or (top is not None and sum(len(i.tokens) for i in pack) + plen > top)
-                ):
-                    flush_pack()
-                pack.append(
-                    PackItem(np.asarray(r.tokens, np.int32), slot, tuple(pages),
-                             r.max_new_tokens, rid=r.rid)
-                )
-            flush_pack()
+            admission_round(self, table, clock, stats, tracer, dispatch_pack, dispatch_chunk)
             stats.peak_resident_kv_bytes = max(
                 stats.peak_resident_kv_bytes, alloc.pages_in_use * self._page_bytes
             )
@@ -728,31 +807,10 @@ class ContinuousBatchingEngine:
             lp = tok_lp.cpu().numpy()
             ac = st.active.cpu().numpy()
             if rec:
-                t1 = rec.now()
-                tracer.decode_dispatch(t0, t1, n_active=n_active, clock=clock)
-                slot_of = {r.rid: s for s, r in enumerate(table.slots) if r is not None}
-            if self.health is not None:
-                msk = table.active  # the mask this dispatch computed under
-                self.health.observe_decode(
-                    0, clock=clock,
-                    mean_logprob=float(lp[msk].mean()) if msk.any() else None,
-                    alloc_failures=alloc.alloc_failures,
-                )
-            retired = table.record_step(em, lp, ac, clock, eos_id=eos_id)
-            if rec and retired:
-                t1 = rec.now()
-                for rid in retired:
-                    tracer.retired(table.outputs[rid], slot_of[rid], t1)
-                pool.sample()
+                tracer.decode_dispatch(t0, rec.now(), n_active=n_active, clock=clock)
+            record_decode(table, 0, em, lp, ac, clock, eos_id, rec, tracer, pool, self.health)
             if self.prober is not None and clock % self.probe_every == 0:
-                t0p = rec.now() if rec else 0.0
-                res = self.prober.probe(clock=clock)
-                stats.probe_dispatches += res.dispatches
-                if rec:
-                    rec.span("probe", proc="serve", track="health",
-                             t0=t0p, t1=rec.now(), args=res.as_dict())
-                    rec.count("probe.dispatches", res.dispatches)
-                self.health.observe_probe(0, res, clock=clock)
+                run_probe(self.prober, 0, clock, stats, rec, self.health, proc="serve", track="health")
                 if self.alerts:
                     self.alerts.evaluate(clock=clock)
         stats.peak_resident_kv_bytes = max(

@@ -21,7 +21,7 @@ from repro_torch.models import model as M
 from repro_torch.serve.bucketing import DEFAULT_PREFILL_BUCKETS, ladder_rung, validate_buckets
 from repro_torch.serve.kvcache import DEFAULT_PAGE_SIZE, round_up_to_page
 
-__all__ = ["GenerateResult", "ServeEngine", "make_sample_decode"]
+__all__ = ["GenerateResult", "ServeEngine", "make_sample_decode", "sample_tokens"]
 
 
 @dataclass
@@ -30,7 +30,27 @@ class GenerateResult:
     logprobs: torch.Tensor  # (B, generated)
 
 
-def make_sample_decode(cfg, *, pad_id: int = 0):
+def sample_tokens(cur: torch.Tensor, gen, temperature: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(logprobs, next_token)`` from logits ``cur`` of shape ``(..., V)``.
+
+    Greedy (``temperature == 0``) is ``argmax``. Temperature sampling draws
+    from ``gen``: one ``torch.Generator``, or a sequence of them, one per
+    index of ``cur``'s leading axis, so each chip of a fleet samples from
+    its own stream (``torch.multinomial`` takes one generator a call)."""
+    lp = torch.log_softmax(cur.float(), dim=-1)
+    if temperature <= 0:
+        return lp, torch.argmax(lp, dim=-1)
+    probs = torch.softmax(lp / temperature, dim=-1)
+    if gen is None or isinstance(gen, torch.Generator):
+        flat = probs.reshape(-1, probs.shape[-1])
+        return lp, torch.multinomial(flat, 1, generator=gen)[:, 0].reshape(probs.shape[:-1])
+    if len(gen) != probs.shape[0]:
+        raise ValueError(f"{len(gen)} generators for {probs.shape[0]} rows of logits")
+    rows = [torch.multinomial(p.reshape(-1, p.shape[-1]), 1, generator=g)[:, 0] for p, g in zip(probs, gen)]
+    return lp, torch.stack(rows).reshape(probs.shape[:-1])
+
+
+def make_sample_decode(cfg, *, pad_id: int = 0, decode=None):
     """Build the sampling + decode step for one chip.
 
     ``(params, cur_logits, cache, generator, ctx, temperature) ->
@@ -44,20 +64,25 @@ def make_sample_decode(cfg, *, pad_id: int = 0):
     so a retired slot stops writing KV (a paged cache takes its write on
     the scratch page 0). ``cache`` is the dense cache, whose index still
     advances every slot, or a paged one; ``decode_step`` dispatches on it.
+
+    ``decode(params, tokens, cache, ctx, active) -> (logits, cache)``
+    replaces ``models/model.py::decode_step``: the fleet engines pass the
+    step mapped over their chips, and the sampling and masking here run
+    over the chip-stacked ``(chips, slots)`` tensors as they do over one
+    chip's slots (``generator`` then holds one generator per chip).
     """
+    if decode is None:
+        def decode(p, tokens, cache, ctx, active):
+            return M.decode_step(p, tokens, cache, cfg, ctx, active=active)
 
     def sample_decode(
         p, cur, cache, gen, ctx, temperature, active=None, eos_id=None, remaining=None
     ):
-        lp = torch.log_softmax(cur.float(), dim=-1)
-        if temperature > 0:
-            nxt = torch.multinomial(torch.softmax(lp / temperature, dim=-1), 1, generator=gen)[:, 0]
-        else:
-            nxt = torch.argmax(lp, dim=-1)
-        tok_lp = lp.gather(-1, nxt[:, None])[:, 0]
+        lp, nxt = sample_tokens(cur, gen, temperature)
+        tok_lp = lp.gather(-1, nxt[..., None])[..., 0]
         if active is None:
-            step_logits, cache = M.decode_step(p, nxt[:, None], cache, cfg, ctx)
-            return nxt, tok_lp, step_logits[:, 0], cache
+            step_logits, cache = decode(p, nxt[..., None], cache, ctx, None)
+            return nxt, tok_lp, step_logits[..., 0, :], cache
         emitted = torch.where(active, nxt, torch.full_like(nxt, pad_id))
         tok_lp = torch.where(active, tok_lp, torch.zeros_like(tok_lp))
         new_active = active
@@ -67,8 +92,8 @@ def make_sample_decode(cfg, *, pad_id: int = 0):
         if remaining is not None:
             new_remaining = remaining - active.to(remaining.dtype)
             new_active = new_active & (new_remaining > 0)
-        step_logits, cache = M.decode_step(p, emitted[:, None], cache, cfg, ctx, active=new_active)
-        return emitted, tok_lp, step_logits[:, 0], cache, new_active, new_remaining
+        step_logits, cache = decode(p, emitted[..., None], cache, ctx, new_active)
+        return emitted, tok_lp, step_logits[..., 0, :], cache, new_active, new_remaining
 
     return sample_decode
 

@@ -24,9 +24,10 @@ turns one member's step into one batched step for all of them:
 
 This is the reference's ``train/population.py``: the same interface,
 chunking, padding and recorder spans, counts and instants. The sharded
-engine waits (ROADMAP.md §1.4). Training always runs the plain masked
-product under autograd, as the reference's does: its masked-GEMM kernel is
-forward only, and neither package has a masked-GEMM backward. So a
+engine is the port's next slice (ROADMAP.md §1.4.3). Training always runs
+the plain masked product under autograd, as the reference's does: its
+masked-GEMM kernel is forward only, and neither package has a masked-GEMM
+backward. So a
 ``kernel``-mode population on a CUDA device raises ``NotImplementedError``
 instead of running another mode quietly; on the CPU, ``kernel`` mode runs
 the kernel's plain version (``masked_matmul_ref``) under vmap and grad, as
@@ -79,14 +80,15 @@ def _sync(device: torch.device) -> None:
 
 def _refuse_kernel_on_card(ctx: Optional[FaultContext], what: str) -> None:
     """Off the CPU a ``kernel`` context reaches the card kernel, which has
-    no backward and takes no vmap; only the CPU runs its plain version."""
+    no backward (its chip-batched forward serves the fleet engines,
+    ``fleet/serve.py``); only the CPU runs its plain version here."""
     if ctx is not None and ctx.active and ctx.mode == "kernel" and ctx.ok.device.type != "cpu":
         raise NotImplementedError(
             f"{what} in 'kernel' mode on a {ctx.ok.device.type} device: training runs the plain masked "
             "product with autograd, as the reference does (its masked-GEMM kernel is "
             "forward only), and no masked-GEMM backward exists in either package; "
             "train in 'fap' mode and deploy the shipped weights through 'kernel' mode "
-            "one chip at a time"
+            "(a serving engine, or the fleet engines for many chips at once)"
         )
 
 
@@ -443,8 +445,8 @@ def make_fat_engine(kind: str, **kwargs):
         return SerialFATEngine(**kwargs)
     if kind == "sharded":
         raise NotImplementedError(
-            "the sharded population engine is not ported yet (ROADMAP.md §1.4, fleet); "
-            "use 'population' or 'serial'"
+            "the sharded population engine is not ported yet: it is the port's next slice "
+            "(ROADMAP.md §1.4.3); use 'population' or 'serial'"
         )
     raise ValueError(
         f"unknown FAT engine {kind!r} (use 'population', 'serial', or 'sharded')"

@@ -103,6 +103,22 @@ class TuningCache:
         merged.update(other.entries)
         return TuningCache(entries=merged, source=f"{self.source}+{other.source}")
 
+    def smem_footprints(self) -> dict[str, int]:
+        """kernel name -> largest recorded shared-memory footprint (bytes,
+        the tuner's ``smem_bytes``) among its cached winners: what
+        ``fleet.capacity`` reserves. The counterpart of the reference's
+        ``vmem_footprints``, named after the card's on-chip memory, which is
+        shared memory, not a TPU's VMEM."""
+        out: dict[str, int] = {}
+        for key, entry in self.entries.items():
+            kernel = key.split("|", 1)[0]
+            try:
+                smem = int(entry.get("smem_bytes", 0))
+            except (TypeError, ValueError):
+                continue
+            out[kernel] = max(out.get(kernel, 0), smem)
+        return out
+
     def as_dict(self) -> dict:
         return {"version": self.version, "entries": self.entries}
 

@@ -240,6 +240,97 @@ def test_packed_mask_is_cached_and_repacked_after_an_in_place_change(cuda):
     assert again is not bits and int(again[0, 0] ^ bits[0, 0]) == 1
 
 
+# ---------------------------------------------------------------------------
+# the masked GEMM with a chip axis: one launch for a fleet of chips
+# ---------------------------------------------------------------------------
+
+FLEET_KINDS = [  # (x dtype, w dtype, variant)
+    (torch.float32, torch.float32, "auto"),
+    (torch.bfloat16, torch.float32, "auto"),
+    (torch.bfloat16, torch.bfloat16, "auto"),
+    (torch.bfloat16, torch.bfloat16, "v1"),
+]
+
+
+def _fleet_inputs(cuda, chips, m, k, n, transposed, x_dtype, w_dtype, seed=0):
+    """Per-chip x, fp32 or bf16 w (row-major, or each chip's a transposed
+    view as the tied unembedding's embed.T) and 0/1 masks, chip 0 healthy."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(chips, m, k, generator=g, device=cuda).to(x_dtype)
+    w = (torch.randn(chips, n, k, generator=g, device=cuda) / k ** 0.5).to(w_dtype)
+    w = w.transpose(1, 2) if transposed else w.transpose(1, 2).contiguous()
+    ok = torch.stack([
+        torch.from_numpy(random_fault_map(seed + c, 256, 256, 0.1 * c).ok_mask) for c in range(chips)
+    ]).to(cuda)
+    return x, w, ok
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 257])
+@pytest.mark.parametrize("chips", [1, 3, 8])
+@pytest.mark.parametrize("x_dtype,w_dtype,variant", FLEET_KINDS)
+def test_chip_batched_masked_matmul_matches_plain_in_one_launch(
+    cuda, x_dtype, w_dtype, variant, chips, m, transposed
+):
+    """Every variant with a chip axis: one counted launch, each chip's rows
+    against the plain version's under that chip's own weights and mask."""
+    from repro_torch.kernels.masked_matmul.ops import pick_variant
+
+    x, w, ok = _fleet_inputs(cuda, chips, m, 576, 288, transposed, x_dtype, w_dtype, seed=chips + m)
+    kind = pick_variant(x_dtype, m, variant)
+    before = dict(masked_matmul.launches_by_variant)
+    fleet_before = dict(masked_matmul.fleet_launches_by_variant)
+    launches = masked_matmul.launches
+    got = masked_matmul(x, w, ok, variant=variant)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == launches + 1
+    assert masked_matmul.launches_by_variant[kind] == before[kind] + 1
+    assert masked_matmul.fleet_launches_by_variant[kind] == fleet_before[kind] + 1
+    assert got.shape == (chips, m, 288) and got.dtype == x_dtype
+    assert_close(got, masked_matmul_ref(x, w, ok), x_dtype)
+    for c in range(chips):
+        assert_close(got[c], masked_matmul_ref(x[c], w[c], ok[c]), x_dtype)
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_chip_batched_masked_matmul_reads_a_shared_weight_with_chip_stride_zero(cuda, m):
+    x, w, ok = _fleet_inputs(cuda, 3, m, 576, 288, False, torch.bfloat16, torch.float32)
+    shared = w[0].expand(3, *w[0].shape)
+    assert shared.stride(0) == 0
+    got = masked_matmul(x, shared, ok)
+    assert_close(got, masked_matmul_ref(x, w[0].expand(3, *w[0].shape).contiguous(), ok), torch.bfloat16)
+
+
+def test_chip_batched_masked_matmul_is_one_launch_under_vmap(cuda):
+    x, w, ok = _fleet_inputs(cuda, 8, 4, 576, 1536, False, torch.bfloat16, torch.float32)
+    launches = masked_matmul.launches
+    got = torch.func.vmap(masked_matmul)(x, w, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == launches + 1
+    assert_close(got, masked_matmul_ref(x, w, ok), torch.bfloat16)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,variant", FLEET_KINDS)
+def test_in_place_change_of_one_chip_is_seen_by_the_next_launch(cuda, x_dtype, w_dtype, variant):
+    """``set_silicon`` copies a chip's new map into the stacked mask in
+    place: the next launch computes through it, and only that chip's bits
+    are packed again."""
+    from repro_torch.kernels.masked_matmul.ops import packed_mask
+
+    x, w, ok = _fleet_inputs(cuda, 4, 4, 576, 288, False, x_dtype, w_dtype, seed=5)
+    first = masked_matmul(x, w, ok, variant=variant)
+    packed = packed_mask.chips_packed
+    ok[2].copy_(torch.from_numpy(random_fault_map(99, 256, 256, 0.3).ok_mask).to(cuda))
+    got = masked_matmul(x, w, ok, variant=variant)
+    torch.cuda.synchronize()
+    assert_close(got, masked_matmul_ref(x, w, ok), x_dtype)
+    assert not torch.equal(got[2], first[2])
+    for c in (0, 1, 3):
+        assert torch.equal(got[c], first[c])
+    if x_dtype == torch.bfloat16 and variant == "auto":
+        assert packed_mask.chips_packed == packed + 1
+
+
 @pytest.mark.parametrize("hq,hkv", [(9, 9), (9, 3), (25, 5)])
 @pytest.mark.parametrize("sq,skv,q_offset,window", [
     (1, 1, 0, None), (63, 63, 0, None), (65, 65, 0, None), (200, 200, 0, None), (200, 200, 0, 64),
