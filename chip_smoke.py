@@ -17,8 +17,8 @@ Phases; any failure ends the run with a nonzero exit and no result line:
      mma above) runs on the bf16 copy of w and on the fp32 master read in
      place, and the two must give the same bits; v1 is timed beside them,
      with the fp32->bf16 cast and ``torch.matmul`` on pre-masked w. The mask
-     is packed to bits once (timed), and a bf16 kernel's bound counts those
-     bits, v1's the float mask;
+     is packed to bits once (timed), and every kernel's bound counts those
+     bits, as every kernel reads them;
    - flash attention at SmolLM's heads, S = 128 and 2048, and at hymba's
      (25 / 5, window 1024) at S = 2048, then at the reference zoo's other
      head dims at 4 x 2048: hubert-xlarge's 16 heads at D = 80 (an encoder,
@@ -32,8 +32,9 @@ Phases; any failure ends the run with a nonzero exit and no result line:
      in float32; each row prints its launch plan (``scan_plan``), and its
      bound is the largest of its bytes, its fp32 operations and its
      exponentials on the special-function units;
-   - the masked GEMM in bf16 at every falcon-mamba-7b and hymba-1.5b GEMM
-     shape at M = 4 and 512, and at hymba's layer shapes at M = 8192;
+   - the masked GEMM in bf16 and float32 at every falcon-mamba-7b and
+     hymba-1.5b GEMM shape at M = 4 and 512, and at hymba's layer shapes at
+     M = 8192;
 3. int8 decode attention (kernel #3) against its plain version, float32
    and bf16 q, at (B, Hq, Hkv, S, D) = (1, 2, 2, 512, 32) (the reference's
    tune-suite shape), SmolLM-135M's decode (4, 9, 3, 2048, 64) at valid
@@ -209,7 +210,10 @@ Phases; any failure ends the run with a nonzero exit and no result line:
 15. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
-    GEMMs; then a ``{"kernels": [...]}`` line with one entry per kernel
+    GEMMs; each model's float32 decode step through v1 and hymba's float32
+    long-prefill layer GEMMs beside ``torch.matmul`` on pre-masked fp32 w;
+    hymba's float32 long prefill split into its GEMMs, flash and scan
+    launches (each timed alone) and the rest; then a ``{"kernels": [...]}`` line with one entry per kernel
     variant (``masked_matmul.decode``, ``.mma``, ``.v1`` with phase 11's
     launches as ``launches_efat_deploy``,
     ``flash_attention.mma``, ``.v1``, and the scan and decode kernels;
@@ -2126,10 +2130,9 @@ def run(args, torch) -> int:
             wm = w * (ok[torch.arange(k, device=dev) % 256][:, torch.arange(n, device=dev) % 256]).to(dtype)
             size = torch.finfo(dtype).bits // 8
 
-            # the mask as the kernel reads it: v1 the float mask, the bf16 kernels its bits
-            # (packed along C, or along R for embed.T)
+            # the mask as every kernel reads it: its bits (packed along C, or along R for embed.T)
             r, c = ok.shape
-            mask_bytes = (c * -(-r // 8) if tied else r * -(-c // 8)) if bf16 else ok.numel() * 4
+            mask_bytes = c * -(-r // 8) if tied else r * -(-c // 8)
 
             def bound(w_size, prefix=""):
                 """The bound and its two sides: each input read once, each output written once,
@@ -2278,12 +2281,13 @@ def run(args, torch) -> int:
                 f"exps on the SFUs {sides['exps']:.4f} ms)")
     del u, dt, a, dbc, bm, cm, args_, y, h, ref_y, ref_h
 
-    # the masked GEMM at the SSM models' shapes, bf16, as their serving paths run it
-    for arch in (falcon, hymba):
-        for idx, (k, n, uses) in enumerate(arch.gemm_shapes()):
-            unembed = n == arch.vocab_size
-            ms_list = (BATCH, BATCH * PROMPT) + (() if unembed or arch is falcon else (BATCH * LONG,))
-            mm_err = max(mm_err, gemm_case(arch.name, idx, k, n, uses, False, torch.bfloat16, ms_list))
+    # the masked GEMM at the SSM models' shapes, bf16 and float32, as their serving paths run it
+    for dtype in (torch.bfloat16, torch.float32):
+        for arch in (falcon, hymba):
+            for idx, (k, n, uses) in enumerate(arch.gemm_shapes()):
+                unembed = n == arch.vocab_size
+                ms_list = (BATCH, BATCH * PROMPT) + (() if unembed or arch is falcon else (BATCH * LONG,))
+                mm_err = max(mm_err, gemm_case(arch.name, idx, k, n, uses, False, dtype, ms_list))
     if failures:
         raise Failed("kernel parity: " + "; ".join(failures))
     torch.cuda.empty_cache()
@@ -2868,6 +2872,10 @@ def run(args, torch) -> int:
         keys = [k for k, v in rows[0].items() if k.endswith("ms")]
         return {key: sum(r[key] * r["uses"] for r in rows) for key in keys}
 
+    def bound_by(st, prefix=""):
+        """The side of a summed bound that weighs more."""
+        return "bytes" if st[f"{prefix}bytes_ms"] >= st[f"{prefix}ops_ms"] else "operations"
+
     steps = {arch.name: gemm_sum(arch, "bfloat16", BATCH) for arch in (cfg, falcon, hymba)}
     for name, st in steps.items():
         per_step = sum(uses for _, _, uses in get_arch(name).gemm_shapes())
@@ -2883,7 +2891,29 @@ def run(args, torch) -> int:
             f"them (mma kernel, fp32 master in place): {st['f32w_ms']:.4f} ms, bound {st['f32w_bound_ms']:.4f} "
             f"ms; bf16 copy {st['ms']:.4f} ms; v1 {st['v1_ms']:.4f} ms; torch.matmul on pre-masked w "
             f"{st['library_ms']:.4f} ms; cast + torch.matmul {st['cast_matmul_ms']:.4f} ms")
-    f32_step = gemm_sum(cfg, "float32", BATCH)
+    # float32 (v1) at the path level: each model's decode step, and hymba's long-prefill layer GEMMs
+    f32_steps = {arch.name: gemm_sum(arch, "float32", BATCH) for arch in (cfg, falcon, hymba)}
+    f32_prefills = {hymba.name: gemm_sum(hymba, "float32", BATCH * LONG, layers_only=True)}
+    for name, st in f32_steps.items():
+        per_step = sum(uses for _, _, uses in get_arch(name).gemm_shapes())
+        log(f"decode step {name} (float32, M={BATCH}), {per_step} masked GEMMs through v1: {st['ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.4f} ms ({bound_by(st)}); torch.matmul on pre-masked fp32 w "
+            f"{st['library_ms']:.4f} ms; plain {st['plain_ms']:.4f} ms")
+    for name, st in f32_prefills.items():
+        log(f"long-prefill layer GEMMs {name} (float32, M={BATCH * LONG}), once per layer through v1: "
+            f"{st['ms']:.4f} ms, bound {st['bound_ms']:.4f} ms ({bound_by(st)}); torch.matmul on pre-masked "
+            f"fp32 w {st['library_ms']:.4f} ms")
+    # hymba's float32 long prefill through the kernels, split by kernel (each launch timed alone,
+    # L2 cold) and the rest (RMSNorm, RoPE, the KV ring, the host)
+    h32 = long_report[hymba.name]["kernel32_ms"]
+    h_unembed = mm_rows[(hymba.name, "float32", BATCH, len(hymba.gemm_shapes()) - 1)]["ms"]
+    h_parts = dict(gemms=f32_prefills[hymba.name]["ms"] + h_unembed,
+                   flash=hymba.num_layers * fa_rows[("float32", hymba.name, LONG, "window1024")]["ms"],
+                   scan=hymba.num_layers * scan_rows["float32 4x2048x3200x16"]["ms"])
+    h_parts["rest"] = h32 - sum(h_parts.values())
+    log(f"long prefill {hymba.name} float32 through the kernels: {h32:.2f} ms = " + " + ".join(
+        f"{k} {v:.2f}" for k, v in h_parts.items()) + " ms (launches timed alone, L2 cold)")
+    f32_step = f32_steps[cfg.name]
     fa = fa_rows[("bfloat16", cfg.name, LONG, "causal")]
     fa32 = fa_rows[("float32", cfg.name, LONG, "causal")]
     sc = scan_rows["bfloat16 4x128x8192x16"]
@@ -2894,10 +2924,6 @@ def run(args, torch) -> int:
     fa_src = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
                   replaces="src/repro/kernels/flash_attention/flash_attention.py:110", max_abs_err=fa_err)
     dstep, pstep = steps[cfg.name], prefills[cfg.name]
-
-    def bound_by(st, prefix=""):
-        """The side of a summed bound that weighs more."""
-        return "bytes" if st[f"{prefix}bytes_ms"] >= st[f"{prefix}ops_ms"] else "operations"
 
     lm_launches = lm_report["deploy"]["launches"]
     cont_launches = cont_report["launches"]
@@ -2965,6 +2991,7 @@ def run(args, torch) -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, serve=serve_report, kernels=kernels, profile=profile_report or None,
         decode_step_gemms=steps, long_prefill_gemms=prefills, mask_pack_ms=pack_ms,
+        decode_step_gemms_f32=f32_steps, long_prefill_gemms_f32=f32_prefills, long_prefill_f32_split=h_parts,
         variant_launches=variant_launches,
         masked_matmul_rows=[dict(arch=k[0], dtype=k[1], m=k[2], **v) for k, v in mm_rows.items()],
         flash_rows=[dict(dtype=k[0], model=k[1], s=k[2], case=k[3], **v) for k, v in fa_rows.items()],

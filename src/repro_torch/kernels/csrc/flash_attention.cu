@@ -23,9 +23,22 @@
 //   tile loads while this one is multiplied; rows are padded to D + 8 bf16 (an odd number of
 //   16-byte units), so ldmatrix is free of bank conflicts. q, k, v and their strides must be
 //   16-byte aligned (the wrapper checks).
-// - v1 (float32): the first version, SIMT with fp32 FMAs and four threads per query row
-//   (tensor cores would round fp32 to tf32, which misses the float32 tolerances). It also stays
-//   reachable for bf16 by an explicit variant, to be timed beside the mma kernel.
+// - v1 (float32), FlashAttention-2's shape in FP32 SIMT (tensor cores would round fp32 to tf32,
+//   which misses the float32 tolerances): one block of 256 threads per (64-row q tile, b * Hq +
+//   h), the heaviest causal tiles launched first. Q stays in shared memory for the whole walk;
+//   K and V tiles of 64 keys come through a two-stage cp.async ring (16-byte chunks, zero-filled
+//   past Skv; plain loads inside the kernel where a tensor or its strides are not 16-byte
+//   aligned), so the next tile loads while this one is multiplied. Rows are padded to D + 4
+//   floats, so a half-warp's float4 reads of 8 K rows fall in 32 different banks. S = QK^T is a
+//   register-tiled outer product: thread (tx, ty) = (tid % 16, tid / 16) owns rows ty * 4 + i and
+//   keys tx + 16 j (i, j < 4) and reads its q and k fragments as float4s along D, 64 FMAs per 8
+//   LDS.128. The online softmax runs once a tile: row max over the 16 threads of a row group by
+//   shuffles, one expf per score (plus one rescale a row), the row sums kept per thread and
+//   summed at the end. P goes through shared memory, and O += PV is register-tiled the same way:
+//   the thread owns rows ty * 4 + i and the float4 chunks tx + 16 j of D (D / 64 of them, the
+//   last partly idle at D = 80 and 96). Shared memory is Q, the K/V ring and P: 102 KiB at D = 64
+//   (two blocks an SM) up to 182 KiB at D = 128. It also stays reachable for bf16 by an explicit
+//   variant (plain loads, converted to fp32 in shared memory), to be timed beside the mma kernel.
 //
 // Both skip every kv tile that the causal and window masks exclude for all rows of the block,
 // read the kv head h // (Hq / Hkv) without repeating K and V per query head, take q, k, v and o
@@ -34,7 +47,7 @@
 // built for D = 64, 80, 96 and 128 (the reference's model zoo: SmolLM and hymba 64, hubert-xlarge
 // 80, phi3-mini 96, qwen3, llama3, mixtral, llama4 and internvl2 128); the fragments, chunk loops
 // and padded rows follow D, and the tiles live in dynamic shared memory (mma 45 KiB at D = 64 and
-// 85 KiB at 128, v1 32 and 64 KiB), its limit raised at each launch that needs more than 48 KiB
+// 85 KiB at 128, v1 102 and 182 KiB), its limit raised at each launch that needs more than 48 KiB
 // (per launch, not once per instance: the attribute belongs to the current device). Left for
 // later work: wgmma and TMA, with a producer warp keeping the ring full.
 #include <cuda_bf16.h>
@@ -42,140 +55,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 struct Strides {
   long long b, h, s;  // the last (head-dim) stride is 1
 };
-
-// ---------------------------------------------------------------------------
-// v1: SIMT
-// ---------------------------------------------------------------------------
-namespace v1 {
-
-constexpr int BQ = 64;    // query rows per block
-constexpr int TPR = 4;    // threads per query row
-constexpr int BKV = 64;   // keys per staged kv tile
-constexpr int NT = BQ * TPR;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv, int Sq,
-                       int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                       int causal, int window, int q_offset) {
-  constexpr int DP = D / TPR;  // head dims per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  float (*k_s)[D] = reinterpret_cast<float (*)[D]>(smem);
-  float (*v_s)[D] = k_s + BKV;
-
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, part = tid % TPR;
-  const int bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + r;
-  const bool row_ok = qi < Sq;
-  const int row_abs = q_offset + qi;
-
-  const T* qp = q + b * qs.b + h * qs.h + (long long)qi * qs.s;
-  const T* kp = k + b * ks.b + hk * ks.h;
-  const T* vp = v + b * vs.b + hk * vs.h;
-
-  float qr[DP], acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = row_ok ? to_f(qp[i * TPR + part]) * scale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m_run = -INFINITY, l_run = 0.f;
-
-  // kv range any row of this block can keep
-  const int lo = q_offset + q0;
-  const int hi = q_offset + min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? min(Skv, hi + 1) : Skv;
-  const int kv_begin = window > 0 ? max(0, lo - window + 1) : 0;
-
-  for (int t0 = (kv_begin / BKV) * BKV; t0 < kv_end; t0 += BKV) {
-    __syncthreads();  // the previous tile is no longer read
-#pragma unroll
-    for (int i = 0; i < BKV * D / NT; ++i) {
-      const int e = tid + i * NT;
-      const int j = e / D, d = e % D;
-      const bool in = t0 + j < Skv;
-      k_s[j][d] = in ? to_f(kp[(long long)(t0 + j) * ks.s + d]) : 0.f;
-      v_s[j][d] = in ? to_f(vp[(long long)(t0 + j) * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[BKV];
-    float m_tile = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) dot = fmaf(qr[i], k_s[j][i * TPR + part], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int col = t0 + j;
-      const bool keep = row_ok && col < Skv && (!causal || col <= row_abs) &&
-                        (window <= 0 || col > row_abs - window);
-      s[j] = keep ? dot : -INFINITY;
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    const float m_new = fmaxf(m_run, m_tile);
-    if (m_new == -INFINITY) continue;  // this row has kept no key yet
-    const float alpha = expf(m_run - m_new);
-    l_run *= alpha;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const float p = expf(s[j] - m_new);
-      l_run += p;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(p, v_s[j][i * TPR + part], acc[i]);
-    }
-    m_run = m_new;
-  }
-
-  if (row_ok) {
-    T* op = o + b * os.b + h * os.h + (long long)qi * os.s;
-    const float inv = l_run > 0.f ? 1.f / l_run : 0.f;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) op[i * TPR + part] = from_f<T>(acc[i] * inv);
-  }
-}
-
-// K and V tiles in fp32: 32 KiB at D = 64, 64 KiB at D = 128 (dynamic shared memory)
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-           int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
-           int window, int q_offset, cudaStream_t stream) {
-  constexpr int smem = 2 * BKV * D * 4;
-  auto kern = flash_attention_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace v1
 
 // ---------------------------------------------------------------------------
 // mma: bf16 on the tensor cores
@@ -398,6 +284,259 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+// ---------------------------------------------------------------------------
+// v1: FP32 SIMT
+// ---------------------------------------------------------------------------
+namespace v1 {
+
+constexpr int BQ = 64;    // query rows per block
+constexpr int BKV = 64;   // keys per kv tile
+constexpr int NT = 256;
+constexpr int LP = BKV + 4;  // a row of P
+template <int D> __host__ __device__ constexpr int ld() { return D + 4; }
+// Q, the two-stage K and V rings, P: 104,448 bytes at D = 64, 186,368 at D = 128
+template <int D> __host__ __device__ constexpr int smem_bytes() {
+  return 4 * ((BQ + 4 * BKV) * ld<D>() + BQ * LP);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// vec: q, k and v and their strides 16-byte aligned (fp32 only): cp.async; else plain loads.
+// o_vec: the same for o, stored as float4s.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv, int Sq,
+                       int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                       int causal, int window, int q_offset, int vec, int o_vec) {
+  constexpr int LD = ld<D>();
+  constexpr int CH = D / 4;          // float4 chunks a row
+  constexpr int DJ = (CH + 15) / 16;  // chunks of O a thread: tx + 16 j
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const Qs = reinterpret_cast<float*>(smem);  // [BQ][LD]
+  float* const Ks = Qs + BQ * LD;                      // [2][BKV][LD]
+  float* const Vs = Ks + 2 * BKV * LD;                 // [2][BKV][LD]
+  float* const Ps = Vs + 2 * BKV * LD;                 // [BQ][LP]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows start first
+
+  const T* qp = q + b * qs.b + h * qs.h;
+  const T* kp = k + b * ks.b + hk * ks.h;
+  const T* vp = v + b * vs.b + hk * vs.h;
+
+  // kv range any row of this block keeps, in whole tiles
+  const int lo = q_offset + q0;
+  const int hi = q_offset + min(q0 + BQ, Sq) - 1;
+  const int kv_end = causal ? min(Skv, hi + 1) : Skv;
+  const int kv_begin = window > 0 ? max(0, lo - window + 1) : 0;
+  const int t_first = kv_begin / BKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - 1) / BKV - t_first + 1 : 0;
+
+  // 64 rows from row0 of src (rows past `limit` zero) into dst: CH / 4 chunks a thread
+  auto stage = [&](float* dst, const T* src, long long sstride, int row0, int limit) {
+#pragma unroll
+    for (int i = 0; i < CH / 4; ++i) {
+      const int c = tid + i * NT;
+      const int r = c / CH, ch = (c % CH) * 4;
+      const bool in = row0 + r < limit;
+      float* d = dst + r * LD + ch;
+      const T* p = src + (long long)(row0 + r) * sstride + ch;
+      if constexpr (std::is_same<T, float>::value) {
+        if (vec) {
+          cp_async16(d, in ? p : src, in ? 16 : 0);
+          continue;
+        }
+      }
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) val = make_float4(to_f(p[0]), to_f(p[1]), to_f(p[2]), to_f(p[3]));
+      *reinterpret_cast<float4*>(d) = val;
+    }
+  };
+  stage(Qs, qp, qs.s, q0, Sq);
+  if (n_tiles > 0) {
+    stage(Ks, kp, ks.s, t_first * BKV, Skv);
+    stage(Vs, vp, vs.s, t_first * BKV, Skv);
+  }
+  cp_async_commit();
+
+  float oacc[4][DJ][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[i][jj][e] = 0.f;
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+  }
+  const int row0 = q_offset + q0 + ty * 4;  // this thread's first row, absolute
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    cp_async_wait0();
+    __syncthreads();  // tile it has landed; every thread is done with tile it - 1 and with P
+    if (it + 1 < n_tiles) {
+      const int t1 = (t_first + it + 1) * BKV;
+      stage(Ks + (st ^ 1) * BKV * LD, kp, ks.s, t1, Skv);
+      stage(Vs + (st ^ 1) * BKV * LD, vp, vs.s, t1, Skv);
+    }
+    cp_async_commit();
+    const float* kt = Ks + st * BKV * LD;
+    const float* vt = Vs + st * BKV * LD;
+    const int t0 = (t_first + it) * BKV;
+
+    // S = Q K^T: rows ty * 4 + i, keys tx + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d0 = 0; d0 < D; d0 += 4) {
+      float4 qa[4], kb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * LD + d0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kb[j] = *reinterpret_cast<const float4*>(kt + (tx + 16 * j) * LD + d0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = s[i][j];
+          a = fmaf(qa[i].x, kb[j].x, a);
+          a = fmaf(qa[i].y, kb[j].y, a);
+          a = fmaf(qa[i].z, kb[j].z, a);
+          s[i][j] = fmaf(qa[i].w, kb[j].w, a);
+        }
+    }
+
+    // scale; mask where the tile crosses an edge of what the block's rows keep
+    const bool edge = t0 + BKV > Skv || (causal && t0 + BKV - 1 > lo) || (window > 0 && t0 <= hi - window);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float val = s[i][j] * scale;
+        if (edge) {
+          const int col = t0 + tx + 16 * j;
+          const bool keep = col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
+          val = keep ? val : -INFINITY;
+        }
+        s[i][j] = val;
+        mx = fmaxf(mx, val);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet: p = 0
+      const float alpha = expf(m_run[i] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_use);
+        sum += p;
+        Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+      }
+      l_run[i] = l_run[i] * alpha + sum;  // this thread's share; the row group is summed at the end
+      m_run[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[i][jj][e] *= alpha;
+    }
+    __syncthreads();  // P complete
+
+    // O += P V: rows ty * 4 + i, head dims 4 (tx + 16 jj) .. + 3
+#pragma unroll 2
+    for (int c0 = 0; c0 < BKV; c0 += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * LP + c0);
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) {
+        if (tx + 16 * jj >= CH) continue;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float4 vb = *reinterpret_cast<const float4*>(vt + (c0 + cc) * LD + 4 * (tx + 16 * jj));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y : cc == 2 ? pa[i].z : pa[i].w;
+            oacc[i][jj][0] = fmaf(p, vb.x, oacc[i][jj][0]);
+            oacc[i][jj][1] = fmaf(p, vb.y, oacc[i][jj][1]);
+            oacc[i][jj][2] = fmaf(p, vb.z, oacc[i][jj][2]);
+            oacc[i][jj][3] = fmaf(p, vb.w, oacc[i][jj][3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    l += __shfl_xor_sync(0xffffffffu, l, 8);
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that kept no key returns 0
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= Sq) continue;
+    T* op = o + b * os.b + h * os.h + (long long)qi * os.s;
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) {
+      const int d = 4 * (tx + 16 * jj);
+      if (d >= D) continue;
+      const float4 r = make_float4(oacc[i][jj][0] * inv, oacc[i][jj][1] * inv, oacc[i][jj][2] * inv,
+                                   oacc[i][jj][3] * inv);
+      if constexpr (std::is_same<T, float>::value) {
+        if (o_vec) {
+          *reinterpret_cast<float4*>(op + d) = r;
+          continue;
+        }
+      }
+      op[d] = from_f<T>(r.x);
+      op[d + 1] = from_f<T>(r.y);
+      op[d + 2] = from_f<T>(r.z);
+      op[d + 3] = from_f<T>(r.w);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+           int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+           int window, int q_offset, int vec, int o_vec, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  auto kern = flash_attention_kernel<T, D>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace v1
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int D>
@@ -422,11 +561,18 @@ template <typename T>
 int launch_v1(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
               int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
               int window, int q_offset, cudaStream_t st) {
+  // cp.async and float4 stores where every row a tensor steps to is 16-byte aligned (fp32 only)
+  auto rows16 = [](const void* p, Strides t) {
+    return aligned16(p) && t.b % 4 == 0 && t.h % 4 == 0 && t.s % 4 == 0;
+  };
+  constexpr bool f32 = std::is_same<T, float>::value;
+  const int vec = f32 && rows16(q, qs) && rows16(k, ks) && rows16(v, vs);
+  const int o_vec = f32 && rows16(o, os);
   switch (D) {
-    case 64: return v1::launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
-    case 80: return v1::launch<T, 80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
-    case 96: return v1::launch<T, 96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
-    case 128: return v1::launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, st);
+    case 64: return v1::launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 80: return v1::launch<T, 80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 96: return v1::launch<T, 96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 128: return v1::launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

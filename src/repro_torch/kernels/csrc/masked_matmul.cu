@@ -28,17 +28,34 @@
 //   grid walks groups of 8 row tiles across the column tiles, so blocks that run together share
 //   their w tiles in L2. Both operands reach the tensor cores by ldmatrix (.trans for a
 //   row-major w tile) from padded rows, free of bank conflicts.
-// - v1 (float32 x and w) is the first version's SIMT kernel with fp32 FMAs: tensor cores would
-//   round fp32 to tf32, which misses the float32 tolerances. It also stays reachable for bf16 by
-//   an explicit variant, to be timed beside the bf16 kernels.
+// - v1 (float32 x and w) runs in fp32 on the SIMT cores, since tensor cores would round fp32 to
+//   tf32, which misses the float32 tolerances. Two kernels, picked by M as the bf16 pair is:
+//   - M <= 16: the decode kernels above, instantiated for fp32 x and w with no bf16 rounding of w
+//     (the masked weight is w times its 0/1 bit, as the plain version multiplies). Bound by the
+//     weight bytes: fp32 w in 16-byte loads, 8, 4 or 2 rows in flight at M <= 4, 8 or 16.
+//   - M > 16: `tiled`, a register-tiled SIMT kernel bound by operations (67 TFLOP/s FP32).
+//     128 x 128 output tiles (64 rows where M <= 64, 64 columns where 128-wide tiles would leave
+//     a quarter of their columns empty), 256 threads, each accumulating an 8 x 8 (or 8 x 4, 4 x
+//     8, 4 x 4) block. x and w are staged k-major in shared memory, so the inner loop reads each
+//     thread's a and b fragments with float4 loads: one LDS.128 per 16 FMAs. The shared ring
+//     holds two k tiles of 8: x tile t + 1 goes by cp.async while tile t is multiplied (4-byte
+//     copies, which transpose x into its k-major rows and need no alignment beyond a float's;
+//     zero-filled past the edge), w tile t + 1 through registers, since each weight is masked
+//     before it reaches shared memory. One barrier per k tile. The grid walks groups of 8 row
+//     tiles across the column tiles (as mma does), so co-resident blocks share w in L2.
+//     Row-major w is read 16 bytes a thread along N; embed.T (k-contiguous) 16 bytes a thread
+//     along K, two threads a column, so its loads coalesce too.
+//   Both read the mask as bits and use the shared split-K counters, as the bf16 kernels do. v1
+//   stays reachable for bf16 x and w by an explicit variant (the same templates), to be timed
+//   beside the bf16 kernels.
 //
 // The bf16 kernels take w in bf16 or in fp32 (the master weights, read in place): each fp32 weight
 // is rounded to bf16 in registers (__float2bfloat16_rn, bit for bit what w.to(torch.bfloat16)
-// gives) before the mask and the product, so both launches give the same bits. They read the mask
-// as bits packed once per mask by the wrapper (8 KB for 256 x 256, L1-resident), 1 byte per 8
-// weights instead of 32 bytes of float mask. Where K is split, each slice writes an fp32 partial
-// and the last slice of each tile sums them in slice order, so results do not change from run to
-// run.
+// gives) before the mask and the product, so both launches give the same bits. Every kernel reads
+// the mask as bits packed once per mask by the wrapper (8 KB for 256 x 256, L1-resident), 1 byte
+// per 8 weights instead of 32 bytes of float mask. Where K is split, each slice writes an fp32
+// partial and the last slice of each tile sums them in slice order, so results do not change from
+// run to run.
 //
 // A chip axis (the counterpart of the TPU kernel under jax.vmap, whose batching rule adds the
 // chip to the kernel's grid): every kernel takes `chips` stacks of x (chips, M, K), w (chip
@@ -56,11 +73,6 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// v1: SIMT, x and w of one dtype, float mask
-// ---------------------------------------------------------------------------
-namespace v1 {
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -70,200 +82,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const float* __restrict__ ok, T* __restrict__ y, int M, int N, int K,
-                     long long swk, long long swn, long long swc, int R, int C,
-                     int tiles_per_split, float* __restrict__ part, int* __restrict__ counters) {
-  constexpr int TX = BN / TN;          // threads along N
-  constexpr int NT = (BM / TM) * TX;   // threads per block
-  constexpr int XL = BM * BK / NT;     // x elements each thread stages per tile
-  constexpr int WL = BK * BN / NT;     // w elements each thread stages per tile
-  static_assert(NT % BK == 0 && NT % BN == 0 && (BM * BK) % NT == 0, "tile/threads");
-
-  // +1 column of padding: the transposed stores below hit distinct banks
-  __shared__ float xs[BK][BM + 1];
-  __shared__ float ws[BK][BN + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  // grid.y walks chips x row tiles; each chip has its own x, w, mask, y and partials
-  const int m_tiles = (M + BM - 1) / BM, chip = blockIdx.y / m_tiles;
-  x += (long long)chip * M * K;
-  w += chip * swc;
-  ok += (long long)chip * R * C;
-  y += (long long)chip * M * N;
-  part += (long long)chip * gridDim.z * M * N;
-  const int m0 = (blockIdx.y % m_tiles) * BM, n0 = blockIdx.x * BN;
-  // Neighbouring threads walk w along its unit-stride axis, so loads coalesce either way.
-  // Each thread keeps one coordinate of its staged w elements fixed and steps the other.
-  const bool n_contig = (swn == 1);
-  const int w_fix = n_contig ? tid % BN : tid % BK;   // nn (n_contig) or kk
-  const int w_var = n_contig ? tid / BN : tid / BK;   // first kk (n_contig) or nn
-  const int w_step = n_contig ? NT / BN : NT / BK;
-  const int n_fix = n0 + w_fix;                       // n_contig: this thread's column
-  const int n_fix_c = n_fix % C;
-
-  float xr[XL], wr[WL];
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // this block's slice of K: tiles [t_begin, t_begin + nt) of BK rows
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int nt = max(0, min((K + BK - 1) / BK - t_begin, tiles_per_split));
-  for (int t = 0; t <= nt; ++t) {
-    if (t > 0) {
-      // stage tile t-1 (already in registers) into shared memory
-#pragma unroll
-      for (int i = 0; i < XL; ++i) {
-        const int idx = tid + i * NT;
-        xs[idx % BK][idx / BK] = xr[i];
-      }
-#pragma unroll
-      for (int i = 0; i < WL; ++i) {
-        if (n_contig)
-          ws[w_var + i * w_step][w_fix] = wr[i];
-        else
-          ws[w_fix][w_var + i * w_step] = wr[i];
-      }
-      __syncthreads();
-    }
-    if (t < nt) {
-      // global loads of tile t, in flight while tile t-1 is multiplied below
-      const int k0 = (t_begin + t) * BK;
-#pragma unroll
-      for (int i = 0; i < XL; ++i) {
-        const int idx = tid + i * NT;
-        const int m = m0 + idx / BK, k = k0 + idx % BK;
-        xr[i] = (m < M && k < K) ? to_f(x[(long long)m * K + k]) : 0.f;
-      }
-      if (n_contig) {
-#pragma unroll
-        for (int i = 0; i < WL; ++i) {
-          const int k = k0 + w_var + i * w_step;
-          wr[i] = (k < K && n_fix < N) ? to_f(w[k * swk + n_fix]) * ok[(k % R) * C + n_fix_c] : 0.f;
-        }
-      } else {
-        const int k = k0 + w_fix;
-        const float* ok_row = ok + (k % R) * C;
-#pragma unroll
-        for (int i = 0; i < WL; ++i) {
-          const int n = n0 + w_var + i * w_step;
-          wr[i] = (k < K && n < N) ? to_f(w[k + n * swn]) * ok_row[n % C] : 0.f;
-        }
-      }
-    }
-    if (t > 0) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * (BM / TM)];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + j * TX];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  if (gridDim.z == 1) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + i * (BM / TM);
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tx + j * TX;
-        if (n < N) y[(long long)m * N + n] = from_f<T>(acc[i][j]);
-      }
-    }
-    return;
-  }
-
-  // split K: every slice writes its fp32 partial tile; the last slice to finish sums all of
-  // them in slice order (deterministic) and writes y
-  float* my_part = part + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * (BM / TM);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n < N) my_part[(long long)m * N + n] = acc[i][j];
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  __shared__ int is_last;
-  if (tid == 0)
-    is_last = atomicAdd(&counters[blockIdx.y * gridDim.x + blockIdx.x], 1) == (int)gridDim.z - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * (BM / TM);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= N) continue;
-      float sum = 0.f;
-      for (int z = 0; z < (int)gridDim.z; ++z) sum += __ldcg(part + ((long long)z * M + m) * N + n);
-      y[(long long)m * N + n] = from_f<T>(sum);
-    }
-  }
-}
-
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-int launch(int chips, const void* x, const void* w, const void* ok, void* y, int M, int N, int K,
-           long long swk, long long swn, long long swc, int R, int C, int splits, char* scratch,
-           long long scratch_bytes, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, chips * ((M + BM - 1) / BM), splits);
-  const int ntiles = (K + BK - 1) / BK;
-  const int per = (ntiles + splits - 1) / splits;
-  // scratch: one int counter per output tile of every chip (16-byte aligned), then each chip's
-  // slices' partials
-  const long long counter_bytes = (4LL * grid.x * grid.y + 15) / 16 * 16;
-  int* counters = reinterpret_cast<int*>(scratch);
-  float* part = reinterpret_cast<float*>(scratch + counter_bytes);
-  if (splits > 1) {
-    if (scratch_bytes < counter_bytes + 4LL * splits * chips * M * N)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t err = cudaMemsetAsync(counters, 0, 4LL * grid.x * grid.y, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  masked_matmul_kernel<T, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(ok),
-      static_cast<T*>(y), M, N, K, swk, swn, swc, R, C, per, part, counters);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(int chips, const void* x, const void* w, const void* ok, void* y, int M, int N,
-             int K, long long swk, long long swn, long long swc, int R, int C, int splits,
-             char* scratch, long long scratch_bytes, cudaStream_t s) {
-  // tile shapes; kernels/masked_matmul/ops.py::_TILES mirrors them to size the scratch
-  if (M <= 16)  // decode: one 16-row tile covers the batch
-    return launch<T, 16, 64, 32, 2, 2>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits,
-                                        scratch, scratch_bytes, s);
-  return launch<T, 64, 64, 16, 4, 4>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits,
-                                      scratch, scratch_bytes, s);
-}
-
-}  // namespace v1
-
 // ---------------------------------------------------------------------------
-// Shared pieces of the bf16 kernels
+// Shared pieces of the kernels
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 h) {
@@ -280,6 +100,21 @@ __device__ __forceinline__ uint32_t mask8(const uint8_t* __restrict__ bits, int 
   uint32_t m = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
+    int cj = c + j;
+    while (cj >= ncol) cj -= ncol;
+    m |= ((__ldg(row + (cj >> 3)) >> (cj & 7)) & 1u) << j;
+  }
+  return m;
+}
+
+// The same for 4 entries c, ..., c+3 (one byte read where they share it); bit j is entry c + j.
+__device__ __forceinline__ uint32_t mask4(const uint8_t* __restrict__ bits, int stride, int ncol,
+                                          int r, int c) {
+  const uint8_t* row = bits + (long long)r * stride;
+  if ((c & 7) <= 4 && c + 4 <= ncol) return (__ldg(row + (c >> 3)) >> (c & 7)) & 0xFu;
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
     int cj = c + j;
     while (cj >= ncol) cj -= ncol;
     m |= ((__ldg(row + (cj >> 3)) >> (cj & 7)) & 1u) << j;
@@ -354,6 +189,32 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   }
 }
 
+// The 8 weights as a kernel with x of type XT multiplies them, in fp32 registers: with bf16 x
+// rounded to bf16 and masked as above; with fp32 x (v1) the fp32 weights times their 0/1 bits,
+// unrounded, as the plain version multiplies them (a NaN or inf weight under a 0 bit gives NaN).
+template <typename XT, typename WT>
+__device__ __forceinline__ void weights8(const WRaw<WT>& r, uint32_t m, float (&f)[8]) {
+  if constexpr (std::is_same<XT, float>::value) {
+    static_assert(std::is_same<WT, float>::value, "fp32 x takes fp32 w");
+    const float* v = reinterpret_cast<const float*>(&r.v[0]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = v[j] * static_cast<float>((m >> j) & 1u);
+  } else {
+    unpack8(masked8(r, m), f);
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
 // Split K: every slice has stored its fp32 partial of the block's outputs (rows m0.., `rows`,
 // columns n0.., `cols`) at part[(z * M + m) * N + n]. The last slice to finish sums the partials
 // in slice order, so the result does not depend on which slice finished last, and writes y. The
@@ -362,8 +223,9 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
 // counter is left at 0 for the next launch, so the caller zeroes the counters once, not per
 // launch. grid.y is the chip: `part` is the chip's own, and the counter index counts chips x
 // tiles.
-__device__ void merge_splits(const float* part, int* counters, __nv_bfloat16* y, int M, int N,
-                             int m0, int rows, int n0, int cols) {
+template <typename TY>
+__device__ void merge_splits(const float* part, int* counters, TY* y, int M, int N, int m0,
+                             int rows, int n0, int cols) {
   __shared__ int is_last;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   __threadfence();
@@ -417,13 +279,10 @@ __device__ void merge_splits(const float* part, int* counters, __nv_bfloat16* y,
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         if (!in[e]) continue;
-        if (vw == 4) {
-          __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(y + o[e]);
-          q[0] = __floats2bfloat162_rn(sum[e].x, sum[e].y);
-          q[1] = __floats2bfloat162_rn(sum[e].z, sum[e].w);
-        } else {
-          y[o[e]] = __float2bfloat16(sum[e].x);
-        }
+        if (vw == 4)
+          store4(y + o[e], sum[e]);
+        else
+          y[o[e]] = from_f<TY>(sum[e].x);
       }
     }
   };
@@ -444,23 +303,43 @@ constexpr int DEC_MAX_SPLITS = 32;  // the last block of a tile merges every sli
 // rows of x the k-contiguous kernel stages in shared memory at a time: 16 KB of fp32, so a slice
 // of up to 1024 rows (M <= 4) stages its x once
 template <int MT> __host__ __device__ constexpr int dec_kc() { return 4096 / MT; }
+// consecutive rows of row-major w a warp takes per step: with bf16 x 8 at M <= 4 (128 bytes of bf16
+// a thread in flight, 256 of fp32), 4 above; with fp32 x (v1) 4 at every M (128 bytes of fp32 w
+// in flight; U rows of fp32 x per m sit in registers too), so the rows a warp sums, and the bits
+// of y, do not depend on M: a checksummed launch (M + 1 rows) repeats the payload's bits
+template <typename XT, int MT> __host__ __device__ constexpr int dec_rows_u() {
+  return std::is_same<XT, float>::value ? 4 : (MT > 4 ? 4 : 8);
+}
+// U values of x, loaded as one piece where aligned
+template <int BYTES>
+__device__ __forceinline__ void load_bytes(void* dst, const void* src) {
+  if constexpr (BYTES == 32) {
+    reinterpret_cast<uint4*>(dst)[0] = __ldg(reinterpret_cast<const uint4*>(src));
+    reinterpret_cast<uint4*>(dst)[1] = __ldg(reinterpret_cast<const uint4*>(src) + 1);
+  } else if constexpr (BYTES == 16) {
+    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+  } else {
+    static_assert(BYTES == 8, "x pieces of 8, 16 or 32 bytes");
+    *reinterpret_cast<uint2*>(dst) = __ldg(reinterpret_cast<const uint2*>(src));
+  }
+}
 constexpr int DEC_BN_ROWS = 256;  // columns per block, row-major w: 32 lanes x 8
 constexpr int DEC_BN_COLS = 32;   // columns per block, k-contiguous w: 8 warps x 4
 
 // Row-major w (K, N), unit stride along N. Each step, warp `warp` takes U consecutive rows of
 // its slice (rows warp * U + 8U s, ...) and lane `lane` columns n0 .. n0 + 7 of them: a thread
-// keeps U = 8 rows of w in flight at M <= 4 (128 bytes of bf16, 256 of fp32), with the same U
-// rows of x, loaded by every lane of the warp from one address. U is the same for both w dtypes,
-// so both sum in the same order. No shared memory is staged before the loads; the 8 warps' sums
-// meet in shared memory once, at the end.
-template <typename WT, int MT>
+// keeps U rows of w in flight (dec_rows_u), with the same U rows of x, loaded by every lane of
+// the warp from one address. U is the same for both w dtypes under bf16 x, so both sum in the
+// same order. No shared memory is staged before the loads; the 8 warps' sums meet in shared
+// memory once, at the end. XT is x's and y's type: bf16, or fp32 for v1.
+template <typename XT, typename WT, int MT>
 __global__ void __launch_bounds__(DEC_THREADS, MT > 4 ? 1 : 2)
-decode_rows_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
-                   const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ y, int M, int N,
+decode_rows_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                   const uint8_t* __restrict__ bits, XT* __restrict__ y, int M, int N,
                    int K, long long swk, long long swc, int R, int C, int cbytes,
                    int rows_per_split, int vec, int x_aligned, float* __restrict__ part,
                    int* __restrict__ counters) {
-  constexpr int U = MT > 4 ? 4 : 8;  // consecutive rows per step
+  constexpr int U = dec_rows_u<XT, MT>();  // consecutive rows per step
   const int chip = blockIdx.y;
   x += (long long)chip * M * K;
   w += chip * swc;
@@ -473,7 +352,7 @@ decode_rows_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
   const int n0 = nb + lane * 8;
   const int ncount = min(8, N - n0);  // <= 0: no column of this lane
   const bool vload = vec && ncount == 8;
-  const bool xload = x_aligned && K % U == 0;  // U bf16 of an x row in one load
+  const bool xload = x_aligned && K % U == 0;  // U values of an x row in one load
   const int cmask = n0 % C;
   const int k_begin = blockIdx.z * rows_per_split;
   const int k_end = min(K, k_begin + rows_per_split);
@@ -505,27 +384,26 @@ decode_rows_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
           msk[u] = 0;
         }
       }
-      struct alignas(16) XRow { __nv_bfloat16 v[U]; } xr[MT];  // x[m, k0 .. k0 + U)
+      struct alignas(16) XRow { XT v[U]; } xr[MT];  // x[m, k0 .. k0 + U)
       const int kc = min(U, k_end - k0);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const __nv_bfloat16* xp = x + (long long)m * K + k0;
+        const XT* xp = x + (long long)m * K + k0;
         if (m < M && xload && kc == U) {
-          if constexpr (U == 8) *reinterpret_cast<uint4*>(xr[m].v) = __ldg(reinterpret_cast<const uint4*>(xp));
-          else *reinterpret_cast<uint2*>(xr[m].v) = __ldg(reinterpret_cast<const uint2*>(xp));
+          load_bytes<U * (int)sizeof(XT)>(xr[m].v, xp);
         } else {
 #pragma unroll
-          for (int u = 0; u < U; ++u) xr[m].v[u] = m < M && u < kc ? xp[u] : __float2bfloat16(0.f);
+          for (int u = 0; u < U; ++u) xr[m].v[u] = m < M && u < kc ? xp[u] : from_f<XT>(0.f);
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (u >= kc) break;
         float wf[8];
-        unpack8(masked8(raw[u], msk[u]), wf);
+        weights8<XT>(raw[u], msk[u], wf);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          const float xm = __bfloat162float(xr[m].v[u]);
+          const float xm = to_f(xr[m].v[u]);
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xm, wf[j], acc[m][j]);
         }
@@ -552,7 +430,7 @@ decode_rows_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
   const float* mine = red + (threadIdx.x & 7) * 32 + (threadIdx.x >> 3);  // column nb + threadIdx.x
   if (gridDim.z == 1) {
     if (n < N)
-      for (int m = 0; m < M; ++m) y[(long long)m * N + n] = __float2bfloat16(mine[m * 8 * 32]);
+      for (int m = 0; m < M; ++m) y[(long long)m * N + n] = from_f<XT>(mine[m * 8 * 32]);
     return;
   }
   float* my = part + (long long)blockIdx.z * M * N;
@@ -562,11 +440,12 @@ decode_rows_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
 }
 
 // k-contiguous w (the tied unembedding's embed.T), unit stride along K. Each group of 8 lanes
-// takes one column and reads its K run 128 bytes at a time; a warp takes 4 columns.
-template <typename WT, int MT>
+// takes one column and reads its K run 128 bytes at a time; a warp takes 4 columns. x is staged
+// in shared memory as fp32 whatever its type (16 KB), DEC_KC rows of K at a time.
+template <typename XT, typename WT, int MT>
 __global__ void __launch_bounds__(DEC_THREADS, MT > 4 ? 1 : 2)
-decode_cols_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
-                   const uint8_t* __restrict__ bits_t, __nv_bfloat16* __restrict__ y, int M, int N,
+decode_cols_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                   const uint8_t* __restrict__ bits_t, XT* __restrict__ y, int M, int N,
                    int K, long long swn, long long swc, int R, int C, int rbytes,
                    int rows_per_split, int vec, float* __restrict__ part,
                    int* __restrict__ counters) {
@@ -595,7 +474,7 @@ decode_cols_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
     __syncthreads();
     for (int i = threadIdx.x; i < MT * DEC_KC; i += DEC_THREADS) {
       const int m = i / DEC_KC, kk = i % DEC_KC;
-      xs[i] = (m < M && kk < rows) ? __bfloat162float(x[(long long)m * K + kc + kk]) : 0.f;
+      xs[i] = (m < M && kk < rows) ? to_f(x[(long long)m * K + kc + kk]) : 0.f;
     }
     __syncthreads();
     if (n >= N) continue;
@@ -626,7 +505,7 @@ decode_cols_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
         const int k = kk + 64 * u;
         if (k >= rows) break;
         float wf[8];
-        unpack8(masked8(raw[u], msk[u]), wf);
+        weights8<XT>(raw[u], msk[u], wf);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const float4 a = *reinterpret_cast<const float4*>(xs + m * DEC_KC + k);
@@ -651,7 +530,7 @@ decode_cols_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w
   const bool writer = sub == 0 && n < N;
   if (gridDim.z == 1) {
     if (writer)
-      for (int m = 0; m < M; ++m) y[(long long)m * N + n] = __float2bfloat16(acc[m]);
+      for (int m = 0; m < M; ++m) y[(long long)m * N + n] = from_f<XT>(acc[m]);
     return;
   }
   if (writer) {
@@ -684,6 +563,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// one 4-byte element (zero-filled where src_bytes is 0); 4-byte copies go through L1 (.ca)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -924,10 +809,316 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
+// tiled: v1 at M > 16, register-tiled SIMT FP32
+// ---------------------------------------------------------------------------
+
+constexpr int TL_THREADS = 256;
+constexpr int TL_BK = 8;              // k depth of a tile
+constexpr int TL_MIN_BLOCKS = 2;      // blocks an SM holds: 128 registers a thread
+constexpr int TL_GROUP_M = 8;     // row tiles per raster group
+constexpr int TL_MIN_TILES = 8;   // k tiles (64 rows of K) a slice holds at least, where K is split
+
+// v1's tile at M > 16: 64 rows where M <= 64, else 128; 96 columns where N is a multiple of 96
+// but not of 128 (SmolLM's 576 and 192: no column tile half empty), else 64 where 128-wide
+// tiles would leave a quarter or more of their columns empty, else 128.
+// kernels/masked_matmul/ops.py::_v1_tiles mirrors it for the plan.
+void tiled_shape(int M, int N, int* bm, int* bn) {
+  *bm = M <= 64 ? 64 : 128;
+  const int n128 = (N + 127) / 128 * 128;
+  *bn = N % 96 == 0 && N % 128 != 0 ? 96 : 4 * (n128 - N) >= n128 ? 64 : 128;
+}
+
+// The BM x BN tile's threads each own TM x TN outputs (TM = BM / 16, TN = BN / 16): thread (tx,
+// ty) = (tid % 16, tid / 16) rows ty * 4 + 64 i + (0..3) and columns tx * 4 + 64 j + (0..3), and
+// at BN = 96 also 64 + 2 tx + (0, 1), so each k step reads its a and b fragments from the k-major
+// tiles with float4 loads (one float2), a half-warp reading 2 and 16 distinct addresses, free of
+// bank conflicts. (Warps of 2-D sub-tiles, fp32 x through registers, no fragment prefetch, k
+// depths 4 and 16 and 8 x 16 outputs a thread measured no faster, tools/f32_kernels_probe.py.)
+// x tile [k][m]: fp32 by cp.async, element i of a thread at k tid % BK, row tid / BK + (256 / BK)
+// i (a warp reads whole 32-byte row runs; rows padded to BM + 4, so the transposing copies spread
+// over the banks); bf16 through registers in 4-k chunks. w tile [k][n]: 4-element
+// chunks, row-major at k row c / (BN / 4), columns (c % (BN / 4)) * 4; k-contiguous at column
+// c / (BK / 4), k rows (c % (BK / 4)) * 4 .. + 3. bits is the (R, C) bit matrix for row-major w
+// and the transposed (C, R) one for embed.T. WHOLE: every w chunk is whole and 16-byte aligned
+// and its 4 mask bits sit in one byte (the launch checks), so the loop carries no scalar fallback
+// (the generic instance's branches cost 6-7% of the time, tools/f32_kernels_probe.py).
+template <typename T, int BM, int BN, bool WHOLE>
+__global__ void __launch_bounds__(TL_THREADS, TL_MIN_BLOCKS)
+tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __restrict__ bits,
+             T* __restrict__ y, int M, int N, int K, long long swk, long long swn, long long swc,
+             int R, int C, int bstride, int splits, int split_tiles, int tiles_per_split,
+             int w_vec, int x_vec, float* __restrict__ part, int* __restrict__ counters) {
+  constexpr int BK = TL_BK, TM = BM / 16, TN = BN / 16;
+  // a thread's columns: TN4 float4 runs, then (BN = 96) one float2 run at 64 + 2 (tid % 16)
+  constexpr int TN4 = TN / 4, TN2 = TN % 4 / 2;
+  static_assert(TN % 4 == 0 || TN == 6, "column runs of 4, or 4 + 2");
+  constexpr int LDA = BM + 4, LDB = BN + 4;
+  constexpr int XL = BM * BK / TL_THREADS;                             // x elements (cp.async)
+  constexpr int XC = (BM * BK / 4 + TL_THREADS - 1) / TL_THREADS;      // x chunks (registers)
+  constexpr int WC = (BK * BN / 4 + TL_THREADS - 1) / TL_THREADS;      // w chunks a thread
+  __shared__ __align__(16) float As[2][BK][LDA];
+  __shared__ __align__(16) float Bs[2][BK][LDB];
+  const bool kcontig = swn != 1;
+  const int chip = blockIdx.y;
+  x += (long long)chip * M * K;
+  w += chip * swc;
+  bits += (long long)chip * (kcontig ? C : R) * bstride;
+  y += (long long)chip * M * N;
+  part += (long long)chip * split_tiles * splits * BM * BN;
+  const int tid = threadIdx.x;
+  // this thread's first row and column; its float4 runs are 64 apart
+  constexpr int RS = 64, CS = 64;
+  const int row0 = (tid >> 4) * 4, col0 = (tid & 15) * 4, col2 = 64 * TN4 + (tid & 15) * 2;
+  // The chip's tiles run whole but its last split_tiles, which are cut into `splits` K slices
+  // each: block x of the first tiles - split_tiles is that tile, the rest slice x % splits of
+  // the tile after them. The tiles walk a grouped raster, as in mma_kernel.
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int whole = m_tiles * n_tiles - split_tiles;
+  int tile = blockIdx.x, z = 0, nz = 1;
+  if (tile >= whole) {
+    z = (tile - whole) % splits;
+    tile = whole + (tile - whole) / splits;
+    nz = splits;
+  }
+  const int group = tile / (TL_GROUP_M * n_tiles), first_m = group * TL_GROUP_M;
+  const int group_m = min(m_tiles - first_m, TL_GROUP_M);
+  const int in_group = tile % (TL_GROUP_M * n_tiles);
+  const int m0 = (first_m + in_group % group_m) * BM, n0 = in_group / group_m * BN;
+  const int t_begin = z * tiles_per_split, tiles_k = (K + BK - 1) / BK;
+  const int nt = nz == 1 ? tiles_k : max(0, min(tiles_k - t_begin, tiles_per_split));
+
+  int wk[WC], wn[WC], m_fix[WC], m_var[WC];
+#pragma unroll
+  for (int i = 0; i < WC; ++i) {
+    const int c = tid + i * TL_THREADS;
+    wk[i] = kcontig ? (c % (BK / 4)) * 4 : c / (BN / 4);
+    wn[i] = kcontig ? c / (BK / 4) : (c % (BN / 4)) * 4;
+    m_fix[i] = (n0 + wn[i]) % C;              // the mask column (row of bits_t), fixed
+    m_var[i] = (t_begin * BK + wk[i]) % R;    // the mask row of the next w tile loaded
+  }
+  float wr[WC][4], xr[XC][4];
+  uint32_t wmask[WC];
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  // 4 elements of a row of T at p (cnt of them valid), into fp32 registers
+  auto load4 = [&](float (&r)[4], const T* p, int cnt, bool vec) {
+    if (cnt == 4 && vec) {
+      if constexpr (std::is_same<T, float>::value) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+        r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+        r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[j] = j < cnt ? to_f(__ldg(p + j)) : 0.f;
+    }
+  };
+  auto load_x = [&](int t, int stage) {
+    if constexpr (!std::is_same<T, float>::value) {
+#pragma unroll
+      for (int i = 0; i < XC; ++i) {
+        const int c = tid + i * TL_THREADS;
+        if (c >= BM * BK / 4) break;
+        const int row = c / (BK / 4), m = m0 + row, k = t * BK + (c % (BK / 4)) * 4;
+        load4(xr[i], x + (long long)m * K + k, m < M ? max(0, min(4, K - k)) : 0, x_vec);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < XL; ++i) {
+        const int kk = tid % BK, row = tid / BK + (TL_THREADS / BK) * i, m = m0 + row;
+        const int k = t * BK + kk;
+        const bool in = m < M && k < K;
+        cp_async4(&As[stage][kk][row], in ? x + (long long)m * K + k : x, in ? 4 : 0);
+      }
+    }
+  };
+  auto store_x = [&](int stage) {
+    if constexpr (!std::is_same<T, float>::value) {
+#pragma unroll
+      for (int i = 0; i < XC; ++i) {
+        const int c = tid + i * TL_THREADS;
+        if (c >= BM * BK / 4) break;
+        const int row = c / (BK / 4), kq = (c % (BK / 4)) * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) As[stage][kq + j][row] = xr[i][j];
+      }
+    }
+  };
+  auto load_w = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < WC; ++i) {
+      if (tid + i * TL_THREADS >= BK * BN / 4) break;
+      const int k = t * BK + wk[i], n = n0 + wn[i];
+      const int cnt = max(0, min(4, kcontig ? K - k : N - n));
+      const bool in = kcontig ? n < N : k < K;
+      const T* p = kcontig ? w + (long long)n * swn + k : w + (long long)k * swk + n;
+      const int r = kcontig ? m_fix[i] : m_var[i], c = kcontig ? m_var[i] : m_fix[i];
+      if constexpr (WHOLE) {
+        if (in && cnt == 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+          wr[i][0] = v.x; wr[i][1] = v.y; wr[i][2] = v.z; wr[i][3] = v.w;
+        } else {
+          wr[i][0] = wr[i][1] = wr[i][2] = wr[i][3] = 0.f;
+        }
+        wmask[i] = (__ldg(bits + (long long)r * bstride + (c >> 3)) >> (c & 7)) & 0xFu;
+      } else {
+        load4(wr[i], p, in ? cnt : 0, w_vec);
+        wmask[i] = mask4(bits, bstride, kcontig ? R : C, r, c);
+      }
+      m_var[i] += BK;
+      if (m_var[i] >= R) m_var[i] %= R;
+    }
+  };
+  // the registers' tile, masked (w times its 0/1 bit, as the plain version), into stage `stage`
+  auto store_w = [&](int stage) {
+#pragma unroll
+    for (int i = 0; i < WC; ++i) {
+      if (tid + i * TL_THREADS >= BK * BN / 4) break;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = wr[i][j] * static_cast<float>((wmask[i] >> j) & 1u);
+      if (kcontig) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Bs[stage][wk[i] + j][wn[i]] = v[j];
+      } else {
+        *reinterpret_cast<float4*>(&Bs[stage][wk[i]][wn[i]]) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+  // this thread's a and b fragments of k step kk
+  auto frag = [&](int stage, int kk, float (&a)[TM], float (&b)[TN]) {
+#pragma unroll
+    for (int i = 0; i < TM / 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(&As[stage][kk][row0 + RS * i]);
+      a[4 * i] = v.x; a[4 * i + 1] = v.y; a[4 * i + 2] = v.z; a[4 * i + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < TN4; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(&Bs[stage][kk][col0 + CS * j]);
+      b[4 * j] = v.x; b[4 * j + 1] = v.y; b[4 * j + 2] = v.z; b[4 * j + 3] = v.w;
+    }
+    if constexpr (TN2 > 0) {
+      const float2 v = *reinterpret_cast<const float2*>(&Bs[stage][kk][col2]);
+      b[4 * TN4] = v.x; b[4 * TN4 + 1] = v.y;
+    }
+  };
+  auto compute = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+      frag(stage, kk, a, b);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+
+  // k tile t: its x copies and w stores were made during tile t - 1; the barrier makes them
+  // visible and frees the other stage, into which tile t + 1 goes while t is multiplied
+  if (nt > 0) {
+    load_x(t_begin, 0);
+    load_w(t_begin);
+  }
+  cp_async_commit();
+  if (nt > 0) {
+    store_x(0);
+    store_w(0);
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait0();
+    __syncthreads();
+    if (t + 1 < nt) {
+      load_x(t_begin + t + 1, (t + 1) & 1);
+      load_w(t_begin + t + 1);
+    }
+    cp_async_commit();
+    compute(t & 1);
+    if (t + 1 < nt) {
+      store_x((t + 1) & 1);
+      store_w((t + 1) & 1);
+    }
+  }
+
+  // a whole tile writes y; a slice writes its fp32 partial tile [BM][BN], and the last slice of
+  // the tile to finish sums the partials in slice order (the same bits whichever finished last)
+  // and writes y, leaving the tile's counter at 0 for the next launch
+  // a run of w (4 or 2) outputs at (m, n): vector stores where N lets every run align
+  float* const tile_part = part + (long long)(tile - whole) * splits * BM * BN;
+  auto put = [&](int m, int n, float4 v, int w) {
+    const long long o = (long long)m * N + n;
+    if (N % w == 0) {
+      if (w == 4) store4(y + o, v); else store2(y + o, make_float2(v.x, v.y));
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+      for (int c = 0; c < w && n + c < N; ++c) y[o + c] = from_f<T>(e[c]);
+    }
+  };
+  auto part_at = [&](int q, int r, int c) { return tile_part + (long long)q * BM * BN + r * BN + c; };
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + RS * (i / 4) + i % 4;
+    if (m0 + r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN4 + TN2; ++j) {
+      const int c = j < TN4 ? col0 + CS * j : col2, w = j < TN4 ? 4 : 2;
+      if (n0 + c >= N) continue;
+      const float4 v = make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][min(4 * j + 2, TN - 1)],
+                                   acc[i][min(4 * j + 3, TN - 1)]);  // a float2 run stores .x, .y
+      if (nz == 1)
+        put(m0 + r, n0 + c, v, w);
+      else if (w == 4)
+        store4(part_at(z, r, c), v);
+      else
+        store2(part_at(z, r, c), make_float2(v.x, v.y));
+    }
+  }
+  if (nz == 1) return;
+  __shared__ int is_last;
+  const int ctr = chip * m_tiles * n_tiles + tile;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&counters[ctr], 1) == nz - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + RS * (i / 4) + i % 4;
+    if (m0 + r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN4 + TN2; ++j) {
+      const int c = j < TN4 ? col0 + CS * j : col2, w = j < TN4 ? 4 : 2;
+      if (n0 + c >= N) continue;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < nz; ++q) {
+        if (w == 4) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(part_at(q, r, c)));
+          sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+        } else {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(part_at(q, r, c)));
+          sum.x += v.x; sum.y += v.y;
+        }
+      }
+      put(m0 + r, n0 + c, sum, w);
+    }
+  }
+  if (tid == 0) counters[ctr] = 0;
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-// Scratch of the bf16 kernels: chips * splits * M * N floats of partials where K is split; the
+// Scratch of a split launch: chips * splits * M * N floats of partials where K is split; the
 // counters are the caller's, zero, one per output tile of every chip, and are left at zero.
 int check_split(int chips, int splits, long long tiles_out, int M, int N, long long scratch_bytes,
                 int counters_len) {
@@ -951,6 +1142,8 @@ int split_count(int tiles_k, int want) {
 // tiles x slices within one wave of two blocks per SM (a second, partial wave would double the
 // time), so a fleet's launch splits K less than one chip's. decode cuts K into whole DEC_KQ-row
 // granules, at most DEC_MAX_SPLITS slices; mma gives each slice at least MMA_MIN_TILES k tiles.
+// v1's plan, the same rules for its decode and tiled kernels, is kernels/masked_matmul/ops.py::
+// _split_plan; the launches below check its scratch and counters.
 void plan(int variant, int chips, int M, int N, int K, bool kcontig, int sms, int* splits,
           int* tiles_out) {
   if (variant == 2) {
@@ -965,7 +1158,8 @@ void plan(int variant, int chips, int M, int N, int K, bool kcontig, int sms, in
   }
 }
 
-template <typename WT>
+// XT is x's and y's type (bf16, or fp32 for v1), WT w's
+template <typename XT, typename WT>
 int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
                   void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
                   int C, int splits, float* part, long long scratch_bytes, int* counters,
@@ -978,30 +1172,100 @@ int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, 
   const int rows = (tiles_k + splits - 1) / splits * DEC_KQ;
   if (int err = check_split(chips, splits, grid.x, M, N, scratch_bytes, counters_len)) return err;
   const long long unit = 16 / sizeof(WT);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* xt = static_cast<const XT*>(x);
   const auto* wt = static_cast<const WT*>(w);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
+  auto* yt = static_cast<XT*>(y);
+  // the instance by M: 4 and 16 rows, and 8 for fp32 x, whose rows of x take registers too
+  constexpr bool f32 = std::is_same<XT, float>::value;
+  const int mt = M <= 4 ? 4 : (f32 && M <= 8) ? 8 : 16;
   if (kcontig) {
     const int vec = aligned16(w) && swn % unit == 0 && swc % unit == 0;
     const int rbytes = (R + 7) / 8;
-    if (M <= 4)
-      decode_cols_kernel<WT, 4><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits_t, yb, M, N, K, swn, swc, R,
-                                                             C, rbytes, rows, vec, part, counters);
-    else
-      decode_cols_kernel<WT, 16><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits_t, yb, M, N, K, swn, swc,
-                                                              R, C, rbytes, rows, vec, part, counters);
+    auto go = [&](auto mt_) {
+      constexpr int MT = decltype(mt_)::value;
+      decode_cols_kernel<XT, WT, MT><<<grid, DEC_THREADS, 0, s>>>(xt, wt, bits_t, yt, M, N, K, swn, swc,
+                                                                  R, C, rbytes, rows, vec, part, counters);
+    };
+    if (mt == 4) go(std::integral_constant<int, 4>{});
+    else if (f32 && mt == 8) go(std::integral_constant<int, f32 ? 8 : 16>{});
+    else go(std::integral_constant<int, 16>{});
   } else {
     const int vec = aligned16(w) && swk % unit == 0 && swc % unit == 0;
     const int cbytes = (C + 7) / 8;
-    const int xa = aligned16(x) && (chips == 1 || (long long)M * K % 8 == 0);  // every chip's x
-    if (M <= 4)
-      decode_rows_kernel<WT, 4><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits, yb, M, N, K, swk, swc, R,
-                                                             C, cbytes, rows, vec, xa, part, counters);
-    else
-      decode_rows_kernel<WT, 16><<<grid, DEC_THREADS, 0, s>>>(xb, wt, bits, yb, M, N, K, swk, swc, R,
-                                                              C, cbytes, rows, vec, xa, part, counters);
+    // every chip's x rows 16-byte aligned
+    const int xa = aligned16(x) && (chips == 1 || (long long)M * K * sizeof(XT) % 16 == 0);
+    auto go = [&](auto mt_) {
+      constexpr int MT = decltype(mt_)::value;
+      decode_rows_kernel<XT, WT, MT><<<grid, DEC_THREADS, 0, s>>>(xt, wt, bits, yt, M, N, K, swk, swc,
+                                                                  R, C, cbytes, rows, vec, xa, part,
+                                                                  counters);
+    };
+    if (mt == 4) go(std::integral_constant<int, 4>{});
+    else if (f32 && mt == 8) go(std::integral_constant<int, f32 ? 8 : 16>{});
+    else go(std::integral_constant<int, 16>{});
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int BM, int BN>
+int launch_tiled_shape(int chips, const T* x, const T* w, const uint8_t* bits, const uint8_t* bits_t,
+                       T* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
+                       int C, int splits, int split_tiles, float* part, long long scratch_bytes,
+                       int* counters, int counters_len, cudaStream_t s) {
+  const bool kcontig = swn != 1;
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (splits == 1) split_tiles = 0;
+  if (split_tiles < 0 || split_tiles > tiles) return static_cast<int>(cudaErrorInvalidValue);
+  // every chip's split tiles' partial tiles, and one counter per tile of every chip
+  if (split_tiles > 0 && (scratch_bytes < 4LL * chips * split_tiles * splits * BM * BN ||
+                          counters_len < (long long)chips * tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(tiles - split_tiles + split_tiles * splits, chips);
+  const int tiles_k = (K + TL_BK - 1) / TL_BK;
+  const int per = (tiles_k + splits - 1) / splits;
+  // a w chunk is 4 elements: one load where every chunk is aligned to its size
+  const long long stride = kcontig ? swn : swk;
+  const int w_vec = (reinterpret_cast<uintptr_t>(w) % (4 * sizeof(T))) == 0 && stride % 4 == 0 &&
+                    swc % 4 == 0;
+  // fp32 w whose 4-element chunks are all whole (N, or K for embed.T, a multiple of 4) and
+  // aligned, with a mask period whose 4-bit runs never straddle a byte or wrap
+  const bool whole = std::is_same<T, float>::value && w_vec && (kcontig ? K % 4 == 0 && R % 4 == 0
+                                                                        : N % 4 == 0 && C % 4 == 0);
+  auto kern = whole ? tiled_kernel<T, BM, BN, std::is_same<T, float>::value>
+                    : tiled_kernel<T, BM, BN, false>;
+  kern<<<grid, TL_THREADS, 0, s>>>(
+      x, w, kcontig ? bits_t : bits, y, M, N, K, swk, swn, swc, R, C, kcontig ? (R + 7) / 8 : (C + 7) / 8,
+      splits, split_tiles, per, w_vec, aligned16(x) && K % 4 == 0, part, counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v1 (x and w of one type T): the decode kernels at M <= 16, the tiled kernel above
+template <typename T>
+int launch_v1(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
+              void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R, int C,
+              int splits, int split_tiles, float* part, long long scratch_bytes, int* counters,
+              int counters_len, cudaStream_t s) {
+  if (M <= 16)
+    return launch_decode<T, T>(chips, x, w, bits, bits_t, y, M, N, K, swk, swn, swc, R, C, splits,
+                               part, scratch_bytes, counters, counters_len, s);
+  int bm, bn;
+  tiled_shape(M, N, &bm, &bn);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wt = static_cast<const T*>(w);
+  auto* yt = static_cast<T*>(y);
+#define V1_TILED(BM_, BN_)                                                                         \
+  if (bm == BM_ && bn == BN_)                                                                      \
+    return launch_tiled_shape<T, BM_, BN_>(chips, xt, wt, bits, bits_t, yt, M, N, K, swk, swn, swc, \
+                                           R, C, splits, split_tiles, part, scratch_bytes,         \
+                                           counters, counters_len, s);
+  V1_TILED(128, 128)
+  V1_TILED(128, 96)
+  V1_TILED(128, 64)
+  V1_TILED(64, 128)
+  V1_TILED(64, 96)
+  V1_TILED(64, 64)
+#undef V1_TILED
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename WT, bool KCONTIG>
@@ -1067,49 +1331,49 @@ extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, i
 
 // variant: 1 = v1 (x and w share the dtype xdtype), 2 = decode (M <= 16), 3 = mma; 2 and 3 take
 // bf16 x and w in bf16 or float32. Dtypes: 0 = float32, 1 = bfloat16. `chips` >= 1 stacks run in
-// one launch. ok is the float32 (chips, R, C) mask, contiguous (v1 reads it); bits is it packed 8
-// entries per byte along C ((chips, R, ceil(C/8)) bytes) and bits_t the same of each ok[c].T
-// ((chips, C, ceil(R/8)) bytes), which the bf16 kernels read. x is (chips, M, K) contiguous, y is
-// (chips, M, N) contiguous in x's dtype, w[c] is (K, N) with strides (swk, swn), one of them 1,
-// and chip c's starts swc elements after chip c - 1's (0: one w for every chip). splits > 1 cuts
-// K into that many slices, one block each per output tile, and needs the caller's scratch: for
-// v1, one int per output tile of every chip rounded up to 16 bytes, then chips * splits * M * N
-// floats; for the bf16 kernels chips * splits * M * N floats, and `counters`, at least one zero
-// int per output tile of every chip (counters_len of them), which the kernels leave at zero, so
+// one launch. The 0/1 mask comes as bits: bits packs each chip's (R, C) mask 8 entries per byte
+// along C ((chips, R, ceil(C/8)) bytes), bits_t the same of each transposed mask ((chips, C,
+// ceil(R/8)) bytes), for k-contiguous w. x is (chips, M, K) contiguous, y is (chips, M, N)
+// contiguous in x's dtype, w[c] is (K, N) with strides (swk, swn), one of them 1, and chip c's
+// starts swc elements after chip c - 1's (0: one w for every chip). splits > 1 cuts K into that
+// many slices, one block each per output tile, and needs the caller's scratch, chips * splits *
+// M * N floats (v1 at M > 16: only each chip's last split_tiles tiles are cut, and the scratch
+// holds their chips * split_tiles * splits partial tiles), and `counters`, at least one zero int
+// per output tile of every chip (counters_len of them), which the kernels leave at zero, so
 // launches that share them must run one at a time: the wrapper keeps one buffer per stream.
-// masked_matmul_plan gives the bf16 kernels' splits and sizes. Returns the first CUDA error, or
-// cudaGetLastError() after the launch.
+// masked_matmul_plan gives the bf16 kernels' splits and sizes, ops.py::_split_plan v1's.
+// Returns the first CUDA error, or cudaGetLastError() after the launch.
 extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, const void* x,
-                             const void* w, const void* ok, const void* bits, const void* bits_t,
-                             void* y, int M, int N, int K, long long swk, long long swn,
-                             long long swc, int R, int C, int splits, void* scratch,
-                             long long scratch_bytes, void* counters, int counters_len,
-                             void* stream) {
+                             const void* w, const void* bits, const void* bits_t, void* y, int M,
+                             int N, int K, long long swk, long long swn, long long swc, int R, int C,
+                             int splits, int split_tiles, void* scratch, long long scratch_bytes,
+                             void* counters, int counters_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  char* sc = static_cast<char*>(scratch);
   if (splits < 1 || chips < 1 || chips > 65535 || (swk != 1 && swn != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto* b = static_cast<const uint8_t*>(bits);
+  const auto* bt = static_cast<const uint8_t*>(bits_t);
+  float* part = static_cast<float*>(scratch);
+  int* cnt = static_cast<int*>(counters);
   if (variant == 1) {
     if (xdtype != wdtype) return static_cast<int>(cudaErrorInvalidValue);
     if (xdtype == 0)
-      return v1::dispatch<float>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits, sc,
-                                 scratch_bytes, s);
+      return launch_v1<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+                              split_tiles, part, scratch_bytes, cnt, counters_len, s);
     if (xdtype == 1)
-      return v1::dispatch<__nv_bfloat16>(chips, x, w, ok, y, M, N, K, swk, swn, swc, R, C, splits,
-                                         sc, scratch_bytes, s);
+      return launch_v1<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+                                      split_tiles, part, scratch_bytes, cnt, counters_len, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (xdtype != 1 || (wdtype != 0 && wdtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* b = static_cast<const uint8_t*>(bits);
-  const auto* bt = static_cast<const uint8_t*>(bits_t);
-  float* part = reinterpret_cast<float*>(sc);
-  int* cnt = static_cast<int*>(counters);
   if (variant == 2)
     return wdtype == 1
-               ? launch_decode<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C,
-                                              splits, part, scratch_bytes, cnt, counters_len, s)
-               : launch_decode<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
-                                      part, scratch_bytes, cnt, counters_len, s);
+               ? launch_decode<__nv_bfloat16, __nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn,
+                                                             swc, R, C, splits, part, scratch_bytes,
+                                                             cnt, counters_len, s)
+               : launch_decode<__nv_bfloat16, float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R,
+                                                     C, splits, part, scratch_bytes, cnt,
+                                                     counters_len, s);
   if (variant == 3)
     return wdtype == 1
                ? launch_mma<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C,

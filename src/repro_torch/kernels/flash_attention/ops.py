@@ -13,9 +13,13 @@ once for its whole query group. The dtype picks the kernel:
   and V tiles through a two-stage ``cp.async`` ring. It needs q, k and v
   16-byte aligned with strides that are multiples of 8 elements (the
   model's (B, S, H, D) projections are); the wrapper raises otherwise;
-- ``v1`` (float32): the first SIMT kernel, since tensor cores would round
-  fp32 to tf32. ``variant="v1"`` also forces it for bf16, to time it beside
-  the mma kernel; the serving paths never ask for it.
+- ``v1`` (float32): FlashAttention-2's shape in fp32 on the SIMT cores,
+  since tensor cores would round fp32 to tf32: S = QK^T and O += PV as
+  register-tiled outer products over shared-memory tiles, K and V through
+  a two-stage ``cp.async`` ring, one ``expf`` per score. It takes any
+  stride (plain loads where a tensor is not 16-byte aligned).
+  ``variant="v1"`` also forces it for bf16, to time it beside the mma
+  kernel; the serving paths never ask for it.
 
 ``flash_attention`` takes the ``(B, H, S, D)`` layout. For a CUDA tensor it
 launches a kernel and counts the launch in ``flash_attention.launches`` and
@@ -102,7 +106,7 @@ def flash_attention(
     stride on the head dim, D is one of ``HEAD_DIMS``; in bfloat16 they are 16-byte aligned
     with strides that are multiples of 8 elements. The output is a
     (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, so the caller's merge of
-    the heads is free. ``variant="v1"`` forces the first SIMT kernel."""
+    the heads is free. ``variant="v1"`` forces the float32 kernel."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":

@@ -13,17 +13,22 @@ differently on an H100:
   over the whole card;
 - ``mma`` (bf16 x, M > 16): operations bound it; 128 x 128 tiles on the
   tensor cores;
-- ``v1`` (float32 x and w): the first SIMT kernel, since tensor cores would
-  round fp32 to tf32. ``variant="v1"`` also forces it for bf16 x and w, to
-  time it beside the bf16 kernels; the serving paths never ask for it.
+- ``v1`` (float32 x and w): the float32 kernels, in fp32 on the SIMT cores,
+  since tensor cores would round fp32 to tf32. At M <= 16 the ``decode``
+  kernels' template streams the fp32 weights (bound by their bytes); above
+  it a register-tiled kernel (bound by operations) multiplies 128 x 128
+  tiles staged k-major in shared memory. ``variant="v1"`` also forces them
+  for bf16 x and w, to time them beside the bf16 kernels; the serving paths
+  never ask for it.
 
 The bf16 kernels take w in bf16 or float32. A float32 w (the fp32 master,
 as ``fault_linear`` passes it in ``kernel`` mode) is rounded to bf16 inside
 the kernel, bit for bit as ``w.to(torch.bfloat16)`` would round it, so the
 two launches give the same bits and no bf16 copy of w is ever written. w is
 taken through its strides, so the tied unembedding's ``embed.T`` is read in
-place. The bf16 kernels read the mask as bits, packed once per mask tensor
-(``packed_mask``).
+place. Every kernel reads the mask as bits, packed once per mask tensor
+(``packed_mask``), and split launches share one zeroed counter buffer per
+stream (``kernels.common.split_counters``).
 
 A chip axis: with w of shape (chips, K, N), x (chips, ..., K) and ok
 (chips, R, C), one launch computes every chip's product with its own weights
@@ -46,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -64,35 +70,91 @@ __all__ = [
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
     + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 )
 # the C entry point's variant codes
 VARIANTS = {"v1": 1, "decode": 2, "mma": 3}
-# v1's tiles, (BM, BN, BK) for small M (decode) and otherwise; they mirror
-# csrc/masked_matmul.cu, which checks the scratch sizes. The bf16 kernels'
-# plans come from the C side (``_plan``).
 _SMALL_M = 16
-_TILES = {True: (16, 64, 32), False: (64, 64, 16)}
 _PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+# v1's split rules, as csrc/masked_matmul.cu's plan() states them for the
+# bf16 kernels: at M <= 16 the decode kernels' (K in 64-row granules, at most
+# 32 slices), above it the tiled kernel's (each slice at least 8 k tiles)
+_DEC_KQ, _DEC_MAX_SPLITS, _TL_MIN_TILES = 64, 32, 8
+_SLICE_COST = 0.01  # a K slice's own cost in the tiled plan, in tile-waves
+
+
+def _v1_tiles(m: int, n: int, k_contiguous: bool = False) -> tuple[int, int, int]:
+    """v1's (BM, BN, BK) as csrc/masked_matmul.cu picks them: at M <= 16 the
+    decode kernels' (one block of columns covers every row; 256 columns of
+    row-major w, 32 of embed.T; K granule 64); above it the tiled kernel's
+    (``tiled_shape``: 64 rows where M <= 64, else 128; 96 columns where N is
+    a multiple of 96 and not of 128, else 64 where 128-wide tiles would
+    leave a quarter or more of their columns empty, else 128)."""
+    if m <= _SMALL_M:
+        return m, 32 if k_contiguous else 256, _DEC_KQ
+    n128 = -(-n // 128) * 128
+    bn = 96 if n % 96 == 0 and n % 128 else 64 if 4 * (n128 - n) >= n128 else 128
+    return 64 if m <= 64 else 128, bn, 8
+
+
+def _split_count(tiles_k: int, want: int) -> int:
+    """At most ``want`` slices of ``tiles_k`` k tiles, none of them empty."""
+    want = min(want, tiles_k)
+    if want <= 1:
+        return 1
+    return -(-tiles_k // -(-tiles_k // want))
+
+
+class V1Plan(NamedTuple):
+    splits: int  # K slices of a split tile
+    scratch_bytes: int  # the fp32 partials of every split tile of every chip
+    tiles: int  # output tiles of all chips: the split-K counters a launch needs
+    split_tiles: int  # each chip's tiles cut into K slices (its last, in raster order)
+
+
+def _waves(pieces: int, slots: int, splits: int) -> float:
+    """Waves of two blocks per SM that ``pieces`` slices of 1 / ``splits`` of
+    a tile take, counted in whole tiles: a wave that is partly filled takes
+    as long as a full one (an SM that holds two blocks sets its length)."""
+    return -(-pieces // slots) / splits
 
 
 @functools.lru_cache(maxsize=None)
-def _split_plan(m: int, n: int, k: int, sms: int, chips: int = 1) -> tuple[int, int]:
-    """v1's (K slices, scratch bytes) for ``chips`` stacks in one launch: K
-    is split until about two blocks per SM are in flight over every chip's
-    output tiles, or every slice holds one K tile. A split needs one int
-    counter per output tile of every chip (16-byte aligned), then every
-    chip's slices' fp32 partial outputs."""
-    bm, bn, bk = _TILES[m <= _SMALL_M]
-    tiles_out = chips * math.ceil(m / bm) * math.ceil(n / bn)
+def _split_plan(
+    m: int, n: int, k: int, sms: int, chips: int = 1, k_contiguous: bool = False
+) -> V1Plan:
+    """v1's launch plan for ``chips`` stacks in one launch, aimed at waves of
+    two blocks per SM (2 x ``sms`` slots). At M <= 16 (the decode kernels)
+    every tile is cut into K slices until the slices fill one wave (at most
+    32 slices of 64-row granules). Above it (the tiled kernel) the tiles of
+    a last, partly filled wave (each chip's last ones in raster order; all of
+    them below one wave) are cut into the number of slices, at least 8 k
+    tiles each, that ends the launch soonest (``_waves``, with
+    ``_SLICE_COST`` for each slice), and the rest run whole. The scratch holds every split tile's fp32 partials (all of M
+    x N per slice at M <= 16, a BM x BN tile per slice above); the counters,
+    one per output tile of every chip, are the shared buffer's
+    (``split_counters``). The C side checks both."""
+    bm, bn, bk = _v1_tiles(m, n, k_contiguous)
+    per_chip = math.ceil(m / bm) * math.ceil(n / bn)
+    tiles, slots = chips * per_chip, 2 * sms
     tiles_k = max(1, math.ceil(k / bk))
-    want = min(tiles_k, math.ceil(2 * sms / tiles_out))
-    if want <= 1:
-        return 1, 0
-    splits = math.ceil(tiles_k / math.ceil(tiles_k / want))
-    return splits, -(-4 * tiles_out // 16) * 16 + 4 * splits * chips * m * n
+    if m <= _SMALL_M:
+        splits = _split_count(tiles_k, min(_DEC_MAX_SPLITS, max(1, slots // tiles)))
+        return V1Plan(splits, 0 if splits == 1 else 4 * chips * splits * m * n, tiles, per_chip)
+    split_tiles = -(-(tiles % slots) // chips)
+    splits = 1
+    if split_tiles:  # each slice also costs its own prologue and a partial tile's round trip
+        cut = chips * split_tiles
+        best = _waves(cut, slots, 1) + _SLICE_COST
+        for want in range(2, tiles_k // _TL_MIN_TILES + 1):
+            s = _split_count(tiles_k, want)
+            if _waves(cut * s, slots, s) + _SLICE_COST * s < best:
+                splits, best = s, _waves(cut * s, slots, s) + _SLICE_COST * s
+    if splits == 1:
+        return V1Plan(1, 0, tiles, 0)
+    return V1Plan(splits, 4 * chips * split_tiles * splits * bm * bn, tiles, split_tiles)
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,7 +196,7 @@ def _pack_bits(ok: torch.Tensor) -> torch.Tensor:
 
 def _pack_pair(ok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if not bool(((ok == 0) | (ok == 1)).all()):
-        raise ValueError("the bf16 masked-GEMM kernels take a 0/1 mask")
+        raise ValueError("the masked-GEMM kernels take a 0/1 mask")
     packed_mask.chips_packed += 1 if ok.dim() == 2 else ok.shape[0]
     return _pack_bits(ok), _pack_bits(ok.transpose(-1, -2))
 
@@ -143,7 +205,7 @@ _PACKED = WeakIdKeyDictionary()
 
 
 def packed_mask(ok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The mask as the bf16 kernels read it: bits along C, and bits of
+    """The mask as the kernels read it: bits along C, and bits of
     ``ok.T`` along R (for k-contiguous w); for a chip stack (chips, R, C),
     each chip's. Packed once per mask tensor and kept while it lives. An
     in-place change of ``ok`` packs it again: a single mask whole, a stack
@@ -213,9 +275,9 @@ def masked_matmul(
 
     On CUDA: x is float32 or bfloat16; w is in x's dtype, or float32 with a
     bfloat16 x; w has a unit stride along one of its last two axes (any
-    stride along the chips, 0 included); ok is a contiguous float32 tensor.
-    ``variant="v1"`` forces the first SIMT kernel (x and w of one dtype),
-    for timing it beside the others. Under ``torch.func.vmap`` the call
+    stride along the chips, 0 included); ok is a contiguous float32 tensor
+    of 0s and 1s. ``variant="v1"`` forces the float32 kernels (x and w of
+    one dtype), for timing them beside the others. Under ``torch.func.vmap`` the call
     goes through the custom op, whose vmap rule makes one chip-batched
     launch."""
     if _under_vmap(x, w, ok):
@@ -251,21 +313,24 @@ def masked_matmul(
     if chips and m and n:
         sms = sm_count(x.device)
         stream = torch.cuda.current_stream().cuda_stream
-        if kind == "v1":  # its scratch holds its own counters; it reads the float mask
-            splits, scratch_bytes = _split_plan(m, n, kdim, sms, chips)
-            bits = bits_t = counters = ok
+        bits, bits_t = packed_mask(ok)
+        k_contiguous = w.stride(-1) != 1
+        if kind == "v1":
+            splits, scratch_bytes, tiles, split_tiles = _split_plan(m, n, kdim, sms, chips, k_contiguous)
         else:
-            bits, bits_t = packed_mask(ok)
-            splits, scratch_bytes, tiles = _plan(kind, m, n, kdim, w.stride(-1) != 1, sms, chips)
-            counters = split_counters(x.device, stream, tiles)
-        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device)
+            splits, scratch_bytes, tiles = _plan(kind, m, n, kdim, k_contiguous, sms, chips)
+            split_tiles = 0
+        counters = split_counters(x.device, stream, tiles)
+        # partials only where K is split; the caching allocator hands the bytes back
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device) if scratch_bytes else None
         fn = load_kernel("masked_matmul", _ARGTYPES)
         err = fn(
             VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x3.data_ptr(), w.data_ptr(),
-            ok.data_ptr(), bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
+            bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
             m, n, kdim, w.stride(-2), w.stride(-1), w.stride(0) if fleet else 0,
-            ok.shape[-2], ok.shape[-1], splits, scratch.data_ptr(), scratch_bytes,
-            counters.data_ptr(), counters.numel(), stream,
+            ok.shape[-2], ok.shape[-1], splits, split_tiles,
+            scratch.data_ptr() if scratch is not None else None,
+            scratch_bytes, counters.data_ptr(), counters.numel(), stream,
         )
         check_launch("masked_matmul", err)
         masked_matmul.launches += 1

@@ -241,6 +241,140 @@ def test_packed_mask_is_cached_and_repacked_after_an_in_place_change(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the float32 kernels (v1): the streaming decode template at M <= 16, the
+# register-tiled SIMT kernel above it; flash v1
+# ---------------------------------------------------------------------------
+
+F32_TOL = dtype_tol(torch.float32)
+
+
+def _f32_gemm(cuda, m, k, n, transposed, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(n, k, generator=g, device=cuda) / k ** 0.5
+    w = w.T if transposed else w.T.contiguous()
+    ok = torch.from_numpy(random_fault_map(seed, 256, 256, 0.3).ok_mask).to(cuda)
+    return x, w, ok
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("n", [130, 576])
+@pytest.mark.parametrize("k", [100, 1536])
+@pytest.mark.parametrize("m", [1, 5, 9, 17, 65, 300])
+def test_f32_masked_matmul_matches_plain_and_repeats_its_bits(cuda, m, k, n, transposed):
+    """v1 at ragged M, N and K, both w layouts (embed.T read in place): one
+    counted v1 launch a call, the plain version at dtype_tol(float32), and a
+    second launch gives the same bits."""
+    x, w, ok = _f32_gemm(cuda, m, k, n, transposed, seed=m + k + n)
+    before = dict(masked_matmul.launches_by_variant)
+    got = masked_matmul(x, w, ok)
+    again = masked_matmul(x, w, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant == {**before, "v1": before["v1"] + 2}
+    assert torch.equal(got, again)
+    rtol, atol = F32_TOL
+    torch.testing.assert_close(got, masked_matmul_ref(x, w, ok), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 576, 576), (8192, 576, 192), (512, 1536, 576), (4, 8192, 288),
+                                   (1024, 576, 49152)])
+def test_f32_split_launches_reuse_the_zeroed_counters(cuda, m, k, n):
+    """A split v1 launch (K cut for every tile below one wave, for the last
+    wave's tiles from one wave on) takes the stream's shared counter buffer,
+    which it leaves zeroed: no memset a launch, no buffer of its own."""
+    from repro_torch.kernels.common import split_counters
+    from repro_torch.kernels.masked_matmul.ops import _split_plan, sm_count
+
+    x, w, ok = _f32_gemm(cuda, m, k, n, n == 49152, seed=7)
+    plan = _split_plan(m, n, k, sm_count(cuda), 1, n == 49152)
+    assert plan.splits > 1
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = split_counters(cuda, stream, plan.tiles)
+    got = [masked_matmul(x, w, ok) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert split_counters(cuda, stream, plan.tiles).data_ptr() == buf.data_ptr()
+    assert not buf.any()
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    rtol, atol = F32_TOL
+    torch.testing.assert_close(got[0], masked_matmul_ref(x, w, ok), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("m", [4, 9, 300])
+def test_f32_masked_matmul_takes_unaligned_views(cuda, m):
+    """x at a 4-byte offset, w with strides that are not multiples of 4 (both
+    layouts) and a chip stack whose chips start at odd offsets: plain loads
+    inside the kernels, the same results."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m * 301 + 1, generator=g, device=cuda)[1:].view(m, 301)
+    ok = torch.from_numpy(random_fault_map(1, 256, 256, 0.2).ok_mask).to(cuda)
+    rows = torch.randn(301, 131, generator=g, device=cuda)[:, 1:]  # row stride 131
+    cols = torch.randn(130, 303, generator=g, device=cuda)[:, 2:].T  # embed.T, column stride 303
+    for w in (rows, cols):
+        assert w.data_ptr() % 16
+        got = masked_matmul(x, w, ok)
+        rtol, atol = F32_TOL
+        torch.testing.assert_close(got, masked_matmul_ref(x, w, ok), rtol=rtol, atol=atol)
+    xs = torch.randn(3 * m * 301 + 1, generator=g, device=cuda)[1:].view(3, m, 301)
+    ws = torch.randn(3 * 301 * 130 + 3, generator=g, device=cuda)[3:].view(3, 301, 130)
+    oks = torch.stack([ok, ok.flip(0), ok.flip(1)]).contiguous()
+    got = masked_matmul(xs, ws, oks)
+    torch.testing.assert_close(got, masked_matmul_ref(xs, ws, oks), rtol=F32_TOL[0], atol=F32_TOL[1])
+
+
+@pytest.mark.parametrize("m", [65, 512])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_v1_variant_on_bf16_runs_the_tiled_template(cuda, m, transposed):
+    """``variant="v1"`` with bf16 x and w above M = 16: the tiled kernel's
+    bf16 instance, one counted v1 launch, within bf16's tolerance of the
+    plain version and of the mma kernel."""
+    x, w32, ok = _gemm_inputs(cuda, m, 576, 1000, transposed, seed=m)
+    w16 = w32.to(torch.bfloat16)
+    before = dict(masked_matmul.launches_by_variant)
+    got = masked_matmul(x, w16, ok, variant="v1")
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant == {**before, "v1": before["v1"] + 1}
+    assert_close(got, masked_matmul_ref(x, w16, ok), torch.bfloat16)
+    assert_close(got, masked_matmul(x, w16, ok), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window,q_offset", [
+    (9, 3, 130, 130, True, None, 0), (25, 5, 300, 300, True, 64, 0), (9, 3, 70, 200, True, 37, 130),
+    (4, 4, 65, 65, False, None, 0), (9, 3, 1, 1000, True, None, 999), (8, 2, 200, 1100, True, 1024, 900),
+])
+def test_f32_flash_kernel_matches_plain_and_repeats_its_bits(cuda, d, hq, hkv, sq, skv, causal, window, q_offset):
+    """Flash v1 at every built head dim and mask case, GQA, ragged Sq and
+    Skv, on the (B, S, H, D) projections' layout: the plain version at
+    dtype_tol(float32), the same bits on a second launch."""
+    g = torch.Generator(device=cuda).manual_seed(d + sq + skv)
+    q = torch.randn(2, sq, hq, d, generator=g, device=cuda).transpose(1, 2)
+    k = torch.randn(2, skv, hkv, d, generator=g, device=cuda).transpose(1, 2)
+    v = torch.randn(2, skv, hkv, d, generator=g, device=cuda).transpose(1, 2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = dict(flash_attention.launches_by_variant)
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_variant == {**before, "v1": before["v1"] + 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw), rtol=F32_TOL[0], atol=F32_TOL[1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_flash_kernel_takes_unaligned_views(cuda, d):
+    """q, k and v at 4-byte offsets with row strides that are not multiples
+    of 4 floats: plain loads inside the kernel, the same result."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    base = torch.randn(2, 130, 3 * d + 1, generator=g, device=cuda)
+    t = base[:, 1:, 1:].unflatten(-1, (3, d)).transpose(1, 2)  # (2, 3, 129, d), row stride 3d + 1
+    assert t.data_ptr() % 16 and t.stride(2) % 4
+    got = flash_attention(t, t, t)
+    torch.testing.assert_close(got, attention_ref(t, t, t), rtol=F32_TOL[0], atol=F32_TOL[1])
+    got = flash_attention(t, t[:, :, :40], t[:, :, :40], causal=False, window=4, q_offset=100)
+    assert not got.abs().any()
+
+
+# ---------------------------------------------------------------------------
 # the masked GEMM with a chip axis: one launch for a fleet of chips
 # ---------------------------------------------------------------------------
 

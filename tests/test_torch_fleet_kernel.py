@@ -24,9 +24,8 @@ from repro_torch.core.masking import FaultContext, fault_linear
 from repro_torch.kernels.common import assert_close
 from repro_torch.kernels.masked_matmul import ops
 from repro_torch.kernels.masked_matmul.ops import (
-    _SMALL_M,
-    _TILES,
     _split_plan,
+    _v1_tiles,
     masked_matmul,
     masked_matmul_ref,
     packed_mask,
@@ -132,10 +131,10 @@ def test_kernel_mode_fault_linear_under_vmap_reaches_the_custom_op(monkeypatch):
 
 
 def _emulate_launch(x, wm, bm, bn, bk, splits, order_seed):
-    """The v1 kernel's grid for a stack of chips, run block by block in a
-    random order, with csrc/masked_matmul.cu's layout: grid (column tiles,
-    chips x row tiles, splits); block (bx, by, bz) is chip by // row tiles;
-    its counter is counters[by * grid.x + bx] and its partial sits at
+    """v1's tiled kernel's grid for a stack of chips, run block by block in
+    a random order, with csrc/masked_matmul.cu's layout: grid (output tiles,
+    chips, splits); block (bx, by, bz) is chip by; its counter is
+    counters[by * grid.x + bx] and its partial sits at
     part[((chip * splits + bz) * M + m) * N + n]. The last block of a tile to
     arrive sums the slices in slice order. Returns (y, counters, scratch
     slots each chip wrote)."""
@@ -145,13 +144,14 @@ def _emulate_launch(x, wm, bm, bn, bk, splits, order_seed):
     tiles_k = -(-k // bk)
     per = -(-tiles_k // splits)
     counters = np.zeros(chips * mt * nt, np.int64)
+    tiles = mt * nt
     part = np.full(chips * splits * m * n, np.nan, np.float32)
     writers = [set() for _ in range(chips)]
     y = np.zeros((chips, m, n), np.float32)
-    blocks = [(bx, by, bz) for bx in range(nt) for by in range(chips * mt) for bz in range(splits)]
+    blocks = [(bx, by, bz) for bx in range(tiles) for by in range(chips) for bz in range(splits)]
     for i in np.random.default_rng(order_seed).permutation(len(blocks)):
         bx, by, bz = blocks[i]
-        chip, m0, n0 = by // mt, (by % mt) * bm, bx * bn
+        chip, m0, n0 = by, (bx % mt) * bm, bx // mt * bn
         k0, k1 = bz * per * bk, min(k, (bz + 1) * per * bk)
         rows, cols = slice(m0, min(m, m0 + bm)), slice(n0, min(n, n0 + bn))
         acc = x[chip, rows, k0:k1] @ wm[chip, k0:k1, cols] if k1 > k0 else 0.0
@@ -161,7 +161,7 @@ def _emulate_launch(x, wm, bm, bn, bk, splits, order_seed):
                 slot = base + mi * n + ni
                 part[slot] = acc[mi - m0, ni - n0] if k1 > k0 else 0.0
                 writers[chip].add(slot)
-        tile = by * nt + bx
+        tile = by * tiles + bx
         counters[tile] += 1
         if counters[tile] == splits:  # the last slice of this tile: merge in slice order
             for mi in range(rows.start, rows.stop):
@@ -179,7 +179,7 @@ def _emulate_launch(x, wm, bm, bn, bk, splits, order_seed):
 def test_emulated_chip_batched_split_k_keeps_each_chips_counters_and_scratch(m, splits):
     x, w, ok = _inputs(m, torch.float32, seed=10 + m)
     wm = (w * periodic_mask(w.shape, ok)).numpy()
-    bm, bn, bk = _TILES[m <= _SMALL_M]
+    bm, bn, bk = _v1_tiles(m, N)
     bk = 8  # short K tiles, so three slices exist at K = 48
     y1, counters, writers = _emulate_launch(x.numpy(), wm, bm, bn, bk, splits, order_seed=1)
     y2, _, _ = _emulate_launch(x.numpy(), wm, bm, bn, bk, splits, order_seed=2)
@@ -194,21 +194,33 @@ def test_emulated_chip_batched_split_k_keeps_each_chips_counters_and_scratch(m, 
 @pytest.mark.parametrize("m,k,n", [(4, 576, 576), (4, 576, 49152), (512, 576, 1536), (8, 1536, 576)])
 @pytest.mark.parametrize("chips", [1, 3, 8])
 def test_v1_split_plan_counts_every_chips_tiles(m, k, n, chips):
-    """v1's plan for a stack: the K split fills about two blocks per SM over
-    all chips' tiles, and the scratch holds one counter per tile of every
-    chip and every chip's slices' partials."""
+    """v1's plan for a stack counts one split-K counter per tile of every
+    chip (from the shared buffer), and the scratch holds every chip's
+    slices' partials. At M <= 16 the K split fills about two blocks per SM
+    over all chips' tiles, so more chips get no more slices; above it the
+    tiles of the last, partly filled wave are cut only where that ends the
+    launch sooner (``ops._waves``, in tile-waves of two blocks per SM, each
+    slice costing ``_SLICE_COST``)."""
     sms = 132
-    splits, scratch = _split_plan(m, n, k, sms, chips)
-    bm, bn, bk = _TILES[m <= _SMALL_M]
+    splits, scratch, tiles_out, split_tiles = _split_plan(m, n, k, sms, chips)
+    bm, bn, bk = _v1_tiles(m, n)
     tiles = chips * -(-m // bm) * -(-n // bn)
     tiles_k = -(-k // bk)
+    assert tiles_out == tiles
     assert 1 <= splits <= tiles_k
     if splits == 1:
         assert scratch == 0
+    else:  # every chip's split tiles (all of them below one wave) hold their slices' partials
+        assert split_tiles == (tiles // chips if tiles < 2 * sms else -(-(tiles % (2 * sms)) // chips))
+        assert scratch == 4 * splits * chips * (m * n if m <= 16 else split_tiles * bm * bn)
+    if m <= 16:
+        assert splits == 1 or chips * split_tiles * (splits - 1) < 2 * sms  # only while the card is not full
+        assert splits <= _split_plan(m, n, k, sms, 1)[0]  # more chips, no more slices
     else:
-        assert scratch == -(-4 * tiles // 16) * 16 + 4 * splits * chips * m * n
-        assert tiles * (splits - 1) < 2 * sms  # a split only while the card is not yet full
-    assert splits <= _split_plan(m, n, k, sms, 1)[0]  # more chips, no more slices
+        cut = chips * -(-(tiles % (2 * sms)) // chips)
+        sooner = ops._waves(cut * splits, 2 * sms, splits) + ops._SLICE_COST * splits
+        assert sooner <= ops._waves(cut, 2 * sms, 1) + ops._SLICE_COST if cut else splits == 1
+        assert splits == 1 or tiles_k // splits >= 8
 
 
 # ---------------------------------------------------------------------------

@@ -68,16 +68,28 @@ def test_masked_matmul_plain_matches_reference_and_pallas(m, k, n, transposed):
 @pytest.mark.parametrize("m,k,n", [(4, 576, 576), (4, 1536, 576), (4, 576, 49152), (512, 576, 192),
                                    (8192, 576, 576), (3, 33, 16)])
 def test_split_k_plan_fills_the_card_without_empty_slices(m, k, n):
-    splits, scratch_bytes = _split_plan(m, n, k, 132)
-    bm, bk = (16, 32) if m <= 16 else (64, 16)
-    tiles_out, tiles_k = -(-m // bm) * -(-n // 64), -(-k // bk)
+    """v1's plan: the decode kernels' at M <= 16 (256-column tiles, K in
+    64-row granules, at most 32 slices), the tiled kernel's above it (128 x
+    128 tiles, 96 wide where N is 192 or 576, each slice at least 8 k tiles
+    of 8). Below one wave of two blocks per SM every tile is cut until the
+    slices fill it; from one wave on only the tiles of a partly filled last
+    wave are, and the slices fit in that wave."""
+    splits, scratch_bytes, tiles, split_tiles = _split_plan(m, n, k, 132)
+    bm, bn, bk = (m, 256, 64) if m <= 16 else (64 if m <= 64 else 128, 96 if n in (192, 576) else 128, 8)
+    tiles_out, tiles_k = -(-m // bm) * -(-n // bn), -(-k // bk)
     per = -(-tiles_k // splits)
+    assert tiles == tiles_out
     assert 1 <= splits <= tiles_k and (splits - 1) * per < tiles_k
     if splits == 1:
-        assert scratch_bytes == 0 and (tiles_out >= 264 or tiles_k == 1)
-    else:
-        assert tiles_out * splits >= min(264, tiles_out * tiles_k) // 2
-        assert scratch_bytes >= 4 * tiles_out + 4 * splits * m * n
+        assert scratch_bytes == 0
+    elif m <= 16 or tiles_out < 264:
+        assert split_tiles == tiles_out and tiles_out * splits <= 264
+        most = min(32, 264 // tiles_out) if m <= 16 else min(tiles_k // 8, 264 // tiles_out)
+        assert splits >= min(most, tiles_k) // 2
+    else:  # the last wave's tiles, cut to fill it
+        assert split_tiles == tiles_out % 264 and split_tiles * splits <= 264 < split_tiles * (splits + 1)
+    if splits > 1:
+        assert scratch_bytes == 4 * splits * (m * n if m <= 16 else split_tiles * bm * bn)
 
 
 def test_masked_matmul_leading_dims_and_healthy_mask():
