@@ -207,7 +207,24 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     and timed at a decode step's shapes (M = 4) and (a)'s prefill (M = 512) against its bound,
     the same launches one chip at a time, ``torch.bmm`` on pre-masked bf16
     w and the plain version; ``--profile`` adds (b)'s busy share;
-15. the record: each model's bf16 decode step of masked GEMMs as kernel
+15. the rest of the model zoo (``zoo_phase``) at full published width on
+    the same chip in ``kernel`` mode, each model against the plain path
+    (``fap``, dense attention): float32 elementwise (``atol_scale=50``),
+    bf16 anchored to plain float32 (ANCHOR_RATIO), no fp32->bf16 weight
+    cast. (a) mixtral-8x22b at depth 4 of 56 (one layer is 10.1 GB of fp32
+    master) served in bf16 and float32: 33 masked GEMMs a step, 12 of them
+    ONE expert-batched launch each for all 8 experts under the one mask;
+    then the expert-batched GEMM on layer 0's ``wg`` and ``wd`` at M = 8 and
+    160 a expert, held and timed beside its bound and ``torch.bmm``. (b)
+    qwen3-0.6b at full depth (qk_norm, D = 128, the tied 151,936-row
+    unembed), served, then its 4 x 2048 prefill through flash at D = 128.
+    (c) hubert-xlarge's encoder ``forward`` at 4 x 1024 frames, flash
+    non-causal at D = 80; ``ServeEngine`` refuses it. (d) internvl2-26b at
+    depth 12 of 48: 4 x (256 patches + 128 tokens) prefilled, 16 greedy
+    decode steps. (e) llama3-405b's layer and unembed GEMMs (16384 x 128256,
+    97.9% of INT_MAX weights) at M = 4 and 512, kernel rows only. Each
+    model's seconds are printed;
+16. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
     GEMMs; each model's float32 decode step through v1 and hymba's float32
@@ -222,8 +239,10 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     three variants phase 13's as ``launches_continuous`` and phase 14's
     chip-batched ones as ``launches_fleet``, and their worst chip-batched
     error as ``max_abs_err_fleet``; ``masked_matmul.decode.chips8``
-    is phase 14's chip-batched decode step), the card's line, and last the
-    ``{"ok": true, "device": ...}`` line.
+    is phase 14's chip-batched decode step; ``masked_matmul.<variant>.experts``
+    phase 15's expert-batched launches with mixtral's rows, and
+    ``launches_zoo`` on the masked GEMM's and flash's entries), the card's
+    line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
 hymba, and phase 13's run (a)), a run of 8 new tokens (phase 13: its whole
@@ -241,8 +260,9 @@ Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
 7 and 10, bf16 and hymba's float32, phase 11's deployment check,
-each of phase 12's kernel-mode runs, each of phase 13's four serves and
-each of phase 14's six fleet runs) and read just after it; parity and
+each of phase 12's kernel-mode runs, each of phase 13's four serves,
+each of phase 14's six fleet runs and each of phase 15's model runs) and
+read just after it; parity and
 timing launches are not counted.
 Phase 13 gates each variant's count against its dispatches: 211 ``decode``
 a decode dispatch (30 layers x 7 at M = 8, and the tied unembed), 210
@@ -1974,6 +1994,448 @@ def fleet_phase(torch, log, profile=False):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the model zoo at full width
+# ---------------------------------------------------------------------------
+
+ZOO_NEW = 16  # greedy new tokens a zoo serve generates
+ZOO_FRAMES = 1024  # hubert-xlarge's frames a sequence
+ZOO_EXPERT_MS = (8, 160)  # mixtral's expert GEMMs: a decode step (4 x cap 2) and its serving prefill (4 x cap 40)
+# depth cuts, each forced by one card's 80 GB (fp32 master weights)
+ZOO_DEPTH = {
+    "mixtral-8x22b": (4, "8 experts x 3 x 6144 x 16384 and attention: 2.50 B parameters, 10.1 GB of fp32 "
+                         "master a layer; all 56 layers would be 564 GB"),
+    "internvl2-26b": (12, "1.57 GB of fp32 master a layer; all 48 layers and the 4.5 GB embedding and head "
+                          "would leave no room for the plain gate's masked copies"),
+}
+# llama3-405b's GEMMs, kernel rows only: (label, K, N) of its layer and its unembed
+ZOO_LLAMA3 = [("wq/wo", 16384, 16384), ("wk/wv", 16384, 1024), ("wg/wu", 16384, 53248), ("wd", 53248, 16384),
+              ("unembed", 16384, 128256)]
+
+
+def zoo_phase(torch, log):
+    """The rest of the reference's model zoo on the card at full published
+    width, random weights from seed 0, on ``random_fault_map(0, 256, 256,
+    0.1)`` in ``kernel`` mode; returns the phase's report and raises
+    ``Failed`` on a missed gate.
+
+    Every model is gated against the plain path (``fap`` context, dense
+    attention) on the same inputs: float32 elementwise at ``dtype_tol(
+    float32, atol_scale=50)``, bf16 anchored (its relative L2 error against
+    the plain float32 path, and the served logprobs' RMS error, at most
+    ANCHOR_RATIO times plain bf16's own). The serving gates replay the
+    served tokens through ``prefill`` and ``decode_step`` as ``ServeEngine``
+    runs them, so an MoE layer's capacity is the served one. A bf16
+    kernel-mode run must cast no weight to bf16 (``weight_cast_watch``),
+    launch no v1, and a float32 one only v1.
+
+    (a) mixtral-8x22b, depth ZOO_DEPTH (printed with its reason), through
+    ``ServeEngine`` in bf16 and float32: 4 x 128-token prompts, ZOO_NEW
+    greedy tokens; 4 x (4 attention + the router + 3 expert GEMMs) + the
+    unembed = 33 masked-GEMM launches a step (``gemm_shapes``), 12 of them
+    expert-batched (``masked_matmul.expert_launches_by_variant``). Then the
+    expert-batched GEMM on layer 0's own ``wg`` (8, 6144, 16384) and ``wd``
+    (8, 16384, 6144) under the one mask, at M = 8 and 160 a expert, bf16 x
+    on the fp32 master (decode, mma; bit-equal to the bf16-w launch) and
+    float32 (v1), held to its plain version at ``dtype_tol`` and timed
+    beside its bound, ``torch.bmm`` on pre-masked weights (the library
+    yardstick) and the plain version.
+    (b) qwen3-0.6b, all 28 layers (qk_norm, head dim 128, the tied 151,936-
+    row unembed read as embed.T), served the same way, then its prefill at
+    4 x 2048 in bf16 through flash (D = 128) against the plain path:
+    logits and KV cache at bf16's ``dtype_tol`` and relative L2 <=
+    MAX_REL_L2.
+    (c) hubert-xlarge, all 48 layers: ``forward`` on random (4, 1024, 512)
+    frames from ``default_rng(0)`` in bf16 and float32, flash non-causal at
+    D = 80, 290 masked GEMMs and 48 flash launches; ``ServeEngine`` must
+    refuse it.
+    (d) internvl2-26b, depth ZOO_DEPTH: ``prefill`` of 4 requests of 256
+    random patch embeddings (width 1024) and 128 tokens, then ZOO_NEW greedy
+    ``decode_step``s, in bf16.
+    (e) llama3-405b's GEMMs (no model): its layer shapes and its 16384 x
+    128256 unembed (2,101,346,304 weights) at M = 4 and 512, bf16 x on the
+    fp32 master and float32 (v1), held to the plain version and timed
+    beside the bound and ``torch.matmul`` on pre-masked w."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import from_fault_map, random_fault_map
+    from repro_torch.core.mapping import periodic_mask
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref, pick_variant
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.bucketing import ladder_rung
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    card = card_line()
+    fm = random_fault_map(0, 256, 256, 0.1)
+    ctx_k, ctx_f = from_fault_map(fm, "kernel", device=dev), from_fault_map(fm, "fap", device=dev)
+    ok = ctx_k.ok
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(2**28, dtype=torch.int32, device=dev)
+    mask_bytes = ok.shape[0] * -(-ok.shape[1] // 8)  # the mask bits every kernel reads
+    report = dict(models={}, expert_rows=[], llama3_rows=[], seconds={})
+    totals = {}  # launches by counter, over the phase's main-path runs
+    errs = {}  # worst parity error by kernel variant
+
+    def reset():
+        masked_matmul.launches = flash_attention.launches = 0
+        for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "expert_launches_by_variant"),
+                         (flash_attention, "launches_by_variant")):
+            setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
+
+    def counts():
+        got = {f"masked_matmul.{v}": n for v, n in masked_matmul.launches_by_variant.items()}
+        got.update({f"masked_matmul.{v}.experts": n for v, n in masked_matmul.expert_launches_by_variant.items()})
+        got.update({f"flash_attention.{v}": n for v, n in flash_attention.launches_by_variant.items()})
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        return got
+
+    def check(label, dtype, got, gemms, experts=0, flash=0):
+        """The run's launches: ``gemms`` masked GEMMs (``experts`` of them
+        expert-batched) and ``flash`` flash kernels, all of the dtype's own
+        variants (v1 for float32 only)."""
+        mm = sum(n for k, n in got.items() if k.startswith("masked_matmul.") and not k.endswith(".experts"))
+        ex = sum(n for k, n in got.items() if k.endswith(".experts"))
+        fa = sum(n for k, n in got.items() if k.startswith("flash_attention."))
+        wrong = {k: n for k, n in got.items() if n and (".v1" in k) == (dtype == "bfloat16")}
+        if (mm, ex, fa) != (gemms, experts, flash) or wrong:
+            raise Failed(f"zoo {label} {dtype}: launches {mm} masked GEMMs ({ex} expert-batched), {fa} flash "
+                         f"(want {gemms}, {experts}, {flash}); wrong kernels {wrong}")
+
+    def worst(got, ref, tol):
+        rtol, atol = tol
+        diff = (got.float() - ref.float()).abs()
+        return float(diff.max()), bool((diff <= atol + rtol * ref.float().abs()).all())
+
+    def rel_l2(got, ref):
+        return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+    def note_err(key, e):
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    def watch_shapes(c):
+        shapes = {sh for k_, n_, _ in c.gemm_shapes() for sh in ((k_, n_), (n_, k_))}
+        if c.has_moe:
+            shapes |= {(c.num_experts, c.d_model, c.d_ff), (c.num_experts, c.d_ff, c.d_model)}
+        return shapes
+
+    def no_casts(label, c, fn):
+        """bf16 kernel mode reads the fp32 master in place: no weight is cast."""
+        with weight_cast_watch(torch, watch_shapes(c)) as watch:
+            fn()
+            torch.cuda.synchronize()
+        if watch.seen:
+            raise Failed(f"zoo {label}: kernel mode cast GEMM weights to bf16: {watch.seen[:8]}")
+        return len(watch.seen)
+
+    def replay(c, params, ctx, batch, feed, **kw):
+        """Logits of a served run's steps, float32 (B, 1 + steps, V):
+        ``prefill`` as the run made it, then one ``decode_step`` per fed
+        token (B, steps)."""
+        with torch.no_grad():
+            logits, cache = M.prefill(params, batch, c, ctx, **kw)
+            rows = [logits.float()]
+            for i in range(feed.shape[1]):
+                step, cache = M.decode_step(params, feed[:, i:i + 1], cache, c, ctx)
+                rows.append(step[:, 0].float())
+        return torch.stack(rows, 1)
+
+    def gate(label, c, params, batch, feed, tokens, got, served_lp=None, **kw):
+        """The kernel path's step logits ``got`` (B, steps, V), which chose
+        ``tokens`` (B, steps), and the served logprobs (those of ``got``
+        where not given) against the plain path replayed on ``feed``."""
+        def lp_of(rows):
+            return torch.log_softmax(rows, -1).gather(-1, tokens[..., None])[..., 0]
+
+        ref = replay(c, params, ctx_f, batch, feed, **kw)
+        served = lp_of(got) if served_lp is None else served_lp.float()
+        out = dict(logit_err=float((got - ref).abs().max()), ref_logit_rms=float(ref.pow(2).mean().sqrt()),
+                   token_agreement=float((ref.argmax(-1) == tokens).float().mean()))
+        if c.dtype == "float32":
+            rtol, atol = dtype_tol(torch.float32, atol_scale=50.0)
+            out.update(logprob_err=float((served - lp_of(ref)).abs().max()),
+                       gate=f"float32 elementwise (rtol, atol) {(rtol, atol)}")
+            if out["logprob_err"] > atol or not bool(((got - ref).abs() <= atol + rtol * ref.abs()).all()):
+                raise Failed(f"zoo {label}: the kernel path disagrees with the plain path: {out}")
+            return out
+        ref32 = replay(dataclasses.replace(c, dtype="float32"), params, ctx_f, batch, feed, **kw)
+        lp32 = lp_of(ref32)
+        out.update(plain_rel_l2=rel_l2(ref, ref32), kernel_rel_l2=rel_l2(got, ref32),
+                   plain_lp_rms=float((lp_of(ref) - lp32).pow(2).mean().sqrt()),
+                   kernel_lp_rms=float((lp_of(got) - lp32).pow(2).mean().sqrt()),
+                   served_lp_rms=float((served - lp32).pow(2).mean().sqrt()),
+                   served_vs_kernel_replay=float((served - lp_of(got)).abs().max()), gate="bf16 anchored to float32")
+        out["logit_ratio"] = out["kernel_rel_l2"] / out["plain_rel_l2"]
+        out["logprob_ratio"] = out["served_lp_rms"] / out["plain_lp_rms"]
+        if not bool(torch.isfinite(got).all()) or max(out["logit_ratio"], out["logprob_ratio"]) > ANCHOR_RATIO:
+            raise Failed(f"zoo {label}: the kernel path is farther from the float32 plain path than the bf16 "
+                         f"plain path is: {out}")
+        return out
+
+    def serve(c, params):
+        """``ServeEngine`` on 4 x 128-token prompts, ZOO_NEW greedy tokens."""
+        label = f"{c.name} {c.dtype}"
+        per_step = sum(u for _, _, u in c.gemm_shapes())
+        prompts = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+        eng = ServeEngine(c, params, ctx_k, max_len=None)
+        eng.generate(prompts, max_new_tokens=2)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=ZOO_NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        experts = 3 * c.num_layers * (1 + ZOO_NEW) if c.has_moe else 0
+        check(c.name, c.dtype, got, per_step * (1 + ZOO_NEW), experts)
+        casts = no_casts(label, c, lambda: eng.generate(prompts, max_new_tokens=2)) \
+            if c.dtype == "bfloat16" else None
+        if out.tokens.shape != (BATCH, PROMPT + ZOO_NEW) or not bool(torch.isfinite(out.logprobs).all()):
+            raise Failed(f"zoo serve {label}: bad output {tuple(out.tokens.shape)}")
+        # the prompts padded as the engine pads them: an MoE layer routes the pad too
+        cache_len = eng.cache_len_for(PROMPT, ZOO_NEW)
+        width = min(ladder_rung(PROMPT, eng.prefill_buckets), cache_len)
+        batch = {"tokens": torch.cat([prompts, prompts.new_zeros(BATCH, width - PROMPT)], 1)}
+        kw = dict(cache_len=cache_len, valid_len=PROMPT)
+        feed = out.tokens[:, PROMPT:PROMPT + ZOO_NEW - 1]
+        kernel = replay(c, params, ctx_k, batch, feed, **kw)
+        res = gate(label, c, params, batch, feed, out.tokens[:, PROMPT:], kernel, out.logprobs, **kw)
+        res.update(tokens_per_s=BATCH * ZOO_NEW / dt, step_ms=dt / (1 + ZOO_NEW) * 1e3,
+                   launches={k: n for k, n in got.items() if n}, launches_per_step=per_step, weight_casts=casts)
+        log(f"zoo serve {label}: {BATCH}x{ZOO_NEW} tokens in {dt:.3f} s ({res['tokens_per_s']:.1f} tok/s, "
+            f"{res['step_ms']:.2f} ms a step); launches {res['launches']} ({per_step} masked GEMMs a step"
+            + (f", {3 * c.num_layers} of them expert-batched" if c.has_moe else "")
+            + f"; fp32->bf16 weight casts {'not checked' if casts is None else casts}); gate {res['gate']}: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in res.items() if isinstance(v, float)))
+        return res
+
+    def gemm_row(label, x, w32, wm, reps=10):
+        """Parity and times of one masked GEMM launch: x against w32 (the
+        fp32 master; a bf16 x reads it in place) under the chip's mask; ``wm``
+        is w pre-masked in x's dtype for the library call."""
+        bf16 = x.dtype == torch.bfloat16
+        got = masked_matmul(x, w32, ok)
+        ref = masked_matmul_ref(x, w32, ok)
+        err, good = worst(got, ref, dtype_tol(x.dtype))
+        same_bits = None
+        if bf16:  # the bf16 copy of w gives the same bits
+            same_bits = bool(torch.equal(masked_matmul(x, w32.to(torch.bfloat16), ok), got))
+        del got, ref
+        lead = x.shape[0] if w32.dim() == 3 else 1
+        m, k_ = x.shape[-2], x.shape[-1]
+        n_ = w32.shape[-1]
+        size = 2 if bf16 else 4
+        nbytes = lead * (m * k_ + m * n_) * size + lead * k_ * n_ * 4 + mask_bytes
+        sides = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": 2 * lead * m * k_ * n_ / PEAK_OPS["bfloat16" if bf16 else "float32"] * 1e3}
+        lib = (lambda: torch.bmm(x, wm)) if w32.dim() == 3 else (lambda: torch.matmul(x, wm))
+        row = dict(label=label, variant=pick_variant(x.dtype, m), dtype=str(x.dtype)[6:], lead=lead, m=m, k=k_,
+                   n=n_, max_abs_err=err, same_bits_as_bf16_w=same_bits,
+                   ms=event_ms(torch, lambda: masked_matmul(x, w32, ok), flush, reps),
+                   plain_ms=event_ms(torch, lambda: masked_matmul_ref(x, w32, ok), flush, 3),
+                   library_ms=event_ms(torch, lib, flush, reps),
+                   bound_ms=max(sides.values()), bound_by=max(sides, key=sides.get),
+                   bytes_ms=sides["bytes"], ops_ms=sides["operations"])
+        note_err(("experts." if lead > 1 else "") + row["variant"], err)
+        log(f"zoo masked_matmul {label} {row['dtype']:8s} {'E=' + str(lead) + ' ' if lead > 1 else ''}M={m:4d} "
+            f"K={k_:5d} N={n_:6d}: err<= {err:.3g} (rtol, atol {dtype_tol(x.dtype)}) {row['variant']} "
+            f"{row['ms']:.4f} ms (fp32 master in place; bf16-w bits equal {same_bits}) "
+            f"plain {row['plain_ms']:.4f} ms  {'torch.bmm' if lead > 1 else 'torch.matmul'}(pre-masked w, library "
+            f"yardstick) {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if not good or same_bits is False:
+            raise Failed(f"zoo masked_matmul {label} {row['dtype']} M={m}: err {err}, bf16-w bits equal {same_bits}")
+        return row
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def cut(name):
+        depth, why = ZOO_DEPTH[name]
+        c = get_arch(name)
+        log(f"zoo {name}: depth {depth} of {c.num_layers} ({why}); full width")
+        return dataclasses.replace(c, num_layers=depth)
+
+    def init(c):
+        t0 = time.perf_counter()
+        params = M.init_params(c, 0, device=dev)
+        torch.cuda.synchronize()
+        log(f"zoo {c.name}: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} G fp32 parameters "
+            f"initialized on the card in {time.perf_counter() - t0:.2f} s")
+        return params
+
+    # -- (a) mixtral-8x22b, depth 4 -------------------------------------------------
+    t0 = time.perf_counter()
+    mix = cut("mixtral-8x22b")
+    params = init(mix)
+    report["models"][mix.name] = {dt: serve(dataclasses.replace(mix, dtype=dt), params)
+                                  for dt in ("bfloat16", "float32")}
+    for wname in ("wg", "wd"):  # layer 0's own experts, (E, K, N) under the one mask
+        w32 = getattr(params.layers[0].moe, wname).detach()
+        e, k_, n_ = w32.shape
+        for dtype in (torch.bfloat16, torch.float32):
+            wm = (w32 * periodic_mask(w32.shape, ok)).to(dtype)
+            for m in ZOO_EXPERT_MS:
+                x = torch.randn(e, m, k_, generator=gen, device=dev).to(dtype)
+                report["expert_rows"].append(gemm_row(f"mixtral {wname}", x, w32, wm))
+            del wm, x
+            free()
+    del params, w32
+    free()
+    report["seconds"][mix.name] = time.perf_counter() - t0
+
+    # -- (b) qwen3-0.6b, all 28 layers ---------------------------------------------
+    t0 = time.perf_counter()
+    qwen = get_arch("qwen3-0.6b")
+    params = init(qwen)
+    report["models"][qwen.name] = {dt: serve(dataclasses.replace(qwen, dtype=dt), params)
+                                   for dt in ("bfloat16", "float32")}
+    tokens = {"tokens": torch.randint(0, qwen.vocab_size, (BATCH, LONG), generator=gen, device=dev)}
+    M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, qwen, ctx_k, attn_impl="kernel")
+    torch.cuda.synchronize()
+    reset()
+    t1 = time.perf_counter()
+    k_logits, k_cache = M.prefill(params, tokens, qwen, ctx_k, attn_impl="kernel")
+    torch.cuda.synchronize()
+    kernel_ms = (time.perf_counter() - t1) * 1e3
+    got = counts()
+    check("qwen3-0.6b long prefill", "bfloat16", got, sum(u for _, _, u in qwen.gemm_shapes()),
+          flash=qwen.num_layers)
+    no_casts("qwen3-0.6b long prefill", qwen,
+             lambda: M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, qwen, ctx_k, attn_impl="kernel"))
+    p_logits, p_cache = M.prefill(params, tokens, qwen, ctx_f, attn_impl="dense")
+    long = dict(kernel_ms=kernel_ms, launches={k: n for k, n in got.items() if n})
+    for key, a, r in (("logits", k_logits, p_logits), ("k", k_cache["k"], p_cache["k"]), ("v", k_cache["v"], p_cache["v"])):
+        err, good = worst(a, r, dtype_tol(torch.bfloat16))
+        long[key] = dict(max_abs=err, rel_l2=rel_l2(a, r), ref_rms=float(r.float().pow(2).mean().sqrt()))
+        if not good or long[key]["rel_l2"] > MAX_REL_L2:
+            raise Failed(f"zoo qwen3-0.6b long prefill: {key} of the kernel path disagree with the plain path: {long[key]}")
+    report["models"][qwen.name]["long_prefill"] = long
+    log(f"zoo long prefill qwen3-0.6b {BATCH}x{LONG} bf16 (flash at D={qwen.resolved_head_dim}): kernel path "
+        f"{kernel_ms:.2f} ms; launches {long['launches']}; gate bf16 elementwise {dtype_tol(torch.bfloat16)} and "
+        f"rel L2 <= {MAX_REL_L2}: " + "; ".join(f"{k} max err {long[k]['max_abs']:.3g} rel L2 {long[k]['rel_l2']:.3g}"
+                                                for k in ("logits", "k", "v")))
+    del params, tokens, k_logits, k_cache, p_logits, p_cache
+    free()
+    report["seconds"][qwen.name] = time.perf_counter() - t0
+
+    # -- (c) hubert-xlarge, all 48 layers: the encoder ------------------------------
+    t0 = time.perf_counter()
+    hub = get_arch("hubert-xlarge")
+    params = init(hub)
+    try:
+        ServeEngine(hub, params, ctx_k)
+        raise Failed("zoo hubert-xlarge: ServeEngine served an encoder")
+    except ValueError as e:
+        refusal = str(e)
+    frames = torch.as_tensor(np.random.default_rng(0).standard_normal((BATCH, ZOO_FRAMES, 512)), dtype=torch.float32,
+                             device=dev)
+    per_fwd = sum(u for _, _, u in hub.gemm_shapes())
+    outs, runs = {}, {}
+    with torch.no_grad():
+        for dt in ("bfloat16", "float32"):
+            c = dataclasses.replace(hub, dtype=dt)
+            M.forward(params, {"embeds": frames[:, :128]}, c, ctx_k, attn_impl="kernel")  # warm-up
+            torch.cuda.synchronize()
+            reset()
+            t1 = time.perf_counter()
+            outs[("kernel", dt)] = M.forward(params, {"embeds": frames}, c, ctx_k, attn_impl="kernel")[0].float()
+            torch.cuda.synchronize()
+            runs[dt] = dict(kernel_ms=(time.perf_counter() - t1) * 1e3)
+            got = counts()
+            check("hubert-xlarge forward", dt, got, per_fwd, flash=hub.num_layers)
+            runs[dt]["launches"] = {k: n for k, n in got.items() if n}
+            if dt == "bfloat16":
+                runs[dt]["weight_casts"] = no_casts(
+                    "hubert-xlarge", c, lambda: M.forward(params, {"embeds": frames[:, :128]}, c, ctx_k, attn_impl="kernel"))
+            outs[("plain", dt)] = M.forward(params, {"embeds": frames}, c, ctx_f, attn_impl="dense")[0].float()
+    rtol32, atol32 = dtype_tol(torch.float32, atol_scale=50.0)
+    e32, good32 = worst(outs[("kernel", "float32")], outs[("plain", "float32")], (rtol32, atol32))
+    hub_gate = dict(f32_max_abs=e32, f32_rel_l2=rel_l2(outs[("kernel", "float32")], outs[("plain", "float32")]),
+                    plain_rel_l2=rel_l2(outs[("plain", "bfloat16")], outs[("plain", "float32")]),
+                    kernel_rel_l2=rel_l2(outs[("kernel", "bfloat16")], outs[("plain", "float32")]))
+    ratio = hub_gate["kernel_rel_l2"] / hub_gate["plain_rel_l2"]
+    report["models"][hub.name] = dict(runs=runs, gate=hub_gate, ratio=ratio, serve_refusal=refusal)
+    log(f"zoo hubert-xlarge forward {BATCH}x{ZOO_FRAMES} frames (flash non-causal at D={hub.resolved_head_dim}): "
+        + "; ".join(f"{dt} kernel path {r['kernel_ms']:.2f} ms, launches {r['launches']}" for dt, r in runs.items())
+        + f"; float32 max err {e32:.3g} (rtol, atol {(rtol32, atol32)}), rel L2 {hub_gate['f32_rel_l2']:.3g}; bf16 "
+        f"rel L2 against plain float32: plain {hub_gate['plain_rel_l2']:.4g}, kernel {hub_gate['kernel_rel_l2']:.4g} "
+        f"(ratio {ratio:.3f} <= {ANCHOR_RATIO}); ServeEngine refused it: {refusal!r}")
+    if not good32 or hub_gate["f32_rel_l2"] > MAX_REL_L2 or ratio > ANCHOR_RATIO:
+        raise Failed(f"zoo hubert-xlarge: the kernel path disagrees with the plain path: {hub_gate}")
+    del params, frames, outs
+    free()
+    report["seconds"][hub.name] = time.perf_counter() - t0
+
+    # -- (d) internvl2-26b, depth 12: the vision prefix ----------------------------
+    t0 = time.perf_counter()
+    vlm = cut("internvl2-26b")
+    params = init(vlm)
+    batch = {"embeds": torch.randn(BATCH, vlm.frontend_tokens, 1024, generator=gen, device=dev),
+             "tokens": torch.randint(0, vlm.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)}
+    seq = vlm.frontend_tokens + PROMPT
+    kw = dict(cache_len=seq + ZOO_NEW)
+    layer_gemms = sum(u for _, _, u in vlm.gemm_shapes()) - 1  # a decode step has no frontend
+    small = {"embeds": batch["embeds"][:, :8], "tokens": batch["tokens"][:, :8]}
+    replay(vlm, params, ctx_k, small, batch["tokens"][:, :2], cache_len=24)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = M.prefill(params, batch, vlm, ctx_k, **kw)
+        rows, fed = [logits.float()], []
+        for _ in range(ZOO_NEW):
+            fed.append(rows[-1].argmax(-1, keepdim=True))
+            step, cache = M.decode_step(params, fed[-1], cache, vlm, ctx_k)
+            rows.append(step[:, 0].float())
+    torch.cuda.synchronize()
+    vlm_ms = (time.perf_counter() - t1) * 1e3
+    got = counts()
+    check("internvl2-26b", "bfloat16", got, 1 + layer_gemms * (1 + ZOO_NEW))
+    if cache["index"] != seq + ZOO_NEW:
+        raise Failed(f"zoo internvl2-26b: cache index {cache['index']}, want {seq + ZOO_NEW}")
+    casts = no_casts("internvl2-26b", vlm, lambda: replay(vlm, params, ctx_k, small, batch["tokens"][:, :2], cache_len=24))
+    feed = torch.cat(fed, 1)
+    kernel_rows = torch.stack(rows, 1)
+    res = gate("internvl2-26b bfloat16", vlm, params, batch, feed[:, :-1], feed, kernel_rows[:, :-1], **kw)
+    res.update(kernel_ms=vlm_ms, launches={k: n for k, n in got.items() if n}, weight_casts=casts)
+    report["models"][vlm.name] = res
+    log(f"zoo internvl2-26b bf16: prefill {BATCH} x ({vlm.frontend_tokens} patches + {PROMPT} tokens) and "
+        f"{ZOO_NEW} greedy decode steps in {vlm_ms:.2f} ms; launches {res['launches']} (the frontend once, "
+        f"{layer_gemms} a step); fp32->bf16 weight casts {casts}; gate {res['gate']}: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in res.items() if isinstance(v, float)))
+    del params, batch, cache, logits, rows, kernel_rows
+    free()
+    report["seconds"][vlm.name] = time.perf_counter() - t0
+
+    # -- (e) llama3-405b's GEMMs: kernel rows only -----------------------------------
+    t0 = time.perf_counter()
+    for label, k_, n_ in ZOO_LLAMA3:
+        w32 = torch.randn(k_, n_, generator=gen, device=dev) / math.sqrt(k_)
+        for dtype in (torch.bfloat16, torch.float32):
+            wm = (w32 * periodic_mask(w32.shape, ok)).to(dtype)
+            for m in (BATCH, BATCH * PROMPT):
+                x = torch.randn(m, k_, generator=gen, device=dev).to(dtype)
+                report["llama3_rows"].append(gemm_row(f"llama3-405b {label}", x, w32, wm, reps=5))
+            del wm, x
+            free()
+        del w32
+        free()
+    report["seconds"]["llama3-405b gemms"] = time.perf_counter() - t0
+    report.update(launches=totals, max_abs_err=errs, seconds_total=time.perf_counter() - t_phase,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"zoo phase ({card}): {report['seconds_total']:.2f} s; by model (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in report["seconds"].items())
+        + f"; launches {({k: n for k, n in totals.items() if n})}")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2863,8 +3325,13 @@ def run(args, torch) -> int:
 
     # ---- phase 14: fleet serving ------------------------------------------------
     fleet_report = fleet_phase(torch, log, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- phase 15: the record -----------------------------------------------
+    # ---- phase 15: the rest of the model zoo at full width ------------------------
+    zoo_report = zoo_phase(torch, log)
+
+    # ---- phase 16: the record -----------------------------------------------
     def gemm_sum(arch, dtype, m, layers_only=False):
         """One step's masked GEMMs at M = m, each launch timed alone, times its uses."""
         shapes = arch.gemm_shapes()
@@ -2930,11 +3397,29 @@ def run(args, torch) -> int:
     fleet_launches = fleet_report["launches_fleet"]
     fleet_err = fleet_report["max_abs_err"]
     fstep = fleet_report["gemm"][str(BATCH)]["step"]
+    zoo_launches, zoo_err = zoo_report["launches"], zoo_report["max_abs_err"]
+    # the expert-batched GEMM's rows: mixtral's wg at a decode step's M (bf16 on the fp32 master, and
+    # float32) and at its serving prefill's M
+    zoo_rows = {(r["label"], r["dtype"], r["m"]): r for r in zoo_report["expert_rows"]}
+    expert_rows = {"decode": zoo_rows[("mixtral wg", "bfloat16", ZOO_EXPERT_MS[0])],
+                   "mma": zoo_rows[("mixtral wg", "bfloat16", ZOO_EXPERT_MS[1])],
+                   "v1": zoo_rows[("mixtral wg", "float32", ZOO_EXPERT_MS[0])]}
 
     def mm_entry(variant):
-        """A masked-GEMM variant's source, and its worst error over phase 2's
-        single-chip cases and phase 14's chip-batched ones."""
-        return {**mm_src, "max_abs_err": max(mm_err, fleet_err[variant]), "max_abs_err_fleet": fleet_err[variant]}
+        """A masked-GEMM variant's source, its worst error over phase 2's
+        single-chip cases, phase 14's chip-batched ones and phase 15's
+        llama3-405b rows, and phase 15's launches."""
+        return {**mm_src, "max_abs_err": max(mm_err, fleet_err[variant], zoo_err.get(variant, 0.0)),
+                "max_abs_err_fleet": fleet_err[variant], "launches_zoo": zoo_launches[f"masked_matmul.{variant}"]}
+
+    def expert_entry(variant):
+        """The expert-batched launches of one variant: phase 15's count, mixtral's row."""
+        r = expert_rows[variant]
+        return dict(name=f"masked_matmul.{variant}.experts", **{**mm_src, "max_abs_err": zoo_err[f"experts.{variant}"]},
+                    launches=zoo_launches[f"masked_matmul.{variant}.experts"],
+                    launches_zoo=zoo_launches[f"masked_matmul.{variant}.experts"],
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"])
 
     kernels = [
         dict(name="masked_matmul.decode", **mm_entry("decode"), launches=variant_launches["masked_matmul.decode"],
@@ -2955,12 +3440,13 @@ def run(args, torch) -> int:
         dict(name=f"masked_matmul.decode.chips{FLEET_CHIPS}", **{**mm_src, "max_abs_err": fstep["max_abs_err"]},
              launches=fleet_launches["decode"], ms=fstep["ms"], plain_ms=fstep["plain_ms"],
              bound_ms=fstep["bound_ms"], bound_by=fstep["bound_by"], library_ms=fstep["library_ms"]),
+        *(expert_entry(v) for v in ("decode", "mma", "v1")),
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
-             launches_lm_eval=lm_launches["flash_attention"]["mma"],
+             launches_lm_eval=lm_launches["flash_attention"]["mma"], launches_zoo=zoo_launches["flash_attention.mma"],
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
              bound_by="operations", library_ms=fa["library_ms"]),
         dict(name="flash_attention.v1", **fa_src, launches=variant_launches["flash_attention.v1"],
-             launches_lm_eval=lm_launches["flash_attention"]["v1"],
+             launches_lm_eval=lm_launches["flash_attention"]["v1"], launches_zoo=zoo_launches["flash_attention.v1"],
              ms=fa32["ms"], plain_ms=fa32["plain_ms"], bound_ms=fa32["bound_ms"],
              bound_by="operations", library_ms=fa32["library_ms"]),
         dict(name="selective_scan", route="cuda",
@@ -2983,7 +3469,7 @@ def run(args, torch) -> int:
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
     for k in kernels:
-        if not k["launches"] or k.get("launches_continuous") == 0 or k.get("launches_fleet") == 0:
+        if not k["launches"] or 0 in (k.get("launches_continuous"), k.get("launches_fleet"), k.get("launches_zoo")):
             raise Failed(f"{k['name']} was not launched on its main path")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
@@ -2999,6 +3485,7 @@ def run(args, torch) -> int:
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
         long_prefill=long_report, efat=efat_report, lm_fat=lm_report, continuous=cont_report, fleet=fleet_report,
+        zoo=zoo_report,
         seconds=time.perf_counter() - t_start,
     ), indent=1))
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
@@ -3008,7 +3495,10 @@ def run(args, torch) -> int:
         f"(plain and torch.matmul on the bf16 copy); masked_matmul.mma: SmolLM-135M's layer GEMMs at "
         f"M={BATCH * LONG}, once per layer, fp32 master; masked_matmul.v1: the float32 decode step; "
         f"masked_matmul.decode.chips{FLEET_CHIPS}: the same decode step for {FLEET_CHIPS} chips, one chip-batched launch "
-        f"a GEMM (launches: phase 14's); flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
+        f"a GEMM (launches: phase 14's); masked_matmul.<variant>.experts: one expert-batched launch of mixtral-8x22b's "
+        f"wg (8 x 6144 x 16384, one mask) at M={ZOO_EXPERT_MS[0]} (decode, v1 in float32) and {ZOO_EXPERT_MS[1]} (mma) "
+        f"a expert (launches: phase 15's); launches_zoo: phase 15's main-path launches; "
+        f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
         f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "
         f"int8 tokens, bf16 q, the heuristic bkv (launches: the tuner's); paged_decode_attention: "
         f"one launch over {PAGED_SLOTS} slots of a paged pool, bf16 q; run time "

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import ArchConfig, get_arch, reduce_config, register
+from repro_torch.configs.base import FRONTEND_DIMS, ArchConfig, get_arch, list_archs, reduce_config, register
 
-__all__ = ["ArchConfig", "get_arch", "reduce_config", "register"]
+__all__ = ["ArchConfig", "FRONTEND_DIMS", "get_arch", "list_archs", "reduce_config", "register"]

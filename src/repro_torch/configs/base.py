@@ -3,7 +3,7 @@ maps ``--arch <id>`` strings to configs, and ``reduce_config`` for CPU tests.
 
 The port's own copy of the reference's ``configs/base.py``: the dataclass
 fields are identical, so a config built on either side describes the same
-model. Only the architectures the port can run are registered.
+model. Every architecture of the reference is registered.
 """
 from __future__ import annotations
 
@@ -11,6 +11,11 @@ import importlib
 import math
 from dataclasses import dataclass, replace
 from typing import Optional
+
+# the stub frontends' input widths (the reference's model.py): wav2vec2-style
+# audio frames and InternViT patch embeddings, projected to d_model by the
+# ``frontend`` GEMM
+FRONTEND_DIMS = {"audio": 512, "vision": 1024}
 
 
 @dataclass(frozen=True)
@@ -92,18 +97,27 @@ class ArchConfig:
         return self.num_experts > 0
 
     def gemm_shapes(self) -> list[tuple[int, int, int]]:
-        """``(d_in, d_out, uses)`` of every masked GEMM one decode step runs:
-        per layer the attention projections (q, k and v, o), the swiglu MLP
-        (gate and up, down) and the SSM's four (in_proj, x_proj, dt_w,
-        out_proj), as the family has them; then the unembed."""
+        """``(d_in, d_out, uses)`` of every masked GEMM launch of one forward
+        or decode step: the frontend where the modality has one (audio
+        frames, vision patches; a forward or prefill only, first); per
+        layer the attention projections (q, k and v, o), the MLP (swiglu:
+        gate and up, down; gelu: in, down), an MoE layer's router and its
+        three expert GEMMs (gate, up, down), each ONE launch for all E
+        experts (the masked GEMM's expert axis), and the SSM's four
+        (in_proj, x_proj, dt_w, out_proj), as the family has them; then the
+        unembed, last."""
         d, f, L = self.d_model, self.d_ff, self.num_layers
         shapes = []
+        if self.modality in FRONTEND_DIMS:
+            shapes.append((FRONTEND_DIMS[self.modality], d, 1))
         if self.has_attention:
             hd = self.resolved_head_dim
             q, kv = self.num_heads * hd, self.num_kv_heads * hd
             shapes += [(d, q, L), (d, kv, 2 * L), (q, d, L)]
+        if self.has_moe:
+            shapes.append((d, self.num_experts, L))
         if f:
-            shapes += [(d, f, 2 * L), (f, d, L)]
+            shapes += [(d, f, (2 if self.activation == "swiglu" else 1) * L), (f, d, L)]
         if self.has_ssm:
             di, r, n = self.d_inner, self.resolved_dt_rank, self.ssm_state
             shapes += [(d, 2 * di, L), (di, r + 2 * n, L), (r, di, L), (di, d, L)]
@@ -129,7 +143,19 @@ class ArchConfig:
         return L * per_layer + v * d + head + d  # embedding, head, final norm
 
 
-_ARCH_MODULES = ["falcon_mamba_7b", "smollm_135m", "hymba_1_5b", "paper_mlp"]
+_ARCH_MODULES = [
+    "falcon_mamba_7b",
+    "phi3_mini_3_8b",
+    "qwen3_0_6b",
+    "llama3_405b",
+    "smollm_135m",
+    "llama4_maverick_400b_a17b",
+    "mixtral_8x22b",
+    "internvl2_26b",
+    "hubert_xlarge",
+    "hymba_1_5b",
+    "paper_mlp",
+]
 
 
 def _norm(name: str) -> str:
@@ -150,6 +176,11 @@ def get_arch(name: str) -> ArchConfig:
     if key not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
+
+
+def list_archs(include_paper: bool = False) -> list[str]:
+    _ensure_loaded()
+    return [a for a in sorted(_REGISTRY) if include_paper or a != "paper_mlp"]
 
 
 def _ensure_loaded() -> None:
@@ -188,4 +219,4 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     return replace(cfg, **changes)
 
 
-__all__ = ["ArchConfig", "register", "get_arch", "reduce_config"]
+__all__ = ["ArchConfig", "FRONTEND_DIMS", "register", "get_arch", "list_archs", "reduce_config"]

@@ -32,6 +32,7 @@ from repro_torch.core.masking import (
     MASKABLE_KEYS,
     FaultContext,
     context_leak_reason,
+    fault_einsum,
     fault_linear,
     from_fault_map,
     healthy,
@@ -67,6 +68,7 @@ __all__ = [
     "expected_merged_rate",
     "expected_weight_loss",
     "fam_permutation",
+    "fault_einsum",
     "fault_linear",
     "fault_rate_list",
     "fixed_policy_plan",

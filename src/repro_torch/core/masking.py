@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device
 __all__ = [
     "FaultContext",
     "fault_linear",
+    "fault_einsum",
     "healthy",
     "from_fault_map",
     "stack_contexts",
@@ -136,6 +137,14 @@ def _require_per_chip(ctx: FaultContext) -> None:
         raise ValueError(reason)
 
 
+def _kernel_weight(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """w as the masked-GEMM kernels take it: in x's dtype, or the fp32
+    master beside bf16 x (rounded on load); anything else is cast."""
+    if w.dtype == x.dtype or (x.dtype == torch.bfloat16 and w.dtype == torch.float32):
+        return w
+    return w.to(x.dtype)
+
+
 def fault_linear(
     x: torch.Tensor, w: torch.Tensor, ctx: Optional[FaultContext] = None
 ) -> torch.Tensor:
@@ -157,10 +166,39 @@ def fault_linear(
         # imported here: the kernel module imports core.mapping
         from repro_torch.kernels.masked_matmul.ops import masked_matmul
 
-        if not (w.dtype == x.dtype or (x.dtype == torch.bfloat16 and w.dtype == torch.float32)):
-            w = w.to(x.dtype)
-        return masked_matmul(x, w, ctx.ok)
+        return masked_matmul(x, _kernel_weight(x, w), ctx.ok)
     return torch.matmul(x, masked_weight(w.to(x.dtype), ctx.ok))
+
+
+# the einsum specs that are a batched GEMM x (E, M, K) @ w (E, K, N): the MoE
+# expert FFNs' (models/moe.py)
+EXPERT_SPECS = ("ecd,edf->ecf", "ecf,efd->ecd")
+
+
+def fault_einsum(
+    spec: str, x: torch.Tensor, w: torch.Tensor, ctx: Optional[FaultContext] = None
+) -> torch.Tensor:
+    """Masked einsum for weights whose GEMM view is the last two dims of
+    ``w`` (the MoE experts' ``(e, d, f)``): every expert GEMM runs on the
+    same chip, hence under the same periodic mask.
+
+    ``none`` and ``fap`` run ``torch.einsum`` on the weight cast to x's
+    dtype (and masked), as the reference does. ``kernel`` mode takes the
+    expert specs (``EXPERT_SPECS``), each ``x (E, M, K) @ w (E, K, N)``, to
+    the masked-GEMM kernel with the experts as its batch axis and the one
+    ``(R, C)`` mask shared by all of them: one launch for every expert, the
+    mask applied on chip, no masked copy written. Any other spec raises in
+    ``kernel`` mode."""
+    if ctx is None or not ctx.active:
+        return torch.einsum(spec, x, w.to(x.dtype))
+    _require_per_chip(ctx)
+    if ctx.mode == "kernel":
+        if spec not in EXPERT_SPECS:
+            raise ValueError(f"kernel mode runs the expert specs {EXPERT_SPECS}, not {spec!r}")
+        from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+        return masked_matmul(x, _kernel_weight(x, w), ctx.ok)
+    return torch.einsum(spec, x, masked_weight(w.to(x.dtype), ctx.ok))
 
 
 # Parameter names that flow through fault_linear (execute as GEMMs on the

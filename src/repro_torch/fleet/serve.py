@@ -138,7 +138,14 @@ class FleetGenerateResult:
         return self.tokens[i], self.logprobs[i]
 
 
-def _check_fleet(params_list, ctxs, what: str) -> list[FaultContext]:
+def _check_fleet(cfg, params_list, ctxs, what: str) -> list[FaultContext]:
+    if cfg.has_moe or cfg.is_encoder or cfg.modality != "text":
+        # the expert axis and the frontends have not been put under the
+        # fleet's chip map: the masked GEMM takes one batch axis a launch
+        raise ValueError(
+            f"{what} runs the causal text families without experts; {cfg.name!r} is "
+            f"{'an MoE' if cfg.has_moe else 'an encoder' if cfg.is_encoder else 'a ' + cfg.modality} model"
+        )
     n = len(params_list)
     if n == 0:
         raise ValueError(f"{what} needs at least one chip")
@@ -167,7 +174,7 @@ class FleetServeEngine:
         *,
         max_len: int = 4096,
     ):
-        ctxs = _check_fleet(params_list, ctxs, "FleetServeEngine")
+        ctxs = _check_fleet(cfg, params_list, ctxs, "FleetServeEngine")
         if cfg.has_ssm:
             raise ValueError(
                 f"fleet serving runs attention families; {cfg.family!r} carries SSM state, "
@@ -266,7 +273,7 @@ class ShardedFleetServeEngine:
         health_config: Optional[HealthConfig] = None,
         alert_rules: Optional[Sequence[AlertRule]] = None,
     ):
-        ctxs = _check_fleet(params_list, ctxs, "ShardedFleetServeEngine")
+        ctxs = _check_fleet(cfg, params_list, ctxs, "ShardedFleetServeEngine")
         n = len(params_list)
         if cfg.has_ssm:
             raise ValueError(

@@ -62,7 +62,9 @@
 // stride swc, 0 for a weight shared by every chip), the mask and y (chips, M, N), and folds the
 // chip into grid.y. Each chip has its own split-K counters (the tile index counts chips x tiles)
 // and its own slices of the scratch, and the plan cuts K for chips x tiles output tiles. One
-// launch serves the whole fleet. Left for later work: wgmma and TMA (a warp-specialized producer ring) for the mma kernel,
+// launch serves the whole fleet. The same axis carries an MoE layer's experts: w (E, K, N) under
+// ONE mask, since every expert GEMM runs on the same chip; the mask's batch stride is then 0, so
+// its bits are packed and read once for all experts. Left for later work: wgmma and TMA (a warp-specialized producer ring) for the mma kernel,
 // and a CUDA graph of the decode step, whose small GEMMs are launch-bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,14 +338,14 @@ template <typename XT, typename WT, int MT>
 __global__ void __launch_bounds__(DEC_THREADS, MT > 4 ? 1 : 2)
 decode_rows_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
                    const uint8_t* __restrict__ bits, XT* __restrict__ y, int M, int N,
-                   int K, long long swk, long long swc, int R, int C, int cbytes,
+                   int K, long long swk, long long swc, long long sbm, int R, int C, int cbytes,
                    int rows_per_split, int vec, int x_aligned, float* __restrict__ part,
                    int* __restrict__ counters) {
   constexpr int U = dec_rows_u<XT, MT>();  // consecutive rows per step
   const int chip = blockIdx.y;
   x += (long long)chip * M * K;
   w += chip * swc;
-  bits += (long long)chip * R * cbytes;
+  bits += chip * sbm;
   y += (long long)chip * M * N;
   part += (long long)chip * gridDim.z * M * N;
   __shared__ __align__(16) float red[MT * 8 * 32];  // [m][j][lane]
@@ -446,14 +448,14 @@ template <typename XT, typename WT, int MT>
 __global__ void __launch_bounds__(DEC_THREADS, MT > 4 ? 1 : 2)
 decode_cols_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
                    const uint8_t* __restrict__ bits_t, XT* __restrict__ y, int M, int N,
-                   int K, long long swn, long long swc, int R, int C, int rbytes,
+                   int K, long long swn, long long swc, long long sbm, int R, int C, int rbytes,
                    int rows_per_split, int vec, float* __restrict__ part,
                    int* __restrict__ counters) {
   constexpr int U = MT > 4 ? 2 : 128 / (int)sizeof(WRaw<WT>);  // 128 bytes of w in flight at M <= 4
   const int chip = blockIdx.y;
   x += (long long)chip * M * K;
   w += chip * swc;
-  bits_t += (long long)chip * C * rbytes;
+  bits_t += chip * sbm;
   y += (long long)chip * M * N;
   part += (long long)chip * gridDim.z * M * N;
   constexpr int DEC_KC = dec_kc<MT>();
@@ -600,13 +602,14 @@ template <typename WT, bool KCONTIG>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
 mma_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
            const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ y, int M, int N, int K,
-           long long wstride, long long swc, int R, int C, int bstride, int tiles_per_split,
-           int x_async, int w_vec, float* __restrict__ part, int* __restrict__ counters) {
+           long long wstride, long long swc, long long sbm, int R, int C, int bstride,
+           int tiles_per_split, int x_async, int w_vec, float* __restrict__ part,
+           int* __restrict__ counters) {
   constexpr int BT = mma_b_elems<KCONTIG>();
   const int chip = blockIdx.y;
   x += (long long)chip * M * K;
   w += chip * swc;
-  bits += (long long)chip * (KCONTIG ? C : R) * bstride;
+  bits += chip * sbm;
   y += (long long)chip * M * N;
   part += (long long)chip * gridDim.z * M * N;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -846,7 +849,7 @@ template <typename T, int BM, int BN, bool WHOLE>
 __global__ void __launch_bounds__(TL_THREADS, TL_MIN_BLOCKS)
 tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __restrict__ bits,
              T* __restrict__ y, int M, int N, int K, long long swk, long long swn, long long swc,
-             int R, int C, int bstride, int splits, int split_tiles, int tiles_per_split,
+             long long sbm, int R, int C, int bstride, int splits, int split_tiles, int tiles_per_split,
              int w_vec, int x_vec, float* __restrict__ part, int* __restrict__ counters) {
   constexpr int BK = TL_BK, TM = BM / 16, TN = BN / 16;
   // a thread's columns: TN4 float4 runs, then (BN = 96) one float2 run at 64 + 2 (tid % 16)
@@ -862,7 +865,7 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __
   const int chip = blockIdx.y;
   x += (long long)chip * M * K;
   w += chip * swc;
-  bits += (long long)chip * (kcontig ? C : R) * bstride;
+  bits += chip * sbm;
   y += (long long)chip * M * N;
   part += (long long)chip * split_tiles * splits * BM * BN;
   const int tid = threadIdx.x;
@@ -1162,8 +1165,8 @@ void plan(int variant, int chips, int M, int N, int K, bool kcontig, int sms, in
 template <typename XT, typename WT>
 int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
                   void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
-                  int C, int splits, float* part, long long scratch_bytes, int* counters,
-                  int counters_len, cudaStream_t s) {
+                  int C, int mask_stride, int splits, float* part, long long scratch_bytes,
+                  int* counters, int counters_len, cudaStream_t s) {
   if (M > 16) return static_cast<int>(cudaErrorInvalidValue);
   const bool kcontig = swn != 1;
   const int bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS;
@@ -1183,8 +1186,9 @@ int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, 
     const int rbytes = (R + 7) / 8;
     auto go = [&](auto mt_) {
       constexpr int MT = decltype(mt_)::value;
-      decode_cols_kernel<XT, WT, MT><<<grid, DEC_THREADS, 0, s>>>(xt, wt, bits_t, yt, M, N, K, swn, swc,
-                                                                  R, C, rbytes, rows, vec, part, counters);
+      decode_cols_kernel<XT, WT, MT><<<grid, DEC_THREADS, 0, s>>>(
+          xt, wt, bits_t, yt, M, N, K, swn, swc, (long long)mask_stride * C * rbytes, R, C, rbytes, rows,
+          vec, part, counters);
     };
     if (mt == 4) go(std::integral_constant<int, 4>{});
     else if (f32 && mt == 8) go(std::integral_constant<int, f32 ? 8 : 16>{});
@@ -1196,9 +1200,9 @@ int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, 
     const int xa = aligned16(x) && (chips == 1 || (long long)M * K * sizeof(XT) % 16 == 0);
     auto go = [&](auto mt_) {
       constexpr int MT = decltype(mt_)::value;
-      decode_rows_kernel<XT, WT, MT><<<grid, DEC_THREADS, 0, s>>>(xt, wt, bits, yt, M, N, K, swk, swc,
-                                                                  R, C, cbytes, rows, vec, xa, part,
-                                                                  counters);
+      decode_rows_kernel<XT, WT, MT><<<grid, DEC_THREADS, 0, s>>>(
+          xt, wt, bits, yt, M, N, K, swk, swc, (long long)mask_stride * R * cbytes, R, C, cbytes, rows,
+          vec, xa, part, counters);
     };
     if (mt == 4) go(std::integral_constant<int, 4>{});
     else if (f32 && mt == 8) go(std::integral_constant<int, f32 ? 8 : 16>{});
@@ -1210,8 +1214,8 @@ int launch_decode(int chips, const void* x, const void* w, const uint8_t* bits, 
 template <typename T, int BM, int BN>
 int launch_tiled_shape(int chips, const T* x, const T* w, const uint8_t* bits, const uint8_t* bits_t,
                        T* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
-                       int C, int splits, int split_tiles, float* part, long long scratch_bytes,
-                       int* counters, int counters_len, cudaStream_t s) {
+                       int C, int mask_stride, int splits, int split_tiles, float* part,
+                       long long scratch_bytes, int* counters, int counters_len, cudaStream_t s) {
   const bool kcontig = swn != 1;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   if (splits == 1) split_tiles = 0;
@@ -1233,9 +1237,11 @@ int launch_tiled_shape(int chips, const T* x, const T* w, const uint8_t* bits, c
                                                                         : N % 4 == 0 && C % 4 == 0);
   auto kern = whole ? tiled_kernel<T, BM, BN, std::is_same<T, float>::value>
                     : tiled_kernel<T, BM, BN, false>;
+  const int bstride = kcontig ? (R + 7) / 8 : (C + 7) / 8;
   kern<<<grid, TL_THREADS, 0, s>>>(
-      x, w, kcontig ? bits_t : bits, y, M, N, K, swk, swn, swc, R, C, kcontig ? (R + 7) / 8 : (C + 7) / 8,
-      splits, split_tiles, per, w_vec, aligned16(x) && K % 4 == 0, part, counters);
+      x, w, kcontig ? bits_t : bits, y, M, N, K, swk, swn, swc,
+      (long long)mask_stride * (kcontig ? C : R) * bstride, R, C, bstride, splits, split_tiles, per,
+      w_vec, aligned16(x) && K % 4 == 0, part, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1243,11 +1249,11 @@ int launch_tiled_shape(int chips, const T* x, const T* w, const uint8_t* bits, c
 template <typename T>
 int launch_v1(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
               void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R, int C,
-              int splits, int split_tiles, float* part, long long scratch_bytes, int* counters,
-              int counters_len, cudaStream_t s) {
+              int mask_stride, int splits, int split_tiles, float* part, long long scratch_bytes,
+              int* counters, int counters_len, cudaStream_t s) {
   if (M <= 16)
-    return launch_decode<T, T>(chips, x, w, bits, bits_t, y, M, N, K, swk, swn, swc, R, C, splits,
-                               part, scratch_bytes, counters, counters_len, s);
+    return launch_decode<T, T>(chips, x, w, bits, bits_t, y, M, N, K, swk, swn, swc, R, C,
+                               mask_stride, splits, part, scratch_bytes, counters, counters_len, s);
   int bm, bn;
   tiled_shape(M, N, &bm, &bn);
   const auto* xt = static_cast<const T*>(x);
@@ -1256,8 +1262,8 @@ int launch_v1(int chips, const void* x, const void* w, const uint8_t* bits, cons
 #define V1_TILED(BM_, BN_)                                                                         \
   if (bm == BM_ && bn == BN_)                                                                      \
     return launch_tiled_shape<T, BM_, BN_>(chips, xt, wt, bits, bits_t, yt, M, N, K, swk, swn, swc, \
-                                           R, C, splits, split_tiles, part, scratch_bytes,         \
-                                           counters, counters_len, s);
+                                           R, C, mask_stride, splits, split_tiles, part,           \
+                                           scratch_bytes, counters, counters_len, s);
   V1_TILED(128, 128)
   V1_TILED(128, 96)
   V1_TILED(128, 64)
@@ -1271,23 +1277,23 @@ int launch_v1(int chips, const void* x, const void* w, const uint8_t* bits, cons
 template <typename WT, bool KCONTIG>
 int launch_mma_layout(dim3 grid, const __nv_bfloat16* x, const WT* w, const uint8_t* bits,
                       __nv_bfloat16* y, int M, int N, int K, long long wstride, long long swc,
-                      int R, int C, int bstride, int per, int x_async, int w_vec, float* part,
-                      int* counters, cudaStream_t s) {
+                      int mask_stride, int R, int C, int bstride, int per, int x_async, int w_vec,
+                      float* part, int* counters, cudaStream_t s) {
   constexpr int smem = mma_smem_bytes<KCONTIG>();
   // above 48 KB only after this attribute is set (on the current device)
   const cudaError_t err = cudaFuncSetAttribute(mma_kernel<WT, KCONTIG>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mma_kernel<WT, KCONTIG><<<grid, MMA_THREADS, smem, s>>>(x, w, bits, y, M, N, K, wstride, swc, R,
-                                                          C, bstride, per, x_async, w_vec, part,
-                                                          counters);
+  mma_kernel<WT, KCONTIG><<<grid, MMA_THREADS, smem, s>>>(
+      x, w, bits, y, M, N, K, wstride, swc, (long long)mask_stride * (KCONTIG ? C : R) * bstride, R, C,
+      bstride, per, x_async, w_vec, part, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT>
 int launch_mma(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
                void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
-               int C, int splits, float* part, long long scratch_bytes, int* counters,
+               int C, int mask_stride, int splits, float* part, long long scratch_bytes, int* counters,
                int counters_len, cudaStream_t s) {
   const bool kcontig = swn != 1;
   const dim3 grid(((M + MMA_BM - 1) / MMA_BM) * ((N + MMA_BN - 1) / MMA_BN), chips, splits);
@@ -1301,10 +1307,10 @@ int launch_mma(int chips, const void* x, const void* w, const uint8_t* bits, con
   const auto* wt = static_cast<const WT*>(w);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if (kcontig)
-    return launch_mma_layout<WT, true>(grid, xb, wt, bits_t, yb, M, N, K, swn, swc, R, C, (R + 7) / 8,
+    return launch_mma_layout<WT, true>(grid, xb, wt, bits_t, yb, M, N, K, swn, swc, mask_stride, R, C, (R + 7) / 8,
                                        per, x_async, aligned16(w) && swn % unit == 0 && swc % unit == 0,
                                        part, counters, s);
-  return launch_mma_layout<WT, false>(grid, xb, wt, bits, yb, M, N, K, swk, swc, R, C, (C + 7) / 8,
+  return launch_mma_layout<WT, false>(grid, xb, wt, bits, yb, M, N, K, swk, swc, mask_stride, R, C, (C + 7) / 8,
                                       per, x_async, aligned16(w) && swk % unit == 0 && swc % unit == 0,
                                       part, counters, s);
 }
@@ -1335,7 +1341,9 @@ extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, i
 // along C ((chips, R, ceil(C/8)) bytes), bits_t the same of each transposed mask ((chips, C,
 // ceil(R/8)) bytes), for k-contiguous w. x is (chips, M, K) contiguous, y is (chips, M, N)
 // contiguous in x's dtype, w[c] is (K, N) with strides (swk, swn), one of them 1, and chip c's
-// starts swc elements after chip c - 1's (0: one w for every chip). splits > 1 cuts K into that
+// starts swc elements after chip c - 1's (0: one w for every chip). mask_stride 1 gives each chip
+// its own mask (bits holds chips of them); 0 gives every batch entry the one mask bits holds
+// (the MoE experts, which all run on one chip). splits > 1 cuts K into that
 // many slices, one block each per output tile, and needs the caller's scratch, chips * splits *
 // M * N floats (v1 at M > 16: only each chip's last split_tiles tiles are cut, and the scratch
 // holds their chips * split_tiles * splits partial tiles), and `counters`, at least one zero int
@@ -1346,22 +1354,24 @@ extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, i
 extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, const void* x,
                              const void* w, const void* bits, const void* bits_t, void* y, int M,
                              int N, int K, long long swk, long long swn, long long swc, int R, int C,
-                             int splits, int split_tiles, void* scratch, long long scratch_bytes,
-                             void* counters, int counters_len, void* stream) {
+                             int mask_stride, int splits, int split_tiles, void* scratch,
+                             long long scratch_bytes, void* counters, int counters_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || chips < 1 || chips > 65535 || (swk != 1 && swn != 1))
+  if (splits < 1 || chips < 1 || chips > 65535 || (swk != 1 && swn != 1) ||
+      (mask_stride != 0 && mask_stride != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* b = static_cast<const uint8_t*>(bits);
   const auto* bt = static_cast<const uint8_t*>(bits_t);
   float* part = static_cast<float*>(scratch);
   int* cnt = static_cast<int*>(counters);
+  const int ms = mask_stride;
   if (variant == 1) {
     if (xdtype != wdtype) return static_cast<int>(cudaErrorInvalidValue);
     if (xdtype == 0)
-      return launch_v1<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+      return launch_v1<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, ms, splits,
                               split_tiles, part, scratch_bytes, cnt, counters_len, s);
     if (xdtype == 1)
-      return launch_v1<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+      return launch_v1<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, ms, splits,
                                       split_tiles, part, scratch_bytes, cnt, counters_len, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1369,16 +1379,16 @@ extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, con
   if (variant == 2)
     return wdtype == 1
                ? launch_decode<__nv_bfloat16, __nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn,
-                                                             swc, R, C, splits, part, scratch_bytes,
+                                                             swc, R, C, ms, splits, part, scratch_bytes,
                                                              cnt, counters_len, s)
                : launch_decode<__nv_bfloat16, float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R,
-                                                     C, splits, part, scratch_bytes, cnt,
+                                                     C, ms, splits, part, scratch_bytes, cnt,
                                                      counters_len, s);
   if (variant == 3)
     return wdtype == 1
-               ? launch_mma<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C,
+               ? launch_mma<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, ms,
                                            splits, part, scratch_bytes, cnt, counters_len, s)
-               : launch_mma<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, splits,
+               : launch_mma<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, ms, splits,
                                    part, scratch_bytes, cnt, counters_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,9 +40,17 @@ the wrapper reaches that launch through the custom op
 no data pointer to hand the kernel. Each chip packs its own mask bits, and a
 change to one chip of a stacked mask repacks that chip alone.
 
+An expert axis: with w of shape (E, K, N), x (E, ..., K) and ONE mask ok
+(R, C), one launch computes every expert's product under that mask (an MoE
+layer's expert GEMMs all run on the same chip: ``core/masking.py::
+fault_einsum``). The axis is the chip axis with a mask batch stride of 0,
+so the mask is packed once, as a single chip's (``packed_mask.chips_packed``
+grows by 1, not E), and no (E, R, C) copy of it is ever made.
+
 ``masked_matmul`` launches a kernel for a CUDA tensor and counts the launch
 in ``masked_matmul.launches`` and ``masked_matmul.launches_by_variant`` (a
-chip-batched launch also in ``masked_matmul.fleet_launches_by_variant``);
+chip-batched launch also in ``masked_matmul.fleet_launches_by_variant``, an
+expert-batched one in ``masked_matmul.expert_launches_by_variant``);
 for a CPU tensor it runs ``masked_matmul_ref``, the plain version. There is
 no fallback between the two.
 """
@@ -71,7 +79,7 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 )
 # the C entry point's variant codes
@@ -245,7 +253,9 @@ def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> tor
     accumulation. x: (..., K); w: (K, N) in x's dtype, or float32 with a
     bfloat16 x; ok: (R, C) 1/0 healthy mask. With a chip axis, w is
     (chips, K, N), ok (chips, R, C) and x (chips, ..., K): chip c's rows
-    meet chip c's weights under chip c's mask."""
+    meet chip c's weights under chip c's mask. With an expert axis, w is
+    (E, K, N), ok one (R, C) mask and x (E, ..., K): every expert's weights
+    under the same mask."""
     _check_dtypes(x, w)
     mask = periodic_mask(w.shape, ok, dtype=torch.float32)
     wm = (w.to(x.dtype).float() * mask).to(x.dtype)
@@ -271,7 +281,8 @@ def masked_matmul(
 ) -> torch.Tensor:
     """y = x @ (w.to(x.dtype) * periodic_mask(ok)); x: (..., K), w: (K, N),
     ok: (R, C); or, for a fleet of chips in one launch, x: (chips, ..., K),
-    w: (chips, K, N), ok: (chips, R, C).
+    w: (chips, K, N), ok: (chips, R, C); or, for an MoE layer's experts in
+    one launch, x: (E, ..., K), w: (E, K, N) and one mask ok: (R, C).
 
     On CUDA: x is float32 or bfloat16; w is in x's dtype, or float32 with a
     bfloat16 x; w has a unit stride along one of its last two axes (any
@@ -286,10 +297,12 @@ def masked_matmul(
         return masked_matmul_ref(x, w, ok)
     if x.device.type != "cuda":
         raise ValueError(f"masked_matmul runs on cpu or cuda, got {x.device}")
-    fleet = w.dim() == 3
+    batched = w.dim() == 3
+    experts = batched and ok.dim() == 2  # one mask shared by the batch axis
     if (
-        w.dim() not in (2, 3) or ok.dim() != w.dim() or x.shape[-1] != w.shape[-2]
-        or (fleet and (x.dim() < 2 or x.shape[0] != w.shape[0] or ok.shape[0] != w.shape[0]))
+        w.dim() not in (2, 3) or ok.dim() not in (2, w.dim()) or x.shape[-1] != w.shape[-2]
+        or (batched and (x.dim() < 2 or x.shape[0] != w.shape[0]))
+        or (batched and not experts and ok.shape[0] != w.shape[0])
     ):
         raise ValueError(f"bad shapes x{tuple(x.shape)} w{tuple(w.shape)} ok{tuple(ok.shape)}")
     if x.dtype not in _DTYPES:
@@ -301,7 +314,7 @@ def masked_matmul(
         raise ValueError("x, w and ok must lie on the current CUDA device")
     if w.stride(-1) != 1 and w.stride(-2) != 1:
         raise ValueError(f"w needs a unit stride along one GEMM axis, got strides {w.stride()}")
-    chips = w.shape[0] if fleet else 1
+    chips = w.shape[0] if batched else 1
     kdim, n = w.shape[-2:]
     lead = x.shape[:-1]
     x3 = x.reshape(chips, -1, kdim).contiguous()
@@ -327,15 +340,17 @@ def masked_matmul(
         err = fn(
             VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x3.data_ptr(), w.data_ptr(),
             bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
-            m, n, kdim, w.stride(-2), w.stride(-1), w.stride(0) if fleet else 0,
-            ok.shape[-2], ok.shape[-1], splits, split_tiles,
+            m, n, kdim, w.stride(-2), w.stride(-1), w.stride(0) if batched else 0,
+            ok.shape[-2], ok.shape[-1], int(batched and not experts), splits, split_tiles,
             scratch.data_ptr() if scratch is not None else None,
             scratch_bytes, counters.data_ptr(), counters.numel(), stream,
         )
         check_launch("masked_matmul", err)
         masked_matmul.launches += 1
         masked_matmul.launches_by_variant[kind] += 1
-        if fleet:
+        if experts:
+            masked_matmul.expert_launches_by_variant[kind] += 1
+        elif batched:
             masked_matmul.fleet_launches_by_variant[kind] += 1
     return y.reshape(*lead, n)
 
@@ -343,6 +358,7 @@ def masked_matmul(
 masked_matmul.launches = 0
 masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.fleet_launches_by_variant = dict.fromkeys(VARIANTS, 0)
+masked_matmul.expert_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 @torch.library.custom_op("repro_torch::masked_matmul", mutates_args=())

@@ -9,9 +9,8 @@ The flags are the reference's, plus ``--device`` (default: the CUDA card;
 ``--device cpu`` trains on the host, with ``--reduced`` for a tiny model).
 A run stopped part way (an interrupt, a preemption) resumes from its last
 checkpoint when the same command is run again, and follows the straight run.
-``--moe-impl`` is taken for the reference's command lines, but the port
-runs no MoE arch: ``Model`` refuses one. ``main(argv)`` returns the final
-(params, opt_state, LoopState).
+``--moe-impl`` picks an MoE model's dispatch (``models/moe.py``).
+``main(argv)`` returns the final (params, opt_state, LoopState).
 """
 from __future__ import annotations
 
@@ -58,8 +57,10 @@ def main(argv=None):
     ocfg = AdamWConfig(
         learning_rate=cosine_schedule(args.lr, warmup=20, total=args.steps)
     )
-    train_step = make_jit_train_step(cfg, ocfg, remat="none", microbatches=args.microbatches)
-    eval_step = make_eval_step(cfg, remat="none")
+    train_step = make_jit_train_step(
+        cfg, ocfg, moe_impl=args.moe_impl, remat="none", microbatches=args.microbatches
+    )
+    eval_step = make_eval_step(cfg, moe_impl=args.moe_impl, remat="none")
     opt = adamw_init(params, ocfg)
 
     ctx = healthy()

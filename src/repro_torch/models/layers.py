@@ -37,8 +37,20 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     return (y * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(x: Tensor, p, eps: float) -> Tensor:
-    """``p`` is a norm module with a ``scale`` (RMSNorm: the dense family)."""
+    """``p`` is a norm module with a ``scale``, and a ``bias`` for a
+    LayerNorm (the audio family); RMSNorm otherwise."""
+    bias = getattr(p, "bias", None)
+    if bias is not None:
+        return layer_norm(x, p.scale, bias, eps)
     return rms_norm(x, p.scale, eps)
 
 
@@ -217,7 +229,7 @@ def attention_impl(
 
 
 # ---------------------------------------------------------------------------
-# Attention block (GQA + RoPE + SWA) with optional KV cache
+# Attention block (GQA + RoPE + qk_norm + SWA) with optional KV cache
 # ---------------------------------------------------------------------------
 
 
@@ -256,13 +268,16 @@ def attention_block(
     cfg,
     ctx: FaultContext,
     *,
-    rope: tuple[Tensor, Tensor],
+    rope: Optional[tuple[Tensor, Tensor]],
     impl: str = "auto",
     cache: Union[None, KVCache, PagedKVView] = None,
     return_kv: bool = False,
     segments: Optional[Tensor] = None,
 ):
-    """``rope`` holds the ``rope_tables`` of the tokens' positions.
+    """``rope`` holds the ``rope_tables`` of the tokens' positions (None for
+    an encoder, which takes no RoPE). With ``cfg.qk_norm`` q and k get a
+    per-head RMSNorm over ``head_dim`` (``q_norm`` / ``k_norm``) after their
+    projections and before RoPE. An encoder attends bidirectionally.
 
     Returns (out, new_cache). With ``return_kv`` (prefill) the second
     element is the raw (k, v) pair (B, Hkv, S, D) for cache assembly.
@@ -279,11 +294,16 @@ def attention_block(
     if segments is not None and cache is not None:
         raise ValueError("segment-packed attention is a cache-free prefill path")
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = fault_linear(x, p.wq, ctx).view(b, s, hq, hd).transpose(1, 2)  # (B, H, S, D)
-    k = fault_linear(x, p.wk, ctx).view(b, s, hkv, hd).transpose(1, 2)
+    q = fault_linear(x, p.wq, ctx).view(b, s, hq, hd)
+    k = fault_linear(x, p.wk, ctx).view(b, s, hkv, hd)
     v = fault_linear(x, p.wv, ctx).view(b, s, hkv, hd).transpose(1, 2)
-    q = apply_rope(q, rope)
-    k = apply_rope(k, rope)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    q, k = q.transpose(1, 2), k.transpose(1, 2)  # (B, H, S, D)
+    if not cfg.is_encoder:
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
 
     new_cache = None
     if isinstance(cache, PagedKVView):
@@ -332,7 +352,7 @@ def attention_block(
             )
     else:
         o = attention_impl(
-            q, k, v, causal=True, window=cfg.sliding_window, q_offset=0, impl=impl,
+            q, k, v, causal=not cfg.is_encoder, window=cfg.sliding_window, q_offset=0, impl=impl,
             segments=segments,
         )
         if return_kv:
@@ -347,6 +367,11 @@ def attention_block(
 
 
 def mlp_block(p, x: Tensor, cfg, ctx: FaultContext) -> Tensor:
-    """SwiGLU MLP (the dense family the port runs)."""
-    h = F.silu(fault_linear(x, p.wg, ctx)) * fault_linear(x, p.wu, ctx)
+    """SwiGLU MLP (``wg``, ``wu``, ``wd``), or the gelu one (``wi``, ``wd``).
+    The gelu is the tanh form: the reference's ``jax.nn.gelu`` defaults to
+    ``approximate=True``."""
+    if cfg.activation == "swiglu":
+        h = F.silu(fault_linear(x, p.wg, ctx)) * fault_linear(x, p.wu, ctx)
+    else:
+        h = F.gelu(fault_linear(x, p.wi, ctx), approximate="tanh")
     return fault_linear(h, p.wd, ctx)

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, ssm and hybrid families: parameters,
-forward, loss, prefill, decode.
+"""Model assembly for every family of the reference (dense, moe, ssm,
+hybrid, vlm, audio): parameters, forward, loss, prefill, decode.
 
 Parameters are ``nn.Module``s; the layers are an ``nn.ModuleList`` walked by
 a Python loop (the reference stacks them on a leading axis and scans). Every
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.configs.base import FRONTEND_DIMS
 from repro_torch.core.masking import FaultContext, fault_linear, healthy, mask_selected_params
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
@@ -37,6 +38,7 @@ from repro_torch.models.layers import (
     mlp_block,
     rope_tables,
 )
+from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import SSMCache, ssm_block
 
 Tensor = torch.Tensor
@@ -50,10 +52,15 @@ def _empty(*shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, d: int, *, device, dtype):
+class Norm(nn.Module):
+    """RMSNorm's ``scale``; the audio family's LayerNorm also has a
+    ``bias`` (the reference's hubert)."""
+
+    def __init__(self, cfg, *, device, dtype):
         super().__init__()
-        self.scale = _empty(d, device=device, dtype=dtype)
+        self.scale = _empty(cfg.d_model, device=device, dtype=dtype)
+        if cfg.family == "audio":
+            self.bias = _empty(cfg.d_model, device=device, dtype=dtype)
 
 
 class Attention(nn.Module):
@@ -65,15 +72,36 @@ class Attention(nn.Module):
         self.wk = _empty(d, kv, device=device, dtype=dtype)
         self.wv = _empty(d, kv, device=device, dtype=dtype)
         self.wo = _empty(q, d, device=device, dtype=dtype)
+        if cfg.qk_norm:
+            self.q_norm = _empty(hd, device=device, dtype=dtype)
+            self.k_norm = _empty(hd, device=device, dtype=dtype)
 
 
 class MLP(nn.Module):
+    """SwiGLU (``wg``, ``wu``, ``wd``) or gelu (``wi``, ``wd``)."""
+
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.wg = _empty(d, f, device=device, dtype=dtype)
-        self.wu = _empty(d, f, device=device, dtype=dtype)
+        if cfg.activation == "swiglu":
+            self.wg = _empty(d, f, device=device, dtype=dtype)
+            self.wu = _empty(d, f, device=device, dtype=dtype)
+        else:
+            self.wi = _empty(d, f, device=device, dtype=dtype)
         self.wd = _empty(f, d, device=device, dtype=dtype)
+
+
+class MoE(nn.Module):
+    """The router ``(d, E)`` and the experts' stacked ``wg``, ``wu`` ``(E,
+    d, f)`` and ``wd`` ``(E, f, d)``, as the reference initializes them."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.router = _empty(d, e, device=device, dtype=dtype)
+        self.wg = _empty(e, d, f, device=device, dtype=dtype)
+        self.wu = _empty(e, d, f, device=device, dtype=dtype)
+        self.wd = _empty(e, f, d, device=device, dtype=dtype)
 
 
 class SSM(nn.Module):
@@ -93,14 +121,14 @@ class SSM(nn.Module):
 
 class Layer(nn.Module):
     """One layer, with the reference's parameter names: ``attn`` for the
-    dense and hybrid families, ``ssm`` for ssm and hybrid, the hybrid's
-    branch weights ``alpha_attn`` and ``alpha_ssm``, and ``ln2``/``mlp``
-    where the family has an MLP."""
+    attention families, ``ssm`` for ssm and hybrid, the hybrid's branch
+    weights ``alpha_attn`` and ``alpha_ssm``, ``ln2`` and ``moe`` for the
+    moe family and ``ln2`` and ``mlp`` for the others but ssm."""
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.ln1 = RMSNorm(cfg.d_model, **kw)
+        self.ln1 = Norm(cfg, **kw)
         if cfg.has_attention:
             self.attn = Attention(cfg, **kw)
         if cfg.has_ssm:
@@ -109,39 +137,41 @@ class Layer(nn.Module):
             self.alpha_attn = _empty(cfg.d_model, **kw)
             self.alpha_ssm = _empty(cfg.d_model, **kw)
         if cfg.family != "ssm":
-            self.ln2 = RMSNorm(cfg.d_model, **kw)
-            self.mlp = MLP(cfg, **kw)
+            self.ln2 = Norm(cfg, **kw)
+            if cfg.family == "moe":
+                self.moe = MoE(cfg, **kw)
+            else:
+                self.mlp = MLP(cfg, **kw)
 
 
 class Model(nn.Module):
     """The parameters of one model, uninitialized; fill them with
-    :func:`init_params` or ``repro_torch.convert.params_from_jax``."""
+    :func:`init_params` or ``repro_torch.convert.params_from_jax``. The
+    audio and vision modalities add the stub frontend ``(512, d)`` or
+    ``(1024, d)`` (``FRONTEND_DIMS``) that projects frame or patch
+    embeddings to the model's width."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if (
-            cfg.family not in ("dense", "ssm", "hybrid") or cfg.modality != "text"
-            or (cfg.family != "ssm" and cfg.activation != "swiglu")
-            or cfg.qk_norm or cfg.is_encoder
-        ):
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs the causal text families dense (swiglu, "
-                "no qk_norm), ssm and hybrid"
-            )
+        if cfg.family == "classifier":
+            raise NotImplementedError(f"{cfg.name}: the classifier has its own module, models/classifier.py")
         kw = dict(device=resolve_device(device), dtype=getattr(torch, cfg.param_dtype))
         self.embed = _empty(cfg.vocab_size, cfg.d_model, **kw)
         self.layers = nn.ModuleList(Layer(cfg, **kw) for _ in range(cfg.num_layers))
-        self.final_ln = RMSNorm(cfg.d_model, **kw)
+        self.final_ln = Norm(cfg, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = _empty(cfg.d_model, cfg.vocab_size, **kw)
+        if cfg.modality in FRONTEND_DIMS:
+            self.frontend = _empty(FRONTEND_DIMS[cfg.modality], cfg.d_model, **kw)
 
 
 @torch.no_grad()
 def init_params(cfg, seed: int = 0, *, device=None) -> Model:
     """Random parameters from the port's own seeded generator, with the
-    reference's distributions: embeddings N(0, 0.02^2), GEMM weights and
-    the conv taps N(0, 1/fan_in), norm scales, branch weights and the SSM's
-    skip 1, the conv bias 0, ``a_log = log(1..N)`` and ``dt_b`` the inverse
+    reference's distributions: embeddings N(0, 0.02^2), GEMM weights (the
+    experts' too, fan_in their d_in axis) and the conv taps N(0, 1/fan_in),
+    norm scales, qk-norm scales, branch weights and the SSM's skip 1, the
+    conv and norm biases 0, ``a_log = log(1..N)`` and ``dt_b`` the inverse
     softplus of a log-uniform dt in [1e-3, 1e-1]. (``jax.random`` streams
     cannot be replayed here, so parity tests hand weights over with
     ``convert``.)"""
@@ -156,12 +186,12 @@ def init_params(cfg, seed: int = 0, *, device=None) -> Model:
             lo, hi = math.log(1e-3), math.log(1e-1)
             dt = torch.exp(torch.rand(p.shape, generator=gen, device=dev, dtype=p.dtype) * (hi - lo) + lo)
             p.copy_(dt + torch.log(-torch.expm1(-dt)))
-        elif leaf == "conv_b":
+        elif leaf in ("conv_b", "bias"):
             p.zero_()
         elif p.ndim == 1:
             p.fill_(1.0)
         else:
-            std = 0.02 if name == "embed" else 1.0 / math.sqrt(p.shape[0])
+            std = 0.02 if name == "embed" else 1.0 / math.sqrt(p.shape[-2])
             p.copy_(torch.randn(p.shape, generator=gen, device=dev, dtype=p.dtype) * std)
     return model
 
@@ -209,13 +239,15 @@ def as_params(params: Params):
 
 
 def _block(
-    lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=(None, None), build_cache=False, segments=None
+    lp: Layer, x, cfg, ctx, *, rope, attn_impl, cache=(None, None), build_cache=False, segments=None,
+    moe_impl="einsum", moe_cf=1.25,
 ):
     """One layer. ``cache`` is the layer's (KVCache or PagedKVView, SSMCache)
     decode state, each None where the family has no such branch. Returns
     (x, pieces): with ``build_cache`` (prefill) ``pieces["kv"]`` holds the
-    raw (k, v) and ``pieces["ssm"]`` the SSMCache the layer leaves behind.
-    ``segments`` masks packed prefill rows (``dense_attention``)."""
+    raw (k, v) and ``pieces["ssm"]`` the SSMCache the layer leaves behind;
+    an MoE layer's routing loss is ``pieces["aux"]``. ``segments`` masks
+    packed prefill rows (``dense_attention``)."""
     kv_cache, ssm_cache = cache
     pieces = {}
     h = apply_norm(x, lp.ln1, cfg.norm_eps)
@@ -233,17 +265,32 @@ def _block(
         a = 0.5 * (a * lp.alpha_attn.to(a.dtype) + s * lp.alpha_ssm.to(a.dtype))
     x = x + a
     h2 = apply_norm(x, lp.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        y, pieces["aux"] = moe_block(lp.moe, h2, cfg, ctx, impl=moe_impl, capacity_factor=moe_cf)
+        return x + y, pieces
     return x + mlp_block(lp.mlp, h2, cfg, ctx), pieces
 
 
 def embed_inputs(cfg, params, batch: dict, ctx: FaultContext) -> tuple[Tensor, Tensor]:
-    """Returns (x (B, S, d) in compute dtype, positions (B, S))."""
-    tokens = batch["tokens"]
-    x = params.embed[tokens].to(getattr(torch, cfg.dtype))
-    b, s = tokens.shape
+    """Returns (x (B, S, d) in compute dtype, positions (B, S)).
+
+    Audio takes ``batch["embeds"]`` (frame embeddings) through the
+    ``frontend`` GEMM; vision puts the patch embeddings' projection, where
+    the batch has ``embeds``, before the token embeddings."""
+    dtype = getattr(torch, cfg.dtype)
+    parts = []
+    if cfg.modality == "audio":
+        parts.append(fault_linear(batch["embeds"].to(dtype), params.frontend, ctx))
+    else:
+        if cfg.modality == "vision" and "embeds" in batch:
+            parts.append(fault_linear(batch["embeds"].to(dtype), params.frontend, ctx))
+        if "tokens" in batch:
+            parts.append(params.embed[batch["tokens"]].to(dtype))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return x, positions
 
 
@@ -255,7 +302,7 @@ def unembed(cfg, params, x: Tensor, ctx: FaultContext) -> Tensor:
 
 
 def _rope(cfg, positions: Tensor):
-    if not cfg.has_attention:
+    if not cfg.has_attention or cfg.is_encoder:  # encoders take no RoPE
         return None
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
@@ -275,11 +322,15 @@ def forward(
     ctx: Optional[FaultContext] = None,
     *,
     attn_impl: str = "auto",
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
     remat: str = "dots",
     fault_apply: str = "per_use",
 ) -> tuple[Tensor, Tensor]:
-    """Full-sequence forward. Returns (logits (B, S, V), aux_loss); aux is 0
-    for the dense, ssm and hybrid families (only MoE routing adds one).
+    """Full-sequence forward. Returns (logits (B, S, V), aux_loss): the sum
+    of the MoE layers' routing losses, 0 for the other families.
+    ``moe_impl`` ('einsum' or 'scatter') and ``moe_cf`` (the capacity
+    factor) pick the MoE dispatch (``models/moe.py``).
 
     ``params`` is a ``Model`` or a flat dict of tensors (:func:`param_dict`).
 
@@ -307,17 +358,22 @@ def forward(
     params = as_params(params)
     x, positions = embed_inputs(cfg, params, batch, ctx)
     rope = _rope(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(lp, h):
+        h, pieces = _block(lp, h, cfg, ctx, rope=rope, attn_impl=attn_impl, moe_impl=moe_impl, moe_cf=moe_cf)
+        return h, pieces.get("aux")
+
     for lp in params.layers:
         if remat != "none" and torch.is_grad_enabled():
-            x = checkpoint(
-                lambda h, lp=lp: _block(lp, h, cfg, ctx, rope=rope, attn_impl=attn_impl)[0],
-                x, use_reentrant=False,
-            )
+            x, a = checkpoint(layer, lp, x, use_reentrant=False)
         else:
-            x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl)
+            x, a = layer(lp, x)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
     logits = unembed(cfg, params, x, ctx_unembed if cfg.tie_embeddings else ctx)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +388,8 @@ def loss_fn(
     ctx: Optional[FaultContext] = None,
     *,
     attn_impl: str = "auto",
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
     remat: str = "dots",
     aux_weight: float = 0.01,
     fault_apply: str = "per_use",
@@ -340,7 +398,8 @@ def loss_fn(
     ``batch["loss_mask"]`` where given. Returns (loss, dict(loss, ce, aux,
     accuracy))."""
     logits, aux = forward(
-        params, batch, cfg, ctx, attn_impl=attn_impl, remat=remat, fault_apply=fault_apply
+        params, batch, cfg, ctx, attn_impl=attn_impl, moe_impl=moe_impl, moe_cf=moe_cf, remat=remat,
+        fault_apply=fault_apply,
     )
     labels = batch["labels"]
     # frontends may prepend non-text positions: align to the tail
@@ -410,6 +469,8 @@ def prefill(
     *,
     cache_len: Optional[int] = None,
     attn_impl: str = "auto",
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
     valid_len: Optional[int] = None,
     full_kv: bool = False,
     return_hidden: bool = False,
@@ -423,7 +484,12 @@ def prefill(
     follows ``valid_len``) and ``cache["index"] = valid_len``, so decode
     overwrites the pad. Causality alone keeps right-pad keys away from every
     real query. SSM families take none of the padded or packed options:
-    right-pad tokens would advance the scan.
+    right-pad tokens would advance the scan; nor do encoders, whose pad
+    keys no causal mask hides.
+
+    A vision batch's ``embeds`` prefix stays in the cache ahead of the
+    tokens, and the logits are the last position's: the tail's, as
+    ``loss_fn`` aligns them.
 
     ``full_kv`` skips the ring/tail truncation and returns the raw
     ``(L, B, Hkv, S, hd)`` KV as the cache's k/v — the paged admission,
@@ -437,7 +503,7 @@ def prefill(
     ``batch["positions"]``) packs several prompts into one row; attention is
     masked to same-segment tokens (``models/layers.py``).
     """
-    if (full_kv or segments is not None or valid_len is not None) and cfg.has_ssm:
+    if (full_kv or segments is not None or valid_len is not None) and (cfg.has_ssm or cfg.is_encoder):
         raise ValueError("padded/packed prefill supports causal attention families only")
     ctx = ctx or healthy()
     params = as_params(params)
@@ -462,7 +528,8 @@ def prefill(
     rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
         x, pieces = _block(
-            lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True, segments=segments
+            lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True, segments=segments,
+            moe_impl=moe_impl, moe_cf=moe_cf,
         )
         if cfg.has_attention:
             k, v = pieces["kv"]
@@ -501,6 +568,8 @@ def prefill_chunk(
     row: Tensor,  # (max_pages_per_seq,) int — this slot's page chain
     prefix_len: int,  # tokens already prefilled (a multiple of C)
     valid_len: int,  # real tokens in this chunk (C except the last)
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """One chunked-prefill step: continue a prompt against its paged prefix.
 
@@ -516,7 +585,7 @@ def prefill_chunk(
     """
     ctx = ctx or healthy()
     params = as_params(params)
-    if cfg.has_ssm:
+    if cfg.has_ssm or cfg.is_encoder:
         raise ValueError("chunked prefill supports causal attention families only")
     b, s = tokens.shape
     if b != 1:
@@ -542,7 +611,9 @@ def prefill_chunk(
     rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
         kv = KVCache(k_buf[i][None], v_buf[i][None], prefix)
-        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=(kv, None))
+        x, _ = _block(
+            lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=(kv, None), moe_impl=moe_impl, moe_cf=moe_cf
+        )
     last = apply_norm(x[:, vl - 1 : vl], params.final_ln, cfg.norm_eps)
     logits = unembed(cfg, params, last, ctx)[:, 0]
     return logits, k_buf[:, None, :, prefix : prefix + s], v_buf[:, None, :, prefix : prefix + s]
@@ -556,6 +627,8 @@ def decode_step(
     cfg,
     ctx: Optional[FaultContext] = None,
     *,
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
     active: Optional[Tensor] = None,
 ) -> tuple[Tensor, dict]:
     """One autoregressive step against the cache. Returns (logits (B, s_new,
@@ -579,7 +652,7 @@ def decode_step(
     ctx = ctx or healthy()
     params = as_params(params)
     if "k_pages" in cache:
-        return _decode_step_paged(params, tokens, cache, cfg, ctx, active=active)
+        return _decode_step_paged(params, tokens, cache, cfg, ctx, moe_impl=moe_impl, moe_cf=moe_cf, active=active)
     b, s = tokens.shape
     index = cache["index"]
     positions = (index + torch.arange(s, device=tokens.device))[None].expand(b, s)
@@ -587,7 +660,9 @@ def decode_step(
     rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
         layer_cache = _layer_cache(cfg, cache, i, index)
-        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=layer_cache)
+        x, _ = _block(
+            lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=layer_cache, moe_impl=moe_impl, moe_cf=moe_cf
+        )
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
     logits = unembed(cfg, params, x, ctx)
     cache["index"] = index + s
@@ -604,13 +679,15 @@ def init_paged_cache(
     ``serve/kvcache.py::PageAllocator``), ``block_tables`` is
     ``(num_slots, max_pages_per_seq)`` int32 page ids and ``seq_lens`` the
     per-slot cached-token count. Attention families only: SSM state is O(1)
-    per slot and needs no paging.
+    per slot and needs no paging, and encoders have no decode.
     """
     if cfg.has_ssm:
         raise ValueError(
             f"paged KV cache supports attention families only; {cfg.family!r} "
             "carries SSM state (which is O(1) per slot and needs no paging)"
         )
+    if cfg.is_encoder:
+        raise ValueError("encoder-only arch has no decode path to page")
     dev = resolve_device(device)
     L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (L, num_pages, hkv, page_size, hd)
@@ -630,6 +707,8 @@ def _decode_step_paged(
     cfg,
     ctx: FaultContext,
     *,
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
     active: Optional[Tensor] = None,
 ) -> tuple[Tensor, dict]:
     """Gather-based paged decode: per-slot positions, shared page pool,
@@ -644,7 +723,9 @@ def _decode_step_paged(
     rope = _rope(cfg, positions)
     for i, lp in enumerate(params.layers):
         view = PagedKVView(cache["k_pages"][i], cache["v_pages"][i], bt, lens, active)
-        x, _ = _block(lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=(view, None))
+        x, _ = _block(
+            lp, x, cfg, ctx, rope=rope, attn_impl="dense", cache=(view, None), moe_impl=moe_impl, moe_cf=moe_cf
+        )
     x = apply_norm(x, params.final_ln, cfg.norm_eps)
     logits = unembed(cfg, params, x, ctx)
     advanced = lens + s if active is None else torch.where(active, lens + s, lens)

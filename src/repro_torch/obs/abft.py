@@ -123,7 +123,8 @@ def select_probe_weight(params) -> tuple[str, "torch.Tensor"]:
     the reference's layer-stacked leaf ``['layers']['mlp']['wd']``, of
     which the reference probes the first layer's (K, N) matrix: the
     periodic mask repeats per GEMM, so one representative slice exercises
-    every PE. Candidates are walked in the reference's order (sorted keys,
+    every PE; so does the first expert of an MoE layer's ``(E, K, N)``
+    stack. Candidates are walked in the reference's order (sorted keys,
     the first of equal sizes wins), so both packages pick the same matrix.
     Returns (path, weight) with the reference's path string."""
     from repro_torch.core.masking import MASKABLE_KEYS
@@ -138,7 +139,8 @@ def select_probe_weight(params) -> tuple[str, "torch.Tensor"]:
             parts = ["layers", *parts[2:]]
         if not (set(parts) & MASKABLE_KEYS) or leaf.ndim < 2:
             continue
-        cands.append((tuple(parts), leaf))
+        # an MoE layer's stacked experts (E, K, N): the first expert's matrix
+        cands.append((tuple(parts), leaf[(0,) * (leaf.ndim - 2)]))
     best = None
     for path, mat in sorted(cands, key=lambda c: c[0]):
         if best is None or mat.numel() > best[1].numel():

@@ -19,10 +19,11 @@ from repro_torch.train.optimizer import AdamWConfig, adamw_update
 __all__ = ["make_loss_fn", "make_train_step", "make_jit_train_step", "make_eval_step"]
 
 
-def make_loss_fn(cfg, *, attn_impl="auto", remat="dots", fault_apply="per_use"):
+def make_loss_fn(cfg, *, attn_impl="auto", moe_impl="einsum", moe_cf=1.25, remat="dots", fault_apply="per_use"):
     def loss(params, batch, ctx):
         return M.loss_fn(
-            params, batch, cfg, ctx, attn_impl=attn_impl, remat=remat, fault_apply=fault_apply
+            params, batch, cfg, ctx, attn_impl=attn_impl, moe_impl=moe_impl, moe_cf=moe_cf, remat=remat,
+            fault_apply=fault_apply,
         )
 
     return loss
@@ -44,13 +45,17 @@ def make_train_step(
     opt_cfg: AdamWConfig,
     *,
     attn_impl: str = "auto",
+    moe_impl: str = "einsum",
+    moe_cf: float = 1.25,
     remat: str = "dots",
     microbatches: int = 1,
     accum_dtype: str = "float32",
     fault_apply: str = "per_use",
 ) -> Callable:
     """Returns train_step(params, opt_state, batch, ctx) -> (params', opt', metrics)."""
-    loss = make_loss_fn(cfg, attn_impl=attn_impl, remat=remat, fault_apply=fault_apply)
+    loss = make_loss_fn(
+        cfg, attn_impl=attn_impl, moe_impl=moe_impl, moe_cf=moe_cf, remat=remat, fault_apply=fault_apply
+    )
     adt = getattr(torch, accum_dtype)
 
     def train_step(params: dict, opt_state: dict, batch: dict, ctx: FaultContext):

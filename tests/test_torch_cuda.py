@@ -465,6 +465,70 @@ def test_in_place_change_of_one_chip_is_seen_by_the_next_launch(cuda, x_dtype, w
         assert packed_mask.chips_packed == packed + 1
 
 
+# ---------------------------------------------------------------------------
+# the masked GEMM with an expert axis: an MoE layer's experts under one mask
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 160, 257])
+@pytest.mark.parametrize("experts", [1, 8, 128])
+@pytest.mark.parametrize("x_dtype,w_dtype,variant", FLEET_KINDS)
+def test_expert_batched_masked_matmul_shares_one_mask_in_one_launch(
+    cuda, x_dtype, w_dtype, variant, experts, m, transposed
+):
+    """w (E, K, N) with ONE (R, C) mask: one counted launch (an expert
+    launch, not a fleet one), the mask packed once (``chips_packed`` grows
+    by 1, not E), every expert held to the plain version under that mask,
+    and a second launch giving the same bits without packing again."""
+    from repro_torch.kernels.masked_matmul.ops import packed_mask, pick_variant
+
+    g = torch.Generator(device=cuda).manual_seed(experts + m)
+    x = torch.randn(experts, m, 576, generator=g, device=cuda).to(x_dtype)
+    w = (torch.randn(experts, 288, 576, generator=g, device=cuda) / 24).to(w_dtype).transpose(1, 2)
+    w = w if transposed else w.contiguous()
+    ok = torch.from_numpy(random_fault_map(experts + m, 256, 256, 0.1).ok_mask).to(cuda)
+    kind = pick_variant(x_dtype, m, variant)
+    before = dict(masked_matmul.launches_by_variant)
+    expert_before = dict(masked_matmul.expert_launches_by_variant)
+    fleet_before = dict(masked_matmul.fleet_launches_by_variant)
+    launches, packed = masked_matmul.launches, packed_mask.chips_packed
+    got = masked_matmul(x, w, ok, variant=variant)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == launches + 1
+    assert masked_matmul.launches_by_variant[kind] == before[kind] + 1
+    assert masked_matmul.expert_launches_by_variant[kind] == expert_before[kind] + 1
+    assert masked_matmul.fleet_launches_by_variant == fleet_before
+    assert packed_mask.chips_packed == packed + 1
+    assert got.shape == (experts, m, 288) and got.dtype == x_dtype
+    assert_close(got, masked_matmul_ref(x, w, ok), x_dtype)
+    for e in (0, experts // 2, experts - 1):
+        assert_close(got[e], masked_matmul_ref(x[e], w[e], ok), x_dtype)
+    again = masked_matmul(x, w, ok, variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and packed_mask.chips_packed == packed + 1
+
+
+def test_expert_batched_masked_matmul_is_fault_einsum_kernel_mode(cuda):
+    """``fault_einsum`` in kernel mode: both expert specs are one launch of
+    the kernel on the fp32 master, against the plain ``fap`` einsum."""
+    from repro_torch.core import fault_einsum
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    fm = random_fault_map(3, 256, 256, 0.1)
+    kctx, fctx = from_fault_map(fm, "kernel", device=cuda), from_fault_map(fm, "fap", device=cuda)
+    h = torch.randn(8, 40, 576, generator=g, device=cuda).bfloat16()
+    w1 = torch.randn(8, 576, 1536, generator=g, device=cuda) / 24
+    w2 = torch.randn(8, 1536, 576, generator=g, device=cuda) / 40
+    launches = masked_matmul.launches
+    z = fault_einsum("ecd,edf->ecf", h, w1, kctx)
+    y = fault_einsum("ecf,efd->ecd", z, w2, kctx)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == launches + 2
+    assert_close(z, fault_einsum("ecd,edf->ecf", h, w1, fctx), torch.bfloat16)
+    assert_close(y, fault_einsum("ecf,efd->ecd", z, w2, fctx), torch.bfloat16)
+
+
 @pytest.mark.parametrize("hq,hkv", [(9, 9), (9, 3), (25, 5)])
 @pytest.mark.parametrize("sq,skv,q_offset,window", [
     (1, 1, 0, None), (63, 63, 0, None), (65, 65, 0, None), (200, 200, 0, None), (200, 200, 0, 64),

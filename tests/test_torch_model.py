@@ -53,6 +53,11 @@ def _tok(a):
 
 @pytest.mark.parametrize("name,per_step", [
     ("smollm-135m", 7 * 30 + 1), ("falcon-mamba-7b", 4 * 64 + 1), ("hymba-1.5b", 11 * 32 + 1),
+    ("phi3-mini-3.8b", 7 * 32 + 1), ("qwen3-0.6b", 7 * 28 + 1), ("llama3-405b", 7 * 126 + 1),
+    # MoE: 4 attention, the router and 3 expert GEMMs (one launch each for all experts)
+    ("mixtral-8x22b", 8 * 56 + 1), ("llama4-maverick-400b-a17b", 8 * 48 + 1),
+    # the frontend, then 4 attention and the gelu MLP's 2 (audio) or swiglu's 3 (vision)
+    ("hubert-xlarge", 1 + 6 * 48 + 1), ("internvl2-26b", 1 + 7 * 48 + 1),
 ])
 def test_configs_match_reference(name, per_step):
     jcfg, cfg = jax_get_arch(name), get_arch(name)
