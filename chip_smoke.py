@@ -34,7 +34,9 @@ Phases; any failure ends the run with a nonzero exit and no result line:
      exponentials on the special-function units;
    - the masked GEMM in bf16 and float32 at every falcon-mamba-7b and
      hymba-1.5b GEMM shape at M = 4 and 512, and at hymba's layer shapes at
-     M = 8192;
+     M = 8192; then at llama3-405b's five distinct GEMM shapes, the zoo's
+     widest (its 16384 x 128256 unembed holds 97.9% of INT_MAX weights), at
+     M = 4 and 512 (no llama3 model runs on the card);
 3. int8 decode attention (kernel #3) against its plain version, float32
    and bf16 q, at (B, Hq, Hkv, S, D) = (1, 2, 2, 512, 32) (the reference's
    tune-suite shape), SmolLM-135M's decode (4, 9, 3, 2048, 64) at valid
@@ -207,23 +209,22 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     and timed at a decode step's shapes (M = 4) and (a)'s prefill (M = 512) against its bound,
     the same launches one chip at a time, ``torch.bmm`` on pre-masked bf16
     w and the plain version; ``--profile`` adds (b)'s busy share;
-15. the rest of the model zoo (``zoo_phase``) at full published width on
-    the same chip in ``kernel`` mode, each model against the plain path
-    (``fap``, dense attention): float32 elementwise (``atol_scale=50``),
-    bf16 anchored to plain float32 (ANCHOR_RATIO), no fp32->bf16 weight
-    cast. (a) mixtral-8x22b at depth 4 of 56 (one layer is 10.1 GB of fp32
+15. the rest of the model zoo at full published width on the same chip in
+    ``kernel`` mode. First qwen3-0.6b at full depth (qk_norm, D = 128, the
+    tied 151,936-row unembed), a dense decoder, through phases 6 and 7's
+    gates: served in bf16 (anchored) and float32, then its 4 x 2048 prefill
+    through flash at D = 128. Then ``zoo_phase``, each model against the
+    plain path (``fap``, dense attention): float32 elementwise
+    (``atol_scale=50``), bf16 anchored to plain float32 (ANCHOR_RATIO), no
+    fp32->bf16 weight cast. (a) mixtral-8x22b at depth 4 of 56 (one layer is 10.1 GB of fp32
     master) served in bf16 and float32: 33 masked GEMMs a step, 12 of them
     ONE expert-batched launch each for all 8 experts under the one mask;
     then the expert-batched GEMM on layer 0's ``wg`` and ``wd`` at M = 8 and
     160 a expert, held and timed beside its bound and ``torch.bmm``. (b)
-    qwen3-0.6b at full depth (qk_norm, D = 128, the tied 151,936-row
-    unembed), served, then its 4 x 2048 prefill through flash at D = 128.
-    (c) hubert-xlarge's encoder ``forward`` at 4 x 1024 frames, flash
-    non-causal at D = 80; ``ServeEngine`` refuses it. (d) internvl2-26b at
+    hubert-xlarge's encoder ``forward`` at 4 x 1024 frames, flash
+    non-causal at D = 80; ``ServeEngine`` refuses it. (c) internvl2-26b at
     depth 12 of 48: 4 x (256 patches + 128 tokens) prefilled, 16 greedy
-    decode steps. (e) llama3-405b's layer and unembed GEMMs (16384 x 128256,
-    97.9% of INT_MAX weights) at M = 4 and 512, kernel rows only. Each
-    model's seconds are printed;
+    decode steps. Each model's seconds are printed;
 16. the record: each model's bf16 decode step of masked GEMMs as kernel
     mode runs it (the decode kernel on the fp32 master, no cast) beside the
     path-level yardstick "cast + ``torch.matmul``"; the long prefills' layer
@@ -245,7 +246,7 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds, after each served model (SmolLM in bf16, falcon-mamba,
-hymba, and phase 13's run (a)), a run of 8 new tokens (phase 13: its whole
+hymba, qwen3-0.6b in bf16, and phase 13's run (a)), a run of 8 new tokens (phase 13: its whole
 traffic) once untraced (wall time) and once under
 ``torch.profiler`` tracing the card alone; device time by kernel goes to
 ``build/profile_serve.txt``, and the busy share is the traced kernel time
@@ -381,6 +382,44 @@ class Failed(Exception):
     pass
 
 
+def worst(got, ref, tol):
+    """(max abs error, whether every element is within tol = (rtol, atol))."""
+    rtol, atol = tol
+    diff = (got.float() - ref.float()).abs()
+    return float(diff.max()), bool((diff <= atol + rtol * ref.float().abs()).all())
+
+
+def rel_l2(got, ref):
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def reset_launches():
+    """Zero the model path's kernel counters: launches and launches by variant
+    (the masked GEMM's chip-batched and expert-batched ones too)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    for fn in (masked_matmul, flash_attention, selective_scan):
+        fn.launches = 0
+    for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "fleet_launches_by_variant"),
+                     (masked_matmul, "expert_launches_by_variant"), (flash_attention, "launches_by_variant")):
+        setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
+
+
+def variant_counts():
+    """Launches by kernel variant since the last ``reset_launches``:
+    ``masked_matmul.<v>``, ``masked_matmul.<v>.experts`` (the expert-batched
+    ones, counted in the first as well) and ``flash_attention.<v>``."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    got = {f"masked_matmul.{v}": n for v, n in masked_matmul.launches_by_variant.items()}
+    got.update({f"masked_matmul.{v}.experts": n for v, n in masked_matmul.expert_launches_by_variant.items()})
+    got.update({f"flash_attention.{v}": n for v, n in flash_attention.launches_by_variant.items()})
+    return got
+
+
 # ---------------------------------------------------------------------------
 # phase 11: eFAT on the card
 # ---------------------------------------------------------------------------
@@ -505,9 +544,7 @@ def efat_phase(torch, log):
     def deploy():
         efat = results["eFAT"]
         job_of = {chip: g for g, chips_ in enumerate(efat.plan.links) for chip in chips_}
-        masked_matmul.launches = flash_attention.launches = selective_scan.launches = 0
-        for fn in (masked_matmul, flash_attention):
-            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+        reset_launches()
         rtol, atol = dtype_tol(torch.float32)
         err, bad, acc_gap = 0.0, [], 0.0
         n_eval = sum(int(b["labels"].numel()) for b in trainer._evals)
@@ -689,17 +726,10 @@ def lm_phase(torch, log):
         stages[name] = time.perf_counter() - t0
         return out
 
-    def within(a, b, rtol, atol):
-        diff = (a.float() - b.float()).abs()
-        return float(diff.max()), bool((diff <= atol + rtol * b.float().abs()).all())
-
-    def rel_l2(got, ref):
-        return float((got.float() - ref.float()).norm() / ref.float().norm())
-
     def params_err(a, b, rtol, atol):
         err, ok = 0.0, True
         for k in a:
-            e, w = within(a[k], b[k], rtol, atol)
+            e, w = worst(a[k], b[k], (rtol, atol))
             err, ok = max(err, e), ok and w
         return err, ok
 
@@ -842,11 +872,6 @@ def lm_phase(torch, log):
                          before=[-x for x in before], after=[-x for x in after])
 
     # -- (d) deployment through the card kernels ------------------------------------
-    def reset():
-        masked_matmul.launches = flash_attention.launches = 0
-        for fn in (masked_matmul, flash_attention):
-            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
-
     main_path = {"masked_matmul": {}, "flash_attention": {}}  # every kernel-mode run's launches
 
     def counts():
@@ -869,8 +894,8 @@ def lm_phase(torch, log):
         f32_atol = dtype_tol(torch.float32, atol_scale=LM_F32_ATOL_SCALE)
         for c, tr in ((cfg, trainer), (cfg32, trainer32)):
             dt = c.dtype
-            worst, ratio, forwards = 0.0, 0.0, 0
-            reset()
+            err_max, ratio, forwards = 0.0, 0.0, 0
+            reset_launches()
             with torch.no_grad():
                 for params, fm in zip(trained, fleet):
                     ctx_k = from_fault_map(fm, "kernel", device=trainer.device)
@@ -883,10 +908,10 @@ def lm_phase(torch, log):
                             anchor = M.forward(params, b, cfg32, ctx_f)[0]
                             r = rel_l2(got, anchor) / max(rel_l2(ref, anchor), 1e-12)
                             ratio = max(ratio, r)
-                            worst = max(worst, rel_l2(got, anchor))
+                            err_max = max(err_max, rel_l2(got, anchor))
                         else:
-                            e, w = within(got, ref, *f32_atol)
-                            worst = max(worst, e)
+                            e, w = worst(got, ref, f32_atol)
+                            err_max = max(err_max, e)
                             if not w:
                                 raise Failed(f"lm deploy float32: kernel-mode logits off fap by {e:.3g}")
             gemm = "mma" if dt == "bfloat16" else "v1"
@@ -894,7 +919,7 @@ def lm_phase(torch, log):
             check_counts(f"{dt} eval", launches, forwards, gemm)
             if dt == "bfloat16" and ratio > ANCHOR_RATIO:
                 raise Failed(f"lm deploy bf16: kernel path {ratio:.3f}x the plain bf16 path's error")
-            reset()
+            reset_launches()
             m_k = tr.evaluate_batch(trained, fleet, mode="kernel")
             m_launches = counts()
             check_counts(f"{dt} evaluate_batch", m_launches, LM_CHIPS * len(tr._evals), gemm)
@@ -902,12 +927,12 @@ def lm_phase(torch, log):
             m_err = max(abs(x - y) for x, y in zip(m_k, m_f))
             if m_err > LM_METRIC_TOL:
                 raise Failed(f"lm deploy {dt}: kernel-mode metrics {m_k} vs fap {m_f}")
-            out[dt] = dict(worst=worst, anchor_ratio=ratio, forwards=forwards, launches=launches,
+            out[dt] = dict(worst=err_max, anchor_ratio=ratio, forwards=forwards, launches=launches,
                            metrics_kernel=m_k, metrics_fap=m_f, metric_err=m_err,
                            evaluate_launches=m_launches)
             log(f"lm deploy {dt}: {LM_CHIPS} chips x {len(tr._evals)} eval batches, kernel mode against fap: "
-                + (f"relative L2 to plain float32 {worst:.3g}, {ratio:.3f}x the plain bf16 path's (limit "
-                   f"{ANCHOR_RATIO})" if dt == "bfloat16" else f"logits max abs err {worst:.3g} (rtol, atol "
+                + (f"relative L2 to plain float32 {err_max:.3g}, {ratio:.3f}x the plain bf16 path's (limit "
+                   f"{ANCHOR_RATIO})" if dt == "bfloat16" else f"logits max abs err {err_max:.3g} (rtol, atol "
                    f"{f32_atol})")
                 + f"; {LM_METRIC} kernel {[round(-x, 5) for x in m_k]} fap {[round(-x, 5) for x in m_f]} (max diff "
                 f"{m_err:.3g}); launches {launches['masked_matmul']} ({per_forward} a forward)")
@@ -921,7 +946,7 @@ def lm_phase(torch, log):
             for c in (cfg, cfg32):
                 dt = c.dtype
                 variant = "mma" if dt == "bfloat16" else "v1"  # of both kernels
-                reset()
+                reset_launches()
                 got = M.forward(params, long_batch, c, ctx_k, attn_impl="kernel")[0]
                 loss_k, met_k = M.loss_fn(params, long_batch, c, ctx_k, attn_impl="kernel")
                 launches = counts()
@@ -935,7 +960,7 @@ def lm_phase(torch, log):
                     row.update(rel_l2=rel_l2(got, anchor), plain_rel_l2=rel_l2(ref, anchor), anchor_ratio=r)
                     bad = r > ANCHOR_RATIO
                 else:
-                    e, w = within(got, ref, *dtype_tol(torch.float32, atol_scale=LM_F32_ATOL_SCALE))
+                    e, w = worst(got, ref, dtype_tol(torch.float32, atol_scale=LM_F32_ATOL_SCALE))
                     row.update(err=e)
                     bad = not w
                 acc_gap = abs(row["acc_kernel"] - row["acc_fap"])
@@ -2008,24 +2033,24 @@ ZOO_DEPTH = {
     "internvl2-26b": (12, "1.57 GB of fp32 master a layer; all 48 layers and the 4.5 GB embedding and head "
                           "would leave no room for the plain gate's masked copies"),
 }
-# llama3-405b's GEMMs, kernel rows only: (label, K, N) of its layer and its unembed
-ZOO_LLAMA3 = [("wq/wo", 16384, 16384), ("wk/wv", 16384, 1024), ("wg/wu", 16384, 53248), ("wd", 53248, 16384),
-              ("unembed", 16384, 128256)]
 
 
 def zoo_phase(torch, log):
-    """The rest of the reference's model zoo on the card at full published
-    width, random weights from seed 0, on ``random_fault_map(0, 256, 256,
-    0.1)`` in ``kernel`` mode; returns the phase's report and raises
-    ``Failed`` on a missed gate.
+    """The MoE, encoder and vision members of the reference's model zoo on
+    the card at full published width, random weights from seed 0, on
+    ``random_fault_map(0, 256, 256, 0.1)`` in ``kernel`` mode; returns the
+    phase's report and raises ``Failed`` on a missed gate. (qwen3-0.6b, a
+    dense decoder, takes phases 6 and 7's gates in ``run``, and llama3-405b's
+    GEMMs phase 2's.)
 
     Every model is gated against the plain path (``fap`` context, dense
     attention) on the same inputs: float32 elementwise at ``dtype_tol(
     float32, atol_scale=50)``, bf16 anchored (its relative L2 error against
     the plain float32 path, and the served logprobs' RMS error, at most
-    ANCHOR_RATIO times plain bf16's own). The serving gates replay the
-    served tokens through ``prefill`` and ``decode_step`` as ``ServeEngine``
-    runs them, so an MoE layer's capacity is the served one. A bf16
+    ANCHOR_RATIO times plain bf16's own). The decoders' gates replay the
+    run's tokens through ``prefill`` and ``decode_step`` as ``ServeEngine``
+    runs them: an MoE layer's capacity depends on the sequence length, so a
+    teacher-forced forward would route other tokens. A bf16
     kernel-mode run must cast no weight to bf16 (``weight_cast_watch``),
     launch no v1, and a float32 one only v1.
 
@@ -2040,29 +2065,19 @@ def zoo_phase(torch, log):
     float32 (v1), held to its plain version at ``dtype_tol`` and timed
     beside its bound, ``torch.bmm`` on pre-masked weights (the library
     yardstick) and the plain version.
-    (b) qwen3-0.6b, all 28 layers (qk_norm, head dim 128, the tied 151,936-
-    row unembed read as embed.T), served the same way, then its prefill at
-    4 x 2048 in bf16 through flash (D = 128) against the plain path:
-    logits and KV cache at bf16's ``dtype_tol`` and relative L2 <=
-    MAX_REL_L2.
-    (c) hubert-xlarge, all 48 layers: ``forward`` on random (4, 1024, 512)
+    (b) hubert-xlarge, all 48 layers: ``forward`` on random (4, 1024, 512)
     frames from ``default_rng(0)`` in bf16 and float32, flash non-causal at
     D = 80, 290 masked GEMMs and 48 flash launches; ``ServeEngine`` must
     refuse it.
-    (d) internvl2-26b, depth ZOO_DEPTH: ``prefill`` of 4 requests of 256
+    (c) internvl2-26b, depth ZOO_DEPTH: ``prefill`` of 4 requests of 256
     random patch embeddings (width 1024) and 128 tokens, then ZOO_NEW greedy
-    ``decode_step``s, in bf16.
-    (e) llama3-405b's GEMMs (no model): its layer shapes and its 16384 x
-    128256 unembed (2,101,346,304 weights) at M = 4 and 512, bf16 x on the
-    fp32 master and float32 (v1), held to the plain version and timed
-    beside the bound and ``torch.matmul`` on pre-masked w."""
+    ``decode_step``s, in bf16."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.core import from_fault_map, random_fault_map
     from repro_torch.core.mapping import periodic_mask
     from repro_torch.kernels.common import dtype_tol
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref, pick_variant
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
@@ -2078,20 +2093,12 @@ def zoo_phase(torch, log):
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(2**28, dtype=torch.int32, device=dev)
     mask_bytes = ok.shape[0] * -(-ok.shape[1] // 8)  # the mask bits every kernel reads
-    report = dict(models={}, expert_rows=[], llama3_rows=[], seconds={})
+    report = dict(models={}, expert_rows=[], seconds={})
     totals = {}  # launches by counter, over the phase's main-path runs
-    errs = {}  # worst parity error by kernel variant
-
-    def reset():
-        masked_matmul.launches = flash_attention.launches = 0
-        for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "expert_launches_by_variant"),
-                         (flash_attention, "launches_by_variant")):
-            setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
+    errs = {}  # the expert-batched GEMM's worst parity error by variant
 
     def counts():
-        got = {f"masked_matmul.{v}": n for v, n in masked_matmul.launches_by_variant.items()}
-        got.update({f"masked_matmul.{v}.experts": n for v, n in masked_matmul.expert_launches_by_variant.items()})
-        got.update({f"flash_attention.{v}": n for v, n in flash_attention.launches_by_variant.items()})
+        got = variant_counts()
         for k, n in got.items():
             totals[k] = totals.get(k, 0) + n
         return got
@@ -2107,17 +2114,6 @@ def zoo_phase(torch, log):
         if (mm, ex, fa) != (gemms, experts, flash) or wrong:
             raise Failed(f"zoo {label} {dtype}: launches {mm} masked GEMMs ({ex} expert-batched), {fa} flash "
                          f"(want {gemms}, {experts}, {flash}); wrong kernels {wrong}")
-
-    def worst(got, ref, tol):
-        rtol, atol = tol
-        diff = (got.float() - ref.float()).abs()
-        return float(diff.max()), bool((diff <= atol + rtol * ref.float().abs()).all())
-
-    def rel_l2(got, ref):
-        return float((got.float() - ref.float()).norm() / ref.float().norm())
-
-    def note_err(key, e):
-        errs[key] = max(errs.get(key, 0.0), e)
 
     def watch_shapes(c):
         shapes = {sh for k_, n_, _ in c.gemm_shapes() for sh in ((k_, n_), (n_, k_))}
@@ -2186,13 +2182,13 @@ def zoo_phase(torch, log):
         eng = ServeEngine(c, params, ctx_k, max_len=None)
         eng.generate(prompts, max_new_tokens=2)  # warm-up, not counted
         torch.cuda.synchronize()
-        reset()
+        reset_launches()
         t0 = time.perf_counter()
         out = eng.generate(prompts, max_new_tokens=ZOO_NEW)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = counts()
-        experts = 3 * c.num_layers * (1 + ZOO_NEW) if c.has_moe else 0
+        experts = 3 * c.num_layers * (1 + ZOO_NEW)
         check(c.name, c.dtype, got, per_step * (1 + ZOO_NEW), experts)
         casts = no_casts(label, c, lambda: eng.generate(prompts, max_new_tokens=2)) \
             if c.dtype == "bfloat16" else None
@@ -2209,16 +2205,17 @@ def zoo_phase(torch, log):
         res.update(tokens_per_s=BATCH * ZOO_NEW / dt, step_ms=dt / (1 + ZOO_NEW) * 1e3,
                    launches={k: n for k, n in got.items() if n}, launches_per_step=per_step, weight_casts=casts)
         log(f"zoo serve {label}: {BATCH}x{ZOO_NEW} tokens in {dt:.3f} s ({res['tokens_per_s']:.1f} tok/s, "
-            f"{res['step_ms']:.2f} ms a step); launches {res['launches']} ({per_step} masked GEMMs a step"
-            + (f", {3 * c.num_layers} of them expert-batched" if c.has_moe else "")
-            + f"; fp32->bf16 weight casts {'not checked' if casts is None else casts}); gate {res['gate']}: "
+            f"{res['step_ms']:.2f} ms a step); launches {res['launches']} ({per_step} masked GEMMs a step, "
+            f"{experts // (1 + ZOO_NEW)} of them expert-batched; fp32->bf16 weight casts "
+            f"{'not checked' if casts is None else casts}); gate {res['gate']}: "
             + ", ".join(f"{k} {v:.4g}" for k, v in res.items() if isinstance(v, float)))
         return res
 
-    def gemm_row(label, x, w32, wm, reps=10):
-        """Parity and times of one masked GEMM launch: x against w32 (the
-        fp32 master; a bf16 x reads it in place) under the chip's mask; ``wm``
-        is w pre-masked in x's dtype for the library call."""
+    def expert_row(label, x, w32, wm, reps=10):
+        """Parity and times of one expert-batched launch: x (E, M, K) against
+        w32 (E, K, N), the fp32 master (a bf16 x reads it in place), under
+        the chip's one mask; ``wm`` is w pre-masked in x's dtype for
+        ``torch.bmm``."""
         bf16 = x.dtype == torch.bfloat16
         got = masked_matmul(x, w32, ok)
         ref = masked_matmul_ref(x, w32, ok)
@@ -2227,26 +2224,23 @@ def zoo_phase(torch, log):
         if bf16:  # the bf16 copy of w gives the same bits
             same_bits = bool(torch.equal(masked_matmul(x, w32.to(torch.bfloat16), ok), got))
         del got, ref
-        lead = x.shape[0] if w32.dim() == 3 else 1
-        m, k_ = x.shape[-2], x.shape[-1]
+        e, m, k_ = x.shape
         n_ = w32.shape[-1]
         size = 2 if bf16 else 4
-        nbytes = lead * (m * k_ + m * n_) * size + lead * k_ * n_ * 4 + mask_bytes
+        nbytes = e * (m * k_ + m * n_) * size + e * k_ * n_ * 4 + mask_bytes
         sides = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "operations": 2 * lead * m * k_ * n_ / PEAK_OPS["bfloat16" if bf16 else "float32"] * 1e3}
-        lib = (lambda: torch.bmm(x, wm)) if w32.dim() == 3 else (lambda: torch.matmul(x, wm))
-        row = dict(label=label, variant=pick_variant(x.dtype, m), dtype=str(x.dtype)[6:], lead=lead, m=m, k=k_,
+                 "operations": 2 * e * m * k_ * n_ / PEAK_OPS["bfloat16" if bf16 else "float32"] * 1e3}
+        row = dict(label=label, variant=pick_variant(x.dtype, m), dtype=str(x.dtype)[6:], experts=e, m=m, k=k_,
                    n=n_, max_abs_err=err, same_bits_as_bf16_w=same_bits,
                    ms=event_ms(torch, lambda: masked_matmul(x, w32, ok), flush, reps),
                    plain_ms=event_ms(torch, lambda: masked_matmul_ref(x, w32, ok), flush, 3),
-                   library_ms=event_ms(torch, lib, flush, reps),
+                   library_ms=event_ms(torch, lambda: torch.bmm(x, wm), flush, reps),
                    bound_ms=max(sides.values()), bound_by=max(sides, key=sides.get),
                    bytes_ms=sides["bytes"], ops_ms=sides["operations"])
-        note_err(("experts." if lead > 1 else "") + row["variant"], err)
-        log(f"zoo masked_matmul {label} {row['dtype']:8s} {'E=' + str(lead) + ' ' if lead > 1 else ''}M={m:4d} "
-            f"K={k_:5d} N={n_:6d}: err<= {err:.3g} (rtol, atol {dtype_tol(x.dtype)}) {row['variant']} "
-            f"{row['ms']:.4f} ms (fp32 master in place; bf16-w bits equal {same_bits}) "
-            f"plain {row['plain_ms']:.4f} ms  {'torch.bmm' if lead > 1 else 'torch.matmul'}(pre-masked w, library "
+        errs[row["variant"]] = max(errs.get(row["variant"], 0.0), err)
+        log(f"zoo masked_matmul {label} {row['dtype']:8s} E={e} M={m:4d} K={k_:5d} N={n_:6d}: err<= {err:.3g} "
+            f"(rtol, atol {dtype_tol(x.dtype)}) {row['variant']} {row['ms']:.4f} ms (fp32 master in place; "
+            f"bf16-w bits equal {same_bits}) plain {row['plain_ms']:.4f} ms  torch.bmm(pre-masked w, library "
             f"yardstick) {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         if not good or same_bits is False:
             raise Failed(f"zoo masked_matmul {label} {row['dtype']} M={m}: err {err}, bf16-w bits equal {same_bits}")
@@ -2283,49 +2277,14 @@ def zoo_phase(torch, log):
             wm = (w32 * periodic_mask(w32.shape, ok)).to(dtype)
             for m in ZOO_EXPERT_MS:
                 x = torch.randn(e, m, k_, generator=gen, device=dev).to(dtype)
-                report["expert_rows"].append(gemm_row(f"mixtral {wname}", x, w32, wm))
+                report["expert_rows"].append(expert_row(f"mixtral {wname}", x, w32, wm))
             del wm, x
             free()
     del params, w32
     free()
     report["seconds"][mix.name] = time.perf_counter() - t0
 
-    # -- (b) qwen3-0.6b, all 28 layers ---------------------------------------------
-    t0 = time.perf_counter()
-    qwen = get_arch("qwen3-0.6b")
-    params = init(qwen)
-    report["models"][qwen.name] = {dt: serve(dataclasses.replace(qwen, dtype=dt), params)
-                                   for dt in ("bfloat16", "float32")}
-    tokens = {"tokens": torch.randint(0, qwen.vocab_size, (BATCH, LONG), generator=gen, device=dev)}
-    M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, qwen, ctx_k, attn_impl="kernel")
-    torch.cuda.synchronize()
-    reset()
-    t1 = time.perf_counter()
-    k_logits, k_cache = M.prefill(params, tokens, qwen, ctx_k, attn_impl="kernel")
-    torch.cuda.synchronize()
-    kernel_ms = (time.perf_counter() - t1) * 1e3
-    got = counts()
-    check("qwen3-0.6b long prefill", "bfloat16", got, sum(u for _, _, u in qwen.gemm_shapes()),
-          flash=qwen.num_layers)
-    no_casts("qwen3-0.6b long prefill", qwen,
-             lambda: M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, qwen, ctx_k, attn_impl="kernel"))
-    p_logits, p_cache = M.prefill(params, tokens, qwen, ctx_f, attn_impl="dense")
-    long = dict(kernel_ms=kernel_ms, launches={k: n for k, n in got.items() if n})
-    for key, a, r in (("logits", k_logits, p_logits), ("k", k_cache["k"], p_cache["k"]), ("v", k_cache["v"], p_cache["v"])):
-        err, good = worst(a, r, dtype_tol(torch.bfloat16))
-        long[key] = dict(max_abs=err, rel_l2=rel_l2(a, r), ref_rms=float(r.float().pow(2).mean().sqrt()))
-        if not good or long[key]["rel_l2"] > MAX_REL_L2:
-            raise Failed(f"zoo qwen3-0.6b long prefill: {key} of the kernel path disagree with the plain path: {long[key]}")
-    report["models"][qwen.name]["long_prefill"] = long
-    log(f"zoo long prefill qwen3-0.6b {BATCH}x{LONG} bf16 (flash at D={qwen.resolved_head_dim}): kernel path "
-        f"{kernel_ms:.2f} ms; launches {long['launches']}; gate bf16 elementwise {dtype_tol(torch.bfloat16)} and "
-        f"rel L2 <= {MAX_REL_L2}: " + "; ".join(f"{k} max err {long[k]['max_abs']:.3g} rel L2 {long[k]['rel_l2']:.3g}"
-                                                for k in ("logits", "k", "v")))
-    del params, tokens, k_logits, k_cache, p_logits, p_cache
-    free()
-    report["seconds"][qwen.name] = time.perf_counter() - t0
-
-    # -- (c) hubert-xlarge, all 48 layers: the encoder ------------------------------
+    # -- (b) hubert-xlarge, all 48 layers: the encoder ------------------------------
     t0 = time.perf_counter()
     hub = get_arch("hubert-xlarge")
     params = init(hub)
@@ -2343,7 +2302,7 @@ def zoo_phase(torch, log):
             c = dataclasses.replace(hub, dtype=dt)
             M.forward(params, {"embeds": frames[:, :128]}, c, ctx_k, attn_impl="kernel")  # warm-up
             torch.cuda.synchronize()
-            reset()
+            reset_launches()
             t1 = time.perf_counter()
             outs[("kernel", dt)] = M.forward(params, {"embeds": frames}, c, ctx_k, attn_impl="kernel")[0].float()
             torch.cuda.synchronize()
@@ -2373,7 +2332,7 @@ def zoo_phase(torch, log):
     free()
     report["seconds"][hub.name] = time.perf_counter() - t0
 
-    # -- (d) internvl2-26b, depth 12: the vision prefix ----------------------------
+    # -- (c) internvl2-26b, depth 12: the vision prefix ----------------------------
     t0 = time.perf_counter()
     vlm = cut("internvl2-26b")
     params = init(vlm)
@@ -2385,7 +2344,7 @@ def zoo_phase(torch, log):
     small = {"embeds": batch["embeds"][:, :8], "tokens": batch["tokens"][:, :8]}
     replay(vlm, params, ctx_k, small, batch["tokens"][:, :2], cache_len=24)  # warm-up
     torch.cuda.synchronize()
-    reset()
+    reset_launches()
     t1 = time.perf_counter()
     with torch.no_grad():
         logits, cache = M.prefill(params, batch, vlm, ctx_k, **kw)
@@ -2414,20 +2373,6 @@ def zoo_phase(torch, log):
     free()
     report["seconds"][vlm.name] = time.perf_counter() - t0
 
-    # -- (e) llama3-405b's GEMMs: kernel rows only -----------------------------------
-    t0 = time.perf_counter()
-    for label, k_, n_ in ZOO_LLAMA3:
-        w32 = torch.randn(k_, n_, generator=gen, device=dev) / math.sqrt(k_)
-        for dtype in (torch.bfloat16, torch.float32):
-            wm = (w32 * periodic_mask(w32.shape, ok)).to(dtype)
-            for m in (BATCH, BATCH * PROMPT):
-                x = torch.randn(m, k_, generator=gen, device=dev).to(dtype)
-                report["llama3_rows"].append(gemm_row(f"llama3-405b {label}", x, w32, wm, reps=5))
-            del wm, x
-            free()
-        del w32
-        free()
-    report["seconds"]["llama3-405b gemms"] = time.perf_counter() - t0
     report.update(launches=totals, max_abs_err=errs, seconds_total=time.perf_counter() - t_phase,
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(f"zoo phase ({card}): {report['seconds_total']:.2f} s; by model (s): "
@@ -2516,21 +2461,13 @@ def run(args, torch) -> int:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
-    def worst(got, ref, tol):
-        """(max abs error, whether every element is within tol = (rtol, atol))."""
-        rtol, atol = tol
-        diff = (got.float() - ref.float()).abs()
-        return float(diff.max()), bool((diff <= atol + rtol * ref.float().abs()).all())
-
-    def rel_l2(got, ref):
-        return float((got.float() - ref.float()).norm() / ref.float().norm())
-
     def name_of(dtype):
         return str(dtype)[6:]
 
     failures = []
     cfg = get_arch("smollm-135m")
     falcon, hymba = get_arch("falcon-mamba-7b"), get_arch("hymba-1.5b")
+    qwen, llama3 = get_arch("qwen3-0.6b"), get_arch("llama3-405b")
     gen = torch.Generator(device=dev).manual_seed(0)
     fm = random_fault_map(0, cfg.array_rows, cfg.array_cols, 0.1)
     ctx_k = from_fault_map(fm, "kernel", device=dev)
@@ -2750,6 +2687,14 @@ def run(args, torch) -> int:
                 unembed = n == arch.vocab_size
                 ms_list = (BATCH, BATCH * PROMPT) + (() if unembed or arch is falcon else (BATCH * LONG,))
                 mm_err = max(mm_err, gemm_case(arch.name, idx, k, n, uses, False, dtype, ms_list))
+    # llama3-405b's GEMMs, the zoo's widest (its unembed's 16384 x 128256 weight is 97.9% of INT_MAX
+    # elements), at a decode step's M and a serving prefill's; no llama3 model fits the card
+    for dtype in (torch.bfloat16, torch.float32):
+        seen = set()
+        for idx, (k, n, uses) in enumerate(llama3.gemm_shapes()):
+            if (k, n) not in seen:  # wq and wo share a shape
+                seen.add((k, n))
+                mm_err = max(mm_err, gemm_case(llama3.name, idx, k, n, uses, False, dtype, (BATCH, BATCH * PROMPT)))
     if failures:
         raise Failed("kernel parity: " + "; ".join(failures))
     torch.cuda.empty_cache()
@@ -3016,21 +2961,12 @@ def run(args, torch) -> int:
     del da_inputs
     torch.cuda.empty_cache()
 
-    # ---- serving: shared by phases 6, 8 and 9 ------------------------------
-    def reset():
-        masked_matmul.launches = 0
-        flash_attention.launches = 0
-        selective_scan.launches = 0
-        for fn in (masked_matmul, flash_attention):
-            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+    # ---- serving: shared by phases 6-10 and 15 -----------------------------
+    reset = reset_launches
 
     def counts():
         return dict(masked_matmul=masked_matmul.launches, flash_attention=flash_attention.launches,
                     selective_scan=selective_scan.launches)
-
-    def variant_counts():
-        return {f"{fn.__name__}.{v}": n for fn in (masked_matmul, flash_attention)
-                for v, n in fn.launches_by_variant.items()}
 
     def check_variants(label, dtype_name, got):
         """bf16 runs launch only the bf16 kernels, float32 runs only v1."""
@@ -3329,7 +3265,22 @@ def run(args, torch) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 15: the rest of the model zoo at full width ------------------------
+    # qwen3-0.6b, all 28 layers (qk_norm, head dim 128, the tied 151,936-row unembed read as
+    # embed.T): a dense decoder, through phases 6 and 7's gates; bf16 takes the anchored gate
+    t0 = time.perf_counter()
+    before = dict(variant_launches)
+    params = M.init_params(qwen, 0, device=dev)
+    serve(qwen, params, 10.0, elementwise=False)
+    serve(dataclasses.replace(qwen, dtype="float32"), params, 50.0)
+    long_report[qwen.name] = long_prefill(qwen, params, anchored=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_s = time.perf_counter() - t0
     zoo_report = zoo_phase(torch, log)
+    zoo_report["seconds"][qwen.name] = qwen_s
+    for k, n in variant_launches.items():  # qwen3's launches are the phase's too
+        zoo_report["launches"][k] = zoo_report["launches"].get(k, 0) + n - before[k]
 
     # ---- phase 16: the record -----------------------------------------------
     def gemm_sum(arch, dtype, m, layers_only=False):
@@ -3407,15 +3358,15 @@ def run(args, torch) -> int:
 
     def mm_entry(variant):
         """A masked-GEMM variant's source, its worst error over phase 2's
-        single-chip cases, phase 14's chip-batched ones and phase 15's
-        llama3-405b rows, and phase 15's launches."""
-        return {**mm_src, "max_abs_err": max(mm_err, fleet_err[variant], zoo_err.get(variant, 0.0)),
+        single-chip cases and phase 14's chip-batched ones, and phase 15's
+        launches."""
+        return {**mm_src, "max_abs_err": max(mm_err, fleet_err[variant]),
                 "max_abs_err_fleet": fleet_err[variant], "launches_zoo": zoo_launches[f"masked_matmul.{variant}"]}
 
     def expert_entry(variant):
         """The expert-batched launches of one variant: phase 15's count, mixtral's row."""
         r = expert_rows[variant]
-        return dict(name=f"masked_matmul.{variant}.experts", **{**mm_src, "max_abs_err": zoo_err[f"experts.{variant}"]},
+        return dict(name=f"masked_matmul.{variant}.experts", **{**mm_src, "max_abs_err": zoo_err[variant]},
                     launches=zoo_launches[f"masked_matmul.{variant}.experts"],
                     launches_zoo=zoo_launches[f"masked_matmul.{variant}.experts"],
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -4,8 +4,7 @@
         --fault-rate 0.1 --fault-mode kernel --batch 4 --new-tokens 16
 
 ``--arch`` is any registered decoder (an encoder, hubert-xlarge, has no
-decode path and is refused); ``--moe-impl`` and ``--moe-cf`` pick an MoE
-model's dispatch and capacity factor.
+decode path and is refused).
 
 ``--continuous`` serves the same prompts as a request stream through the
 continuous-batching engine (paged KV cache, per-request budgets skewed
@@ -41,8 +40,6 @@ def main(argv=None) -> None:
     ap.add_argument("--fault-mode", choices=("fap", "kernel"), default="fap",
                     help="fap: plain PyTorch masking; kernel: the masked-GEMM CUDA kernel")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--moe-impl", default="einsum", choices=["einsum", "scatter"])
-    ap.add_argument("--moe-cf", type=float, default=1.25, help="MoE capacity factor")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching (paged KV, skewed budgets)")
     ap.add_argument("--slots", type=int, default=2)
@@ -100,7 +97,7 @@ def main(argv=None) -> None:
     if args.continuous:
         _serve_continuous(args, cfg, params, ctx, prompts)
         return
-    engine = ServeEngine(cfg, params, ctx, max_len=args.max_len, moe_impl=args.moe_impl, moe_cf=args.moe_cf)
+    engine = ServeEngine(cfg, params, ctx, max_len=args.max_len)
     t0 = time.perf_counter()
     out = engine.generate(prompts, max_new_tokens=args.new_tokens, temperature=args.temperature)
     if dev.type == "cuda":

@@ -50,7 +50,7 @@ def sample_tokens(cur: torch.Tensor, gen, temperature: float) -> tuple[torch.Ten
     return lp, torch.stack(rows).reshape(probs.shape[:-1])
 
 
-def make_sample_decode(cfg, *, pad_id: int = 0, decode=None, moe_impl: str = "einsum", moe_cf: float = 1.25):
+def make_sample_decode(cfg, *, pad_id: int = 0, decode=None):
     """Build the sampling + decode step for one chip.
 
     ``(params, cur_logits, cache, generator, ctx, temperature) ->
@@ -70,11 +70,10 @@ def make_sample_decode(cfg, *, pad_id: int = 0, decode=None, moe_impl: str = "ei
     step mapped over their chips, and the sampling and masking here run
     over the chip-stacked ``(chips, slots)`` tensors as they do over one
     chip's slots (``generator`` then holds one generator per chip).
-    ``moe_impl`` and ``moe_cf`` reach the default step's MoE layers.
     """
     if decode is None:
         def decode(p, tokens, cache, ctx, active):
-            return M.decode_step(p, tokens, cache, cfg, ctx, moe_impl=moe_impl, moe_cf=moe_cf, active=active)
+            return M.decode_step(p, tokens, cache, cfg, ctx, active=active)
 
     def sample_decode(
         p, cur, cache, gen, ctx, temperature, active=None, eos_id=None, remaining=None
@@ -111,9 +110,9 @@ class ServeEngine:
     prefill with the real ``valid_len``. ``prefill_buckets=None``, and any
     family with an SSM, runs prefill at the exact prompt length.
 
-    The engine runs on the device of ``params``. ``moe_impl`` and
-    ``moe_cf`` pick an MoE model's dispatch and capacity factor
-    (``models/moe.py``). An encoder has no decode path and is refused.
+    The engine runs on the device of ``params``. An MoE model serves at
+    the model functions' default dispatch and capacity factor. An encoder
+    has no decode path and is refused.
     """
 
     def __init__(
@@ -126,8 +125,6 @@ class ServeEngine:
         page_size: int = DEFAULT_PAGE_SIZE,
         pad_id: int = 0,
         prefill_buckets=DEFAULT_PREFILL_BUCKETS,
-        moe_impl: str = "einsum",
-        moe_cf: float = 1.25,
     ):
         if cfg.is_encoder:
             raise ValueError("encoder-only arch has no decode path")
@@ -142,8 +139,7 @@ class ServeEngine:
         self.prefill_buckets = (
             None if prefill_buckets is None or cfg.has_ssm else validate_buckets(prefill_buckets)
         )
-        self.moe = dict(moe_impl=moe_impl, moe_cf=moe_cf)
-        self._sample_decode = make_sample_decode(cfg, pad_id=pad_id, **self.moe)
+        self._sample_decode = make_sample_decode(cfg, pad_id=pad_id)
 
     def cache_len_for(self, prompt_len: int, max_new_tokens: int) -> int:
         """KV capacity one generate call needs."""
@@ -172,11 +168,11 @@ class ServeEngine:
             pad = prompts.new_full((prompts.shape[0], width - plen), self.pad_id)
             logits, cache = M.prefill(
                 self.params, {"tokens": torch.cat([prompts, pad], dim=1)}, self.cfg, self.ctx,
-                cache_len=cache_len, valid_len=plen, **self.moe,
+                cache_len=cache_len, valid_len=plen,
             )
         else:
             logits, cache = M.prefill(
-                self.params, {"tokens": prompts}, self.cfg, self.ctx, cache_len=cache_len, **self.moe
+                self.params, {"tokens": prompts}, self.cfg, self.ctx, cache_len=cache_len
             )
         gen = torch.Generator(device=prompts.device).manual_seed(seed)
         toks, lps, cur = [prompts], [], logits

@@ -514,18 +514,17 @@ def test_mixtral_continuous_engine_matches_reference():
 
 @pytest.mark.parametrize("name", MOE + ["qwen3-0.6b"])
 def test_serve_engine_generates_the_reference_tokens(name):
-    """ServeEngine on the prefill-and-decode path; MoE models through both
-    dispatches give the same tokens."""
+    """ServeEngine on the prefill-and-decode path, at the model functions'
+    default MoE dispatch as the reference's engine serves."""
     from repro.serve.engine import ServeEngine as JaxServeEngine
 
     jcfg, cfg, jparams, params = _pair(name)
     jctx, ctx = _ctxs("pallas")
     prompts = np.random.default_rng(15).integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
     ref = JaxServeEngine(jcfg, jparams, jctx, max_len=None).generate(jnp.asarray(prompts), max_new_tokens=6)
-    for impl in (["einsum", "scatter"] if cfg.has_moe else ["einsum"]):
-        got = ServeEngine(cfg, params, ctx, max_len=None, moe_impl=impl).generate(_t(prompts), max_new_tokens=6)
-        assert np.array_equal(got.tokens.numpy(), np.asarray(ref.tokens)), impl
-        assert_close(got.logprobs, np.asarray(ref.logprobs), F32)
+    got = ServeEngine(cfg, params, ctx, max_len=None).generate(_t(prompts), max_new_tokens=6)
+    assert np.array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    assert_close(got.logprobs, np.asarray(ref.logprobs), F32)
 
 
 # ---------------------------------------------------------------------------
