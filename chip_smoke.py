@@ -111,7 +111,20 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     ``classifier_forward`` in ``kernel`` mode (the masked GEMM's ``v1``)
     against ``fap`` mode on the 4 eval batches at ``dtype_tol(float32)``,
     accuracy within 1/2048 and 4 x chips x batches ``v1`` launches; eFAT's
-    total steps at most ``individual``'s;
+    total steps at most ``individual``'s. Stage "sharded":
+    (a) ``ClassifierFATTrainer(engine="sharded")`` on a pop mesh of 4 over
+    the card repeated, from the pin trainer's base params, against it on
+    the pin's 5 chips: equal steps to the constraint and
+    ``measure_resilience`` table (rates 0.06 / 0.14 / 0.2, 2 repeats, 100
+    steps, seed 5), ``train_batch`` at the pin's tolerance, metrics within
+    2e-3; (b) the same on a 2 x 2 fleet mesh, member params stored split
+    two ways (resident bytes at mesh position 0 at most half the member's
+    total, x 1.05 + 1 KiB); (c) every chip's shipped weights in ``kernel``
+    mode through the trainer's ``evaluate_batch`` (width 16): accuracy
+    within 1/2048 of the serial check's, and 4 layers x 4 eval batches x 7
+    chunks = 112 ``v1`` launches, every one chip-batched; the chip-batched
+    ``v1`` at the shapes it gives (16 chips, M = 512) against its plain
+    version at ``dtype_tol(float32)``;
 12. LM fault-aware training on the card (``lm_phase``): SmolLM-135M at
     full width, batch 8 x 64, on ``random_fault_map(0, 256, 256, 0.1)``.
     (a) the training CLI (``repro_torch.launch.train.main``) in process: 40
@@ -147,7 +160,19 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     attention in bf16 and float32, its loss and accuracy within 2e-3.
     Every run must launch 211 masked GEMMs a
     forward (only ``mma`` in bf16, only ``v1`` in float32) and, at 4 x 2048,
-    30 flash kernels (``mma`` / ``v1``). (e) the population step at width
+    30 flash kernels (``mma`` / ``v1``); the deployment's metric loop runs
+    one chip at a time (``evaluate_metric``). Stage "sharded", float32 from
+    (c)'s base params: ``LMFATTrainer(engine="sharded")`` on a 2 x 2 fleet
+    mesh over the card repeated trains ``random_fault_map(c, 256, 256,
+    0.05 (c + 1))``, c < 4, at budgets [4, 2, 4, 1], held to the vmap
+    engine's fit by the float32 pin rule of (b), its member state stored
+    split as the rules say (resident bytes at mesh position 0 equal to the
+    leaves' bytes with every "model" dim halved); then those chips in
+    ``kernel`` mode through its ``evaluate_batch``: 211 chip-batched ``v1``
+    launches a forward of each pop slice (844 in all), the metrics within
+    2e-3 of ``fap`` and within 1e-6 of ``evaluate_metric`` one chip at a
+    time, and the chip-batched ``v1`` for 2 chips at M = 512 at every
+    SmolLM GEMM shape against its plain version. (e) the population step at width
     4 (median of timed fits), device ops and busy share from two
     ``torch.profiler`` traces, peak device memory, each stage's seconds;
 13. continuous serving with online fault detection (``continuous_phase``):
@@ -233,7 +258,8 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     hymba's float32 long prefill split into its GEMMs, flash and scan
     launches (each timed alone) and the rest; then a ``{"kernels": [...]}`` line with one entry per kernel
     variant (``masked_matmul.decode``, ``.mma``, ``.v1`` with phase 11's
-    launches as ``launches_efat_deploy``,
+    launches as ``launches_efat_deploy`` and the chip-batched launches of
+    phases 11 and 12's population evaluations as ``launches_pop_eval``,
     ``flash_attention.mma``, ``.v1``, and the scan and decode kernels;
     the masked GEMM's ``mma`` and ``v1`` and flash carry phase 12's
     deployment launches as ``launches_lm_eval``, and the masked GEMM's
@@ -260,8 +286,9 @@ prints each group's calls, host microseconds and torch ops a dispatch.
 Launch counts are set to 0 just before each main-path run (the tuner of
 phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
-7 and 10, bf16 and hymba's float32, phase 11's deployment check,
-each of phase 12's kernel-mode runs, each of phase 13's four serves,
+7 and 10, bf16 and hymba's float32, phase 11's deployment checks,
+serial and chip-batched, each of phase 12's kernel-mode runs and its
+sharded stage's evaluation, each of phase 13's four serves,
 each of phase 14's six fleet runs and each of phase 15's model runs) and
 read just after it; parity and
 timing launches are not counted.
@@ -432,6 +459,9 @@ EFAT_PIN_BUDGETS = [25, 40, 10]
 EFAT_METRIC_TOL = 2e-3
 EFAT_TIMED_STEPS = 50  # steps a timed fit takes
 EFAT_TIMED_FITS = 5  # timed fits each of population and serial; median and spread
+# the sharded engine against the vmap pin trainer: tests/test_fleet.py's resilience cell
+EFAT_SHARDED_RATES = (0.06, 0.14, 0.2)
+EFAT_SHARDED_TABLE = dict(array_shape=(32, 32), repeats=2, max_steps=100, seed=5)
 
 
 def efat_phase(torch, log):
@@ -447,12 +477,14 @@ def efat_phase(torch, log):
 
     from repro_torch.configs import get_arch
     from repro_torch.core import (
-        EFAT, EFATConfig, correlated_family, from_fault_map, healthy, periodic_mask, random_fault_map,
+        EFAT, EFATConfig, correlated_family, from_fault_map, healthy, measure_resilience, periodic_mask,
+        random_fault_map,
     )
     from repro_torch.kernels.common import dtype_tol
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan
-    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+    from repro_torch.launch.mesh import make_fleet_mesh, make_pop_mesh
     from repro_torch.models.classifier import classifier_forward
     from repro_torch.train.fat_trainer import ClassifierFATTrainer
 
@@ -499,9 +531,11 @@ def efat_phase(torch, log):
             raise Failed(f"efat pin: train_batch params differ by {err:.3g} (rtol {rtol}, atol {atol})")
         if m_err > EFAT_METRIC_TOL:
             raise Failed(f"efat pin: metrics differ by {m_err:.3g} > {EFAT_METRIC_TOL}")
-        return dict(steps=steps[0], params_err=err, metric_err=m_err), ser
+        pinned = dict(trainer=pop, fleet5=fleet5, constraint=constraint, steps=steps[0], params=params[0],
+                      metrics=metrics[0])
+        return dict(steps=steps[0], params_err=err, metric_err=m_err), ser, pinned
 
-    report["pin"], ser = timed("pin", pin)
+    report["pin"], ser, pinned = timed("pin", pin)
 
     # -- the pipeline of examples/fleet_retraining.py ------------------------
     trainer = timed("pretrain", lambda: ClassifierFATTrainer(cfg, pretrain_steps=EFAT_PRETRAIN_STEPS, eval_batches=4))
@@ -546,7 +580,7 @@ def efat_phase(torch, log):
         job_of = {chip: g for g, chips_ in enumerate(efat.plan.links) for chip in chips_}
         reset_launches()
         rtol, atol = dtype_tol(torch.float32)
-        err, bad, acc_gap = 0.0, [], 0.0
+        err, bad, acc_gap, acc_kernel = 0.0, [], 0.0, []
         n_eval = sum(int(b["labels"].numel()) for b in trainer._evals)
         for chip, fm in enumerate(fleet):
             params = efat.job_params[job_of[chip]]
@@ -563,9 +597,10 @@ def efat_phase(torch, log):
                 for i, logits in enumerate((got, ref)):
                     hits[i] += int((logits.argmax(-1) == b["labels"]).sum())
             acc_gap = max(acc_gap, abs(hits[0] - hits[1]) / n_eval)
+            acc_kernel.append(hits[0] / n_eval)
         torch.cuda.synchronize()
         v1 = masked_matmul.launches_by_variant["v1"]
-        return dict(err=err, bad=bad, acc_gap=acc_gap, n_eval=n_eval, v1=v1,
+        return dict(err=err, bad=bad, acc_gap=acc_gap, n_eval=n_eval, v1=v1, acc_kernel=acc_kernel,
                     launches=dict(masked_matmul=masked_matmul.launches, flash_attention=flash_attention.launches,
                                   selective_scan=selective_scan.launches,
                                   variants=dict(masked_matmul.launches_by_variant)))
@@ -583,12 +618,109 @@ def efat_phase(torch, log):
     if dep["v1"] != want_v1 or dep["launches"]["masked_matmul"] != want_v1:
         raise Failed(f"efat deployment: {dep['launches']} masked-GEMM launches, want {want_v1} v1")
 
+    # -- stage "sharded" (c): the same chips through the population evaluation ---
+    shipped = [results["eFAT"].job_params[g] for g, chips_ in enumerate(results["eFAT"].plan.links)
+               for _ in chips_]
+    order = [chip for chips_ in results["eFAT"].plan.links for chip in chips_]
+
+    def deploy_batched():
+        """Every chip's shipped weights in kernel mode through the trainer's
+        evaluate_batch (the vmap engine): each masked GEMM one chip-batched
+        v1 launch for a chunk of population_size chips."""
+        reset_launches()
+        got = trainer.evaluate_batch(shipped, [fleet[c] for c in order], mode="kernel")
+        torch.cuda.synchronize()
+        out = dict(metrics=dict(zip(order, got)), v1=masked_matmul.launches_by_variant["v1"],
+                   v1_fleet=masked_matmul.fleet_launches_by_variant["v1"], launches=masked_matmul.launches)
+        # the chip-batched kernel at the shapes this path gives it, against its plain version
+        gen = torch.Generator(device=trainer.device).manual_seed(0)
+        width = trainer.engine.population_size
+        ok = torch.stack([torch.as_tensor(fm.ok_mask, dtype=torch.float32, device=trainer.device)
+                          for fm in fleet[:width]])
+        err, within = 0.0, True
+        for i in range(cfg.num_layers):
+            w = torch.stack([p[f"w{i}"] for p in shipped[:width]])
+            x = torch.randn(width, trainer._evals[0]["x"].shape[0], w.shape[1], generator=gen, device=trainer.device)
+            e, wi = worst(masked_matmul(x, w, ok), masked_matmul_ref(x, w, ok), dtype_tol(torch.float32))
+            err, within = max(err, e), within and wi
+        out.update(parity_err=err, parity_within=within)
+        return out
+
+    bat = report["deploy_batched"] = timed("deploy_batched", deploy_batched)
+    chunks = -(-chips // trainer.engine.population_size)
+    want_batched = cfg.num_layers * len(trainer._evals) * chunks
+    gap = max(abs(bat["metrics"][c] - dep["acc_kernel"][c]) for c in range(chips))
+    log(f"efat deployment, chip-batched: the same {chips} chips through evaluate_batch(mode='kernel') in "
+        f"{chunks} chunks of {trainer.engine.population_size}: accuracy max gap to the serial check {gap:.3g} "
+        f"(tol 1/{dep['n_eval']}); v1 launches {bat['v1']}, chip-batched {bat['v1_fleet']} (want {want_batched}, "
+        f"against the serial check's {dep['v1']}); the chip-batched v1 at M={trainer._evals[0]['x'].shape[0]} for "
+        f"{trainer.engine.population_size} chips against its plain version: max abs err {bat['parity_err']:.3g} "
+        f"(rtol, atol {dtype_tol(torch.float32)}); {stages['deploy_batched']:.2f} s against the serial check's "
+        f"{stages['deploy']:.2f} s")
+    if gap > 1 / dep["n_eval"]:
+        raise Failed(f"efat chip-batched deployment: accuracy {gap} off the serial check")
+    if not bat["v1"] == bat["v1_fleet"] == bat["launches"] == want_batched:
+        raise Failed(f"efat chip-batched deployment: v1 {bat['v1']}, chip-batched {bat['v1_fleet']}, all "
+                     f"{bat['launches']}; want {want_batched} chip-batched")
+    if not bat["parity_within"]:
+        raise Failed(f"efat chip-batched v1 off its plain version by {bat['parity_err']:.3g}")
+
     # -- gate 4: the pipeline's invariant -------------------------------------
     e_steps, i_steps = results["eFAT"].plan.total_steps, results["individual"].plan.total_steps
     log(f"efat: eFAT {results['eFAT'].plan.num_jobs} jobs for {chips} chips, {e_steps:.0f} total steps; "
         f"individual {i_steps:.0f}")
     if e_steps > i_steps:
         raise Failed(f"efat: eFAT's total steps {e_steps} exceed individual's {i_steps}")
+
+    # -- stage "sharded" (a), (b): the sharded engine against the vmap pin trainer ---
+    pop_tr, fleet5, c5 = pinned["trainer"], pinned["fleet5"], pinned["constraint"]
+    pop_table = measure_resilience(pop_tr, list(EFAT_SHARDED_RATES), c5, **EFAT_SHARDED_TABLE)
+
+    def sharded(mesh):
+        tr = ClassifierFATTrainer(cfg, pretrain_steps=0, eval_batches=2, engine="sharded",
+                                  engine_kwargs=dict(mesh=mesh))
+        tr.base_params = pop_tr.base_params
+        steps = tr.steps_to_constraint_batch(fleet5, c5, 200)
+        table = measure_resilience(tr, list(EFAT_SHARDED_RATES), c5, **EFAT_SHARDED_TABLE)
+        params = tr.train_batch(fleet5[:3], EFAT_PIN_BUDGETS)
+        metrics = tr.evaluate_batch(params, fleet5[:3])
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        err, within = 0.0, True
+        for a, b in zip(params, pinned["params"]):
+            for k in a:
+                e, w = worst(a[k], b[k], (rtol, atol))
+                err, within = max(err, e), within and w
+        m_err = max(abs(x - y) for x, y in zip(metrics, pinned["metrics"]))
+        same_table = all(np.array_equal(getattr(table, f), getattr(pop_table, f))
+                         for f in ("rates", "min_steps", "mean_steps", "max_steps_stat"))
+        eng = tr.engine
+        out = dict(mesh=dict(eng.mesh.shape), steps=steps, table_equal=same_table, params_err=err,
+                   metric_err=m_err, stats=eng.last_fit_stats, width_multiple=tr.scheduler.width_multiple)
+        log(f"efat sharded {out['mesh']} (pop extent {eng.num_shards}, model {eng.model_size}, width "
+            f"{eng.population_size}) against the vmap pin trainer: steps {steps} vs {pinned['steps']}; resilience "
+            f"table equal {same_table} (min {table.min_steps.tolist()} mean {table.mean_steps.tolist()} max "
+            f"{table.max_steps_stat.tolist()}); train_batch {EFAT_PIN_BUDGETS} max abs err {err:.3g} (rtol {rtol}, "
+            f"atol {atol}); metrics max diff {m_err:.3g} (tol {EFAT_METRIC_TOL}); fit stats {eng.last_fit_stats}")
+        if steps != pinned["steps"] or not same_table:
+            raise Failed(f"efat sharded {out['mesh']}: steps {steps} / table differ from the vmap engine's")
+        if not within or m_err > EFAT_METRIC_TOL:
+            raise Failed(f"efat sharded {out['mesh']}: params off by {err:.3g}, metrics by {m_err:.3g}")
+        if tr.scheduler.width_multiple != eng.num_shards:
+            raise Failed(f"efat sharded: the scheduler tiles {tr.scheduler.width_multiple}, not {eng.num_shards}")
+        return out
+
+    report["sharded_pop4"] = timed("sharded_pop4", lambda: sharded(make_pop_mesh(devices=["cuda"] * 4)))
+    report["sharded_2x2"] = timed("sharded_2x2", lambda: sharded(make_fleet_mesh(2, 2, devices=["cuda"] * 4)))
+    st = report["sharded_2x2"]["stats"]
+    limit = st["per_member_total_bytes"] / 2 * 1.05 + 1024
+    log(f"efat sharded 2x2: per-member resident bytes at mesh position 0 {st['per_member_resident_bytes']:.0f} "
+        f"of {st['per_member_total_bytes']:.0f} (limit {limit:.0f}; one card repeated: the layout and the "
+        f"accounting, not a memory saving)")
+    if st["model_extent"] != 2 or st["per_member_resident_bytes"] > limit:
+        raise Failed(f"efat sharded 2x2: member params not stored split two ways: {st}")
+    report["sharded_seconds"] = stages["sharded_pop4"] + stages["sharded_2x2"] + stages["deploy_batched"]
+    log(f"efat stage sharded: {report['sharded_seconds']:.2f} s (pop mesh of 4 {stages['sharded_pop4']:.2f}, 2 x 2 "
+        f"{stages['sharded_2x2']:.2f}, the chip-batched deployment check {stages['deploy_batched']:.2f})")
 
     # -- population steps per second at width 16, against serial ---------------
     def speed_run():
@@ -675,6 +807,8 @@ LM_TIMED_STEPS = 3  # steps a timed population fit takes
 LM_TIMED_FITS = 3
 LM_METRIC_TOL = 2e-3
 LM_F32_ATOL_SCALE = 50.0  # whole-model float32 logits (the serving gates' rule)
+LM_SHARDED_BUDGETS = [4, 2, 4, 1]  # the sharded stage's chips: random_fault_map(c, 256, 256, 0.05 (c + 1))
+LM_SERIAL_TOL = 1e-6  # chip-batched kernel-mode metrics against the one-chip-at-a-time loop
 
 
 def lm_phase(torch, log):
@@ -703,12 +837,15 @@ def lm_phase(torch, log):
     from repro_torch.data import TokenStream
     from repro_torch.kernels.common import dtype_tol
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.launch.sharding import resolve_spec
     from repro_torch.models import model as M
     from repro_torch.train import checkpoint as ckpt_lib
     from repro_torch.train import step as step_lib
     from repro_torch.train.fat_trainer import LMFATTrainer
+    from repro_torch.train.population import evaluate_metric
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch("smollm-135m")
@@ -920,9 +1057,10 @@ def lm_phase(torch, log):
             if dt == "bfloat16" and ratio > ANCHOR_RATIO:
                 raise Failed(f"lm deploy bf16: kernel path {ratio:.3f}x the plain bf16 path's error")
             reset_launches()
-            m_k = tr.evaluate_batch(trained, fleet, mode="kernel")
+            m_k = [evaluate_metric(tr.engine, p, from_fault_map(fm, "kernel", device=trainer.device))
+                   for p, fm in zip(trained, fleet)]
             m_launches = counts()
-            check_counts(f"{dt} evaluate_batch", m_launches, LM_CHIPS * len(tr._evals), gemm)
+            check_counts(f"{dt} evaluate_metric", m_launches, LM_CHIPS * len(tr._evals), gemm)
             m_f = tr.evaluate_batch(trained, fleet)
             m_err = max(abs(x - y) for x, y in zip(m_k, m_f))
             if m_err > LM_METRIC_TOL:
@@ -978,6 +1116,87 @@ def lm_phase(torch, log):
         return out
 
     report["deploy"] = timed("deploy", deploy)
+
+    # -- stage "sharded": the sharded engine on a 2 x 2 mesh, float32, against the vmap engine ---
+    def sharded():
+        fleet4 = [random_fault_map(c, 256, 256, 0.05 * (c + 1)) for c in range(len(LM_SHARDED_BUDGETS))]
+        shd = LMFATTrainer(cfg32, pretrain_steps=0, metric=LM_METRIC, engine="sharded",
+                           engine_kwargs=dict(mesh=make_fleet_mesh(2, 2, devices=["cuda"] * 4)))
+        shd.base_params = trainer32.base_params = trainer.base_params
+        t0 = time.perf_counter()
+        got = shd.train_batch(fleet4, LM_SHARDED_BUDGETS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        want = trainer32.train_batch(fleet4, LM_SHARDED_BUDGETS)
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        max_err = 2 * trainer32.opt_cfg.learning_rate + atol
+        err, over = 0.0, 0
+        for a, b in zip(got, want):
+            for k in a:
+                diff = (a[k].double() - b[k].double()).abs()
+                err = max(err, float(diff.max()))
+                over += int((diff > atol + rtol * b[k].double().abs()).sum())
+        eng = shd.engine
+        st = eng.last_fit_stats
+        # the bytes mesh position 0 holds when every leaf the rules split is stored in two pieces
+        specs = M.param_specs(cfg32)
+        split = sum(t.numel() * t.element_size() / (2 if "model" in resolve_spec(specs[k], t.shape, eng.mesh_rules)
+                                                    else 1) for k, t in got[0].items())
+        out = dict(fit_seconds=fit_s, params_err=err, elements_over_tol=over, stats=st, split_bytes=split)
+        log(f"lm sharded (float32, {LM_SHARDED_BUDGETS} steps, mesh {dict(eng.mesh.shape)}, width "
+            f"{eng.population_size}): train_batch against the vmap engine max abs err {err:.3g} (limit "
+            f"{max_err:.3g}), {over} elements over (rtol {rtol}, atol {atol}; limit {LM_PIN_F32_MAX_OVER}); fit "
+            f"{fit_s:.2f} s; per-member resident bytes at mesh position 0 {st['per_member_resident_bytes']:.0f} of "
+            f"{st['per_member_total_bytes']:.0f} (the rules' split: {split:.0f}; one card repeated: the layout "
+            f"and the accounting, not a memory saving)")
+        if over > LM_PIN_F32_MAX_OVER or err > max_err:
+            raise Failed(f"lm sharded: train_batch params differ by {err:.3g}, {over} elements over")
+        if (st["pop_extent"], st["model_extent"]) != (2, 2) or st["per_member_resident_bytes"] != split \
+                or not split < st["per_member_total_bytes"]:
+            raise Failed(f"lm sharded: member state not stored split two ways: {st}, want {split}")
+        # (e) kernel mode: each pop slice's forward one chip-batched launch a GEMM
+        reset_launches()
+        m_k = shd.evaluate_batch(got, fleet4, mode="kernel")
+        torch.cuda.synchronize()
+        out["launches"] = dict(v1=masked_matmul.launches_by_variant["v1"],
+                               v1_fleet=masked_matmul.fleet_launches_by_variant["v1"], all=masked_matmul.launches)
+        m_f = shd.evaluate_batch(got, fleet4)
+        m_s = [evaluate_metric(shd.engine, p, from_fault_map(fm, "kernel", device=trainer.device))
+               for p, fm in zip(got, fleet4)]
+        # the chip-batched v1 at this path's shapes (a pop slice's 2 chips, M = 8 x 64) against its plain version
+        gen = torch.Generator(device=trainer.device).manual_seed(0)
+        ok = torch.stack([torch.as_tensor(fm.ok_mask, dtype=torch.float32, device=trainer.device)
+                          for fm in fleet4[:2]])
+        perr, pwithin = 0.0, True
+        weights = [f"layers.0.{n}" for n in ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wg", "mlp.wu",
+                                             "mlp.wd")]
+        for name in weights + ["embed"]:
+            w = torch.stack([p[name] for p in got[:2]])
+            w = w.transpose(-1, -2) if name == "embed" else w  # the tied unembed reads embed.T
+            x = torch.randn(2, shd._evals[0]["tokens"].numel(), w.shape[1], generator=gen, device=trainer.device)
+            e, wi = worst(masked_matmul(x, w, ok), masked_matmul_ref(x, w, ok), dtype_tol(torch.float32))
+            perr, pwithin = max(perr, e), pwithin and wi
+        want_v1 = per_forward * len(shd._evals) * eng.num_shards
+        f_err = max(abs(x - y) for x, y in zip(m_k, m_f))
+        s_err = max(abs(x - y) for x, y in zip(m_k, m_s))
+        out.update(metrics_kernel=m_k, metrics_fap=m_f, metrics_serial=m_s, fap_err=f_err, serial_err=s_err,
+                   parity_err=perr, parity_within=pwithin, want_v1=want_v1)
+        log(f"lm sharded deployment (kernel mode through the sharded evaluate_batch): v1 launches "
+            f"{out['launches']} (want {want_v1} chip-batched: {per_forward} a forward x {len(shd._evals)} eval "
+            f"batches x {eng.num_shards} pop slices); {LM_METRIC} {[round(-x, 6) for x in m_k]}, against fap max "
+            f"diff {f_err:.3g} (tol {LM_METRIC_TOL}), against one chip at a time {s_err:.3g} (tol "
+            f"{LM_SERIAL_TOL}); the chip-batched v1 for 2 chips at M = 512 against its plain version: max abs "
+            f"err {perr:.3g} (rtol, atol {dtype_tol(torch.float32)})")
+        if not out["launches"]["v1"] == out["launches"]["v1_fleet"] == out["launches"]["all"] == want_v1:
+            raise Failed(f"lm sharded deployment: launches {out['launches']}, want {want_v1} chip-batched v1")
+        if f_err > LM_METRIC_TOL or s_err > LM_SERIAL_TOL:
+            raise Failed(f"lm sharded deployment: kernel metrics {m_k}, fap {m_f}, one chip at a time {m_s}")
+        if not pwithin:
+            raise Failed(f"lm sharded: the chip-batched v1 off its plain version by {perr:.3g}")
+        return out
+
+    report["sharded"] = timed("sharded", sharded)
+    log(f"lm stage sharded: {stages['sharded']:.2f} s")
 
     # -- (e) the population step: time, device ops, busy share --------------------
     def speed():
@@ -3344,6 +3563,9 @@ def run(args, torch) -> int:
     dstep, pstep = steps[cfg.name], prefills[cfg.name]
 
     lm_launches = lm_report["deploy"]["launches"]
+    # the population evaluations in kernel mode (phases 11 and 12, stage "sharded"): chip-batched v1
+    pop_eval_launches = efat_report["deploy_batched"]["v1"] + lm_report["sharded"]["launches"]["v1"]
+    pop_eval_err = max(efat_report["deploy_batched"]["parity_err"], lm_report["sharded"]["parity_err"])
     cont_launches = cont_report["launches"]
     fleet_launches = fleet_report["launches_fleet"]
     fleet_err = fleet_report["max_abs_err"]
@@ -3382,8 +3604,9 @@ def run(args, torch) -> int:
              launches_continuous=cont_launches["mma"], launches_fleet=fleet_launches["mma"],
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
              bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
-        dict(name="masked_matmul.v1", **mm_entry("v1"), launches=variant_launches["masked_matmul.v1"],
-             launches_efat_deploy=efat_report["deploy"]["v1"],
+        dict(name="masked_matmul.v1", **{**mm_entry("v1"), "max_abs_err": max(mm_err, fleet_err["v1"], pop_eval_err)},
+             max_abs_err_pop_eval=pop_eval_err, launches=variant_launches["masked_matmul.v1"],
+             launches_efat_deploy=efat_report["deploy"]["v1"], launches_pop_eval=pop_eval_launches,
              launches_lm_eval=lm_launches["masked_matmul"]["v1"],
              launches_continuous=cont_launches["v1"], launches_fleet=fleet_launches["v1"],
              ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
@@ -3420,7 +3643,8 @@ def run(args, torch) -> int:
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
     for k in kernels:
-        if not k["launches"] or 0 in (k.get("launches_continuous"), k.get("launches_fleet"), k.get("launches_zoo")):
+        if not k["launches"] or 0 in (k.get("launches_continuous"), k.get("launches_fleet"), k.get("launches_zoo"),
+                                      k.get("launches_pop_eval")):
             raise Failed(f"{k['name']} was not launched on its main path")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
@@ -3448,7 +3672,8 @@ def run(args, torch) -> int:
         f"masked_matmul.decode.chips{FLEET_CHIPS}: the same decode step for {FLEET_CHIPS} chips, one chip-batched launch "
         f"a GEMM (launches: phase 14's); masked_matmul.<variant>.experts: one expert-batched launch of mixtral-8x22b's "
         f"wg (8 x 6144 x 16384, one mask) at M={ZOO_EXPERT_MS[0]} (decode, v1 in float32) and {ZOO_EXPERT_MS[1]} (mma) "
-        f"a expert (launches: phase 15's); launches_zoo: phase 15's main-path launches; "
+        f"a expert (launches: phase 15's); launches_zoo: phase 15's main-path launches; launches_pop_eval: "
+        f"the chip-batched v1 launches of phases 11 and 12's kernel-mode population evaluations; "
         f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
         f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "
         f"int8 tokens, bf16 q, the heuristic bkv (launches: the tuner's); paged_decode_attention: "

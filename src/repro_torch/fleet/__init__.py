@@ -8,8 +8,9 @@
   advancing N faulty chips' deployed models a token per dispatch, and
   :class:`ShardedFleetServeEngine`, continuous-batch fleet serving with one
   ragged request stream and paged-KV slot table per chip.
-
-The sharded population engine is the next slice (ROADMAP.md §1.4.3).
+* :mod:`repro_torch.fleet.sharding`: :class:`ShardedPopulationEngine`,
+  population FAT split over the pop slices of a fleet mesh, member state
+  stored split over its model axis.
 """
 from repro_torch.fleet.capacity import suggest_population_size
 from repro_torch.fleet.scheduler import (
@@ -23,6 +24,7 @@ from repro_torch.fleet.serve import (
     FleetServeEngine,
     ShardedFleetServeEngine,
 )
+from repro_torch.fleet.sharding import ShardedPopulationEngine
 
 __all__ = [
     "FleetSchedule",
@@ -31,6 +33,7 @@ __all__ = [
     "FleetGenerateResult",
     "FleetServeEngine",
     "ShardedFleetServeEngine",
+    "ShardedPopulationEngine",
     "round_up_to_multiple",
     "suggest_population_size",
 ]

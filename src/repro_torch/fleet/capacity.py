@@ -13,14 +13,17 @@ shared-memory footprint each tuned kernel recorded in the tuning cache
 reference reserves its TPU kernels' VMEM; the card's counterpart is shared
 memory, hence the names.
 
-The port's copy of the reference's ``fleet/capacity.py``. The 2-D
-("pop", "model") fleet mesh is not ported yet: ``model_extent`` stands for
-its model axis, and ``pop_extent`` for its pop axis (the number of devices
-the population spreads over).
+The port's copy of the reference's ``fleet/capacity.py``. The extents come
+from a fleet mesh (``repro_torch.launch.mesh``): its "pop" axis is the
+number of pop slices the population spreads over, and its other axes the
+model positions each member's state is split over. Without a mesh,
+``pop_extent`` and ``model_extent`` give them (default: one lane).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import math
 
 import torch
 
@@ -61,11 +64,12 @@ def kernel_smem_reserve(cache=None) -> int:
 
 def suggest_population_size(
     cfg,
+    mesh=None,
     *,
     device=None,
     hbm_bytes: Optional[int] = None,
-    pop_extent: int = 1,
-    model_extent: int = 1,
+    pop_extent: Optional[int] = None,
+    model_extent: Optional[int] = None,
     headroom: float = 0.6,
     bytes_per_param: int = _DEFAULT_BYTES_PER_PARAM,
     max_members_per_lane: int = 64,
@@ -77,13 +81,15 @@ def suggest_population_size(
     Parameters
     ----------
     cfg : ArchConfig; ``cfg.param_count()`` sets the per-member state size.
-    device : the device whose memory is the budget (default: the card);
-        ignored when ``hbm_bytes`` is given.
-    hbm_bytes : per-device memory budget; default: the card's total memory
+    mesh : fleet mesh (1-D pop or 2-D pop x model); None = a single lane on
+        one device (the vmap engine's situation).
+    device : the device whose memory is the budget (default: the mesh's
+        first device, else the card); ignored when ``hbm_bytes`` is given.
+    hbm_bytes : per-device memory budget; default: the device's total memory
         (``torch.cuda.mem_get_info``). Required on the CPU.
-    pop_extent, model_extent : the population's device count and the
-        number of devices each member's state is sharded over (1 and 1: a
-        single lane on one device, the vmap engine's situation).
+    pop_extent, model_extent : without a mesh, the number of pop slices and
+        the number of devices each member's state is split over (default 1
+        and 1); with one, they are read from it.
     headroom : fraction of ``hbm_bytes`` the member state may use; the rest
         is activations and gradients for the in-flight update.
     bytes_per_param : resident optimizer+param bytes per parameter per
@@ -97,6 +103,16 @@ def suggest_population_size(
     Returns a positive multiple of ``pop_extent``. Raises ValueError when
     even ONE member per lane exceeds the budget.
     """
+    if mesh is not None:
+        if pop_extent is not None or model_extent is not None:
+            raise ValueError("pass the extents by mesh or by pop_extent / model_extent, not both")
+        sizes = dict(mesh.shape)
+        pop_extent = int(sizes.pop("pop", 1))
+        model_extent = int(math.prod(sizes.values()))
+        if device is None:
+            device = mesh.devices.flat[0]
+    pop_extent = 1 if pop_extent is None else pop_extent
+    model_extent = 1 if model_extent is None else model_extent
     if hbm_bytes is None:
         hbm_bytes = device_memory_bytes(device)
     if hbm_bytes <= 0:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from repro_torch.core.masking import FaultContext, fault_linear, healthy
 from repro_torch.device import resolve_device
 
-__all__ = ["init_classifier", "classifier_forward", "classifier_loss"]
+__all__ = ["init_classifier", "classifier_param_axes", "classifier_forward", "classifier_loss"]
 
 
 def init_classifier(cfg, seed: int, in_dim: int, device=None) -> dict:
@@ -33,6 +33,21 @@ def init_classifier(cfg, seed: int, in_dim: int, device=None) -> dict:
         params[f"w{i}"] = (torch.randn(a, b, generator=gen) * (1.0 / math.sqrt(a))).to(dev)
         params[f"b{i}"] = torch.zeros(b, device=dev)
     return params
+
+
+def classifier_param_axes(cfg) -> dict:
+    """Logical axes of ``init_classifier``'s params (``repro_torch.launch.
+    sharding`` names): each weight's output dim carries the splittable name
+    ('mlp', 'vocab' on the logits layer), the contraction dim stays
+    replicated; the layout the fleet engine's 2-D meshes resolve per pop
+    slice."""
+    n = cfg.num_layers
+    axes: dict = {}
+    for i in range(n):
+        out_ax = "vocab" if i == n - 1 else "mlp"
+        axes[f"w{i}"] = ("embed", out_ax)
+        axes[f"b{i}"] = (out_ax,)
+    return axes
 
 
 def classifier_forward(

@@ -165,6 +165,64 @@ class Model(nn.Module):
             self.frontend = _empty(FRONTEND_DIMS[cfg.modality], cfg.d_model, **kw)
 
 
+# logical axes of each parameter (``repro_torch.launch.sharding`` names), the
+# reference's tables; the fleet engine lays member state out by them
+
+
+def _norm_specs(cfg) -> dict:
+    return {"scale": (None,), "bias": (None,)} if cfg.family == "audio" else {"scale": (None,)}
+
+
+def layer_specs(cfg) -> dict:
+    """Logical axes of one layer's parameters, by module and leaf."""
+    s: dict = {"ln1": _norm_specs(cfg)}
+    if cfg.has_attention:
+        s["attn"] = dict(wq=("embed", "qkv"), wk=("embed", "kv"), wv=("embed", "kv"), wo=("qkv", "embed"))
+        if cfg.qk_norm:
+            s["attn"].update(q_norm=(None,), k_norm=(None,))
+    if cfg.has_ssm:
+        s["ssm"] = dict(
+            in_proj=("embed", "inner"), conv_w=(None, "inner"), conv_b=("inner",), x_proj=("inner", None),
+            dt_w=(None, "inner"), dt_b=("inner",), a_log=("inner", None), d_skip=("inner",),
+            out_proj=("inner", "embed"),
+        )
+    if cfg.family == "hybrid":
+        s["alpha_attn"] = (None,)
+        s["alpha_ssm"] = (None,)
+    if cfg.family != "ssm":
+        s["ln2"] = _norm_specs(cfg)
+        if cfg.family == "moe":
+            s["moe"] = dict(router=("embed", None), wg=("expert", "embed", "mlp"),
+                            wu=("expert", "embed", "mlp"), wd=("expert", "mlp", "embed"))
+        elif cfg.activation == "swiglu":
+            s["mlp"] = dict(wg=("embed", "mlp"), wu=("embed", "mlp"), wd=("mlp", "embed"))
+        else:
+            s["mlp"] = dict(wi=("embed", "mlp"), wd=("mlp", "embed"))
+    return s
+
+
+def param_specs(cfg) -> dict[str, tuple]:
+    """Logical axes of every parameter, keyed by :func:`param_dict`'s names;
+    no allocation. The reference's tree with its layer stacks unrolled: a
+    layer leaf here has no leading ``"layers"`` axis."""
+    if cfg.family == "classifier":
+        raise NotImplementedError(f"{cfg.name}: see models/classifier.py::classifier_param_axes")
+    specs: dict = {"embed": ("vocab", "embed")}
+    layer = layer_specs(cfg)
+    for i in range(cfg.num_layers):
+        for mod, leaves in layer.items():
+            if isinstance(leaves, dict):
+                specs.update({f"layers.{i}.{mod}.{k}": ax for k, ax in leaves.items()})
+            else:
+                specs[f"layers.{i}.{mod}"] = leaves
+    specs.update({f"final_ln.{k}": ax for k, ax in _norm_specs(cfg).items()})
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    if cfg.modality in FRONTEND_DIMS:
+        specs["frontend"] = ("frame", "embed")
+    return specs
+
+
 @torch.no_grad()
 def init_params(cfg, seed: int = 0, *, device=None) -> Model:
     """Random parameters from the port's own seeded generator, with the

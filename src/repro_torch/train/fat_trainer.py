@@ -22,11 +22,15 @@ no device named, it raises.
 ``TokenStream`` data pipeline: a reduced arch in the CPU tests, SmolLM-135M
 at full width on the card.
 
-Evaluation takes ``mode="kernel"`` for the deployment check: each chip's
-weights run one chip at a time through the masked-GEMM kernel under
-``torch.no_grad`` (the kernels take no vmap). Training always runs the
-plain masked product: a ``kernel``-mode fit on the card raises in the
-engines.
+Evaluation takes ``mode="kernel"`` for the deployment check: the engine's
+batched evaluation, in which each masked GEMM is one chip-batched kernel
+launch for a chunk's chips (``evaluate_metric`` runs one chip at a time).
+Training always runs the plain masked product: a ``kernel``-mode fit on the
+card raises in the engines.
+
+``engine="sharded"`` builds ``repro_torch.fleet.sharding.
+ShardedPopulationEngine`` over a pop mesh (``engine_kwargs=dict(mesh=...)``),
+with the trainer's param axes and config for a 2-D fleet mesh.
 """
 from __future__ import annotations
 
@@ -39,10 +43,10 @@ from repro_torch.core.masking import from_fault_map, healthy, mask_params, mask_
 from repro_torch.data.synthetic import TokenStream, make_classification_task
 from repro_torch.device import resolve_device
 from repro_torch.fleet.scheduler import FleetScheduler
-from repro_torch.models.classifier import classifier_loss, init_classifier
-from repro_torch.models.model import init_params, loss_fn, param_dict
+from repro_torch.models.classifier import classifier_loss, classifier_param_axes, init_classifier
+from repro_torch.models.model import init_params, loss_fn, param_dict, param_specs
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.population import evaluate_metric, make_fat_engine
+from repro_torch.train.population import make_fat_engine
 
 __all__ = ["ClassifierFATTrainer", "LMFATTrainer"]
 
@@ -64,7 +68,20 @@ class _EngineBackedTrainer:
     #   _train_batch_fn  — consolidated-FAT stream (batch_fn(0..steps-1))
 
     def _make_scheduler(self, policy: str) -> FleetScheduler:
+        # a sharded engine's chunks tile its pop extent; waste accounting
+        # counts the same padding lanes the chunk runs
         return FleetScheduler.for_engine(self.engine, policy=policy)
+
+    @staticmethod
+    def _engine_kwargs(engine: str, cfg, param_axes, engine_kwargs: Optional[dict]) -> dict:
+        """The arch and param layout for the engine: every engine takes
+        ``param_axes`` (vmap and serial ignore it); the sharded engine also
+        takes ``cfg`` for its 2-D meshes' rules."""
+        kw = dict(engine_kwargs or {})
+        kw.setdefault("param_axes", param_axes)
+        if engine == "sharded":
+            kw.setdefault("cfg", cfg)
+        return kw
 
     def _context(self, fm: FaultMap, mode: str = "fap"):
         return from_fault_map(fm, mode, device=self.device)
@@ -147,13 +164,11 @@ class _EngineBackedTrainer:
     def evaluate_batch(
         self, params_list: Sequence[Any], fault_maps: Sequence[FaultMap], mode: str = "fap"
     ) -> list[float]:
-        """Each chip's metric with its params under its own map. ``mode``
-        is the fault context's: ``fap`` (the engine's batched evaluation)
-        or ``kernel`` (the deployment path: one chip at a time through the
-        masked-GEMM kernel)."""
+        """Each chip's metric with its params under its own map, through the
+        engine's batched evaluation. ``mode`` is the fault context's: ``fap``
+        or ``kernel`` (the deployment path: each masked GEMM one chip-batched
+        kernel launch for a chunk's chips)."""
         ctxs = [self._context(fm, mode) for fm in fault_maps]
-        if mode == "kernel":
-            return [evaluate_metric(self.engine, p, c) for p, c in zip(params_list, ctxs)]
         return self.engine.evaluate_batch(list(params_list), ctxs)
 
 
@@ -204,7 +219,7 @@ class ClassifierFATTrainer(_EngineBackedTrainer):
             higher_is_better=True,
             eval_every=eval_every,
             population_size=population_size,
-            **(engine_kwargs or {}),
+            **self._engine_kwargs(engine, cfg, classifier_param_axes(cfg), engine_kwargs),
         )
         self.scheduler = self._make_scheduler(schedule)
         self.base_params = init_classifier(cfg, seed, in_dim=self.data.dim, device=self.device)
@@ -275,7 +290,7 @@ class LMFATTrainer(_EngineBackedTrainer):
             higher_is_better=metric != "loss",  # higher-is-better protocol
             eval_every=eval_every,
             population_size=population_size,
-            **(engine_kwargs or {}),
+            **self._engine_kwargs(engine, cfg, param_specs(cfg), engine_kwargs),
         )
         self.scheduler = self._make_scheduler(schedule)
         self.base_params = self.engine.fit_batch(

@@ -19,7 +19,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "constant_schedule"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_state_specs", "cosine_schedule", "constant_schedule"]
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -73,6 +73,12 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
         new_m[k], new_v[k] = m32.to(mdt), v32.to(mdt)
     info = dict(grad_norm=gnorm, lr=lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32))
     return new_params, dict(m=new_m, v=new_v, count=count), info
+
+
+def opt_state_specs(param_specs: dict) -> dict:
+    """Logical axes of ``adamw_init``'s state: m and v take each param's
+    axes, the step count none."""
+    return dict(m=param_specs, v=param_specs, count=())
 
 
 # ---------------------------------------------------------------------------

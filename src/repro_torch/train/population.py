@@ -23,15 +23,22 @@ turns one member's step into one batched step for all of them:
   engine equivalent.
 
 This is the reference's ``train/population.py``: the same interface,
-chunking, padding and recorder spans, counts and instants. The sharded
-engine is the port's next slice (ROADMAP.md §1.4.3). Training always runs
-the plain masked product under autograd, as the reference's does: its
-masked-GEMM kernel is forward only, and neither package has a masked-GEMM
-backward. So a
-``kernel``-mode population on a CUDA device raises ``NotImplementedError``
-instead of running another mode quietly; on the CPU, ``kernel`` mode runs
-the kernel's plain version (``masked_matmul_ref``) under vmap and grad, as
-the reference's ``pallas`` mode runs ``fap`` math off the TPU.
+chunking, padding and recorder spans, counts and instants. A third engine,
+``repro_torch.fleet.sharding.ShardedPopulationEngine`` (``engine="sharded"``),
+subclasses the population engine and runs the same run bodies on
+sub-populations, one per slice of a "pop" mesh axis, with member state
+stored split over a "model" axis through the layout hooks below. Training
+always runs the plain masked product under autograd, as the reference's
+does: its masked-GEMM kernel is forward only, and neither package has a
+masked-GEMM backward. So a ``kernel``-mode fit or steps-to-constraint on a
+CUDA device raises ``NotImplementedError`` instead of running another mode
+quietly; on the CPU, ``kernel`` mode runs the kernel's plain version
+(``masked_matmul_ref``) under vmap and grad, as the reference's ``pallas``
+mode runs ``fap`` math off the TPU. Evaluation is forward only: a
+``kernel``-mode ``evaluate_batch`` on the card runs the population's
+``vmap``, and each masked GEMM in it is one chip-batched launch of the
+kernel (the custom op's vmap rule), the counterpart of the reference's
+``pallas`` mode under ``jit(vmap)``.
 """
 from __future__ import annotations
 
@@ -80,16 +87,26 @@ def _sync(device: torch.device) -> None:
 
 def _refuse_kernel_on_card(ctx: Optional[FaultContext], what: str) -> None:
     """Off the CPU a ``kernel`` context reaches the card kernel, which has
-    no backward (its chip-batched forward serves the fleet engines,
-    ``fleet/serve.py``); only the CPU runs its plain version here."""
+    no backward: training refuses it (``evaluate_batch``, forward only,
+    runs it chip-batched); only the CPU trains on its plain version."""
     if ctx is not None and ctx.active and ctx.mode == "kernel" and ctx.ok.device.type != "cpu":
         raise NotImplementedError(
             f"{what} in 'kernel' mode on a {ctx.ok.device.type} device: training runs the plain masked "
             "product with autograd, as the reference does (its masked-GEMM kernel is "
             "forward only), and no masked-GEMM backward exists in either package; "
             "train in 'fap' mode and deploy the shipped weights through 'kernel' mode "
-            "(a serving engine, or the fleet engines for many chips at once)"
+            "(evaluate_batch, a serving engine, or the fleet engines for many chips at once)"
         )
+
+
+def _drain(run):
+    """Run a run body (a generator that yields after each issued step) to
+    its end, and return what it returns."""
+    while True:
+        try:
+            next(run)
+        except StopIteration as stop:
+            return stop.value
 
 
 class PopulationFATEngine:
@@ -107,6 +124,11 @@ class PopulationFATEngine:
     eval_every : periodic-eval interval inside ``steps_to_constraint_batch``.
     population_size : max members per batched step; larger batches are
         chunked (memory trade-off).
+    param_axes : optional logical-axes tree mirroring the params
+        (``repro_torch.launch.sharding`` names, e.g.
+        ``models.model.param_specs(cfg)``). Ignored by this engine and the
+        serial one; the sharded engine stores member state split over the
+        "model" axis of a 2-D ``("pop", "model")`` mesh by it.
     recorder : optional :class:`repro_torch.obs.recorder.Recorder`. Per-lane
         telemetry is collected on the host at chunk boundaries — chunk spans
         with lane widths and wasted lane-steps, per-member
@@ -125,6 +147,7 @@ class PopulationFATEngine:
         higher_is_better: bool = True,
         eval_every: int = 5,
         population_size: int = 16,
+        param_axes: Optional[Any] = None,
         recorder: Optional[Recorder] = None,
     ):
         self.loss_fn = loss_fn
@@ -133,6 +156,7 @@ class PopulationFATEngine:
         self.higher_is_better = higher_is_better
         self.eval_every = int(eval_every)
         self.population_size = max(1, int(population_size))
+        self.param_axes = param_axes
         self.obs = recorder if recorder is not None else NULL_RECORDER
         self.eval_batches = list(eval_batches)
         self._grad = grad_and_value(loss_fn, has_aux=True)
@@ -143,9 +167,9 @@ class PopulationFATEngine:
     def _ctx(ok, mode: str) -> FaultContext:
         return healthy() if ok is None else FaultContext(ok=ok, mode=mode)
 
-    def _member_eval(self, params, ok, mode: str):
+    def _member_eval(self, params, ok, mode: str, batches: Sequence[dict]):
         ctx = self._ctx(ok, mode)
-        vals = [self.loss_fn(params, b, ctx)[1][self.metric] for b in self.eval_batches]
+        vals = [self.loss_fn(params, b, ctx)[1][self.metric] for b in batches]
         v = torch.stack(vals).mean()
         return v if self.higher_is_better else -v
 
@@ -161,65 +185,126 @@ class PopulationFATEngine:
             in_dims=(0, 0, None if ok_pop is None else 0, None),
         )
 
-    @torch.no_grad()
-    def _eval_pop(self, params_pop, ok_pop, mode: str) -> torch.Tensor:
-        return vmap(
-            lambda p, ok: self._member_eval(p, ok, mode),
-            in_dims=(0, None if ok_pop is None else 0),
-        )(params_pop, ok_pop)
-
     def _broadcast_members(self, params0: dict, n: int):
         def bcast(x):
             return x.unsqueeze(0).expand(n, *x.shape)
 
         return _tree_map(bcast, params0), _tree_map(bcast, adamw_init(params0, self.opt_cfg))
 
-    # -- the run bodies, one population chunk each -------------------------
+    # -- member-state layout hooks ------------------------------------------
+    # The run bodies pass member (params, opt) through these at every step
+    # boundary (the stored layout) and before every update and evaluation
+    # (the compute layout). They are identity here; the sharded engine keeps
+    # member state split over a 2-D mesh's "model" axis between steps and
+    # gathers it to full shape for the math, on its pop slice's device.
+
+    def _constrain_member_state(self, params_pop, opt_pop):
+        """The stored layout of member state between steps."""
+        return params_pop, opt_pop
+
+    def _gather_member_state(self, params_pop, opt_pop):
+        """Member state laid out for an update step (full shape)."""
+        return params_pop, opt_pop
+
+    def _gather_member_params(self, params_pop):
+        """Member params laid out for an evaluation (full shape)."""
+        return params_pop
+
+    def _constrain_batch(self, tree):
+        """Non-member data entering the math (batches, stacked masks, the
+        eval batches): identity here; the sharded engine moves it to its
+        pop slice's device."""
+        return tree
+
+    @torch.no_grad()
+    def _eval_pop(self, params_pop, ok_pop, mode: str) -> torch.Tensor:
+        params_pop = self._gather_member_params(params_pop)
+        ok_pop = None if ok_pop is None else self._constrain_batch(ok_pop)
+        batches = self._constrain_batch(self.eval_batches)
+        return vmap(
+            lambda p, ok: self._member_eval(p, ok, mode, batches),
+            in_dims=(0, None if ok_pop is None else 0),
+        )(params_pop, ok_pop)
+
+    # -- the run bodies, one population chunk each ---------------------------
+    # Each is a generator that yields after it has issued a step (an eval
+    # period, in ``_steps_run``) and before any host read, and returns its
+    # result: this engine drains one (``_drain``); the sharded engine
+    # advances one per pop slice in lockstep.
 
     def _fit_run(self, params0, ok_pop, mode: str, budgets: list[int], batch_fn: BatchFn):
         """Every member trained to its own step budget: updates are computed
         for the whole population and select-masked off once a member's
         budget is spent — the same trajectory as training each member alone
-        for ``budgets[i]`` steps on the same batch schedule."""
+        for ``budgets[i]`` steps on the same batch schedule. Returns the
+        params in the stored layout."""
         n = len(budgets)
-        params, opt = self._broadcast_members(params0, n)
+        ok_pop = None if ok_pop is None else self._constrain_batch(ok_pop)
+        params, opt = self._constrain_member_state(*self._broadcast_members(params0, n))
         update = self._update(mode, ok_pop)
         budgets_t = torch.tensor(budgets, device=_device_of(params0))
         for i in range(max(budgets)):
-            new_params, new_opt = update(params, opt, ok_pop, batch_fn(i))
+            p, o = self._gather_member_state(params, opt)
+            new_params, new_opt = update(p, o, ok_pop, self._constrain_batch(batch_fn(i)))
             active = i < budgets_t  # (n,)
 
             def sel(new, old):
                 return torch.where(active.view((n,) + (1,) * (new.dim() - 1)), new, old)
 
-            params = _tree_map(sel, new_params, params)
-            opt = _tree_map(sel, new_opt, opt)
+            params, opt = self._constrain_member_state(_tree_map(sel, new_params, p), _tree_map(sel, new_opt, o))
+            yield
         return params
 
     def _steps_run(self, params0, ok_pop, mode: str, constraint: float, max_steps: int,
-                   batch_fn: BatchFn) -> np.ndarray:
+                   batch_fn: BatchFn):
         """Steps-to-constraint for a whole chunk in eval-period chunks.
         ``crossed[i]`` latches the first step at which member i's metric
         reached the constraint (sentinel max_steps + 1 when never); the loop
-        ends as soon as every member has crossed, or at max_steps."""
+        ends as soon as every member has crossed, or at max_steps. Returns
+        ``crossed`` as numpy."""
         ee = self.eval_every
+        ok_pop = self._constrain_batch(ok_pop)
         params, opt = self._broadcast_members(params0, ok_pop.shape[0])
         update = self._update(mode, ok_pop)
         base = self._eval_pop(params, ok_pop, mode)
         crossed = torch.where(base >= constraint, 0, max_steps + 1)
+        params, opt = self._constrain_member_state(params, opt)
         step = 0
+        yield
         # the reference's while_loop condition; the one host read per period
         while step < max_steps and bool((crossed > max_steps).any()):
+            p, o = self._gather_member_state(params, opt)
             for i in range(ee):
-                params, opt = update(params, opt, ok_pop, batch_fn(step + i + 1))
+                p, o = update(p, o, ok_pop, self._constrain_batch(batch_fn(step + i + 1)))
             step += ee
             # a chunk overshooting max_steps is a step the serial reference
             # never evaluated, so it cannot cross
             if step <= max_steps:
-                metric = self._eval_pop(params, ok_pop, mode)
+                metric = self._eval_pop(p, ok_pop, mode)
                 hit = (metric >= constraint) & (crossed > max_steps)
                 crossed = torch.where(hit, step, crossed)
+            params, opt = self._constrain_member_state(p, o)
+            yield
         return crossed.cpu().numpy()
+
+    # -- one chunk's run; the sharded engine splits it over its pop slices ---
+
+    def _fit_chunk(self, params0, ok_pop, mode: str, budgets: list[int], batch_fn: BatchFn, keep: int):
+        trained = _drain(self._fit_run(params0, ok_pop, mode, budgets, batch_fn))
+        self._record_fit_output(trained, keep, len(budgets))
+        return trained
+
+    def _steps_chunk(self, params0, ok_pop, mode: str, constraint: float, max_steps: int,
+                     batch_fn: BatchFn) -> np.ndarray:
+        return _drain(self._steps_run(params0, ok_pop, mode, constraint, max_steps, batch_fn))
+
+    def _eval_chunk(self, params_pop, ok_pop, mode: str) -> torch.Tensor:
+        return self._eval_pop(params_pop, ok_pop, mode)
+
+    def _record_fit_output(self, trained, keep: int, width: int) -> None:
+        """Hook on each raw (still member-stacked, stored-layout) fit output
+        before padding lanes are sliced off — the sharded engine records
+        resident-byte stats here; no-op otherwise."""
 
     # -- chunking ---------------------------------------------------------
 
@@ -251,9 +336,9 @@ class PopulationFATEngine:
             chunk += [chunk[-1]] * (size - keep)
             chunk_budgets += [0] * (size - keep)
             stacked = stack_contexts([c or healthy() for c in chunk])
-            _refuse_kernel_on_card(stacked, "PopulationFATEngine.fit_batch")
+            _refuse_kernel_on_card(stacked, f"{type(self).__name__}.fit_batch")
             t0 = self.obs.now() if self.obs else 0.0
-            trained = self._fit_run(params0, stacked.ok, stacked.mode, chunk_budgets, batch_fn)
+            trained = self._fit_chunk(params0, stacked.ok, stacked.mode, chunk_budgets, batch_fn, keep)
             if self.obs:
                 _sync(_device_of(params0))
                 maxb = max(chunk_budgets) if chunk_budgets else 0
@@ -292,11 +377,9 @@ class PopulationFATEngine:
             stacked = stack_contexts(chunk)
             if stacked.ok is None:
                 raise ValueError("steps_to_constraint needs fault contexts")
-            _refuse_kernel_on_card(stacked, "PopulationFATEngine.steps_to_constraint_batch")
+            _refuse_kernel_on_card(stacked, f"{type(self).__name__}.steps_to_constraint_batch")
             t0 = self.obs.now() if self.obs else 0.0
-            crossed = self._steps_run(
-                params0, stacked.ok, stacked.mode, constraint, max_steps, batch_fn
-            )
+            crossed = self._steps_chunk(params0, stacked.ok, stacked.mode, constraint, max_steps, batch_fn)
             if self.obs:
                 # Every lane runs until the slowest member crosses (or
                 # max_steps): realized lane-steps = width * max(realized).
@@ -330,7 +413,9 @@ class PopulationFATEngine:
         self, params_list: Sequence[Any], contexts: Sequence[Optional[FaultContext]]
     ) -> list[float]:
         """Signed constraint metric of params_list[i] under contexts[i],
-        vmapped across the population (chunked like training)."""
+        vmapped across the population (chunked like training). In
+        ``kernel`` mode on the card each masked GEMM of a chunk's forward is
+        one chip-batched kernel launch."""
         if len(params_list) != len(contexts):
             raise ValueError("params and contexts must align")
         out: list[float] = []
@@ -340,8 +425,7 @@ class PopulationFATEngine:
             chunk_params += [chunk_params[-1]] * (size - keep)
             chunk_ctx += [chunk_ctx[-1]] * (size - keep)
             stacked = stack_contexts([c or healthy() for c in chunk_ctx])
-            _refuse_kernel_on_card(stacked, "PopulationFATEngine.evaluate_batch")
-            vals = self._eval_pop(_stack_trees(chunk_params), stacked.ok, stacked.mode)
+            vals = self._eval_chunk(_stack_trees(chunk_params), stacked.ok, stacked.mode)
             out.extend(float(v) for v in vals[:keep].cpu())
         return out
 
@@ -366,9 +450,11 @@ class SerialFATEngine:
         higher_is_better: bool = True,
         eval_every: int = 5,
         population_size: int = 16,  # interface parity; serial chunks are 1-wide
+        param_axes: Optional[Any] = None,  # interface parity; serial never shards
         recorder: Optional[Recorder] = None,  # interface parity with population
     ):
         self.population_size = 1  # one member at a time — schedulers see no packing
+        self.param_axes = param_axes
         self.obs = recorder if recorder is not None else NULL_RECORDER
         self.loss_fn = loss_fn
         self.opt_cfg = opt_cfg
@@ -430,8 +516,8 @@ class SerialFATEngine:
 def evaluate_metric(engine, params, ctx: Optional[FaultContext]) -> float:
     """One member's signed constraint metric under ``ctx``, averaged over
     ``engine``'s eval batches outside any vmap: the serial engine's
-    evaluation, and the deployment check's, whose card kernels take no
-    vmap."""
+    evaluation, and the one-chip-at-a-time deployment check (each masked
+    GEMM a single-chip kernel launch in ``kernel`` mode on the card)."""
     ctx = ctx or healthy()
     vals = [float(engine.loss_fn(params, b, ctx)[1][engine.metric]) for b in engine.eval_batches]
     v = float(np.mean(vals))
@@ -444,10 +530,10 @@ def make_fat_engine(kind: str, **kwargs):
     if kind == "serial":
         return SerialFATEngine(**kwargs)
     if kind == "sharded":
-        raise NotImplementedError(
-            "the sharded population engine is not ported yet: it is the port's next slice "
-            "(ROADMAP.md §1.4.3); use 'population' or 'serial'"
-        )
+        # imported here: repro_torch.fleet.sharding imports this module
+        from repro_torch.fleet.sharding import ShardedPopulationEngine
+
+        return ShardedPopulationEngine(**kwargs)
     raise ValueError(
         f"unknown FAT engine {kind!r} (use 'population', 'serial', or 'sharded')"
     )

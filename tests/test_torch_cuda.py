@@ -29,7 +29,9 @@ from repro_torch.models import model as M
 from repro_torch.models.classifier import classifier_forward, classifier_loss, init_classifier
 from repro_torch.train.fat_trainer import ClassifierFATTrainer, LMFATTrainer
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.population import PopulationFATEngine, SerialFATEngine
+from repro_torch.launch.mesh import make_fleet_mesh, make_pop_mesh
+from repro_torch.models.classifier import classifier_param_axes
+from repro_torch.train.population import PopulationFATEngine, evaluate_metric, make_fat_engine
 
 MM_CASES = [  # (M, K, N, w given as a transposed view)
     (5, 48, 40, False),
@@ -973,14 +975,14 @@ MLP = get_arch("paper-mlp")
 FAT_RATES = [0.02, 0.08, 0.12, 0.18, 0.22]
 
 
-def _fat(device, kind, base=None):
+def _fat(device, kind, base=None, **engine_kw):
     """An engine, its base params (pretrained 100 steps on the CPU unless
     given), the FAT stream and the 5-rate fleet's contexts, on ``device``."""
     data = make_classification_task(MLP, seed=0, device=device)
     kw = dict(loss_fn=lambda p, b, ctx: classifier_loss(p, b, MLP, ctx),
               opt_cfg=AdamWConfig(learning_rate=3e-3, weight_decay=0.0, grad_clip_norm=1.0),
               eval_batches=data.eval_batches(2), eval_every=5)
-    engine = PopulationFATEngine(**kw) if kind == "population" else SerialFATEngine(**kw)
+    engine = make_fat_engine(kind, **kw, **engine_kw)
     if base is None:
         base = engine.fit_batch(init_classifier(MLP, 0, data.dim, device), [healthy()], [100],
                                 lambda s: data.batch_at(s, 256))[0]
@@ -1039,13 +1041,55 @@ def test_kernel_mode_population_on_the_card_raises(cuda):
         engine.fit_batch(base, kctxs, [1, 1, 1], fn)
     with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
         engine.steps_to_constraint_batch(base, kctxs, 0.5, 5, fn)
-    with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
-        engine.evaluate_batch([base] * 3, kctxs)
     serial = _fat(cuda, "serial", base=base)[0]
     with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
         serial.fit_batch(base, kctxs[:1], [1], fn)
     # one chip's forward in kernel mode is the deployment path, and runs
     assert 0.0 <= serial.evaluate_one(base, kctxs[0]) <= 1.0
+
+
+@pytest.mark.parametrize("chips,width", [(3, 16), (5, 2)])
+def test_kernel_mode_population_evaluation_is_chip_batched_on_the_card(cuda, chips, width):
+    """``evaluate_batch`` in ``kernel`` mode on the card: each masked GEMM of
+    a chunk's forward is ONE chip-batched v1 launch (layers x eval batches
+    x chunks in all), and the metrics equal the one-chip-at-a-time loop's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine, base, fn, _ = _fat(cuda, "population", base=init_classifier(MLP, 0, 32, "cpu"), population_size=width)
+    kctxs = [from_fault_map(random_fault_map(i, 32, 32, 0.1), "kernel", device=cuda) for i in range(chips)]
+    params = [{k: v + 0.01 * i for k, v in base.items()} for i in range(chips)]
+    before = dict(masked_matmul.launches_by_variant), dict(masked_matmul.fleet_launches_by_variant)
+    got = engine.evaluate_batch(params, kctxs)
+    torch.cuda.synchronize()
+    want_launches = MLP.num_layers * len(engine.eval_batches) * -(-chips // width)
+    assert masked_matmul.launches_by_variant["v1"] - before[0]["v1"] == want_launches
+    assert masked_matmul.fleet_launches_by_variant["v1"] - before[1]["v1"] == want_launches
+    assert got == pytest.approx([evaluate_metric(engine, p, c) for p, c in zip(params, kctxs)], abs=1e-6)
+
+
+def test_sharded_engine_on_one_card_repeated_matches_the_vmap_engine(cuda):
+    """The sharded engine over the card repeated (a pop mesh of 4, a 2 x 2
+    fleet mesh storing member params split two ways): steps to the
+    constraint equal, params at the pin, kernel-mode metrics those of the
+    vmap engine within 1e-6."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pop, base, fn, ctxs = _fat(cuda, "population")
+    constraint = pop.evaluate_one(base, healthy()) - 0.05
+    want_steps = pop.steps_to_constraint_batch(base, ctxs, constraint, 60, fn)
+    want = pop.fit_batch(base, ctxs[:3], [25, 40, 10], fn)
+    kctxs = [from_fault_map(random_fault_map(i, 32, 32, 0.1), "kernel", device=cuda) for i in range(3)]
+    want_k = pop.evaluate_batch(want, kctxs)
+    for mesh in (make_pop_mesh(devices=["cuda"] * 4), make_fleet_mesh(2, 2, devices=["cuda"] * 4)):
+        shd = _fat(cuda, "sharded", base=base, mesh=mesh, cfg=MLP, param_axes=classifier_param_axes(MLP))[0]
+        assert shd.steps_to_constraint_batch(base, ctxs, constraint, 60, fn) == want_steps
+        got = shd.fit_batch(base, ctxs[:3], [25, 40, 10], fn)
+        for g, w in zip(got, want):
+            assert g["w0"].device == base["w0"].device
+            for k in w:
+                assert_close(g[k], w[k], torch.float32, atol_scale=100)
+        assert shd.evaluate_batch(got, kctxs) == pytest.approx(want_k, abs=1e-6)
+        stats = shd.last_fit_stats
+        assert stats["model_extent"] == shd.model_size
+        assert stats["per_member_resident_bytes"] <= stats["per_member_total_bytes"] / shd.model_size * 1.05 + 1024
 
 
 # ---------------------------------------------------------------------------
@@ -1119,10 +1163,13 @@ def test_lm_kernel_mode_fit_on_the_card_raises_and_kernel_eval_runs(cuda):
     kctxs = [from_fault_map(fm, "kernel", device=cuda) for fm in fleet]
     with pytest.raises(NotImplementedError, match="no masked-GEMM backward"):
         tr.engine.fit_batch(tr.base_params, kctxs, [1, 1], tr._train_batch_fn)
-    before = masked_matmul.launches_by_variant["v1"]
+    before = masked_matmul.launches_by_variant["v1"], masked_matmul.fleet_launches_by_variant["v1"]
     got = tr.evaluate_batch([tr.base_params] * 2, fleet, mode="kernel")
     torch.cuda.synchronize()
-    assert masked_matmul.launches_by_variant["v1"] - before == 2 * sum(u for _, _, u in cfg.gemm_shapes())
+    # both chips in one chunk: one chip-batched launch a GEMM a forward
+    per_forward = sum(u for _, _, u in cfg.gemm_shapes())
+    assert masked_matmul.launches_by_variant["v1"] - before[0] == len(tr._evals) * per_forward
+    assert masked_matmul.fleet_launches_by_variant["v1"] - before[1] == len(tr._evals) * per_forward
     assert got == pytest.approx(tr.evaluate_batch([tr.base_params] * 2, fleet), abs=2e-3)
 
 

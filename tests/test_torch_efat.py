@@ -39,7 +39,8 @@ from repro_torch.core import (
 )
 from repro_torch.core import resilience as R
 from repro_torch.kernels.common import dtype_tol
-from repro_torch.models.classifier import classifier_loss
+from repro_torch.launch.mesh import make_fleet_mesh, make_pop_mesh
+from repro_torch.models.classifier import classifier_loss, classifier_param_axes
 from repro_torch.train import fat_trainer as T
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.population import PopulationFATEngine, SerialFATEngine, make_fat_engine
@@ -115,31 +116,78 @@ def _ctxs(fleet, mode="fap"):
     return [from_fault_map(fm, mode, device="cpu") for fm in fleet]
 
 
+# the sharded engine's meshes over the CPU repeated: a pop axis of 4, and 2
+# pop slices of 2 model positions (member state stored split two ways)
+SHARDED = {
+    "sharded-pop4": lambda: dict(mesh=make_pop_mesh(devices=["cpu"] * 4)),
+    "sharded-2x2": lambda: dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4), cfg=CFG,
+                                param_axes=classifier_param_axes(CFG)),
+}
+
+
+def _engine(kind, kw, **extra):
+    if kind in SHARDED:
+        return make_fat_engine("sharded", **kw, **SHARDED[kind](), **extra)
+    return make_fat_engine(kind, **kw, **extra)
+
+
 # ---------------------------------------------------------------------------
 # the engines, port against reference
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", ["population", "serial"])
+@pytest.mark.parametrize("kind", ["population", "serial", *SHARDED])
 def test_fit_batch_matches_reference(ref, port, fleet, kind):
     _, _, _, want, want_metrics = ref
     params0, kw, _, train_fn = port
-    engine = make_fat_engine(kind, **kw)
+    engine = _engine(kind, kw)
     got = engine.fit_batch(params0, _ctxs(fleet[:3]), BUDGETS, train_fn)
     for g, w in zip(got, want):
         _assert_params_close(g, w)
     metrics = engine.evaluate_batch(got, _ctxs(fleet[:3]))
     assert metrics == pytest.approx(want_metrics, abs=METRIC_TOL)
+    if kind == "sharded-2x2":
+        # member params stored split over the 2 model positions: every
+        # classifier leaf's output dim halves (tests/test_fleet.py's bound)
+        stats = engine.last_fit_stats
+        assert stats["pop_extent"] == 2 and stats["model_extent"] == 2 and stats["members_kept"] == 3
+        assert stats["per_member_resident_bytes"] <= stats["per_member_total_bytes"] / 2 * 1.05 + 1024
 
 
-@pytest.mark.parametrize("kind", ["population", "serial"])
+@pytest.mark.parametrize("kind", ["population", "serial", *SHARDED])
 def test_steps_to_constraint_matches_reference(ref, port, fleet, kind):
     _, constraint, want, _, _ = ref
     params0, kw, probe_fn, _ = port
-    engine = make_fat_engine(kind, **kw)
+    engine = _engine(kind, kw)
     got = engine.steps_to_constraint_batch(params0, _ctxs(fleet), constraint, 200, probe_fn)
     assert got == want
     assert got[0] == 0 and any(s not in (0, None) for s in got)
+
+
+@pytest.mark.parametrize("kind", list(SHARDED))
+def test_sharded_padding_never_leaks(ref, port, fleet, kind):
+    """5 members in chunks of 4 (the second holds one member and three
+    padding lanes) and in one chunk (of 8 on a pop axis of 4, 6 on one of
+    2) split over the pop slices: each member's params,
+    probe steps and metric are the vmap engine's, and no padding lane comes
+    back."""
+    constraint = ref[1]
+    params0, kw, probe_fn, train_fn = port
+    pop = PopulationFATEngine(**kw)
+    budgets = [7, 2, 9, 4, 5]
+    want = pop.fit_batch(params0, _ctxs(fleet), budgets, train_fn)
+    want_steps = pop.steps_to_constraint_batch(params0, _ctxs(fleet), constraint, 60, probe_fn)
+    for size in (4, 8):
+        engine = _engine(kind, kw, population_size=size)
+        chunks = [c[1:] for c in engine._chunks(5)]
+        assert chunks == ([(4, 4), (1, 4)] if size == 4 else [(5, 8 if engine.num_shards == 4 else 6)])
+        got = engine.fit_batch(params0, _ctxs(fleet), budgets, train_fn)
+        assert len(got) == 5
+        for g, w in zip(got, want):
+            _assert_params_close(g, w)
+        assert engine.steps_to_constraint_batch(params0, _ctxs(fleet), constraint, 60, probe_fn) == want_steps
+        assert engine.evaluate_batch(got, _ctxs(fleet, "kernel")) == pytest.approx(
+            pop.evaluate_batch(want, _ctxs(fleet)), abs=METRIC_TOL)
 
 
 @pytest.mark.parametrize("mode", ["fap", "kernel"])
@@ -198,13 +246,18 @@ def test_recorder_sees_the_reference_spans_and_counts(port, fleet):
 
 
 def test_engine_factory_and_devices(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.4"):
-        make_fat_engine("sharded", loss_fn=None, opt_cfg=None, eval_batches=[])
+    from repro_torch.fleet import ShardedPopulationEngine
+
+    engine = make_fat_engine("sharded", loss_fn=None, opt_cfg=None, eval_batches=[],
+                             mesh=make_pop_mesh(devices=["cpu"] * 2))
+    assert isinstance(engine, ShardedPopulationEngine) and engine.num_shards == 2
     with pytest.raises(ValueError):
         make_fat_engine("bogus", loss_fn=None, opt_cfg=None, eval_batches=[])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.ClassifierFATTrainer(CFG, pretrain_steps=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # its default mesh is every card
+        make_fat_engine("sharded", loss_fn=None, opt_cfg=None, eval_batches=[])
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +438,8 @@ class _RefData:
         return [_batch(b) for b in self.jdata.eval_batches(n, batch_size)]
 
 
-def _efat_against_reference(monkeypatch, chips, fleet_seed, pretrain_steps, eval_batches, baselines, **kw):
+def _efat_against_reference(monkeypatch, chips, fleet_seed, pretrain_steps, eval_batches, baselines,
+                            trainer_kw=None, **kw):
     """``EFAT.run`` (and with ``baselines`` the three baselines) in both
     packages on one correlated fleet, the port's data and initial params
     the reference's: equal tables and plans, chip metrics within
@@ -394,7 +448,8 @@ def _efat_against_reference(monkeypatch, chips, fleet_seed, pretrain_steps, eval
     monkeypatch.setattr(T, "make_classification_task", lambda cfg, seed=0, device=None: _RefData(jtr.data))
     monkeypatch.setattr(T, "init_classifier", lambda cfg, seed, in_dim, device=None: classifier_params_from_jax(
         jax.tree.map(np.asarray, jax_init_classifier(JCFG, jax.random.PRNGKey(seed), in_dim)), device=device))
-    tr = T.ClassifierFATTrainer(CFG, pretrain_steps=pretrain_steps, eval_batches=eval_batches, device="cpu")
+    tr = T.ClassifierFATTrainer(CFG, pretrain_steps=pretrain_steps, eval_batches=eval_batches, device="cpu",
+                                **(trainer_kw or {}))
     assert tr.baseline_accuracy == pytest.approx(jtr.baseline_accuracy, abs=METRIC_TOL)
     kw["constraint"] = jtr.baseline_accuracy - 0.03
     fleet = correlated_family(fleet_seed, chips, 32, 32, base_rate=0.07, idio_rate=0.025, chip_prefix="chip")
@@ -423,10 +478,35 @@ def _efat_against_reference(monkeypatch, chips, fleet_seed, pretrain_steps, eval
     return results
 
 
-def test_reduced_efat_run_matches_reference(monkeypatch):
-    """8 chips, repeats 2, max_steps 60, pretraining 60 steps."""
+TRAINERS = {"population": {}, "sharded-2x2": dict(engine="sharded", engine_kwargs=dict(
+    mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4)))}
+
+
+@pytest.mark.parametrize("trainer", list(TRAINERS))
+def test_reduced_efat_run_matches_reference(monkeypatch, trainer):
+    """8 chips, repeats 2, max_steps 60, pretraining 60 steps; the port's
+    trainer on the vmap engine and on the sharded one (2 x 2 mesh, the
+    trainer's param axes and config threaded in), the reference's on its
+    vmap engine."""
     _efat_against_reference(monkeypatch, chips=8, fleet_seed=1, pretrain_steps=60, eval_batches=2,
-                            baselines=False, repeats=2, max_steps=60, max_fr=0.3, m_comparisons=4)
+                            baselines=False, trainer_kw=TRAINERS[trainer], repeats=2, max_steps=60,
+                            max_fr=0.3, m_comparisons=4)
+
+
+def test_sharded_trainer_resilience_table_matches_reference(monkeypatch, ref):
+    """``measure_resilience`` at tests/test_fleet.py's rates, repeats and
+    step limit: the sharded trainer's table (pop mesh of 4) equals the
+    reference's vmap trainer's, and its scheduler tiles the mesh."""
+    jtr = ref[0]
+    monkeypatch.setattr(T, "make_classification_task", lambda cfg, seed=0, device=None: _RefData(jtr.data))
+    tr = T.ClassifierFATTrainer(CFG, pretrain_steps=0, eval_batches=2, device="cpu", engine="sharded",
+                                engine_kwargs=dict(mesh=make_pop_mesh(devices=["cpu"] * 4)))
+    assert tr.scheduler.width_multiple == tr.engine.num_shards == 4
+    tr.base_params = classifier_params_from_jax(jax.tree.map(np.asarray, jtr.base_params), device="cpu")
+    kw = dict(array_shape=(32, 32), repeats=2, max_steps=100, seed=5)
+    got = R.measure_resilience(tr, [0.06, 0.14, 0.2], ref[1], **kw)
+    want = JR.measure_resilience(jtr, [0.06, 0.14, 0.2], ref[1], **kw)
+    assert got.to_json() == want.to_json()
 
 
 def test_fleet_retraining_example_matches_reference(monkeypatch):

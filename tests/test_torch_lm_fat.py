@@ -44,7 +44,9 @@ from repro_torch.core import (
 )
 from repro_torch.core import resilience as R
 from repro_torch.kernels.common import dtype_tol
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.train import fat_trainer as T
+from repro_torch.train.population import evaluate_metric
 
 JCFG = jax_reduce_config(jax_get_arch("smollm-135m"))
 CFG = reduce_config(get_arch("smollm-135m"))
@@ -111,12 +113,18 @@ def ref(fleet):
     return tr, constraint, steps, table, fitted, metrics
 
 
-@pytest.fixture(scope="module", params=["population", "serial"])
+# the sharded engine on a 2 x 2 mesh over the CPU repeated: 2 pop slices,
+# each member's state stored split over 2 model positions by param_specs(cfg)
+ENGINES = {"population": {}, "serial": {},
+           "sharded": dict(engine_kwargs=dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4)))}
+
+
+@pytest.fixture(scope="module", params=list(ENGINES))
 def port(request):
     mp = pytest.MonkeyPatch()
     mp.setattr(T, "TokenStream", _RefStream)
     mp.setattr(T, "init_params", _ref_init)
-    tr = T.LMFATTrainer(CFG, engine=request.param, device="cpu", **TRAINER_KW)
+    tr = T.LMFATTrainer(CFG, engine=request.param, device="cpu", **TRAINER_KW, **ENGINES[request.param])
     mp.undo()
     return tr
 
@@ -159,9 +167,17 @@ def test_train_and_evaluate_batch_match_reference(ref, port, fleet):
             assert torch.equal(g[k], masked_weight(g[k], ok))  # FAP-exact
     metrics = port.evaluate_batch(got, fleet[:3])
     assert metrics == pytest.approx(want_metrics, abs=METRIC_TOL)
-    # the deployment check: one chip at a time through the masked GEMM (its
-    # plain version on the host) gives the fap metrics
+    # the deployment check: the chips through the masked GEMM (its plain
+    # version on the host, under the engine's vmap) give the fap metrics,
+    # and so does one chip at a time
     assert port.evaluate_batch(got, fleet[:3], mode="kernel") == pytest.approx(metrics, abs=1e-6)
+    kctxs = [from_fault_map(fm, "kernel", device="cpu") for fm in fleet[:3]]
+    assert [evaluate_metric(port.engine, p, c) for p, c in zip(got, kctxs)] == pytest.approx(metrics, abs=1e-6)
+    if port.engine.kind == "sharded":
+        # embed, the MLP and every leaf the rules split are stored two ways
+        stats = port.engine.last_fit_stats
+        assert stats["pop_extent"] == 2 and stats["model_extent"] == 2
+        assert stats["per_member_resident_bytes"] < stats["per_member_total_bytes"]
 
 
 def test_kernel_mode_fit_off_the_cpu_raises(port, fleet):
