@@ -124,7 +124,10 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     within 1/2048 of the serial check's, and 4 layers x 4 eval batches x 7
     chunks = 112 ``v1`` launches, every one chip-batched; the chip-batched
     ``v1`` at the shapes it gives (16 chips, M = 512) against its plain
-    version at ``dtype_tol(float32)``;
+    version at ``dtype_tol(float32)``; then the kernel-mode evaluation
+    alone, timed in turns (3 rounds, median): the 1,600 single-chip
+    forwards with no host read, ``evaluate_metric`` a chip, and
+    ``evaluate_batch``;
 12. LM fault-aware training on the card (``lm_phase``): SmolLM-135M at
     full width, batch 8 x 64, on ``random_fault_map(0, 256, 256, 0.1)``.
     (a) the training CLI (``repro_torch.launch.train.main``) in process: 40
@@ -459,6 +462,7 @@ EFAT_PIN_BUDGETS = [25, 40, 10]
 EFAT_METRIC_TOL = 2e-3
 EFAT_TIMED_STEPS = 50  # steps a timed fit takes
 EFAT_TIMED_FITS = 5  # timed fits each of population and serial; median and spread
+EFAT_EVAL_TIMING_ROUNDS = 3  # the kernel-mode evaluation loops, timed in turns
 # the sharded engine against the vmap pin trainer: tests/test_fleet.py's resilience cell
 EFAT_SHARDED_RATES = (0.06, 0.14, 0.2)
 EFAT_SHARDED_TABLE = dict(array_shape=(32, 32), repeats=2, max_steps=100, seed=5)
@@ -487,6 +491,7 @@ def efat_phase(torch, log):
     from repro_torch.launch.mesh import make_fleet_mesh, make_pop_mesh
     from repro_torch.models.classifier import classifier_forward
     from repro_torch.train.fat_trainer import ClassifierFATTrainer
+    from repro_torch.train.population import evaluate_metric
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch("paper-mlp")
@@ -664,6 +669,41 @@ def efat_phase(torch, log):
                      f"{bat['launches']}; want {want_batched} chip-batched")
     if not bat["parity_within"]:
         raise Failed(f"efat chip-batched v1 off its plain version by {bat['parity_err']:.3g}")
+
+    # -- the same kernel-mode evaluation alone, one chip at a time and chip-batched ---
+    # Timed in turns, launches not counted. The serial check above also runs
+    # fap and reads the host four times a batch; deploy_batched also holds
+    # the kernel to its plain version. Here each loop does only its own job:
+    # "serial forwards" the 1,600 single-chip forwards with no host read,
+    # "serial metric" evaluate_metric a chip (one host read a batch), and
+    # "chip-batched" evaluate_batch alone.
+    def serial_forwards():
+        for chip, params in zip(order, shipped):
+            ctx = from_fault_map(fleet[chip], "kernel", device=trainer.device)
+            for b in trainer._evals:
+                classifier_forward(params, b["x"], cfg, ctx)
+
+    def serial_metric():
+        for chip, params in zip(order, shipped):
+            evaluate_metric(trainer.engine, params, from_fault_map(fleet[chip], "kernel", device=trainer.device))
+
+    def chip_batched():
+        trainer.evaluate_batch(shipped, [fleet[c] for c in order], mode="kernel")
+
+    loops = dict(serial_forwards=serial_forwards, serial_metric=serial_metric, chip_batched=chip_batched)
+    secs = {name: [] for name in loops}
+    for _ in range(EFAT_EVAL_TIMING_ROUNDS):
+        for name, fn in loops.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+    report["deploy_timing"] = {name: statistics.median(s) for name, s in secs.items()}
+    report["deploy_timing_rounds"] = secs
+    log(f"efat deployment alone, median of {EFAT_EVAL_TIMING_ROUNDS} rounds in turns: " + ", ".join(
+        f"{name} {t:.4f} s (min {min(secs[name]):.4f} max {max(secs[name]):.4f})"
+        for name, t in report["deploy_timing"].items()))
 
     # -- gate 4: the pipeline's invariant -------------------------------------
     e_steps, i_steps = results["eFAT"].plan.total_steps, results["individual"].plan.total_steps

@@ -16,8 +16,8 @@ memory, hence the names.
 The port's copy of the reference's ``fleet/capacity.py``. The extents come
 from a fleet mesh (``repro_torch.launch.mesh``): its "pop" axis is the
 number of pop slices the population spreads over, and its other axes the
-model positions each member's state is split over. Without a mesh,
-``pop_extent`` and ``model_extent`` give them (default: one lane).
+model positions each member's state is split over. Without a mesh the
+population is one lane on one device.
 """
 from __future__ import annotations
 
@@ -68,8 +68,6 @@ def suggest_population_size(
     *,
     device=None,
     hbm_bytes: Optional[int] = None,
-    pop_extent: Optional[int] = None,
-    model_extent: Optional[int] = None,
     headroom: float = 0.6,
     bytes_per_param: int = _DEFAULT_BYTES_PER_PARAM,
     max_members_per_lane: int = 64,
@@ -87,9 +85,6 @@ def suggest_population_size(
         first device, else the card); ignored when ``hbm_bytes`` is given.
     hbm_bytes : per-device memory budget; default: the device's total memory
         (``torch.cuda.mem_get_info``). Required on the CPU.
-    pop_extent, model_extent : without a mesh, the number of pop slices and
-        the number of devices each member's state is split over (default 1
-        and 1); with one, they are read from it.
     headroom : fraction of ``hbm_bytes`` the member state may use; the rest
         is activations and gradients for the in-flight update.
     bytes_per_param : resident optimizer+param bytes per parameter per
@@ -100,27 +95,22 @@ def suggest_population_size(
     tuning_cache : explicit ``TuningCache`` for the reserve; None reads the
         process-global cache. Ignored unless ``reserve_kernel_smem=True``.
 
-    Returns a positive multiple of ``pop_extent``. Raises ValueError when
-    even ONE member per lane exceeds the budget.
+    Returns a positive multiple of the mesh's pop extent. Raises ValueError
+    when even ONE member per lane exceeds the budget.
     """
+    pop_extent = model_extent = 1
     if mesh is not None:
-        if pop_extent is not None or model_extent is not None:
-            raise ValueError("pass the extents by mesh or by pop_extent / model_extent, not both")
         sizes = dict(mesh.shape)
         pop_extent = int(sizes.pop("pop", 1))
         model_extent = int(math.prod(sizes.values()))
         if device is None:
             device = mesh.devices.flat[0]
-    pop_extent = 1 if pop_extent is None else pop_extent
-    model_extent = 1 if model_extent is None else model_extent
     if hbm_bytes is None:
         hbm_bytes = device_memory_bytes(device)
     if hbm_bytes <= 0:
         raise ValueError(f"hbm_bytes must be positive, got {hbm_bytes}")
     if not 0.0 < headroom <= 1.0:
         raise ValueError(f"headroom must be in (0, 1], got {headroom}")
-    if pop_extent < 1 or model_extent < 1:
-        raise ValueError(f"extents must be >= 1, got pop {pop_extent}, model {model_extent}")
     if reserve_kernel_smem:
         reserve = kernel_smem_reserve(tuning_cache)
         if reserve >= hbm_bytes:

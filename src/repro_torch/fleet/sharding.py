@@ -29,10 +29,13 @@ Design invariants, the reference's (``src/repro/fleet/sharding.py``):
   is padded to a multiple of the pop extent and split contiguously: pop
   slice d takes members ``[d*k, (d+1)*k)``. Padding members are zero-budget
   (fit) or duplicates (probe, evaluation) and are sliced off the results.
-* **Per-slice early exit, in lockstep.** Each step issues every live
-  slice's update before any host read, so slices on several cards overlap;
-  a slice whose fit budget is spent, or whose members have all crossed the
-  constraint, is no longer issued. (On one card the slices run in turn.)
+* **Per-slice early exit, in lockstep.** Each round advances every live
+  slice by one step (an eval period in a probe). A slice's only host read,
+  the probe's "has every member crossed?", waits on its own previous
+  period, which every live slice issued in the round before; so slices on
+  several cards overlap. A slice whose fit budget is spent, or whose
+  members have all crossed the constraint, is no longer issued. (On one
+  card the slices run in turn.)
 * **Moves.** Masks and ``params0`` move to a slice's device once per chunk,
   each batch once per step; a device repeated in the mesh moves nothing.
 
@@ -179,7 +182,8 @@ class ShardedPopulationEngine(PopulationFATEngine):
 
     def _lockstep(self, start):
         """``start(view, d)`` makes pop slice d's run body; every live one is
-        advanced a step in turn until all have returned."""
+        advanced a step in turn until all have returned. A run body's host
+        read comes first in its step and reads only its own previous step."""
         views = [self._slice(d) for d in range(self.num_shards)]
         runs = {}
         for d, view in enumerate(views):

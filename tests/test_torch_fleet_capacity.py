@@ -2,7 +2,8 @@
 reference package.
 
 ``suggest_population_size`` at the same explicit budget (one device, model
-extent 1) gives the reference's size; on the CPU without a budget it raises
+extent 1) gives the reference's size, and four times it on a pop mesh of 4;
+on the CPU without a budget it raises
 (the port assumes no device size); the kernel reserve sums the tuning
 cache's largest recorded shared-memory footprint per kernel, where the
 reference sums VMEM. The CLI's ``--check``, ``--summary`` and ``--convert``
@@ -22,6 +23,7 @@ from repro.tune.cache import cache_key as jax_cache_key
 from repro_torch.configs import get_arch
 from repro_torch.fleet import suggest_population_size
 from repro_torch.fleet.capacity import device_memory_bytes, kernel_smem_reserve
+from repro_torch.launch.mesh import make_pop_mesh
 from repro_torch.launch.obs import main as obs_main
 from repro_torch.obs import AlertEngine, AlertRule, Recorder, write_jsonl
 from repro_torch.tune.cache import TuningCache, cache_key
@@ -43,7 +45,7 @@ def test_suggest_population_size_matches_reference(arch, budget, headroom):
             suggest_population_size(cfg, **kw)
         return
     assert suggest_population_size(cfg, **kw) == want
-    assert suggest_population_size(cfg, pop_extent=4, **kw) == 4 * want
+    assert suggest_population_size(cfg, make_pop_mesh(devices=["cpu"] * 4), **kw) == 4 * want
 
 
 def test_suggest_population_size_validates_like_the_reference():

@@ -391,7 +391,5 @@ def test_suggest_population_size_on_a_mesh_validates_like_the_reference():
             fn()
     with pytest.raises(ValueError, match="headroom"):
         suggest_population_size(MLP, mesh_2d, hbm_bytes=budget, headroom=0.0)
-    with pytest.raises(ValueError, match="not both"):
-        suggest_population_size(MLP, mesh_2d, hbm_bytes=budget, pop_extent=4)
     with pytest.raises(ValueError, match="no device memory figure"):
         suggest_population_size(MLP, mesh_2d)  # the CPU mesh's device has none
