@@ -77,7 +77,24 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    rejected candidates with their codes, and the recorder's span count.
    With the tuned table as the process cache, ``decode_attention`` called
    with no bkv must launch the tuned tile and still match the plain
-   version. The table is saved to ``build/tune_decode_attention.json``;
+   version. The table is saved to ``build/tune_decode_attention.json``.
+   Then ``tune_spaces``: from an empty cache, the other three kernels'
+   spaces at ``TUNE_CELLS`` (the masked GEMM's K slices at SmolLM's and
+   falcon-mamba's decode GEMMs and SmolLM's long-prefill ones in bf16 on
+   the fp32 master, and ``v1`` at M = 4 and 512; flash's tile at SmolLM's,
+   qwen3's and hubert's heads in bf16 and float32; the scan's lanes at
+   falcon-mamba's and hymba's prefills), each printed as the decode cells
+   are, the roofline fraction at the dtype's peak and the shared memory
+   with them. With that table installed, each wrapper called with no
+   blocks must launch the tuned blocks (its ``last_splits``,
+   ``last_blocks`` or ``last_plan``) and match its plain version at
+   ``dtype_tol``. The whole table goes to ``build/tune_table.json``; the
+   committed ``default_cache.json`` is built from two runs' tables
+   (``tools/default_table.py``). Last, ``lint_kernels`` over
+   ``kernel_launches(cfg)`` of every registered configuration must find
+   nothing. Phases 3-5 run with an empty cache installed (they time the
+   heuristics); every other phase runs the committed table, which the
+   process cache loads by default, as a user's run does;
 6. serve SmolLM-135M at full published width (random weights, seed 0) on a
    256x256 array with 10% of its PEs faulty, through ``ServeEngine`` in
    ``kernel`` mode: 4 prompts of 128 tokens, 32 greedy new tokens, in bf16
@@ -388,6 +405,23 @@ DECODE_CELLS = [
 ]
 DECODE_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-2)}  # dtype_tol; the flash rule
 PAGED_SLOTS = 32
+# phase 5's cells of the other three kernels, at full width: (kernel, shape, dtype). The masked
+# GEMM: SmolLM-135M's decode GEMMs (M = 4), falcon-mamba-7b's widest two, SmolLM's long-prefill
+# MLP GEMMs (M = 8192), in bf16 on the fp32 master as kernel mode runs them; float32 v1 at SmolLM's
+# decode and at the one-wave M = 512 row. Flash: SmolLM's 4 x 9/3 x 2048^2 and qwen3-0.6b's 16/8 at
+# D = 128, causal, hubert-xlarge's 16/16 x 1024^2 at D = 80, not causal; in float32 at D = 64 and 80.
+# The scan: falcon-mamba's serving prefill and hymba's long prefill.
+TUNE_CELLS = (
+    [("masked_matmul", dict(m=4, k=k, n=n, r=256, c=256), "bfloat16")
+     for k, n in ((576, 576), (576, 192), (576, 1536), (1536, 576), (4096, 16384), (8192, 4096))]
+    + [("masked_matmul", dict(m=8192, k=k, n=n, r=256, c=256), "bfloat16") for k, n in ((576, 1536), (1536, 576))]
+    + [("masked_matmul", dict(m=m, k=576, n=n, r=256, c=256), "float32") for m, n in ((4, 1536), (512, 192))]
+    + [("flash_attention", dict(b=4, hq=hq, hkv=hkv, sq=s, skv=s, d=d, causal=c), dtype)
+       for dtype, cells in (("bfloat16", ((9, 3, LONG, 64, 1), (16, 8, LONG, 128, 1), (16, 16, 1024, 80, 0))),
+                            ("float32", ((9, 3, LONG, 64, 1), (16, 16, 1024, 80, 0))))
+       for hq, hkv, s, d, c in cells]
+    + [("mamba_scan", dict(b=4, l=length, d=d, n=16), "bfloat16") for length, d in ((128, 8192), (LONG, 3200))]
+)
 
 
 def log(*a):
@@ -2640,6 +2674,104 @@ def zoo_phase(torch, log):
     return report
 
 
+def tune_spaces(torch, log, table, rec, dev):
+    """Phase 5's cells of the masked GEMM, flash attention and the scan
+    (``TUNE_CELLS``), tuned on ``dev`` from an empty cache into ``table``;
+    then, with ``table`` installed as the process cache, each wrapper called
+    with no blocks must launch the tuned blocks and match its plain version
+    at ``dtype_tol``. Leaves ``table`` installed, saves it to
+    ``build/tune_table.json`` and returns the rows, the tuner's launches by
+    kernel variant and the worst errors; raises ``Failed`` on a missed gate."""
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
+    from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+    from repro_torch.core import from_fault_map, random_fault_map
+    from repro_torch.tune import TuningCache, set_tuning_cache, tune_many
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ok = from_fault_map(random_fault_map(0, 256, 256, 0.1), "kernel", device=dev).ok
+    t0 = time.perf_counter()
+    set_tuning_cache(TuningCache(source="<chip_smoke: heuristic>"))
+    space_launches = dict(variant_counts(), selective_scan=selective_scan.launches)
+    space_results = []
+    for kernel, shape, dname in TUNE_CELLS:
+        res, table = tune_many([(kernel, shape)], cache=table, dtype=getattr(torch, dname), device=dev, recorder=rec)
+        space_results += res
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    space_tune_s = time.perf_counter() - t0
+    space_launches = {k: n - space_launches[k]
+                      for k, n in dict(variant_counts(), selective_scan=selective_scan.launches).items()
+                      if not k.endswith(".experts")}
+    if dev.type == "cuda" and not all(space_launches[k] for k in (
+            "masked_matmul.decode", "masked_matmul.mma", "masked_matmul.v1", "flash_attention.mma",
+            "flash_attention.v1", "selective_scan")):
+        raise Failed(f"tuner: a space left a kernel unlaunched: {space_launches}")
+    rows = []
+    for r in space_results:
+        rows.append(dict(key=r.key, heuristic=r.heuristic_blocks, heuristic_us=r.heuristic_s * 1e6,
+                         tuned=r.best_blocks, tuned_us=r.best_s * 1e6, speedup=r.speedup,
+                         roofline_fraction=r.roofline_fraction, smem_bytes=r.smem_bytes, evaluated=r.evaluated,
+                         rejected=r.rejected_configs))
+        log(f"tune {r.key}: heuristic {r.heuristic_blocks} {r.heuristic_s * 1e6:.2f} us, tuned {r.best_blocks} "
+            f"{r.best_s * 1e6:.2f} us (x{r.speedup:.3f}; H100 roofline fraction at the {r.dtype} peak "
+            f"{r.roofline_fraction:.4f}; {r.smem_bytes} B shared memory); evaluated {r.evaluated}, rejected "
+            f"{r.rejected} {[(tuple(x['blocks'].values()), x['codes']) for x in r.rejected_configs]}")
+
+    def tuned_case(kernel, shape, dtype):
+        """(kernel call with no blocks, its plain version, the launch's blocks) on seeded inputs."""
+        if kernel == "masked_matmul":
+            x = torch.randn(shape["m"], shape["k"], generator=gen, device=dev).to(dtype)
+            w = torch.randn(shape["k"], shape["n"], generator=gen, device=dev) / shape["k"] ** 0.5  # fp32 master
+            return (lambda: masked_matmul(x, w, ok), lambda: masked_matmul_ref(x, w, ok),
+                    lambda: dict(splits=masked_matmul.last_splits))
+        if kernel == "flash_attention":
+            q = torch.randn(shape["b"], shape["hq"], shape["sq"], shape["d"], generator=gen, device=dev).to(dtype)
+            k_, v_ = (torch.randn(shape["b"], shape["hkv"], shape["skv"], shape["d"], generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+            causal = bool(shape["causal"])
+            return (lambda: flash_attention(q, k_, v_, causal=causal),
+                    lambda: attention_ref(q, k_, v_, causal=causal), lambda: dict(flash_attention.last_blocks))
+        b, length, d, n = (shape[f] for f in ("b", "l", "d", "n"))
+        args_ = (torch.randn(b, length, d, generator=gen, device=dev).to(dtype),
+                 torch.nn.functional.softplus(torch.randn(b, length, d, generator=gen, device=dev)),
+                 -torch.exp(torch.randn(d, n, generator=gen, device=dev)),
+                 torch.randn(b, length, n, generator=gen, device=dev).to(dtype),
+                 torch.randn(b, length, n, generator=gen, device=dev).to(dtype),
+                 torch.randn(d, generator=gen, device=dev))
+        return (lambda: selective_scan(*args_), lambda: selective_scan_ref(*args_),
+                lambda: dict(lanes=selective_scan.last_plan.lanes))
+
+    set_tuning_cache(table)
+    space_err = {}
+    for (kernel, shape, dname), r, row in zip(TUNE_CELLS, space_results, rows):
+        dtype = getattr(torch, dname)
+        run_kernel, run_plain, launched = tuned_case(kernel, shape, dtype)
+        got, ref = run_kernel(), run_plain()
+        row["launched"] = got_blocks = launched()
+        if kernel == "mamba_scan":  # y in u's dtype, h_last in fp32
+            err, good = worst(got[0], ref[0], dtype_tol(dtype))
+            h_err, h_good = worst(got[1], ref[1], SCAN_F32_TOL)
+            err, good = max(err, h_err), good and h_good
+        else:
+            err, good = worst(got, ref, dtype_tol(dtype))
+        row["max_abs_err"] = err
+        space_err[kernel] = max(space_err.get(kernel, 0.0), err)
+        if got_blocks != r.best_blocks or not good:
+            raise Failed(f"tuned {r.key}: launched {got_blocks}, table {r.best_blocks}, err {err} "
+                         f"(rtol, atol {dtype_tol(dtype)})")
+        log(f"tuned table in use, {r.key}: launched {got_blocks} with no blocks given, err<= {err:.3g} "
+            f"(rtol, atol {dtype_tol(dtype)})")
+        del got, ref, run_kernel, run_plain
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    table.save(str(OUT_DIR / "tune_table.json"))
+    log(f"tuner over the masked GEMM, flash and the scan: {len(space_results)} cells tuned in {space_tune_s:.2f} "
+        f"s, launches by kernel {space_launches}; with the tuned table's check {time.perf_counter() - t0:.2f} s; "
+        f"the whole table ({len(table)} entries) saved to build/tune_table.json")
+    return dict(rows=rows, launches=space_launches, max_abs_err=space_err, seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2660,8 +2792,9 @@ def main(argv=None) -> int:
 
 
 def run(args, torch) -> int:
+    from repro_torch.analysis import kernel_launches, lint_kernels
     from repro_torch.analysis.kernelgeom import decode_attention_launch
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, list_archs
     from repro_torch.core import from_fault_map, random_fault_map
     from repro_torch.kernels.common import build_kernels, dtype_tol
     from repro_torch.kernels.decode_attention import ops as da
@@ -2688,7 +2821,10 @@ def run(args, torch) -> int:
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
     logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan", "decode_attention"])
-    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}")
+    # kernel instances a source builds: the entry functions ptxas compiles
+    instances = {name: text.count("Compiling entry function") for name, text in logs.items()}
+    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}; by source, nvcc's wall (s) and "
+        "kernel instances: " + ", ".join(f"{n} {build_kernels.seconds[n]:.2f} ({instances[n]})" for n in sorted(logs)))
     for name, text in logs.items():  # ptxas's registers and spills, by kernel instance
         fn = ""
         for line in text.splitlines():
@@ -3216,9 +3352,26 @@ def run(args, torch) -> int:
         log(f"tuned table in use, {label} {dname}: launched bkv {want} ({da.decode_attention.last_splits} "
             f"splits), err<= {err:.3g}"
             + (f"; kernel {row['tuned_ms']:.4f} ms (heuristic {row['ms']:.4f} ms)" if row else ""))
-    set_tuning_cache(prev_cache)
     del da_inputs
     torch.cuda.empty_cache()
+
+    # the other three kernels' spaces, from an empty cache: tune, then install the table and check
+    # that each wrapper called with no blocks launches the tuned ones and matches its plain version
+    space = tune_spaces(torch, log, table, rec, dev)
+    tune_report += space["rows"]
+    space_launches, space_err = space["launches"], space["max_abs_err"]
+    set_tuning_cache(prev_cache)
+    torch.cuda.empty_cache()
+
+    # the geometry lint over every registered configuration's launches, at the heuristics
+    lint_stats = {}
+    for arch in list_archs(include_paper=True):
+        findings, stats = lint_kernels(kernel_launches(get_arch(arch)))
+        if findings:
+            raise Failed(f"kernel geometry lint, {arch}: {[(f.code, f.entry_point, f.message) for f in findings]}")
+        lint_stats[arch] = stats
+    log(f"kernel geometry lint: {len(lint_stats)} configurations x {len(next(iter(lint_stats.values())))} "
+        "launches, no findings")
 
     # ---- serving: shared by phases 6-10 and 15 -----------------------------
     reset = reset_launches
@@ -3682,6 +3835,9 @@ def run(args, torch) -> int:
              ms=pg["ms"], plain_ms=pg["plain_ms"], bound_ms=pg["bound_ms"],
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
     ]
+    for k in kernels:  # the tuner's launches (phase 5's spaces), by kernel variant
+        if k["name"] in space_launches:
+            k["launches_tune"] = space_launches[k["name"]]
     for k in kernels:
         if not k["launches"] or 0 in (k.get("launches_continuous"), k.get("launches_fleet"), k.get("launches_zoo"),
                                       k.get("launches_pop_eval")):
@@ -3699,6 +3855,7 @@ def run(args, torch) -> int:
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
+        tune_max_abs_err=space_err, lint=lint_stats,
         long_prefill=long_report, efat=efat_report, lm_fat=lm_report, continuous=cont_report, fleet=fleet_report,
         zoo=zoo_report,
         seconds=time.perf_counter() - t_start,

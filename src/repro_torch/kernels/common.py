@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Any, Iterable, Mapping, Optional
+from typing import Any, Callable, Iterable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -104,22 +105,33 @@ def _lib_path(name: str) -> Path:
 def build_kernels(names: Iterable[str]) -> dict[str, str]:
     """Compile every named kernel that is not built yet, one ``nvcc`` per
     source, all started together. Returns each new build's compiler log
-    (ptxas register and shared-memory report); raises on a failed build."""
+    (ptxas register and shared-memory report); raises on a failed build.
+    ``build_kernels.seconds`` holds each new build's wall seconds."""
     todo = {n: _lib_path(n) for n in names}
     todo = {n: p for n, p in todo.items() if not p.exists()}
+    build_kernels.seconds = {}
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    start = time.perf_counter()
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        log = open(path.with_suffix(f".{os.getpid()}.log"), "w+b")  # a file: a full pipe would stall nvcc
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    while len(build_kernels.seconds) < len(procs):
+        for name, (proc, _, _) in procs.items():
+            if name not in build_kernels.seconds and proc.poll() is not None:
+                build_kernels.seconds[name] = time.perf_counter() - start
+        time.sleep(0.05)
     logs, failed = {}, []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out.decode(errors="replace")
+    for name, (proc, tmp, log) in procs.items():
+        with log:
+            log.seek(0)
+            logs[name] = log.read().decode(errors="replace")
+        os.remove(log.name)
         if proc.returncode != 0:
             failed.append(name)
         else:
@@ -129,6 +141,9 @@ def build_kernels(names: Iterable[str]) -> dict[str, str]:
             "nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(logs[n] for n in failed)
         )
     return logs
+
+
+build_kernels.seconds = {}
 
 
 def load_kernel(name: str, argtypes: list, source: Optional[str] = None) -> ctypes._CFuncPtr:
@@ -216,9 +231,9 @@ def tuned_block(
     dtype: Any,
     *,
     device: Any,
-    defaults: Mapping[str, int],
+    defaults: Union[Mapping[str, Optional[int]], Callable[[], Mapping[str, Optional[int]]]],
     overrides: Optional[Mapping[str, Optional[int]]] = None,
-) -> dict[str, int]:
+) -> dict[str, Optional[int]]:
     """The seam between the ``ops.py`` wrappers and the tuning cache.
 
     Resolution order, per block parameter:
@@ -226,18 +241,32 @@ def tuned_block(
     1. an explicit caller value (an ``overrides`` entry that is not None);
     2. the process-wide tuning cache (:mod:`repro_torch.tune.cache`) under
        the ``(kernel, shape, dtype, backend)`` key;
-    3. the wrapper's heuristic ``defaults``, so an empty cache changes
-       nothing.
-    """
-    from repro_torch.tune.cache import get_tuning_cache  # cycle-free at call time
+    3. the wrapper's heuristic ``defaults`` (a mapping, or a function that
+       returns one, called only on a miss), so an empty cache changes
+       nothing. A default of None leaves the choice to the wrapper's plan.
 
-    blocks = {k: int(v) for k, v in defaults.items()}
-    hit = get_tuning_cache().lookup_blocks(kernel, shape, dtype_name(dtype), backend_tag(device))
-    if hit:
-        for k in blocks:
-            if k in hit:
-                blocks[k] = int(hit[k])
-    if overrides:
+    Steps 2 and 3 are memoized per ``(kernel, shape, dtype, backend)``: the
+    wrappers call this on every launch (a decode step of SmolLM-135M makes
+    211 masked-GEMM calls), so a call after the first is one dict lookup.
+    The memo is dropped whenever the process table is replaced or an entry
+    is put into it (``repro_torch.tune.cache``). A wrapper's defaults must
+    therefore depend on the key alone (and the card's SM count)."""
+    from repro_torch.tune import cache as tc  # cycle-free at call time
+
+    key = (kernel, tuple(shape.items()), dtype, device.type if isinstance(device, torch.device) else
+           torch.device(device).type)
+    blocks = tc.SEAM_MEMO.get(key)
+    if blocks is None:
+        blocks = dict(defaults() if callable(defaults) else defaults)
+        blocks = {k: None if v is None else int(v) for k, v in blocks.items()}
+        hit = tc.get_tuning_cache().lookup_blocks(kernel, shape, dtype_name(dtype), backend_tag(key[3]))
+        if hit:
+            for k in blocks:
+                if k in hit:
+                    blocks[k] = int(hit[k])
+        tc.SEAM_MEMO[key] = blocks
+    if overrides and any(v is not None for v in overrides.values()):
+        blocks = dict(blocks)
         for k, v in overrides.items():
             if v is not None:
                 blocks[k] = int(v)

@@ -50,6 +50,24 @@
 // 85 KiB at 128, v1 102 and 182 KiB), its limit raised at each launch that needs more than 48 KiB
 // (per launch, not once per instance: the attribute belongs to the current device). Left for
 // later work: wgmma and TMA, with a producer warp keeping the ring full.
+//
+// Tiles. Both kernels take the q tile BQ and the kv tile BKV as template parameters, and each is
+// built at four (BQ, BKV) instances, chosen from the kernel's structure; the autotuner
+// (repro_torch.tune, space "flash_attention") picks among them per shape, and (64, 64), the
+// heuristic, keeps the code the kernels had with fixed tiles:
+// - mma: a warp owns 16 query rows, so BQ = 16 x warps: 64 is 4 warps (128 threads), 128 is 8
+//   warps (256 threads), which reuses each K/V tile for twice the rows (half the K/V traffic
+//   through shared memory a row) at twice the causal tiles' diagonal waste. BKV sets the n
+//   fragments of S a warp holds, BKV / 8: 32 keys are 4 fragments (fewer registers, more
+//   barriers a row), 64 are 8, 128 are 16 (half the barriers and ring refills, 32 more registers
+//   a thread). Instances (64, 64), (128, 64), (64, 32), (64, 128): at most 153 KiB, (64, 128) at
+//   D = 128.
+// - v1: 256 threads as 16 x 16, thread (tx, ty) owning rows ty x BQ / 16 + i and keys tx + 16 j,
+//   so BQ / 16 rows and BKV / 16 keys a thread: BQ = 128 gives each thread 8 rows (each K float4
+//   read from shared memory feeds twice the FMAs), BKV = 32 or 128 gives it 2 or 8 keys. Shared
+//   memory is 4 ((BQ + 4 BKV)(D + 4) + BQ (BKV + 4)) bytes, so (128, 64) fits only up to D = 96 and
+//   (64, 128) up to D = 80: the over-limit instances are not built (the lint's KRN002 refuses
+//   them first). In bf16, v1 is a timing variant only and is built at (64, 64) alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,14 +85,15 @@ struct Strides {
 // mma: bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 64;      // query rows per block, 16 per warp
-constexpr int F_BKV = 64;     // keys per kv tile
-constexpr int F_THREADS = 128;
+// BQ query rows per block, 16 per warp; BKV keys per kv tile
+template <int BQ> __host__ __device__ constexpr int f_threads() { return 2 * BQ; }
 // A padded shared-memory row of head dim D: D + 8 bf16, an odd number of 16-byte units (144 bytes at
 // D = 64, 272 at 128), so the eight rows an ldmatrix reads fall in eight different bank groups.
 template <int D> __host__ __device__ constexpr int f_ld() { return D + 8; }
-// Q, then the two-stage K and V rings: 46,080 bytes at D = 64, 87,040 at D = 128
-template <int D> __host__ __device__ constexpr int f_smem() { return (F_BQ + 4 * F_BKV) * f_ld<D>() * 2; }
+// Q, then the two-stage K and V rings: 46,080 bytes at D = 64, 87,040 at D = 128 for (64, 64)
+template <int D, int BQ, int BKV> __host__ __device__ constexpr int f_smem() {
+  return (BQ + 4 * BKV) * f_ld<D>() * 2;
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -105,14 +124,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
+template <int D, int F_BQ, int F_BKV>
+__global__ void __launch_bounds__(f_threads<F_BQ>())
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
                  int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
                  int causal, int window, int q_offset) {
   constexpr int F_LD = f_ld<D>();
   constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int F_THREADS = f_threads<F_BQ>();
+  constexpr int KV_CHUNKS = F_BKV * CH;  // of a K (or V) tile
+  constexpr int NB = F_BKV / 8;           // n fragments of S: blocks of 8 keys
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   auto Ks = [&](int stage) { return Qs + (F_BQ + stage * F_BKV) * F_LD; };
@@ -141,12 +163,15 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int w_lo = lo + warp * 16, w_hi = w_lo + 15;
   const int r0 = w_lo + g, r1 = r0 + 8;
 
-  // 64 rows x D / 8 chunks of 16 bytes per tile: D / 16 chunks per thread
+  // F_BKV rows x D / 8 chunks of 16 bytes per tile: D / 16 chunks per thread at (64, 64)
   auto load_kv = [&](int tile, int stage) {
     const int t0 = tile * F_BKV;
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
+    for (int i = 0; i < (KV_CHUNKS + F_THREADS - 1) / F_THREADS; ++i) {
       const int c = tid + i * F_THREADS;
+      if constexpr (KV_CHUNKS % F_THREADS != 0) {
+        if (c >= KV_CHUNKS) break;
+      }
       const int r = c / CH, ch = (c % CH) * 8;
       const bool in = t0 + r < Skv;
       cp_async16(Ks(stage) + r * F_LD + ch, in ? kp + (long long)(t0 + r) * ks.s + ch : kp, in ? 16 : 0);
@@ -188,17 +213,17 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     // a tile that keeps no key of this warp's rows adds nothing
     if ((causal && t0 > w_hi) || (window > 0 && t0 + F_BKV - 1 <= w_lo - window)) continue;
 
-    // S = Q K^T for 16 rows x 64 keys: 8 blocks of 8 keys
-    float s[8][4];
+    // S = Q K^T for 16 rows x F_BKV keys: NB blocks of 8 keys
+    float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NB; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
     const __nv_bfloat16* kt = Ks(st);
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < NB / 2; ++np) {
         uint32_t r[4];
         ldsm_x4(r, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * F_LD + kc * 16 + ((lane >> 3) & 1) * 8);
         mma16816(s[2 * np], qf[kc], r[0], r[1]);
@@ -209,7 +234,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const bool edge = t0 + F_BKV > Skv || (causal && t0 + F_BKV - 1 > w_lo) ||
                       (window > 0 && t0 <= w_hi - window);
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float val = s[nb][e] * scale_log2;
@@ -227,7 +252,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int hf = 0; hf < 2; ++hf) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int nb = 0; nb < 8; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
+      for (int nb = 0; nb < NB; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_run[hf], mx);
@@ -235,7 +260,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       const float alpha = exp2f(m_run[hf] - m_use);
       float sum = 0.f;
 #pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         s[nb][2 * hf] = exp2f(s[nb][2 * hf] - m_use);
         s[nb][2 * hf + 1] = exp2f(s[nb][2 * hf + 1] - m_use);
         sum += s[nb][2 * hf] + s[nb][2 * hf + 1];
@@ -249,10 +274,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
 
-    // O += P V: P (16 x 64, bf16) as four A fragments straight from the S accumulators
+    // O += P V: P (16 x F_BKV, bf16) as F_BKV / 16 A fragments straight from the S accumulators
     const __nv_bfloat16* vt = Vs(st);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < NB / 2; ++kk) {
       uint32_t pa[4];
       pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
@@ -289,14 +314,17 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // ---------------------------------------------------------------------------
 namespace v1 {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BKV = 64;   // keys per kv tile
+// BQ query rows per block, BKV keys per kv tile (template parameters)
 constexpr int NT = 256;
-constexpr int LP = BKV + 4;  // a row of P
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 template <int D> __host__ __device__ constexpr int ld() { return D + 4; }
-// Q, the two-stage K and V rings, P: 104,448 bytes at D = 64, 186,368 at D = 128
-template <int D> __host__ __device__ constexpr int smem_bytes() {
-  return 4 * ((BQ + 4 * BKV) * ld<D>() + BQ * LP);
+// Q, the two-stage K and V rings, P: 104,448 bytes at D = 64, 186,368 at D = 128 for (64, 64)
+template <int D, int BQ, int BKV> __host__ __device__ constexpr int smem_bytes() {
+  return 4 * ((BQ + 4 * BKV) * ld<D>() + BQ * (BKV + 4));
+}
+// two blocks an SM at D = 64 where two fit (128 registers a thread), else one
+template <int D, int BQ, int BKV> __host__ __device__ constexpr int min_blocks() {
+  return D == 64 && 2 * smem_bytes<D, BQ, BKV>() <= SMEM_LIMIT ? 2 : 1;
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -310,15 +338,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // vec: q, k and v and their strides 16-byte aligned (fp32 only): cp.async; else plain loads.
 // o_vec: the same for o, stored as float4s.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
+template <typename T, int D, int BQ, int BKV>
+__global__ void __launch_bounds__(NT, (min_blocks<D, BQ, BKV>()))
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv, int Sq,
                        int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                        int causal, int window, int q_offset, int vec, int o_vec) {
   constexpr int LD = ld<D>();
+  constexpr int LP = BKV + 4;         // a row of P
   constexpr int CH = D / 4;          // float4 chunks a row
   constexpr int DJ = (CH + 15) / 16;  // chunks of O a thread: tx + 16 j
+  constexpr int RI = BQ / 16;         // rows a thread: ty * RI + i
+  constexpr int KJ = BKV / 16;        // keys a thread: tx + 16 j
   extern __shared__ __align__(16) unsigned char smem[];
   float* const Qs = reinterpret_cast<float*>(smem);  // [BQ][LD]
   float* const Ks = Qs + BQ * LD;                      // [2][BKV][LD]
@@ -343,11 +374,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_first = kv_begin / BKV;
   const int n_tiles = kv_end > kv_begin ? (kv_end - 1) / BKV - t_first + 1 : 0;
 
-  // 64 rows from row0 of src (rows past `limit` zero) into dst: CH / 4 chunks a thread
-  auto stage = [&](float* dst, const T* src, long long sstride, int row0, int limit) {
+  // ROWS rows from row0 of src (rows past `limit` zero) into dst: CH / 4 chunks a thread at 64 rows
+  auto stage = [&](auto rows, float* dst, const T* src, long long sstride, int row0, int limit) {
+    constexpr int CHUNKS = decltype(rows)::value * CH;
 #pragma unroll
-    for (int i = 0; i < CH / 4; ++i) {
+    for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
       const int c = tid + i * NT;
+      if constexpr (CHUNKS % NT != 0) {
+        if (c >= CHUNKS) break;
+      }
       const int r = c / CH, ch = (c % CH) * 4;
       const bool in = row0 + r < limit;
       float* d = dst + r * LD + ch;
@@ -363,27 +398,29 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(d) = val;
     }
   };
-  stage(Qs, qp, qs.s, q0, Sq);
+  const std::integral_constant<int, BQ> q_rows{};
+  const std::integral_constant<int, BKV> kv_rows{};
+  stage(q_rows, Qs, qp, qs.s, q0, Sq);
   if (n_tiles > 0) {
-    stage(Ks, kp, ks.s, t_first * BKV, Skv);
-    stage(Vs, vp, vs.s, t_first * BKV, Skv);
+    stage(kv_rows, Ks, kp, ks.s, t_first * BKV, Skv);
+    stage(kv_rows, Vs, vp, vs.s, t_first * BKV, Skv);
   }
   cp_async_commit();
 
-  float oacc[4][DJ][4];
+  float oacc[RI][DJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oacc[i][jj][e] = 0.f;
-  float m_run[4], l_run[4];
+  float m_run[RI], l_run[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
   }
-  const int row0 = q_offset + q0 + ty * 4;  // this thread's first row, absolute
+  const int row0 = q_offset + q0 + ty * RI;  // this thread's first row, absolute
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1;
@@ -391,31 +428,31 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile it has landed; every thread is done with tile it - 1 and with P
     if (it + 1 < n_tiles) {
       const int t1 = (t_first + it + 1) * BKV;
-      stage(Ks + (st ^ 1) * BKV * LD, kp, ks.s, t1, Skv);
-      stage(Vs + (st ^ 1) * BKV * LD, vp, vs.s, t1, Skv);
+      stage(kv_rows, Ks + (st ^ 1) * BKV * LD, kp, ks.s, t1, Skv);
+      stage(kv_rows, Vs + (st ^ 1) * BKV * LD, vp, vs.s, t1, Skv);
     }
     cp_async_commit();
     const float* kt = Ks + st * BKV * LD;
     const float* vt = Vs + st * BKV * LD;
     const int t0 = (t_first + it) * BKV;
 
-    // S = Q K^T: rows ty * 4 + i, keys tx + 16 j
-    float s[4][4];
+    // S = Q K^T: rows ty * RI + i, keys tx + 16 j
+    float s[RI][KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d0 = 0; d0 < D; d0 += 4) {
-      float4 qa[4], kb[4];
+      float4 qa[RI], kb[KJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * LD + d0);
+      for (int i = 0; i < RI; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (ty * RI + i) * LD + d0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = *reinterpret_cast<const float4*>(kt + (tx + 16 * j) * LD + d0);
+      for (int j = 0; j < KJ; ++j) kb[j] = *reinterpret_cast<const float4*>(kt + (tx + 16 * j) * LD + d0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KJ; ++j) {
           float a = s[i][j];
           a = fmaf(qa[i].x, kb[j].x, a);
           a = fmaf(qa[i].y, kb[j].y, a);
@@ -427,11 +464,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // scale; mask where the tile crosses an edge of what the block's rows keep
     const bool edge = t0 + BKV > Skv || (causal && t0 + BKV - 1 > lo) || (window > 0 && t0 <= hi - window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int row = row0 + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         float val = s[i][j] * scale;
         if (edge) {
           const int col = t0 + tx + 16 * j;
@@ -450,10 +487,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m_run[i] - m_use);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const float p = expf(s[i][j] - m_use);
         sum += p;
-        Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+        Ps[(ty * RI + i) * LP + tx + 16 * j] = p;
       }
       l_run[i] = l_run[i] * alpha + sum;  // this thread's share; the row group is summed at the end
       m_run[i] = m_new;
@@ -464,12 +501,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // P complete
 
-    // O += P V: rows ty * 4 + i, head dims 4 (tx + 16 jj) .. + 3
+    // O += P V: rows ty * RI + i, head dims 4 (tx + 16 jj) .. + 3
 #pragma unroll 2
     for (int c0 = 0; c0 < BKV; c0 += 4) {
-      float4 pa[4];
+      float4 pa[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * LP + c0);
+      for (int i = 0; i < RI; ++i) pa[i] = *reinterpret_cast<const float4*>(Ps + (ty * RI + i) * LP + c0);
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
         if (tx + 16 * jj >= CH) continue;
@@ -477,7 +514,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int cc = 0; cc < 4; ++cc) {
           const float4 vb = *reinterpret_cast<const float4*>(vt + (c0 + cc) * LD + 4 * (tx + 16 * jj));
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < RI; ++i) {
             const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y : cc == 2 ? pa[i].z : pa[i].w;
             oacc[i][jj][0] = fmaf(p, vb.x, oacc[i][jj][0]);
             oacc[i][jj][1] = fmaf(p, vb.y, oacc[i][jj][1]);
@@ -490,14 +527,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     l += __shfl_xor_sync(0xffffffffu, l, 4);
     l += __shfl_xor_sync(0xffffffffu, l, 8);
     const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that kept no key returns 0
-    const int qi = q0 + ty * 4 + i;
+    const int qi = q0 + ty * RI + i;
     if (qi >= Sq) continue;
     T* op = o + b * os.b + h * os.h + (long long)qi * os.s;
 #pragma unroll
@@ -520,45 +557,86 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int D, int BQ, int BKV>
+int launch_tile(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+                int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+                int window, int q_offset, int vec, int o_vec, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, BQ, BKV>();
+  if constexpr (smem > SMEM_LIMIT) {  // not built: over the card's shared memory
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    auto kern = flash_attention_kernel<T, D, BQ, BKV>;
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
+    kern<<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// the (BQ, BKV) instances; bf16 (a timing variant) at (64, 64) alone
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-           int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
-           int window, int q_offset, int vec, int o_vec, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
-  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec);
-  return static_cast<int>(cudaGetLastError());
+int launch(int bq, int bkv, const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+           int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+           int window, int q_offset, int vec, int o_vec, cudaStream_t st) {
+#define V1_TILE(BQ_, BKV_)                                                                            \
+  if (bq == BQ_ && bkv == BKV_)                                                                      \
+    return launch_tile<T, D, BQ_, BKV_>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, \
+                                        window, q_offset, vec, o_vec, st);
+  V1_TILE(64, 64)
+  if constexpr (std::is_same<T, float>::value) {
+    V1_TILE(128, 64)
+    V1_TILE(64, 32)
+    V1_TILE(64, 128)
+  }
+#undef V1_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace v1
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-               int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2, int causal,
-               int window, int q_offset, cudaStream_t stream) {
-  constexpr int smem = f_smem<D>();
-  auto kern = flash_mma_kernel<D>;
+template <int D, int BQ, int BKV>
+int launch_mma_tile(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+                    int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2, int causal,
+                    int window, int q_offset, cudaStream_t stream) {
+  constexpr int smem = f_smem<D, BQ, BKV>();
+  static_assert(smem <= v1::SMEM_LIMIT, "every mma instance fits the card's shared memory");
+  auto kern = flash_mma_kernel<D, BQ, BKV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((Sq + F_BQ - 1) / F_BQ, B * Hq);
-  kern<<<grid, F_THREADS, smem, stream>>>(
+  const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
+  kern<<<grid, f_threads<BQ>(), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, qs,
       ks, vs, os, scale_log2, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the (BQ, BKV) instances
+template <int D>
+int launch_mma(int bq, int bkv, const void* q, const void* k, const void* v, void* o, int B, int Hq,
+               int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
+               int causal, int window, int q_offset, cudaStream_t st) {
+#define MMA_TILE(BQ_, BKV_)                                                                        \
+  if (bq == BQ_ && bkv == BKV_)                                                                   \
+    return launch_mma_tile<D, BQ_, BKV_>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale_log2, \
+                                         causal, window, q_offset, st);
+  MMA_TILE(64, 64)
+  MMA_TILE(128, 64)
+  MMA_TILE(64, 32)
+  MMA_TILE(64, 128)
+#undef MMA_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
-int launch_v1(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+int launch_v1(int D, int bq, int bkv, const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
               int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
               int window, int q_offset, cudaStream_t st) {
   // cp.async and float4 stores where every row a tensor steps to is 16-byte aligned (fp32 only)
@@ -569,10 +647,10 @@ int launch_v1(int D, const void* q, const void* k, const void* v, void* o, int B
   const int vec = f32 && rows16(q, qs) && rows16(k, ks) && rows16(v, vs);
   const int o_vec = f32 && rows16(o, os);
   switch (D) {
-    case 64: return v1::launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
-    case 80: return v1::launch<T, 80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
-    case 96: return v1::launch<T, 96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
-    case 128: return v1::launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 64: return v1::launch<T, 64>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 80: return v1::launch<T, 80>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 96: return v1::launch<T, 96>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
+    case 128: return v1::launch<T, 128>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, window, q_offset, vec, o_vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -582,10 +660,10 @@ int launch_v1(int D, const void* q, const void* k, const void* v, void* o, int B
 // variant: 1 = v1 (float32 or bfloat16), 2 = mma (bfloat16 only, q, k and v 16-byte aligned with
 // strides that are multiples of 8 elements). dtype: 0 = float32, 1 = bfloat16 for q, k, v and o
 // alike. Layouts (B, H, S, D) addressed by (batch, head, sequence) strides with a unit head-dim
-// stride; D is 64, 80, 96 or 128 (the head dims built). window <= 0 means no window. Returns
-// cudaGetLastError() after the launch.
+// stride; D is 64, 80, 96 or 128 (the head dims built); (bq, bkv) is one of the tiles built for the
+// variant, dtype and D. window <= 0 means no window. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(int variant, int dtype, const void* q, const void* k, const void* v,
-                               void* o, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                               void* o, int B, int Hq, int Hkv, int Sq, int Skv, int D, int bq, int bkv,
                                long long qsb, long long qsh, long long qss,
                                long long ksb, long long ksh, long long kss,
                                long long vsb, long long vsh, long long vss,
@@ -596,10 +674,10 @@ extern "C" int flash_attention(int variant, int dtype, const void* q, const void
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   if (variant == 1) {
     if (dtype == 0)
-      return launch_v1<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal,
+      return launch_v1<float>(D, bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal,
                               window, q_offset, st);
     if (dtype == 1)
-      return launch_v1<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale,
+      return launch_v1<__nv_bfloat16>(D, bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale,
                                       causal, window, q_offset, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -611,10 +689,10 @@ extern "C" int flash_attention(int variant, int dtype, const void* q, const void
     return static_cast<int>(cudaErrorMisalignedAddress);
   const float sl = scale * 1.4426950408889634f;
   switch (D) {
-    case 64: return launch_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
-    case 80: return launch_mma<80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
-    case 96: return launch_mma<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
-    case 128: return launch_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 64: return launch_mma<64>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 80: return launch_mma<80>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 96: return launch_mma<96>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 128: return launch_mma<128>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -21,6 +21,17 @@ once for its whole query group. The dtype picks the kernel:
   ``variant="v1"`` also forces it for bf16, to time it beside the mma
   kernel; the serving paths never ask for it.
 
+Tiles: each kernel is built at the ``(bq, bkv)`` instances of ``TILES``
+(``tiles_built`` says which for a variant, dtype and head dim: v1 only where
+its shared memory fits, and in bf16 only at the default). The tile comes
+from the caller, else the tuning cache (``kernels.common.tuned_block``,
+kernel ``flash_attention``, the reference's key ``(b, hq, hkv, sq, skv, d,
+causal)``; read for the variant the dtype picks, not for a forced v1), else
+``DEFAULT_TILE``, whose launch is the one the kernels had with fixed tiles.
+A tile that is not built, or whose shared memory (``smem_bytes``, which the
+geometry lint reads too) exceeds the card's, raises before any launch.
+``flash_attention.last_blocks`` is the last launch's tile.
+
 ``flash_attention`` takes the ``(B, H, S, D)`` layout. For a CUDA tensor it
 launches a kernel and counts the launch in ``flash_attention.launches`` and
 ``flash_attention.launches_by_variant``; for a CPU tensor it runs
@@ -34,17 +45,78 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernel
+from repro_torch.kernels.common import SMEM_LIMIT_BYTES, check_launch, load_kernel, tuned_block
 
-__all__ = ["flash_attention", "attention_ref", "HEAD_DIMS"]
+__all__ = [
+    "flash_attention",
+    "attention_ref",
+    "HEAD_DIMS",
+    "TILES",
+    "DEFAULT_TILE",
+    "pick_variant",
+    "tiles_built",
+    "smem_bytes",
+    "resolve_tile",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 96, 128)  # the head dims both kernels are built for
 VARIANTS = {"v1": 1, "mma": 2}  # the C entry point's variant codes
+# the (bq, bkv) instances csrc/flash_attention.cu builds (its header says why these); the first
+# is the heuristic
+TILES = ((64, 64), (128, 64), (64, 32), (64, 128))
+DEFAULT_TILE = TILES[0]
 _ARGTYPES = (
-    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
     + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
+
+
+def pick_variant(dtype: torch.dtype, variant: str = "auto") -> str:
+    """The kernel a launch runs: ``mma`` for bf16, ``v1`` for float32 or
+    where ``variant="v1"`` forces it."""
+    if variant not in ("auto", "v1"):
+        raise ValueError(f"variant is 'auto' or 'v1', got {variant!r}")
+    return "mma" if variant == "auto" and dtype == torch.bfloat16 else "v1"
+
+
+def smem_bytes(kind: str, bq: int, bkv: int, d: int) -> int:
+    """Dynamic shared memory one block of ``kind`` requests at tile (bq,
+    bkv) and head dim d: mma's Q tile and two-stage K and V rings of bf16
+    rows padded to d + 8; v1's fp32 Q, rings and P, rows padded by 4
+    (``f_smem`` and ``v1::smem_bytes`` in the C source)."""
+    if kind == "mma":
+        return (bq + 4 * bkv) * (d + 8) * 2
+    return 4 * ((bq + 4 * bkv) * (d + 4) + bq * (bkv + 4))
+
+
+def tiles_built(kind: str, dtype: torch.dtype, d: int) -> tuple:
+    """The tiles the C source builds for a variant, dtype and head dim: mma
+    all of ``TILES``; v1 in float32 those whose shared memory fits the card,
+    in bf16 (a timing variant) ``DEFAULT_TILE`` alone."""
+    if kind == "mma":
+        return TILES
+    if dtype != torch.float32:
+        return (DEFAULT_TILE,)
+    return tuple(t for t in TILES if smem_bytes("v1", *t, d) <= SMEM_LIMIT_BYTES)
+
+
+def resolve_tile(
+    b: int, hq: int, hkv: int, sq: int, skv: int, d: int, causal: bool, dtype: torch.dtype, device, *,
+    bq: Optional[int] = None, bkv: Optional[int] = None, variant: str = "auto",
+) -> tuple[int, int]:
+    """The tile the wrapper launches for this call: the caller's, else the
+    tuning cache's (for the variant the dtype picks), else ``DEFAULT_TILE``."""
+    if variant != "auto":
+        return (DEFAULT_TILE[0] if bq is None else int(bq), DEFAULT_TILE[1] if bkv is None else int(bkv))
+    got = tuned_block(
+        "flash_attention", dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, causal=int(causal)), dtype,
+        device=device, defaults=_TILE_DEFAULT, overrides=dict(bq=bq, bkv=bkv),
+    )
+    return got["bq"], got["bkv"]
+
+
+_TILE_DEFAULT = dict(bq=DEFAULT_TILE[0], bkv=DEFAULT_TILE[1])
 
 
 def _strides(t: torch.Tensor) -> list[int]:
@@ -99,6 +171,8 @@ def flash_attention(
     q_offset: int = 0,
     scale: Optional[float] = None,
     variant: str = "auto",
+    bq: Optional[int] = None,
+    bkv: Optional[int] = None,
 ) -> torch.Tensor:
     """Blocked online-softmax attention (causal / sliding window / GQA).
 
@@ -106,7 +180,8 @@ def flash_attention(
     stride on the head dim, D is one of ``HEAD_DIMS``; in bfloat16 they are 16-byte aligned
     with strides that are multiples of 8 elements. The output is a
     (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, so the caller's merge of
-    the heads is free. ``variant="v1"`` forces the float32 kernel."""
+    the heads is free. ``variant="v1"`` forces the float32 kernel. ``bq``
+    and ``bkv`` force the tile (``resolve_tile``)."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":
@@ -125,9 +200,11 @@ def flash_attention(
         raise ValueError("q, k and v need a unit stride on the head dim")
     if k.device != q.device or v.device != q.device or q.device.index != torch.cuda.current_device():
         raise ValueError("q, k and v must lie on the current CUDA device")
-    if variant not in ("auto", "v1"):
-        raise ValueError(f"variant is 'auto' or 'v1', got {variant!r}")
-    kind = "mma" if variant == "auto" and q.dtype == torch.bfloat16 else "v1"
+    kind = pick_variant(q.dtype, variant)
+    tile = resolve_tile(b, hq, hkv, sq, skv, d, causal, q.dtype, q.device, bq=bq, bkv=bkv, variant=variant)
+    if tile not in tiles_built(kind, q.dtype, d):
+        raise ValueError(f"flash {kind} in {q.dtype} at D = {d} is built for tiles "
+                         f"{tiles_built(kind, q.dtype, d)}, not {tile}")
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = [_strides(t) for t in (q, k, v, o)]
     if kind == "mma":
@@ -141,7 +218,7 @@ def flash_attention(
         fn = load_kernel("flash_attention", _ARGTYPES)
         err = fn(
             VARIANTS[kind], _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, hq, hkv, sq, skv, d,
+            b, hq, hkv, sq, skv, d, *tile,
             *strides[0], *strides[1], *strides[2], *strides[3],
             scale if scale is not None else 1.0 / math.sqrt(d),
             int(causal), int(window or 0), int(q_offset),
@@ -150,8 +227,10 @@ def flash_attention(
         check_launch("flash_attention", err)
         flash_attention.launches += 1
         flash_attention.launches_by_variant[kind] += 1
+        flash_attention.last_blocks = dict(bq=tile[0], bkv=tile[1])
     return o
 
 
 flash_attention.launches = 0
+flash_attention.last_blocks = None
 flash_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -15,6 +15,12 @@ shapes and the card's SM count alone, so that the grid puts about
 ``TARGET_WARPS_PER_SM`` warps on each SM; the chunk of time steps a ring
 stage holds, and so the shared memory, is the C source's.
 
+The lanes come from the caller, else the tuning cache
+(``kernels.common.tuned_block``, kernel ``mamba_scan``, the reference's key
+``(b, l, d, n)``), else ``scan_plan``: ``resolve_plan``. Lanes that ``_plan``
+refuses (not a power of two up to a warp, or more than
+``MAX_STATES_PER_LANE`` states a lane) raise before any launch.
+
 ``selective_scan`` launches the kernel for a CUDA tensor and counts the
 launch in ``selective_scan.launches``; for a CPU tensor it runs
 ``selective_scan_ref``, the plain version. There is no fallback between the
@@ -31,13 +37,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernel, sm_count
+from repro_torch.kernels.common import check_launch, load_kernel, sm_count, tuned_block
 
 __all__ = [
     "selective_scan",
     "selective_scan_ref",
     "selective_step",
     "scan_plan",
+    "resolve_plan",
+    "lane_choices",
     "ScanPlan",
     "MAX_STATE",
 ]
@@ -74,10 +82,19 @@ def _check_states(n: int) -> int:
     return n
 
 
+LANES = (1, 2, 4, 8, 16, 32)  # the lanes a channel may take: the C source's instances
+
+
+def lane_choices(n: int) -> tuple:
+    """The lanes ``_plan`` takes for N states: those that hold N in at most
+    ``MAX_STATES_PER_LANE`` states a lane."""
+    return tuple(l for l in LANES if _pow2_at_least(-(-int(n) // l)) <= MAX_STATES_PER_LANE)
+
+
 def _plan(b: int, d: int, n: int, lanes: int) -> ScanPlan:
     """The launch at ``lanes`` lanes a channel: the fewest states a lane
     (a power of two) that hold N, and the grid."""
-    if lanes not in (1, 2, 4, 8, 16, 32) or _pow2_at_least(-(-n // lanes)) > MAX_STATES_PER_LANE:
+    if lanes not in LANES or _pow2_at_least(-(-n // lanes)) > MAX_STATES_PER_LANE:
         raise ValueError(f"no scan kernel for {n} states at {lanes} lanes a channel")
     states = _pow2_at_least(-(-n // lanes))
     channels = THREADS // lanes
@@ -108,6 +125,17 @@ def scan_plan(b: int, d: int, n: int, sm_count: int) -> ScanPlan:
             or (warps(lanes) < TARGET_WARPS_PER_SM and -(-n // lanes) > 4)):
         lanes *= 2
     return _plan(b, d, n, lanes)
+
+
+def resolve_plan(b: int, length: int, d: int, n: int, dtype: torch.dtype, device, sms: int,
+                 lanes: Optional[int] = None) -> ScanPlan:
+    """The plan the wrapper launches: the caller's lanes, else the tuning
+    cache's, else ``scan_plan``'s; ``_plan`` raises on lanes it refuses."""
+    got = tuned_block(
+        "mamba_scan", dict(b=b, l=length, d=d, n=n), dtype, device=device,
+        defaults=lambda: dict(lanes=scan_plan(b, d, n, sms).lanes), overrides=dict(lanes=lanes),
+    )["lanes"]
+    return _plan(b, d, n, got)
 
 
 def selective_scan_ref(u, dt, a, b, c, d):
@@ -143,7 +171,7 @@ def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
     read through their other strides, so b and c may be slices of one
     tensor; a and d are contiguous; 1 <= N <= ``MAX_STATE``. ``lanes``
     forces the lanes a channel takes (the rest of the plan follows), else
-    ``scan_plan``'s."""
+    the tuning cache's, else ``scan_plan``'s (``resolve_plan``)."""
     if u.device.type == "cpu":
         return selective_scan_ref(u, dt, a, b, c, d)
     if u.device.type != "cuda":
@@ -168,7 +196,7 @@ def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
     if any(t.stride(-1) != 1 for t in (u, dt, b, c)) or not (a.is_contiguous() and d.is_contiguous()):
         raise ValueError("u, dt, b and c need a unit last stride; a and d must be contiguous")
     n = _check_states(n)
-    plan = scan_plan(bsz, dim, n, sm_count(u.device)) if lanes is None else _plan(bsz, dim, n, int(lanes))
+    plan = resolve_plan(bsz, length, dim, n, u.dtype, u.device, sm_count(u.device), lanes)
     y = torch.empty((bsz, length, dim), dtype=u.dtype, device=u.device)
     h_last = torch.empty((bsz, dim, n), dtype=torch.float32, device=u.device)
     if bsz and dim:

@@ -47,6 +47,21 @@ fault_einsum``). The axis is the chip axis with a mask batch stride of 0,
 so the mask is packed once, as a single chip's (``packed_mask.chips_packed``
 grows by 1, not E), and no (E, R, C) copy of it is ever made.
 
+The K split: ``gemm_plan`` is every launch's plan (tiles, K slices, the
+scratch and the grid), the one rule the wrapper launches and
+``analysis/kernelgeom.py::masked_matmul_launch`` lints. Its heuristic is
+``_plan`` for the bf16 kernels (the rule of ``masked_matmul_plan`` in the C
+source, which a card test holds it to) and ``_split_plan`` for v1. A
+caller's ``splits``, or the tuning cache's (``kernels.common.tuned_block``,
+kernel ``masked_matmul``, the reference's shape key ``(m, k, n, r, c)``),
+replaces the plan's count, within ``max_splits``, the plan's own cap, so
+the scratch stays within what a plan could have chosen. The key has no
+field for a chip axis or for w's strides, so the cache is read only for a
+single chip's launch with row-major w: chip-batched and expert-batched
+launches and k-contiguous w (the tied unembedding's ``embed.T``) keep the
+plan, as does ``variant="v1"`` on bf16. ``masked_matmul.last_splits`` is
+the count the last launch ran.
+
 ``masked_matmul`` launches a kernel for a CUDA tensor and counts the launch
 in ``masked_matmul.launches`` and ``masked_matmul.launches_by_variant`` (a
 chip-batched launch also in ``masked_matmul.fleet_launches_by_variant``, an
@@ -59,13 +74,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.mapping import periodic_mask
-from repro_torch.kernels.common import check_launch, load_kernel, sm_count, split_counters
+from repro_torch.kernels.common import check_launch, load_kernel, sm_count, split_counters, tuned_block
 
 __all__ = [
     "masked_matmul",
@@ -73,6 +88,10 @@ __all__ = [
     "masked_matmul_ref",
     "packed_mask",
     "pick_variant",
+    "gemm_plan",
+    "max_splits",
+    "resolve_plan",
+    "GemmPlan",
     "VARIANTS",
 ]
 
@@ -86,10 +105,16 @@ _ARGTYPES = (
 VARIANTS = {"v1": 1, "decode": 2, "mma": 3}
 _SMALL_M = 16
 _PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
-# v1's split rules, as csrc/masked_matmul.cu's plan() states them for the
-# bf16 kernels: at M <= 16 the decode kernels' (K in 64-row granules, at most
-# 32 slices), above it the tiled kernel's (each slice at least 8 k tiles)
-_DEC_KQ, _DEC_MAX_SPLITS, _TL_MIN_TILES = 64, 32, 8
+# csrc/masked_matmul.cu's tiles and split rules: the decode kernels' columns a block (row-major
+# w, embed.T), K granule and most slices; the mma kernel's tile and fewest k tiles a slice; the
+# tiled v1 kernel's fewest k tiles a slice
+_DEC_BN_ROWS, _DEC_BN_COLS, _DEC_KQ, _DEC_MAX_SPLITS = 256, 32, 64, 32
+_MMA_BM, _MMA_BN, _MMA_BK, _MMA_MIN_TILES = 128, 128, 32, 4
+_TL_MIN_TILES = 8
+# the mma kernel's dynamic shared memory (mma_smem_bytes<KCONTIG>: three x stages and two w
+# stages of bf16, rows padded by 8); the decode and tiled kernels use static shared memory only
+_MMA_SMEM = {False: 2 * (3 * _MMA_BM * (_MMA_BK + 8) + 2 * _MMA_BK * (_MMA_BN + 8)),
+             True: 2 * (3 * _MMA_BM * (_MMA_BK + 8) + 2 * _MMA_BN * (_MMA_BK + 8))}
 _SLICE_COST = 0.01  # a K slice's own cost in the tiled plan, in tile-waves
 
 
@@ -165,20 +190,132 @@ def _split_plan(
     return V1Plan(splits, 4 * chips * split_tiles * splits * bm * bn, tiles, split_tiles)
 
 
-@functools.lru_cache(maxsize=None)
 def _plan(
     kind: str, m: int, n: int, k: int, k_contiguous: bool, sms: int, chips: int = 1
 ) -> tuple[int, int, int]:
-    """A bf16 kernel's (K slices, scratch bytes, output tiles of all chips),
-    from ``masked_matmul_plan`` in csrc/masked_matmul.cu, which holds the
-    kernels' tiles and split rules; cached per shape, so a decode step asks
-    once."""
+    """A bf16 kernel's (K slices, scratch bytes, output tiles of all chips):
+    the rule of ``plan`` in csrc/masked_matmul.cu (``_c_plan`` asks the C
+    source, and a card test holds the two equal). Both kernels keep the grid
+    of chips x tiles x slices within one wave of two blocks per SM; decode
+    cuts K into whole 64-row granules, at most 32 slices, mma gives each
+    slice at least 4 k tiles."""
+    if kind not in ("decode", "mma") or min(chips, m, n, k, sms) < 1 or (kind == "decode" and m > _SMALL_M):
+        raise ValueError(f"no bf16 masked-GEMM plan for {kind} at chips {chips}, M {m}, N {n}, K {k}")
+    if kind == "decode":
+        tiles_out = -(-n // (_DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS))
+        want = min(_DEC_MAX_SPLITS, max(1, 2 * sms // (chips * tiles_out)))
+        splits = _split_count(max(1, -(-k // _DEC_KQ)), want)
+    else:
+        tiles_out = -(-m // _MMA_BM) * -(-n // _MMA_BN)
+        tiles_k = max(1, -(-k // _MMA_BK))
+        splits = _split_count(tiles_k, min(tiles_k // _MMA_MIN_TILES, 2 * sms // (chips * tiles_out)))
+    return splits, 0 if splits == 1 else 4 * chips * splits * m * n, chips * tiles_out
+
+
+def _c_plan(
+    kind: str, m: int, n: int, k: int, k_contiguous: bool, sms: int, chips: int = 1
+) -> tuple[int, int, int]:
+    """``_plan`` as ``masked_matmul_plan`` in csrc/masked_matmul.cu computes
+    it (on the card only; a card test holds the two equal)."""
     out = (ctypes.c_longlong * 3)()
     fn = load_kernel("masked_matmul_plan", _PLAN_ARGTYPES, source="masked_matmul")
     check_launch(
         "masked_matmul_plan", fn(VARIANTS[kind], chips, m, n, k, int(k_contiguous), sms, out)
     )
     return out[0], out[1], out[2]
+
+
+def _tiles_k(kind: str, k: int) -> int:
+    """k tiles (granules) a launch of ``kind`` cuts K into."""
+    bk = _MMA_BK if kind == "mma" else _DEC_KQ if kind == "decode" else 8
+    return max(1, -(-k // bk))
+
+
+def max_splits(kind: str, m: int, k: int) -> int:
+    """The most K slices a launch of ``kind`` may take: the plan's own cap.
+    The decode kernels (bf16 ``decode`` and v1 at M <= 16): 32 slices of
+    64-row granules; ``mma``: 4 k tiles a slice; the tiled v1 kernel: 8 k
+    tiles a slice."""
+    if kind == "decode" or (kind == "v1" and m <= _SMALL_M):
+        return min(_DEC_MAX_SPLITS, _tiles_k("decode", k))
+    if kind == "mma":
+        return max(1, _tiles_k("mma", k) // _MMA_MIN_TILES)
+    return max(1, _tiles_k("v1", k) // _TL_MIN_TILES)
+
+
+class GemmPlan(NamedTuple):
+    kind: str  # the kernel: decode, mma or v1
+    tile: tuple  # (BM, BN, BK) of one output tile and k step
+    splits: int  # K slices of a split tile
+    split_tiles: int  # v1: each chip's tiles cut into K slices (above M = 16 a partial last wave's); bf16: 0
+    scratch_bytes: int  # the fp32 partials of the split tiles
+    tiles: int  # output tiles of all chips: the split-K counters a launch needs
+    grid: tuple  # the CUDA grid
+    max_splits: int  # the cap a forced count must keep
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(
+    kind: str, m: int, n: int, k: int, sms: int, chips: int = 1, k_contiguous: bool = False,
+    splits: Optional[int] = None,
+) -> GemmPlan:
+    """The launch of one masked-GEMM call: the plan's, or, with ``splits``,
+    that many K slices in place of the plan's count (empty slices dropped,
+    as the plan drops them; the tiled v1 kernel cuts only the tiles of a
+    partly filled last wave, so where there is none it runs whole). Raises
+    ``ValueError`` for a count outside ``[1, max_splits]``."""
+    cap = max_splits(kind, m, k)
+    if splits is not None and not 1 <= splits <= cap:
+        raise ValueError(f"{kind} at M {m}, K {k} takes 1 to {cap} K slices, got {splits}")
+    tiles_k = _tiles_k(kind, k)
+    if kind == "v1":
+        bm, bn, bk = tile = _v1_tiles(m, n, k_contiguous)
+        heur = _split_plan(m, n, k, sms, chips, k_contiguous)
+        tiles = heur.tiles
+        if splits is None:
+            s, split_tiles = heur.splits, heur.split_tiles
+        else:
+            s = _split_count(tiles_k, splits)
+            split_tiles = tiles // chips if m <= _SMALL_M else -(-(tiles % (2 * sms)) // chips)
+            if split_tiles == 0:
+                s = 1
+            if s == 1 and m > _SMALL_M:
+                split_tiles = 0
+        per_chip = tiles // chips
+        if m <= _SMALL_M:
+            scratch = 0 if s == 1 else 4 * chips * s * m * n
+            grid = (per_chip, chips, s)
+        else:
+            scratch = 0 if s == 1 else 4 * chips * split_tiles * s * bm * bn
+            grid = (per_chip + split_tiles * (s - 1), chips)
+        return GemmPlan(kind, tile, s, split_tiles, scratch, tiles, grid, cap)
+    s, scratch, tiles = _plan(kind, m, n, k, k_contiguous, sms, chips)
+    if splits is not None:
+        s = _split_count(tiles_k, splits)
+        scratch = 0 if s == 1 else 4 * chips * s * m * n
+    if kind == "decode":
+        tile = (m, _DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS, _DEC_KQ)
+    else:
+        tile = (_MMA_BM, _MMA_BN, _MMA_BK)
+    return GemmPlan(kind, tile, s, 0, scratch, tiles, (tiles // chips, chips, s), cap)
+
+
+def resolve_plan(
+    x_dtype: torch.dtype, m: int, k: int, n: int, mask_shape: tuple, device, sms: int, *,
+    splits: Optional[int] = None, chips: int = 1, k_contiguous: bool = False, variant: str = "auto",
+) -> GemmPlan:
+    """The launch the wrapper makes for this call: an explicit ``splits``,
+    else the tuning cache's (a single chip's launch with row-major w and the
+    variant the dtype picks; see the module docstring), else the plan's."""
+    kind = pick_variant(x_dtype, m, variant)
+    if chips == 1 and not k_contiguous and variant == "auto":
+        r, c = mask_shape
+        splits = tuned_block("masked_matmul", dict(m=m, k=k, n=n, r=r, c=c), x_dtype, device=device,
+                             defaults=_PLAN_DEFAULT, overrides=dict(splits=splits))["splits"]
+    return gemm_plan(kind, m, n, k, sms, chips, k_contiguous, splits)
+
+
+_PLAN_DEFAULT = dict(splits=None)  # the seam's heuristic: the plan's count
 
 
 def pick_variant(x_dtype: torch.dtype, m: int, variant: str = "auto") -> str:
@@ -277,7 +414,8 @@ def _under_vmap(*ts: torch.Tensor) -> bool:
 
 
 def masked_matmul(
-    x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor, *, variant: str = "auto"
+    x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor, *, variant: str = "auto",
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """y = x @ (w.to(x.dtype) * periodic_mask(ok)); x: (..., K), w: (K, N),
     ok: (R, C); or, for a fleet of chips in one launch, x: (chips, ..., K),
@@ -288,9 +426,10 @@ def masked_matmul(
     bfloat16 x; w has a unit stride along one of its last two axes (any
     stride along the chips, 0 included); ok is a contiguous float32 tensor
     of 0s and 1s. ``variant="v1"`` forces the float32 kernels (x and w of
-    one dtype), for timing them beside the others. Under ``torch.func.vmap`` the call
-    goes through the custom op, whose vmap rule makes one chip-batched
-    launch."""
+    one dtype), for timing them beside the others. ``splits`` forces the K
+    slices (``resolve_plan``: else the tuning cache's, else the plan's).
+    Under ``torch.func.vmap`` the call goes through the custom op, whose
+    vmap rule makes one chip-batched launch with the plan's slices."""
     if _under_vmap(x, w, ok):
         return torch.ops.repro_torch.masked_matmul(x, w, ok, variant)
     if x.device.type == "cpu":
@@ -327,12 +466,9 @@ def masked_matmul(
         sms = sm_count(x.device)
         stream = torch.cuda.current_stream().cuda_stream
         bits, bits_t = packed_mask(ok)
-        k_contiguous = w.stride(-1) != 1
-        if kind == "v1":
-            splits, scratch_bytes, tiles, split_tiles = _split_plan(m, n, kdim, sms, chips, k_contiguous)
-        else:
-            splits, scratch_bytes, tiles = _plan(kind, m, n, kdim, k_contiguous, sms, chips)
-            split_tiles = 0
+        plan = resolve_plan(x.dtype, m, kdim, n, ok.shape[-2:], x.device, sms, splits=splits, chips=chips,
+                            k_contiguous=w.stride(-1) != 1, variant=variant)
+        scratch_bytes, tiles = plan.scratch_bytes, plan.tiles
         counters = split_counters(x.device, stream, tiles)
         # partials only where K is split; the caching allocator hands the bytes back
         scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device) if scratch_bytes else None
@@ -341,13 +477,14 @@ def masked_matmul(
             VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x3.data_ptr(), w.data_ptr(),
             bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
             m, n, kdim, w.stride(-2), w.stride(-1), w.stride(0) if batched else 0,
-            ok.shape[-2], ok.shape[-1], int(batched and not experts), splits, split_tiles,
+            ok.shape[-2], ok.shape[-1], int(batched and not experts), plan.splits, plan.split_tiles,
             scratch.data_ptr() if scratch is not None else None,
             scratch_bytes, counters.data_ptr(), counters.numel(), stream,
         )
         check_launch("masked_matmul", err)
         masked_matmul.launches += 1
         masked_matmul.launches_by_variant[kind] += 1
+        masked_matmul.last_splits = plan.splits
         if experts:
             masked_matmul.expert_launches_by_variant[kind] += 1
         elif batched:
@@ -356,6 +493,7 @@ def masked_matmul(
 
 
 masked_matmul.launches = 0
+masked_matmul.last_splits = None
 masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.fleet_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.expert_launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -14,7 +14,8 @@ spell as JAX's, and the port's backend tags (``cuda``, ``cpu``). Two layers
 merge into the process-wide cache (:func:`get_tuning_cache`):
 
 1. the committed default table shipped with the package
-   (``default_cache.json``; empty until an H100 table is committed), and
+   (``default_cache.json``: the H100 entries that beat the heuristic by at
+   least 5% in two separate runs of ``chip_smoke.py``'s phase 5), and
 2. a user table named by ``$REPRO_TORCH_TUNING_CACHE``, whose entries win.
    The variable is the port's own, so the port never reads a TPU table.
 """
@@ -36,6 +37,7 @@ __all__ = [
     "get_tuning_cache",
     "set_tuning_cache",
     "reset_tuning_cache",
+    "SEAM_MEMO",
 ]
 
 CACHE_VERSION = 1
@@ -96,6 +98,8 @@ class TuningCache:
     def put(self, key: str, entry: Mapping[str, Any]) -> None:
         parse_key(key)  # validates the canonical form
         self.entries[key] = dict(entry)
+        if self is _GLOBAL:
+            SEAM_MEMO.clear()
 
     def merge(self, other: "TuningCache") -> "TuningCache":
         """New cache with ``other``'s entries winning on key collisions."""
@@ -175,6 +179,9 @@ class TuningCache:
 # ---------------------------------------------------------------------------
 
 _GLOBAL: Optional[TuningCache] = None
+# kernels/common.py::tuned_block's memo of resolved blocks, per (kernel, shape items, dtype,
+# backend): valid for the process table it was read from, so dropped with it and on a put into it
+SEAM_MEMO: dict[tuple, dict] = {}
 
 
 def get_tuning_cache() -> TuningCache:
@@ -201,6 +208,7 @@ def set_tuning_cache(cache: Optional[TuningCache]) -> Optional[TuningCache]:
     global _GLOBAL
     prev = _GLOBAL
     _GLOBAL = cache
+    SEAM_MEMO.clear()
     return prev
 
 
@@ -208,3 +216,4 @@ def reset_tuning_cache() -> None:
     """Drop the loaded table; the next lookup reloads from disk."""
     global _GLOBAL
     _GLOBAL = None
+    SEAM_MEMO.clear()

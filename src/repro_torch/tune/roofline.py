@@ -5,8 +5,12 @@ Per-kernel operation and byte counts (the same counts as the reference's
 and the card's data-sheet peaks, so the autotuner can record the
 achieved-against-roofline fraction of every winner:
 
-    bound_s  = max(flops / PEAK_FLOPS, bytes / HBM_BW)
+    bound_s  = max(flops / peak_flops(dtype), bytes / HBM_BW)
     fraction = bound_s / measured_s
+
+The peak follows the dtype, since the port's kernels run each dtype on other
+units: bf16 on the tensor cores (``PEAK_FLOPS``), float32 on the SIMT cores
+(``PEAK_FLOPS_FP32``), because tensor cores would round fp32 to tf32.
 """
 from __future__ import annotations
 
@@ -16,11 +20,19 @@ import torch
 
 from repro_torch.kernels.common import dtype_name
 
-__all__ = ["PEAK_FLOPS", "HBM_BW", "kernel_flops_bytes", "roofline_fraction"]
+__all__ = ["PEAK_FLOPS", "PEAK_FLOPS_FP32", "HBM_BW", "peak_flops", "kernel_flops_bytes", "roofline_fraction"]
 
-# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
-PEAK_FLOPS = 989e12  # FLOP/s
+# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate, fp32 rate outside the tensor
+# cores, and HBM3 bandwidth
+PEAK_FLOPS = 989e12  # FLOP/s, bf16 and fp16
+PEAK_FLOPS_FP32 = 67e12  # FLOP/s, float32 on the SIMT cores
 HBM_BW = 3.35e12  # bytes/s
+
+
+def peak_flops(dtype) -> float:
+    """The operation rate a kernel in ``dtype`` (a torch dtype or its name)
+    can reach: the SIMT rate for float32, the tensor cores' otherwise."""
+    return PEAK_FLOPS_FP32 if dtype_name(dtype) == "float32" else PEAK_FLOPS
 
 
 def kernel_flops_bytes(kernel: str, shape: Mapping[str, int], dtype) -> tuple[float, float]:
@@ -59,8 +71,9 @@ def kernel_flops_bytes(kernel: str, shape: Mapping[str, int], dtype) -> tuple[fl
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def roofline_fraction(flops: float, hbm_bytes: float, measured_s: float) -> float:
-    """The bound over the measured time (1.0 runs at the bound)."""
+def roofline_fraction(flops: float, hbm_bytes: float, measured_s: float, dtype="bfloat16") -> float:
+    """The bound over the measured time (1.0 runs at the bound), the
+    operations at ``dtype``'s peak (the tuner passes the launch's dtype)."""
     if measured_s <= 0:
         return 0.0
-    return max(flops / PEAK_FLOPS, hbm_bytes / HBM_BW) / measured_s
+    return max(flops / peak_flops(dtype), hbm_bytes / HBM_BW) / measured_s

@@ -2,28 +2,41 @@
 
 For one ``(kernel, shape, dtype, backend)`` launch the tuner:
 
-1. builds the powers-of-two block lattice (``repro_torch.tune.search``),
-   with every raw point normalized to the blocks the wrapper would launch
-   (read off the ``analysis.kernelgeom`` launch builder);
+1. builds the candidate lattice of each tunable parameter
+   (``repro_torch.tune.search``), its bound a function of the shape (the
+   masked GEMM's K slices stop at the plan's own cap), and normalizes every
+   raw point to the launch the wrapper would make, read off the
+   ``analysis.kernelgeom`` launch builder, which runs the wrapper's own plan
+   functions: points that collapse to one launch are timed once;
 2. accepts or rejects each candidate statically through the geometry lint
-   (KRN002: the shared memory the CUDA kernel requests against the card's
-   227 KiB; KRN003: a degenerate launch): a rejected candidate is never
-   launched;
+   (KRN001: a tile that is not built, lanes the scan refuses, a K split
+   beyond the cap; KRN002: the shared memory the CUDA kernel requests
+   against the card's 227 KiB; KRN003: a degenerate launch): a rejected
+   candidate is never launched;
 3. times the survivors under a greedy hillclimb seeded at the heuristic
-   config: one warm-up call, then the fastest of ``iters`` launches timed by
-   CUDA events with the L2 flushed before each (a host clock on the CPU),
-   with ``repro_torch.obs`` recorder spans around every measurement;
+   (the wrapper's own choice with an empty cache): one warm-up call, then
+   the fastest of ``iters`` launches timed by CUDA events with the L2
+   flushed before each (a host clock on the CPU), with ``repro_torch.obs``
+   recorder spans around every measurement;
 4. records the winner with its speedup over the heuristic and its
-   achieved-against-roofline fraction (:mod:`repro_torch.tune.roofline`) as
-   a tuning-cache entry.
+   achieved-against-roofline fraction at the dtype's peak
+   (:mod:`repro_torch.tune.roofline`) as a tuning-cache entry.
 
 The heuristic seeds the climb, so the winner beats or ties it. Numerics do
 not depend on the blocks beyond the order of fp32 sums.
 
-One kernel space is ported: ``decode_attention``'s ``bkv``. The reference's
-spaces for the masked GEMM, flash attention and the scan tune TPU block
-shapes; their CUDA kernels have other tunables and wait for their own
-spaces.
+The four spaces, with the reference's shape keys (``SHAPE_FIELDS``) so
+cache keys match:
+
+- ``masked_matmul``: ``splits``, the K slices (heuristic: ``gemm_plan``'s
+  count); runs the launch the main path makes: bf16 x with the float32
+  master w (``fault_linear`` in ``kernel`` mode), or float32 x and w, w
+  row-major, under a 10%-faulty chip's mask;
+- ``flash_attention``: ``bq, bkv``, the tile (heuristic 64 x 64; the
+  lattice spans the built instances, ``flash_attention.ops.TILES``);
+- ``decode_attention``: ``bkv``, the dense kernel's tile (heuristic 128);
+- ``mamba_scan``: ``lanes``, the lanes a channel (heuristic:
+  ``scan_plan``'s), with softplus dt and negative A as the model gives them.
 """
 from __future__ import annotations
 
@@ -34,9 +47,19 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
-from repro_torch.analysis.kernelgeom import KernelLaunch, decode_attention_launch, lint_launch
+from repro_torch.analysis.kernelgeom import (
+    KernelLaunch,
+    decode_attention_launch,
+    flash_attention_launch,
+    lint_launch,
+    mamba_scan_launch,
+    masked_matmul_launch,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import backend_tag, dtype_name
+from repro_torch.kernels.flash_attention.ops import TILES as FLASH_TILES
+from repro_torch.kernels.mamba_scan.ops import LANES
+from repro_torch.kernels.masked_matmul.ops import max_splits, pick_variant
 from repro_torch.obs.recorder import NULL_RECORDER
 from repro_torch.tune.cache import TuningCache, cache_key
 from repro_torch.tune.roofline import kernel_flops_bytes, roofline_fraction
@@ -54,17 +77,95 @@ __all__ = [
     "tune_many",
 ]
 
-# shape-key fields per tuned kernel (the reference's names)
-SHAPE_FIELDS = {"decode_attention": ("b", "hq", "hkv", "skv", "d")}
+# shape-key fields per kernel, in the reference's declaration order
+SHAPE_FIELDS = {
+    "masked_matmul": ("m", "k", "n", "r", "c"),
+    "flash_attention": ("b", "hq", "hkv", "sq", "skv", "d", "causal"),
+    "decode_attention": ("b", "hq", "hkv", "skv", "d"),
+    "mamba_scan": ("b", "l", "d", "n"),
+}
 
-# the wrappers' heuristic defaults: the hillclimb seed
-HEURISTIC_BLOCKS = {"decode_attention": dict(bkv=128)}
+# the wrappers' heuristics, the hillclimb seed; None is the wrapper's plan, read off its launch
+HEURISTIC_BLOCKS = {
+    "masked_matmul": dict(splits=None),
+    "flash_attention": dict(bq=64, bkv=64),
+    "decode_attention": dict(bkv=128),
+    "mamba_scan": dict(lanes=None),
+}
+
+
+def _dt(dtype) -> torch.dtype:
+    return getattr(torch, dtype_name(dtype))
+
+
+def _mm_launch(shape, dtype, blocks) -> KernelLaunch:
+    return masked_matmul_launch(shape["m"], shape["k"], shape["n"], (shape["r"], shape["c"]),
+                                dtype=_dt(dtype), splits=blocks["splits"])
+
+
+def _fa_launch(shape, dtype, blocks) -> KernelLaunch:
+    return flash_attention_launch(shape["b"], shape["hq"], shape["hkv"], shape["sq"], shape["skv"],
+                                  shape["d"], bq=blocks["bq"], bkv=blocks["bkv"], dtype=_dt(dtype))
 
 
 def _da_launch(shape, dtype, blocks) -> KernelLaunch:
     return decode_attention_launch(
         shape["b"], shape["hq"], shape["hkv"], shape["skv"], shape["d"], bkv=blocks["bkv"],
     )
+
+
+def _ms_launch(shape, dtype, blocks) -> KernelLaunch:
+    return mamba_scan_launch(shape["b"], shape["l"], shape["d"], shape["n"], lanes=blocks["lanes"])
+
+
+def _mm_lattice(shape, dtype):
+    """K slices 1, 2, 4, ... up to the plan's cap, and the cap itself."""
+    kind = pick_variant(_dt(dtype), shape["m"])
+    return dict(splits=pow2_lattice(max_splits(kind, shape["m"], shape["k"]), lo=1))
+
+
+def _fa_lattice(shape, dtype):
+    """Each tile coordinate over the values the built instances take."""
+    return dict(bq=sorted({t[0] for t in FLASH_TILES}), bkv=sorted({t[1] for t in FLASH_TILES}))
+
+
+def _da_lattice(shape, dtype):
+    return dict(bkv=pow2_lattice(shape["skv"], lo=8))
+
+
+def _ms_lattice(shape, dtype):
+    return dict(lanes=list(LANES))
+
+
+def _mm_runner(shape, dtype, device):
+    from repro_torch.core import from_fault_map, random_fault_map
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((shape["m"], shape["k"]), generator=gen, device=device).to(dtype)
+    w = torch.randn((shape["k"], shape["n"]), generator=gen, device=device)  # the fp32 master
+    ok = from_fault_map(random_fault_map(0, shape["r"], shape["c"], 0.1), "kernel", device=device).ok
+
+    def call(blocks):
+        return masked_matmul(x, w, ok, **blocks)
+
+    return call
+
+
+def _fa_runner(shape, dtype, device):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, hq, hkv, sq, skv, d = (shape[f] for f in SHAPE_FIELDS["flash_attention"][:6])
+    q = torch.randn((b, hq, sq, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device=device).to(dtype)
+    causal = bool(shape.get("causal", 1))
+
+    def call(blocks):
+        return flash_attention(q, k, v, causal=causal, **blocks)
+
+    return call
 
 
 def _da_runner(shape, dtype, device):
@@ -82,30 +183,42 @@ def _da_runner(shape, dtype, device):
     return call
 
 
+def _ms_runner(shape, dtype, device):
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, length, d, n = (shape[f] for f in SHAPE_FIELDS["mamba_scan"])
+    u = torch.randn((b, length, d), generator=gen, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, length, d), generator=gen, device=device))
+    a = -torch.exp(torch.randn((d, n), generator=gen, device=device))
+    bb = torch.randn((b, length, n), generator=gen, device=device).to(dtype)
+    cc = torch.randn((b, length, n), generator=gen, device=device).to(dtype)
+    dd = torch.randn((d,), generator=gen, device=device)
+
+    def call(blocks):
+        return selective_scan(u, dt, a, bb, cc, dd, **blocks)[0]
+
+    return call
+
+
 @dataclass(frozen=True)
 class KernelSpace:
-    """One kernel's tunable space: block parameters, the shape field that
-    bounds each one's lattice, each one's lattice floor, the geometry
-    builder (mirroring the wrapper via analysis.kernelgeom), the
-    measurement runner, and each parameter's slot in ``KernelLaunch.blocks``."""
+    """One kernel's tunable space: its block parameters, each one's
+    candidate lattice for a shape and dtype, the launch's geometry (the
+    wrapper's own plan, via analysis.kernelgeom; the tuned parameters as
+    launched are its ``params``) and the measurement runner."""
 
     params: tuple
-    axes: Mapping[str, str]
-    floors: Mapping[str, int]
+    lattice: Callable[[Mapping, Any], Mapping[str, list]]
     build_launch: Callable[[Mapping, Any, Mapping], KernelLaunch]
     make_runner: Callable[[Mapping, Any, torch.device], Callable]
-    launch_slots: Mapping[str, int]
 
 
 KERNELS: dict[str, KernelSpace] = {
-    "decode_attention": KernelSpace(
-        params=("bkv",),
-        axes=dict(bkv="skv"),
-        floors=dict(bkv=8),
-        build_launch=_da_launch,
-        make_runner=_da_runner,
-        launch_slots=dict(bkv=1),
-    ),
+    "masked_matmul": KernelSpace(("splits",), _mm_lattice, _mm_launch, _mm_runner),
+    "flash_attention": KernelSpace(("bq", "bkv"), _fa_lattice, _fa_launch, _fa_runner),
+    "decode_attention": KernelSpace(("bkv",), _da_lattice, _da_launch, _da_runner),
+    "mamba_scan": KernelSpace(("lanes",), _ms_lattice, _ms_launch, _ms_runner),
 }
 
 
@@ -144,12 +257,14 @@ class TuneResult:
         )
 
 
-def normalize_blocks(kernel: str, shape: Mapping[str, int], blocks: Mapping[str, int]) -> dict:
-    """Raw lattice point -> the blocks the wrapper would launch (read off
-    the kernelgeom launch, which applies the wrapper's clamp)."""
-    space = KERNELS[kernel]
-    launch = space.build_launch(shape, torch.float32, dict(blocks))
-    return {p: int(launch.blocks[i]) for p, i in space.launch_slots.items()}
+def normalize_blocks(
+    kernel: str, shape: Mapping[str, int], blocks: Mapping[str, Optional[int]], dtype: Any = torch.float32,
+) -> dict:
+    """Raw lattice point -> the blocks the wrapper would launch for it,
+    read off the kernelgeom launch (which runs the wrapper's own rules: a
+    clamp to the cache, the plan's count for None, empty K slices dropped)."""
+    launch = KERNELS[kernel].build_launch(shape, dtype, dict(blocks))
+    return {p: int(launch.params[p]) for p in KERNELS[kernel].params}
 
 
 def lint_candidate(
@@ -212,21 +327,21 @@ def tune_kernel(
         raise ValueError(f"unknown kernel {kernel!r} (have {sorted(KERNELS)})")
     space = KERNELS[kernel]
     shape = {k: int(v) for k, v in shape.items()}
-    missing = [f for f in SHAPE_FIELDS[kernel] if f not in shape]
+    missing = [f for f in SHAPE_FIELDS[kernel] if f != "causal" and f not in shape]
     if missing:
         raise ValueError(f"{kernel} shape is missing fields {missing}")
     dev = resolve_device(device)
     backend = backend_tag(dev)
     dname = dtype_name(dtype)
 
-    lattices = {p: pow2_lattice(shape[space.axes[p]], lo=space.floors[p]) for p in space.params}
+    lattices = space.lattice(shape, dtype)
     runner = space.make_runner(shape, dtype, dev)
 
     timed: dict[tuple, float] = {}
     rejected: list[dict] = []
 
     def score(raw_blocks: Mapping[str, int]) -> Optional[float]:
-        blocks = normalize_blocks(kernel, shape, raw_blocks)
+        blocks = normalize_blocks(kernel, shape, raw_blocks, dtype)
         key = tuple(sorted(blocks.items()))
         if key in timed:
             return timed[key]
@@ -243,7 +358,7 @@ def tune_kernel(
         timed[key] = best
         return best
 
-    heuristic = normalize_blocks(kernel, shape, HEURISTIC_BLOCKS[kernel])
+    heuristic = normalize_blocks(kernel, shape, HEURISTIC_BLOCKS[kernel], dtype)
     heuristic_s = score(heuristic)
     if heuristic_s is None:
         raise ValueError(
@@ -266,7 +381,7 @@ def tune_kernel(
         best_blocks=best,
         best_s=best_s,
         speedup=heuristic_s / best_s if best_s > 0 else float("inf"),
-        roofline_fraction=roofline_fraction(flops, byts, best_s),
+        roofline_fraction=roofline_fraction(flops, byts, best_s, dtype),
         smem_bytes=best_smem,
         evaluated=len(timed),
         rejected=len(rejected),

@@ -201,11 +201,31 @@ def test_mma_plan_keeps_four_k_tiles_per_slice(cuda, m, k, n):
 
 
 def test_the_plan_refuses_what_no_bf16_kernel_runs(cuda):
-    from repro_torch.kernels.masked_matmul.ops import _plan
+    from repro_torch.kernels.masked_matmul.ops import _c_plan, _plan
 
     for args in (("decode", 17, 288, 576), ("v1", 4, 288, 576), ("mma", 512, 0, 576)):
-        with pytest.raises(RuntimeError):
+        with pytest.raises(ValueError):
             _plan(*args, False, 132)
+        with pytest.raises(RuntimeError):
+            _c_plan(*args, False, 132)
+
+
+@pytest.mark.parametrize("kind", ["decode", "mma"])
+def test_the_python_plan_is_the_c_sources(cuda, kind):
+    """``_plan``, which the wrapper launches and the geometry lint reads,
+    against ``masked_matmul_plan`` in the C source, over the serving shapes
+    and a sweep of ragged ones, with a chip axis and both w layouts."""
+    from repro_torch.kernels.masked_matmul.ops import _c_plan, _plan
+
+    ms = (1, 4, 16) if kind == "decode" else (17, 100, 512, 1024, 8192)
+    for m in ms:
+        for k, n in ((576, 576), (576, 192), (576, 1536), (1536, 576), (4096, 16384), (8192, 4096),
+                     (100, 3200), (64, 20000), (5504, 1600), (576, 49152), (33, 7)):
+            for contig in (False, True):
+                for chips in (1, 3, 8):
+                    for sms in (132, 114):
+                        args = (kind, m, n, k, contig, sms, chips)
+                        assert _plan(*args) == _c_plan(*args), args
 
 
 @pytest.mark.parametrize("m", [4, 512])
@@ -965,6 +985,175 @@ def test_tuner_on_card_beats_or_ties_heuristic(cuda):
     assert all("KRN002" in r["codes"] for r in res.rejected_configs)
     assert decode_attention.launches > before
     assert table.get(res.key)["blocks"] == res.best_blocks
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's spaces on the card: every tile, split count and lane count it may pick
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def empty_cache():
+    from repro_torch.tune.cache import TuningCache, set_tuning_cache
+
+    prev = set_tuning_cache(TuningCache())
+    try:
+        yield
+    finally:
+        set_tuning_cache(prev)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "auto"), (torch.bfloat16, "v1"), (torch.float32, "auto")])
+def test_every_built_flash_tile_matches_plain(cuda, d, dtype, variant):
+    """Each (bq, bkv) instance the source builds, at each head dim and for
+    each variant, causal with an offset and a window and not causal, at
+    ragged lengths that cut through the tiles."""
+    from repro_torch.kernels.flash_attention.ops import pick_variant, tiles_built
+
+    kind = pick_variant(dtype, variant)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(2, 203, 6, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    k = torch.randn(2, 333, 2, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn(2, 333, 2, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    rtol, atol = (2e-2, 1e-2) if dtype == torch.bfloat16 else dtype_tol(dtype)
+    for kw in (dict(causal=True, q_offset=130, window=150), dict(causal=False)):
+        ref = attention_ref(q, k, v, **kw).float()
+        for bq, bkv in tiles_built(kind, dtype, d):
+            before = dict(flash_attention.launches_by_variant)
+            got = flash_attention(q, k, v, variant=variant, bq=bq, bkv=bkv, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention.launches_by_variant == {**before, kind: before[kind] + 1}
+            assert flash_attention.last_blocks == dict(bq=bq, bkv=bkv)
+            torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol, msg=f"tile {bq, bkv} {kw}")
+
+
+def test_flash_refuses_tiles_it_does_not_build(cuda):
+    q = torch.randn(1, 2, 64, 128, device=cuda)
+    before = flash_attention.launches
+    for kw in (dict(bq=128, bkv=64), dict(bq=64, bkv=128), dict(bq=32, bkv=64)):  # over 227 KiB, or not built
+        with pytest.raises(ValueError, match="built for tiles"):
+            flash_attention(q, q, q, **kw)
+    with pytest.raises(ValueError, match="built for tiles"):  # bf16 v1 is built at the default alone
+        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), variant="v1", bq=128, bkv=64)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,m,k,n", [
+    (torch.bfloat16, 4, 576, 1536), (torch.bfloat16, 4, 8192, 4096), (torch.bfloat16, 512, 576, 192),
+    (torch.bfloat16, 1024, 1536, 576), (torch.float32, 4, 576, 1536), (torch.float32, 512, 576, 192),
+    (torch.float32, 100, 1536, 576),
+])
+def test_masked_matmul_every_split_count_of_the_lattice_matches_plain(cuda, empty_cache, dtype, m, k, n):
+    """Every K split the tuner may pick, at decode and prefill shapes, held
+    to the plain version; the forced count is the one launched."""
+    from repro_torch.kernels.masked_matmul.ops import gemm_plan, max_splits, pick_variant, sm_count
+    from repro_torch.tune.search import pow2_lattice
+
+    x, w, ok = _gemm_inputs(cuda, m, k, n, False) if dtype == torch.bfloat16 else _f32_gemm(cuda, m, k, n, False)
+    kind = pick_variant(dtype, m)
+    ref = masked_matmul_ref(x, w, ok).float()
+    rtol, atol = (2e-2, 2e-2) if dtype == torch.bfloat16 else F32_TOL
+    for splits in pow2_lattice(max_splits(kind, m, k), lo=1):
+        got = masked_matmul(x, w, ok, splits=splits)
+        torch.cuda.synchronize()
+        want = gemm_plan(kind, m, n, k, sm_count(cuda), splits=splits).splits
+        assert masked_matmul.last_splits == want
+        torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol, msg=f"splits {splits}")
+    with pytest.raises(ValueError, match="K slices"):
+        masked_matmul(x, w, ok, splits=max_splits(kind, m, k) + 1)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 16, 64])
+def test_selective_scan_every_legal_lane_count_matches_plain(cuda, empty_cache, u_dtype, n):
+    from repro_torch.kernels.mamba_scan.ops import lane_choices
+
+    args = _scan_inputs(cuda, 2, 50, 300, n, u_dtype, seed=n)
+    ref_y, ref_h = selective_scan_ref(*args)
+    rtol, atol = SCAN_TOL[u_dtype]
+    for lanes in lane_choices(n):
+        y, h = selective_scan(*args, lanes=lanes)
+        torch.cuda.synchronize()
+        assert selective_scan.last_plan.lanes == lanes
+        torch.testing.assert_close(y.float(), ref_y.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(h, ref_h, rtol=2e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="no scan kernel"):
+        selective_scan(*args, lanes=min(lane_choices(n)) // 2 or 64)
+
+
+def test_an_empty_cache_gives_the_bits_of_the_explicit_heuristic(cuda, empty_cache):
+    """Each of the three wrappers with no blocks and an empty cache launches
+    its heuristic, bit for bit."""
+    from repro_torch.kernels.mamba_scan.ops import scan_plan, sm_count
+    from repro_torch.kernels.masked_matmul.ops import gemm_plan
+
+    for m, dtype in ((4, torch.bfloat16), (512, torch.bfloat16), (4, torch.float32), (512, torch.float32)):
+        x, w, ok = _gemm_inputs(cuda, m, 576, 1536, False) if dtype == torch.bfloat16 else \
+            _f32_gemm(cuda, m, 576, 1536, False)
+        plan = gemm_plan("v1" if dtype == torch.float32 else "decode" if m <= 16 else "mma", m, 1536, 576,
+                         sm_count(cuda))
+        got = masked_matmul(x, w, ok)
+        assert masked_matmul.last_splits == plan.splits
+        assert torch.equal(got, masked_matmul(x, w, ok, splits=plan.splits))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(2, 9, 300, 64, device=cuda).to(dtype)
+        k = torch.randn(2, 3, 300, 64, device=cuda).to(dtype)
+        got = flash_attention(q, k, k)
+        assert flash_attention.last_blocks == dict(bq=64, bkv=64)
+        assert torch.equal(got, flash_attention(q, k, k, bq=64, bkv=64))
+        args = _scan_inputs(cuda, 2, 64, 800, 16, dtype)
+        y, h = selective_scan(*args)
+        lanes = scan_plan(2, 800, 16, sm_count(cuda)).lanes
+        assert selective_scan.last_plan.lanes == lanes
+        y2, h2 = selective_scan(*args, lanes=lanes)
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_the_cache_steers_each_wrapper_on_the_card(cuda, empty_cache):
+    """A table entry reaches the launch (read off ``last_*``), a caller's
+    value beats it, and a tuned entry the wrapper refuses raises."""
+    from repro_torch.tune.cache import cache_key, get_tuning_cache
+
+    table = get_tuning_cache()
+    x, w, ok = _gemm_inputs(cuda, 4, 576, 1536, False)
+    table.put(cache_key("masked_matmul", dict(m=4, k=576, n=1536, r=256, c=256), "bfloat16", "cuda"),
+              dict(blocks=dict(splits=2)))
+    masked_matmul(x, w, ok)
+    assert masked_matmul.last_splits == 2
+    masked_matmul(x, w, ok, splits=3)
+    assert masked_matmul.last_splits == 3
+    masked_matmul(x, w.T.contiguous().T, ok)  # k-contiguous w keeps the plan
+    assert masked_matmul.last_splits != 2
+    q = torch.randn(1, 4, 256, 64, device=cuda).to(torch.bfloat16)
+    key = cache_key("flash_attention", dict(b=1, hq=4, hkv=4, sq=256, skv=256, d=64, causal=1), "bfloat16", "cuda")
+    table.put(key, dict(blocks=dict(bq=128, bkv=64)))
+    flash_attention(q, q, q)
+    assert flash_attention.last_blocks == dict(bq=128, bkv=64)
+    table.put(key, dict(blocks=dict(bq=256, bkv=32)))
+    with pytest.raises(ValueError, match="built for tiles"):
+        flash_attention(q, q, q)
+    args = _scan_inputs(cuda, 2, 40, 300, 16, torch.float32)
+    table.put(cache_key("mamba_scan", dict(b=2, l=40, d=300, n=16), "float32", "cuda"), dict(blocks=dict(lanes=4)))
+    selective_scan(*args)
+    assert selective_scan.last_plan.lanes == 4
+    table.put(cache_key("mamba_scan", dict(b=2, l=40, d=300, n=16), "float32", "cuda"), dict(blocks=dict(lanes=1)))
+    with pytest.raises(ValueError, match="no scan kernel"):
+        selective_scan(*args)
+
+
+def test_every_committed_default_entry_passes_the_lint(cuda):
+    from repro_torch.tune.cache import DEFAULT_CACHE_PATH, TuningCache, parse_key
+    from repro_torch.tune.tuner import SHAPE_FIELDS, lint_candidate
+
+    table = TuningCache.load(DEFAULT_CACHE_PATH)
+    assert len(table) > 0
+    for key, entry in table.entries.items():
+        kernel, shape, dtype, backend = parse_key(key)
+        assert backend == "cuda" and set(shape) == set(SHAPE_FIELDS[kernel])
+        findings, smem = lint_candidate(kernel, shape, getattr(torch, dtype), entry["blocks"])
+        assert findings == [] and smem == entry["smem_bytes"], key
+        assert entry["speedup"] >= 1.05, key
 
 
 # ---------------------------------------------------------------------------

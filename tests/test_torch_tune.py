@@ -155,7 +155,8 @@ def test_the_ports_overlay_wins_and_ignores_the_reference_variable(tmp_path, mon
     prev = set_tuning_cache(None)
     try:
         tc.reset_tuning_cache()
-        assert len(tc.get_tuning_cache()) == 0  # the committed default is empty; no TPU table is read
+        # the committed default alone: no TPU table is read
+        assert tc.get_tuning_cache().entries == TuningCache.load(tc.DEFAULT_CACHE_PATH).entries
         monkeypatch.setenv(tc.ENV_CACHE_PATH, str(path))
         tc.reset_tuning_cache()
         assert tc.get_tuning_cache().lookup_blocks("decode_attention", DA_SHAPE, "bfloat16", "cuda") == \
@@ -163,7 +164,14 @@ def test_the_ports_overlay_wins_and_ignores_the_reference_variable(tmp_path, mon
     finally:
         set_tuning_cache(prev)
     assert tc.ENV_CACHE_PATH == "REPRO_TORCH_TUNING_CACHE"
-    assert json.loads(open(tc.DEFAULT_CACHE_PATH).read()) == {"entries": {}, "version": 1}
+    # the committed H100 table: card entries only, each faster than the heuristic by 5% in two runs
+    doc = json.loads(open(tc.DEFAULT_CACHE_PATH).read())
+    assert doc["version"] == 1
+    for key, entry in doc["entries"].items():
+        kernel, shape, _, backend = parse_key(key)
+        assert kernel in KERNELS and backend == "cuda"
+        assert min(entry["speedups"]) >= 1.05 and entry["speedup"] == entry["speedups"][0]
+        assert all(card.startswith("NVIDIA H100") for card in entry["cards"])
 
 
 def test_restoring_an_unloaded_table_keeps_the_overlay(tmp_path, monkeypatch):
@@ -315,7 +323,7 @@ def test_a_heuristic_that_fails_the_lint_raises_before_any_launch(monkeypatch):
     with pytest.raises(ValueError, match="missing fields"):
         tune_kernel("decode_attention", dict(b=1), device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
-        tune_kernel("masked_matmul", dict(m=1, k=1, n=1, r=1, c=1), device="cpu")
+        tune_kernel("no_such_kernel", dict(m=1, k=1, n=1, r=1, c=1), device="cpu")
 
 
 def test_tune_many_fills_a_cache_that_steers_the_wrapper(monkeypatch, isolated_cache):
@@ -359,3 +367,246 @@ def test_the_real_runner_times_the_plain_version_on_the_cpu(isolated_cache):
     res = tune_kernel("decode_attention", dict(b=1, hq=2, hkv=2, skv=64, d=32), device="cpu",
                       iters=1, max_evals=3)
     assert res.backend == "cpu" and res.evaluated >= 1 and res.best_s > 0
+
+
+# ---------------------------------------------------------------------------
+# the four spaces: shape keys, the float32 roofline, the seams of the three new wrappers
+# ---------------------------------------------------------------------------
+
+from repro.tune.tuner import SHAPE_FIELDS as JAX_SHAPE_FIELDS  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import DEFAULT_TILE, TILES, resolve_tile  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.masked_matmul import ops as mm_ops  # noqa: E402
+from repro_torch.tune.tuner import SHAPE_FIELDS  # noqa: E402
+
+SPACE_SHAPES = {
+    "masked_matmul": dict(m=4, k=576, n=1536, r=256, c=256),
+    "flash_attention": dict(b=4, hq=9, hkv=3, sq=2048, skv=2048, d=64, causal=1),
+    "decode_attention": DA_SHAPE,
+    "mamba_scan": dict(b=4, l=128, d=8192, n=16),
+}
+
+
+def test_shape_fields_and_keys_are_the_references_for_all_four_kernels():
+    assert SHAPE_FIELDS == JAX_SHAPE_FIELDS
+    assert set(KERNELS) == set(SHAPE_FIELDS) == {"masked_matmul", "flash_attention", "decode_attention",
+                                                 "mamba_scan"}
+    for kernel, shape in SPACE_SHAPES.items():
+        assert set(shape) == set(SHAPE_FIELDS[kernel])
+        for dname in ("float32", "bfloat16"):
+            ours = cache_key(kernel, dict(reversed(list(shape.items()))), dname, "cuda")
+            assert ours == jax_cache.cache_key(kernel, shape, dname, "cuda")
+            assert parse_key(ours) == jax_cache.parse_key(ours)
+
+
+def test_a_float32_operation_bound_fraction_uses_the_simt_rate():
+    """The float32 kernels run on the SIMT cores: 67 TFLOP/s, not the bf16
+    tensor-core rate that the fraction of a bf16 launch uses."""
+    shape = dict(m=512, k=576, n=192, r=256, c=256)  # v1's one-wave row
+    flops, byts = roofline.kernel_flops_bytes("masked_matmul", shape, torch.float32)
+    assert flops / 67e12 > byts / 3.35e12  # bound by operations
+    t = 100e-6
+    assert roofline.PEAK_FLOPS_FP32 == 67e12 and roofline.peak_flops("float32") == 67e12
+    assert roofline.peak_flops(torch.bfloat16) == roofline.PEAK_FLOPS == 989e12
+    assert roofline.roofline_fraction(flops, byts, t, torch.float32) == pytest.approx(flops / 67e12 / t)
+    assert roofline.roofline_fraction(flops, byts, t, "bfloat16") == pytest.approx(
+        max(flops / 989e12, byts / 3.35e12) / t)
+    # at the bf16 rate this shape would look bound by its bytes, at 40% of the float32 fraction
+    assert roofline.roofline_fraction(flops, byts, t, torch.float32) > 2 * roofline.roofline_fraction(
+        flops, byts, t, torch.bfloat16)
+
+
+def test_the_tuner_records_the_fraction_at_the_dtypes_peak(monkeypatch):
+    shape = dict(m=512, k=576, n=192, r=256, c=256)
+    _stub_space(monkeypatch, "masked_matmul", lambda b: 1e-3)
+    res = tune_kernel("masked_matmul", shape, torch.float32, device="cpu", iters=1)
+    flops, byts = roofline.kernel_flops_bytes("masked_matmul", shape, torch.float32)
+    assert res.roofline_fraction == pytest.approx(flops / 67e12 / res.best_s)
+
+
+def _stub_space(monkeypatch, kernel, times):
+    """Replace a kernel's runner by one that records each launch's blocks and
+    costs ``times(blocks)`` seconds on a fake clock."""
+    launched = []
+    clock = [0.0]
+
+    def make_runner(shape, dtype, device):
+        def call(blocks):
+            launched.append(dict(blocks))
+            clock[0] += times(blocks)
+        return call
+
+    monkeypatch.setitem(KERNELS, kernel, dataclasses.replace(KERNELS[kernel], make_runner=make_runner))
+    monkeypatch.setattr("repro_torch.tune.tuner.time.perf_counter", lambda: clock[0])
+    return launched
+
+
+STUB_CASES = [  # (kernel, shape, dtype, seconds of a candidate)
+    ("masked_matmul", dict(m=4, k=576, n=1536, r=256, c=256), torch.bfloat16, lambda b: 1.0 / b["splits"]),
+    ("masked_matmul", dict(m=512, k=576, n=192, r=256, c=256), torch.float32, lambda b: abs(b["splits"] - 3) + 1),
+    ("masked_matmul", dict(m=8192, k=576, n=1536, r=256, c=256), torch.bfloat16, lambda b: b["splits"]),
+    ("flash_attention", dict(b=4, hq=9, hkv=3, sq=2048, skv=2048, d=64, causal=1), torch.bfloat16,
+     lambda b: 1.0 / (b["bq"] * b["bkv"])),
+    ("flash_attention", dict(b=4, hq=16, hkv=8, sq=2048, skv=2048, d=128, causal=1), torch.float32,
+     lambda b: 1.0 / (b["bq"] * b["bkv"])),
+    ("mamba_scan", dict(b=4, l=128, d=8192, n=16), torch.bfloat16, lambda b: abs(b["lanes"] - 4) + 1),
+    ("mamba_scan", dict(b=4, l=2048, d=3200, n=16), torch.bfloat16, lambda b: 1.0 / b["lanes"]),
+]
+
+
+@pytest.mark.parametrize("kernel,shape,dtype,times", STUB_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(STUB_CASES)])
+def test_each_new_space_beats_or_ties_its_seed_and_never_launches_a_rejected_point(
+        monkeypatch, kernel, shape, dtype, times):
+    launched = _stub_space(monkeypatch, kernel, times)
+    res = tune_kernel(kernel, shape, dtype, device="cpu", iters=2)
+    heur = normalize_blocks(kernel, shape, HEURISTIC_BLOCKS[kernel], dtype)
+    assert launched[0] == res.heuristic_blocks == heur  # the seed is the wrapper's own choice
+    assert res.best_s <= res.heuristic_s and res.speedup >= 1.0
+    rejected = [r["blocks"] for r in res.rejected_configs]
+    assert not any(b in rejected for b in launched)
+    for b in launched:
+        assert lint_candidate(kernel, shape, dtype, b)[0] == []
+        assert normalize_blocks(kernel, shape, b, dtype) == b  # timed as launched
+    for r in res.rejected_configs:
+        assert r["codes"] and lint_candidate(kernel, shape, dtype, r["blocks"])[0]
+    assert res.key == cache_key(kernel, shape, dtype_name(dtype), "cpu")
+    assert len({tuple(sorted(b.items())) for b in launched}) == res.evaluated  # each launch timed once
+
+
+def test_the_flash_space_rejects_tiles_that_are_not_built_or_do_not_fit(monkeypatch):
+    launched = _stub_space(monkeypatch, "flash_attention", lambda b: 1.0 / (b["bq"] * b["bkv"]))
+    shape = dict(b=4, hq=16, hkv=8, sq=2048, skv=2048, d=128, causal=1)
+    res = tune_kernel("flash_attention", shape, torch.float32, device="cpu", iters=1, max_evals=99)
+    codes = {(r["blocks"]["bq"], r["blocks"]["bkv"]): r["codes"] for r in res.rejected_configs}
+    assert codes[(128, 64)] == ["KRN002"] and codes[(64, 128)] == ["KRN002"]  # 237,568 and 337,920 B
+    assert all(c == ["KRN001"] for t, c in codes.items() if t not in TILES)
+    assert {(b["bq"], b["bkv"]) for b in launched} <= {(64, 64), (64, 32)}
+    assert res.best_blocks == dict(bq=64, bkv=64) and res.smem_bytes == 186368
+
+
+def test_the_split_lattice_stops_at_the_plans_cap():
+    from repro_torch.tune.tuner import _mm_lattice
+
+    assert _mm_lattice(dict(m=4, k=576, n=1536), torch.bfloat16) == dict(splits=[1, 2, 4, 8, 9])
+    assert _mm_lattice(dict(m=8192, k=576, n=1536), torch.bfloat16) == dict(splits=[1, 2, 4])
+    assert _mm_lattice(dict(m=512, k=576, n=192), torch.float32) == dict(splits=[1, 2, 4, 8, 9])
+    assert _mm_lattice(dict(m=4, k=8192, n=4096), torch.bfloat16) == dict(splits=[1, 2, 4, 8, 16, 32])
+    # raw points that collapse to one launch: 8 slices of 9 granules are 5 of 2
+    assert normalize_blocks("masked_matmul", dict(m=4, k=576, n=1536, r=256, c=256), dict(splits=8),
+                            torch.bfloat16) == dict(splits=5)
+
+
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("masked_matmul", dict(m=4, k=64, n=48, r=16, c=16), torch.float32),
+    ("masked_matmul", dict(m=24, k=128, n=40, r=16, c=16), torch.bfloat16),
+    ("flash_attention", dict(b=1, hq=2, hkv=1, sq=48, skv=48, d=64, causal=1), torch.float32),
+    ("flash_attention", dict(b=1, hq=2, hkv=2, sq=40, skv=40, d=80, causal=0), torch.bfloat16),
+    ("mamba_scan", dict(b=1, l=12, d=24, n=4), torch.float32),
+])
+def test_the_real_runners_time_the_plain_versions_on_the_cpu(isolated_cache, kernel, shape, dtype):
+    res = tune_kernel(kernel, shape, dtype, device="cpu", iters=1, max_evals=3)
+    assert res.backend == "cpu" and res.evaluated >= 1 and res.best_s > 0
+    assert res.best_s <= res.heuristic_s
+
+
+def test_the_masked_gemm_seam_resolution_order(isolated_cache):
+    shape = dict(m=4, k=576, n=1536, r=256, c=256)
+    plan = mm_ops.gemm_plan("decode", 4, 1536, 576, 132)
+
+    def launched(**kw):
+        return mm_ops.resolve_plan(torch.bfloat16, 4, 576, 1536, (256, 256), "cuda", 132, **kw).splits
+
+    assert launched() == plan.splits == 9  # the plan
+    isolated_cache.put(cache_key("masked_matmul", shape, "bfloat16", "cuda"), dict(blocks=dict(splits=2)))
+    assert launched() == 2  # the cache
+    assert launched(splits=3) == 3  # the caller
+    assert launched(splits=4) == 3  # 4 slices of 9 granules leave one empty: 3 of 3
+    assert launched(k_contiguous=True) == mm_ops.gemm_plan("decode", 4, 1536, 576, 132, k_contiguous=True).splits
+    assert launched(chips=2) == mm_ops.gemm_plan("decode", 4, 1536, 576, 132, 2).splits  # chip-batched: the plan
+    assert launched(variant="v1") == mm_ops.gemm_plan("v1", 4, 1536, 576, 132).splits  # a forced v1: the plan
+    assert mm_ops.resolve_plan(torch.float32, 4, 576, 1536, (256, 256), "cuda", 132).splits == 9  # float32 misses
+    assert mm_ops.resolve_plan(torch.bfloat16, 4, 576, 1536, (256, 256), "cpu", 132).splits == 9  # cpu misses
+    isolated_cache.put(cache_key("masked_matmul", shape, "bfloat16", "cuda"), dict(blocks=dict(splits=64)))
+    with pytest.raises(ValueError, match="K slices"):  # a tuned entry the plan refuses raises
+        launched()
+
+
+def test_the_flash_seam_resolution_order(isolated_cache):
+    args = (4, 9, 3, 2048, 2048, 64, True, torch.bfloat16, "cuda")
+    assert resolve_tile(*args) == DEFAULT_TILE == (64, 64)
+    isolated_cache.put(cache_key("flash_attention", dict(b=4, hq=9, hkv=3, sq=2048, skv=2048, d=64, causal=1),
+                                 "bfloat16", "cuda"), dict(blocks=dict(bq=128, bkv=32)))
+    assert resolve_tile(*args) == (128, 32)
+    assert resolve_tile(*args, bkv=128) == (128, 128)  # the caller, per parameter
+    assert resolve_tile(*args[:6], False, *args[7:]) == (64, 64)  # not causal: another key
+    assert resolve_tile(*args, variant="v1") == (64, 64)  # a forced v1 keeps the default
+
+
+def test_the_scan_seam_resolution_order(isolated_cache):
+    plan = scan_ops.scan_plan(4, 8192, 16, 132)
+    assert scan_ops.resolve_plan(4, 128, 8192, 16, torch.bfloat16, "cuda", 132) == plan
+    isolated_cache.put(cache_key("mamba_scan", dict(b=4, l=128, d=8192, n=16), "bfloat16", "cuda"),
+                       dict(blocks=dict(lanes=8)))
+    assert scan_ops.resolve_plan(4, 128, 8192, 16, torch.bfloat16, "cuda", 132).lanes == 8
+    assert scan_ops.resolve_plan(4, 128, 8192, 16, torch.bfloat16, "cuda", 132, lanes=4).lanes == 4
+    assert scan_ops.resolve_plan(4, 129, 8192, 16, torch.bfloat16, "cuda", 132) == plan  # another L misses
+    isolated_cache.put(cache_key("mamba_scan", dict(b=4, l=128, d=8192, n=16), "bfloat16", "cuda"),
+                       dict(blocks=dict(lanes=1)))
+    with pytest.raises(ValueError, match="no scan kernel"):  # 16 states in one lane: refused, not skipped
+        scan_ops.resolve_plan(4, 128, 8192, 16, torch.bfloat16, "cuda", 132)
+
+
+def test_the_seam_memo_is_one_lookup_and_drops_with_the_table(isolated_cache):
+    calls = []
+
+    def defaults():
+        calls.append(1)
+        return dict(lanes=2)
+
+    from repro_torch.kernels.common import tuned_block
+
+    shape = dict(b=1, l=2, d=3, n=4)
+
+    def get():
+        return tuned_block("mamba_scan", shape, torch.float32, device="cuda", defaults=defaults)
+
+    assert get() == get() == dict(lanes=2) and len(calls) == 1  # memoized: the defaults ran once
+    assert len(tc.SEAM_MEMO) == 1
+    isolated_cache.put(cache_key("mamba_scan", shape, "float32", "cuda"), dict(blocks=dict(lanes=8)))
+    assert not tc.SEAM_MEMO  # a put into the process table drops it
+    assert get() == dict(lanes=8) and len(calls) == 2
+    TuningCache().put(cache_key("mamba_scan", shape, "float32", "cuda"), dict(blocks=dict(lanes=4)))
+    assert tc.SEAM_MEMO and get() == dict(lanes=8)  # a put into another table does not
+    set_tuning_cache(TuningCache())
+    assert not tc.SEAM_MEMO and get() == dict(lanes=2)
+    tc.reset_tuning_cache()
+    assert not tc.SEAM_MEMO
+
+
+def test_the_default_table_keeps_what_two_runs_agree_on_at_5_percent(tmp_path):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "default_table.py"
+    spec = importlib.util.spec_from_file_location("default_table", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    keys = [cache_key("flash_attention", dict(b=i), "bfloat16", "cuda") for i in range(5)]
+    a, b = TuningCache(), TuningCache()
+    for key, (ea, eb) in zip(keys, [((64, 1.2), (64, 1.06)),  # kept
+                                    ((64, 1.2), (64, 1.04)),  # run B under 5%
+                                    ((64, 1.2), (32, 1.2)),  # the runs disagree on the blocks
+                                    ((64, 1.05), (64, 1.05))]):  # kept: at 5% exactly
+        a.put(key, dict(blocks=dict(bq=ea[0]), speedup=ea[1], smem_bytes=1))
+        b.put(key, dict(blocks=dict(bq=eb[0]), speedup=eb[1], smem_bytes=1))
+    a.put(keys[4], dict(blocks=dict(bq=64), speedup=2.0))  # in run A only
+    for run, table in (("a", a), ("b", b)):
+        (tmp_path / run).mkdir()
+        table.save(str(tmp_path / run / "tune_table.json"))
+        (tmp_path / run / "chip_smoke.json").write_text(json.dumps(dict(card=f"card {run}")))
+    assert tool.main([str(tmp_path / "a"), str(tmp_path / "b"), "--out", str(tmp_path / "out.json")]) == 0
+    out = TuningCache.load(str(tmp_path / "out.json"))
+    assert sorted(out.entries) == sorted([keys[0], keys[3]])
+    assert out.get(keys[0]) == dict(blocks=dict(bq=64), speedup=1.2, smem_bytes=1, speedups=[1.2, 1.06],
+                                    cards=["card a", "card b"])

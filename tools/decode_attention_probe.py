@@ -93,7 +93,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import common
     from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.tune import TuningCache, set_tuning_cache
 
+    set_tuning_cache(TuningCache())  # the heuristic tile, not the committed table's tuned ones
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")

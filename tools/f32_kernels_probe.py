@@ -86,6 +86,9 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
+    from repro_torch.tune import TuningCache, set_tuning_cache
+
+    set_tuning_cache(TuningCache())  # the wrappers' plans, not the committed table's tuned blocks
     logs = build_kernels(["masked_matmul", "flash_attention"])
     report = {"card": card, "ptxas": [], "gemm": [], "flash": []}
     for name, text in logs.items():
@@ -298,11 +301,13 @@ def variants(torch, time_ms, gen, ok, masked_matmul) -> list:
                 common._FNS["masked_matmul"] = f
                 for attr, repl in (patches[name] if turn == name else {}).items():
                     setattr(ops, attr, repl)
+                ops.gemm_plan.cache_clear()  # the launch plan reads the patched rules afresh
                 try:
                     got = masked_matmul(x, w, ok)
                     times.setdefault(turn, []).append(time_ms(lambda: masked_matmul(x, w, ok)))
                 finally:
                     ops._v1_tiles, ops._split_plan = _V1_TILES, _V1_PLAN
+                    ops.gemm_plan.cache_clear()
                 if turn == name and not torch.equal(got, masked_matmul(x, w, ok)):
                     print(f"variant {name}: {label} M={m} differs from the base in bits "
                           f"(max {float((got - masked_matmul(x, w, ok)).abs().max()):.3g})")

@@ -154,6 +154,9 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
     sms = common.sm_count(dev)
+    from repro_torch.tune import TuningCache, set_tuning_cache
+
+    set_tuning_cache(TuningCache())  # the wrappers' plans, not the committed table's tuned blocks
     logs = common.build_kernels(["selective_scan"])
     for line in logs.get("selective_scan", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
