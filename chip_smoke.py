@@ -253,7 +253,19 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     ``dtype_tol`` of the dtype, the tied unembed's weight k-contiguous),
     and timed at a decode step's shapes (M = 4) and (a)'s prefill (M = 512) against its bound,
     the same launches one chip at a time, ``torch.bmm`` on pre-masked bf16
-    w and the plain version; ``--profile`` adds (b)'s busy share;
+    w and the plain version; ``--profile`` adds (b)'s busy share. (d)
+    hymba-1.5b (4 chips, all 32 layers) and mixtral-8x22b (2 chips, depth
+    1) at full width through ``FleetServeEngine`` in bf16, 4 x 128-token
+    prompts shared, 16 greedy tokens: each chip anchored and held to its
+    own ``ServeEngine`` (tokens equal but at a bf16 near-tie), the faulty
+    chips' tokens differ from chip 0's; one chip-batched launch a masked
+    GEMM (hymba 353 a step; mixtral's 3 expert GEMMs a step one chips x
+    experts launch each) and a scan (hymba's prefill: 32); the chips x
+    experts GEMM on the stacked ``wg`` and ``wd`` at M = 8 and 160 an expert
+    (decode, mma, v1) and the chip-batched scan at hymba's prefill (per-chip
+    and shared a and d, bf16 and float32) held to their plain versions and
+    timed beside their bounds, ``torch.bmm`` on pre-masked w (the GEMM) and
+    the plain versions;
 15. the rest of the model zoo at full published width on the same chip in
     ``kernel`` mode. First qwen3-0.6b at full depth (qk_norm, D = 128, the
     tied 151,936-row unembed), a dense decoder, through phases 6 and 7's
@@ -459,15 +471,18 @@ def rel_l2(got, ref):
 
 def reset_launches():
     """Zero the model path's kernel counters: launches and launches by variant
-    (the masked GEMM's chip-batched and expert-batched ones too)."""
+    (the masked GEMM's chip-batched, expert-batched and chip x expert ones
+    too, and the scan's chip-batched ones)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
 
     for fn in (masked_matmul, flash_attention, selective_scan):
         fn.launches = 0
+    selective_scan.fleet_launches = 0
     for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "fleet_launches_by_variant"),
-                     (masked_matmul, "expert_launches_by_variant"), (flash_attention, "launches_by_variant")):
+                     (masked_matmul, "expert_launches_by_variant"),
+                     (masked_matmul, "fleet_expert_launches_by_variant"), (flash_attention, "launches_by_variant")):
         setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 
 
@@ -1907,7 +1922,11 @@ def fleet_phase(torch, log, profile=False):
     its bound (the chips' bytes, the fp32 master read in place), the same
     launches one chip at a time, ``torch.bmm`` on pre-masked bf16 weights
     (the library time) and the plain version. ``profile`` adds the busy
-    share of (b)'s bf16 run."""
+    share of (b)'s bf16 run.
+    (d) ``fleet_families``: hymba-1.5b (4 chips) and mixtral-8x22b (depth
+    1, 2 chips) at full width through ``FleetServeEngine``, the scan and the
+    expert GEMMs one launch over the chips, each held to its plain
+    version."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -2305,10 +2324,310 @@ def fleet_phase(torch, log, profile=False):
     del flush, oks, ok_list, models, params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- (d) the families under the chip axis: hymba's scan, mixtral's experts --------
+    t0 = time.perf_counter()
+    report["d"] = fleet_families(torch, log, card)
+    stages["(d) hymba and mixtral fleets"] = time.perf_counter() - t0
     report.update(gemm={str(m): v for m, v in gemm.items()}, parity=parity, max_abs_err=fleet_err,
                   launches_fleet=fleet_totals, stages=stages, seconds=time.perf_counter() - t_phase)
     log(f"fleet phase ({card}): {report['seconds']:.2f} s; stages (s): "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; chip-batched launches {fleet_totals}")
+    return report
+
+
+FLEET_FAMILY_NEW = 16  # (d): greedy new tokens a family fleet generates
+# (d): (config, chips, depth or None, why); chips random_fault_map(c, 256, 256, 0.05 * c), chip 0 healthy
+FLEET_FAMILIES = (
+    ("hymba-1.5b", 4, None, "all 32 layers: 1.52 B fp32 parameters a chip"),
+    ("mixtral-8x22b", 2, 1, "8 experts x 3 x 6144 x 16384, attention, embedding and head: 11.6 GB of fp32 "
+                            "master a chip, stacked once more by the engine"),
+)
+FLEET_EXPERT_MS = (8, 160)  # mixtral's chip x expert GEMMs: a decode step (4 x cap 2) and the prefill (4 x cap 40)
+FLEET_TIE_ULPS = 8  # a bf16 fleet token may part from its chip's ServeEngine where the logits lie this many ulps apart
+
+
+def fleet_families(torch, log, card):
+    """Stage (d) of phase 14: the families the fleet engines took last, at
+    full width in bf16 and ``kernel`` mode (FLEET_FAMILIES, each with its
+    cut and reason): hymba-1.5b's scan and mixtral-8x22b's experts under the
+    chip axis. Chips ``random_fault_map(c, 256, 256, 0.05 * c)``, chip 0
+    healthy, params from seed 0 (hymba: seed c // 2, its A and D set apart
+    by seed, which ``init_params`` does not do); the four 128-token prompts
+    of ``default_rng(0)`` shared, FLEET_FAMILY_NEW greedy tokens through
+    ``FleetServeEngine``. Returns the stage's report; raises ``Failed`` on a
+    missed gate.
+
+    Gates: every chip's served logprobs anchored as in (a) (RMS error
+    against the plain float32 path, replayed through ``prefill`` and
+    ``decode_step`` on the served tokens so that an MoE layer routes as the
+    run did, at most ANCHOR_RATIO times plain bf16's own); each chip held to
+    its own ``ServeEngine`` (exact-length prefill): tokens equal until a
+    parting, and at a parting the two tokens' logits, in the engine's own
+    kernel-mode replay, a bf16 near-tie apart: at most FLEET_TIE_ULPS units
+    in the last place of the larger logit. The chip-batched launches split
+    K otherwise than one chip's, and bf16 rounds the two sums apart through
+    every layer, so a near-tie may fall the other way; the 4 units of
+    ``examples/fleet_serve.py``'s rule for SmolLM's 30 layers parted
+    hymba's 32 at 5. The faulty chips' tokens differ from chip 0's. Every
+    masked
+    GEMM of the run is one chip-batched launch, a step's count that of one
+    chip (hymba 353; mixtral 9 at depth 1, its 3 expert GEMMs a step chip x
+    expert launches), and every scan one launch over chips x rows (hymba's
+    prefill: 32, whatever the chip count). Then the kernels against their
+    plain versions on the run's own weights: the chip x expert GEMM on the
+    engine's stacked ``wg`` and ``wd`` of layer 0 (a view of the stacked
+    fp32 master, one mask a chip; each chip past the first scaled by
+    1 + c, as the chips share one init) at M = FLEET_EXPERT_MS a expert in bf16
+    (decode, mma) and float32 (v1), within ``dtype_tol``, timed beside its
+    bound, ``torch.bmm`` on pre-masked w and the plain version; the
+    chip-batched scan at hymba's prefill (4 chips x 4 x 128 x 3200 x 16) with
+    each chip's own a and d (the engine's layer 0, chip c's A scaled by 1 +
+    0.1 c and its D raised by 0.1 c), and with one a and d shared (chip
+    stride 0), in bf16 and float32 at the scan rows' tolerances, timed beside its
+    bound (the exponentials on the SFUs) and the plain version."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import from_fault_map, healthy, random_fault_map
+    from repro_torch.core.mapping import periodic_mask
+    from repro_torch.fleet import FleetServeEngine
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref, pick_variant
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device("cuda")
+    new = FLEET_FAMILY_NEW
+    flush = torch.empty(2**28, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    report = dict(models={}, expert_rows=[], scan_rows=[], launches={}, max_abs_err={}, seconds={})
+
+    def replay(c, params, ctx, prompts, feed):
+        """Logit rows (B, 1 + steps, V) of a served run, float32: ``prefill``
+        of the prompts, then one ``decode_step`` per fed token."""
+        with torch.no_grad():
+            logits, cache = M.prefill(params, {"tokens": prompts}, c, ctx, cache_len=PROMPT + new, attn_impl="dense")
+            rows = [logits.float()]
+            for i in range(feed.shape[1]):
+                step, cache = M.decode_step(params, feed[:, i:i + 1], cache, c, ctx)
+                rows.append(step[:, 0].float())
+        return torch.stack(rows, 1)
+
+    def chosen(rows, toks):
+        return torch.log_softmax(rows, -1).gather(-1, toks[..., None])[..., 0]
+
+    def launch_counts():
+        return dict(variants=dict(masked_matmul.launches_by_variant),
+                    fleet=dict(masked_matmul.fleet_launches_by_variant),
+                    fleet_experts=dict(masked_matmul.fleet_expert_launches_by_variant),
+                    experts=dict(masked_matmul.expert_launches_by_variant),
+                    scan=selective_scan.launches, scan_fleet=selective_scan.fleet_launches)
+
+    def serve(c, chips, params, maps):
+        """The fleet run and its gates; returns (engine, report)."""
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(0, c.vocab_size, (BATCH, PROMPT)), device=dev)
+        ctxs = [healthy() if i == 0 else from_fault_map(maps[i], "kernel", device=dev) for i in range(chips)]
+        plain_ctxs = [healthy() if i == 0 else from_fault_map(maps[i], "fap", device=dev) for i in range(chips)]
+        eng = FleetServeEngine(c, params, ctxs, max_len=PROMPT + new)
+        eng.generate(prompts[:, :16], max_new_tokens=2)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        per_step = sum(u for _, _, u in c.gemm_shapes())
+        experts = 3 * c.num_layers * (1 + new) if c.has_moe else 0
+        scans = c.num_layers if c.has_ssm else 0
+        total = sum(got["variants"].values())
+        batched = {k: got["fleet"][k] + got["fleet_experts"][k] for k in got["variants"]}
+        if (total != per_step * (1 + new) or batched != got["variants"] or got["variants"]["v1"]
+                or sum(got["fleet_experts"].values()) != experts or sum(got["experts"].values())
+                or got["scan"] != scans or got["scan_fleet"] != scans):
+            raise Failed(f"fleet (d) {c.name}: launches {got}; expected {per_step} chip-batched masked GEMMs a "
+                         f"step ({experts} chip x expert in all), no v1, {scans} chip-batched scans")
+        toks = out.tokens.cpu().numpy()
+        for i in range(1, chips):
+            if np.array_equal(toks[i, :, PROMPT:], toks[0, :, PROMPT:]):
+                raise Failed(f"fleet (d) {c.name}: chip {i} (rate {0.05 * i:.2f}) gives chip 0's tokens")
+        c32 = dataclasses.replace(c, dtype="float32")
+        anchors, parted = [], []
+        t1 = time.perf_counter()
+        for i in range(chips):
+            gen_t = out.tokens[i, :, PROMPT:]
+            feed = gen_t[:, :-1]
+            lp32 = chosen(replay(c32, params[i], plain_ctxs[i], prompts, feed), gen_t)
+            lp16 = chosen(replay(c, params[i], plain_ctxs[i], prompts, feed), gen_t)
+            plain = float((lp16 - lp32).pow(2).mean().sqrt())
+            served = float((out.logprobs[i].float() - lp32).pow(2).mean().sqrt())
+            anchors.append((plain, served))
+            if not bool(torch.isfinite(out.logprobs[i]).all()) or served > ANCHOR_RATIO * plain:
+                raise Failed(f"fleet (d) {c.name} chip {i}: served logprobs RMS err {served:.4g} against plain "
+                             f"float32, more than {ANCHOR_RATIO} x plain bf16's {plain:.4g}")
+            ref = ServeEngine(c, params[i], ctxs[i], max_len=PROMPT + new, prefill_buckets=None).generate(
+                prompts, max_new_tokens=new)
+            ref_t = ref.tokens[:, PROMPT:]
+            own = None  # the engine's own kernel-mode replay, made at the chip's first parting
+            for b in range(BATCH):
+                diff = np.flatnonzero(ref_t[b].cpu().numpy() != toks[i, b, PROMPT:])
+                if not diff.size:
+                    continue
+                at = int(diff[0])
+                own = replay(c, params[i], ctxs[i], prompts, ref_t[:, :-1]) if own is None else own
+                pair = (float(own[b, at, ref_t[b, at]]), float(own[b, at, int(toks[i, b, PROMPT + at])]))
+                tie = FLEET_TIE_ULPS * 2.0 ** (np.floor(np.log2(max(map(abs, pair)))) - 7)
+                parted.append(dict(chip=i, row=b, at=at, gap=abs(pair[0] - pair[1]), tie=tie, logits=pair,
+                                   lp_err_before=float((out.logprobs[i, b, :at] - ref.logprobs[b, :at]).abs().max())
+                                   if at else 0.0))
+            del ref, own
+        far = [p for p in parted if p["gap"] > p["tie"]]
+        rec = dict(wall_s=wall, tokens_per_s=chips * BATCH * new / wall, ms_per_dispatch=wall / (1 + new) * 1e3,
+                   launches=got, anchors=anchors, parted=parted, gates_s=time.perf_counter() - t1)
+        log(f"fleet (d) {c.name} bf16 ({card}): {chips} chips x {BATCH} prompts x {new} tokens in {wall:.3f} s "
+            f"({rec['tokens_per_s']:.1f} tokens/s, {rec['ms_per_dispatch']:.2f} ms a fused dispatch, prefill "
+            f"included); launches {got} ({per_step} chip-batched masked GEMMs a step, {experts} chip x expert, "
+            f"{scans} chip-batched scans); logprob RMS err against plain float32, (plain bf16, served) per chip: "
+            + ", ".join(f"{a[0]:.4g}/{a[1]:.4g}" for a in anchors)
+            + f"; tokens as each chip's own ServeEngine but {len(parted)} partings {parted}")
+        if far:
+            raise Failed(f"fleet (d) {c.name}: tokens part from the chip's own ServeEngine where the two logits are "
+                         f"more than {FLEET_TIE_ULPS} bf16 ulps apart: {far}")
+        return eng, rec
+
+    def timed_row(fn, plain, sides, reps=10):
+        return dict(ms=event_ms(torch, fn, flush, reps), plain_ms=event_ms(torch, plain, flush, 3),
+                    bound_ms=max(sides.values()), bound_by=max(sides, key=sides.get),
+                    bytes_ms=sides["bytes"], **{f"{k}_ms": v for k, v in sides.items() if k != "bytes"})
+
+    def expert_rows(eng, c, chips):
+        """The chip x expert GEMM on the engine's stacked layer-0 experts,
+        each chip's its own: the chips share one init, so chip c's are
+        scaled by 1 + c in place, and a launch that reads another chip's
+        weights or mask shows."""
+        ok = eng.ctx.ok
+        mask_bytes = chips * ok.shape[1] * -(-ok.shape[2] // 8)
+        for wname in ("wg", "wd"):
+            w32 = eng.params[f"layers.0.moe.{wname}"]  # (chips, E, K, N): the stacked master
+            w32.mul_(torch.arange(1, chips + 1, dtype=w32.dtype, device=dev).view(chips, 1, 1, 1))
+            _, e, k_, n_ = w32.shape
+            for dtype in (torch.bfloat16, torch.float32):
+                rtol, atol = dtype_tol(dtype)
+                for m in FLEET_EXPERT_MS:
+                    x = torch.randn(chips, e, m, k_, generator=gen, device=dev).to(dtype)
+                    before = dict(masked_matmul.fleet_expert_launches_by_variant)
+                    y = masked_matmul(x, w32, ok)
+                    kind = pick_variant(dtype, m)
+                    ran = masked_matmul.fleet_expert_launches_by_variant[kind] - before[kind]
+                    ref = masked_matmul_ref(x, w32, ok)
+                    err, good = worst(y, ref, (rtol, atol))
+                    del y, ref
+                    if ran != 1 or not good:
+                        raise Failed(f"fleet (d) chip x expert masked GEMM {wname} {dtype} M={m}: {ran} launches "
+                                     f"of {kind} (want 1), max err {err:.3g} (rtol {rtol}, atol {atol})")
+                    report["max_abs_err"][kind] = max(report["max_abs_err"].get(kind, 0.0), err)
+                    size = 2 if dtype == torch.bfloat16 else 4
+                    nbytes = chips * e * (m * k_ + m * n_) * size + chips * e * k_ * n_ * 4 + mask_bytes
+                    sides = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                             "operations": 2 * chips * e * m * k_ * n_ / PEAK_OPS[str(dtype)[6:]] * 1e3}
+                    wm = (w32 * periodic_mask(w32.shape, ok[:, None])).to(dtype).view(chips * e, k_, n_)
+                    x3 = x.view(chips * e, m, k_)
+                    row = dict(label=f"{c.name} {wname}", variant=kind, dtype=str(dtype)[6:], chips=chips, experts=e,
+                               m=m, k=k_, n=n_, max_abs_err=err,
+                               library_ms=event_ms(torch, lambda: torch.bmm(x3, wm), flush),
+                               **timed_row(lambda: masked_matmul(x, w32, ok), lambda: masked_matmul_ref(x, w32, ok),
+                                           sides))
+                    report["expert_rows"].append(row)
+                    log(f"fleet (d) chip x expert masked GEMM {row['label']} {row['dtype']:8s} {chips} chips x "
+                        f"E={e} M={m:3d} K={k_:5d} N={n_:5d} ({card}): err<= {err:.3g} (rtol, atol {(rtol, atol)}) "
+                        f"{kind} {row['ms']:.4f} ms, one launch (fp32 master in place, one mask a chip)  plain "
+                        f"{row['plain_ms']:.4f} ms  torch.bmm(pre-masked w, library yardstick) "
+                        f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                    del x, x3, wm
+                    gc.collect()
+                    torch.cuda.empty_cache()
+
+    def scan_rows(eng, c, chips):
+        """The chip-batched scan at the prefill's shape with each chip's own
+        a and d (the engine's layer 0, set apart further by chip), and with
+        one a and d shared."""
+        apart = 0.1 * torch.arange(chips, dtype=torch.float32, device=dev)
+        a_all = -torch.exp(eng.params["layers.0.ssm.a_log"].float()) * (1 + apart)[:, None, None]  # (chips, D, N)
+        d_all = eng.params["layers.0.ssm.d_skip"].float() + apart[:, None]
+        _, dim, n = a_all.shape
+        rows_ = chips * BATCH
+        for u_dtype in (torch.bfloat16, torch.float32):
+            u = torch.randn(rows_, PROMPT, dim, generator=gen, device=dev).to(u_dtype)
+            dt = torch.nn.functional.softplus(torch.randn(rows_, PROMPT, dim, generator=gen, device=dev) - 3.0)
+            dbc = torch.randn(rows_, PROMPT, 8 + 2 * n, generator=gen, device=dev).to(u_dtype)
+            _, bm, cm = torch.split(dbc, [8, n, n], dim=-1)
+            for share in ("per-chip", "shared"):
+                a, d = (a_all, d_all) if share == "per-chip" else \
+                    (a_all[1].expand(chips, dim, n), d_all[1].expand(chips, dim))
+                args = (u, dt, a, bm, cm, d)
+                before = selective_scan.fleet_launches
+                y, h = selective_scan(*args)
+                ran = selective_scan.fleet_launches - before
+                ref_y, ref_h = selective_scan_ref(*args)
+                y_tol = SCAN_F32_TOL if u_dtype == torch.float32 else \
+                    (2e-2, 1e-2 * float(ref_y.float().pow(2).mean().sqrt()))
+                y_err, y_good = worst(y, ref_y, y_tol)
+                h_err, h_good = worst(h, ref_h, SCAN_F32_TOL)
+                del y, h, ref_y, ref_h
+                if ran != 1 or not (y_good and h_good):
+                    raise Failed(f"fleet (d) chip-batched scan {share} {u_dtype}: {ran} launches (want 1), y err "
+                                 f"{y_err:.3g} (tol {y_tol}), h err {h_err:.3g} (tol {SCAN_F32_TOL})")
+                report["max_abs_err"]["scan"] = max(report["max_abs_err"].get("scan", 0.0), y_err, h_err)
+                size = 2 if u_dtype == torch.bfloat16 else 4
+                elems = rows_ * PROMPT * dim * n
+                nbytes = (rows_ * PROMPT * dim * (2 * size + 4) + 2 * rows_ * PROMPT * n * size
+                          + chips * (dim * n * 4 + dim * 4) + rows_ * dim * n * 4)
+                sides = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": 7 * elems / PEAK_OPS["float32"] * 1e3,
+                         "exps": elems / SFU_PER_S * 1e3}
+                row = dict(share=share, dtype=str(u_dtype)[6:], chips=chips, b=BATCH, l=PROMPT, d=dim, n=n,
+                           y_err=y_err, h_err=h_err, y_tol=y_tol, plan=selective_scan.last_plan._asdict(),
+                           **timed_row(lambda: selective_scan(*args), lambda: selective_scan_ref(*args), sides))
+                report["scan_rows"].append(row)
+                log(f"fleet (d) chip-batched scan {share:8s} a/d {row['dtype']:8s} {chips} chips x {BATCH}x{PROMPT}x"
+                    f"{dim}x{n} ({card}): y err {y_err:.3g} (tol {y_tol[0]}, {y_tol[1]:.3g}), h err {h_err:.3g}; "
+                    f"one launch, {row['plan']['lanes']} lanes x {row['plan']['states']} states, "
+                    f"{row['plan']['blocks']} blocks; {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; bytes {sides['bytes']:.4f}, exps "
+                    f"{sides['exps']:.4f})")
+            del u, dt, dbc, bm, cm
+
+    for name, chips, depth, why in FLEET_FAMILIES:
+        t0 = time.perf_counter()
+        c = get_arch(name)
+        if depth is not None:
+            c = dataclasses.replace(c, num_layers=depth)
+        log(f"fleet (d) {name}: depth {c.num_layers} of {get_arch(name).num_layers}, full width ({why})")
+        maps = [random_fault_map(i, c.array_rows, c.array_cols, 0.05 * i) for i in range(chips)]
+        seeds = sorted({i // 2 if c.has_ssm else 0 for i in range(chips)})
+        models = {s: M.init_params(c, s, device=dev) for s in seeds}
+        with torch.no_grad():  # init_params' A and D do not depend on the seed: set each seed's apart
+            for s, model in models.items():
+                for pname, p in model.named_parameters():
+                    if pname.endswith(("ssm.a_log", "ssm.d_skip")):
+                        p.add_(0.1 * s)
+        params = [models[i // 2 if c.has_ssm else 0] for i in range(chips)]
+        eng, report["models"][name] = serve(c, chips, params, maps)
+        report["launches"][name] = report["models"][name]["launches"]
+        del models, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if c.has_moe:
+            expert_rows(eng, c, chips)
+        if c.has_ssm:
+            scan_rows(eng, c, chips)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["seconds"][name] = time.perf_counter() - t0
+    del flush
+    torch.cuda.empty_cache()
     return report
 
 
@@ -3787,6 +4106,19 @@ def run(args, torch) -> int:
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
 
+    # phase 14 (d): the chips x experts GEMM (mixtral's wg, 2 chips x 8 experts) and the chip-batched scan
+    # (hymba's prefill, 4 chips, per-chip a and d), with the launches of (d)'s main-path runs
+    fam = fleet_report["d"]
+    fam_mix, fam_hymba = fam["launches"]["mixtral-8x22b"], fam["launches"]["hymba-1.5b"]
+    fam_rows = {(r["label"], r["dtype"], r["m"]): r for r in fam["expert_rows"]}
+    fam_scan = next(r for r in fam["scan_rows"] if r["share"] == "per-chip" and r["dtype"] == "bfloat16")
+
+    def chips_expert_entry(variant, m):
+        r = fam_rows[("mixtral-8x22b wg", "bfloat16", m)]
+        return dict(name=f"masked_matmul.{variant}.chips_x_experts",
+                    **{**mm_src, "max_abs_err": fam["max_abs_err"][variant]}, launches=fam_mix["fleet_experts"][variant], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
+
     kernels = [
         dict(name="masked_matmul.decode", **mm_entry("decode"), launches=variant_launches["masked_matmul.decode"],
              launches_continuous=cont_launches["decode"], launches_fleet=fleet_launches["decode"],
@@ -3808,6 +4140,8 @@ def run(args, torch) -> int:
              launches=fleet_launches["decode"], ms=fstep["ms"], plain_ms=fstep["plain_ms"],
              bound_ms=fstep["bound_ms"], bound_by=fstep["bound_by"], library_ms=fstep["library_ms"]),
         *(expert_entry(v) for v in ("decode", "mma", "v1")),
+        chips_expert_entry("decode", FLEET_EXPERT_MS[0]),
+        chips_expert_entry("mma", FLEET_EXPERT_MS[1]),
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
              launches_lm_eval=lm_launches["flash_attention"]["mma"], launches_zoo=zoo_launches["flash_attention.mma"],
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
@@ -3822,6 +4156,12 @@ def run(args, torch) -> int:
              launches=launches["selective_scan"], max_abs_err=scan_err,
              ms=sc["ms"], plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
              bound_by=sc["bound_by"], library_ms=None),
+        dict(name=f"selective_scan.chips{fam_scan['chips']}", route="cuda",
+             source="src/repro_torch/kernels/csrc/selective_scan.cu",
+             replaces="src/repro/kernels/mamba_scan/mamba_scan.py:54",
+             launches=fam_hymba["scan_fleet"], max_abs_err=fam["max_abs_err"]["scan"],
+             ms=fam_scan["ms"], plain_ms=fam_scan["plain_ms"], bound_ms=fam_scan["bound_ms"],
+             bound_by=fam_scan["bound_by"], library_ms=None),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/decode_attention.py:216",
@@ -3869,7 +4209,12 @@ def run(args, torch) -> int:
         f"masked_matmul.decode.chips{FLEET_CHIPS}: the same decode step for {FLEET_CHIPS} chips, one chip-batched launch "
         f"a GEMM (launches: phase 14's); masked_matmul.<variant>.experts: one expert-batched launch of mixtral-8x22b's "
         f"wg (8 x 6144 x 16384, one mask) at M={ZOO_EXPERT_MS[0]} (decode, v1 in float32) and {ZOO_EXPERT_MS[1]} (mma) "
-        f"a expert (launches: phase 15's); launches_zoo: phase 15's main-path launches; launches_pop_eval: "
+        f"a expert (launches: phase 15's); masked_matmul.<variant>.chips_x_experts: one chips x experts launch "
+        f"of mixtral-8x22b's stacked wg (2 chips x 8 experts, one mask a chip) at M={FLEET_EXPERT_MS[0]} (decode) "
+        f"and {FLEET_EXPERT_MS[1]} (mma) an expert (launches: phase 14 (d)'s mixtral fleet); "
+        f"selective_scan.chips{fam_scan['chips']}: one chip-batched launch at hymba-1.5b's prefill, "
+        f"{fam_scan['chips']} chips x 4x128x3200x16, bf16 u, per-chip a and d (launches: phase 14 (d)'s hymba "
+        f"fleet); launches_zoo: phase 15's main-path launches; launches_pop_eval: "
         f"the chip-batched v1 launches of phases 11 and 12's kernel-mode population evaluations; "
         f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
         f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "

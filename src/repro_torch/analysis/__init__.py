@@ -1,7 +1,8 @@
 """Static checks of the port's launches before anything runs: the kernel
 geometry lint (``kernelgeom.py``: the four kernels' launch builders,
 ``lint_launch`` and ``lint_kernels``), the launches it certifies for each
-architecture (``programs.py::kernel_launches``) and its ``Finding`` record
+architecture (``programs.py::kernel_launches``, and a fleet's chip-batched ones,
+``fleet_kernel_launches``) and its ``Finding`` record
 (``findings.py``). The reference's donation, recompile and sharding passes
 are JAX-specific and have no counterpart here."""
 from repro_torch.analysis.findings import Finding
@@ -14,7 +15,7 @@ from repro_torch.analysis.kernelgeom import (
     mamba_scan_launch,
     masked_matmul_launch,
 )
-from repro_torch.analysis.programs import kernel_launches
+from repro_torch.analysis.programs import fleet_kernel_launches, kernel_launches
 
 __all__ = [
     "Finding",
@@ -26,4 +27,5 @@ __all__ = [
     "decode_attention_launch",
     "mamba_scan_launch",
     "kernel_launches",
+    "fleet_kernel_launches",
 ]

@@ -123,18 +123,22 @@ def masked_matmul_launch(
     dtype: Any = torch.float32,
     splits: Optional[int] = None,
     chips: int = 1,
+    experts: int = 1,
     k_contiguous: bool = False,
     sm_count: int = H100_SMS,
 ) -> KernelLaunch:
     """Geometry of ``masked_matmul`` with x of ``dtype`` (m, k), w (k, n)
-    and a ``mask_shape`` mask, for ``chips`` stacks in one launch: the
-    variant the dtype and M pick, and ``gemm_plan``'s tiles, K slices and
-    grid (``splits`` forced, as the wrapper forces a caller's or the
-    cache's). ``dims`` are (M, N, K), ``blocks`` one tile's rows and columns
-    and one slice's K; ``smem_bytes`` is the mma kernel's dynamic shared
-    memory (the decode and tiled kernels have static shared memory only)."""
+    and a ``mask_shape`` mask, for ``chips`` stacks of ``experts`` in one
+    launch (a fleet's chips x an MoE layer's experts: the grid's batch axis
+    is every (chip, expert)): the variant the dtype and M pick, and
+    ``gemm_plan``'s tiles, K slices and grid (``splits`` forced, as the
+    wrapper forces a caller's or the cache's). ``dims`` are (M, N, K),
+    ``blocks`` one tile's rows and columns and one slice's K; ``smem_bytes``
+    is the mma kernel's dynamic shared memory (the decode and tiled kernels
+    have static shared memory only)."""
     kind = mm.pick_variant(_dtype(dtype), m)
     r, c = mask_shape
+    chips *= experts
     live = min(m, k, n, r, c, chips) > 0
     refused = ""
     if live and splits is not None and not 1 <= splits <= mm.max_splits(kind, m, k):
@@ -201,13 +205,17 @@ def mamba_scan_launch(
     state: int,
     *,
     lanes: Optional[int] = None,
+    chips: int = 1,
     sm_count: int = H100_SMS,
 ) -> KernelLaunch:
-    """Geometry of ``selective_scan`` (B, L, D) with N states: ``lanes``
-    lanes a channel (``scan_plan``'s where None), the states a lane, the
-    channels a block and the grid of B x ceil(D / channels) blocks; lanes
-    the plan refuses are KRN001. The shared memory is the C entry point's
-    own (a chunk of time steps it sizes itself), so it is not modelled."""
+    """Geometry of ``selective_scan`` (B, L, D) with N states, for ``chips``
+    chips in one launch (a fleet's prefill: the grid's rows are chips x B):
+    ``lanes`` lanes a channel (``scan_plan``'s where None), the states a
+    lane, the channels a block and the grid of chips x B x ceil(D /
+    channels) blocks; lanes the plan refuses are KRN001. The shared memory
+    is the C entry point's own (a chunk of time steps it sizes itself), so
+    it is not modelled."""
+    batch *= chips
     live = min(batch, length, dim) > 0 and 1 <= state <= ms.MAX_STATE
     if lanes is None and live:
         lanes = ms.scan_plan(batch, dim, state, sm_count).lanes

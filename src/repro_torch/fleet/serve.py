@@ -8,7 +8,9 @@ population engines do, ``FleetServeEngine`` stacks N chips' parameters and
 masks and maps the decode step over the chip axis with ``torch.func.vmap``:
 the *entire fleet* advances one token per dispatch. Under that map every
 masked GEMM is ONE chip-batched launch of the masked-GEMM kernel (the
-custom op's vmap rule, ``kernels/masked_matmul/ops.py``), the counterpart
+custom op's vmap rule, ``kernels/masked_matmul/ops.py``), an MoE layer's
+expert GEMMs ONE chip x expert launch, and every selective scan ONE launch
+over chips x batch rows (``kernels/mamba_scan/ops.py``): the counterparts
 of JAX's batching rule for ``pallas_call``, which adds the chip axis to the
 TPU kernel's grid. Sampling runs over the stacked ``(chips, slots)`` logits
 outside the map.
@@ -92,13 +94,20 @@ def _ctx_of(ok: Optional[torch.Tensor], mode: str) -> FaultContext:
     return healthy() if ok is None else FaultContext(ok=ok, mode=mode)
 
 
+def _dense_keys(cfg) -> tuple:
+    """The dense cache's chip-stacked buffers: attention keys and values,
+    the SSM's conv tail and state (a hybrid carries all four)."""
+    return ("k", "v") * cfg.has_attention + ("conv", "h") * cfg.has_ssm
+
+
 def _fleet_decode(cfg):
     """``decode(params, tokens, cache, ctx, active)`` for
     ``make_sample_decode``, mapped over the chip axis: ``params`` are the
     chip-stacked flat dict, ``ctx`` the stacked context (``ok`` of shape
     (chips, R, C), or a healthy one), ``cache`` a chip-stacked dense cache
-    (``k``/``v`` and the shared ``index``) or paged cache. The KV writes land
-    in place, each in its own chip's slice."""
+    (``k``/``v``, ``conv``/``h`` and the shared ``index``) or paged cache.
+    The cache writes land in place, each in its own chip's slice."""
+    keys = _dense_keys(cfg)
 
     def decode(p, tokens, cache, ctx, active):
         ok, mode = ctx.ok, ctx.mode
@@ -117,11 +126,15 @@ def _fleet_decode(cfg):
             return logits, cache
         index = cache["index"]
 
-        def one(p_c, tok_c, ok_c, k, v):
-            logits, _ = M.decode_step(p_c, tok_c, dict(k=k, v=v, index=index), cfg, _ctx_of(ok_c, mode))
+        def one(p_c, tok_c, ok_c, *bufs):
+            logits, _ = M.decode_step(
+                p_c, tok_c, dict(zip(keys, bufs), index=index), cfg, _ctx_of(ok_c, mode)
+            )
             return logits
 
-        logits = vmap(one, in_dims=(0, 0, okd, 0, 0))(p, tokens, ok, cache["k"], cache["v"])
+        logits = vmap(one, in_dims=(0, 0, okd) + (0,) * len(keys))(
+            p, tokens, ok, *(cache[k] for k in keys)
+        )
         cache["index"] = index + tokens.shape[-1]
         return logits, cache
 
@@ -139,13 +152,8 @@ class FleetGenerateResult:
 
 
 def _check_fleet(cfg, params_list, ctxs, what: str) -> list[FaultContext]:
-    if cfg.has_moe or cfg.is_encoder or cfg.modality != "text":
-        # the expert axis and the frontends have not been put under the
-        # fleet's chip map: the masked GEMM takes one batch axis a launch
-        raise ValueError(
-            f"{what} runs the causal text families without experts; {cfg.name!r} is "
-            f"{'an MoE' if cfg.has_moe else 'an encoder' if cfg.is_encoder else 'a ' + cfg.modality} model"
-        )
+    if cfg.is_encoder:
+        raise ValueError(f"{what}: encoder-only arch {cfg.name!r} has no decode path")
     n = len(params_list)
     if n == 0:
         raise ValueError(f"{what} needs at least one chip")
@@ -163,7 +171,11 @@ class FleetServeEngine:
     (None/healthy for a fault-free chip: mixed fleets are fine,
     ``stack_contexts`` upcasts healthy members). All chips share one model
     config and prompt batch, and run on the device of their parameters.
-    Attention families only: the selective scan has no chip axis.
+    Every decoding family: attention, SSM and hybrid (the dense cache
+    carries the conv tail and SSM state beside the keys and values, and a
+    prefill's scan is one chip-batched launch), MoE (each expert GEMM one
+    chip x expert launch) and vision (text prompts). Encoders have no
+    decode path and are refused.
     """
 
     def __init__(
@@ -175,11 +187,6 @@ class FleetServeEngine:
         max_len: int = 4096,
     ):
         ctxs = _check_fleet(cfg, params_list, ctxs, "FleetServeEngine")
-        if cfg.has_ssm:
-            raise ValueError(
-                f"fleet serving runs attention families; {cfg.family!r} carries SSM state, "
-                "and the selective scan has no chip axis"
-            )
         self.cfg = cfg
         self.max_len = max_len
         self.num_chips = len(params_list)
@@ -203,15 +210,17 @@ class FleetServeEngine:
         prompts = torch.as_tensor(prompts, device=self.device)
         ok, mode = self.ctx.ok, self.ctx.mode
 
+        keys = _dense_keys(cfg)
+
         def one(p_c, ok_c):
             logits, cache = M.prefill(
                 p_c, {"tokens": prompts}, cfg, _ctx_of(ok_c, mode), cache_len=self.max_len,
                 attn_impl="dense",
             )
-            return logits, cache["k"], cache["v"]
+            return (logits, *(cache[k] for k in keys))
 
-        cur, k, v = vmap(one, in_dims=(0, None if ok is None else 0))(self.params, ok)
-        cache = {"k": k, "v": v, "index": prompts.shape[1]}
+        cur, *bufs = vmap(one, in_dims=(0, None if ok is None else 0))(self.params, ok)
+        cache = dict(zip(keys, bufs), index=prompts.shape[1])
         gens = chip_generators(seed, n, self.device) if temperature > 0 else None
         toks = [prompts.expand(n, *prompts.shape)]
         lps = []
@@ -251,6 +260,10 @@ class ShardedFleetServeEngine:
     per-chip ``ContinuousBatchingEngine`` on the same stream; with
     temperature > 0 each chip draws from its own generator, seeded from the
     fleet seed.
+
+    The paged families: attention, MoE and vision (text requests). SSM and
+    hybrid configs carry unpaged SSM state and encoders have no decode
+    path; both are refused, as the reference refuses them.
     """
 
     def __init__(
@@ -280,8 +293,6 @@ class ShardedFleetServeEngine:
                 f"continuous fleet serving supports attention families only; "
                 f"{cfg.family!r} carries unpaged SSM state"
             )
-        if cfg.is_encoder:
-            raise ValueError("encoder-only arch has no decode path")
         devices = [resolve_device(d) for d in (devices if devices is not None else [None])]
         if not devices:
             raise ValueError("devices is empty; pass at least one device")

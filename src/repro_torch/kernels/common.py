@@ -34,6 +34,7 @@ __all__ = [
     "build_kernels",
     "load_kernel",
     "check_launch",
+    "under_vmap",
     "SMEM_LIMIT_BYTES",
     "sm_count",
     "dtype_name",
@@ -166,6 +167,16 @@ def check_launch(name: str, err: int) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def under_vmap(*ts: torch.Tensor) -> bool:
+    """True where one of the tensors is a ``torch.func.vmap`` batched
+    tensor (it has no data pointer, and a wrapper's custom op and its vmap
+    rule take it) and none is differentiated by ``torch.func.grad``: the
+    kernels are forward only, so a vmapped gradient (the population FAT
+    engines) runs the plain version, which exists on the CPU alone."""
+    ft = torch._C._functorch
+    return any(ft.is_batchedtensor(t) for t in ts) and not any(ft.is_gradtrackingtensor(t) for t in ts)
 
 
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}

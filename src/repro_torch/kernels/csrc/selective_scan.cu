@@ -55,6 +55,9 @@
 //   1e-4) at 4 x 2048 x 3200 on one seed, since its bias compounds over the long memory of a
 //   state whose decay is near 1. Time steps past L read zeros: dt = 0 gives a factor of exactly 1
 //   and h is unchanged.
+// - A chip axis (the counterpart of the TPU kernel under jax.vmap): a fleet's B rows are chips x
+//   rows, and a block reads its chip's A and D at chip * stride (0: one A and D for every chip),
+//   so one launch scans every chip's prefill; nothing else in the kernel knows of chips.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -174,6 +177,8 @@ struct Args {
   int L, D, N, CL, bf16;
   int vu, vdt, vb, vc, vy;  // copy and store widths in bytes
   Strides us, dts, bs, cs;
+  int rows;       // batch rows a chip: row bi reads chip bi / rows's A and D
+  long long sa, sd;  // A's and D's chip strides in elements (0: one for every chip)
 };
 
 template <int P, int S>
@@ -188,12 +193,15 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) selective_scan_kernel(const Ar
   const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch;
   const bool ok = d < a.D;
   const int dvalid = min(CPB, a.D - d0);
+  const long long chip = bi / a.rows;
+  const float* ap = a.a + chip * a.sa;
+  const float* dskip = a.dskip + chip * a.sd;
 
   float a2[S], h[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int n = r * S + s;
-    a2[s] = (ok && n < a.N) ? a.a[(long long)d * a.N + n] : 0.f;
+    a2[s] = (ok && n < a.N) ? ap[(long long)d * a.N + n] : 0.f;
     h[s] = 0.f;
   }
 
@@ -296,7 +304,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) selective_scan_kernel(const Ar
       for (int k = 0; k < 8; ++k) {
         if (k < ve) {
           const int c = c0 + k;
-          const float yv = ys[t * CPB + c] + __ldg(a.dskip + d0 + c) * load_elem(sg + ly.u, t * CPB + c, a.bf16);
+          const float yv = ys[t * CPB + c] + __ldg(dskip + d0 + c) * load_elem(sg + ly.u, t * CPB + c, a.bf16);
           if (a.bf16) {
             pk.hb[k] = __bfloat16_as_ushort(__float2bfloat16(yv));
           } else if (k < 4) {
@@ -358,7 +366,9 @@ int width(const void* p, long long sb, long long st, long long step, int es) {
 
 // dtype: 0 = float32, 1 = bfloat16 for u, B, C and y alike; dt, A, D and h_last are float32.
 // u and dt (B, L, D), B and C (B, L, N) are addressed by (batch, time) strides in elements with
-// a unit last stride; A (D, N), D (D,), y (B, L, D) and h_last (B, D, N) are contiguous.
+// a unit last stride; y (B, L, D) and h_last (B, D, N) are contiguous. A chip axis: the B rows
+// are chips x `rows`, and row b reads chip b / rows's A (D, N) and D (D,), each contiguous, chip
+// c's starting sa (A) and sd (D) elements after chip c - 1's (0: one A or D for every chip).
 // lanes (1-32, a power of two) x states (1, 2, 4 or 8) >= N, 1 <= N <= 256 (ops.py::scan_plan
 // picks them). The chunk and the shared memory are this file's: CHUNK steps a ring stage, or
 // max(16, lanes) where MIN_BLOCKS blocks of CHUNK would not fit an SM. Returns cudaGetLastError()
@@ -368,10 +378,11 @@ extern "C" int selective_scan(int dtype, const void* u, const void* dt, const vo
                               void* h_last, int B, int L, int D, int N, int lanes, int states,
                               long long usb, long long ust, long long dtsb, long long dtst,
                               long long bsb, long long bst, long long csb, long long cst,
-                              void* stream) {
+                              int rows, long long sa, long long sd, void* stream) {
   const bool pow2 = lanes > 0 && (lanes & (lanes - 1)) == 0;
   if (N < 1 || N > NMAX || B < 1 || D < 1 || L < 0 || B > 65535 || (dtype != 0 && dtype != 1) ||
-      !pow2 || lanes > 32 || (long long)lanes * states < N)
+      !pow2 || lanes > 32 || (long long)lanes * states < N || rows < 1 || B % rows != 0 || sa < 0 ||
+      sd < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int es = dtype == 1 ? 2 : 4;
   const int cpb = NT / lanes;
@@ -398,6 +409,9 @@ extern "C" int selective_scan(int dtype, const void* u, const void* dt, const vo
   args.dts = Strides{dtsb, dtst};
   args.bs = Strides{bsb, bst};
   args.cs = Strides{csb, cst};
+  args.rows = rows;
+  args.sa = sa;
+  args.sd = sd;
   args.vu = width(u, usb * es, ust * es, (long long)cpb * es, es);
   args.vdt = width(dt, dtsb * 4, dtst * 4, (long long)cpb * 4, 4);
   args.vb = width(b, bsb * es, bst * es, 16, es);

@@ -47,6 +47,15 @@ fault_einsum``). The axis is the chip axis with a mask batch stride of 0,
 so the mask is packed once, as a single chip's (``packed_mask.chips_packed``
 grows by 1, not E), and no (E, R, C) copy of it is ever made.
 
+Both axes: with w of shape (chips, E, K, N), x (chips, E, ..., K) and ok
+(chips, R, C), one launch computes every chip's experts, each chip's E
+experts under that chip's mask (an MoE layer's expert GEMMs under a fleet's
+chip map). The grid's batch axis is every (chip, expert), w read as chips x
+E stacks one expert stride apart (a view of the stacked fp32 master, never
+a copy), and batch entry i reads mask i / E: the C entry point's mask group.
+Each chip's mask is packed once, not E times, and never repeated on the
+host.
+
 The K split: ``gemm_plan`` is every launch's plan (tiles, K slices, the
 scratch and the grid), the one rule the wrapper launches and
 ``analysis/kernelgeom.py::masked_matmul_launch`` lints. Its heuristic is
@@ -57,15 +66,16 @@ kernel ``masked_matmul``, the reference's shape key ``(m, k, n, r, c)``),
 replaces the plan's count, within ``max_splits``, the plan's own cap, so
 the scratch stays within what a plan could have chosen. The key has no
 field for a chip axis or for w's strides, so the cache is read only for a
-single chip's launch with row-major w: chip-batched and expert-batched
-launches and k-contiguous w (the tied unembedding's ``embed.T``) keep the
-plan, as does ``variant="v1"`` on bf16. ``masked_matmul.last_splits`` is
+single chip's launch with row-major w: chip-batched, expert-batched and
+chips x experts launches and k-contiguous w (the tied unembedding's
+``embed.T``) keep the plan, as does ``variant="v1"`` on bf16. ``masked_matmul.last_splits`` is
 the count the last launch ran.
 
 ``masked_matmul`` launches a kernel for a CUDA tensor and counts the launch
 in ``masked_matmul.launches`` and ``masked_matmul.launches_by_variant`` (a
 chip-batched launch also in ``masked_matmul.fleet_launches_by_variant``, an
-expert-batched one in ``masked_matmul.expert_launches_by_variant``);
+expert-batched one in ``masked_matmul.expert_launches_by_variant``, a chips
+x experts one in ``masked_matmul.fleet_expert_launches_by_variant``);
 for a CPU tensor it runs ``masked_matmul_ref``, the plain version. There is
 no fallback between the two.
 """
@@ -80,7 +90,9 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.mapping import periodic_mask
-from repro_torch.kernels.common import check_launch, load_kernel, sm_count, split_counters, tuned_block
+from repro_torch.kernels.common import (
+    check_launch, load_kernel, sm_count, split_counters, tuned_block, under_vmap,
+)
 
 __all__ = [
     "masked_matmul",
@@ -392,25 +404,19 @@ def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> tor
     (chips, K, N), ok (chips, R, C) and x (chips, ..., K): chip c's rows
     meet chip c's weights under chip c's mask. With an expert axis, w is
     (E, K, N), ok one (R, C) mask and x (E, ..., K): every expert's weights
-    under the same mask."""
+    under the same mask. With both, w is (chips, E, K, N), x (chips, E, ...,
+    K) and ok (chips, R, C): chip c's experts under chip c's mask."""
     _check_dtypes(x, w)
+    if w.dim() == 4 and ok.dim() == 3:
+        ok = ok[:, None]  # one mask for each chip's experts
     mask = periodic_mask(w.shape, ok, dtype=torch.float32)
     wm = (w.to(x.dtype).float() * mask).to(x.dtype)
-    if w.dim() == 3:
-        x3 = x.reshape(w.shape[0], -1, w.shape[1])
+    if w.dim() >= 3:
+        wm = wm.reshape(-1, *w.shape[-2:])
+        x3 = x.reshape(wm.shape[0], -1, w.shape[-2])
         y = torch.bmm(x3.float(), wm.float()).to(x.dtype)
-        return y.reshape(*x.shape[:-1], w.shape[2])
+        return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
-
-
-def _under_vmap(*ts: torch.Tensor) -> bool:
-    """True where one of the tensors is a ``torch.func.vmap`` batched
-    tensor (it has no data pointer, and the custom op's vmap rule takes
-    it) and none is differentiated by ``torch.func.grad``: the kernel is
-    forward only, so a vmapped gradient (the population FAT engines) runs
-    the plain version, which exists on the CPU alone."""
-    ft = torch._C._functorch
-    return any(ft.is_batchedtensor(t) for t in ts) and not any(ft.is_gradtrackingtensor(t) for t in ts)
 
 
 def masked_matmul(
@@ -420,7 +426,9 @@ def masked_matmul(
     """y = x @ (w.to(x.dtype) * periodic_mask(ok)); x: (..., K), w: (K, N),
     ok: (R, C); or, for a fleet of chips in one launch, x: (chips, ..., K),
     w: (chips, K, N), ok: (chips, R, C); or, for an MoE layer's experts in
-    one launch, x: (E, ..., K), w: (E, K, N) and one mask ok: (R, C).
+    one launch, x: (E, ..., K), w: (E, K, N) and one mask ok: (R, C); or,
+    for a fleet's experts in one launch, x: (chips, E, ..., K), w: (chips,
+    E, K, N) with its chips one expert stride apart, ok: (chips, R, C).
 
     On CUDA: x is float32 or bfloat16; w is in x's dtype, or float32 with a
     bfloat16 x; w has a unit stride along one of its last two axes (any
@@ -430,18 +438,21 @@ def masked_matmul(
     slices (``resolve_plan``: else the tuning cache's, else the plan's).
     Under ``torch.func.vmap`` the call goes through the custom op, whose
     vmap rule makes one chip-batched launch with the plan's slices."""
-    if _under_vmap(x, w, ok):
+    if under_vmap(x, w, ok):
         return torch.ops.repro_torch.masked_matmul(x, w, ok, variant)
     if x.device.type == "cpu":
         return masked_matmul_ref(x, w, ok)
     if x.device.type != "cuda":
         raise ValueError(f"masked_matmul runs on cpu or cuda, got {x.device}")
-    batched = w.dim() == 3
-    experts = batched and ok.dim() == 2  # one mask shared by the batch axis
+    batched = w.dim() >= 3
+    lead_w = w.shape[:-2]  # (), (chips,), (E,) or (chips, E)
+    experts = w.dim() == 3 and ok.dim() == 2  # one mask shared by the batch axis
     if (
-        w.dim() not in (2, 3) or ok.dim() not in (2, w.dim()) or x.shape[-1] != w.shape[-2]
-        or (batched and (x.dim() < 2 or x.shape[0] != w.shape[0]))
-        or (batched and not experts and ok.shape[0] != w.shape[0])
+        w.dim() not in (2, 3, 4) or ok.dim() not in (2, 3) or (w.dim() == 2 and ok.dim() != 2)
+        or (w.dim() == 4 and ok.dim() != 3)
+        or x.shape[-1] != w.shape[-2] or tuple(x.shape[: len(lead_w)]) != tuple(lead_w)
+        or (w.dim() == 4 and x.dim() < 4) or (w.dim() == 3 and x.dim() < 2)
+        or (ok.dim() == 3 and ok.shape[0] != w.shape[0])
     ):
         raise ValueError(f"bad shapes x{tuple(x.shape)} w{tuple(w.shape)} ok{tuple(ok.shape)}")
     if x.dtype not in _DTYPES:
@@ -453,8 +464,16 @@ def masked_matmul(
         raise ValueError("x, w and ok must lie on the current CUDA device")
     if w.stride(-1) != 1 and w.stride(-2) != 1:
         raise ValueError(f"w needs a unit stride along one GEMM axis, got strides {w.stride()}")
-    chips = w.shape[0] if batched else 1
+    # the mask group: 0 for one mask shared by every batch entry, else each
+    # run of `group` entries reads its own mask; chips x experts: the grid's
+    # batch axis is every (chip, expert), chip c's E experts one group under
+    # chip c's mask, w one expert stride apart
+    group = (w.shape[1] if w.dim() == 4 else 1) if ok.dim() == 3 else 0
+    if w.dim() == 4 and w.shape[0] > 1 and w.stride(0) != group * w.stride(1):
+        raise ValueError(f"w (chips, E, K, N) needs its chips one expert stride apart, got strides {w.stride()}")
     kdim, n = w.shape[-2:]
+    chips = math.prod(lead_w)
+    w_stride = w.stride(-3) if batched else 0
     lead = x.shape[:-1]
     x3 = x.reshape(chips, -1, kdim).contiguous()
     m = x3.shape[1]
@@ -476,8 +495,8 @@ def masked_matmul(
         err = fn(
             VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x3.data_ptr(), w.data_ptr(),
             bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
-            m, n, kdim, w.stride(-2), w.stride(-1), w.stride(0) if batched else 0,
-            ok.shape[-2], ok.shape[-1], int(batched and not experts), plan.splits, plan.split_tiles,
+            m, n, kdim, w.stride(-2), w.stride(-1), w_stride,
+            ok.shape[-2], ok.shape[-1], group, plan.splits, plan.split_tiles,
             scratch.data_ptr() if scratch is not None else None,
             scratch_bytes, counters.data_ptr(), counters.numel(), stream,
         )
@@ -485,7 +504,9 @@ def masked_matmul(
         masked_matmul.launches += 1
         masked_matmul.launches_by_variant[kind] += 1
         masked_matmul.last_splits = plan.splits
-        if experts:
+        if w.dim() == 4:
+            masked_matmul.fleet_expert_launches_by_variant[kind] += 1
+        elif experts:
             masked_matmul.expert_launches_by_variant[kind] += 1
         elif batched:
             masked_matmul.fleet_launches_by_variant[kind] += 1
@@ -497,6 +518,7 @@ masked_matmul.last_splits = None
 masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.fleet_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.expert_launches_by_variant = dict.fromkeys(VARIANTS, 0)
+masked_matmul.fleet_expert_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 @torch.library.custom_op("repro_torch::masked_matmul", mutates_args=())
@@ -512,7 +534,10 @@ def _(x, w, ok, variant):
 def _masked_matmul_vmap(info, in_dims, x, w, ok, variant):
     """The chip-batched launch under ``torch.func.vmap``: the vmapped axis
     becomes the kernel's chip axis. A weight and mask shared by every
-    member (no vmapped axis on either) fold the members into M instead."""
+    member (no vmapped axis on either) fold the members into M instead.
+    An MoE layer's experts under the chip map (w (E, K, N) and one mask a
+    chip) become ONE chips x experts launch: w (chips, E, K, N), a view of
+    the stacked master, and each chip's mask read by its E experts."""
     xd, wd, okd, _ = in_dims
     if xd is not None and xd != 0:
         x = x.movedim(xd, 0)

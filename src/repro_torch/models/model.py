@@ -569,10 +569,10 @@ def prefill(
     b, s = x.shape[0], x.shape[1]
     total = s if valid_len is None else int(valid_len)
     cache_len = s if full_kv else cache_len or s
-    # the SSM state is written into zeroed buffers; the KV cache is built
-    # from the layers' keys and values without in-place writes, so that
-    # prefill maps over chips under torch.func.vmap (the fleet engines)
-    cache = init_cache(cfg, b, cache_len, device=x.device) if cfg.has_ssm else {}
+    # the cache is built from the layers' keys, values and SSM states
+    # without in-place writes, so that prefill maps over chips under
+    # torch.func.vmap (the fleet engines)
+    cache = {}
     if cfg.has_attention:
         s_buf = s if full_kv else cache_buffer_len(cfg, cache_len)
         perm = None
@@ -582,9 +582,9 @@ def prefill(
             start = min(max(total - s_buf, 0), s - s_buf)
             order = _ring_perm(s_buf, total) if ring and total >= s_buf else np.arange(s_buf)
             perm = torch.as_tensor(start + order, device=x.device)
-    ks, vs = [], []
+    ks, vs, convs, hs = [], [], [], []
     rope = _rope(cfg, positions)
-    for i, lp in enumerate(params.layers):
+    for lp in params.layers:
         x, pieces = _block(
             lp, x, cfg, ctx, rope=rope, attn_impl=attn_impl, build_cache=True, segments=segments,
             moe_impl=moe_impl, moe_cf=moe_cf,
@@ -596,8 +596,8 @@ def prefill(
             ks.append(k)
             vs.append(v)
         if cfg.has_ssm:
-            cache["conv"][i] = pieces["ssm"].conv
-            cache["h"][i] = pieces["ssm"].h
+            convs.append(pieces["ssm"].conv)
+            hs.append(pieces["ssm"].h)
     if cfg.has_attention:
         # one pad of the stacked prompt: the peak is the cache and one copy
         # of the prompt's keys and values
@@ -606,6 +606,8 @@ def prefill(
         if s < s_buf:
             tail = (0, 0, 0, s_buf - s)
             cache["k"], cache["v"] = F.pad(cache["k"], tail), F.pad(cache["v"], tail)
+    if cfg.has_ssm:
+        cache["conv"], cache["h"] = torch.stack(convs), torch.stack(hs)
     cache["index"] = total
     if return_hidden:
         return apply_norm(x, params.final_ln, cfg.norm_eps), cache

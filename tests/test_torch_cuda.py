@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_arch, reduce_config
+from repro_torch.configs import FRONTEND_DIMS, get_arch, reduce_config
 from repro_torch.core import from_fault_map, healthy, random_fault_map
 from repro_torch.data.synthetic import TokenStream, make_classification_task
 from repro_torch.kernels.common import assert_close, dtype_tol
@@ -551,6 +551,118 @@ def test_expert_batched_masked_matmul_is_fault_einsum_kernel_mode(cuda):
     assert_close(y, fault_einsum("ecf,efd->ecd", z, w2, fctx), torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# the masked GEMM with both axes: a fleet's chips x an MoE layer's experts
+# ---------------------------------------------------------------------------
+
+
+def _chips_x_experts(cuda, chips, experts, m, transposed, x_dtype, w_dtype, seed=0):
+    """x (chips, E, M, 576), w (chips, E, 576, 288) a stack of per-chip
+    expert weights (each expert a transposed view where ``transposed``) and
+    one 0/1 mask a chip, chip 0 healthy."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(chips, experts, m, 576, generator=g, device=cuda).to(x_dtype)
+    w = (torch.randn(chips, experts, 288, 576, generator=g, device=cuda) / 24).to(w_dtype).transpose(-1, -2)
+    w = w if transposed else w.contiguous()
+    ok = torch.stack([
+        torch.from_numpy(random_fault_map(seed + c, 256, 256, 0.1 * c).ok_mask) for c in range(chips)
+    ]).to(cuda)
+    return x, w, ok
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 160])
+@pytest.mark.parametrize("chips,experts", [(1, 8), (2, 8), (3, 2)])
+@pytest.mark.parametrize("x_dtype,w_dtype,variant", FLEET_KINDS)
+def test_chips_x_experts_masked_matmul_reads_each_chips_mask_in_one_launch(
+    cuda, x_dtype, w_dtype, variant, chips, experts, m, transposed
+):
+    """w (chips, E, K, N) and one mask a chip: one counted chips x experts
+    launch (neither a fleet nor an expert launch), each chip's mask packed
+    once (``chips_packed`` grows by the chips, not chips x E), every
+    (chip, expert) held to the plain version under its chip's mask."""
+    from repro_torch.kernels.masked_matmul.ops import packed_mask, pick_variant
+
+    x, w, ok = _chips_x_experts(cuda, chips, experts, m, transposed, x_dtype, w_dtype, seed=chips + m)
+    kind = pick_variant(x_dtype, m, variant)
+    before = dict(masked_matmul.launches_by_variant)
+    both_before = dict(masked_matmul.fleet_expert_launches_by_variant)
+    fleet_before = dict(masked_matmul.fleet_launches_by_variant)
+    expert_before = dict(masked_matmul.expert_launches_by_variant)
+    launches, packed = masked_matmul.launches, packed_mask.chips_packed
+    got = masked_matmul(x, w, ok, variant=variant)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == launches + 1
+    assert masked_matmul.launches_by_variant[kind] == before[kind] + 1
+    assert masked_matmul.fleet_expert_launches_by_variant[kind] == both_before[kind] + 1
+    assert masked_matmul.fleet_launches_by_variant == fleet_before
+    assert masked_matmul.expert_launches_by_variant == expert_before
+    assert packed_mask.chips_packed == packed + chips
+    assert got.shape == (chips, experts, m, 288) and got.dtype == x_dtype
+    assert_close(got, masked_matmul_ref(x, w, ok), x_dtype)
+    for c in range(chips):
+        for e in (0, experts - 1):
+            assert_close(got[c, e], masked_matmul_ref(x[c, e], w[c, e], ok[c]), x_dtype)
+
+
+@pytest.mark.parametrize("m", [4, 8, 160])
+@pytest.mark.parametrize("x_dtype,w_dtype,variant", FLEET_KINDS)
+def test_chips_x_experts_launch_gives_each_chips_expert_launch_bits(cuda, x_dtype, w_dtype, variant, m):
+    """Each chip's rows of the chips x experts launch against that chip's own
+    expert launch (w (E, K, N), its one mask) at the same K slices: the same
+    bits, forced to one slice and to the expert launch's plan; with the
+    plans' own counts where the two plans agree."""
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.masked_matmul.ops import gemm_plan, pick_variant
+
+    chips, experts = 3, 8
+    x, w, ok = _chips_x_experts(cuda, chips, experts, m, False, x_dtype, w_dtype, seed=m)
+    kind = pick_variant(x_dtype, m, variant)
+    sms = sm_count(cuda)
+    single = gemm_plan(kind, m, 288, 576, sms, experts)
+    both = gemm_plan(kind, m, 288, 576, sms, chips * experts)
+    forced = [1] + ([single.splits] if kind != "v1" or m <= 16 else [])
+    for s in forced:
+        got = masked_matmul(x, w, ok, variant=variant, splits=s)
+        for c in range(chips):
+            assert torch.equal(got[c], masked_matmul(x[c], w[c], ok[c], variant=variant, splits=s)), (s, c)
+    if (single.splits, single.split_tiles) == (both.splits, both.split_tiles):
+        got = masked_matmul(x, w, ok, variant=variant)
+        for c in range(chips):
+            assert torch.equal(got[c], masked_matmul(x[c], w[c], ok[c], variant=variant)), c
+
+
+def test_chips_x_experts_is_one_launch_under_vmap_and_fault_einsum(cuda):
+    """``fault_einsum``'s expert specs in kernel mode mapped over the chips:
+    one chips x experts launch for each, against the plain ``fap`` einsum
+    and a loop over the chips."""
+    from repro_torch.core import FaultContext, fault_einsum
+
+    x, w, ok = _chips_x_experts(cuda, 3, 8, 40, False, torch.bfloat16, torch.float32, seed=9)
+    w = w.float()
+    launches = masked_matmul.launches
+    both_before = sum(masked_matmul.fleet_expert_launches_by_variant.values())
+    got = torch.func.vmap(lambda x_, w_, ok_: fault_einsum("ecd,edf->ecf", x_, w_, FaultContext(ok_, "kernel")))(
+        x, w, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == launches + 1
+    assert sum(masked_matmul.fleet_expert_launches_by_variant.values()) == both_before + 1
+    for c in range(3):
+        assert_close(got[c], fault_einsum("ecd,edf->ecf", x[c], w[c], FaultContext(ok[c], "fap")), torch.bfloat16)
+
+
+def test_chips_x_experts_refuses_a_stack_it_cannot_view(cuda):
+    x, w, ok = _chips_x_experts(cuda, 2, 4, 8, False, torch.bfloat16, torch.float32)
+    launches = masked_matmul.launches
+    with pytest.raises(ValueError, match="expert stride"):
+        masked_matmul(x, w.transpose(0, 1).contiguous().transpose(0, 1), ok)  # experts outermost
+    with pytest.raises(ValueError, match="bad shapes"):
+        masked_matmul(x, w, ok[:1])  # a mask for one chip of two
+    with pytest.raises(ValueError, match="bad shapes"):
+        masked_matmul(x, w, ok[0])  # one mask for every chip: a mask a chip is the form
+    assert masked_matmul.launches == launches
+
+
 @pytest.mark.parametrize("hq,hkv", [(9, 9), (9, 3), (25, 5)])
 @pytest.mark.parametrize("sq,skv,q_offset,window", [
     (1, 1, 0, None), (63, 63, 0, None), (65, 65, 0, None), (200, 200, 0, None), (200, 200, 0, 64),
@@ -767,6 +879,75 @@ def test_selective_scan_is_deterministic(cuda):
     y1, h1 = selective_scan(*args)
     y2, h2 = selective_scan(*args)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def _chip_scan_inputs(cuda, chips, b, l, d, n, u_dtype, shared, seed=0):
+    """Chips x B rows of scan inputs as the model gives them, and each
+    chip's a (chips, D, N) and d (chips, D); ``shared`` gives every chip
+    chip 0's, read with chip stride 0."""
+    u, dt, _, bm, cm, _ = _scan_inputs(cuda, chips * b, l, d, n, u_dtype, seed=seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    a = -torch.exp(torch.randn(chips, d, n, generator=g, device=cuda))
+    d_skip = torch.randn(chips, d, generator=g, device=cuda)
+    if shared:
+        a, d_skip = a[0].expand(chips, d, n), d_skip[0].expand(chips, d)
+    return u, dt, a, bm, cm, d_skip
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chips,b,l,d,n", [(1, 2, 75, 200, 16), (2, 2, 75, 200, 16), (3, 1, 37, 11, 4),
+                                           (4, 4, 128, 3200, 16), (4, 2, 50, 64, 32)])
+def test_chip_batched_scan_matches_plain_in_one_launch(cuda, chips, b, l, d, n, u_dtype, shared):
+    """a (chips, D, N) and d (chips, D), per chip or one shared (chip stride
+    0): one counted chip-batched launch over chips x B rows, against the
+    plain version; each chip's rows are the bits of that chip's own launch
+    at the same lanes."""
+    args = _chip_scan_inputs(cuda, chips, b, l, d, n, u_dtype, shared, seed=chips + n)
+    u, dt, a, bm, cm, d_skip = args
+    before, fleet_before = selective_scan.launches, selective_scan.fleet_launches
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    plan = selective_scan.last_plan
+    assert selective_scan.launches == before + 1 and selective_scan.fleet_launches == fleet_before + 1
+    assert plan.blocks == chips * b * -(-d // plan.channels)
+    ref_y, ref_h = selective_scan_ref(*args)
+    rtol, atol = SCAN_TOL[u_dtype]
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, ref_h, rtol=2e-5, atol=1e-4)
+    for c in range(chips):
+        rows = slice(c * b, (c + 1) * b)
+        one_y, one_h = selective_scan(u[rows], dt[rows], a[c], bm[rows], cm[rows], d_skip[c], lanes=plan.lanes)
+        assert torch.equal(y[rows], one_y) and torch.equal(h[rows], one_h), c
+    assert selective_scan.fleet_launches == fleet_before + 1
+
+
+def test_chip_batched_scan_is_one_launch_under_vmap(cuda):
+    """``torch.func.vmap`` of the scan over a chip axis: the custom op's
+    vmap rule makes one chip-batched launch; eager calls reach the kernel
+    directly."""
+    chips, b = 3, 2
+    u, dt, a, bm, cm, d_skip = _chip_scan_inputs(cuda, chips, b, 40, 96, 16, torch.bfloat16, False, seed=2)
+    split = lambda t: t.unflatten(0, (chips, b))
+    launches, fleet = selective_scan.launches, selective_scan.fleet_launches
+    y, h = torch.func.vmap(selective_scan)(split(u), split(dt), a, split(bm), split(cm), d_skip)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == launches + 1 and selective_scan.fleet_launches == fleet + 1
+    ref_y, ref_h = selective_scan_ref(u, dt, a, bm, cm, d_skip)
+    torch.testing.assert_close(y.flatten(0, 1).float(), ref_y.float(), rtol=2e-2, atol=1e-2)
+    torch.testing.assert_close(h.flatten(0, 1), ref_h, rtol=2e-5, atol=1e-4)
+
+
+def test_chip_batched_scan_refuses_what_it_does_not_take(cuda):
+    u, dt, a, bm, cm, d_skip = _chip_scan_inputs(cuda, 2, 2, 16, 64, 16, torch.bfloat16, False)
+    before = selective_scan.launches
+    with pytest.raises(ValueError, match="bad shapes"):
+        selective_scan(u[:3], dt[:3], a, bm[:3], cm[:3], d_skip)  # 3 rows do not tile 2 chips
+    with pytest.raises(ValueError, match="bad shapes"):
+        selective_scan(u, dt, a, bm, cm, d_skip[0])  # a per chip, d not
+    with pytest.raises(ValueError, match="contiguous|chip stride"):
+        selective_scan(u, dt, a.transpose(1, 2).contiguous().transpose(1, 2), bm, cm, d_skip)
+    assert selective_scan.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -1113,6 +1294,7 @@ def test_an_empty_cache_gives_the_bits_of_the_explicit_heuristic(cuda, empty_cac
 def test_the_cache_steers_each_wrapper_on_the_card(cuda, empty_cache):
     """A table entry reaches the launch (read off ``last_*``), a caller's
     value beats it, and a tuned entry the wrapper refuses raises."""
+    from repro_torch.kernels.mamba_scan.ops import scan_plan, sm_count
     from repro_torch.tune.cache import cache_key, get_tuning_cache
 
     table = get_tuning_cache()
@@ -1137,6 +1319,9 @@ def test_the_cache_steers_each_wrapper_on_the_card(cuda, empty_cache):
     table.put(cache_key("mamba_scan", dict(b=2, l=40, d=300, n=16), "float32", "cuda"), dict(blocks=dict(lanes=4)))
     selective_scan(*args)
     assert selective_scan.last_plan.lanes == 4
+    u, dt, a, bm, cm, d_skip = args  # the same key's rows as 2 chips: the plan, not the entry
+    selective_scan(u, dt, a.expand(2, *a.shape), bm, cm, d_skip.expand(2, *d_skip.shape))
+    assert selective_scan.last_plan == scan_plan(2, 300, 16, sm_count(cuda))
     table.put(cache_key("mamba_scan", dict(b=2, l=40, d=300, n=16), "float32", "cuda"), dict(blocks=dict(lanes=1)))
     with pytest.raises(ValueError, match="no scan kernel"):
         selective_scan(*args)
@@ -1439,3 +1624,71 @@ def test_continuous_engine_on_the_card_pinned_to_the_static_engine(cuda):
     for r in reqs:
         res = static.generate(torch.as_tensor(r.tokens, device=cuda)[None].long(), max_new_tokens=r.max_new_tokens)
         assert np.array_equal(outs[r.rid].tokens, res.tokens[0, len(r.tokens):].cpu().numpy()), r.rid
+
+
+# ---------------------------------------------------------------------------
+# fleets of every family, and the examples, on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "hymba-1.5b", "mixtral-8x22b", "internvl2-26b"])
+def test_fleet_of_every_family_on_the_card_matches_its_chips_engines(cuda, name):
+    """Reduced configs in float32 ``kernel`` mode, 3 chips (chip 0 healthy):
+    each chip's tokens and logprobs are its own ``ServeEngine``'s; every
+    masked GEMM is one chip-batched launch (an MoE layer's expert GEMMs one
+    chips x experts launch each) and every prefill scan one chip-batched
+    launch."""
+    from repro_torch.fleet import FleetServeEngine
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_config(get_arch(name))
+    params = [M.init_params(cfg, i, device=cuda) for i in range(3)]
+    ctxs = [healthy()] + [from_fault_map(random_fault_map(i, 16, 16, 0.2 * i), "kernel", device=cuda) for i in (1, 2)]
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8)), device=cuda)
+    eng = FleetServeEngine(cfg, params, ctxs, max_len=24)
+    launches, scans = masked_matmul.launches, selective_scan.fleet_launches
+    fleet = sum(masked_matmul.fleet_launches_by_variant.values())
+    both = sum(masked_matmul.fleet_expert_launches_by_variant.values())
+    out = eng.generate(prompts, max_new_tokens=6)
+    torch.cuda.synchronize()
+    # a text prompt runs no frontend (the vision patches' GEMM, first in gemm_shapes)
+    per_step = sum(u for _, _, u in cfg.gemm_shapes()[cfg.modality in FRONTEND_DIMS:])
+    experts = 3 * cfg.num_layers * 7 if cfg.has_moe else 0
+    assert masked_matmul.launches - launches == per_step * 7
+    assert sum(masked_matmul.fleet_expert_launches_by_variant.values()) - both == experts
+    assert sum(masked_matmul.fleet_launches_by_variant.values()) - fleet == per_step * 7 - experts
+    assert selective_scan.fleet_launches - scans == (cfg.num_layers if cfg.has_ssm else 0)
+    for i in range(3):
+        ref = ServeEngine(cfg, params[i], ctxs[i], max_len=24, prefill_buckets=None).generate(prompts, max_new_tokens=6)
+        toks, lps = out.chip(i)
+        assert torch.equal(toks, ref.tokens), i
+        assert_close(lps, ref.logprobs, torch.float32, atol_scale=50.0)
+
+
+def test_quickstart_example_runs_on_the_card(cuda):
+    from repro_torch.examples import quickstart
+
+    launches = masked_matmul.launches
+    out = quickstart.run(cuda, "kernel", log=lambda *a: None)
+    assert masked_matmul.launches > launches  # the faulty chip's evaluations ran the kernel
+    assert len(out["pretrain"]) == quickstart.PRETRAIN_STEPS and len(out["fat"]) == quickstart.FAT_STEPS
+    assert out["acc_faulty"] < out["acc0"] and out["acc_fat"] > out["acc_faulty"]
+
+
+def test_serve_faulty_chip_example_runs_on_the_card(cuda):
+    from repro_torch.examples import serve_faulty_chip
+
+    launches = masked_matmul.launches
+    out = serve_faulty_chip.run(cuda, "kernel", log=lambda *a: None)
+    assert masked_matmul.launches > launches
+    assert out["stats"].decode_dispatches < out["static_dispatches"]
+    assert len(out["ties"]) <= 1  # a near-tie may fall the other way on the card, not many
+
+
+def test_fleet_retraining_example_runs_on_the_card(cuda, capsys):
+    from repro_torch.examples import fleet_retraining
+
+    assert fleet_retraining.main(["--chips", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "eFAT " in out and "individual " in out

@@ -173,9 +173,11 @@ def test_fleet_engine_validates_inputs(fleet):
         FleetServeEngine(cfg, [], [])
     with pytest.raises(ValueError, match="fault contexts"):
         FleetServeEngine(cfg, [chips[0]["params"]], [healthy(), healthy()])
-    ssm = reduce_config(get_arch("falcon-mamba-7b"))
-    with pytest.raises(ValueError, match="attention"):
-        FleetServeEngine(ssm, [M.init_params(ssm, 0, device="cpu")])
+    # the refusal that still holds: an encoder has no decode path (SSM,
+    # hybrid, MoE and vision configs are served, as the reference serves them)
+    enc = reduce_config(get_arch("hubert-xlarge"))
+    with pytest.raises(ValueError, match="encoder"):
+        FleetServeEngine(enc, [M.init_params(enc, 0, device="cpu")])
 
 
 def test_fleet_engine_runs_each_gemm_as_one_chip_batched_call(fleet, monkeypatch):
@@ -291,9 +293,14 @@ def test_sharded_fleet_validates(fleet):
     eng = ShardedFleetServeEngine(cfg, [c["params"] for c in chips[:2]], num_slots=1, devices=["cpu"])
     with pytest.raises(ValueError, match="streams"):
         eng.serve([[Request(0, np.arange(3), 2)]])
+    # the refusals that still hold, as the reference's: SSM state is not
+    # paged, and an encoder has no decode path
     ssm = reduce_config(get_arch("falcon-mamba-7b"))
     with pytest.raises(ValueError, match="attention"):
         ShardedFleetServeEngine(ssm, [M.init_params(ssm, 0, device="cpu")], devices=["cpu"])
+    enc = reduce_config(get_arch("hubert-xlarge"))
+    with pytest.raises(ValueError, match="encoder"):
+        ShardedFleetServeEngine(enc, [M.init_params(enc, 0, device="cpu")], devices=["cpu"])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             ShardedFleetServeEngine(cfg, [chips[0]["params"]])

@@ -12,7 +12,10 @@ import torch
 from repro_torch.configs import get_arch, reduce_config
 from repro_torch.convert import context_from_ok, params_from_jax
 from repro_torch.core import from_fault_map, random_fault_map
+from repro_torch.examples import fleet_retraining as retraining_example
 from repro_torch.examples import fleet_serve as fleet_example
+from repro_torch.examples import quickstart as quickstart_example
+from repro_torch.examples import serve_faulty_chip as serve_example
 from repro_torch.fleet import ShardedFleetServeEngine, suggest_population_size
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
@@ -88,6 +91,9 @@ def test_entry_points_refuse_the_host_unless_asked(monkeypatch):
         lambda: params_from_jax(cfg, {}),
         lambda: serve_cli.main(["--arch", "smollm-135m", "--reduced"]),
         lambda: fleet_example.main(["--reduced", "--chips", "2"]),
+        lambda: quickstart_example.main([]),
+        lambda: serve_example.main([]),
+        lambda: retraining_example.main(["--chips", "2"]),
         lambda: ShardedFleetServeEngine(cfg, [M.init_params(cfg, 0, device="cpu")]),
         lambda: suggest_population_size(cfg),
     ]

@@ -630,12 +630,19 @@ def test_encoder_refusals_carry_the_reference_messages():
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "hubert-xlarge", "internvl2-26b"])
 def test_fleet_engines_refuse_what_they_do_not_map(name):
+    """Both fleet engines map the MoE and the vision configs over the chips,
+    as the reference's serve them (tests/test_torch_fleet_families.py holds
+    what they serve), and refuse the encoder, which has no decode path."""
     from repro_torch.fleet import FleetServeEngine, ShardedFleetServeEngine
 
     _, cfg, _, params = _pair(name)
     for engine in (FleetServeEngine, ShardedFleetServeEngine):
-        with pytest.raises(ValueError, match="causal text families without experts"):
-            engine(cfg, [params, params], devices=["cpu"]) if engine is ShardedFleetServeEngine else engine(cfg, [params, params])
+        kw = dict(devices=["cpu"]) if engine is ShardedFleetServeEngine else {}
+        if cfg.is_encoder:
+            with pytest.raises(ValueError, match="encoder-only arch .* has no decode path"):
+                engine(cfg, [params, params], **kw)
+        else:
+            assert engine(cfg, [params, params], **kw).num_chips == 2
 
 
 def _meta_pair(name):

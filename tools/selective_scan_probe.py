@@ -48,7 +48,7 @@ SHAPES = [(4, 128, 8192, 16), (4, 128, 3200, 16), (4, 2048, 3200, 16), (4, 2048,
 F32_TOL = (2e-5, 1e-4)
 # source patches of the variants: (text of the kernel as built, its replacement)
 EXPF = "{ return expf(x); }"
-A_LOAD = "a.a[(long long)d * a.N + n]"
+A_LOAD = "ap[(long long)d * a.N + n]"
 VARIANTS = {
     "ex2.approx": ((EXPF, '{ float y; asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x)); return y; }'),
                    (A_LOAD, A_LOAD + " * 1.4426950408889634f")),  # A pre-scaled by log2 e
