@@ -92,14 +92,24 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    committed ``default_cache.json`` is built from two runs' tables
    (``tools/default_table.py``). Last, ``lint_kernels`` over
    ``kernel_launches(cfg)`` of every registered configuration must find
-   nothing. Phases 3-5 run with an empty cache installed (they time the
+   nothing, and ``analyze_stack``'s cheap passes (recompile, sharding,
+   kernels) over the seven archs the stack lints must find no key outside
+   the committed baseline (``src/repro_torch/analysis/baseline.json``),
+   falcon-mamba-7b, hymba-1.5b and hubert-xlarge refused; the donation
+   pass of the reduced SmolLM-135M on the CPU gives the classification
+   phases 6, 12 and 13 are held to. Phases 3-5 run with an empty cache installed (they time the
    heuristics); every other phase runs the committed table, which the
    process cache loads by default, as a user's run does;
 6. serve SmolLM-135M at full published width (random weights, seed 0) on a
    256x256 array with 10% of its PEs faulty, through ``ServeEngine`` in
    ``kernel`` mode: 4 prompts of 128 tokens, 32 greedy new tokens, in bf16
    and in float32. The served sequences are re-run teacher-forced through
-   the plain ``fap`` context and the logits are gated;
+   the plain ``fap`` context and the logits are gated. After the bf16
+   gates, the donation pass runs the engine's sample-decode once on the
+   prefill's cache (every carried subject kept or rebound as in the CPU
+   run, 211 masked-GEMM kernel launches), and the dry run's decode cell at
+   the engine's batch and capacity on a 1 x 1 mesh must give the live
+   params' and cache's bytes exactly;
 7. long prefill: SmolLM's ``prefill`` at 4 x 2048 tokens in ``kernel`` mode
    with the flash kernel, against the plain path (``fap`` context, dense
    attention): logits and KV cache;
@@ -192,7 +202,11 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     launches a forward of each pop slice (844 in all), the metrics within
     2e-3 of ``fap`` and within 1e-6 of ``evaluate_metric`` one chip at a
     time, and the chip-batched ``v1`` for 2 chips at M = 512 at every
-    SmolLM GEMM shape against its plain version. (e) the population step at width
+    SmolLM GEMM shape against its plain version. Stage "donation", after
+    (c): the donation pass over one bf16 train step and one population fit
+    (4 chips, one step each, ``fap`` as (c) trains), every carried subject
+    classified as in the CPU run, the fit's params0 keeping its storage and
+    bits, no masked-GEMM kernel launch. (e) the population step at width
     4 (median of timed fits), device ops and busy share from two
     ``torch.profiler`` traces, peak device memory, each stage's seconds;
 13. continuous serving with online fault detection (``continuous_phase``):
@@ -225,7 +239,11 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     p50 and p99 (all with a ``Recorder`` attached, which synchronizes after
     each admission and chunk) and the program counts; with ``--profile``
     run (a)'s busy share and, from a trace of the CPU too, the host's cost
-    of a decode dispatch by op group (``host_costs``);
+    of a decode dispatch by op group (``host_costs``). Last, the donation
+    pass over run (d)'s engine's three programs (the decode, a packed
+    admission, a chunk; one dispatch each on fresh slot state), every
+    carried subject classified as in the CPU run, 211 masked-GEMM kernel
+    launches a dispatch;
 14. fleet serving (``fleet_phase``): SmolLM-135M at full width in
     ``kernel`` mode on chips ``random_fault_map(c, 256, 256, 0.05 * c)``.
     (a) ``FleetServeEngine``, 8 chips (params from seed c // 4, chip 0
@@ -497,6 +515,86 @@ def variant_counts():
     got.update({f"masked_matmul.{v}.experts": n for v, n in masked_matmul.expert_launches_by_variant.items()})
     got.update({f"flash_attention.{v}": n for v, n in flash_attention.launches_by_variant.items()})
     return got
+
+
+# ---------------------------------------------------------------------------
+# the program analyses (phases 5, 6, 12 and 13)
+# ---------------------------------------------------------------------------
+
+# the archs the stack's analyses lint; falcon-mamba-7b, hymba-1.5b and hubert-xlarge are refused
+ANALYSIS_ARCHS = ("internvl2-26b", "llama3-405b", "llama4-maverick-400b-a17b", "mixtral-8x22b",
+                  "phi3-mini-3.8b", "qwen3-0.6b", "smollm-135m")
+ANALYSIS_REFUSED = ("falcon-mamba-7b", "hymba-1.5b", "hubert-xlarge")
+_CPU_DONATION: dict = {}
+
+
+def cpu_donation_subjects(log=None) -> dict:
+    """Each donation entry's carried subjects, kept or rebound, from the
+    reduced SmolLM-135M's donation pass on the CPU (``build_stack``'s
+    entries): the classification the card's full-width entry points are
+    held to. An entry that carries nothing (the population fit) has no
+    subject to classify and is not run here; the card runs it."""
+    if not _CPU_DONATION:
+        import torch
+
+        from repro_torch.analysis import build_stack, lint_donation
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # tiny tensors: more threads only add their overhead
+        seconds = {}
+        try:
+            for spec in build_stack("smollm-135m", device="cpu").donation_specs:
+                t0 = time.perf_counter()
+                _CPU_DONATION[spec.name] = lint_donation(spec)[1]["subjects"] if spec.carried else {}
+                seconds[spec.name] = round(time.perf_counter() - t0, 3)
+        finally:
+            torch.set_num_threads(threads)
+        if log:
+            log(f"the CPU donation run, seconds by entry: {seconds}")
+    return _CPU_DONATION
+
+
+def donation_gate(torch, log, label, specs, gemms):
+    """The donation pass over ``specs``, full-width entry points on the card,
+    one dispatch each. Every carried subject must be kept or rebound exactly
+    as in the CPU run at reduced width, a reused argument (the population
+    fit's params0) must keep its storage and bits, and each dispatch must
+    make ``gemms[name]`` masked-GEMM kernel launches (the serving
+    dispatches' GEMMs go through the kernel; training runs the plain
+    product). Returns per entry the carried bytes and the in-place share,
+    and the seconds."""
+    from repro_torch.analysis import lint_donation
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    want = cpu_donation_subjects()
+    t0 = time.perf_counter()
+    out = {}
+    for spec in specs:
+        before = masked_matmul.launches
+        findings, st = lint_donation(spec, min_bytes=1 << 14)
+        torch.cuda.synchronize()
+        launches = masked_matmul.launches - before
+        rebound = sorted(k for k, v in st["subjects"].items() if v == "rebound")
+        out[spec.name] = dict(carried_bytes=st["carried_bytes"], donated_bytes=st["donated_bytes"],
+                              donated_fraction=st["donated_fraction"], rebound=rebound,
+                              findings=sorted(f.key for f in findings), masked_matmul_launches=launches,
+                              reused_intact=st["reused_intact"])
+        log(f"donation {label} {spec.name}: carried {st['carried_bytes']} bytes, in place "
+            f"{st['donated_bytes']} ({st['donated_fraction']:.4f}); {len(st['subjects'])} subjects, rebound "
+            f"{rebound if len(rebound) <= 6 else f'{len(rebound)} (every one)'}; masked-GEMM kernel launches "
+            f"{launches}" + ("" if st["reused_intact"] is None else f"; params0 intact {st['reused_intact']}"))
+        if st["subjects"] != want[spec.name]:
+            diff = {k: (st["subjects"].get(k), want[spec.name].get(k))
+                    for k in set(st["subjects"]) | set(want[spec.name])
+                    if st["subjects"].get(k) != want[spec.name].get(k)}
+            raise Failed(f"donation {label} {spec.name}: classified otherwise than the CPU run (card, cpu): {diff}")
+        if spec.reused and st["reused_intact"] is not True:
+            raise Failed(f"donation {label} {spec.name}: a reused argument lost its storage or its bits")
+        if launches != gemms[spec.name]:
+            raise Failed(f"donation {label} {spec.name}: {launches} masked-GEMM launches, want {gemms[spec.name]}")
+    seconds = time.perf_counter() - t0
+    log(f"donation {label}: {seconds:.2f} s")
+    return dict(entries=out, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -1096,6 +1194,22 @@ def lm_phase(torch, log):
         f"faulty before FAT {[round(-x, 5) for x in before]}, after {[round(-x, 5) for x in after]}")
     report["fat"] = dict(metric=LM_METRIC, baseline=-trainer.baseline_metric, constraint=-constraint, steps=steps,
                          before=[-x for x in before], after=[-x for x in after])
+
+    # -- the donation pass: one train step and one population fit, in fap mode as (c) trains ---
+    def donation():
+        from repro_torch.analysis.programs import population_spec, train_step_spec
+        from repro_torch.train.optimizer import adamw_init
+
+        ctxs = [from_fault_map(fm, "fap", device=trainer.device) for fm in fleet]
+        step = step_lib.make_jit_train_step(cfg, trainer.opt_cfg, remat="none")
+        params = dict(trainer.base_params)
+        specs = [train_step_spec(step, params, adamw_init(params, trainer.opt_cfg), trainer._train_batch_fn(0),
+                                 ctxs[0]),
+                 population_spec(trainer.engine, trainer.base_params, torch.stack([c.ok for c in ctxs]),
+                                 [1] * LM_CHIPS, trainer._train_batch_fn)]
+        return donation_gate(torch, log, "phase 12", specs, {"train.step": 0, "population.fit_run": 0})
+
+    report["donation"] = timed("donation", donation)
 
     # -- (d) deployment through the card kernels ------------------------------------
     main_path = {"masked_matmul": {}, "flash_attention": {}}  # every kernel-mode run's launches
@@ -1830,6 +1944,13 @@ def continuous_phase(torch, log, profile=False):
     if (at is None or at > bound or delta is None or not delta.any() or (delta & ~true_new).any()
             or "detect.new_faults" not in fired):
         raise Failed(f"continuous (d): injection not detected as required: {report['d']}")
+    # the donation pass over the engine's three programs, kernel mode, bf16: one dispatch each
+    from repro_torch.analysis.programs import continuous_specs
+
+    per_step = layer_gemms + 1
+    report["donation"] = timed("donation", donation_gate, torch, log, "phase 13", continuous_specs(eng_d), {
+        "continuous.sample_decode": per_step, "continuous.prefill_admit": per_step,
+        "continuous.prefill_chunk": per_step})
     del eng_d, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3111,7 +3232,8 @@ def main(argv=None) -> int:
 
 
 def run(args, torch) -> int:
-    from repro_torch.analysis import kernel_launches, lint_kernels
+    from repro_torch.analysis import analyze_stack, default_baseline_path, kernel_launches, lint_kernels, load_baseline
+    from repro_torch.analysis.programs import sample_decode_spec
     from repro_torch.analysis.kernelgeom import decode_attention_launch
     from repro_torch.configs import get_arch, list_archs
     from repro_torch.core import from_fault_map, random_fault_map
@@ -3692,6 +3814,32 @@ def run(args, torch) -> int:
     log(f"kernel geometry lint: {len(lint_stats)} configurations x {len(next(iter(lint_stats.values())))} "
         "launches, no findings")
 
+    # the analyses' cheap passes (recompile, sharding, kernels) over the archs the stack lints,
+    # against the committed baseline; the CPU donation run the card's entry points are held to
+    t0 = time.perf_counter()
+    baseline = load_baseline(default_baseline_path())
+    analysis_report = dict(keys={})
+    for arch in ANALYSIS_ARCHS:
+        rep = analyze_stack(arch, passes=("recompile", "sharding", "kernels"))
+        new = rep.new_vs_baseline(baseline)
+        if new:
+            raise Failed(f"analyze_stack {arch}: keys outside the baseline {[f.key for f in new]}")
+        analysis_report["keys"][arch] = sorted(rep.keys())
+    for arch in ANALYSIS_REFUSED:
+        try:
+            analyze_stack(arch, passes=("recompile", "sharding", "kernels"))
+            raise Failed(f"analyze_stack {arch}: not refused")
+        except ValueError:
+            pass
+    analysis_report["cheap_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_donation_subjects(log)
+    analysis_report["cpu_donation_seconds"] = time.perf_counter() - t0
+    log(f"analyses: cheap passes over {len(ANALYSIS_ARCHS)} archs in {analysis_report['cheap_seconds']:.2f} s, "
+        f"no key outside the baseline ({ {a: len(k) for a, k in analysis_report['keys'].items()} } keys), "
+        f"{len(ANALYSIS_REFUSED)} refused; the CPU donation run (reduced SmolLM-135M) "
+        f"{analysis_report['cpu_donation_seconds']:.2f} s")
+
     # ---- serving: shared by phases 6-10 and 15 -----------------------------
     reset = reset_launches
 
@@ -3710,7 +3858,7 @@ def run(args, torch) -> int:
 
     serve_report, profile_report, profile_lines = {}, {}, []
 
-    def serve(c, params, atol_scale, elementwise=True):
+    def serve(c, params, atol_scale, elementwise=True, analyses=False):
         """Serve 4 x 128-token prompts, 32 greedy new tokens, in kernel mode;
         gate the launch counts and the teacher-forced logits and logprobs.
 
@@ -3720,7 +3868,11 @@ def run(args, torch) -> int:
         held elementwise to ``dtype_tol``. A bf16 run is also held against
         the plain path in float32 (``ref32``): the kernel path's relative L2
         error on the logits, and the served logprobs' RMS error, may be at
-        most ANCHOR_RATIO times the plain bf16 path's own."""
+        most ANCHOR_RATIO times the plain bf16 path's own. With ``analyses``
+        (phase 6's bf16 serve) the engine's sample-decode passes the
+        donation gate on the prefill's cache, and the dry run of the decode
+        cell at the engine's batch and capacity gives the live params' and
+        cache's bytes."""
         label = f"{c.name} {c.dtype}"
         prompts = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
         per_step = sum(uses for _, _, uses in c.gemm_shapes())
@@ -3756,7 +3908,8 @@ def run(args, torch) -> int:
             raise Failed(f"serve {label}: bad output {tuple(out.tokens.shape)}")
         t1 = time.perf_counter()
         kw = {} if c.has_ssm else dict(valid_len=PROMPT)  # SSM families prefill unpadded
-        M.prefill(params, {"tokens": prompts}, c, ctx_k, cache_len=eng.cache_len_for(PROMPT, NEW), **kw)
+        cache_len = eng.cache_len_for(PROMPT, NEW)
+        live_logits, live_cache = M.prefill(params, {"tokens": prompts}, c, ctx_k, cache_len=cache_len, **kw)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
 
@@ -3814,7 +3967,35 @@ def run(args, torch) -> int:
                              f"than the bf16 plain path is: {anchored}")
             if args.profile:
                 profile(label, eng, prompts)
+        if analyses:
+            per_step = sum(uses for _, _, uses in c.gemm_shapes())
+            report["donation"] = donation_gate(torch, log, "phase 6", [
+                sample_decode_spec(eng, live_logits, live_cache)], {"serve.sample_decode": per_step})
+            report["dryrun"] = dryrun_gate(c, params, live_cache, cache_len)
         return eng
+
+    def dryrun_gate(c, params, cache, cache_len):
+        """The dry run's decode cell at the engine's batch and capacity on a
+        1 x 1 mesh: its per-device bytes must be the live engine's params'
+        and cache's, exactly (the cache's int index counted as the int32
+        scalar the dry run, like the reference, holds)."""
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.launch.dryrun_lib import build_cell
+        from repro_torch.launch.mesh import make_host_mesh
+
+        t0 = time.perf_counter()
+        cell = ShapeConfig(f"decode_{cache_len}", cache_len, BATCH, "decode")
+        _, info = build_cell(c.name, cell, mesh=make_host_mesh(1, 1, devices=["meta"]), cfg=c)
+        live = dict(param_bytes_per_device=sum(p.numel() * p.element_size() for p in params.parameters()),
+                    cache_bytes_per_device=sum(t.numel() * t.element_size() for t in cache.values()
+                                               if torch.is_tensor(t)) + 4)
+        got = {k: info[k] for k in live}
+        seconds = time.perf_counter() - t0
+        log(f"dry run {c.name} decode cell {BATCH}x{cache_len} on a 1x1 mesh: {got} against the live engine's "
+            f"{live}; {seconds:.2f} s")
+        if got != live:
+            raise Failed(f"dry run {c.name}: per-device bytes {got}, the live engine holds {live}")
+        return dict(dryrun=got, live=live, seconds=seconds)
 
     def profile(label, eng, prompts, prof_new=8):
         """Where one bf16 serving run's device time goes."""
@@ -3944,7 +4125,7 @@ def run(args, torch) -> int:
     # ---- phase 6: serve SmolLM-135M at full width on a 10%-faulty chip ----
     params = M.init_params(cfg, 0, device=dev)
     for dtype, atol_scale in (("bfloat16", 10.0), ("float32", 50.0)):
-        serve(dataclasses.replace(cfg, dtype=dtype), params, atol_scale)
+        serve(dataclasses.replace(cfg, dtype=dtype), params, atol_scale, analyses=dtype == "bfloat16")
 
     # ---- phase 7: SmolLM long prefill through the flash kernel ------------
     long_report = {cfg.name: long_prefill(cfg, params, anchored=False)}
@@ -4195,7 +4376,7 @@ def run(args, torch) -> int:
         scan_rows=[dict(case=k, **v) for k, v in scan_rows.items()],
         decode_rows=[dict(cell=k[0], dtype=k[1], valid=k[2], **v) for k, v in da_rows.items()],
         decode_lattice=[dict(cell=k[0], dtype=k[1], **v) for k, v in lattice_report.items()], paged_rows=pg_rows, tune=tune_report,
-        tune_max_abs_err=space_err, lint=lint_stats,
+        tune_max_abs_err=space_err, lint=lint_stats, analyses=analysis_report,
         long_prefill=long_report, efat=efat_report, lm_fat=lm_report, continuous=cont_report, fleet=fleet_report,
         zoo=zoo_report,
         seconds=time.perf_counter() - t_start,

@@ -1,5 +1,7 @@
-"""Architecture configuration: the frozen ``ArchConfig``, the registry that
-maps ``--arch <id>`` strings to configs, and ``reduce_config`` for CPU tests.
+"""Architecture and shape configuration: the frozen ``ArchConfig``, the
+registry that maps ``--arch <id>`` strings to configs, the input-shape cells
+(``ShapeConfig``, ``SHAPES``) and which (arch x shape) pairs are runnable
+(``cell_skip_reason``, ``valid_cells``), and ``reduce_config`` for CPU tests.
 
 The port's own copy of the reference's ``configs/base.py``: the dataclass
 fields are identical, so a config built on either side describes the same
@@ -16,6 +18,32 @@ from typing import Optional
 # audio frames and InternViT patch embeddings, projected to d_model by the
 # ``frontend`` GEMM
 FRONTEND_DIMS = {"audio": 512, "vision": 1024}
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell.
+
+    kind: 'train' runs the train step; 'prefill' runs prefill; 'decode'
+    runs one decode step (one new token against a KV cache of ``seq_len``).
+    """
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -83,6 +111,13 @@ class ArchConfig:
     @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when a 500k-token decode has bounded state (SSM / SWA)."""
+        if self.family == "ssm":
+            return True
+        return self.sliding_window is not None
 
     @property
     def has_attention(self) -> bool:
@@ -190,6 +225,28 @@ def _ensure_loaded() -> None:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
+def cell_skip_reason(cfg: ArchConfig, shape: ShapeConfig) -> Optional[str]:
+    """None if the (arch, shape) cell is runnable, else why not."""
+    if cfg.is_encoder and shape.kind == "decode":
+        return "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return "full-attention arch: 500k decode needs sub-quadratic attention"
+    return None
+
+
+def valid_cells(arch_names: Optional[list[str]] = None) -> list[tuple[str, str]]:
+    """Every runnable (arch, shape) cell, in registry then ``SHAPES`` order."""
+    _ensure_loaded()
+    names = arch_names or list_archs()
+    cells = []
+    for a in names:
+        cfg = get_arch(a)
+        for s in SHAPES.values():
+            if cell_skip_reason(cfg, s) is None:
+                cells.append((a, s.name))
+    return cells
+
+
 def reduce_config(cfg: ArchConfig) -> ArchConfig:
     """Family-preserving tiny version of ``cfg`` for CPU tests (the same
     cut as the reference's ``reduce_config``)."""
@@ -219,4 +276,15 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     return replace(cfg, **changes)
 
 
-__all__ = ["ArchConfig", "FRONTEND_DIMS", "register", "get_arch", "list_archs", "reduce_config"]
+__all__ = [
+    "ArchConfig",
+    "FRONTEND_DIMS",
+    "SHAPES",
+    "ShapeConfig",
+    "cell_skip_reason",
+    "get_arch",
+    "list_archs",
+    "reduce_config",
+    "register",
+    "valid_cells",
+]

@@ -145,6 +145,18 @@ def _kernel_weight(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return w.to(x.dtype)
 
 
+def _kernel_gemm(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """``kernel`` mode's masked GEMM: the kernel's wrapper, or on the meta
+    device (the dry run, which counts its FLOPs) the custom op, whose fake
+    impl gives the shape and whose FLOP formula is 2 * M * K * N."""
+    # imported here: the kernel module imports core.mapping
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    if x.device.type == "meta":
+        return torch.ops.repro_torch.masked_matmul(x, w, ok, "auto")
+    return masked_matmul(x, w, ok)
+
+
 def fault_linear(
     x: torch.Tensor, w: torch.Tensor, ctx: Optional[FaultContext] = None
 ) -> torch.Tensor:
@@ -163,10 +175,7 @@ def fault_linear(
         return torch.matmul(x, w.to(x.dtype))
     _require_per_chip(ctx)
     if ctx.mode == "kernel":
-        # imported here: the kernel module imports core.mapping
-        from repro_torch.kernels.masked_matmul.ops import masked_matmul
-
-        return masked_matmul(x, _kernel_weight(x, w), ctx.ok)
+        return _kernel_gemm(x, _kernel_weight(x, w), ctx.ok)
     return torch.matmul(x, masked_weight(w.to(x.dtype), ctx.ok))
 
 
@@ -195,9 +204,7 @@ def fault_einsum(
     if ctx.mode == "kernel":
         if spec not in EXPERT_SPECS:
             raise ValueError(f"kernel mode runs the expert specs {EXPERT_SPECS}, not {spec!r}")
-        from repro_torch.kernels.masked_matmul.ops import masked_matmul
-
-        return masked_matmul(x, _kernel_weight(x, w), ctx.ok)
+        return _kernel_gemm(x, _kernel_weight(x, w), ctx.ok)
     return torch.einsum(spec, x, masked_weight(w.to(x.dtype), ctx.ok))
 
 

@@ -48,6 +48,7 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.common import check_launch, load_kernel, sm_count, tuned_block, under_vmap
 
@@ -202,8 +203,11 @@ def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
     (``resolve_plan``). Under ``torch.func.vmap`` (a fleet's prefill) the
     call goes through the custom op ``repro_torch::selective_scan``, whose
     vmap rule makes the vmapped axis the chip axis: one launch for every
-    chip, counted also in ``selective_scan.fleet_launches``."""
-    if under_vmap(u, dt, a, b, c, d):
+    chip, counted also in ``selective_scan.fleet_launches``. On the meta
+    device (the dry run, ``launch/dryrun_lib.py``) the call goes through the
+    custom op too, whose fake impl gives the shapes at once where the plain
+    version would loop over every step."""
+    if under_vmap(u, dt, a, b, c, d) or u.device.type == "meta":
         return torch.ops.repro_torch.selective_scan(u, dt, a, b, c, d, lanes)
     if u.device.type == "cpu":
         return selective_scan_ref(u, dt, a, b, c, d)
@@ -274,6 +278,46 @@ def _selective_scan_op(
 @_selective_scan_op.register_fake
 def _(u, dt, a, b, c, d, lanes):
     return u.new_empty(u.shape), u.new_empty((u.shape[0], u.shape[2], a.shape[-1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan)
+def _selective_scan_flops(u, dt, a, b, c, d, lanes, *args, out_shape=None, **kwargs) -> int:
+    """The products of the plain version: y = C . h contracts the N states
+    of every (row, step, channel), 2 * B * L * D * N. The recurrence, the
+    exponentials and the skip term are elementwise, which
+    ``FlopCounterMode`` does not count."""
+    bsz, length, dim = u
+    return 2 * bsz * length * dim * a[-1]
+
+
+def _selective_scan_setup(ctx, inputs, output):
+    u, dt, a, b, c, d, _ = inputs
+    ctx.save_for_backward(u, c)
+    ctx.like = [(t.shape, t.dtype) for t in (u, dt, a, b, c, d)]
+
+
+def _selective_scan_backward(ctx, gy, gh):
+    """The backward on the meta device alone, for the dry run's count: the
+    plain version's two products, d(h) = dy x C and d(C) = h . dy (each the
+    forward's count), as autograd runs them on ``selective_scan_ref``; every
+    other gradient is shape only. Off the meta device the scan has no
+    backward: training runs the plain version under autograd."""
+    u, c = ctx.saved_tensors
+    if u.device.type != "meta":
+        raise NotImplementedError("the selective scan kernel has no backward; train through selective_scan_ref")
+    bsz, length, dim = u.shape
+    rows, n = bsz * length, c.shape[-1]
+    torch.bmm(gy.float().reshape(rows, dim, 1), c.float().reshape(rows, 1, n))  # d(h): (rows, D, N)
+    hs = u.new_empty((rows, n, dim), dtype=torch.float32)
+    dc = torch.bmm(hs, gy.float().reshape(rows, dim, 1)).reshape(bsz, length, n)
+    grads = [u.new_empty(shape, dtype=dtype) for shape, dtype in ctx.like]
+    grads[4] = dc.to(c.dtype)
+    return (*grads, None)
+
+
+torch.library.register_autograd(
+    "repro_torch::selective_scan", _selective_scan_backward, setup_context=_selective_scan_setup
+)
 
 
 def _chip_stack(t: torch.Tensor) -> torch.Tensor:

@@ -87,6 +87,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.mapping import periodic_mask
@@ -529,6 +530,17 @@ def _masked_matmul_op(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor, varian
 @_masked_matmul_op.register_fake
 def _(x, w, ok, variant):
     return x.new_empty((*x.shape[:-1], w.shape[-1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.masked_matmul)
+def _masked_matmul_flops(x, w, ok, variant, *args, out_shape=None, **kwargs) -> int:
+    """2 * M * K * N: M the rows of x (its leading axes, chips and experts
+    included), K and N w's last two axes. Applying the mask is elementwise,
+    which ``FlopCounterMode`` does not count."""
+    m = 1
+    for s in x[:-1]:
+        m *= s
+    return 2 * m * w[-2] * w[-1]
 
 
 def _masked_matmul_vmap(info, in_dims, x, w, ok, variant):

@@ -5,9 +5,11 @@ counterpart of ``jax.sharding.Mesh``: ``devices`` is a numpy object array,
 ``axis_names`` names its axes, and ``shape`` maps each name to its extent in
 that order. Two families live here:
 
-* :func:`make_host_mesh`: a ``("data", "model")`` mesh over whatever
-  devices exist (tests, CPU examples), which
-  :mod:`repro_torch.launch.sharding` resolves logical axes onto.
+* :func:`make_production_mesh` / :func:`make_host_mesh`: the
+  ``("data", "model")`` meshes (optionally ``("pod", ...)``) that
+  :mod:`repro_torch.launch.sharding` resolves logical axes onto; the
+  production mesh is the reference's pod layout over the meta device, for
+  the dry run's per-device accounting (``launch/dryrun_lib.py``).
 * :func:`make_fleet_mesh` / :func:`make_pop_mesh`: the fleet meshes of
   :mod:`repro_torch.fleet.sharding`. A leading ``"pop"`` axis splits the
   chips being retrained into one sub-population per pop slice, and the
@@ -31,7 +33,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Mesh", "make_fleet_mesh", "make_host_mesh", "make_pop_mesh"]
+__all__ = ["Mesh", "make_fleet_mesh", "make_host_mesh", "make_pop_mesh", "make_production_mesh"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -66,6 +68,16 @@ def _grid(devs: list[torch.device], shape: tuple[int, ...]) -> np.ndarray:
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return arr.reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes: 16 x 16 ``("data", "model")``
+    (one pod, 256 chips) or 2 x 16 x 16 ``("pod", "data", "model")`` (two
+    pods, 512 chips), over the meta device repeated. Nothing runs on them:
+    they carry the layout the dry run resolves and accounts per device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(_grid([torch.device("meta")] * int(np.prod(shape)), shape), axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, devices: Optional[Sequence] = None) -> Mesh:

@@ -19,9 +19,11 @@ model rules therefore resolve inside a pop slice: params split over
 A resolved spec is a plain tuple with one entry per leading dim: ``None``
 (replicated), a mesh axis name, or a tuple of names; trailing ``None``\\ s
 are trimmed, as a ``PartitionSpec`` prints. The port keeps what the
-reference's rules decide; the reference also hands the specs to XLA as
-shardings of its production mesh, which eager PyTorch has no counterpart
-for (``ROADMAP.md``).
+reference's rules decide, and the dry run reads each device's bytes off
+them (``launch/dryrun_lib.py::sharded_bytes``). The reference also hands
+the specs to XLA as shardings of its production mesh (``named_sharding``,
+``shard_activation``, ``tree_shardings``), which steer XLA's layout and
+have no counterpart on one card (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ __all__ = [
     "MeshContext",
     "current_mesh_context",
     "is_axes_leaf",
+    "make_rules",
     "make_rules_for_mesh",
     "mesh_context",
     "resolve_spec",
@@ -134,6 +137,17 @@ def tree_specs(spec_tree, value_tree, ctx: Optional[MeshContext] = None):
 # ---------------------------------------------------------------------------
 # Rule sets
 # ---------------------------------------------------------------------------
+
+
+def make_rules(cfg, *, multi_pod: bool = False, fsdp: Optional[bool] = None) -> MeshContext:
+    """The arch's MeshContext on the production mesh
+    (:func:`repro_torch.launch.mesh.make_production_mesh`).
+
+    fsdp=None turns ZeRO-3-style param splitting over the data (+pod) axes
+    on for models over 3B params."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    return make_rules_for_mesh(cfg, make_production_mesh(multi_pod=multi_pod), fsdp=fsdp)
 
 
 def make_rules_for_mesh(

@@ -172,14 +172,21 @@ def blockwise_attention(
         acc = torch.zeros((b, hkv, group, q_chunk, d), device=q.device)
         m_run = torch.full((b, hkv, group, q_chunk, 1), -1e30, device=q.device)
         l_run = torch.zeros((b, hkv, group, q_chunk, 1), device=q.device)
+        spans = []
         for ks in range(0, skv, kv_chunk):
             if causal and ks > hi:
                 break
             if window is not None and ks + kv_chunk - 1 <= lo - window:
                 continue
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kg[:, :, ks : ks + kv_chunk]) * scale
-            cols = ks + torch.arange(kv_chunk, device=q.device)[None, :]
-            keep = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=q.device)
+            spans.append((ks, ks + kv_chunk))
+        if q.device.type == "meta" and spans:
+            # shapes only (the dry run): the visited chunks are contiguous, so
+            # one span over them runs the same products in fewer ops
+            spans = [(spans[0][0], spans[-1][1])]
+        for ks, ke in spans:
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kg[:, :, ks:ke]) * scale
+            cols = ks + torch.arange(ke - ks, device=q.device)[None, :]
+            keep = torch.ones((q_chunk, ke - ks), dtype=torch.bool, device=q.device)
             if causal:
                 keep = keep & (cols <= rows)
             if window is not None:
@@ -189,9 +196,7 @@ def blockwise_attention(
             p = torch.exp(s - m_new)
             alpha = torch.exp(m_run - m_new)
             l_run = l_run * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum(
-                "bhgqk,bhkd->bhgqd", rnd(p), vg[:, :, ks : ks + kv_chunk]
-            )
+            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", rnd(p), vg[:, :, ks:ke])
             m_run = m_new
         o = acc / l_run.clamp_min(1e-30)
         outs.append(o.reshape(b, hq, q_chunk, d).to(q.dtype))

@@ -506,6 +506,19 @@ def init_cache(cfg, batch: int, seq_len: int, *, device=None) -> dict:
     return c
 
 
+def cache_specs(cfg) -> dict:
+    """Logical axes of :func:`init_cache`'s entries, keyed as it keys them
+    (the ``index`` is a scalar: no axes)."""
+    c: dict = {"index": ()}
+    if cfg.has_attention:
+        c["k"] = ("layers", "batch", "kv_heads", "kv_seq", None)
+        c["v"] = ("layers", "batch", "kv_heads", "kv_seq", None)
+    if cfg.has_ssm:
+        c["conv"] = ("layers", "batch", None, "inner")
+        c["h"] = ("layers", "batch", "inner", "state")
+    return c
+
+
 def _layer_cache(cfg, cache: dict, i: int, index: int):
     """Layer ``i``'s (KVCache, SSMCache) views into the stacked buffers."""
     kv = KVCache(cache["k"][i], cache["v"][i], index) if cfg.has_attention else None

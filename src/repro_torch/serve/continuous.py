@@ -79,6 +79,7 @@ __all__ = [
     "RequestOutput",
     "ServeStats",
     "ContinuousBatchingEngine",
+    "check_family",
 ]
 
 
@@ -508,6 +509,18 @@ def run_probe(prober, chip: int, clock: int, stats: ServeStats, rec, health: Hea
     health.observe_probe(chip, res, clock=clock)
 
 
+def check_family(cfg) -> None:
+    """Raise ``ValueError`` for a family continuous batching does not take:
+    SSM state is not paged, and an encoder has no decode path."""
+    if cfg.has_ssm:
+        raise ValueError(
+            f"continuous batching supports attention families only; "
+            f"{cfg.family!r} carries unpaged SSM state"
+        )
+    if cfg.is_encoder:
+        raise ValueError("encoder-only arch has no decode path")
+
+
 class ContinuousBatchingEngine:
     """Continuous batching on one chip: paged KV + slot table + one masked
     decode step per token across all in-flight requests, admitted through
@@ -542,13 +555,7 @@ class ContinuousBatchingEngine:
         health_config: Optional[HealthConfig] = None,
         alert_rules: Optional[Sequence[AlertRule]] = None,
     ):
-        if cfg.has_ssm:
-            raise ValueError(
-                f"continuous batching supports attention families only; "
-                f"{cfg.family!r} carries unpaged SSM state"
-            )
-        if cfg.is_encoder:
-            raise ValueError("encoder-only arch has no decode path")
+        check_family(cfg)
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.cfg = cfg
