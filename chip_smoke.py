@@ -146,7 +146,13 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     steps, seed 5), ``train_batch`` at the pin's tolerance, metrics within
     2e-3; (b) the same on a 2 x 2 fleet mesh, member params stored split
     two ways (resident bytes at mesh position 0 at most half the member's
-    total, x 1.05 + 1 KiB); (c) every chip's shipped weights in ``kernel``
+    total, x 1.05 + 1 KiB); (d) ``compute="sharded"`` on the 2 x 2 mesh
+    (the math on the split pieces, each masked through its rolled map):
+    equal steps, ``train_batch`` at the pin's tolerance, ``kernel``-mode
+    metrics within 2e-3 of the pin's with one chip-batched ``v1`` a weight
+    piece (pieces counted from the rules x eval batches x pop slices),
+    resident bytes at mesh position 0 exactly the rules' split; (c) every
+    chip's shipped weights in ``kernel``
     mode through the trainer's ``evaluate_batch`` (width 16): accuracy
     within 1/2048 of the serial check's, and 4 layers x 4 eval batches x 7
     chunks = 112 ``v1`` launches, every one chip-batched; the chip-batched
@@ -202,7 +208,18 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     launches a forward of each pop slice (844 in all), the metrics within
     2e-3 of ``fap`` and within 1e-6 of ``evaluate_metric`` one chip at a
     time, and the chip-batched ``v1`` for 2 chips at M = 512 at every
-    SmolLM GEMM shape against its plain version. Stage "donation", after
+    SmolLM GEMM shape against its plain version. Then ``compute="sharded"``
+    on a 2 x ``LM_TP_MODEL`` (4) mesh (at 2 no SmolLM piece starts off the
+    256 x 256 grid): ``lm_tp_parity`` (layer 0's GEMMs and the tied unembed
+    of 2 chips through ``fault_linear`` under ``vmap``, one chip-batched
+    ``v1`` a piece, the joined output against the whole weight's plain
+    product, each piece against its plain version on its rolled map, at
+    least one piece off the grid); the 4 chips of the gathered run in
+    ``kernel`` mode through its ``evaluate_batch``: 484 pieces a forward x
+    2 eval batches x 2 pop slices, all chip-batched ``v1``, the metrics
+    within 2e-3 of ``fap`` and 1e-6 of one chip at a time; its own fit,
+    held to the vmap engine's by the float32 pin rule, resident bytes
+    exactly the rules' split. Stage "donation", after
     (c): the donation pass over one bf16 train step and one population fit
     (4 chips, one step each, ``fap`` as (c) trains), every carried subject
     classified as in the CPU run, the fit's params0 keeping its storage and
@@ -636,7 +653,8 @@ def efat_phase(torch, log):
     from repro_torch.kernels.mamba_scan.ops import selective_scan
     from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
     from repro_torch.launch.mesh import make_fleet_mesh, make_pop_mesh
-    from repro_torch.models.classifier import classifier_forward
+    from repro_torch.launch.sharding import resolve_spec
+    from repro_torch.models.classifier import classifier_forward, classifier_param_axes
     from repro_torch.train.fat_trainer import ClassifierFATTrainer
     from repro_torch.train.population import evaluate_metric
 
@@ -905,9 +923,59 @@ def efat_phase(torch, log):
         f"accounting, not a memory saving)")
     if st["model_extent"] != 2 or st["per_member_resident_bytes"] > limit:
         raise Failed(f"efat sharded 2x2: member params not stored split two ways: {st}")
-    report["sharded_seconds"] = stages["sharded_pop4"] + stages["sharded_2x2"] + stages["deploy_batched"]
+
+    # -- stage "sharded" (d): compute="sharded", the math on the split pieces, against the pin ---
+    def tensor_parallel():
+        tr = ClassifierFATTrainer(cfg, pretrain_steps=0, eval_batches=2, engine="sharded", engine_kwargs=dict(
+            mesh=make_fleet_mesh(2, 2, devices=["cuda"] * 4), compute="sharded"))
+        tr.base_params = pop_tr.base_params
+        eng = tr.engine
+        steps = tr.steps_to_constraint_batch(fleet5, c5, 200)
+        params = tr.train_batch(fleet5[:3], EFAT_PIN_BUDGETS)
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        err, within = 0.0, True
+        for a, b in zip(params, pinned["params"]):
+            for k in a:
+                e, w = worst(a[k], b[k], (rtol, atol))
+                err, within = max(err, e), within and w
+        # the rules' split: every leaf whose spec names "model" is held in model_size pieces
+        axes = classifier_param_axes(cfg)
+        is_split = {k: "model" in resolve_spec(axes[k], t.shape, eng.mesh_rules) for k, t in params[0].items()}
+        split = sum(t.numel() * t.element_size() / (eng.model_size if is_split[k] else 1)
+                    for k, t in params[0].items())
+        pieces = sum(eng.model_size if is_split[f"w{i}"] else 1 for i in range(cfg.num_layers))
+        reset_launches()
+        metrics = tr.evaluate_batch(params, fleet5[:3], mode="kernel")
+        torch.cuda.synchronize()
+        launches = dict(v1=masked_matmul.launches_by_variant["v1"],
+                        v1_fleet=masked_matmul.fleet_launches_by_variant["v1"], all=masked_matmul.launches)
+        want_v1 = pieces * len(eng.eval_batches) * eng.num_shards * len(list(eng._chunks(3)))
+        m_err = max(abs(x - y) for x, y in zip(metrics, pinned["metrics"]))
+        st = eng.last_fit_stats
+        out = dict(steps=steps, params_err=err, metric_err=m_err, stats=st, split_bytes=split, launches=launches,
+                   want_v1=want_v1, pieces_a_forward=pieces)
+        log(f"efat sharded 2x2 compute='sharded' (tensor-parallel math, {pieces} GEMM pieces a forward) against the "
+            f"vmap pin trainer: steps {steps} vs {pinned['steps']}; train_batch {EFAT_PIN_BUDGETS} max abs err "
+            f"{err:.3g} (rtol {rtol}, atol {atol}); kernel-mode metrics max diff {m_err:.3g} (tol {EFAT_METRIC_TOL}); "
+            f"v1 launches {launches} (want {want_v1} chip-batched: {pieces} pieces x {len(eng.eval_batches)} eval "
+            f"batches x {eng.num_shards} pop slices); per-member resident bytes at mesh position 0 "
+            f"{st['per_member_resident_bytes']:.0f} (the rules' split {split:.0f})")
+        if steps != pinned["steps"]:
+            raise Failed(f"efat sharded compute='sharded': steps {steps} differ from the pin's {pinned['steps']}")
+        if not within or m_err > EFAT_METRIC_TOL:
+            raise Failed(f"efat sharded compute='sharded': params off by {err:.3g}, metrics by {m_err:.3g}")
+        if not launches["v1"] == launches["v1_fleet"] == launches["all"] == want_v1:
+            raise Failed(f"efat sharded compute='sharded': launches {launches}, want {want_v1} chip-batched v1")
+        if st["per_member_resident_bytes"] != split:
+            raise Failed(f"efat sharded compute='sharded': resident bytes {st}, want the rules' split {split}")
+        return out
+
+    report["tensor_parallel"] = timed("sharded_tp", tensor_parallel)
+    report["sharded_seconds"] = (stages["sharded_pop4"] + stages["sharded_2x2"] + stages["sharded_tp"]
+                                 + stages["deploy_batched"])
     log(f"efat stage sharded: {report['sharded_seconds']:.2f} s (pop mesh of 4 {stages['sharded_pop4']:.2f}, 2 x 2 "
-        f"{stages['sharded_2x2']:.2f}, the chip-batched deployment check {stages['deploy_batched']:.2f})")
+        f"{stages['sharded_2x2']:.2f}, 2 x 2 compute='sharded' {stages['sharded_tp']:.2f}, the chip-batched "
+        f"deployment check {stages['deploy_batched']:.2f})")
 
     # -- population steps per second at width 16, against serial ---------------
     def speed_run():
@@ -998,6 +1066,85 @@ LM_SHARDED_BUDGETS = [4, 2, 4, 1]  # the sharded stage's chips: random_fault_map
 LM_SERIAL_TOL = 1e-6  # chip-batched kernel-mode metrics against the one-chip-at-a-time loop
 
 
+# compute="sharded"'s model extent for SmolLM-135M on the card: its 9 query and 3 KV heads divide by
+# neither 2 nor 4, so the rules leave wq, wk, wv and wo whole, and at 2 the MLP's and the vocab's
+# pieces start on multiples of 256; at 4 the MLP's start at 384 and 1152 (128 mod 256), so the
+# rolled maps are exercised
+LM_TP_MODEL = 4
+LM_TP_GEMMS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wg", "mlp.wu", "mlp.wd")
+
+
+def lm_tp_parity(torch, log, cfg, params, oks, engine, m=512):
+    """compute="sharded"'s GEMMs on the card at a dense LM's layer-0 and
+    tied-unembed weights for 2 chips, split as ``engine`` (a sharded engine
+    with compute="sharded") stores them, under the maps its chunk builds:
+    (a) each weight through ``fault_linear`` in ``kernel`` mode under
+    ``torch.func.vmap`` over the chips (the evaluation's path): one
+    chip-batched v1 launch a piece, and the joined output against
+    ``masked_matmul_ref`` of the whole weight under the whole map, which a
+    piece read under another origin's map fails; (b) each piece launched
+    alone against ``masked_matmul_ref`` on the same rolled map. At least one
+    piece must start off the map's grid. Raises ``Failed``."""
+    from repro_torch.core.masking import FaultContext, fault_linear
+    from repro_torch.fleet.tensor_parallel import SplitTensor
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+    from repro_torch.models import model as M
+
+    specs = M.param_specs(cfg)
+    names = [f"layers.0.{n}" for n in LM_TP_GEMMS] + ["embed"]
+    view = engine._slice(0)
+    stacked = {k: torch.stack([p[k] for p in params]) for k in names}
+    split = view._split({k: specs[k] for k in names}, stacked)
+    ok = torch.stack(oks)
+    masks = view._constrain_masks(ok, split)
+    rows, cols = ok.shape[-2:]
+    tol = dtype_tol(torch.float32)
+    gen = torch.Generator(device=ok.device).manual_seed(0)
+    joined_err, piece_err, origins, launches, bad = 0.0, 0.0, [], {}, []
+
+    def member(x, w, mk):
+        return fault_linear(x, w, FaultContext(ok=mk[(0, 0)], mode="kernel", rolled=mk))
+
+    for name in names:
+        w, whole = split[name], stacked[name]
+        if name == "embed":  # the tied unembed reads embed.T
+            w, whole = (w.T if isinstance(w, SplitTensor) else w.transpose(-1, -2)), whole.transpose(-1, -2)
+        x = torch.randn(2, m, whole.shape[-2], generator=gen, device=ok.device)
+        reset_launches()
+        y = torch.func.vmap(member)(x, w, masks)
+        torch.cuda.synchronize()
+        pieces = len(w.pieces) if isinstance(w, SplitTensor) else 1
+        launches[name] = masked_matmul.fleet_launches_by_variant["v1"]
+        if not launches[name] == masked_matmul.launches == pieces:
+            bad.append(f"{name}: {masked_matmul.launches} launches ({launches[name]} chip-batched v1), want {pieces}")
+        e, within = worst(y, masked_matmul_ref(x, whole, ok), tol)
+        joined_err = max(joined_err, e)
+        if not within:
+            bad.append(f"{name}: the joined pieces off the whole weight's GEMM by {e:.3g}")
+        for piece, off in zip(*((w.pieces, w.offsets) if isinstance(w, SplitTensor) else ((), ()))):
+            r0, c0 = (0, off) if w.axis == -1 else (off, 0)
+            key = (r0 % rows, c0 % cols)
+            origins.append((name, r0, c0, key))
+            xs = x if w.axis == -1 else x[..., off:off + piece.shape[-2]].contiguous()
+            e, within = worst(masked_matmul(xs, piece, masks[key]), masked_matmul_ref(xs, piece, masks[key]), tol)
+            piece_err = max(piece_err, e)
+            if not within:
+                bad.append(f"{name} piece at ({r0}, {c0}): off its plain version by {e:.3g}")
+    off_grid = [o for o in origins if o[3] != (0, 0)]
+    log(f"lm tensor-parallel GEMMs (layer 0 and the tied unembed, 2 chips, M = {m}, float32, model extent "
+        f"{engine.model_size}): chip-batched v1 launches {launches}; joined pieces against the whole weight's "
+        f"plain GEMM max abs err {joined_err:.3g}, each piece against its plain version on its rolled map "
+        f"{piece_err:.3g} (rtol, atol {tol}); {len(origins)} pieces, off the {rows} x {cols} grid: "
+        + ", ".join(f"{n} at ({r0}, {c0}) -> roll {k}" for n, r0, c0, k in off_grid))
+    if not off_grid:
+        bad.append("no piece starts off the map's grid: the rolled maps are not exercised")
+    if bad:
+        raise Failed("lm tensor-parallel GEMMs: " + "; ".join(bad))
+    return dict(joined_err=joined_err, piece_err=piece_err, launches=launches, pieces=len(origins),
+                off_grid=[list(o[:3]) for o in off_grid])
+
+
 def lm_phase(torch, log):
     """Fault-aware training of SmolLM-135M at full width through the port's
     entry points, with its gates; returns the phase's report and raises
@@ -1020,7 +1167,7 @@ def lm_phase(torch, log):
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.core import from_fault_map, random_fault_map
+    from repro_torch.core import MASKABLE_KEYS, from_fault_map, random_fault_map
     from repro_torch.data import TokenStream
     from repro_torch.kernels.common import dtype_tol
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1396,10 +1543,80 @@ def lm_phase(torch, log):
             raise Failed(f"lm sharded deployment: kernel metrics {m_k}, fap {m_f}, one chip at a time {m_s}")
         if not pwithin:
             raise Failed(f"lm sharded: the chip-batched v1 off its plain version by {perr:.3g}")
+        tp_inputs.update(fleet4=fleet4, got=got, want=want, m_f=m_f, m_s=m_s, fit_s=fit_s)
         return out
 
+    tp_inputs: dict = {}
     report["sharded"] = timed("sharded", sharded)
-    log(f"lm stage sharded: {stages['sharded']:.2f} s")
+
+    # -- stage "sharded", compute="sharded": the math on the split pieces, on a 2 x LM_TP_MODEL mesh ---
+    def tensor_parallel():
+        fleet4, got, want = tp_inputs["fleet4"], tp_inputs["got"], tp_inputs["want"]
+        tp = LMFATTrainer(cfg32, pretrain_steps=0, metric=LM_METRIC, engine="sharded", engine_kwargs=dict(
+            mesh=make_fleet_mesh(2, LM_TP_MODEL, devices=["cuda"] * 2 * LM_TP_MODEL), compute="sharded"))
+        tp.base_params = trainer.base_params
+        eng = tp.engine
+        oks = [torch.as_tensor(fm.ok_mask, dtype=torch.float32, device=trainer.device) for fm in fleet4[:2]]
+        out = dict(parity=lm_tp_parity(torch, log, cfg32, got[:2], oks, eng))
+        # the gathered run's trained chips in kernel mode through the split forward
+        specs = M.param_specs(cfg32)
+
+        def n_pieces(k):
+            return eng.model_size if "model" in resolve_spec(specs[k], got[0][k].shape, eng.mesh_rules) else 1
+
+        pieces = sum(n_pieces(k) for k in got[0] if k.split(".")[-1] in MASKABLE_KEYS) + n_pieces("embed")
+        reset_launches()
+        m_k = tp.evaluate_batch(got, fleet4, mode="kernel")
+        torch.cuda.synchronize()
+        launches = dict(v1=masked_matmul.launches_by_variant["v1"],
+                        v1_fleet=masked_matmul.fleet_launches_by_variant["v1"], all=masked_matmul.launches)
+        want_v1 = pieces * len(tp._evals) * eng.num_shards
+        f_err = max(abs(x - y) for x, y in zip(m_k, tp_inputs["m_f"]))
+        s_err = max(abs(x - y) for x, y in zip(m_k, tp_inputs["m_s"]))
+        log(f"lm sharded compute='sharded' deployment (mesh {dict(eng.mesh.shape)}): v1 launches {launches} (want "
+            f"{want_v1} chip-batched: {pieces} pieces a forward x {len(tp._evals)} eval batches x {eng.num_shards} "
+            f"pop slices); {LM_METRIC} against fap max diff {f_err:.3g} (tol {LM_METRIC_TOL}), against one chip at a "
+            f"time {s_err:.3g} (tol {LM_SERIAL_TOL})")
+        if not launches["v1"] == launches["v1_fleet"] == launches["all"] == want_v1:
+            raise Failed(f"lm sharded compute='sharded': launches {launches}, want {want_v1} chip-batched v1")
+        if f_err > LM_METRIC_TOL or s_err > LM_SERIAL_TOL:
+            raise Failed(f"lm sharded compute='sharded': kernel metrics {m_k}, fap {tp_inputs['m_f']}, "
+                         f"one chip at a time {tp_inputs['m_s']}")
+        # training, held to the vmap engine's fit by the float32 pin rule
+        t0 = time.perf_counter()
+        got_tp = tp.train_batch(fleet4, LM_SHARDED_BUDGETS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+        max_err = 2 * trainer32.opt_cfg.learning_rate + atol
+        err, over = 0.0, 0
+        for a, b in zip(got_tp, want):
+            for k in a:
+                diff = (a[k].double() - b[k].double()).abs()
+                err = max(err, float(diff.max()))
+                over += int((diff > atol + rtol * b[k].double().abs()).sum())
+        st = eng.last_fit_stats
+        split = sum(t.numel() * t.element_size() / n_pieces(k) for k, t in got_tp[0].items())
+        out.update(launches=launches, want_v1=want_v1, pieces_a_forward=pieces, metrics_kernel=m_k, fap_err=f_err,
+                   serial_err=s_err, params_err=err, elements_over_tol=over, stats=st, split_bytes=split,
+                   fit_seconds=fit_s, gathered_fit_seconds=tp_inputs["fit_s"])
+        log(f"lm sharded compute='sharded' (float32, {LM_SHARDED_BUDGETS} steps, mesh {dict(eng.mesh.shape)}): "
+            f"train_batch against the vmap engine max abs err {err:.3g} (limit {max_err:.3g}), {over} elements over "
+            f"(rtol {rtol}, atol {atol}; limit {LM_PIN_F32_MAX_OVER}); fit {fit_s:.2f} s against the gathered 2 x 2 "
+            f"run's {tp_inputs['fit_s']:.2f} s; per-member resident bytes at mesh position 0 "
+            f"{st['per_member_resident_bytes']:.0f} of {st['per_member_total_bytes']:.0f} (the rules' split: "
+            f"{split:.0f})")
+        if over > LM_PIN_F32_MAX_OVER or err > max_err:
+            raise Failed(f"lm sharded compute='sharded': train_batch params differ by {err:.3g}, {over} elements over")
+        if (st["pop_extent"], st["model_extent"]) != (2, LM_TP_MODEL) or st["per_member_resident_bytes"] != split:
+            raise Failed(f"lm sharded compute='sharded': member state not stored as the rules split it: {st}, "
+                         f"want {split}")
+        return out
+
+    report["tensor_parallel"] = timed("sharded_tp", tensor_parallel)
+    tp_inputs.clear()
+    log(f"lm stage sharded: {stages['sharded'] + stages['sharded_tp']:.2f} s (gathered 2 x 2 "
+        f"{stages['sharded']:.2f}, compute='sharded' 2 x {LM_TP_MODEL} {stages['sharded_tp']:.2f})")
 
     # -- (e) the population step: time, device ops, busy share --------------------
     def speed():
@@ -4259,6 +4476,10 @@ def run(args, torch) -> int:
     # the population evaluations in kernel mode (phases 11 and 12, stage "sharded"): chip-batched v1
     pop_eval_launches = efat_report["deploy_batched"]["v1"] + lm_report["sharded"]["launches"]["v1"]
     pop_eval_err = max(efat_report["deploy_batched"]["parity_err"], lm_report["sharded"]["parity_err"])
+    # compute="sharded"'s kernel-mode evaluations (phases 11 and 12): one chip-batched v1 a weight piece
+    tp_launches = efat_report["tensor_parallel"]["launches"]["v1"] + lm_report["tensor_parallel"]["launches"]["v1"]
+    tp_parity = lm_report["tensor_parallel"]["parity"]
+    tp_err = max(tp_parity["joined_err"], tp_parity["piece_err"])
     cont_launches = cont_report["launches"]
     fleet_launches = fleet_report["launches_fleet"]
     fleet_err = fleet_report["max_abs_err"]
@@ -4310,9 +4531,12 @@ def run(args, torch) -> int:
              launches_continuous=cont_launches["mma"], launches_fleet=fleet_launches["mma"],
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],
              bound_by=bound_by(pstep, "f32w_"), library_ms=pstep["library_ms"]),
-        dict(name="masked_matmul.v1", **{**mm_entry("v1"), "max_abs_err": max(mm_err, fleet_err["v1"], pop_eval_err)},
-             max_abs_err_pop_eval=pop_eval_err, launches=variant_launches["masked_matmul.v1"],
+        dict(name="masked_matmul.v1",
+             **{**mm_entry("v1"), "max_abs_err": max(mm_err, fleet_err["v1"], pop_eval_err, tp_err)},
+             max_abs_err_pop_eval=pop_eval_err, max_abs_err_tensor_parallel=tp_err,
+             launches=variant_launches["masked_matmul.v1"],
              launches_efat_deploy=efat_report["deploy"]["v1"], launches_pop_eval=pop_eval_launches,
+             launches_tensor_parallel=tp_launches,
              launches_lm_eval=lm_launches["masked_matmul"]["v1"],
              launches_continuous=cont_launches["v1"], launches_fleet=fleet_launches["v1"],
              ms=f32_step["ms"], plain_ms=f32_step["plain_ms"], bound_ms=f32_step["bound_ms"],
@@ -4361,7 +4585,7 @@ def run(args, torch) -> int:
             k["launches_tune"] = space_launches[k["name"]]
     for k in kernels:
         if not k["launches"] or 0 in (k.get("launches_continuous"), k.get("launches_fleet"), k.get("launches_zoo"),
-                                      k.get("launches_pop_eval")):
+                                      k.get("launches_pop_eval"), k.get("launches_tensor_parallel")):
             raise Failed(f"{k['name']} was not launched on its main path")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if profile_lines:
@@ -4397,6 +4621,7 @@ def run(args, torch) -> int:
         f"{fam_scan['chips']} chips x 4x128x3200x16, bf16 u, per-chip a and d (launches: phase 14 (d)'s hymba "
         f"fleet); launches_zoo: phase 15's main-path launches; launches_pop_eval: "
         f"the chip-batched v1 launches of phases 11 and 12's kernel-mode population evaluations; "
+        f"launches_tensor_parallel: their compute='sharded' runs' (one a weight piece); "
         f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "
         f"serving prefill); decode_attention: one launch at SmolLM-135M's b=4 decode over 2048 "
         f"int8 tokens, bf16 q, the heuristic bkv (launches: the tuner's); paged_decode_attention: "

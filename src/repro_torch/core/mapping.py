@@ -26,6 +26,7 @@ from repro_torch.core.faults import FaultMap
 __all__ = [
     "periodic_mask",
     "masked_weight",
+    "rolled_map",
     "fam_permutation",
     "apply_fam",
     "expected_weight_loss",
@@ -54,6 +55,18 @@ def masked_weight(w: torch.Tensor, ok: Optional[torch.Tensor]) -> torch.Tensor:
     if ok is None:
         return w
     return w * periodic_mask(w.shape, ok, dtype=w.dtype)
+
+
+def rolled_map(ok: torch.Tensor, r0: int, c0: int) -> torch.Tensor:
+    """The map of a piece of a weight that starts at ``(r0, c0)`` of its
+    ``(d_in, d_out)`` view: ``periodic_mask`` of the result over the
+    piece's shape is the slice of the whole weight's mask at that origin.
+    Entry ``(i, j)`` is ``ok[(i + r0) % R, (j + c0) % C]``, on the last
+    two dims, so a chip stack ``(chips, R, C)`` rolls every chip alike. An
+    origin on a multiple of ``(R, C)`` gives ``ok`` itself."""
+    r_, c_ = ok.shape[-2:]
+    shift = (-r0 % r_, -c0 % c_)
+    return ok if shift == (0, 0) else torch.roll(ok, shift, dims=(-2, -1))
 
 
 # ---------------------------------------------------------------------------

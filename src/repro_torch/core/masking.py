@@ -12,6 +12,13 @@ kernel  : same semantics through the hand-written masked-GEMM kernel
           (``kernels/masked_matmul``), which applies the mask on chip and
           never writes a masked weight copy. The reference calls this mode
           ``pallas``. On a CPU tensor the kernel's plain version runs.
+
+A weight may also come split over model positions
+(``repro_torch.fleet.tensor_parallel.SplitTensor``, the sharded population
+engine's ``compute="sharded"``): any weight that is not a tensor is one.
+``fault_linear`` then runs one GEMM per piece at the piece's shape, each
+piece masked through its own rolled map (``core/mapping.py::rolled_map``),
+and combines the pieces' outputs into the whole activation.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.faults import FaultMap
-from repro_torch.core.mapping import masked_weight
+from repro_torch.core.mapping import masked_weight, rolled_map
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -55,6 +62,10 @@ class FaultContext:
 
     ok: Optional[torch.Tensor]  # (R, C) float mask, (N, R, C) stack, or None
     mode: str = "none"  # none | fap | kernel
+    # ``ok`` rolled to split weights' piece origins, keyed by the origin mod
+    # (R, C), built once per population chunk by the sharded engine; a
+    # piece whose origin is missing here rolls ``ok`` itself
+    rolled: Optional[dict] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -158,9 +169,9 @@ def _kernel_gemm(x: torch.Tensor, w: torch.Tensor, ok: torch.Tensor) -> torch.Te
 
 
 def fault_linear(
-    x: torch.Tensor, w: torch.Tensor, ctx: Optional[FaultContext] = None
+    x: torch.Tensor, w: torch.Tensor, ctx: Optional[FaultContext] = None, bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """y = x @ mask(w). ``w`` is (d_in, d_out); contraction over -1 of x.
+    """y = x @ mask(w) (+ bias). ``w`` is (d_in, d_out); contraction over -1 of x.
 
     Weights are cast to the activation dtype (bf16 compute, fp32 master),
     as the reference does. The plain modes (``none``, ``fap``) cast first,
@@ -170,13 +181,77 @@ def fault_linear(
     same values, with no copy written. It casts only a w the kernels do not
     take (one neither in x's dtype nor fp32 beside bf16 x, e.g. a bf16
     ``param_dtype`` with a float32 ``dtype``).
+
+    A split ``w`` (``SplitTensor``) runs :func:`_split_linear`; its
+    ``bias``, split alike, is added per piece.
     """
+    if not isinstance(w, torch.Tensor):
+        return _split_linear(x, w, ctx, bias)
     if ctx is None or not ctx.active:
-        return torch.matmul(x, w.to(x.dtype))
+        y = torch.matmul(x, w.to(x.dtype))
+    else:
+        _require_per_chip(ctx)
+        if ctx.mode == "kernel":
+            y = _kernel_gemm(x, _kernel_weight(x, w), ctx.ok)
+        else:
+            y = torch.matmul(x, masked_weight(w.to(x.dtype), ctx.ok))
+    return y if bias is None else y + bias
+
+
+def _piece_ctx(ctx: Optional[FaultContext], r0: int, c0: int, device) -> Optional[FaultContext]:
+    """The context of a weight piece at origin ``(r0, c0)`` of the whole
+    weight's ``(d_in, d_out)`` view: ``ok`` rolled to that origin (the
+    chunk's prebuilt map where ``ctx.rolled`` has it), on the piece's
+    device."""
+    if ctx is None or not ctx.active:
+        return ctx
     _require_per_chip(ctx)
-    if ctx.mode == "kernel":
-        return _kernel_gemm(x, _kernel_weight(x, w), ctx.ok)
-    return torch.matmul(x, masked_weight(w.to(x.dtype), ctx.ok))
+    rows, cols = ctx.ok.shape[-2:]
+    key = (r0 % rows, c0 % cols)
+    ok = ctx.rolled.get(key) if ctx.rolled is not None else None
+    if ok is None:
+        ok = rolled_map(ctx.ok, *key)
+    return FaultContext(ok=ok.to(device), mode=ctx.mode)
+
+
+def _split_linear(x: torch.Tensor, w, ctx: Optional[FaultContext], bias) -> torch.Tensor:
+    """``fault_linear`` on a weight split over model positions, at each
+    piece's shape and on its device, under its own rolled map; nothing is
+    gathered to the whole weight's shape.
+
+    * column split (``w.axis == -1``, d_out): each piece's GEMM on the
+      whole ``x``, plus the bias's piece, concatenated on the last dim;
+    * row split (``w.axis == -2``, d_in): ``x`` cut along K at the pieces'
+      offsets, the partial products summed in float32 (or x's wider dtype)
+      on x's device, then the bias;
+    * a transposed split leaf (``SplitTensor.T``, the tied unembed of a
+      vocab-split embedding) is a column split whose origins are the
+      vocab offsets.
+
+    The outputs return to ``x``'s device: the one combination across
+    positions each GEMM makes (a local copy where the device repeats, a
+    peer copy where it does not)."""
+    if w.axis == -1:
+        if bias is not None and (isinstance(bias, torch.Tensor) or bias.offsets != w.offsets):
+            raise ValueError("a column-split weight takes a bias split as it is")
+        ys = []
+        for j, (piece, c0) in enumerate(zip(w.pieces, w.offsets)):
+            y = fault_linear(x.to(piece.device), piece, _piece_ctx(ctx, 0, c0, piece.device))
+            ys.append((y if bias is None else y + bias.pieces[j]).to(x.device))
+        return torch.cat(ys, dim=-1)
+    if w.axis == -2:
+        if bias is not None and not isinstance(bias, torch.Tensor):
+            raise ValueError("a row-split weight takes a whole bias")
+        acc = torch.promote_types(x.dtype, torch.float32)
+        y = None
+        for piece, r0 in zip(w.pieces, w.offsets):
+            part = fault_linear(x[..., r0:r0 + piece.shape[-2]].to(piece.device), piece,
+                                _piece_ctx(ctx, r0, 0, piece.device))
+            part = part.to(x.device, acc)
+            y = part if y is None else y + part
+        y = y.to(x.dtype)
+        return y if bias is None else y + bias
+    raise ValueError(f"a split weight's GEMM view is its last two dims; got a split on dim {w.axis}")
 
 
 # the einsum specs that are a batched GEMM x (E, M, K) @ w (E, K, N): the MoE
@@ -198,6 +273,11 @@ def fault_einsum(
     ``(R, C)`` mask shared by all of them: one launch for every expert, the
     mask applied on chip, no masked copy written. Any other spec raises in
     ``kernel`` mode."""
+    if not isinstance(w, torch.Tensor):
+        raise ValueError(
+            f"fault_einsum {spec!r} got a split weight: the MoE experts under the sharded engine's "
+            "compute='sharded' are not ported (ROADMAP.md §1.4); use compute='gathered'"
+        )
     if ctx is None or not ctx.active:
         return torch.einsum(spec, x, w.to(x.dtype))
     _require_per_chip(ctx)

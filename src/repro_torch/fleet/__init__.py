@@ -11,6 +11,8 @@
 * :mod:`repro_torch.fleet.sharding`: :class:`ShardedPopulationEngine`,
   population FAT split over the pop slices of a fleet mesh, member state
   stored split over its model axis.
+* :mod:`repro_torch.fleet.tensor_parallel`: ``SplitTensor``, a split
+  member leaf the math runs on (the engine's ``compute="sharded"``).
 """
 from repro_torch.fleet.capacity import suggest_population_size
 from repro_torch.fleet.scheduler import (

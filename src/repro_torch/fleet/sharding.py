@@ -12,19 +12,30 @@ On a 2-D ``("pop", "model")`` mesh each pop slice is itself a sub-mesh:
 between steps every member-stacked leaf of (params, opt state) is stored
 split along the dim the logical-axis rules assign to "model"
 (:func:`repro_torch.launch.sharding.make_rules_for_mesh` with "pop"
-reserved), one piece on each model position's device, and gathered to full
-shape on the slice's first device for every update and evaluation.
+reserved), one piece on each model position's device. With
+``compute="gathered"`` (the default) it is gathered to full shape on the
+slice's first device for every update and evaluation. With
+``compute="sharded"`` the math runs on the pieces
+(:mod:`repro_torch.fleet.tensor_parallel`): each GEMM at its pieces'
+shapes, each piece masked through the chip's map rolled to the piece's
+origin, the outputs joined only where the next op needs the whole
+activation; the update is elementwise per piece and the grad norm sums
+the pieces.
 
 Design invariants, the reference's (``src/repro/fleet/sharding.py``):
 
-* **Identical math.** Every update and evaluation runs at the vmap engine's
-  per-member shapes, on state gathered to full shape (``compute=
-  "gathered"``, the only mode here): a member's trajectory depends only on
-  its own (mask, budget) and the shared batch stream, so steps-to-
-  constraint and resilience tables equal the vmap engine's, and params
-  agree to float tolerance (a vmap of another width batches the same
-  member math differently). ``compute="sharded"`` (tensor-parallel math,
-  FLOPs split too) needs collectives across cards, and raises.
+* **Identical math.** With ``compute="gathered"`` every update and
+  evaluation runs at the vmap engine's per-member shapes, on state gathered
+  to full shape: a member's trajectory depends only on its own (mask,
+  budget) and the shared batch stream, so steps-to-constraint and
+  resilience tables equal the vmap engine's, and params agree to float
+  tolerance (a vmap of another width batches the same member math
+  differently). ``compute="sharded"`` is tensor-parallel math (FLOPs split
+  too), equal to float tolerance: a row split sums partial products. The
+  engine is one process that issues every slice's work, so the combination
+  across positions is a host-issued copy or sum: local where the device
+  repeats in the mesh, a peer copy where it does not. MoE and SSM configs
+  (rules that split an "expert" or "inner" axis) are refused under it.
 * **Population -> device mapping.** A chunk of ``population_size`` members
   is padded to a multiple of the pop extent and split contiguously: pop
   slice d takes members ``[d*k, (d+1)*k)``. Padding members are zero-budget
@@ -51,14 +62,21 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from repro_torch.core.mapping import rolled_map
 from repro_torch.fleet.scheduler import round_up_to_multiple
+from repro_torch.fleet.tensor_parallel import SplitTensor
 from repro_torch.launch.mesh import Mesh, make_pop_mesh
 from repro_torch.launch.sharding import MeshContext, is_axes_leaf, make_rules_for_mesh, resolve_spec
 from repro_torch.train.optimizer import opt_state_specs
 from repro_torch.train.population import PopulationFATEngine, _device_of, _tree_map
 
 __all__ = ["ShardedPopulationEngine"]
+
+
+def _axes_leaves(tree) -> list:
+    return [tree] if is_axes_leaf(tree) else [a for v in tree.values() for a in _axes_leaves(v)]
 
 
 class _Split:
@@ -87,8 +105,10 @@ class ShardedPopulationEngine(PopulationFATEngine):
         when the model sub-mesh has more than one position. ``mesh_rules``
         overrides it with a prebuilt MeshContext.
     compute : "gathered" (default): member state stored split, gathered to
-        full shape for each update and evaluation. "sharded" (compute under
-        the stored layout) raises ``NotImplementedError``.
+        full shape for each update and evaluation. "sharded": the update
+        and the evaluation run on the stored pieces (tensor-parallel math;
+        equal to float tolerance, not bitwise). MoE and SSM configs raise
+        ``ValueError`` under it.
 
     ``population_size`` is rounded up to a multiple of the pop extent so
     every chunk tiles the mesh.
@@ -115,11 +135,6 @@ class ShardedPopulationEngine(PopulationFATEngine):
         if compute not in ("gathered", "sharded"):
             raise ValueError(
                 f"compute must be 'gathered' or 'sharded', got {compute!r}"
-            )
-        if compute == "sharded":
-            raise NotImplementedError(
-                "compute='sharded' (tensor-parallel math under the stored layout) needs collectives "
-                "across cards and is not ported (ROADMAP.md §1.4.3); use compute='gathered'"
             )
         self.axis_name = axis_name
         self.compute = compute
@@ -149,6 +164,14 @@ class ShardedPopulationEngine(PopulationFATEngine):
                 )
         else:
             self.mesh_rules = mesh_rules
+        if compute == "sharded" and self.param_axes is not None:
+            named = {a for axes in _axes_leaves(self.param_axes) for a in axes}
+            if named & {"expert", "inner"}:
+                raise ValueError(
+                    f"compute='sharded' takes dense and classifier configs; these params name the "
+                    f"{sorted(named & {'expert', 'inner'})} axes (MoE experts, SSM channels), whose "
+                    "tensor-parallel math is not ported (ROADMAP.md §1.4); use compute='gathered'"
+                )
         # chunks must tile the pop axis: round the configured width up
         self.population_size = max(
             self.num_shards, round_up_to_multiple(self.population_size, self.num_shards)
@@ -209,7 +232,8 @@ class ShardedPopulationEngine(PopulationFATEngine):
             batch_fn))
         self._record_fit_output(stored, keep, len(budgets))
         home = _device_of(params0)
-        full = [view._gather_member_params(s) for view, s in zip(views, stored)]
+        # full-shape params out, as the reference's out_specs hand them back
+        full = [view._gather(s) for view, s in zip(views, stored)]
         return _tree_map(lambda *xs: torch.cat([x.to(home) for x in xs]), *full)
 
     def _steps_chunk(self, params0, ok_pop, mode, constraint, max_steps, batch_fn):
@@ -280,10 +304,38 @@ class ShardedPopulationEngine(PopulationFATEngine):
         ]
         return _Split(pieces, index, tuple(leaf.shape), leaf.dtype)
 
+    def _split(self, axes_tree, tree):
+        """compute="sharded"'s layout: each leaf the rules split becomes a
+        ``SplitTensor`` of its distinct blocks, each a copy on the device of
+        the first position that holds it (position 0 holds piece 0); a leaf
+        left whole stays a tensor on the slice's first device; a leaf
+        already split is kept as it is."""
+        if not is_axes_leaf(axes_tree):
+            return {k: self._split(axes_tree[k], tree[k]) for k in tree}
+        leaf = tree
+        if isinstance(leaf, SplitTensor):
+            return leaf
+        index = self._layout(axes_tree, tuple(leaf.shape))
+        dims = {d for idx in index for d, s in enumerate(idx) if s != slice(None)}
+        if not dims:
+            return leaf.to(self._devices[0])
+        if len(dims) > 1:
+            raise ValueError(f"compute='sharded' splits a leaf along one dim; the rules split {axes_tree} "
+                             f"along dims {sorted(dims)}")
+        (dim,) = dims
+        pieces, offsets = [], []
+        for dev, idx in zip(self._devices, index):
+            if idx[dim].start not in offsets:  # a block repeated over another model axis is held once
+                offsets.append(idx[dim].start)
+                pieces.append(leaf[idx].to(dev, copy=True))
+        return SplitTensor(pieces, dim - leaf.dim(), offsets)
+
     def _gather(self, tree):
         if isinstance(tree, dict):
             return {k: self._gather(v) for k, v in tree.items()}
         dev = self._devices[0]
+        if isinstance(tree, SplitTensor):
+            return tree.full(dev)
         if not isinstance(tree, _Split):
             return tree.to(dev)
         if all(s == slice(None) for s in tree.index[0]):
@@ -299,20 +351,27 @@ class ShardedPopulationEngine(PopulationFATEngine):
 
     # hooks called by the parent's run bodies
 
+    @property
+    def _tensor_parallel(self) -> bool:
+        return self.compute == "sharded" and self._model_sharded
+
     def _constrain_member_state(self, params_pop, opt_pop):
         if not self._model_sharded:
             return params_pop, opt_pop
-        return (self._store(self.param_axes, params_pop),
-                self._store(opt_state_specs(self.param_axes), opt_pop))
+        store = self._split if self.compute == "sharded" else self._store
+        return (store(self.param_axes, params_pop),
+                store(opt_state_specs(self.param_axes), opt_pop))
 
     def _gather_member_state(self, params_pop, opt_pop):
-        if self._devices is None:
+        if self._devices is None or self._tensor_parallel:
             return params_pop, opt_pop
         return self._gather(params_pop), self._gather(opt_pop)
 
     def _gather_member_params(self, params_pop):
         if self._devices is None:
             return params_pop
+        if self._tensor_parallel:
+            return self._split(self.param_axes, params_pop)
         return self._gather(params_pop)
 
     def _constrain_batch(self, tree):
@@ -323,6 +382,24 @@ class ShardedPopulationEngine(PopulationFATEngine):
         if isinstance(tree, list):
             return [self._constrain_batch(v) for v in tree]
         return tree.to(self._devices[0])
+
+    def _constrain_masks(self, ok_pop, params_pop):
+        """compute="sharded": the chunk's maps rolled once to every origin a
+        split leaf's piece can have on a GEMM view, its offset taken as a
+        row and as a column (the tied unembed reads a row split as a column
+        split), so each piece's GEMM reads a prebuilt map. A map rolled
+        afresh in each call would be packed again for the kernel at every
+        GEMM (``packed_mask`` keys on the tensor)."""
+        if isinstance(ok_pop, dict) or not self._tensor_parallel:
+            return self._constrain_batch(ok_pop)
+        ok_pop = self._constrain_batch(ok_pop)
+        rows, cols = ok_pop.shape[-2:]
+        keys = {(0, 0)}
+        for leaf in pytree.tree_leaves(params_pop, is_leaf=lambda x: isinstance(x, SplitTensor)):
+            if isinstance(leaf, SplitTensor):
+                keys.update((o % rows, 0) for o in leaf.offsets)
+                keys.update((0, o % cols) for o in leaf.offsets)
+        return {key: rolled_map(ok_pop, *key) for key in sorted(keys)}
 
     # -- resident-memory accounting ------------------------------------------
 
@@ -339,6 +416,9 @@ class ShardedPopulationEngine(PopulationFATEngine):
             return [x for v in tree.values() for x in leaves(v)] if isinstance(tree, dict) else [tree]
 
         def nbytes(leaf, position=None):
+            if isinstance(leaf, SplitTensor):  # position 0 holds piece 0
+                pieces = leaf.pieces if position is None else leaf.pieces[:1]
+                return sum(p.numel() for p in pieces) * leaf.dtype.itemsize
             if isinstance(leaf, _Split):
                 if position is None:
                     return math.prod(leaf.shape) * leaf.dtype.itemsize

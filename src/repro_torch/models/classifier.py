@@ -56,7 +56,9 @@ def classifier_forward(
     ctx = ctx or healthy()
     n = cfg.num_layers
     for i in range(n):
-        x = fault_linear(x, params[f"w{i}"], ctx) + params[f"b{i}"]
+        # a split layer (the sharded engine's compute="sharded") adds each
+        # bias piece to its column block before the blocks are joined
+        x = fault_linear(x, params[f"w{i}"], ctx, bias=params[f"b{i}"])
         if i < n - 1:
             # jax.nn.gelu, which the reference calls, is the tanh approximation
             x = F.gelu(x, approximate="tanh")

@@ -287,7 +287,10 @@ Params = Union[Model, dict]
 def as_params(params: Params):
     """A ``Model``, a namespace view, or a flat dict seen through its view:
     the serving steps take all three, so ``torch.func.vmap`` can map them
-    over a dict of chip-stacked parameters (the fleet engines)."""
+    over a dict of chip-stacked parameters (the fleet engines). A dict's
+    split leaves (``repro_torch.fleet.tensor_parallel.SplitTensor``, the
+    sharded engine's ``compute="sharded"``) pass through as they are: the
+    GEMMs, the lookup and the tied unembed take them."""
     return _view(params) if isinstance(params, dict) else params
 
 
@@ -329,6 +332,16 @@ def _block(
     return x + mlp_block(lp.mlp, h2, cfg, ctx), pieces
 
 
+def _lookup(table, ids: Tensor) -> Tensor:
+    """``table[ids]``; a vocab-split table looks up vocab-parallel."""
+    if isinstance(table, Tensor):
+        return table[ids]
+    # imported here: the fleet package imports this module
+    from repro_torch.fleet.tensor_parallel import vocab_parallel_lookup
+
+    return vocab_parallel_lookup(table, ids)
+
+
 def embed_inputs(cfg, params, batch: dict, ctx: FaultContext) -> tuple[Tensor, Tensor]:
     """Returns (x (B, S, d) in compute dtype, positions (B, S)).
 
@@ -343,7 +356,7 @@ def embed_inputs(cfg, params, batch: dict, ctx: FaultContext) -> tuple[Tensor, T
         if cfg.modality == "vision" and "embeds" in batch:
             parts.append(fault_linear(batch["embeds"].to(dtype), params.frontend, ctx))
         if "tokens" in batch:
-            parts.append(params.embed[batch["tokens"]].to(dtype))
+            parts.append(_lookup(params.embed, batch["tokens"]).to(dtype))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s = x.shape[:2]
     positions = batch.get("positions")
@@ -353,7 +366,8 @@ def embed_inputs(cfg, params, batch: dict, ctx: FaultContext) -> tuple[Tensor, T
 
 
 def unembed(cfg, params, x: Tensor, ctx: FaultContext) -> Tensor:
-    # tied: a transposed view; the masked-GEMM kernel reads it in place
+    # tied: a transposed view; the masked-GEMM kernel reads it in place (a
+    # vocab-split embedding's .T is the column-split unembed)
     params = as_params(params)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     return fault_linear(x, w, ctx)

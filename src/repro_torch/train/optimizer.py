@@ -9,7 +9,10 @@ so that every step is the reference's ``train/optimizer.py`` step:
 * a callable learning rate is called with the new count.
 
 The update is a pure function of its inputs, so ``torch.func.vmap`` runs it
-for a whole population of members at once.
+for a whole population of members at once. A leaf may be a pytree of
+pieces (``repro_torch.fleet.tensor_parallel.SplitTensor``, a leaf split
+over model positions): the update is elementwise on each piece, where it
+lies, and the grad norm sums each piece's squares once.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_state_specs", "cosine_schedule", "constant_schedule"]
 
@@ -38,15 +42,25 @@ class AdamWConfig:
 def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
     mdt = getattr(torch, cfg.moment_dtype)
     return dict(
-        m={k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()},
-        v={k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()},
-        count=torch.zeros((), dtype=torch.int32, device=next(iter(params.values())).device),
+        m={k: tree_map(lambda x: torch.zeros_like(x, dtype=mdt), p) for k, p in params.items()},
+        v={k: tree_map(lambda x: torch.zeros_like(x, dtype=mdt), p) for k, p in params.items()},
+        count=torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device),
     )
+
+
+def _sum_squares(leaf) -> torch.Tensor:
+    """A leaf's sum of squares in float32; a split leaf's pieces each once,
+    summed on the first piece's device (a leaf left whole is one piece)."""
+    pieces = tree_leaves(leaf)
+    if len(pieces) == 1:
+        return torch.sum(torch.square(pieces[0].float()))
+    dev = pieces[0].device
+    return sum(torch.sum(torch.square(p.float())).to(dev) for p in pieces)
 
 
 def _global_norm(tree: dict) -> torch.Tensor:
     # summed in sorted-key order, the order of the reference's tree leaves
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float())) for k in sorted(tree)))
+    return torch.sqrt(sum(_sum_squares(tree[k]) for k in sorted(tree)))
 
 
 def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
@@ -54,23 +68,37 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
     count = state["count"] + 1
     lr = cfg.learning_rate(count) if callable(cfg.learning_rate) else cfg.learning_rate
     gnorm = _global_norm(grads)
+    scale = None
     if cfg.grad_clip_norm is not None:
         scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = {k: g * scale for k, g in grads.items()}
     mdt = getattr(torch, cfg.moment_dtype)
     c32 = count.float()
     bc1 = 1 - cfg.b1**c32
     bc2 = 1 - cfg.b2**c32
+    on_device: dict = {}  # the step's scalars on each piece's device (a no-op where it repeats)
+
+    def scalars(dev):
+        if dev not in on_device:
+            on_device[dev] = tuple(None if t is None else t.to(dev) if torch.is_tensor(t) else t
+                                   for t in (scale, bc1, bc2, lr))
+        return on_device[dev]
+
     new_params, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g32 = grads[k].float()
-        m32 = cfg.b1 * state["m"][k].float() + (1 - cfg.b1) * g32
-        v32 = cfg.b2 * state["v"][k].float() + (1 - cfg.b2) * g32 * g32
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        new_params[k] = (p.float() - lr * step).to(p.dtype)
-        new_m[k], new_v[k] = m32.to(mdt), v32.to(mdt)
+    for k, leaf in params.items():
+        pieces, spec = tree_flatten(leaf)
+        outs = []
+        for p, g, m, v in zip(pieces, tree_leaves(grads[k]), tree_leaves(state["m"][k]), tree_leaves(state["v"][k])):
+            sc, b1c, b2c, lr_p = scalars(p.device)
+            if sc is not None:
+                g = g * sc
+            g32 = g.float()
+            m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+            v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
+            mhat = m32 / b1c
+            vhat = v32 / b2c
+            step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+            outs.append(((p.float() - lr_p * step).to(p.dtype), m32.to(mdt), v32.to(mdt)))
+        new_params[k], new_m[k], new_v[k] = (tree_unflatten([o[i] for o in outs], spec) for i in range(3))
     info = dict(grad_norm=gnorm, lr=lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32))
     return new_params, dict(m=new_m, v=new_v, count=count), info
 

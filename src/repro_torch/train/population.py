@@ -47,6 +47,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.masking import FaultContext, healthy, stack_contexts
 from repro_torch.obs.recorder import NULL_RECORDER, Recorder
@@ -62,10 +63,10 @@ BatchFn = Callable[[int], dict]
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over the tensors of nested dicts of one structure."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+    """``fn`` over the tensors of pytrees of one structure: nested dicts,
+    and the pieces of a split leaf (the sharded engine's tensor-parallel
+    layout, a registered pytree node)."""
+    return pytree.tree_map(fn, trees[0], *trees[1:])
 
 
 def _stack_trees(trees: Sequence[Any]):
@@ -77,7 +78,7 @@ def _member_slice(tree, i: int):
 
 
 def _device_of(params: dict) -> torch.device:
-    return next(iter(params.values())).device
+    return pytree.tree_leaves(params)[0].device
 
 
 def _sync(device: torch.device) -> None:
@@ -165,7 +166,14 @@ class PopulationFATEngine:
 
     @staticmethod
     def _ctx(ok, mode: str) -> FaultContext:
-        return healthy() if ok is None else FaultContext(ok=ok, mode=mode)
+        """A member's context from its map, or from a dict of its map rolled
+        to each split-weight origin (``_constrain_masks``; key (0, 0) is the
+        map itself)."""
+        if ok is None:
+            return healthy()
+        if isinstance(ok, dict):
+            return FaultContext(ok=ok[(0, 0)], mode=mode, rolled=ok)
+        return FaultContext(ok=ok, mode=mode)
 
     def _member_eval(self, params, ok, mode: str, batches: Sequence[dict]):
         ctx = self._ctx(ok, mode)
@@ -194,32 +202,48 @@ class PopulationFATEngine:
     # -- member-state layout hooks ------------------------------------------
     # The run bodies pass member (params, opt) through these at every step
     # boundary (the stored layout) and before every update and evaluation
-    # (the compute layout). They are identity here; the sharded engine keeps
-    # member state split over a 2-D mesh's "model" axis between steps and
-    # gathers it to full shape for the math, on its pop slice's device.
+    # (the compute layout). They are identity here. The sharded engine keeps
+    # member state split over a 2-D mesh's "model" axis between steps; with
+    # compute="gathered" it gathers it to full shape for the math, on its
+    # pop slice's device, and with compute="sharded" the math runs on the
+    # stored pieces themselves.
 
     def _constrain_member_state(self, params_pop, opt_pop):
-        """The stored layout of member state between steps."""
+        """The stored layout of member state between steps: as given here;
+        split over the model positions in the sharded engine (a leaf already
+        split, compute="sharded", is kept as it is)."""
         return params_pop, opt_pop
 
     def _gather_member_state(self, params_pop, opt_pop):
-        """Member state laid out for an update step (full shape)."""
+        """Member state laid out for an update step: full shape here and
+        under compute="gathered"; the stored pieces under
+        compute="sharded"."""
         return params_pop, opt_pop
 
     def _gather_member_params(self, params_pop):
-        """Member params laid out for an evaluation (full shape)."""
+        """Member params laid out for an evaluation: full shape here and
+        under compute="gathered"; split (full params split, split ones kept)
+        under compute="sharded"."""
         return params_pop
 
     def _constrain_batch(self, tree):
-        """Non-member data entering the math (batches, stacked masks, the
-        eval batches): identity here; the sharded engine moves it to its
-        pop slice's device."""
+        """Non-member data entering the math (batches, the eval batches,
+        params0): identity here; the sharded engine moves it to its pop
+        slice's device."""
         return tree
+
+    def _constrain_masks(self, ok_pop, params_pop):
+        """The stacked masks entering the math, given the member params in
+        their compute layout: the ``(n, R, C)`` stack here and under
+        compute="gathered"; under compute="sharded" a dict of the stack
+        rolled to each origin of ``params_pop``'s split leaves, keyed by the
+        origin mod (R, C) (``_ctx`` reads it). A dict passes as it is."""
+        return self._constrain_batch(ok_pop)
 
     @torch.no_grad()
     def _eval_pop(self, params_pop, ok_pop, mode: str) -> torch.Tensor:
         params_pop = self._gather_member_params(params_pop)
-        ok_pop = None if ok_pop is None else self._constrain_batch(ok_pop)
+        ok_pop = None if ok_pop is None else self._constrain_masks(ok_pop, params_pop)
         batches = self._constrain_batch(self.eval_batches)
         return vmap(
             lambda p, ok: self._member_eval(p, ok, mode, batches),
@@ -239,8 +263,8 @@ class PopulationFATEngine:
         for ``budgets[i]`` steps on the same batch schedule. Returns the
         params in the stored layout."""
         n = len(budgets)
-        ok_pop = None if ok_pop is None else self._constrain_batch(ok_pop)
         params, opt = self._constrain_member_state(*self._broadcast_members(params0, n))
+        ok_pop = None if ok_pop is None else self._constrain_masks(ok_pop, params)
         update = self._update(mode, ok_pop)
         budgets_t = torch.tensor(budgets, device=_device_of(params0))
         for i in range(max(budgets)):
@@ -249,7 +273,7 @@ class PopulationFATEngine:
             active = i < budgets_t  # (n,)
 
             def sel(new, old):
-                return torch.where(active.view((n,) + (1,) * (new.dim() - 1)), new, old)
+                return torch.where(active.to(new.device).view((n,) + (1,) * (new.dim() - 1)), new, old)
 
             params, opt = self._constrain_member_state(_tree_map(sel, new_params, p), _tree_map(sel, new_opt, o))
             yield
@@ -263,12 +287,11 @@ class PopulationFATEngine:
         ends as soon as every member has crossed, or at max_steps. Returns
         ``crossed`` as numpy."""
         ee = self.eval_every
-        ok_pop = self._constrain_batch(ok_pop)
-        params, opt = self._broadcast_members(params0, ok_pop.shape[0])
+        params, opt = self._constrain_member_state(*self._broadcast_members(params0, ok_pop.shape[0]))
+        ok_pop = self._constrain_masks(ok_pop, params)
         update = self._update(mode, ok_pop)
         base = self._eval_pop(params, ok_pop, mode)
         crossed = torch.where(base >= constraint, 0, max_steps + 1)
-        params, opt = self._constrain_member_state(params, opt)
         step = 0
         yield
         # the reference's while_loop condition; the one host read per period

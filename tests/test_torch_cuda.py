@@ -1466,6 +1466,44 @@ def test_sharded_engine_on_one_card_repeated_matches_the_vmap_engine(cuda):
         assert stats["per_member_resident_bytes"] <= stats["per_member_total_bytes"] / shd.model_size * 1.05 + 1024
 
 
+def test_tensor_parallel_kernel_mode_forward_on_the_card(cuda):
+    """compute="sharded" on a 2 x 2 mesh over the card repeated: a
+    kernel-mode ``evaluate_batch`` launches ONE chip-batched v1 a weight
+    piece (every layer split two ways) and its metrics are the
+    one-chip-at-a-time loop's; each piece's launch equals
+    ``masked_matmul_ref`` on the map rolled to its origin, and the pieces
+    joined equal the whole weight's product under the whole map."""
+    from repro_torch.core.mapping import rolled_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = init_classifier(MLP, 0, 32, "cpu")
+    shd = _fat(cuda, "sharded", base=base, mesh=make_fleet_mesh(2, 2, devices=["cuda"] * 4), cfg=MLP,
+               param_axes=classifier_param_axes(MLP), compute="sharded", population_size=4)[0]
+    kctxs = [from_fault_map(random_fault_map(i, 32, 32, 0.1), "kernel", device=cuda) for i in range(4)]
+    params = [{k: v.to(cuda) + 0.01 * i for k, v in base.items()} for i in range(4)]
+    before = dict(masked_matmul.launches_by_variant), dict(masked_matmul.fleet_launches_by_variant)
+    got = shd.evaluate_batch(params, kctxs)
+    torch.cuda.synchronize()
+    want_launches = MLP.num_layers * 2 * len(shd.eval_batches) * shd.num_shards
+    assert masked_matmul.launches_by_variant["v1"] - before[0]["v1"] == want_launches
+    assert masked_matmul.fleet_launches_by_variant["v1"] - before[1]["v1"] == want_launches
+    assert got == pytest.approx([evaluate_metric(shd, p, c) for p, c in zip(params, kctxs)], abs=1e-6)
+    ok = torch.stack([c.ok for c in kctxs[:2]])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for i in range(MLP.num_layers):
+        w = torch.stack([p[f"w{i}"] for p in params[:2]])
+        x = torch.randn(2, 512, w.shape[1], generator=g, device=cuda)
+        half = w.shape[-1] // 2
+        pieces = []
+        for c0 in (0, half):
+            piece, rolled = w[..., c0:c0 + half].contiguous(), rolled_map(ok, 0, c0)
+            assert c0 % 32 != 0 or c0 == 0  # the second piece starts off the map's grid
+            y = masked_matmul(x, piece, rolled)
+            assert_close(y, masked_matmul_ref(x, piece, rolled), torch.float32)
+            pieces.append(y)
+        assert_close(torch.cat(pieces, -1), masked_matmul_ref(x, w, ok), torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # LM training and its deployment through the kernels
 # ---------------------------------------------------------------------------

@@ -117,11 +117,15 @@ def _ctxs(fleet, mode="fap"):
 
 
 # the sharded engine's meshes over the CPU repeated: a pop axis of 4, and 2
-# pop slices of 2 model positions (member state stored split two ways)
+# pop slices of 2 model positions (member state stored split two ways;
+# gathered for the math, or computed on split, "sharded-tp")
 SHARDED = {
     "sharded-pop4": lambda: dict(mesh=make_pop_mesh(devices=["cpu"] * 4)),
     "sharded-2x2": lambda: dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4), cfg=CFG,
                                 param_axes=classifier_param_axes(CFG)),
+    # the same mesh, computing on the split pieces (tensor-parallel math)
+    "sharded-tp-2x2": lambda: dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4), cfg=CFG,
+                                   param_axes=classifier_param_axes(CFG), compute="sharded"),
 }
 
 
@@ -146,7 +150,7 @@ def test_fit_batch_matches_reference(ref, port, fleet, kind):
         _assert_params_close(g, w)
     metrics = engine.evaluate_batch(got, _ctxs(fleet[:3]))
     assert metrics == pytest.approx(want_metrics, abs=METRIC_TOL)
-    if kind == "sharded-2x2":
+    if kind in ("sharded-2x2", "sharded-tp-2x2"):
         # member params stored split over the 2 model positions: every
         # classifier leaf's output dim halves (tests/test_fleet.py's bound)
         stats = engine.last_fit_stats
@@ -479,7 +483,8 @@ def _efat_against_reference(monkeypatch, chips, fleet_seed, pretrain_steps, eval
 
 
 TRAINERS = {"population": {}, "sharded-2x2": dict(engine="sharded", engine_kwargs=dict(
-    mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4)))}
+    mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4))), "sharded-tp-2x2": dict(engine="sharded", engine_kwargs=dict(
+    mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4), compute="sharded"))}
 
 
 @pytest.mark.parametrize("trainer", list(TRAINERS))
@@ -518,3 +523,61 @@ def test_fleet_retraining_example_matches_reference(monkeypatch):
         max_fr=0.35, max_interval=0.05, step_ratio=0.6, repeats=5, max_steps=400, m_comparisons=8,
         k_iterations=2, stat="max")
     assert res["run"].plan.total_steps <= res["individual"].plan.total_steps
+
+
+# ---------------------------------------------------------------------------
+# the sharded trainer on a 4 x 2 mesh, both compute modes, against the
+# reference's vmap trainer in tests/test_fleet.py's setting
+# ---------------------------------------------------------------------------
+
+FLEET_BUDGETS = [12, 30, 5, 21, 9]
+FLEET_TABLE = dict(array_shape=(32, 32), repeats=2, max_steps=100, seed=11)
+FLEET_RATES = [0.05, 0.12, 0.2]
+
+
+@pytest.fixture(scope="module")
+def fleet_ref():
+    """The reference's vmap trainer (pretrained 250 steps, population 8)
+    and its results on 5 maps ``random_fault_map(i, 32, 32, 0.1 + 0.02 i)``:
+    steps to baseline - 0.05 within 100, the resilience table, and
+    ``train_batch`` at FLEET_BUDGETS with its metrics."""
+    jtr = JaxClassifierFATTrainer(JCFG, pretrain_steps=250, eval_batches=2, population_size=8)
+    constraint = jtr.baseline_accuracy - 0.05
+    fleet = [random_fault_map(i, 32, 32, 0.1 + 0.02 * i) for i in range(5)]
+    jfleet = [JR.FaultMap(fm.faulty) for fm in fleet]
+    steps = jtr.steps_to_constraint_batch(jfleet, constraint, 100)
+    table = JR.measure_resilience(jtr, FLEET_RATES, constraint, **FLEET_TABLE)
+    params = jtr.train_batch(jfleet, FLEET_BUDGETS)
+    metrics = jtr.evaluate_batch(params, jfleet)
+    return jtr, constraint, fleet, steps, table, params, metrics
+
+
+@pytest.mark.parametrize("compute", ["gathered", "sharded"])
+def test_sharded_4x2_trainer_matches_reference_vmap_trainer(monkeypatch, fleet_ref, compute):
+    """``ClassifierFATTrainer(engine="sharded")`` on a 4 x 2 mesh over the
+    CPU repeated, fed the reference's data and pretrained params: equal
+    steps-to-constraint and resilience table, ``train_batch`` params within
+    the reference's own tensor-parallel rule (rtol 1e-4, atol 1e-5),
+    metrics within METRIC_TOL, and the fit's resident bytes at mesh
+    position 0 the rules' two-way split of every leaf."""
+    jtr, constraint, fleet, steps, table, params, metrics = fleet_ref
+    monkeypatch.setattr(T, "make_classification_task", lambda cfg, seed=0, device=None: _RefData(jtr.data))
+    tr = T.ClassifierFATTrainer(CFG, pretrain_steps=0, eval_batches=2, device="cpu", engine="sharded",
+                                population_size=8, engine_kwargs=dict(
+                                    mesh=make_fleet_mesh(4, 2, devices=["cpu"] * 8), compute=compute))
+    assert (tr.engine.num_shards, tr.engine.model_size, tr.engine.compute) == (4, 2, compute)
+    tr.base_params = classifier_params_from_jax(jax.tree.map(np.asarray, jtr.base_params), device="cpu")
+    assert tr.steps_to_constraint_batch(fleet, constraint, 100) == steps
+    got_table = R.measure_resilience(tr, FLEET_RATES, constraint, **FLEET_TABLE)
+    assert got_table.to_json() == table.to_json()
+    got = tr.train_batch(fleet, FLEET_BUDGETS)
+    for g, w in zip(got, params):
+        assert set(g) == set(w)
+        for k in g:
+            np.testing.assert_allclose(g[k].numpy(), np.asarray(w[k]), rtol=1e-4, atol=1e-5)
+    assert tr.evaluate_batch(got, fleet) == pytest.approx(metrics, abs=METRIC_TOL)
+    assert tr.evaluate_batch(got, fleet, mode="kernel") == pytest.approx(metrics, abs=METRIC_TOL)
+    stats = tr.engine.last_fit_stats
+    # every w{i} and b{i} splits on its output dim (48 and 16 divide by 2)
+    split = sum(t.numel() * t.element_size() / 2 for t in got[0].values())
+    assert stats["model_extent"] == 2 and stats["per_member_resident_bytes"] == split

@@ -114,9 +114,12 @@ def ref(fleet):
 
 
 # the sharded engine on a 2 x 2 mesh over the CPU repeated: 2 pop slices,
-# each member's state stored split over 2 model positions by param_specs(cfg)
+# each member's state stored split over 2 model positions by param_specs(cfg);
+# "sharded-tp" computes on the split pieces (compute="sharded")
 ENGINES = {"population": {}, "serial": {},
-           "sharded": dict(engine_kwargs=dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4)))}
+           "sharded": dict(engine_kwargs=dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4))),
+           "sharded-tp": dict(engine="sharded", engine_kwargs=dict(
+               mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4), compute="sharded"))}
 
 
 @pytest.fixture(scope="module", params=list(ENGINES))
@@ -124,7 +127,8 @@ def port(request):
     mp = pytest.MonkeyPatch()
     mp.setattr(T, "TokenStream", _RefStream)
     mp.setattr(T, "init_params", _ref_init)
-    tr = T.LMFATTrainer(CFG, engine=request.param, device="cpu", **TRAINER_KW, **ENGINES[request.param])
+    kw = {"engine": request.param, **ENGINES[request.param]}
+    tr = T.LMFATTrainer(CFG, device="cpu", **TRAINER_KW, **kw)
     mp.undo()
     return tr
 

@@ -352,8 +352,20 @@ def test_engine_construction_raises_as_the_reference(case):
 
 
 def test_sharded_compute_and_the_default_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedPopulationEngine(mesh=_mesh((2, 2), ("pop", "model")), cfg=MLP, compute="sharded",
+    """compute="sharded" constructs on a 2-D mesh with the reference's
+    attributes; an unknown mode raises; without a mesh the engine takes the
+    pop mesh its caller builds."""
+    jcfg = jax_get_arch("paper-mlp")
+    base = dict(loss_fn=_loss, population_size=6, compute="sharded")
+    got = ShardedPopulationEngine(mesh=_mesh((2, 2), ("pop", "model")), cfg=MLP, param_axes=classifier_param_axes(MLP),
+                                  opt_cfg=AdamWConfig(), eval_batches=[], **base)
+    want = JaxShardedPopulationEngine(mesh=_jax_mesh((2, 2), ("pop", "model")), cfg=jcfg, eval_batches=[{}],
+                                      param_axes=jax_classifier_param_axes(jcfg), opt_cfg=JaxAdamWConfig(), **base)
+    for attr in ("compute", "model_size", "num_shards", "population_size", "axis_name", "model_axes"):
+        assert getattr(got, attr) == getattr(want, attr), attr
+    assert got.compute == "sharded" and got.model_size == 2
+    with pytest.raises(ValueError, match="compute must be"):
+        ShardedPopulationEngine(mesh=_mesh((2, 2), ("pop", "model")), cfg=MLP, compute="tensor",
                                 param_axes=classifier_param_axes(MLP), loss_fn=None, opt_cfg=AdamWConfig(),
                                 eval_batches=[])
     eng = make_fat_engine("sharded", mesh=make_pop_mesh(devices=["cpu"] * 4), loss_fn=None,

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Does stage (d) of ``chip_smoke.py``'s phase 14 see a fleet kernel that
-reads another chip's data? One planted fault per run, on one CUDA card.
+reads another chip's data, and does phase 12's tensor-parallel gate see a
+weight piece masked under the wrong map? One planted fault per run, on one
+CUDA card.
 
     python3 tools/planted_faults.py mask      # hymba-1.5b: chip 1 reads chip 0's mask
     python3 tools/planted_faults.py scan      # hymba-1.5b: every scan row reads chip 0's A and D
     python3 tools/planted_faults.py experts   # mixtral-8x22b: chip 1's experts read chip 0's weights
+    python3 tools/planted_faults.py roll      # smollm-135m, compute="sharded": every piece under the unrolled map
 
 Each run copies ``src/`` and ``chip_smoke.py`` into ``build/planted-<fault>``
 (the built kernels too, so nothing is compiled again), plants the fault in
-the copy's Python, and runs ``chip_smoke.fleet_families`` there for the
-fault's family alone. The tree itself is never changed. ``mask`` and
+the copy's Python, and runs there ``chip_smoke.fleet_families`` for the
+fault's family alone, or for ``roll`` ``chip_smoke.lm_tp_parity`` on two
+chips of float32 SmolLM-135M at full width (random weights from seeds 0
+and 1) split as a 2 x ``LM_TP_MODEL`` mesh's rules split them. The tree
+itself is never changed. ``mask`` and
 ``scan`` turn the serving gates that come before the one under test into
 log lines (``mask``: the chip-0 and anchor gates, so that the near-tie rule
 reads the fault; ``scan``: all three, so that the per-chip scan check reads
@@ -30,6 +36,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 OPS_MM = "src/repro_torch/kernels/masked_matmul/ops.py"
 OPS_SCAN = "src/repro_torch/kernels/mamba_scan/ops.py"
+MASKING = "src/repro_torch/core/masking.py"
 # a serving gate of fleet_families, and the same check made a log line
 GATES = {
     "chip 0": ('raise Failed(f"fleet (d) {c.name}: chip {i} (rate', 'log(f"(planted) fleet (d) {c.name}: chip {i} (rate'),
@@ -49,6 +56,7 @@ FAULTS = {
                                    "    if w.dim() == 4:\n        w = w[:1].expand_as(w).contiguous()\n"
                                    "    kdim, n = w.shape[-2:]\n    chips = math.prod(lead_w)\n")],
                 ()),
+    "roll": ("smollm-135m", [(MASKING, "    key = (r0 % rows, c0 % cols)\n", "    key = (0, 0)\n")], ()),
 }
 
 RUN = """
@@ -64,6 +72,36 @@ except chip_smoke.Failed as e:
     print("seconds", time.perf_counter() - t0)
     sys.exit(0)
 print("planted {fault}: stage (d) passed: the fault did not show")
+sys.exit(1)
+"""
+
+RUN_ROLL = """
+import dataclasses, sys, time, torch
+sys.path.insert(0, "src")
+import chip_smoke
+from repro_torch.configs import get_arch
+from repro_torch.core import random_fault_map
+from repro_torch.launch.mesh import make_fleet_mesh
+from repro_torch.models import model as M
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.population import make_fat_engine
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = dataclasses.replace(get_arch({family!r}), dtype="float32")
+params = [M.param_dict(M.init_params(cfg, seed, device="cuda")) for seed in (0, 1)]
+model = chip_smoke.LM_TP_MODEL
+eng = make_fat_engine("sharded", mesh=make_fleet_mesh(2, model, devices=["cuda"] * 2 * model), cfg=cfg,
+                      param_axes=M.param_specs(cfg), compute="sharded", loss_fn=None, opt_cfg=AdamWConfig(),
+                      eval_batches=[])
+oks = [torch.as_tensor(random_fault_map(c, 256, 256, 0.05 * (c + 1)).ok_mask, dtype=torch.float32, device="cuda")
+       for c in range(2)]
+t0 = time.perf_counter()
+try:
+    chip_smoke.lm_tp_parity(torch, print, cfg, params, oks, eng)
+except chip_smoke.Failed as e:
+    print("planted {fault}: phase 12's tensor-parallel gate failed:", e)
+    print("seconds", time.perf_counter() - t0)
+    sys.exit(0)
+print("planted {fault}: phase 12's tensor-parallel gate passed: the fault did not show")
 sys.exit(1)
 """
 
@@ -92,7 +130,7 @@ def main() -> int:
     ap.add_argument("fault", choices=sorted(FAULTS))
     fault = ap.parse_args().fault
     dst = plant(fault)
-    code = RUN.format(family=FAULTS[fault][0], fault=fault)
+    code = (RUN_ROLL if fault == "roll" else RUN).format(family=FAULTS[fault][0], fault=fault)
     return subprocess.run([sys.executable, "-c", code], cwd=dst).returncode
 
 
