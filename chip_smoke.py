@@ -225,7 +225,33 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     classified as in the CPU run, the fit's params0 keeping its storage and
     bits, no masked-GEMM kernel launch. (e) the population step at width
     4 (median of timed fits), device ops and busy share from two
-    ``torch.profiler`` traces, peak device memory, each stage's seconds;
+    ``torch.profiler`` traces, peak device memory, each stage's seconds.
+    Stage "families" (``lm_families``), float32 at published widths, the
+    phase's trainers freed first: (a) falcon-mamba-7b at depth 4, 2 chips
+    at budgets [2, 3] through the population and serial engines (the
+    float32 pin rule), in the fits a forward and a backward scan kernel a
+    layer a step (chip-batched in the population's) and no GEMM launch;
+    one ``ssm_block``'s gradient on the card against the CPU's, each leaf
+    within 1e-5 of its largest gradient (``ssm_grad_gate``); the backward
+    kernel at the population fit's launch against its plain version, timed;
+    ``kernel``-mode evaluation with every scan and GEMM chip-batched,
+    within 2e-3 of ``fap`` and 1e-6 of one chip at a time. (b) hymba-1.5b
+    at depth 4 under ``compute="sharded"`` on 2 x 4 (4 chips at [4, 2, 4,
+    1]) against the vmap engine (the pin rule; the untied embedding's
+    elements each within its limit, their count at most the serial
+    engine's plus 10), the fits' forward and backward scans, resident
+    bytes the rules' split,
+    ``lm_tp_parity`` on its SSM and MLP GEMMs and ``lm_head``, the
+    chip-batched scan a channel piece against its plain version, then
+    ``kernel``-mode evaluation: one chip-batched scan a channel piece and
+    one chip-batched ``v1`` a weight piece, within 2e-3 of ``fap`` and 1e-6
+    of one chip at a time. (c) mixtral-8x22b at depth 1: ``wg``, ``wu`` and
+    ``wd`` split 4 ways over the experts for 2 chips, one chips x experts
+    ``v1`` a piece, joined against the whole stack's launch and each piece
+    against its plain version; the population fit reckoned against the
+    card's memory (``family_fit_reckoning``, which undercounts: it does not
+    fit), and the engine's member gradient under ``vmap`` (the router included) against
+    plain autograd;
 13. continuous serving with online fault detection (``continuous_phase``):
     SmolLM-135M at full width through ``ContinuousBatchingEngine`` in
     ``kernel`` mode on the same chip, 8 slots, 8-token pages, a pool of 1024
@@ -334,7 +360,9 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     chip-batched ones as ``launches_fleet``, and their worst chip-batched
     error as ``max_abs_err_fleet``; ``masked_matmul.decode.chips8``
     is phase 14's chip-batched decode step; ``masked_matmul.<variant>.experts``
-    phase 15's expert-batched launches with mixtral's rows, and
+    phase 15's expert-batched launches with mixtral's rows,
+    ``selective_scan_bwd`` the scan's backward kernel with phase 12's
+    stage "families" fits' launches and (a)'s timed row, and
     ``launches_zoo`` on the masked GEMM's and flash's entries), the card's
     line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -355,7 +383,7 @@ phase 5 for the dense decode kernel, the paged call of phase 4, the
 generate calls of phases 6, 8 and 9, the kernel-path prefills of phases
 7 and 10, bf16 and hymba's float32, phase 11's deployment checks,
 serial and chip-batched, each of phase 12's kernel-mode runs and its
-sharded stage's evaluation, each of phase 13's four serves,
+sharded and families stages' evaluations, each of phase 13's four serves,
 each of phase 14's six fleet runs and each of phase 15's model runs) and
 read just after it; parity and
 timing launches are not counted.
@@ -507,14 +535,14 @@ def rel_l2(got, ref):
 def reset_launches():
     """Zero the model path's kernel counters: launches and launches by variant
     (the masked GEMM's chip-batched, expert-batched and chip x expert ones
-    too, and the scan's chip-batched ones)."""
+    too, and the scan's and its backward's chip-batched ones)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_bwd
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
 
-    for fn in (masked_matmul, flash_attention, selective_scan):
+    for fn in (masked_matmul, flash_attention, selective_scan, selective_scan_bwd):
         fn.launches = 0
-    selective_scan.fleet_launches = 0
+    selective_scan.fleet_launches = selective_scan_bwd.fleet_launches = 0
     for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "fleet_launches_by_variant"),
                      (masked_matmul, "expert_launches_by_variant"),
                      (masked_matmul, "fleet_expert_launches_by_variant"), (flash_attention, "launches_by_variant")):
@@ -1074,9 +1102,10 @@ LM_TP_MODEL = 4
 LM_TP_GEMMS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wg", "mlp.wu", "mlp.wd")
 
 
-def lm_tp_parity(torch, log, cfg, params, oks, engine, m=512):
-    """compute="sharded"'s GEMMs on the card at a dense LM's layer-0 and
-    tied-unembed weights for 2 chips, split as ``engine`` (a sharded engine
+def lm_tp_parity(torch, log, cfg, params, oks, engine, m=512, gemms=LM_TP_GEMMS, head="embed"):
+    """compute="sharded"'s GEMMs on the card at an LM's layer-0 weights
+    ``gemms`` and its unembed (``head``: "embed", the tied unembed read as
+    embed.T, or "lm_head") for 2 chips, split as ``engine`` (a sharded engine
     with compute="sharded") stores them, under the maps its chunk builds:
     (a) each weight through ``fault_linear`` in ``kernel`` mode under
     ``torch.func.vmap`` over the chips (the evaluation's path): one
@@ -1092,7 +1121,7 @@ def lm_tp_parity(torch, log, cfg, params, oks, engine, m=512):
     from repro_torch.models import model as M
 
     specs = M.param_specs(cfg)
-    names = [f"layers.0.{n}" for n in LM_TP_GEMMS] + ["embed"]
+    names = [f"layers.0.{n}" for n in gemms] + [head]
     view = engine._slice(0)
     stacked = {k: torch.stack([p[k] for p in params]) for k in names}
     split = view._split({k: specs[k] for k in names}, stacked)
@@ -1132,7 +1161,7 @@ def lm_tp_parity(torch, log, cfg, params, oks, engine, m=512):
             if not within:
                 bad.append(f"{name} piece at ({r0}, {c0}): off its plain version by {e:.3g}")
     off_grid = [o for o in origins if o[3] != (0, 0)]
-    log(f"lm tensor-parallel GEMMs (layer 0 and the tied unembed, 2 chips, M = {m}, float32, model extent "
+    log(f"lm tensor-parallel GEMMs ({cfg.name}: layer 0 and the unembed, 2 chips, M = {m}, float32, model extent "
         f"{engine.model_size}): chip-batched v1 launches {launches}; joined pieces against the whole weight's "
         f"plain GEMM max abs err {joined_err:.3g}, each piece against its plain version on its rolled map "
         f"{piece_err:.3g} (rtol, atol {tol}); {len(origins)} pieces, off the {rows} x {cols} grid: "
@@ -1143,6 +1172,545 @@ def lm_tp_parity(torch, log, cfg, params, oks, engine, m=512):
         raise Failed("lm tensor-parallel GEMMs: " + "; ".join(bad))
     return dict(joined_err=joined_err, piece_err=piece_err, launches=launches, pieces=len(origins),
                 off_grid=[list(o[:3]) for o in off_grid])
+
+
+# ---------------------------------------------------------------------------
+# phase 12, stage "families": FAT of the SSM, hybrid and MoE families
+# ---------------------------------------------------------------------------
+
+# depth of each family at its published widths in float32: what one card holds beside the stage's
+# copies (PERF.md §4): falcon-mamba-7b 4 of 64 layers, hymba-1.5b 4 of 32, mixtral-8x22b 1 of 56
+LM_FAMILY_DEPTH = {"falcon-mamba-7b": 4, "hymba-1.5b": 4, "mixtral-8x22b": 1}
+LM_FAMILY_BUDGETS = [2, 3]  # (a): falcon-mamba-7b's 2 chips, random_fault_map(c, 256, 256, 0.05 (c + 1))
+LM_FAMILY_GRAD_BL = (2, 64)  # (a): the gradient gate's ssm_block input, batch x length
+# (a): the gradient gate's limit, each leaf's largest error over its largest CPU gradient: a sound
+# backward reads about 1.6e-06 on the H100, one that reads h_t where h_{t-1} belongs about 0.5
+# (tools/planted_faults.py bwd; PERF.md §6)
+LM_FAMILY_GRAD_TOL = 1e-5
+# (b): hymba-1.5b's compute="sharded" model extent: in_proj's pieces start at 1600, 3200 and 4800 (64, 128
+# and 192 mod 256), x_proj's rows at 800 (32 mod 256); its 25 and 5 heads divide by neither 2 nor 4, so
+# attention stays whole
+LM_FAMILY_TP_MODEL = 4
+LM_FAMILY_TP_GEMMS = ("ssm.in_proj", "ssm.x_proj", "ssm.dt_w", "ssm.out_proj", "mlp.wg", "mlp.wu", "mlp.wd")
+LM_FAMILY_EXPERT_PIECES = 4  # (c): mixtral-8x22b's 8 experts split 4 ways, 2 a piece
+LM_FAMILY_EXPERT_M = 160  # (c): a FAT step's rows an expert: 8 batch rows x capacity 20 (64 tokens, top-2 of 8)
+LM_FAMILY_GRAD_REL_L2 = 1e-4  # (c): the member gradient under vmap against plain autograd, each leaf's relative L2
+
+
+def family_fit_reckoning(copy_bytes: int, members: int) -> int:
+    """The population engine's device bytes for a fit of ``members``
+    members whose params take ``copy_bytes``, counting whole param copies
+    alone: in AdamW's update of a step after the first, ``params0``, the
+    members' params and moments (3 copies a member), their gradients (1)
+    and the update's new params and moments (3) live at once. It leaves
+    out AdamW's temporaries and the backward's activations and masked
+    weights, so it undercounts: stage (a) prints its measured peak beside
+    it."""
+    return copy_bytes * (1 + 7 * members)
+
+
+def ssm_grad_gate(torch, log, cfg, lp, fm) -> dict:
+    """Stage (a)'s gradient gate: the gradient of one ``ssm_block`` (leaves
+    ``lp``, at full width) at batch x length ``LM_FAMILY_GRAD_BL``, fap
+    under ``fm``, on the card by plain autograd and by ``torch.func.grad``
+    (each one forward and one backward scan launch) against the CPU's plain
+    autograd. Each leaf's largest error over its largest CPU gradient must
+    be at most ``LM_FAMILY_GRAD_TOL``, and no leaf may be zero. Raises
+    ``Failed``."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import from_fault_map
+    from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_bwd
+    from repro_torch.models.ssm import ssm_block
+
+    dev = torch.device("cuda")
+    cpu_gen = torch.Generator().manual_seed(1)
+    b_, l_ = LM_FAMILY_GRAD_BL
+    x = torch.randn(b_, l_, cfg.d_model, generator=cpu_gen)
+    cot = torch.randn(b_, l_, cfg.d_model, generator=cpu_gen)
+
+    def loss(q, device):
+        y, _ = ssm_block(SimpleNamespace(**q), x.to(device), cfg, from_fault_map(fm, "fap", device=device))
+        return (y * cot.to(device)).sum()
+
+    def autograd_grads(device):
+        q = {k: v.detach().to(device).requires_grad_() for k, v in lp.items()}
+        return dict(zip(q, torch.autograd.grad(loss(q, device), list(q.values()))))
+
+    torch.cuda.synchronize()
+    before = selective_scan.launches, selective_scan_bwd.launches
+    t0 = time.perf_counter()
+    g_cpu = autograd_grads("cpu")
+    g_card = {"autograd": autograd_grads(dev),
+              "torch.func.grad": torch.func.grad(lambda q: loss(q, dev))({k: v.detach() for k, v in lp.items()})}
+    torch.cuda.synchronize()
+    route = (selective_scan.launches - before[0], selective_scan_bwd.launches - before[1])
+    seconds = time.perf_counter() - t0
+    grad_err, bad = {}, []
+    for how, g in g_card.items():
+        for k in lp:
+            scale = float(g_cpu[k].abs().max())
+            e = float((g[k].cpu() - g_cpu[k]).abs().max()) / scale
+            grad_err[f"{how} {k}"] = e
+            if not e <= LM_FAMILY_GRAD_TOL or not float(g[k].abs().max()) > 0:
+                bad.append(f"{how} {k}: max err {e:.3g} of its largest gradient {scale:.3g}")
+    top = max(grad_err, key=grad_err.get)
+    log(f"lm families (a) gradient gate: layer 0's ssm_block at B x L = {b_} x {l_}, full width, fap, its gradient "
+        f"on the card (plain autograd and torch.func.grad) against the CPU's, each leaf's largest error over its "
+        f"largest CPU gradient: at most {grad_err[top]:.3g} ({top}; limit {LM_FAMILY_GRAD_TOL}) over {len(lp)} "
+        f"leaves, each non-zero: {not bad}; scan launches forward and backward {route}, want (2, 2)")
+    if bad or route != (2, 2):
+        raise Failed(f"lm families (a) gradient gate: {bad}; forward and backward scan launches {route}, want (2, 2)")
+    return dict(grad_err=grad_err[top], grad_err_leaf=top, grad_leaves=len(lp), grad_seconds=seconds)
+
+
+def lm_families(torch, log):
+    """Stage "families" of phase 12: fault-aware training of the SSM, hybrid
+    and MoE families through the port's entry points, at published widths in
+    float32 (depths ``LM_FAMILY_DEPTH``), chips ``random_fault_map(c, 256,
+    256, 0.05 (c + 1))``. Returns the stage's report; raises ``Failed`` on a
+    missed gate.
+
+    (a) falcon-mamba-7b, 2 chips at LM_FAMILY_BUDGETS: the population engine
+    against the serial one (the float32 pin rule); in the fits a forward
+    and a backward scan kernel a layer a step (chip-batched in the
+    population's), no GEMM launch; ``ssm_grad_gate``; the backward kernel
+    at the population fit's launch against its plain version, timed; then
+    ``kernel``-mode evaluation, every scan and GEMM chip-batched, held to
+    ``fap`` and to one chip at a time. (b) hymba-1.5b under
+    ``compute="sharded"`` on 2 x LM_FAMILY_TP_MODEL against the vmap engine
+    (the pin rule; the untied embedding's elements each within its limit,
+    and at most the serial engine's count from the same vmap run plus the
+    pin's own 10: the lookup table's near-zero gradients flip Adam's first
+    steps on float noise, the reference's serial protocol too), the fits'
+    forward and backward scans (one chip-batched pair a channel piece a
+    step), resident bytes the rules' split, the split GEMMs against
+    the whole weight (``lm_tp_parity``) and the chip-batched scan a channel
+    piece against its plain version, then ``kernel``-mode evaluation: one
+    chip-batched scan a channel piece, one chip-batched v1 a weight piece.
+    (c) mixtral-8x22b: its experts split LM_FAMILY_EXPERT_PIECES ways for 2
+    chips, a chips x experts launch a piece joined against the whole
+    stack's launch and each piece against its plain version; the
+    population engine's fit is not run: ``family_fit_reckoning`` puts it
+    over the card's memory, and the reckoning undercounts ((a) prints by
+    how much); its member gradient, the router
+    under ``vmap`` and ``grad``, against plain autograd."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import MASKABLE_KEYS, from_fault_map
+    from repro_torch.core.masking import FaultContext, fault_einsum
+    from repro_torch.fleet.tensor_parallel import SplitTensor
+    from repro_torch.kernels.common import dtype_tol
+    from repro_torch.kernels.mamba_scan.ops import (
+        selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_ref,
+    )
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_ref
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.launch.sharding import resolve_spec
+    from repro_torch.models import model as M
+    from repro_torch.train.fat_trainer import LMFATTrainer
+    from repro_torch.train.population import evaluate_metric
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dtype_tol(torch.float32)
+    rtol, atol = dtype_tol(torch.float32, atol_scale=100)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    report, stages = {}, {}
+
+    def family(name):
+        return dataclasses.replace(get_arch(name), num_layers=LM_FAMILY_DEPTH[name], dtype="float32",
+                                   param_dtype="float32")
+
+    def chips(n):
+        from repro_torch.core import random_fault_map
+
+        return [random_fault_map(c, 256, 256, 0.05 * (c + 1)) for c in range(n)]
+
+    def okt(fm):
+        return torch.as_tensor(fm.ok_mask, dtype=torch.float32, device=dev)
+
+    def pin(got, want, lr):
+        """The float32 pin rule: (max abs err, elements past rtol/atol, the
+        limit each may reach, the leaves that hold them with their counts)."""
+        err, over, where = 0.0, 0, {}
+        for a, b in zip(got, want):
+            for k in a:
+                diff = (a[k].double() - b[k].double()).abs()
+                err = max(err, float(diff.max()))
+                n = int((diff > atol + rtol * b[k].double().abs()).sum())
+                over += n
+                if n:
+                    where[k] = where.get(k, 0) + n
+        return err, over, 2 * lr + atol, where
+
+    def check_pin(what, err, over, limit, where):
+        if over > LM_PIN_F32_MAX_OVER or err > limit:
+            raise Failed(f"lm families {what}: train_batch params differ by {err:.3g} (limit {limit:.3g}), {over} "
+                         f"elements over (limit {LM_PIN_F32_MAX_OVER}), by leaf {where}")
+
+    def launches():
+        torch.cuda.synchronize()
+        return dict(scan=selective_scan.launches, scan_fleet=selective_scan.fleet_launches,
+                    bwd=selective_scan_bwd.launches, bwd_fleet=selective_scan_bwd.fleet_launches,
+                    gemm=masked_matmul.launches, v1=masked_matmul.launches_by_variant["v1"],
+                    v1_fleet=masked_matmul.fleet_launches_by_variant["v1"])
+
+    def metrics_gate(what, m_k, m_f, m_s):
+        f_err = max(abs(x - y) for x, y in zip(m_k, m_f))
+        s_err = max(abs(x - y) for x, y in zip(m_k, m_s))
+        if f_err > LM_METRIC_TOL or s_err > LM_SERIAL_TOL:
+            raise Failed(f"lm families {what}: kernel-mode metrics {m_k}, fap {m_f} (tol {LM_METRIC_TOL}), one chip "
+                         f"at a time {m_s} (tol {LM_SERIAL_TOL})")
+        return f_err, s_err
+
+    def slice_steps(trainer, budgets):
+        """Steps each pop slice runs (its members' largest budget, in the
+        order the trainer's scheduler hands them to the engine), summed."""
+        budgets = trainer.scheduler.schedule(budgets).permute(budgets)
+        k = len(budgets) // trainer.engine.num_shards
+        return sum(max(budgets[d * k:(d + 1) * k]) for d in range(trainer.engine.num_shards))
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (a) falcon-mamba-7b: the population and serial engines, the scan's backward kernel ---
+    def ssm_fat():
+        cfg = family("falcon-mamba-7b")
+        layers, fleet = cfg.num_layers, chips(2)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pop = LMFATTrainer(cfg, pretrain_steps=0, metric=LM_METRIC, population_size=len(fleet))
+        ser = LMFATTrainer(cfg, pretrain_steps=0, metric=LM_METRIC, engine="serial")
+        ser.base_params = pop.base_params
+        seconds = dict(init=time.perf_counter() - t0)
+        copy = sum(t.numel() * t.element_size() for t in pop.base_params.values())
+        reckon = family_fit_reckoning(copy, len(fleet))
+        reset_launches()
+        t0 = time.perf_counter()
+        got = pop.train_batch(fleet, LM_FAMILY_BUDGETS)
+        fit_launches = launches()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        reset_launches()
+        t0 = time.perf_counter()
+        want = ser.train_batch(fleet, LM_FAMILY_BUDGETS)
+        ser_launches = launches()
+        seconds["serial_fit"] = time.perf_counter() - t0
+        err, over, limit, where = pin(got, want, pop.opt_cfg.learning_rate)
+        # a forward and a backward scan a layer a step: one chip-batched pair for the population's
+        # members, one pair a member-step for the serial engine; no masked GEMM launch (fap)
+        n_pop, n_ser = layers * max(LM_FAMILY_BUDGETS), layers * sum(LM_FAMILY_BUDGETS)
+        want_pop = dict(scan=n_pop, scan_fleet=n_pop, bwd=n_pop, bwd_fleet=n_pop, gemm=0, v1=0, v1_fleet=0)
+        want_ser = dict(scan=n_ser, scan_fleet=0, bwd=n_ser, bwd_fleet=0, gemm=0, v1=0, v1_fleet=0)
+        log(f"lm families (a) {cfg.name} (depth {layers}, float32, {len(fleet)} chips, budgets {LM_FAMILY_BUDGETS}): "
+            f"population against serial max abs err {err:.3g} (limit {limit:.3g}), {over} elements over (rtol "
+            f"{rtol}, atol {atol}; limit {LM_PIN_F32_MAX_OVER}; by leaf {where}); population fit {fit_s:.2f} s, serial "
+            f"fit {seconds['serial_fit']:.2f} s; the population fit's peak {peak / 1e9:.2f} GB over the stage's start "
+            f"against family_fit_reckoning's {reckon / 1e9:.2f} GB (a param copy {copy / 1e9:.3f} GB x "
+            f"{reckon // copy}; measured / reckoned {peak / reckon:.3f}); launches in the population fit {fit_launches} "
+            f"(want {want_pop}), in the serial fit {ser_launches} (want {want_ser})")
+        if fit_launches != want_pop or ser_launches != want_ser:
+            raise Failed(f"lm families (a): the fits launched {fit_launches} and {ser_launches}, want {want_pop} and "
+                         f"{want_ser}")
+        check_pin("(a)", err, over, limit, where)
+        out = dict(fit_seconds=fit_s, params_err=err, elements_over_tol=over, peak_bytes=peak,
+                   reckoned_bytes=reckon, copy_bytes=copy, fit_launches=fit_launches, serial_launches=ser_launches)
+        del ser, want
+        free()
+
+        # the gradient gate: one ssm_block on the card against the CPU, every SSM leaf
+        lp = {k.rsplit(".", 1)[-1]: v for k, v in pop.base_params.items() if k.startswith("layers.0.ssm.")}
+        out.update(ssm_grad_gate(torch, log, cfg, lp, fleet[0]))
+        seconds["gradient_gate"] = out["grad_seconds"]
+        free()
+
+        # the backward kernel at the population fit's launch against its plain version, timed
+        rows, length = len(fleet) * pop.stream.batch_size, pop.stream.seq_len
+        dim, n = cfg.d_inner, cfg.ssm_state
+        u, gy = torch.randn(2, rows, length, dim, generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(torch.randn(rows, length, dim, generator=gen, device=dev) - 3)
+        a = -torch.exp(torch.randn(len(fleet), dim, n, generator=gen, device=dev))
+        bm, cm = torch.randn(2, rows, length, n, generator=gen, device=dev)
+        d_skip = torch.randn(len(fleet), dim, generator=gen, device=dev)
+        gh = torch.randn(rows, dim, n, generator=gen, device=dev)
+        args = (u, dt, a, bm, cm, d_skip, gy, gh)
+        before = selective_scan_bwd.fleet_launches
+        grads = selective_scan_bwd(*args)
+        torch.cuda.synchronize()
+        ran = selective_scan_bwd.fleet_launches - before
+        ref = selective_scan_bwd_ref(*args)
+        bwd_err = {}
+        for name_, g_, r_ in zip(("gu", "gdt", "ga", "gb", "gc", "gd"), grads, ref):
+            scale = max(float(r_.abs().max()), 1.0)  # gA, gB and gC sum over B x L or D
+            bwd_err[name_] = worst(g_ / scale, r_ / scale, SCAN_F32_TOL)
+        del grads, ref
+        elems = rows * length * dim * n
+        nbytes = 4 * (4 * rows * length * dim + 4 * rows * length * n + 2 * len(fleet) * (dim * n + dim)
+                      + rows * length * dim + rows * dim * n)
+        # the bound: each input read and each output written once at the HBM rate, or 18 fp32 operations
+        # per (b, t, d, n) at the fp32 rate (the state, dh, the four gradient terms), or its one
+        # exponential on the SFUs, whichever takes longest
+        sides = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": 18 * elems / PEAK_OPS["float32"] * 1e3,
+                 "exps": elems / SFU_PER_S * 1e3}
+        flush = torch.empty(2**28, dtype=torch.int32, device=dev)
+        row = dict(ms=event_ms(torch, lambda: selective_scan_bwd(*args), flush),
+                   plain_ms=event_ms(torch, lambda: selective_scan_bwd_ref(*args), flush, 3),
+                   bound_ms=max(sides.values()), bound_by="bytes" if sides["bytes"] >= max(sides.values()) else
+                   "operations", sides_ms=sides, max_abs_err=max(e for e, _ in bwd_err.values()),
+                   shape=[len(fleet), rows // len(fleet), length, dim, n])
+        del flush, args, u, gy, dt, bm, cm, gh
+        log(f"lm families (a) selective_scan_bwd at the population fit's launch ({len(fleet)} chips x "
+            f"{rows // len(fleet)} x {length} x {dim} x {n}, float32, gh given; {card_line()}): {ran} chip-batched "
+            f"launch; against its plain version, each gradient in units of its largest plain value, max err "
+            + ", ".join(f"{k} {e:.3g}" for k, (e, _) in bwd_err.items())
+            + f" (rtol, atol {SCAN_F32_TOL}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms (bytes {sides['bytes']:.4f}, 18 fp32 ops/elem {sides['operations']:.4f}, "
+            f"exps {sides['exps']:.4f})")
+        if ran != 1 or not all(ok_ for _, ok_ in bwd_err.values()):
+            raise Failed(f"lm families (a): selective_scan_bwd ran {ran} chip-batched launches (want 1), errors {bwd_err}")
+        out["bwd_row"] = row
+
+        # kernel-mode evaluation: every scan and GEMM chip-batched
+        per_forward = sum(uses for _, _, uses in cfg.gemm_shapes())
+        t0 = time.perf_counter()
+        reset_launches()
+        m_k = pop.evaluate_batch(got, fleet, mode="kernel")
+        ran = launches()
+        want_ran = dict(scan=layers * len(pop._evals), gemm=per_forward * len(pop._evals))
+        m_f = pop.evaluate_batch(got, fleet)
+        m_s = [evaluate_metric(pop.engine, p, from_fault_map(fm, "kernel", device=dev)) for p, fm in zip(got, fleet)]
+        f_err, s_err = metrics_gate("(a)", m_k, m_f, m_s)
+        seconds["deployment"] = time.perf_counter() - t0
+        log(f"lm families (a) deployment (kernel mode, evaluate_batch): launches {ran}, want {want_ran} all "
+            f"chip-batched; {LM_METRIC} {[round(-v, 6) for v in m_k]}, against fap max diff {f_err:.3g}, against one "
+            f"chip at a time {s_err:.3g}; seconds " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+        if not (ran["scan"] == ran["scan_fleet"] == want_ran["scan"] and ran["bwd"] == 0
+                and ran["gemm"] == ran["v1"] == ran["v1_fleet"] == want_ran["gemm"]):
+            raise Failed(f"lm families (a) deployment: launches {ran}, want {want_ran} chip-batched")
+        out.update(eval_launches=ran, metrics_kernel=m_k, fap_err=f_err, serial_err=s_err, seconds=seconds)
+        return out
+
+    # -- (b) hymba-1.5b under compute="sharded", against the vmap engine ------------------
+    def hybrid_tp():
+        cfg = family("hymba-1.5b")
+        layers, fleet = cfg.num_layers, chips(len(LM_SHARDED_BUDGETS))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        vm = LMFATTrainer(cfg, pretrain_steps=0, metric=LM_METRIC)
+        tp = LMFATTrainer(cfg, pretrain_steps=0, metric=LM_METRIC, engine="sharded", engine_kwargs=dict(
+            mesh=make_fleet_mesh(2, LM_FAMILY_TP_MODEL, devices=["cuda"] * 2 * LM_FAMILY_TP_MODEL),
+            compute="sharded"))
+        tp.base_params = vm.base_params
+        eng = tp.engine
+        reset_launches()
+        t0 = time.perf_counter()
+        got = tp.train_batch(fleet, LM_SHARDED_BUDGETS)
+        tp_launches = launches()
+        fit_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        want = vm.train_batch(fleet, LM_SHARDED_BUDGETS)
+        vm_launches = launches()
+        vmap_fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        err, over, limit, where = pin(got, want, tp.opt_cfg.learning_rate)
+        # the untied embedding's departure beside the serial engine's (the reference's protocol) from the
+        # same vmap run: Adam moves a row element by +-lr on a near-zero lookup gradient's sign
+        ser = LMFATTrainer(cfg, pretrain_steps=0, metric=LM_METRIC, engine="serial")
+        ser.base_params = vm.base_params
+        s_err, s_over, _, s_where = pin(ser.train_batch(fleet, LM_SHARDED_BUDGETS), want, tp.opt_cfg.learning_rate)
+        del ser
+        over_rest = over - where.get("embed", 0)
+        embed_limit = s_where.get("embed", 0) + LM_PIN_F32_MAX_OVER
+        specs = M.param_specs(cfg)
+
+        def n_pieces(k):
+            return eng.model_size if "model" in resolve_spec(specs[k], got[0][k].shape, eng.mesh_rules) else 1
+
+        st = eng.last_fit_stats
+        split = sum(t.numel() * t.element_size() / n_pieces(k) for k, t in got[0].items())
+        # a forward and a backward scan a layer a channel piece a pop slice's step, chip-batched over the
+        # slice's members; the vmap engine's a layer a step
+        n_tp, n_vm = layers * LM_FAMILY_TP_MODEL * slice_steps(tp, LM_SHARDED_BUDGETS), layers * max(LM_SHARDED_BUDGETS)
+        want_tp = dict(scan=n_tp, scan_fleet=n_tp, bwd=n_tp, bwd_fleet=n_tp, gemm=0, v1=0, v1_fleet=0)
+        want_vm = dict(scan=n_vm, scan_fleet=n_vm, bwd=n_vm, bwd_fleet=n_vm, gemm=0, v1=0, v1_fleet=0)
+        log(f"lm families (b) {cfg.name} (depth {layers}, float32, {len(fleet)} chips, budgets {LM_SHARDED_BUDGETS}) "
+            f"compute='sharded' on {dict(eng.mesh.shape)} against the vmap engine: max abs err {err:.3g} (limit "
+            f"{limit:.3g}), {over} elements over (by leaf {where}; limit {LM_PIN_F32_MAX_OVER} but the untied "
+            f"embedding's, each within the limit and at most {embed_limit} of them, the serial engine's count plus "
+            f"{LM_PIN_F32_MAX_OVER}; the serial engine against the same vmap run: max abs err {s_err:.3g}, {s_over} "
+            f"over, by leaf {s_where}); fit {fit_s:.2f} s against the vmap engine's {vmap_fit_s:.2f} s; per-member "
+            f"resident bytes at mesh position 0 {st['per_member_resident_bytes']:.0f} of "
+            f"{st['per_member_total_bytes']:.0f} (the rules' split: {split:.0f}); launches in the split fit "
+            f"{tp_launches} (want {want_tp}), in the vmap fit {vm_launches} (want {want_vm}); peak {peak / 1e9:.2f} GB")
+        if tp_launches != want_tp or vm_launches != want_vm:
+            raise Failed(f"lm families (b): the fits launched {tp_launches} and {vm_launches}, want {want_tp} and "
+                         f"{want_vm}")
+        check_pin("(b)", err, over_rest, limit, where)
+        if where.get("embed", 0) > embed_limit:
+            raise Failed(f"lm families (b): {where['embed']} elements of the untied embedding past the pin, over the "
+                         f"serial engine's {s_where.get('embed', 0)} + {LM_PIN_F32_MAX_OVER}")
+        if (st["pop_extent"], st["model_extent"]) != (2, LM_FAMILY_TP_MODEL) or st["per_member_resident_bytes"] != split:
+            raise Failed(f"lm families (b): member state not stored as the rules split it: {st}, want {split}")
+        out = dict(fit_seconds=fit_s, vmap_fit_seconds=vmap_fit_s, params_err=err, elements_over_tol=over,
+                   over_by_leaf=where, serial_err=s_err, serial_over_by_leaf=s_where, embed_limit=embed_limit,
+                   stats=st, split_bytes=split, fit_launches=tp_launches, vmap_launches=vm_launches, peak_bytes=peak)
+        del want
+        free()
+
+        # the split GEMMs (lm_tp_parity) and the chip-batched scan a channel piece, 2 chips
+        oks = [okt(fm) for fm in fleet[:2]]
+        out["parity"] = lm_tp_parity(torch, log, cfg, got[:2], oks, eng, gemms=LM_FAMILY_TP_GEMMS, head="lm_head")
+        apart = 1 + 0.1 * torch.arange(2, dtype=torch.float32, device=dev)  # chip 1's A and D set apart
+        a_all = -torch.exp(torch.stack([p["layers.0.ssm.a_log"] for p in got[:2]]).float()) * apart[:, None, None]
+        d_all = torch.stack([p["layers.0.ssm.d_skip"] for p in got[:2]]) * apart[:, None]
+        width, n = cfg.d_inner // LM_FAMILY_TP_MODEL, cfg.ssm_state
+        rows = 2 * tp.stream.batch_size
+        scan_err, scan_ran = 0.0, 0
+        for o in range(0, cfg.d_inner, width):
+            u = torch.randn(rows, tp.stream.seq_len, width, generator=gen, device=dev)
+            dt = torch.nn.functional.softplus(torch.randn(rows, tp.stream.seq_len, width, generator=gen, device=dev) - 3)
+            bm, cm = torch.randn(2, rows, tp.stream.seq_len, n, generator=gen, device=dev)
+            args = (u, dt, a_all[:, o:o + width].contiguous(), bm, cm, d_all[:, o:o + width].contiguous())
+            before = selective_scan.fleet_launches
+            y, h = selective_scan(*args)
+            scan_ran += selective_scan.fleet_launches - before
+            ref_y, ref_h = selective_scan_ref(*args)
+            for got_t, ref_t in ((y, ref_y), (h, ref_h)):
+                e, within = worst(got_t, ref_t, SCAN_F32_TOL)
+                scan_err = max(scan_err, e)
+                if not within:
+                    raise Failed(f"lm families (b): the chip-batched scan of the channel piece at {o} off its plain "
+                                 f"version by {e:.3g} (tol {SCAN_F32_TOL})")
+        log(f"lm families (b) chip-batched scan a channel piece (2 chips x {rows // 2} x {tp.stream.seq_len} x "
+            f"{width} x {n}, each chip's own A and D, {cfg.d_inner // width} pieces): {scan_ran} launches, max abs err "
+            f"{scan_err:.3g} against the plain version (tol {SCAN_F32_TOL})")
+        if scan_ran != cfg.d_inner // width:
+            raise Failed(f"lm families (b): {scan_ran} chip-batched scan launches, want {cfg.d_inner // width}")
+        out.update(scan_piece_err=scan_err)
+
+        # kernel-mode evaluation on the split pieces
+        pieces = sum(n_pieces(k) for k in got[0] if k.rsplit(".", 1)[-1] in MASKABLE_KEYS)
+        reset_launches()
+        m_k = tp.evaluate_batch(got, fleet, mode="kernel")
+        ran = launches()
+        evals = len(tp._evals) * eng.num_shards
+        want_ran = dict(scan=layers * LM_FAMILY_TP_MODEL * evals, gemm=pieces * evals)
+        m_f = vm.evaluate_batch(got, fleet)
+        m_s = [evaluate_metric(tp.engine, p, from_fault_map(fm, "kernel", device=dev)) for p, fm in zip(got, fleet)]
+        f_err, s_err = metrics_gate("(b)", m_k, m_f, m_s)
+        log(f"lm families (b) deployment (kernel mode through the split forward): launches {ran}, want {want_ran} all "
+            f"chip-batched ({pieces} GEMM pieces and {layers * LM_FAMILY_TP_MODEL} channel pieces a forward x "
+            f"{len(tp._evals)} eval batches x {eng.num_shards} pop slices); {LM_METRIC} against fap max diff "
+            f"{f_err:.3g}, against one chip at a time {s_err:.3g}")
+        if not (ran["scan"] == ran["scan_fleet"] == want_ran["scan"]
+                and ran["gemm"] == ran["v1"] == ran["v1_fleet"] == want_ran["gemm"]):
+            raise Failed(f"lm families (b) deployment: launches {ran}, want {want_ran} chip-batched")
+        out.update(eval_launches=ran, pieces_a_forward=pieces, metrics_kernel=m_k, fap_err=f_err, serial_err=s_err)
+        return out
+
+    # -- (c) mixtral-8x22b: the expert split's parity; the router under vmap and grad ------
+    def moe_fat():
+        cfg = family("mixtral-8x22b")
+        fleet = chips(2)
+        ok = torch.stack([okt(fm) for fm in fleet])
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr = LMFATTrainer(cfg, pretrain_steps=0, metric=LM_METRIC, population_size=1)
+        params = tr.base_params
+        out = dict(expert_split={})
+
+        def member(spec):
+            return lambda x, w, mk: fault_einsum(spec, x, w, FaultContext(ok=mk, mode="kernel"))
+
+        for wname, spec in (("wg", "ecd,edf->ecf"), ("wu", "ecd,edf->ecf"), ("wd", "ecf,efd->ecd")):
+            w = params[f"layers.0.moe.{wname}"]
+            w2 = torch.stack([w, 2 * w])  # chip 1's experts x 2: a read of the other chip's shows
+            e, k_ = w.shape[:2]
+            step = e // LM_FAMILY_EXPERT_PIECES
+            offsets = list(range(0, e, step))
+            split = SplitTensor([w2[:, o:o + step].contiguous() for o in offsets], -3, offsets)
+            x = torch.randn(2, e, LM_FAMILY_EXPERT_M, k_, generator=gen, device=dev)
+            reset_launches()
+            y_split = torch.func.vmap(member(spec))(x, split, ok)
+            n_split = launches()["gemm"], masked_matmul.fleet_expert_launches_by_variant["v1"]
+            reset_launches()
+            y_whole = torch.func.vmap(member(spec))(x, w2, ok)
+            n_whole = launches()["gemm"], masked_matmul.fleet_expert_launches_by_variant["v1"]
+            joined, j_ok = worst(y_split, y_whole, f32)
+            del y_split, y_whole
+            piece_err = 0.0
+            for piece, o in zip(split.pieces, offsets):
+                xs = x[:, o:o + step].contiguous()
+                e_, p_ok = worst(masked_matmul(xs, piece, ok), masked_matmul_ref(xs, piece, ok), f32)
+                piece_err = max(piece_err, e_)
+                j_ok = j_ok and p_ok
+            out["expert_split"][wname] = dict(launches=n_split, whole_launches=n_whole, joined_err=joined,
+                                              piece_err=piece_err)
+            log(f"lm families (c) {cfg.name} {wname} ({spec}, 2 chips x {e} experts x M {LM_FAMILY_EXPERT_M} x "
+                f"{tuple(w.shape[1:])}, split {LM_FAMILY_EXPERT_PIECES} ways over the experts): (launches, chips x "
+                f"experts v1) {n_split} for the pieces, {n_whole} for the whole stack; joined against the whole "
+                f"stack's launch max abs err {joined:.3g}, each piece against its plain version {piece_err:.3g} "
+                f"(rtol, atol {f32})")
+            if n_split != (LM_FAMILY_EXPERT_PIECES,) * 2 or n_whole != (1, 1) or not j_ok:
+                raise Failed(f"lm families (c) {wname}: launches {n_split} (want {LM_FAMILY_EXPERT_PIECES} chips x "
+                             f"experts v1) and {n_whole} (want 1), joined err {joined:.3g}, piece err {piece_err:.3g}")
+            del w2, split, x
+            free()
+
+        copy = sum(t.numel() * t.element_size() for t in params.values())
+        reckon = family_fit_reckoning(copy, 1)
+        total = torch.cuda.mem_get_info()[1]
+        under = report["ssm"]["peak_bytes"] / report["ssm"]["reckoned_bytes"]
+        out.update(copy_bytes=copy, reckoned_bytes=reckon, card_bytes=total)
+        if reckon <= total:
+            raise Failed(f"lm families (c): the fit is reckoned at {reckon / 1e9:.2f} GB, within the card's "
+                         f"{total / 1e9:.2f} GB: run it")
+        # the population engine's member gradient, its own transform on one member: the fit's
+        # forward and backward without the update's copies
+        eng = tr.engine
+        batch = tr._train_batch_fn(0)
+        members = {k: v[None] for k, v in params.items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads, (value, _) = torch.func.vmap(lambda p, mk: eng._grad(p, batch, eng._ctx(mk, "fap")))(members, ok[:1])
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        q = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, _ = eng.loss_fn(q, batch, from_fault_map(fleet[0], "fap", device=dev))
+        ref = dict(zip(q, torch.autograd.grad(loss, list(q.values()))))
+        errs = {k: rel_l2(grads[k][0], ref[k]) for k in q if float(ref[k].norm()) > 0}
+        zero = [k for k in q if not float(grads[k][0].abs().max()) > 0]
+        worst_k = max(errs, key=errs.get)
+        out.update(grad_seconds=grad_s, grad_peak_bytes=peak, loss=float(value[0]), loss_autograd=float(loss.detach()),
+                   grad_rel_l2=errs[worst_k], zero_grads=zero)
+        log(f"lm families (c) {cfg.name} (depth {cfg.num_layers}, float32): the population engine's fit at width 1 "
+            f"reckoned at {reckon / 1e9:.2f} GB (a param copy {copy / 1e9:.2f} GB x {reckon // copy}; the reckoning "
+            f"undercounts, (a)'s measured peak was {under:.3f} x its reckoning) against the card's {total / 1e9:.2f} "
+            f"GB (fits: {reckon <= total}); its member gradient (vmap of grad_and_value, the router "
+            f"included) in {grad_s:.2f} s, peak {peak / 1e9:.2f} GB over the stage's start; loss "
+            f"{float(value[0]):.6f} against plain autograd's {float(loss.detach()):.6f}; gradients' relative L2 against plain "
+            f"autograd at most {errs[worst_k]:.3g} ({worst_k}; limit {LM_FAMILY_GRAD_REL_L2}); zero gradients {zero}")
+        if zero or errs[worst_k] > LM_FAMILY_GRAD_REL_L2 or abs(float(value[0]) - float(loss.detach())) > f32[1]:
+            raise Failed(f"lm families (c): the member gradient off plain autograd: {out}")
+        return out
+
+    for name, fn in (("ssm", ssm_fat), ("hybrid_tp", hybrid_tp), ("moe", moe_fat)):
+        t0 = time.perf_counter()
+        report[name] = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        free()
+    report.update(stages=stages, seconds=sum(stages.values()),
+                  bwd_launches=sum(report[k][f]["bwd"] for k, f in (
+                      ("ssm", "fit_launches"), ("ssm", "serial_launches"), ("hybrid_tp", "fit_launches"),
+                      ("hybrid_tp", "vmap_launches"))))
+    log("lm stage families: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+        + f"; {report['seconds']:.2f} s")
+    return report
 
 
 def lm_phase(torch, log):
@@ -1657,6 +2225,11 @@ def lm_phase(torch, log):
 
     report["speed"] = timed("timing", speed)
     report["peak_memory_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    del trainer, trainer32, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    # stage "families": the SSM, hybrid and MoE families (it reads its own peaks)
+    report["families"] = timed("families", lambda: lm_families(torch, log))
     seconds = time.perf_counter() - t_phase
     log(f"lm peak device memory {report['peak_memory_gib']:.2f} GiB over the {held / 2**30:.2f} GiB held "
         "when the phase began; stages (s): "
@@ -3478,7 +4051,7 @@ def run(args, torch) -> int:
 
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan", "decode_attention"])
+    logs = build_kernels(["masked_matmul", "flash_attention", "selective_scan", "selective_scan_bwd", "decode_attention"])
     # kernel instances a source builds: the entry functions ptxas compiles
     instances = {name: text.count("Compiling entry function") for name, text in logs.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}; by source, nvcc's wall (s) and "
@@ -4514,6 +5087,7 @@ def run(args, torch) -> int:
     fam_mix, fam_hymba = fam["launches"]["mixtral-8x22b"], fam["launches"]["hymba-1.5b"]
     fam_rows = {(r["label"], r["dtype"], r["m"]): r for r in fam["expert_rows"]}
     fam_scan = next(r for r in fam["scan_rows"] if r["share"] == "per-chip" and r["dtype"] == "bfloat16")
+    bwd_row = lm_report["families"]["ssm"]["bwd_row"]  # phase 12's stage "families" (a)
 
     def chips_expert_entry(variant, m):
         r = fam_rows[("mixtral-8x22b wg", "bfloat16", m)]
@@ -4567,6 +5141,12 @@ def run(args, torch) -> int:
              launches=fam_hymba["scan_fleet"], max_abs_err=fam["max_abs_err"]["scan"],
              ms=fam_scan["ms"], plain_ms=fam_scan["plain_ms"], bound_ms=fam_scan["bound_ms"],
              bound_by=fam_scan["bound_by"], library_ms=None),
+        dict(name="selective_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+             replaces="src/repro/kernels/mamba_scan/mamba_scan.py:54",
+             launches=lm_report["families"]["bwd_launches"], max_abs_err=bwd_row["max_abs_err"],
+             ms=bwd_row["ms"], plain_ms=bwd_row["plain_ms"], bound_ms=bwd_row["bound_ms"],
+             bound_by=bwd_row["bound_by"], library_ms=None),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/decode_attention.py:216",
@@ -4619,7 +5199,9 @@ def run(args, torch) -> int:
         f"and {FLEET_EXPERT_MS[1]} (mma) an expert (launches: phase 14 (d)'s mixtral fleet); "
         f"selective_scan.chips{fam_scan['chips']}: one chip-batched launch at hymba-1.5b's prefill, "
         f"{fam_scan['chips']} chips x 4x128x3200x16, bf16 u, per-chip a and d (launches: phase 14 (d)'s hymba "
-        f"fleet); launches_zoo: phase 15's main-path launches; launches_pop_eval: "
+        f"fleet); selective_scan_bwd: one chip-batched launch at falcon-mamba-7b's population fit, "
+        f"{' x '.join(map(str, bwd_row['shape']))} (chips x rows x L x D x N), float32 (launches: phase 12's stage "
+        f"families' fits); launches_zoo: phase 15's main-path launches; launches_pop_eval: "
         f"the chip-batched v1 launches of phases 11 and 12's kernel-mode population evaluations; "
         f"launches_tensor_parallel: their compute='sharded' runs' (one a weight piece); "
         f"flash_attention.mma / .v1: one launch at 4x9x2048^2 causal, bf16 / float32; selective_scan: one launch at 4x128x8192x16, bf16 u (falcon-mamba-7b's "

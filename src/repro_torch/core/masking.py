@@ -16,9 +16,11 @@ kernel  : same semantics through the hand-written masked-GEMM kernel
 A weight may also come split over model positions
 (``repro_torch.fleet.tensor_parallel.SplitTensor``, the sharded population
 engine's ``compute="sharded"``): any weight that is not a tensor is one.
-``fault_linear`` then runs one GEMM per piece at the piece's shape, each
-piece masked through its own rolled map (``core/mapping.py::rolled_map``),
-and combines the pieces' outputs into the whole activation.
+``fault_linear`` and ``fault_einsum`` then run one GEMM per piece at the
+piece's shape, each piece masked through its own rolled map
+(``core/mapping.py::rolled_map``; an expert stack split over its experts
+keeps the whole map), and combine the pieces' outputs into the whole
+activation.
 """
 from __future__ import annotations
 
@@ -182,11 +184,11 @@ def fault_linear(
     take (one neither in x's dtype nor fp32 beside bf16 x, e.g. a bf16
     ``param_dtype`` with a float32 ``dtype``).
 
-    A split ``w`` (``SplitTensor``) runs :func:`_split_linear`; its
+    A split ``w`` (``SplitTensor``) runs :func:`_split_gemm`; its
     ``bias``, split alike, is added per piece.
     """
     if not isinstance(w, torch.Tensor):
-        return _split_linear(x, w, ctx, bias)
+        return _split_gemm(x, w, ctx, bias, fault_linear)
     if ctx is None or not ctx.active:
         y = torch.matmul(x, w.to(x.dtype))
     else:
@@ -208,16 +210,18 @@ def _piece_ctx(ctx: Optional[FaultContext], r0: int, c0: int, device) -> Optiona
     _require_per_chip(ctx)
     rows, cols = ctx.ok.shape[-2:]
     key = (r0 % rows, c0 % cols)
+    if key == (0, 0):  # the map itself: an expert piece, or a piece at a multiple of the array
+        return FaultContext(ok=ctx.ok.to(device), mode=ctx.mode)
     ok = ctx.rolled.get(key) if ctx.rolled is not None else None
     if ok is None:
         ok = rolled_map(ctx.ok, *key)
     return FaultContext(ok=ok.to(device), mode=ctx.mode)
 
 
-def _split_linear(x: torch.Tensor, w, ctx: Optional[FaultContext], bias) -> torch.Tensor:
-    """``fault_linear`` on a weight split over model positions, at each
-    piece's shape and on its device, under its own rolled map; nothing is
-    gathered to the whole weight's shape.
+def _split_gemm(x: torch.Tensor, w, ctx: Optional[FaultContext], bias, gemm) -> torch.Tensor:
+    """A masked GEMM ``gemm(x, piece, piece_ctx)`` on a weight split over
+    model positions, at each piece's shape and on its device, under its own
+    rolled map; nothing is gathered to the whole weight's shape.
 
     * column split (``w.axis == -1``, d_out): each piece's GEMM on the
       whole ``x``, plus the bias's piece, concatenated on the last dim;
@@ -226,32 +230,41 @@ def _split_linear(x: torch.Tensor, w, ctx: Optional[FaultContext], bias) -> torc
       on x's device, then the bias;
     * a transposed split leaf (``SplitTensor.T``, the tied unembed of a
       vocab-split embedding) is a column split whose origins are the
-      vocab offsets.
+      vocab offsets;
+    * expert split (``w.axis == -3``, an expert stack ``(E, K, N)``): each
+      piece's experts on their slice of ``x`` ``(E, M, K)``, under the
+      chip's whole map (each expert's ``(K, N)`` view is whole, its origin
+      0), concatenated on the experts.
 
     The outputs return to ``x``'s device: the one combination across
     positions each GEMM makes (a local copy where the device repeats, a
     peer copy where it does not)."""
+    # imported here: the fleet package imports this module
+    from repro_torch.fleet.tensor_parallel import cut, join
+
     if w.axis == -1:
         if bias is not None and (isinstance(bias, torch.Tensor) or bias.offsets != w.offsets):
             raise ValueError("a column-split weight takes a bias split as it is")
         ys = []
         for j, (piece, c0) in enumerate(zip(w.pieces, w.offsets)):
-            y = fault_linear(x.to(piece.device), piece, _piece_ctx(ctx, 0, c0, piece.device))
-            ys.append((y if bias is None else y + bias.pieces[j]).to(x.device))
-        return torch.cat(ys, dim=-1)
+            y = gemm(x.to(piece.device), piece, _piece_ctx(ctx, 0, c0, piece.device))
+            ys.append(y if bias is None else y + bias.pieces[j])
+        return join(ys, -1, x.device)
     if w.axis == -2:
         if bias is not None and not isinstance(bias, torch.Tensor):
             raise ValueError("a row-split weight takes a whole bias")
         acc = torch.promote_types(x.dtype, torch.float32)
         y = None
-        for piece, r0 in zip(w.pieces, w.offsets):
-            part = fault_linear(x[..., r0:r0 + piece.shape[-2]].to(piece.device), piece,
-                                _piece_ctx(ctx, r0, 0, piece.device))
-            part = part.to(x.device, acc)
+        for xk, piece, r0 in zip(cut(x, w, -1), w.pieces, w.offsets):
+            part = gemm(xk, piece, _piece_ctx(ctx, r0, 0, piece.device)).to(x.device, acc)
             y = part if y is None else y + part
         y = y.to(x.dtype)
         return y if bias is None else y + bias
-    raise ValueError(f"a split weight's GEMM view is its last two dims; got a split on dim {w.axis}")
+    if w.axis == -3 and bias is None:
+        ys = [gemm(xe, piece, _piece_ctx(ctx, 0, 0, piece.device)) for xe, piece in zip(cut(x, w, -3), w.pieces)]
+        return join(ys, -3, x.device)
+    raise ValueError(f"a split weight's GEMM view is its last two dims, or its experts (dim -3) with no bias; "
+                     f"got a split on dim {w.axis}")
 
 
 # the einsum specs that are a batched GEMM x (E, M, K) @ w (E, K, N): the MoE
@@ -272,12 +285,19 @@ def fault_einsum(
     the masked-GEMM kernel with the experts as its batch axis and the one
     ``(R, C)`` mask shared by all of them: one launch for every expert, the
     mask applied on chip, no masked copy written. Any other spec raises in
-    ``kernel`` mode."""
+    ``kernel`` mode.
+
+    A split expert stack (``SplitTensor``, the sharded engine's
+    ``compute="sharded"``) runs :func:`_split_gemm` on the expert specs:
+    split over its experts, each piece's experts take their slice of x
+    under the chip's whole map (one expert-batched launch a piece in
+    ``kernel`` mode); split inside its experts (the rules' fallback where
+    the experts do not divide the model extent), each piece is masked
+    through the map rolled to its origin, as a 2-D weight's piece is."""
     if not isinstance(w, torch.Tensor):
-        raise ValueError(
-            f"fault_einsum {spec!r} got a split weight: the MoE experts under the sharded engine's "
-            "compute='sharded' are not ported (ROADMAP.md §1.4); use compute='gathered'"
-        )
+        if spec not in EXPERT_SPECS:
+            raise ValueError(f"a split weight runs the expert specs {EXPERT_SPECS}, not {spec!r}")
+        return _split_gemm(x, w, ctx, None, lambda xp, wp, cp: fault_einsum(spec, xp, wp, cp))
     if ctx is None or not ctx.active:
         return torch.einsum(spec, x, w.to(x.dtype))
     _require_per_chip(ctx)

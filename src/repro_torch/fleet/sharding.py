@@ -34,8 +34,9 @@ Design invariants, the reference's (``src/repro/fleet/sharding.py``):
   too), equal to float tolerance: a row split sums partial products. The
   engine is one process that issues every slice's work, so the combination
   across positions is a host-issued copy or sum: local where the device
-  repeats in the mesh, a peer copy where it does not. MoE and SSM configs
-  (rules that split an "expert" or "inner" axis) are refused under it.
+  repeats in the mesh, a peer copy where it does not. MoE experts split
+  over the model axis run each piece's experts on their slice of the
+  dispatched tokens; an SSM's split "inner" channels run a scan a piece.
 * **Population -> device mapping.** A chunk of ``population_size`` members
   is padded to a multiple of the pop extent and split contiguously: pop
   slice d takes members ``[d*k, (d+1)*k)``. Padding members are zero-budget
@@ -75,8 +76,17 @@ from repro_torch.train.population import PopulationFATEngine, _device_of, _tree_
 __all__ = ["ShardedPopulationEngine"]
 
 
-def _axes_leaves(tree) -> list:
-    return [tree] if is_axes_leaf(tree) else [a for v in tree.values() for a in _axes_leaves(v)]
+def _gemm_origins(leaf: SplitTensor) -> list[tuple[int, int]]:
+    """The origins on a GEMM's ``(d_in, d_out)`` view that a member-stacked
+    split leaf's pieces can have: a leaf of two or more dims (the member
+    axis aside) split on one of its last two takes each offset as a row and
+    as a column origin (a leaf may be read transposed, as the tied unembed
+    reads the embedding). A stack split over its experts keeps each
+    expert's whole view, and a 1-D leaf (a bias, the SSM's D) is no GEMM's:
+    neither has an origin."""
+    if leaf.pieces[0].dim() < 3 or leaf.axis not in (-1, -2):
+        return []
+    return [key for o in leaf.offsets for key in ((o, 0), (0, o))]
 
 
 class _Split:
@@ -107,8 +117,9 @@ class ShardedPopulationEngine(PopulationFATEngine):
     compute : "gathered" (default): member state stored split, gathered to
         full shape for each update and evaluation. "sharded": the update
         and the evaluation run on the stored pieces (tensor-parallel math;
-        equal to float tolerance, not bitwise). MoE and SSM configs raise
-        ``ValueError`` under it.
+        equal to float tolerance, not bitwise), every family the rules lay
+        out: dense, classifier, MoE (experts or their FFN split), SSM and
+        hybrid (channels split).
 
     ``population_size`` is rounded up to a multiple of the pop extent so
     every chunk tiles the mesh.
@@ -164,14 +175,6 @@ class ShardedPopulationEngine(PopulationFATEngine):
                 )
         else:
             self.mesh_rules = mesh_rules
-        if compute == "sharded" and self.param_axes is not None:
-            named = {a for axes in _axes_leaves(self.param_axes) for a in axes}
-            if named & {"expert", "inner"}:
-                raise ValueError(
-                    f"compute='sharded' takes dense and classifier configs; these params name the "
-                    f"{sorted(named & {'expert', 'inner'})} axes (MoE experts, SSM channels), whose "
-                    "tensor-parallel math is not ported (ROADMAP.md §1.4); use compute='gathered'"
-                )
         # chunks must tile the pop axis: round the configured width up
         self.population_size = max(
             self.num_shards, round_up_to_multiple(self.population_size, self.num_shards)
@@ -384,12 +387,11 @@ class ShardedPopulationEngine(PopulationFATEngine):
         return tree.to(self._devices[0])
 
     def _constrain_masks(self, ok_pop, params_pop):
-        """compute="sharded": the chunk's maps rolled once to every origin a
-        split leaf's piece can have on a GEMM view, its offset taken as a
-        row and as a column (the tied unembed reads a row split as a column
-        split), so each piece's GEMM reads a prebuilt map. A map rolled
-        afresh in each call would be packed again for the kernel at every
-        GEMM (``packed_mask`` keys on the tensor)."""
+        """compute="sharded": the chunk's maps rolled once to every origin
+        that a split leaf's piece has on a GEMM view (``_gemm_origins``), so
+        each piece's GEMM reads a prebuilt map. A map rolled afresh in each
+        call would be packed again for the kernel at every GEMM
+        (``packed_mask`` keys on the tensor)."""
         if isinstance(ok_pop, dict) or not self._tensor_parallel:
             return self._constrain_batch(ok_pop)
         ok_pop = self._constrain_batch(ok_pop)
@@ -397,8 +399,7 @@ class ShardedPopulationEngine(PopulationFATEngine):
         keys = {(0, 0)}
         for leaf in pytree.tree_leaves(params_pop, is_leaf=lambda x: isinstance(x, SplitTensor)):
             if isinstance(leaf, SplitTensor):
-                keys.update((o % rows, 0) for o in leaf.offsets)
-                keys.update((0, o % cols) for o in leaf.offsets)
+                keys.update((r0 % rows, c0 % cols) for r0, c0 in _gemm_origins(leaf))
         return {key: rolled_map(ok_pop, *key) for key in sorted(keys)}
 
     # -- resident-memory accounting ------------------------------------------

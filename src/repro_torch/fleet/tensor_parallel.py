@@ -10,6 +10,12 @@ on them where they lie:
 
 * ``core/masking.py::fault_linear`` runs one GEMM per piece, masked
   through the piece's own rolled map (``core/mapping.py::rolled_map``);
+  ``fault_einsum`` does the same for an expert stack split inside its
+  experts, and for one split over its experts runs each piece's experts on
+  their slice of the dispatched tokens under the chip's whole map;
+* ``models/ssm.py::ssm_block`` runs the depthwise conv, dt, A, D and the
+  selective scan once a channel piece of its split ``"inner"`` leaves
+  (:func:`cut` and :func:`join`);
 * ``models/model.py::embed_inputs`` looks tokens up vocab-parallel
   (:func:`vocab_parallel_lookup`), and ``SplitTensor.T`` turns a
   vocab-split embedding into the column-split tied unembed;
@@ -20,16 +26,16 @@ A leaf the rules leave whole stays a plain tensor on the slice's first
 device: one piece, computed whole. Nothing here gathers a leaf to its whole
 shape; the engine gathers only the fit's output, as the reference's
 ``out_specs`` do. The combinations across positions are the column
-split's concatenation, the row split's sum, the lookup's sum and the grad
-norm: a host-issued copy or sum, local where the device repeats in the mesh
-and a peer copy where it does not.
+split's and the expert split's concatenation, the row split's sum, the
+lookup's sum and the grad norm: a host-issued copy or sum, local where the
+device repeats in the mesh and a peer copy where it does not.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["SplitTensor", "vocab_parallel_lookup"]
+__all__ = ["SplitTensor", "cut", "join", "vocab_parallel_lookup"]
 
 
 class SplitTensor:
@@ -71,6 +77,28 @@ pytree.register_pytree_node(
     lambda pieces, ctx: SplitTensor(pieces, *ctx),
     serialized_type_name="repro_torch.fleet.tensor_parallel.SplitTensor",
 )
+
+
+def cut(x: torch.Tensor, leaf, dim: int) -> list:
+    """An activation cut to a split leaf's pieces along ``dim``: piece j is
+    ``x``'s span at leaf piece j's offset, as long as that piece along the
+    leaf's split dim, on that piece's device (a view where the device is
+    x's). The channels of an SSM's split ``"inner"`` leaves, the experts of
+    a split expert stack, the K of a row split. A whole leaf (a plain
+    tensor) is one piece: ``[x]``."""
+    if isinstance(leaf, torch.Tensor):
+        return [x]
+    return [x.narrow(dim, o, p.shape[leaf.axis]).to(p.device) for p, o in zip(leaf.pieces, leaf.offsets)]
+
+
+def join(parts, dim: int, device) -> torch.Tensor:
+    """The pieces of an activation (``cut``'s, or one output a piece) put
+    back together along ``dim`` on ``device``: the one copy across
+    positions a column split's output needs. One part is returned as it
+    is, moved to ``device`` only if it lies elsewhere."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([t.to(device) for t in parts], dim=dim)
 
 
 def vocab_parallel_lookup(table: SplitTensor, ids: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,8 @@ __all__ = [
     "load_kernel",
     "check_launch",
     "under_vmap",
+    "functorch_wrapped",
+    "wants_grad",
     "SMEM_LIMIT_BYTES",
     "sm_count",
     "dtype_name",
@@ -172,11 +174,30 @@ def check_launch(name: str, err: int) -> None:
 def under_vmap(*ts: torch.Tensor) -> bool:
     """True where one of the tensors is a ``torch.func.vmap`` batched
     tensor (it has no data pointer, and a wrapper's custom op and its vmap
-    rule take it) and none is differentiated by ``torch.func.grad``: the
-    kernels are forward only, so a vmapped gradient (the population FAT
-    engines) runs the plain version, which exists on the CPU alone."""
+    rule take it) and none is differentiated by ``torch.func.grad``. A
+    differentiated call never reaches this check: the scan's wrapper sends
+    one that asks for a gradient (:func:`wants_grad`) to its autograd
+    function, whose forward and backward kernels ``vmap`` maps through the
+    custom ops' rules, and the masked GEMM's training refuses ``kernel``
+    mode off the CPU (``train/population.py``)."""
     ft = torch._C._functorch
     return any(ft.is_batchedtensor(t) for t in ts) and not any(ft.is_gradtrackingtensor(t) for t in ts)
+
+
+def functorch_wrapped(*ts: torch.Tensor) -> bool:
+    """True where one of the tensors is a ``torch.func`` wrapper, batched
+    or grad-tracking: a backward under ``vmap`` of ``grad`` sees its
+    batched cotangents through the grad level's wrappers."""
+    ft = torch._C._functorch
+    return any(ft.is_batchedtensor(t) or ft.is_gradtrackingtensor(t) for t in ts)
+
+
+def wants_grad(*ts: torch.Tensor) -> bool:
+    """True where a gradient is asked of the call: an input requires grad
+    while autograd records, or is a ``torch.func.grad`` tracking tensor."""
+    ft = torch._C._functorch
+    return (any(ft.is_gradtrackingtensor(t) for t in ts)
+            or (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
 
 
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}

@@ -25,9 +25,15 @@ states a lane) raise before any launch.
 ``selective_scan`` launches the kernel for a CUDA tensor and counts the
 launch in ``selective_scan.launches`` (a chip-batched one also in
 ``selective_scan.fleet_launches``); for a CPU tensor it runs
-``selective_scan_ref``, the plain version. There is no fallback between the
-two. The TPU wrapper pads L and D to block multiples for its BlockSpecs; the
-kernel masks its own ragged edge, so nothing is padded here.
+``selective_scan_ref``, the plain version. A call on the card that asks for
+a gradient (training) goes through the custom op
+``repro_torch::selective_scan``, whose autograd formula launches the
+backward kernel, ``kernels/csrc/selective_scan_bwd.cu``
+(``selective_scan_bwd``, counted in ``selective_scan_bwd.launches``); on
+the CPU autograd differentiates the plain version. There is no fallback
+between the routes: each follows from the inputs alone. The TPU wrapper
+pads L and D to block multiples for its BlockSpecs; the kernels mask their
+own ragged edge, so nothing is padded here.
 
 A chip axis: with a of shape (chips, D, N) and d (chips, D), the B rows
 of u, dt, b and c are chips x B / chips, and row r reads chip r // (B /
@@ -50,11 +56,16 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.common import check_launch, load_kernel, sm_count, tuned_block, under_vmap
+from repro_torch.kernels.common import (
+    check_launch, functorch_wrapped, load_kernel, sm_count, tuned_block, under_vmap, wants_grad,
+)
 
 __all__ = [
     "selective_scan",
     "selective_scan_ref",
+    "selective_scan_bwd",
+    "selective_scan_bwd_ref",
+    "bwd_plan",
     "selective_step",
     "scan_plan",
     "resolve_plan",
@@ -68,6 +79,11 @@ _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
     + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 )
+_BWD_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 8
+    + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+)
+BWD_CHUNK = 8  # the backward's C source: steps a checkpoint covers (its CT)
 # the CUDA source's geometry: THREADS per block; a channel takes 1-32 lanes (a power of two),
 # each holding 1, 2, 4 or 8 states in registers, so at most 32 x 8 states a channel
 THREADS, WARP = 128, 32
@@ -170,10 +186,14 @@ def selective_scan_ref(u, dt, a, b, c, d):
     da = torch.exp(dt32[..., None] * a32)  # (B, L, D, N)
     dbu = (dt32 * u32)[..., None] * b.float()[:, :, None, :]
     n = a.shape[-1]
-    hs = torch.empty((length, bsz, dim, n), dtype=torch.float32, device=u.device)
+    # each step's state is a new tensor, stacked once: no write in place, so
+    # the scan runs under vmap and grad (the population FAT engines)
     h = torch.zeros((bsz, dim, n), dtype=torch.float32, device=u.device)
+    steps = []
     for t in range(length):
-        h = hs[t] = da[:, t] * h + dbu[:, t]
+        h = da[:, t] * h + dbu[:, t]
+        steps.append(h)
+    hs = torch.stack(steps) if steps else da.new_zeros((0, bsz, dim, n))
     y = torch.einsum("lbdn,bln->bld", hs, c.float()) + u32 * d.float()
     return y.to(u.dtype), h
 
@@ -187,32 +207,9 @@ def selective_step(h, u_t, dt_t, a, b_t, c_t, d):
     return y.to(u_t.dtype), h
 
 
-def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
-    """(y, h_last) of the selective scan; shapes as ``selective_scan_ref``:
-    one chip's a (D, N) and d (D,), or a chip axis, a (chips, D, N) and d
-    (chips, D), whose B rows are chips x B / chips, in one launch.
-
-    On CUDA: u, b and c share a dtype (float32 or bfloat16); dt, a and d
-    are float32 (the model's dt is fp32: a bf16 GEMM output plus the fp32
-    bias). u, dt, b and c have a unit stride on their last axis and are
-    read through their other strides, so b and c may be slices of one
-    tensor; a's and d's last axes are contiguous, and their chip stride is
-    whole or 0 (one a or d for every chip); 1 <= N <= ``MAX_STATE``.
-    ``lanes`` forces the lanes a channel takes (the rest of the plan
-    follows), else the tuning cache's, else ``scan_plan``'s
-    (``resolve_plan``). Under ``torch.func.vmap`` (a fleet's prefill) the
-    call goes through the custom op ``repro_torch::selective_scan``, whose
-    vmap rule makes the vmapped axis the chip axis: one launch for every
-    chip, counted also in ``selective_scan.fleet_launches``. On the meta
-    device (the dry run, ``launch/dryrun_lib.py``) the call goes through the
-    custom op too, whose fake impl gives the shapes at once where the plain
-    version would loop over every step."""
-    if under_vmap(u, dt, a, b, c, d) or u.device.type == "meta":
-        return torch.ops.repro_torch.selective_scan(u, dt, a, b, c, d, lanes)
-    if u.device.type == "cpu":
-        return selective_scan_ref(u, dt, a, b, c, d)
-    if u.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, got {u.device}")
+def _check_cuda(u, dt, a, b, c, d) -> tuple:
+    """The CUDA kernels' checks on the scan's inputs; returns (chips, bsz,
+    length, dim, n, sa, sd), the chip strides 0 without a chip axis."""
     chips = a.shape[0] if a.dim() == 3 else 1
     if u.dim() != 3 or a.dim() not in (2, 3) or d.dim() != a.dim() - 1 or u.shape[0] % chips:
         raise ValueError(f"bad shapes u{tuple(u.shape)} a{tuple(a.shape)} d{tuple(d.shape)}")
@@ -238,7 +235,53 @@ def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
     sa, sd = (a.stride(0), d.stride(0)) if lead else (0, 0)
     if lead and (sa not in (0, dim * n) or sd not in (0, dim)):
         raise ValueError(f"a and d take a whole or zero chip stride, got {a.stride()} and {d.stride()}")
-    n = _check_states(n)
+    return chips, bsz, length, dim, _check_states(n), sa, sd
+
+
+def _strides(u, dt, b, c) -> tuple:
+    return (u.stride(0), u.stride(1), dt.stride(0), dt.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1))
+
+
+def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
+    """(y, h_last) of the selective scan; shapes as ``selective_scan_ref``:
+    one chip's a (D, N) and d (D,), or a chip axis, a (chips, D, N) and d
+    (chips, D), whose B rows are chips x B / chips, in one launch.
+
+    On CUDA: u, b and c share a dtype (float32 or bfloat16); dt, a and d
+    are float32 (the model's dt is fp32: a bf16 GEMM output plus the fp32
+    bias). u, dt, b and c have a unit stride on their last axis and are
+    read through their other strides, so b and c may be slices of one
+    tensor; a's and d's last axes are contiguous, and their chip stride is
+    whole or 0 (one a or d for every chip); 1 <= N <= ``MAX_STATE``.
+    ``lanes`` forces the lanes a channel takes (the rest of the plan
+    follows), else the tuning cache's, else ``scan_plan``'s
+    (``resolve_plan``). Under ``torch.func.vmap`` (a fleet's prefill) the
+    call goes through the custom op ``repro_torch::selective_scan``, whose
+    vmap rule makes the vmapped axis the chip axis: one launch for every
+    chip, counted also in ``selective_scan.fleet_launches``. On the meta
+    device (the dry run, ``launch/dryrun_lib.py``) the call goes through the
+    custom op too, whose fake impl gives the shapes at once where the plain
+    version would loop over every step.
+
+    A call that asks for a gradient (an input that requires grad where
+    autograd records, or a ``torch.func.grad`` tracking tensor: FAT, serial
+    or population) goes through the custom op on the card, whose autograd
+    formula launches the backward kernel (``selective_scan_bwd``; under
+    ``vmap`` of ``grad``, both kernels chip-batched). On the CPU autograd
+    differentiates ``selective_scan_ref``."""
+    grad = wants_grad(u, dt, a, b, c, d)
+    if grad and u.device.type == "cpu":
+        return selective_scan_ref(u, dt, a, b, c, d)
+    if grad:
+        return _DifferentiableScan.apply(u, dt, a, b, c, d, lanes)
+    if u.device.type == "meta" or under_vmap(u, dt, a, b, c, d):
+        return torch.ops.repro_torch.selective_scan(u, dt, a, b, c, d, lanes)
+    if u.device.type == "cpu":
+        return selective_scan_ref(u, dt, a, b, c, d)
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cpu or cuda, got {u.device}")
+    chips, bsz, length, dim, n, sa, sd = _check_cuda(u, dt, a, b, c, d)
+    lead = a.dim() == 3
     sms = sm_count(u.device)
     # the tuning cache's key has no chip field: a chip-batched launch keeps the plan
     plan = (_plan(bsz, dim, n, lanes if lanes is not None else scan_plan(bsz, dim, n, sms).lanes) if lead
@@ -250,8 +293,7 @@ def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
         err = fn(
             _DTYPES[u.dtype], u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), d.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            bsz, length, dim, n, plan.lanes, plan.states, u.stride(0), u.stride(1), dt.stride(0), dt.stride(1),
-            b.stride(0), b.stride(1), c.stride(0), c.stride(1), bsz // chips, sa, sd,
+            bsz, length, dim, n, plan.lanes, plan.states, *_strides(u, dt, b, c), bsz // chips, sa, sd,
             torch.cuda.current_stream().cuda_stream,
         )
         check_launch("selective_scan", err)
@@ -265,6 +307,116 @@ def selective_scan(u, dt, a, b, c, d, *, lanes: Optional[int] = None):
 selective_scan.launches = 0
 selective_scan.fleet_launches = 0
 selective_scan.last_plan = None
+
+
+def bwd_plan(n: int) -> tuple[int, int]:
+    """(lanes, states) of the backward kernel for N states: min(8, N) states
+    a lane rounded up to a power of two, and the fewest lanes (a power of
+    two) that hold N. The C source refuses any other."""
+    states = min(MAX_STATES_PER_LANE, _pow2_at_least(_check_states(n)))
+    return _pow2_at_least(-(-n // states)), states
+
+
+def selective_scan_bwd_ref(u, dt, a, b, c, d, gy, gh=None):
+    """Plain version of the scan's backward: the gradients (gu, gdt, ga, gb,
+    gc, gd) of ``selective_scan_ref``'s (y, h_last) against gy (B, L, D) and
+    gh (B, D, N) (or None: h_last unused), each in its input's dtype and
+    shape (with a chip axis, ga and gd one a chip), by the reverse
+    recurrence ``kernels/csrc/selective_scan_bwd.cu`` runs, in fp32: with
+    g_t = exp(dt_t A) and dh_t the gradient of h_t,
+    dh_t = g_{t+1} dh_{t+1} + gy_t C_t (plus gh at the last step)."""
+    bsz, length, dim = u.shape
+    n = a.shape[-1]
+    u32, dt32, a32, b32, c32, gy32 = (t.float() for t in (u, dt, a, b, c, gy))
+    d32 = d.float()
+    chips = a.shape[0] if a.dim() == 3 else 1
+    if a.dim() == 3:
+        rows = bsz // chips
+        a32, d32 = _per_row(a32, rows)[:, 0], _per_row(d32, rows)[:, 0]  # (B, D, N), (B, D)
+    g = torch.exp(dt32[..., None] * a32[:, None] if a.dim() == 3 else dt32[..., None] * a32)  # (B, L, D, N)
+    h = torch.zeros((bsz, dim, n), dtype=torch.float32, device=u.device)
+    hs = []
+    for t in range(length):
+        h = g[:, t] * h + (dt32[:, t] * u32[:, t])[..., None] * b32[:, t, None, :]
+        hs.append(h)
+    dh = torch.zeros_like(h) if gh is None else gh.float()
+    gus, gdts, gbs, gcs = [], [], [], []
+    ga = torch.zeros_like(h)
+    for t in reversed(range(length)):  # out of place: the plain version maps under vmap too
+        dh = dh + gy32[:, t, :, None] * c32[:, t, None, :]
+        gcs.append(torch.einsum("bdn,bd->bn", hs[t], gy32[:, t]))
+        gbs.append(torch.einsum("bdn,bd->bn", dh, dt32[:, t] * u32[:, t]))
+        dgh = dh * g[:, t] * hs[t - 1] if t else torch.zeros_like(dh)
+        gsum = (dh * b32[:, t, None, :]).sum(-1)
+        gus.append(dt32[:, t] * gsum + d32 * gy32[:, t])
+        gdts.append(u32[:, t] * gsum + (dgh * a32).sum(-1))
+        ga = ga + dgh * dt32[:, t, :, None]
+        dh = dh * g[:, t]
+    gu, gdt, gb, gc = (torch.stack(v[::-1], 1) if v else z.new_zeros(z.shape)
+                       for v, z in ((gus, u32), (gdts, dt32), (gbs, b32), (gcs, c32)))
+    gd = (gy32 * u32).sum(1)  # (B, D)
+    ga = ga.reshape(chips, bsz // chips, dim, n).sum(1)
+    gd = gd.reshape(chips, bsz // chips, dim).sum(1)
+    if a.dim() == 2:
+        ga, gd = ga[0], gd[0]
+    return (gu.to(u.dtype), gdt.to(dt.dtype), ga.to(a.dtype), gb.to(b.dtype), gc.to(c.dtype), gd.to(d.dtype))
+
+
+def selective_scan_bwd(u, dt, a, b, c, d, gy, gh=None):
+    """The scan's gradients (gu, gdt, ga, gb, gc, gd), as
+    ``selective_scan_bwd_ref``: the backward kernel for a CUDA tensor,
+    counted in ``selective_scan_bwd.launches`` (a chip-batched one also in
+    ``.fleet_launches``), the plain version for a CPU tensor. The inputs
+    take ``selective_scan``'s rules on CUDA; gy is read in u's dtype, gh in
+    fp32. Under ``torch.func.vmap`` (the backward of a vmapped gradient) the
+    call goes through the custom op ``repro_torch::selective_scan_bwd``,
+    whose vmap rule makes the vmapped axis the chip axis."""
+    ts = (u, dt, a, b, c, d, gy) + (() if gh is None else (gh,))
+    if u.device.type == "meta" or functorch_wrapped(*ts):
+        return torch.ops.repro_torch.selective_scan_bwd(u, dt, a, b, c, d, gy, gh)
+    if u.device.type == "cpu":
+        return selective_scan_bwd_ref(u, dt, a, b, c, d, gy, gh)
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan_bwd runs on cpu or cuda, got {u.device}")
+    chips, bsz, length, dim, n, sa, sd = _check_cuda(u, dt, a, b, c, d)
+    if tuple(gy.shape) != (bsz, length, dim) or (gh is not None and tuple(gh.shape) != (bsz, dim, n)):
+        raise ValueError(f"bad gradient shapes gy{tuple(gy.shape)} gh{None if gh is None else tuple(gh.shape)}")
+    gy = gy.to(u.dtype).contiguous()
+    gh = None if gh is None else gh.float().contiguous()
+    lanes, states = bwd_plan(n)
+    nw = -(-dim // (THREADS // lanes)) * (THREADS // WARP)
+    nch = -(-length // BWD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    gu, gdt = torch.empty((bsz, length, dim), **f32), torch.empty((bsz, length, dim), **f32)
+    gbc = torch.empty((bsz, length, 2, n), **f32)
+    ga, gd = torch.empty((chips, dim, n), **f32), torch.empty((chips, dim), **f32)
+    if not (bsz and length and dim):
+        for t in (gu, gdt, gbc, ga, gd):
+            t.zero_()
+    else:
+        pbc = torch.empty((bsz, length, nw, 2, n), **f32)
+        pa, pd = torch.empty((bsz, dim, n), **f32), torch.empty((bsz, dim), **f32)
+        ckpt = torch.empty((bsz, nch, dim, n), **f32)
+        fn = load_kernel("selective_scan_bwd", _BWD_ARGTYPES)
+        err = fn(
+            _DTYPES[u.dtype], u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            d.data_ptr(), gy.data_ptr(), None if gh is None else gh.data_ptr(), gu.data_ptr(), gdt.data_ptr(),
+            gbc.data_ptr(), ga.data_ptr(), gd.data_ptr(), pbc.data_ptr(), pa.data_ptr(), pd.data_ptr(),
+            ckpt.data_ptr(), bsz, length, dim, n, lanes, states, nw, nch, *_strides(u, dt, b, c),
+            bsz // chips, sa, sd, torch.cuda.current_stream().cuda_stream,
+        )
+        check_launch("selective_scan_bwd", err)
+        selective_scan_bwd.launches += 1
+        if a.dim() == 3:
+            selective_scan_bwd.fleet_launches += 1
+    if a.dim() == 2:
+        ga, gd = ga[0], gd[0]
+    gb, gc = (gbc[:, :, i].contiguous().to(t.dtype) for i, t in ((0, b), (1, c)))
+    return gu.to(u.dtype), gdt, ga, gb, gc, gd
+
+
+selective_scan_bwd.launches = 0
+selective_scan_bwd.fleet_launches = 0
 
 
 @torch.library.custom_op("repro_torch::selective_scan", mutates_args=())
@@ -290,34 +442,51 @@ def _selective_scan_flops(u, dt, a, b, c, d, lanes, *args, out_shape=None, **kwa
     return 2 * bsz * length * dim * a[-1]
 
 
-def _selective_scan_setup(ctx, inputs, output):
-    u, dt, a, b, c, d, _ = inputs
-    ctx.save_for_backward(u, c)
-    ctx.like = [(t.shape, t.dtype) for t in (u, dt, a, b, c, d)]
+@torch.library.custom_op("repro_torch::selective_scan_bwd", mutates_args=())
+def _selective_scan_bwd_op(
+    u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    d: torch.Tensor, gy: torch.Tensor, gh: Optional[torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return selective_scan_bwd(u, dt, a, b, c, d, gy, gh)
 
 
-def _selective_scan_backward(ctx, gy, gh):
-    """The backward on the meta device alone, for the dry run's count: the
-    plain version's two products, d(h) = dy x C and d(C) = h . dy (each the
-    forward's count), as autograd runs them on ``selective_scan_ref``; every
-    other gradient is shape only. Off the meta device the scan has no
-    backward: training runs the plain version under autograd."""
-    u, c = ctx.saved_tensors
-    if u.device.type != "meta":
-        raise NotImplementedError("the selective scan kernel has no backward; train through selective_scan_ref")
-    bsz, length, dim = u.shape
-    rows, n = bsz * length, c.shape[-1]
-    torch.bmm(gy.float().reshape(rows, dim, 1), c.float().reshape(rows, 1, n))  # d(h): (rows, D, N)
-    hs = u.new_empty((rows, n, dim), dtype=torch.float32)
-    dc = torch.bmm(hs, gy.float().reshape(rows, dim, 1)).reshape(bsz, length, n)
-    grads = [u.new_empty(shape, dtype=dtype) for shape, dtype in ctx.like]
-    grads[4] = dc.to(c.dtype)
-    return (*grads, None)
+@_selective_scan_bwd_op.register_fake
+def _(u, dt, a, b, c, d, gy, gh):
+    return tuple(t.new_empty(t.shape) for t in (u, dt, a, b, c, d))
 
 
-torch.library.register_autograd(
-    "repro_torch::selective_scan", _selective_scan_backward, setup_context=_selective_scan_setup
-)
+@register_flop_formula(torch.ops.repro_torch.selective_scan_bwd)
+def _selective_scan_bwd_flops(u, dt, a, b, c, d, gy, gh, *args, out_shape=None, **kwargs) -> int:
+    """The plain backward's two products, each the forward's count:
+    d(h) = dy x C and d(C) = h . dy, 4 * B * L * D * N."""
+    bsz, length, dim = u
+    return 4 * bsz * length * dim * a[-1]
+
+
+class _DifferentiableScan(torch.autograd.Function):
+    """The scan with the backward kernel as its gradient: the forward is
+    ``selective_scan`` on the inputs, of which nothing but the inputs is
+    saved (the backward recomputes the states from checkpoints), and the
+    backward is ``selective_scan_bwd``. Under ``vmap`` of ``grad`` (the
+    population engines) functorch maps both through the custom ops' vmap
+    rules: one chip-batched launch each."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(u, dt, a, b, c, d, lanes):
+        return selective_scan(u, dt, a, b, c, d, lanes=lanes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:6])
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        # once differentiated: torch.func.grad runs the backward with create_graph, and the
+        # backward kernel has no gradient of its own
+        with torch.no_grad():
+            return (*selective_scan_bwd(*ctx.saved_tensors, gy, gh), None)
 
 
 def _chip_stack(t: torch.Tensor) -> torch.Tensor:
@@ -334,16 +503,43 @@ def _selective_scan_vmap(info, in_dims, u, dt, a, b, c, d, lanes):
     offset, and an a or d shared by every chip is read with chip stride 0,
     never copied."""
     n = info.batch_size
-
-    def chip_major(t, dim):  # the vmapped axis first, present on every chip
-        return t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
-
-    rows = [chip_major(t, dim) for t, dim in zip((u, dt, b, c), in_dims[:2] + in_dims[3:5])]
-    bsz = rows[0].shape[1]
-    u, dt, b, c = (t.reshape(n * bsz, *t.shape[2:]) for t in rows)
-    a, d = (_chip_stack(chip_major(t, dim)) for t, dim in ((a, in_dims[2]), (d, in_dims[5])))
+    u, dt, a, b, c, d = _fold_chips(n, in_dims, (u, dt, a, b, c, d))
+    bsz = u.shape[0] // n
     y, h = selective_scan(u, dt, a, b, c, d, lanes=lanes)
     return (y.view(n, bsz, *y.shape[1:]), h.view(n, bsz, *h.shape[1:])), (0, 0)
 
 
+def _chip_major(n: int, t, dim):
+    """The vmapped axis first, present on every chip (a view)."""
+    return t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+
+
+def _fold_chips(n: int, in_dims, ts) -> list:
+    """The vmap rules' inputs as the kernels' chip axis: u, dt, b, c (and
+    gy, gh) with the chips' rows folded chip-major, a and d chip stacks."""
+    out = []
+    for i, (t, dim) in enumerate(zip(ts, in_dims)):
+        if t is None:
+            out.append(None)
+        elif i in (2, 5):
+            out.append(_chip_stack(_chip_major(n, t, dim)))
+        else:
+            t = _chip_major(n, t, dim)
+            out.append(t.reshape(n * t.shape[1], *t.shape[2:]))
+    return out
+
+
+def _selective_scan_bwd_vmap(info, in_dims, u, dt, a, b, c, d, gy, gh):
+    """The backward of a vmapped gradient as one chip-batched launch: the
+    vmapped axis becomes the kernel's chip axis, as in the forward's rule;
+    ga and gd come out one a chip."""
+    n = info.batch_size
+    folded = _fold_chips(n, in_dims, (u, dt, a, b, c, d, gy, gh))
+    bsz = folded[0].shape[0] // n
+    gu, gdt, ga, gb, gc, gd = selective_scan_bwd(*folded)
+    rows = tuple(t.view(n, bsz, *t.shape[1:]) for t in (gu, gdt, gb, gc))
+    return (rows[0], rows[1], ga, rows[2], rows[3], gd), (0,) * 6
+
+
 torch.library.register_vmap("repro_torch::selective_scan", _selective_scan_vmap)
+torch.library.register_vmap("repro_torch::selective_scan_bwd", _selective_scan_bwd_vmap)

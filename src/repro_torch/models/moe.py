@@ -38,6 +38,14 @@ def capacity(b: int, s: int, cfg, capacity_factor: float) -> int:
     return max(k, int(s * k / e * capacity_factor)) if b * s >= e else k
 
 
+def _one_hot(idx: Tensor, n: int) -> Tensor:
+    """``F.one_hot(idx, n)`` (int64) as a comparison with ``arange(n)``:
+    the same bits, and it runs under ``torch.func.vmap`` of
+    ``grad_and_value`` (the population FAT engines), where ``F.one_hot``
+    reads its indices on the host and raises."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _router(p, x2d: Tensor, cfg, ctx: FaultContext):
     """Returns (weights (T, k), expert_idx (T, k), aux_loss scalar), the
     routing and the loss in float32: the Switch load-balance term plus
@@ -47,7 +55,7 @@ def _router(p, x2d: Tensor, cfg, ctx: FaultContext):
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(logits, k)
     weights = torch.softmax(gate_vals, dim=-1)  # renormalized over the chosen
-    sel_onehot = F.one_hot(expert_idx, e).float().sum(dim=1)  # (T, E)
+    sel_onehot = _one_hot(expert_idx, e).float().sum(dim=1)  # (T, E)
     f_e = sel_onehot.mean(dim=0) / k
     p_e = probs.mean(dim=0)
     aux = e * torch.sum(f_e * p_e)
@@ -90,7 +98,7 @@ def moe_block(
     cap = capacity(b, s, cfg, capacity_factor)
     g, gs = b, s
 
-    oh_g = F.one_hot(expert_idx, e).reshape(g, gs, k, e)  # int64
+    oh_g = _one_hot(expert_idx, e).reshape(g, gs, k, e)  # int64
     pos = torch.cumsum(oh_g.reshape(g, gs * k, e), dim=1).reshape(g, gs, k, e) - 1
     keep = (pos < cap) & (oh_g > 0)  # (g, gs, k, E)
     w_g = weights.reshape(g, gs, k)
@@ -98,7 +106,7 @@ def moe_block(
     dt = x.dtype
 
     if impl == "einsum":
-        cap_oh = F.one_hot(pos.clamp(0, cap - 1), cap).to(dt)  # (g, gs, k, E, cap)
+        cap_oh = _one_hot(pos.clamp(0, cap - 1), cap).to(dt)  # (g, gs, k, E, cap)
         dispatch = torch.einsum("gskec,gske->gsec", cap_oh, keep.to(dt))  # (g, gs, E, cap)
         # the reference's einsum("gsec,gsk,gske->gsec"): each (token, expert)
         # has at most one choice, so the k-sum holds one term

@@ -11,9 +11,11 @@ turns one member's step into one batched step for all of them:
 * :class:`PopulationFATEngine` — one member's step is
   ``torch.func.grad_and_value`` of the loss followed by ``adamw_update``;
   the population's step is ``vmap`` of that, the mask on ``in_dims=0`` and
-  the batch shared. ``fit_batch`` runs ``max(budgets)`` steps and selects
-  each member's new state with ``torch.where(i < budget)``, so a member
-  stops exactly at its own budget, as if it had been trained alone.
+  the batch shared. ``fit_batch`` runs ``max(budgets)`` steps and, once a
+  member's budget is spent, copies its old state back over its slot of the
+  update's output (in place: the step holds no third copy of the state),
+  so a member stops exactly at its own budget, as if it had been trained
+  alone.
   ``steps_to_constraint_batch`` runs eval-period chunks and latches each
   member's first constraint crossing on the device; the host reads one
   boolean per eval period (has every member crossed?), which is the
@@ -258,24 +260,31 @@ class PopulationFATEngine:
 
     def _fit_run(self, params0, ok_pop, mode: str, budgets: list[int], batch_fn: BatchFn):
         """Every member trained to its own step budget: updates are computed
-        for the whole population and select-masked off once a member's
-        budget is spent — the same trajectory as training each member alone
+        for the whole population and overwritten with the old state once a
+        member's budget is spent — the same trajectory as training each member alone
         for ``budgets[i]`` steps on the same batch schedule. Returns the
         params in the stored layout."""
         n = len(budgets)
         params, opt = self._constrain_member_state(*self._broadcast_members(params0, n))
         ok_pop = None if ok_pop is None else self._constrain_masks(ok_pop, params)
         update = self._update(mode, ok_pop)
-        budgets_t = torch.tensor(budgets, device=_device_of(params0))
         for i in range(max(budgets)):
             p, o = self._gather_member_state(params, opt)
             new_params, new_opt = update(p, o, ok_pop, self._constrain_batch(batch_fn(i)))
-            active = i < budgets_t  # (n,)
+            spent = [j for j in range(n) if i >= budgets[j]]
+            if spent:  # members whose budget is spent keep their state: one copy a leaf, in place
+                idx = torch.tensor(spent, device=_device_of(params0))
 
-            def sel(new, old):
-                return torch.where(active.to(new.device).view((n,) + (1,) * (new.dim() - 1)), new, old)
+                def keep(new, old):
+                    at = idx.to(new.device)
+                    new.index_copy_(0, at, old.index_select(0, at))
 
-            params, opt = self._constrain_member_state(_tree_map(sel, new_params, p), _tree_map(sel, new_opt, o))
+                _tree_map(keep, new_params, p)
+                _tree_map(keep, new_opt, o)
+            params, opt = self._constrain_member_state(new_params, new_opt)
+            # drop the old state before the next step's forward: held, it would add a copy of the
+            # members' state to that step's peak
+            del new_params, new_opt, p, o
             yield
         return params
 

@@ -23,7 +23,9 @@ from repro_torch.kernels.decode_attention.ops import (
     quantize_kv,
 )
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
-from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref
+from repro_torch.kernels.mamba_scan.ops import (
+    selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_ref,
+)
 from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_checksummed, masked_matmul_ref
 from repro_torch.models import model as M
 from repro_torch.models.classifier import classifier_forward, classifier_loss, init_classifier
@@ -1583,6 +1585,214 @@ def test_lm_kernel_mode_fit_on_the_card_raises_and_kernel_eval_runs(cuda):
     assert masked_matmul.launches_by_variant["v1"] - before[0] == len(tr._evals) * per_forward
     assert masked_matmul.fleet_launches_by_variant["v1"] - before[1] == len(tr._evals) * per_forward
     assert got == pytest.approx(tr.evaluate_batch([tr.base_params] * 2, fleet), abs=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# FAT of the MoE, SSM and hybrid families: the scan's training route, the
+# split experts and channels
+# ---------------------------------------------------------------------------
+
+
+# (B, L, D, N): falcon-mamba's FAT step (one chip's rows), a ragged D and L (not a multiple of the
+# backward's 8-step chunks), one state, odd and wide states, a single step
+SCAN_BWD_CASES = [(8, 64, 8192, 16), (2, 37, 300, 16), (3, 20, 96, 1), (2, 19, 64, 5), (2, 24, 48, 17),
+                  (1, 9, 40, 64), (2, 1, 33, 8)]
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n", SCAN_BWD_CASES)
+def test_selective_scan_bwd_kernel_matches_plain_on_card(cuda, b, l, d, n, u_dtype):
+    """The backward kernel against its plain version on the same inputs
+    (B and C strided slices of one tensor, gh given): one launch, every
+    gradient within the scan's float32 tolerance in units of its largest
+    plain value (gB, gC and gA sum over D or over B x L), bf16 at the
+    table's."""
+    args = _scan_inputs(cuda, b, l, d, n, u_dtype, seed=b + l)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gy = torch.randn(b, l, d, generator=g, device=cuda).to(u_dtype)
+    gh = torch.randn(b, d, n, generator=g, device=cuda)
+    before = selective_scan_bwd.launches
+    got = selective_scan_bwd(*args, gy, gh)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd.launches == before + 1
+    want = selective_scan_bwd_ref(*args, gy, gh)
+    rtol, atol = (2e-5, 1e-4) if u_dtype == torch.float32 else dtype_tol(torch.bfloat16)
+    for name, x, w, t in zip(("gu", "gdt", "ga", "gb", "gc", "gd"), got, want, args):
+        assert x.shape == t.shape and x.dtype == t.dtype, name
+        scale = max(float(w.float().abs().max()), 1.0)
+        torch.testing.assert_close(x.float() / scale, w.float() / scale, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_selective_scan_bwd_kernel_takes_a_chip_axis(cuda, shared):
+    """A chip axis (3 chips x 2 rows; each chip's own A and D, or one for
+    every chip through chip stride 0): one launch, counted as a fleet
+    launch, against the plain version; gA and gD come out one a chip."""
+    u, dt, a, bm, cm, d_skip = _scan_inputs(cuda, 6, 21, 80, 16, torch.float32, seed=3)
+    if shared:
+        a3, d3 = a.expand(3, *a.shape), d_skip.expand(3, *d_skip.shape)
+    else:
+        scale = 1 + 0.1 * torch.arange(3, device=cuda, dtype=torch.float32)
+        a3, d3 = (a[None] * scale[:, None, None]).contiguous(), (d_skip[None] + scale[:, None]).contiguous()
+    gy = torch.randn(6, 21, 80, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    before = selective_scan_bwd.fleet_launches
+    got = selective_scan_bwd(u, dt, a3, bm, cm, d3, gy, None)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd.fleet_launches == before + 1
+    want = selective_scan_bwd_ref(u, dt, a3, bm, cm, d3, gy, None)
+    assert got[2].shape == (3, 80, 16) and got[5].shape == (3, 80)
+    for x, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(x / scale, w / scale, rtol=2e-5, atol=1e-4)
+
+
+def test_differentiated_scan_launches_the_backward_kernel_on_the_card(cuda):
+    """A scan that asks for a gradient on the card (plain autograd,
+    ``torch.func.grad``, and ``vmap`` of ``grad`` over two members) launches
+    the forward kernel and the backward kernel once each (chip-batched
+    under ``vmap``), and gives the CPU plain version's gradients for every
+    input. On the parent tree plain autograd left every input but C without
+    a gradient and ``torch.func.grad`` raised (no data pointer)."""
+    ins = _scan_inputs(cuda, 2, 40, 96, 16, torch.float32, seed=4)
+    cpu_ins = [t.cpu() for t in ins]
+
+    def loss(*ts):
+        y, h = selective_scan(*ts)
+        return y.square().sum() + h.sum()
+
+    def plain_grads(ts):
+        leaves = [t.clone().requires_grad_() for t in ts]
+        return torch.autograd.grad(loss(*leaves), leaves)
+
+    def counts():
+        torch.cuda.synchronize()
+        return (selective_scan.launches, selective_scan_bwd.launches, selective_scan.fleet_launches,
+                selective_scan_bwd.fleet_launches)
+
+    want = plain_grads(cpu_ins)
+    start = counts()
+    got = plain_grads(ins)
+    got_func = torch.func.grad(loss, argnums=tuple(range(6)))(*ins)
+    assert [x - y for x, y in zip(counts(), start)] == [2, 2, 0, 0]
+    for g, gf, w in zip(got, got_func, want):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g.cpu() / scale, w / scale, rtol=2e-5, atol=1e-4)
+        torch.testing.assert_close(gf.cpu() / scale, w / scale, rtol=2e-5, atol=1e-4)
+    us = torch.stack([ins[0], 0.5 * ins[0]])
+    a2 = torch.stack([ins[2], 1.1 * ins[2]])
+    start = counts()
+    got_v = torch.func.vmap(torch.func.grad(lambda u, a: loss(u, ins[1], a, *ins[3:]), argnums=(0, 1)))(us, a2)
+    assert [x - y for x, y in zip(counts(), start)] == [1, 1, 1, 1]
+    for i in range(2):
+        w = plain_grads([us[i].cpu(), cpu_ins[1], a2[i].cpu(), *cpu_ins[3:]])
+        for g, wi in zip(got_v, (w[0], w[2])):
+            scale = max(float(wi.abs().max()), 1.0)
+            torch.testing.assert_close(g[i].cpu() / scale, wi / scale, rtol=2e-5, atol=1e-4)
+
+
+def _split_leaf(w, axis, pieces):
+    from repro_torch.fleet.tensor_parallel import SplitTensor
+
+    size = w.shape[axis] // pieces
+    offsets = list(range(0, w.shape[axis], size))
+    return SplitTensor([w.narrow(axis, o, size).contiguous() for o in offsets], axis, offsets)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_channel_split_ssm_block_runs_a_chip_batched_scan_a_piece(cuda, m):
+    """The reduced falcon-mamba block with every ``"inner"`` leaf split m
+    ways (a 24 x 40 map: the pieces start off its grid), in ``kernel`` mode
+    under ``vmap`` over two chips (member-stacked params, as the sharded
+    engine hands them over): one chip-batched scan launch a channel piece
+    and one chip-batched GEMM launch a weight piece, against each chip's
+    whole block in ``fap`` mode on the CPU."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import FaultContext
+    from repro_torch.models.ssm import ssm_block
+
+    cfg = reduce_config(get_arch("falcon-mamba-7b"))
+    flat = M.param_dict(M.init_params(cfg, 3, device="cpu"))
+    p = {k.rsplit(".", 1)[-1]: v for k, v in flat.items() if k.startswith("layers.0.ssm.")}
+    axes = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2, "dt_w": -1, "dt_b": -1, "a_log": -2,
+            "d_skip": -1, "out_proj": -2}
+    members = {k: torch.stack([v, v * 1.1]).to(cuda) for k, v in p.items()}  # chip 1's leaves set apart
+    split = {k: _split_leaf(v, axes[k], m) for k, v in members.items()}
+    oks = [torch.from_numpy(random_fault_map(c, 24, 40, 0.15).ok_mask) for c in range(2)]
+    x = torch.randn(2, 4, 16, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    scans, fleet_scans, gemms = selective_scan.launches, selective_scan.fleet_launches, masked_matmul.launches
+
+    def member(q, xm, ok):
+        return ssm_block(SimpleNamespace(**q), xm, cfg, FaultContext(ok=ok, mode="kernel"))[0]
+
+    with torch.no_grad():
+        got = torch.func.vmap(member)(split, x.to(cuda), torch.stack(oks).to(cuda))
+    torch.cuda.synchronize()
+    assert selective_scan.launches - scans == selective_scan.fleet_launches - fleet_scans == m
+    assert masked_matmul.launches - gemms == 4 * m  # in_proj, x_proj, dt_w, out_proj: m pieces each
+    for c in range(2):
+        q = {k: v[c].cpu() for k, v in members.items()}
+        want = ssm_block(SimpleNamespace(**q), x[c], cfg, FaultContext(ok=oks[c], mode="fap"))[0]
+        assert_close(got[c], want, torch.float32)
+
+
+@pytest.mark.parametrize("spec", ["ecd,edf->ecf", "ecf,efd->ecd"])
+def test_chips_x_experts_launch_on_an_expert_piece_matches_plain(cuda, spec):
+    """A stack split over its experts (2 of 8 a piece) for 3 chips in
+    ``kernel`` mode under ``vmap``: one chips x experts launch a piece, each
+    under its chip's whole map, joined against the whole stack's launch and
+    each piece against its plain version."""
+    from repro_torch.core import FaultContext, fault_einsum
+
+    x, w, ok = _chips_x_experts(cuda, 3, 8, 40, False, torch.float32, torch.float32, seed=5)
+    if spec == "ecf,efd->ecd":
+        w = w.transpose(-1, -2).contiguous()
+        x = torch.randn(3, 8, 40, 288, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    split = _split_leaf(w, -3, 4)
+
+    def member(x_, w_, ok_):
+        return fault_einsum(spec, x_, w_, FaultContext(ok_, "kernel"))
+
+    launches = masked_matmul.launches
+    both = sum(masked_matmul.fleet_expert_launches_by_variant.values())
+    got = torch.func.vmap(member)(x, split, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches - launches == sum(masked_matmul.fleet_expert_launches_by_variant.values()) - both == 4
+    assert_close(got, torch.func.vmap(member)(x, w, ok), torch.float32)
+    for piece, o in zip(split.pieces, split.offsets):
+        xs = x[:, o:o + 2].contiguous()
+        assert_close(masked_matmul(xs, piece, ok), masked_matmul_ref(xs, piece, ok), torch.float32)
+
+
+@pytest.mark.parametrize("engine", ["population", "sharded-tp"])
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "llama4-maverick-400b-a17b", "falcon-mamba-7b", "hymba-1.5b"])
+def test_family_fat_on_the_card_matches_the_cpu(cuda, name, engine):
+    """The reduced family's FAT on the card (the population engine, or
+    ``compute="sharded"`` on 2 x 4 over the card repeated) against the
+    population engine on the CPU from the same params and batches: params
+    within ``dtype_tol(float32, atol_scale=100)``; in the fit as many
+    backward scan launches as forward ones (some for the SSM families,
+    none for the MoE), then ``kernel``-mode evaluation within 2e-3 of
+    ``fap``."""
+    cfg = reduce_config(get_arch(name))
+    fleet = [random_fault_map(c, 24, 40, 0.1 * (c + 1)) for c in range(4)]
+    kw = {} if engine == "population" else dict(engine="sharded", engine_kwargs=dict(
+        mesh=make_fleet_mesh(2, 4, devices=["cuda"] * 8), compute="sharded"))
+    host = LMFATTrainer(cfg, pretrain_steps=3, batch_size=4, seq_len=16, device="cpu")
+    card = LMFATTrainer(cfg, pretrain_steps=0, batch_size=4, seq_len=16, **kw)
+    card.base_params = {k: v.to(cuda) for k, v in host.base_params.items()}
+    scans, bwds = selective_scan.launches, selective_scan_bwd.launches
+    got = card.train_batch(fleet, [3, 1, 2, 2])
+    torch.cuda.synchronize()
+    ran = selective_scan.launches - scans
+    assert ran == selective_scan_bwd.launches - bwds and (ran > 0) == cfg.has_ssm
+    want = host.train_batch(fleet, [3, 1, 2, 2])
+    for g, w in zip(got, want):
+        for k in w:
+            assert_close(g[k], w[k], torch.float32, atol_scale=100)
+    fap = card.evaluate_batch(got, fleet)
+    assert card.evaluate_batch(got, fleet, mode="kernel") == pytest.approx(fap, abs=2e-3)
+    assert fap == pytest.approx(host.evaluate_batch(want, fleet), abs=2e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,10 @@ from repro_torch.configs import get_arch, reduce_config
 from repro_torch.convert import context_from_ok, params_from_jax
 from repro_torch.core import random_fault_map
 from repro_torch.kernels.common import assert_close
-from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_ref, selective_step
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan.ops import (
+    selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_ref, selective_step,
+)
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
 from repro_torch.models import ssm as S
@@ -110,6 +113,126 @@ def test_selective_scan_takes_strided_b_and_c():
     ref = jax_selective_scan_ref(*(jnp.asarray(x) for x in (u, dt, a, bb, c, dd)))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **SCAN_TOL)
+
+
+def test_selective_scan_ref_under_vmap_of_grad_equals_a_member_loop():
+    """``vmap`` of ``grad_and_value`` over three members (each its own
+    u, A and D): y, h_last and every input's gradient equal one member at a
+    time under plain autograd. The plain version writes nothing in place,
+    so the map can batch it."""
+    u, dt, a, bb, c, dd = _scan_inputs(2, 12, 8, 4, seed=3)
+    rng = np.random.default_rng(9)
+    us = torch.from_numpy(u[None] + rng.standard_normal((3, *u.shape), np.float32))
+    a_s = torch.from_numpy(a[None] * (1 + 0.1 * np.arange(3, dtype=np.float32))[:, None, None])
+    ds = torch.from_numpy(dd[None] + np.arange(3, dtype=np.float32)[:, None])
+    dt_t, b_t, c_t = _t(dt, bb, c)
+
+    def loss(ut, at, dtt, bt, ct, d_t):
+        y, h = selective_scan_ref(ut, dtt, at, bt, ct, d_t)
+        return y.square().mean() + h.square().mean(), (y, h)
+
+    grad = torch.func.grad_and_value(loss, argnums=(0, 1, 2, 3, 4, 5), has_aux=True)
+    grads, (_, (ys, hs)) = torch.func.vmap(grad, in_dims=(0, 0, None, None, None, 0))(us, a_s, dt_t, b_t, c_t, ds)
+    for i in range(3):
+        ins = [t.clone().requires_grad_() for t in (us[i], a_s[i], dt_t, b_t, c_t, ds[i])]
+        v, (y, h) = loss(*ins)
+        v.backward()
+        torch.testing.assert_close(ys[i], y.detach(), rtol=0, atol=0)
+        torch.testing.assert_close(hs[i], h.detach(), rtol=0, atol=0)
+        for g, t in zip(grads, ins):  # each member's gradient, for the shared inputs too
+            torch.testing.assert_close(g[i], t.grad, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("with_gh", [False, True])
+@pytest.mark.parametrize("b,l,d,n", [(2, 19, 12, 4), (3, 8, 5, 1), (1, 1, 7, 17)])
+def test_selective_scan_bwd_ref_matches_the_reference_vjp(b, l, d, n, with_gh):
+    """The backward kernel's plain version against ``jax.vjp`` of the
+    reference's scan on the same inputs and cotangents (gh of h_last, or
+    none), every input's gradient at the scan's tolerance in units of its
+    largest value (gA, gB and gC are sums over B x L or D)."""
+    ins = _scan_inputs(b, l, d, n, seed=b + l)
+    rng = np.random.default_rng(5)
+    gy = rng.standard_normal((b, l, d), np.float32)
+    gh = rng.standard_normal((b, d, n), np.float32) if with_gh else np.zeros((b, d, n), np.float32)
+    _, vjp = jax.vjp(jax_selective_scan_ref, *[jnp.asarray(x) for x in ins])
+    want = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+    got = selective_scan_bwd_ref(*_t(*ins), torch.from_numpy(gy), torch.from_numpy(gh) if with_gh else None)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        scale = max(float(np.abs(w).max()), 1.0)
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, **SCAN_TOL)
+
+
+def test_selective_scan_bwd_ref_takes_a_chip_axis():
+    """With a chip axis (2 chips x 2 rows, each its own A and D) the plain
+    backward equals each chip's own backward, gA and gD one a chip."""
+    u, dt, a, bb, c, dd = _t(*_scan_inputs(4, 10, 6, 3, seed=8))
+    a2, d2 = torch.stack([a, 1.2 * a]), torch.stack([dd, dd + 1])
+    gy = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 10, 6), np.float32))
+    got = selective_scan_bwd_ref(u, dt, a2, bb, c, d2, gy)
+    for chip in range(2):
+        rows = slice(2 * chip, 2 * chip + 2)
+        want = selective_scan_bwd_ref(u[rows], dt[rows], a2[chip], bb[rows], c[rows], d2[chip], gy[rows])
+        for i, (g, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(g[chip] if i in (2, 5) else g[rows], w, rtol=1e-6, atol=1e-6)
+
+
+def test_the_scans_autograd_function_equals_plain_autograd_and_batches_its_backward(monkeypatch):
+    """The card's training route, run on the CPU: the autograd function
+    whose forward is ``selective_scan`` and whose backward is
+    ``selective_scan_bwd`` gives plain autograd's gradients under
+    ``autograd.grad``, ``torch.func.grad`` and ``vmap`` of
+    ``grad_and_value`` over three members; under ``vmap`` the backward
+    reaches ``selective_scan_bwd`` once, with the members as its chip axis
+    (its vmap rule), as the forward reaches ``selective_scan``. On the CPU
+    ``selective_scan`` itself sends a differentiated call to the plain
+    version, which autograd differentiates."""
+    u, dt, a, bb, c, dd = _t(*_scan_inputs(2, 12, 8, 4, seed=3))
+
+    def loss(fn, ut, at):
+        y, h = fn(ut, dt, at, bb, c, dd)
+        return y.square().mean() + h.square().mean()
+
+    def route(*ts):
+        return scan_ops._DifferentiableScan.apply(*ts, None)
+
+    def plain(ut, at):
+        leaves = [ut.clone().requires_grad_(), at.clone().requires_grad_()]
+        return torch.autograd.grad(loss(selective_scan_ref, *leaves), leaves)
+
+    want = plain(u, a)
+    leaves = [u.clone().requires_grad_(), a.clone().requires_grad_()]
+    for got in (torch.autograd.grad(loss(route, *leaves), leaves),
+                torch.func.grad(lambda ut, at: loss(route, ut, at), argnums=(0, 1))(u, a)):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **SCAN_TOL)
+    seen = []
+    bwd = scan_ops.selective_scan_bwd
+
+    def spy(*ts):
+        seen.append(ts[2].dim())
+        return bwd(*ts)
+
+    monkeypatch.setattr(scan_ops, "selective_scan_bwd", spy)
+    us = torch.stack([u, 0.5 * u, u + 1])
+    a_s = torch.stack([a, 1.1 * a, 0.9 * a])
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(lambda ut, at: loss(route, ut, at), argnums=(0, 1)))(us, a_s)
+    assert seen == [2, 3]  # the grad level's call, then the vmap rule's chip-batched one
+    for i in range(3):
+        for g, w in zip(grads, plain(us[i], a_s[i])):
+            torch.testing.assert_close(g[i], w, **SCAN_TOL)
+    assert selective_scan(u.clone().requires_grad_(), dt, a, bb, c, dd)[0].grad_fn.name() != "_DifferentiableScanBackward"
+
+
+def test_selective_scan_bwd_on_the_cpu_runs_the_plain_version():
+    """On CPU tensors the backward's wrapper is its plain version, bit for
+    bit, and launches nothing."""
+    ins = _t(*_scan_inputs(2, 9, 8, 4, seed=2))
+    gy = torch.ones(2, 9, 8)
+    before = selective_scan_bwd.launches
+    for g, w in zip(selective_scan_bwd(*ins, gy), selective_scan_bwd_ref(*ins, gy)):
+        assert torch.equal(g, w)
+    assert selective_scan_bwd.launches == before
 
 
 @pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])

@@ -11,6 +11,9 @@ reference's ``fault_linear``. The engine-level results against the
 reference are ``tests/test_torch_efat.py`` (``sharded-tp-2x2``, the 4 x 2
 trainer) and ``tests/test_torch_lm_fat.py`` (``sharded-tp``).
 """
+from collections import Counter
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -243,11 +246,32 @@ def test_sharded_step_runs_every_gemm_at_its_pieces_shapes(model):
     assert sharded == sorted(f // model for f in gathered for _ in range(model))
 
 
-def test_reduced_lm_sharded_step_flops_equal_the_gathered_step():
-    """The reduced SmolLM on a 1 x 2 mesh: the split step's FLOPs equal the
-    gathered step's, and its largest GEMM is smaller (the MLP's and the
-    attention projections' pieces)."""
-    cfg = reduce_config(get_arch("smollm-135m"))
+def _split_calls_match(gathered: list, sharded: list, model: int) -> int:
+    """Each gathered call is in the sharded step once, whole, or ``model``
+    times at 1/model (a split GEMM's pieces); nothing else is. Returns the
+    number of gathered calls that were split. The largest calls are matched
+    first, so a piece is never taken for a smaller whole call."""
+    left, split = Counter(sharded), 0
+    for f in sorted(gathered, reverse=True):
+        if left[f] > 0:
+            left[f] -= 1
+        else:
+            assert f % model == 0 and left[f // model] >= model, \
+                f"a {f}-FLOP call is neither whole nor split in the sharded step"
+            left[f // model] -= model
+            split += 1
+    assert not +left, f"sharded calls with no gathered call: {dict(+left)}"
+    return split
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mixtral-8x22b", "falcon-mamba-7b"])
+def test_reduced_lm_sharded_step_flops_equal_the_gathered_step(arch):
+    """A reduced LM on a 1 x 2 mesh: the split step's FLOPs equal the
+    gathered step's, and each of its calls is a gathered call, whole or at
+    1/2 (a piece of the MLP, the attention projections, mixtral's experts
+    split over the model axis, falcon-mamba's channel-split projections and
+    per-piece scans), forward and backward."""
+    cfg = reduce_config(get_arch(arch))
     params0 = M.param_dict(M.init_params(cfg, 0, device="cpu"))
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
@@ -264,7 +288,7 @@ def test_reduced_lm_sharded_step_flops_equal_the_gathered_step():
             eng.fit_batch(params0, ctxs, [1, 1], lambda step: batch)
         out[compute] = (calls.flops, total.get_total_flops())
     assert out["sharded"][1] == out["gathered"][1]
-    assert len(out["sharded"][0]) > len(out["gathered"][0])
+    assert _split_calls_match(out["gathered"][0], out["sharded"][0], 2) > 0
 
 
 @pytest.mark.parametrize("mode", ["fap", "kernel"])
@@ -284,21 +308,165 @@ def test_engine_prebuilds_every_rolled_map(monkeypatch, mode):
     view = eng._slice(0)
     split = view._gather_member_params({k: v[None].expand(2, *v.shape) for k, v in params0.items()})
     masks = view._constrain_masks(torch.stack([c.ok for c in ctxs]), split)
-    # w0 (128, 48) and b0 split at column 24; w3 (48, 16) at column 8
+    # w0 (128, 48) split at column 24, w3 (48, 16) at column 8, each offset
+    # a row and a column origin; b0, 1-D, adds none
     assert sorted(masks) == [(0, 0), (0, 8), (0, 24), (8, 0), (24, 0)]
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-maverick-400b-a17b", "falcon-mamba-7b", "hymba-1.5b"])
-def test_moe_and_ssm_configs_are_refused_under_compute_sharded(arch):
-    cfg = get_arch(arch)
-    kw = dict(mesh=make_fleet_mesh(2, 2, devices=["cpu"] * 4), cfg=cfg, param_axes=M.param_specs(cfg),
-              loss_fn=None, opt_cfg=AdamWConfig(), eval_batches=[])
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        ShardedPopulationEngine(compute="sharded", **kw)
-    assert ShardedPopulationEngine(**kw).compute == "gathered"
+def test_engine_keys_masks_only_by_gemm_view_origins():
+    """The engine rolls a chunk's maps to the origins a piece of a split
+    leaf of two or more dims can have on a GEMM's ``(d_in, d_out)`` view,
+    each offset on the last two dims as a row and as a column, and to no
+    other offset: mixtral's experts split over the model axis keep the
+    whole map (experts 2 and 3 start at expert 2, no origin), and
+    falcon-mamba's 1-D channel leaves (D, biases) add none."""
+    ok = torch.stack([c.ok for c in (from_fault_map(random_fault_map(i, 24, 40, 0.1), device="cpu")
+                                     for i in range(2))])
+    want = {
+        # wq's columns at 32, wk's and wv's at 16, wo's rows at 32, each also the other way
+        "mixtral-8x22b": (2, {(0, 0), (0, 32), (0, 16), (32 % 24, 0), (16, 0)}),
+        # in_proj's columns at 64, 128, 192; dt_w's (and conv_w's) at 32, 64,
+        # 96; x_proj's, out_proj's (and A's) rows at 32, 64, 96; each also
+        # the other way, which adds no new key here
+        "falcon-mamba-7b": (4, {(0, 0), (0, 64 % 40), (0, 128 % 40), (0, 192 % 40), (0, 32), (0, 64 % 40),
+                                (0, 96 % 40), (32 % 24, 0), (64 % 24, 0), (96 % 24, 0)}),
+    }
+    for arch, (model, keys) in want.items():
+        cfg = reduce_config(get_arch(arch))
+        params0 = M.param_dict(M.init_params(cfg, 0, device="cpu"))
+        eng = make_fat_engine("sharded", mesh=make_fleet_mesh(1, model, devices=["cpu"] * model), cfg=cfg,
+                              param_axes=M.param_specs(cfg), compute="sharded", population_size=2,
+                              loss_fn=None, opt_cfg=AdamWConfig(), eval_batches=[])
+        view = eng._slice(0)
+        split = view._gather_member_params({k: v[None].expand(2, *v.shape) for k, v in params0.items()})
+        assert set(view._constrain_masks(ok, split)) == keys, arch
+    assert split["layers.0.ssm.conv_b"].offsets == (0, 32, 64, 96)
 
 
-def test_fault_einsum_refuses_a_split_weight():
-    w = torch.zeros(2, 8, 80)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fault_einsum("ecd,edf->ecf", torch.zeros(2, 3, 8), _split(w, -1, 40), FaultContext(ok=_ok(), mode="fap"))
+# ---------------------------------------------------------------------------
+# the MoE experts: fault_einsum on a split expert stack
+# ---------------------------------------------------------------------------
+
+E = 4
+# (split, its axis, a piece's extent): over the experts, or inside them off
+# the map's grid (40: origins 8, 16, 24 mod 32)
+EXPERT_SPLITS = {"experts": (-3, 2), "columns": (-1, 40), "rows": (-2, 40)}
+
+
+def _expert_case(spec, split, dtype):
+    rng = np.random.default_rng(13)
+    axis, size = EXPERT_SPLITS[split]
+    k, n = (48, 48)
+    if axis == -1:
+        n = 2 * size
+    elif axis == -2:
+        k = 2 * size
+    x = torch.from_numpy(rng.standard_normal((E, 6, k))).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((E, k, n)) / np.sqrt(k)).to(dtype)
+    return x, w, _split(w, axis, size)
+
+
+@pytest.mark.parametrize("mode,dtype", MODES, ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("split", list(EXPERT_SPLITS))
+@pytest.mark.parametrize("spec", MK.EXPERT_SPECS)
+def test_split_fault_einsum_equals_the_whole_expert_stack(spec, split, mode, dtype):
+    """Split over the experts (each piece's experts on their slice of the
+    tokens) or inside them (each piece under its rolled map): the whole
+    stack's einsum, for one chip and under ``vmap`` over two chips' maps
+    (in ``kernel`` mode: the chips x experts route of the masked GEMM's
+    custom op, its plain version on the host)."""
+    x, w, ws = _expert_case(spec, split, dtype)
+    ctx = FaultContext(ok=_ok(), mode=mode)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(fault_einsum(spec, x, ws, ctx), fault_einsum(spec, x, w, ctx), rtol=rtol, atol=atol)
+    oks = torch.stack([_ok(), _ok(SEED + 1)])
+
+    def run(weight):
+        return torch.func.vmap(lambda ok: fault_einsum(spec, x, weight, FaultContext(ok=ok, mode=mode)))(oks)
+
+    torch.testing.assert_close(run(ws), run(w), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("mode", ["fap", "kernel"])
+def test_an_expert_split_keeps_the_whole_map_and_a_split_inside_rolls_it(monkeypatch, mode):
+    """No piece of a stack split over its experts rolls the map (each
+    expert's view starts at 0); a stack split inside its experts off the
+    map's grid is wrong without the roll."""
+    ctx = FaultContext(ok=_ok(), mode=mode)
+    x, w, ws = _expert_case("ecd,edf->ecf", "columns", torch.float64)
+    want = fault_einsum("ecd,edf->ecf", x, w, ctx)
+    monkeypatch.setattr(MK, "rolled_map", lambda ok, r0, c0: ok)
+    assert (fault_einsum("ecd,edf->ecf", x, ws, ctx) - want).abs().max() > 1e-2
+
+    def refuse(ok, r0, c0):
+        raise AssertionError(f"an expert piece rolled the map to ({r0}, {c0})")
+
+    monkeypatch.setattr(MK, "rolled_map", refuse)
+    x, w, ws = _expert_case("ecf,efd->ecd", "experts", torch.float64)
+    torch.testing.assert_close(fault_einsum("ecf,efd->ecd", x, ws, ctx), fault_einsum("ecf,efd->ecd", x, w, ctx),
+                               rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="expert specs"):
+        fault_einsum("bd,df->bf", x[0], ws, ctx)
+
+
+# ---------------------------------------------------------------------------
+# the SSM block on channel-split leaves
+# ---------------------------------------------------------------------------
+
+# each SSM leaf's split dim under the rules: "inner" on the channels
+SSM_AXES = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2, "dt_w": -1, "dt_b": -1, "a_log": -2,
+            "d_skip": -1, "out_proj": -2}
+
+
+def _ssm_layer():
+    cfg = reduce_config(get_arch("falcon-mamba-7b"))
+    layer = M.param_dict(M.init_params(cfg, 3, device="cpu"))
+    p = {k.rsplit(".", 1)[-1]: v for k, v in layer.items() if k.startswith("layers.0.ssm.")}
+    rng = np.random.default_rng(4)
+    p["conv_b"] = torch.from_numpy(rng.standard_normal(p["conv_b"].shape).astype(np.float32)) * 0.1
+    p["d_skip"] = p["d_skip"] + torch.from_numpy(rng.standard_normal(p["d_skip"].shape).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32))
+    return cfg, p, x
+
+
+def _split_ssm(p, m):
+    return {k: _split(v, SSM_AXES[k], v.shape[SSM_AXES[k]] // m) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("mode", ["fap", "kernel"])
+@pytest.mark.parametrize("m", [2, 4])
+def test_channel_split_ssm_block_equals_the_whole_block(m, mode):
+    """Every ``"inner"`` leaf split m ways (at m = 2 ``in_proj``'s pieces
+    are its x and z halves): the block's output, its prefill cache, and
+    under ``vmap`` of ``grad`` over two chips its parameter gradients,
+    joined, equal the whole block's, on a 24 x 40 map (the pieces start off
+    its grid)."""
+    from repro_torch.models.ssm import ssm_block
+
+    cfg, p, x = _ssm_layer()
+    ps = _split_ssm(p, m)
+    if m == 2:
+        di = cfg.d_inner
+        assert torch.equal(ps["in_proj"].pieces[0], p["in_proj"][:, :di])
+        assert torch.equal(ps["in_proj"].pieces[1], p["in_proj"][:, di:])
+    ok = from_fault_map(random_fault_map(5, 24, 40, 0.15), mode, device="cpu").ok
+    ctx = FaultContext(ok=ok, mode=mode)
+    rtol, atol = dtype_tol(torch.float32)
+    y, cache = ssm_block(SimpleNamespace(**p), x, cfg, ctx, build_cache=True)
+    ys, caches = ssm_block(SimpleNamespace(**ps), x, cfg, ctx, build_cache=True)
+    torch.testing.assert_close(ys, y, rtol=rtol, atol=atol)
+    torch.testing.assert_close(caches.h, cache.h, rtol=rtol, atol=atol)
+    assert torch.equal(caches.conv, cache.conv)
+    oks = torch.stack([ok, from_fault_map(random_fault_map(6, 24, 40, 0.15), mode, device="cpu").ok])
+
+    def grads(params):
+        def loss(q, okc):
+            return ssm_block(SimpleNamespace(**q), x, cfg, FaultContext(ok=okc, mode=mode))[0].square().mean()
+
+        return torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, oks)
+
+    g, gs = grads(p), grads(ps)
+    for k in p:
+        assert isinstance(gs[k], SplitTensor)
+        torch.testing.assert_close(gs[k].full(), g[k], rtol=rtol, atol=atol, msg=k)
+        assert g[k].abs().max() > 0, k

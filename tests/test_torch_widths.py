@@ -305,6 +305,29 @@ def test_wrappers_state_the_sizes_the_c_sources_build():
             assert decode_smem_bytes(128, d, group) <= SMEM_LIMIT_BYTES
 
 
+def test_scan_backward_plan_is_an_instance_its_c_source_builds():
+    """``bwd_plan`` gives, for every N the kernels take, the (lanes, states)
+    that ``selective_scan_bwd.cu`` computes and accepts (it refuses any
+    other), and the C source builds that instance; the wrapper's checkpoint
+    chunk and block size are the source's."""
+    import re
+
+    from repro_torch.kernels.mamba_scan.ops import BWD_CHUNK, THREADS, bwd_plan
+
+    src = _source("selective_scan_bwd")
+    built = {(int(p), int(s)) for p, s in re.findall(r"launch_ps<(\d+), (\d+)>\(args", src)}
+    assert f"constexpr int CT = {BWD_CHUNK};" in src and f"constexpr int NT = {THREADS};" in src
+    assert f"constexpr int NMAX = {MAX_STATE};" in src
+    for n in range(1, MAX_STATE + 1):
+        states = 1
+        while states < n and states < 8:  # the C entry point's rule
+            states *= 2
+        lanes = 1
+        while lanes * states < n:
+            lanes *= 2
+        assert bwd_plan(n) == (lanes, states) and (lanes, states) in built, n
+
+
 def test_scan_probe_counts_the_loop_that_holds_the_exponentials():
     """``tools/selective_scan_probe.py`` reads the inner loop off
     ``cuobjdump -sass``: the backward branch's range that holds the

@@ -14,6 +14,7 @@ order; routing decisions, capacity drops, greedy tokens, counts and error
 messages for equality.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,7 @@ from repro.serve import ContinuousBatchingEngine as JaxEngine
 from repro.serve import Request as JaxRequest
 from repro_torch.configs import FRONTEND_DIMS, get_arch, list_archs, reduce_config
 from repro_torch.convert import context_from_ok, params_from_jax
-from repro_torch.core import fault_einsum, random_fault_map
+from repro_torch.core import FaultContext, fault_einsum, random_fault_map
 from repro_torch.kernels.common import assert_close
 from repro_torch.kernels.masked_matmul import ops as mm_ops
 from repro_torch.launch import serve as serve_cli
@@ -326,6 +327,49 @@ def test_moe_einsum_and_scatter_agree(name, cf):
     assert torch.equal(aux_a, aux_b)
     with pytest.raises(ValueError, match="unknown moe impl"):
         MoE.moe_block(p, torch.from_numpy(x), cfg, ctx, impl="dense")
+
+
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+@pytest.mark.parametrize("name", MOE)
+def test_moe_block_under_vmap_of_grad_equals_a_member_loop(name, impl):
+    """The population engines' transform, ``vmap`` of ``grad_and_value``,
+    over three members (each its own map, its experts scaled apart): the
+    output, the routing loss and every MoE leaf's gradient equal one
+    member at a time under plain autograd, and the members part."""
+    _, cfg, _, p, x = _moe_inputs(name)
+    xt = torch.from_numpy(x)
+    leaves = {k: t.detach() for k, t in p.named_parameters()}
+    members = {k: torch.stack([t * (1 + 0.1 * i) for i in range(3)]) for k, t in leaves.items()}
+    oks = torch.stack([torch.from_numpy(random_fault_map(i, 16, 16, 0.2).ok_mask) for i in range(3)])
+
+    def loss(q, ok):
+        y, aux = MoE.moe_block(SimpleNamespace(**q), xt, cfg, FaultContext(ok=ok, mode="fap"), impl=impl)
+        return y.square().mean() + aux, (y, aux)
+
+    grads, (value, (ys, auxes)) = torch.func.vmap(torch.func.grad_and_value(loss, has_aux=True))(members, oks)
+    for i in range(3):
+        q = {k: t[i].clone().requires_grad_() for k, t in members.items()}
+        v, (y, aux) = loss(q, oks[i])
+        v.backward()
+        assert_close(ys[i], y.detach(), F32)
+        assert_close(auxes[i], aux.detach(), F32)
+        for k in q:
+            assert_close(grads[k][i], q[k].grad, F32)
+    assert (ys[0] - ys[1]).abs().max() > 1e-3
+
+
+def test_one_hot_by_comparison_routes_as_f_one_hot():
+    """``moe._one_hot`` is ``F.one_hot``'s int64 tensor, bit for bit, on the
+    router's choices and the capacity positions: the routing does not
+    change."""
+    _, cfg, _, p, x = _moe_inputs("mixtral-8x22b")
+    _, ctx = _ctxs("fap")
+    with torch.no_grad():
+        _, idx, _ = MoE._router(p, torch.from_numpy(x).reshape(-1, cfg.d_model), cfg, ctx)
+    e = cfg.num_experts
+    for got, want in ((MoE._one_hot(idx, e), torch.nn.functional.one_hot(idx, e)),
+                      (MoE._one_hot(idx.clamp(0, 2), 3), torch.nn.functional.one_hot(idx.clamp(0, 2), 3))):
+        assert got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("b,s,e,k,cf", [(4, 128, 8, 2, 1.25), (4, 1, 8, 2, 1.25), (2, 16, 4, 2, 0.3),

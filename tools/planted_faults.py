@@ -8,14 +8,17 @@ CUDA card.
     python3 tools/planted_faults.py scan      # hymba-1.5b: every scan row reads chip 0's A and D
     python3 tools/planted_faults.py experts   # mixtral-8x22b: chip 1's experts read chip 0's weights
     python3 tools/planted_faults.py roll      # smollm-135m, compute="sharded": every piece under the unrolled map
+    python3 tools/planted_faults.py bwd       # falcon-mamba-7b: the scan's backward reads h_t for h_{t-1}
 
 Each run copies ``src/`` and ``chip_smoke.py`` into ``build/planted-<fault>``
 (the built kernels too, so nothing is compiled again), plants the fault in
 the copy's Python, and runs there ``chip_smoke.fleet_families`` for the
 fault's family alone, or for ``roll`` ``chip_smoke.lm_tp_parity`` on two
 chips of float32 SmolLM-135M at full width (random weights from seeds 0
-and 1) split as a 2 x ``LM_TP_MODEL`` mesh's rules split them. The tree
-itself is never changed. ``mask`` and
+and 1) split as a 2 x ``LM_TP_MODEL`` mesh's rules split them, or for
+``bwd`` (a fault in the CUDA source, built again in the copy)
+``chip_smoke.ssm_grad_gate`` on one full-width falcon-mamba-7b layer
+(random weights from seed 0). The tree itself is never changed. ``mask`` and
 ``scan`` turn the serving gates that come before the one under test into
 log lines (``mask``: the chip-0 and anchor gates, so that the near-tie rule
 reads the fault; ``scan``: all three, so that the per-chip scan check reads
@@ -37,6 +40,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 OPS_MM = "src/repro_torch/kernels/masked_matmul/ops.py"
 OPS_SCAN = "src/repro_torch/kernels/mamba_scan/ops.py"
 MASKING = "src/repro_torch/core/masking.py"
+SCAN_BWD = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
 # a serving gate of fleet_families, and the same check made a log line
 GATES = {
     "chip 0": ('raise Failed(f"fleet (d) {c.name}: chip {i} (rate', 'log(f"(planted) fleet (d) {c.name}: chip {i} (rate'),
@@ -57,6 +61,8 @@ FAULTS = {
                                    "    kdim, n = w.shape[-2:]\n    chips = math.prod(lead_w)\n")],
                 ()),
     "roll": ("smollm-135m", [(MASKING, "    key = (r0 % rows, c0 % cols)\n", "    key = (0, 0)\n")], ()),
+    "bwd": ("falcon-mamba-7b", [(SCAN_BWD, "        const float hp = j ? hb[j - 1][s] : h0[s];\n",
+                                 "        const float hp = hb[j][s];\n")], ()),
 }
 
 RUN = """
@@ -106,6 +112,29 @@ sys.exit(1)
 """
 
 
+RUN_BWD = """
+import dataclasses, sys, time, torch
+sys.path.insert(0, "src")
+import chip_smoke
+from repro_torch.configs import get_arch
+from repro_torch.core import random_fault_map
+from repro_torch.models import model as M
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = dataclasses.replace(get_arch({family!r}), num_layers=1, dtype="float32", param_dtype="float32")
+flat = M.param_dict(M.init_params(cfg, 0, device="cuda"))
+lp = {{k.rsplit(".", 1)[-1]: v for k, v in flat.items() if k.startswith("layers.0.ssm.")}}
+t0 = time.perf_counter()
+try:
+    chip_smoke.ssm_grad_gate(torch, print, cfg, lp, random_fault_map(0, 256, 256, 0.05))
+except chip_smoke.Failed as e:
+    print("planted {fault}: phase 12's gradient gate failed:", e)
+    print("seconds", time.perf_counter() - t0)
+    sys.exit(0)
+print("planted {fault}: phase 12's gradient gate passed: the fault did not show")
+sys.exit(1)
+"""
+
+
 def plant(fault: str) -> pathlib.Path:
     """The copy of the tree with ``fault`` planted; raises if a patched text
     is not found exactly once."""
@@ -130,7 +159,7 @@ def main() -> int:
     ap.add_argument("fault", choices=sorted(FAULTS))
     fault = ap.parse_args().fault
     dst = plant(fault)
-    code = (RUN_ROLL if fault == "roll" else RUN).format(family=FAULTS[fault][0], fault=fault)
+    code = {"roll": RUN_ROLL, "bwd": RUN_BWD}.get(fault, RUN).format(family=FAULTS[fault][0], fault=fault)
     return subprocess.run([sys.executable, "-c", code], cwd=dst).returncode
 
 
