@@ -66,6 +66,8 @@ __all__ = [
     "selective_scan_bwd",
     "selective_scan_bwd_ref",
     "bwd_plan",
+    "bwd_scratch",
+    "bwd_smem_bytes",
     "selective_step",
     "scan_plan",
     "resolve_plan",
@@ -83,7 +85,7 @@ _BWD_ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 8
     + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 )
-BWD_CHUNK = 8  # the backward's C source: steps a checkpoint covers (its CT)
+BWD_CHUNK = 8  # the backward's C source (its CT): steps a chunk, a ring stage and a checkpoint's span
 # the CUDA source's geometry: THREADS per block; a channel takes 1-32 lanes (a power of two),
 # each holding 1, 2, 4 or 8 states in registers, so at most 32 x 8 states a channel
 THREADS, WARP = 128, 32
@@ -309,12 +311,48 @@ selective_scan.fleet_launches = 0
 selective_scan.last_plan = None
 
 
+BWD_STATES_PER_LANE = 4  # the backward's states a lane up to WARP x 4 states, MAX_STATES_PER_LANE above
+
+
 def bwd_plan(n: int) -> tuple[int, int]:
-    """(lanes, states) of the backward kernel for N states: min(8, N) states
-    a lane rounded up to a power of two, and the fewest lanes (a power of
-    two) that hold N. The C source refuses any other."""
-    states = min(MAX_STATES_PER_LANE, _pow2_at_least(_check_states(n)))
+    """(lanes, states) of the backward kernel for N states: min(4, N)
+    states a lane rounded up to a power of two (8 above 128 states, which
+    32 lanes of 4 do not hold), and the fewest lanes (a power of two) that
+    hold N. The C source refuses any other."""
+    n = _check_states(n)
+    states = (MAX_STATES_PER_LANE if n > WARP * BWD_STATES_PER_LANE
+              else min(BWD_STATES_PER_LANE, _pow2_at_least(n)))
     return _pow2_at_least(-(-n // states)), states
+
+
+def bwd_scratch(bsz: int, length: int, dim: int, n: int) -> dict:
+    """The backward kernel's plan and fp32 scratch shapes: ``parts`` blocks
+    a row, each writing one partial of gB and gC a (row, step) to ``pbc``;
+    each row's gA and gD (``pa``, ``pd``); ``slots`` checkpoints a block of
+    h before the chunks of ``BWD_CHUNK`` steps after the first and before
+    the last (``ckpt``, each thread's states side by side)."""
+    lanes, states = bwd_plan(n)
+    parts = -(-int(dim) // (THREADS // lanes))
+    slots = max(-(-int(length) // BWD_CHUNK) - 2, 0)
+    return dict(lanes=lanes, states=states, parts=parts, slots=slots, pbc=(bsz, length, parts, 2 * n),
+                pa=(bsz, dim, n), pd=(bsz, dim), ckpt=(bsz, parts, slots, THREADS * states))
+
+
+def bwd_smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the backward kernel's block at N states
+    with u, B, C and gy in ``dtype``: the C source's ``layout``. A ring of
+    two stages of a chunk's u, dt, gy (steps x channels) and B, C rows
+    (each a power of two of at least 16 bytes); then (dt, dt u, gy, u) per
+    (step, channel), (B, C) per (step, state), the chunk's recomputed h
+    (one slot more) and g per thread, and each warp's gB and gC sums a
+    step."""
+    lanes, states = bwd_plan(n)
+    es, cpb, np_ = (2 if dtype == torch.bfloat16 else 4), THREADS // lanes, lanes * states
+    a16 = lambda b: -(-b // 16) * 16  # noqa: E731
+    row = max(16, _pow2_at_least(n * es))  # a B or C row: a power of two of at least 16 bytes
+    stage = 2 * a16(BWD_CHUNK * cpb * es) + a16(BWD_CHUNK * cpb * 4) + 2 * BWD_CHUNK * row
+    return (2 * stage + BWD_CHUNK * cpb * 16 + BWD_CHUNK * np_ * 8 + (2 * BWD_CHUNK + 1) * THREADS * states * 4
+            + BWD_CHUNK * (THREADS // WARP) * 2 * np_ * 4)
 
 
 def selective_scan_bwd_ref(u, dt, a, b, c, d, gy, gh=None):
@@ -383,9 +421,7 @@ def selective_scan_bwd(u, dt, a, b, c, d, gy, gh=None):
         raise ValueError(f"bad gradient shapes gy{tuple(gy.shape)} gh{None if gh is None else tuple(gh.shape)}")
     gy = gy.to(u.dtype).contiguous()
     gh = None if gh is None else gh.float().contiguous()
-    lanes, states = bwd_plan(n)
-    nw = -(-dim // (THREADS // lanes)) * (THREADS // WARP)
-    nch = -(-length // BWD_CHUNK)
+    plan = bwd_scratch(bsz, length, dim, n)
     f32 = dict(dtype=torch.float32, device=u.device)
     gu, gdt = torch.empty((bsz, length, dim), **f32), torch.empty((bsz, length, dim), **f32)
     gbc = torch.empty((bsz, length, 2, n), **f32)
@@ -394,16 +430,14 @@ def selective_scan_bwd(u, dt, a, b, c, d, gy, gh=None):
         for t in (gu, gdt, gbc, ga, gd):
             t.zero_()
     else:
-        pbc = torch.empty((bsz, length, nw, 2, n), **f32)
-        pa, pd = torch.empty((bsz, dim, n), **f32), torch.empty((bsz, dim), **f32)
-        ckpt = torch.empty((bsz, nch, dim, n), **f32)
+        pbc, pa, pd, ckpt = (torch.empty(plan[k], **f32) for k in ("pbc", "pa", "pd", "ckpt"))
         fn = load_kernel("selective_scan_bwd", _BWD_ARGTYPES)
         err = fn(
             _DTYPES[u.dtype], u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
             d.data_ptr(), gy.data_ptr(), None if gh is None else gh.data_ptr(), gu.data_ptr(), gdt.data_ptr(),
             gbc.data_ptr(), ga.data_ptr(), gd.data_ptr(), pbc.data_ptr(), pa.data_ptr(), pd.data_ptr(),
-            ckpt.data_ptr(), bsz, length, dim, n, lanes, states, nw, nch, *_strides(u, dt, b, c),
-            bsz // chips, sa, sd, torch.cuda.current_stream().cuda_stream,
+            ckpt.data_ptr(), bsz, length, dim, n, plan["lanes"], plan["states"], plan["parts"], plan["slots"],
+            *_strides(u, dt, b, c), bsz // chips, sa, sd, torch.cuda.current_stream().cuda_stream,
         )
         check_launch("selective_scan_bwd", err)
         selective_scan_bwd.launches += 1

@@ -24,7 +24,7 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.mamba_scan.ops import (
-    selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_ref,
+    BWD_CHUNK, bwd_plan, selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_ref,
 )
 from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_checksummed, masked_matmul_ref
 from repro_torch.models import model as M
@@ -1594,9 +1594,14 @@ def test_lm_kernel_mode_fit_on_the_card_raises_and_kernel_eval_runs(cuda):
 
 
 # (B, L, D, N): falcon-mamba's FAT step (one chip's rows), a ragged D and L (not a multiple of the
-# backward's 8-step chunks), one state, odd and wide states, a single step
+# backward's 8-step chunks), one state, odd and wide states, a single step; L at a chunk less one, a
+# chunk and two chunks and one (no checkpoint, none, one); D of 100, three blocks of 32 channels and 4;
+# and each (lanes, states) instance the plan builds (N = 1 and 2 at one lane, 4 states a lane from N =
+# 4 to 128 at 1-32 lanes, 8 at 256) at a ragged L of three chunks and a D of two blocks and some
 SCAN_BWD_CASES = [(8, 64, 8192, 16), (2, 37, 300, 16), (3, 20, 96, 1), (2, 19, 64, 5), (2, 24, 48, 17),
-                  (1, 9, 40, 64), (2, 1, 33, 8)]
+                  (1, 9, 40, 64), (2, 1, 33, 8), (2, BWD_CHUNK - 1, 96, 16), (2, BWD_CHUNK, 96, 16),
+                  (2, 2 * BWD_CHUNK + 1, 96, 16), (3, 29, 100, 16)] + [
+    (2, 3 * BWD_CHUNK - 3, 2 * (128 // bwd_plan(n)[0]) + 3, n) for n in (1, 2, 4, 8, 16, 32, 64, 128, 256)]
 
 
 @pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
@@ -1621,6 +1626,47 @@ def test_selective_scan_bwd_kernel_matches_plain_on_card(cuda, b, l, d, n, u_dty
         assert x.shape == t.shape and x.dtype == t.dtype, name
         scale = max(float(w.float().abs().max()), 1.0)
         torch.testing.assert_close(x.float() / scale, w.float() / scale, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_takes_unaligned_slices(cuda, u_dtype):
+    """u a slice of a wider tensor, B and C slices starting at an odd
+    element (2-byte copies in bf16), and no gh."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b, l, d, n = 2, 27, 96, 16
+    xz = torch.randn(b, l, 2 * d, generator=g, device=cuda).to(u_dtype)
+    u = xz[..., :d]
+    dt = torch.nn.functional.softplus(torch.randn(b, l, d, generator=g, device=cuda) - 3.0)
+    a = -torch.exp(torch.randn(d, n, generator=g, device=cuda))
+    dbc = torch.randn(b, l, 3 + 2 * n, generator=g, device=cuda).to(u_dtype)
+    _, bm, cm = torch.split(dbc, [3, n, n], dim=-1)
+    assert bm.storage_offset() % 2 == 1 and cm.storage_offset() % 2 == 1
+    d_skip = torch.randn(d, generator=g, device=cuda)
+    gy = torch.randn(b, l, d, generator=g, device=cuda).to(u_dtype)
+    got = selective_scan_bwd(u, dt, a, bm, cm, d_skip, gy, None)
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_ref(u, dt, a, bm, cm, d_skip, gy, None)
+    rtol, atol = (2e-5, 1e-4) if u_dtype == torch.float32 else dtype_tol(torch.bfloat16)
+    for name, x, w in zip(("gu", "gdt", "ga", "gb", "gc", "gd"), got, want):
+        scale = max(float(w.float().abs().max()), 1.0)
+        torch.testing.assert_close(x.float() / scale, w.float() / scale, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("chip_axis", [False, True])
+def test_selective_scan_bwd_is_deterministic(cuda, chip_axis):
+    """Two launches give the same bits: every sum over channels, blocks,
+    steps and rows is taken in a fixed order, with no atomics."""
+    u, dt, a, bm, cm, d_skip = _scan_inputs(cuda, 8, 64, 8192, 16, torch.float32, seed=9)
+    if chip_axis:  # 2 chips x 4 rows, each chip's own A and D
+        a, d_skip = torch.stack([a, 1.1 * a]), torch.stack([d_skip, d_skip + 0.1])
+    g = torch.Generator(device=cuda).manual_seed(10)
+    gy = torch.randn(8, 64, 8192, generator=g, device=cuda)
+    gh = torch.randn(8, 8192, 16, generator=g, device=cuda)
+    first = selective_scan_bwd(u, dt, a, bm, cm, d_skip, gy, gh)
+    second = selective_scan_bwd(u, dt, a, bm, cm, d_skip, gy, gh)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("shared", [False, True])

@@ -318,14 +318,49 @@ def test_scan_backward_plan_is_an_instance_its_c_source_builds():
     built = {(int(p), int(s)) for p, s in re.findall(r"launch_ps<(\d+), (\d+)>\(args", src)}
     assert f"constexpr int CT = {BWD_CHUNK};" in src and f"constexpr int NT = {THREADS};" in src
     assert f"constexpr int NMAX = {MAX_STATE};" in src
+    assert "while (want_states < N && want_states < 4) want_states *= 2;" in src
+    assert "if (N > 128) want_states = 8;" in src
+    plans = set()
     for n in range(1, MAX_STATE + 1):
         states = 1
-        while states < n and states < 8:  # the C entry point's rule
+        while states < n and states < 4:  # the C entry point's rule
             states *= 2
+        if n > 128:
+            states = 8
         lanes = 1
         while lanes * states < n:
             lanes *= 2
         assert bwd_plan(n) == (lanes, states) and (lanes, states) in built, n
+        plans.add((lanes, states))
+    assert plans == built == {(1, 1), (1, 2), (1, 4), (2, 4), (4, 4), (8, 4), (16, 4), (32, 4), (32, 8)}
+
+
+def test_scan_backward_shared_memory_fits_a_block_at_every_state_count():
+    """``bwd_smem_bytes``, the Python mirror of ``selective_scan_bwd.cu``'s
+    ``layout``, fits a block's 232,448 bytes at every N from 1 to 256 in
+    both dtypes for the plan's instance, and four blocks an SM at the
+    models' N = 16; the mirror's regions are the C layout's, in its order."""
+    import re
+
+    from repro_torch.kernels.mamba_scan.ops import BWD_CHUNK, bwd_scratch, bwd_smem_bytes
+
+    src = _source("selective_scan_bwd")
+    assert "  o = 2 * y.stage;" in src  # two ring stages
+    body = src.split("__host__ __device__ inline Layout layout(", 1)[1].split("\n}\n", 1)[0]
+    regions = ["u", "dt", "gy", "b", "c", "stage", "x", "bc", "h", "g", "red", "total"]
+    assert re.findall(r"y\.(\w+) = o;", body) == regions
+    assert f"constexpr long long SMEM_LIMIT = {SMEM_LIMIT_BYTES};" in src
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in range(1, MAX_STATE + 1):
+            assert bwd_smem_bytes(n, dtype) <= SMEM_LIMIT_BYTES, (n, dtype)
+        # an SM's 228 KiB holds four blocks, each with its 1 KiB reserve
+        assert 4 * (bwd_smem_bytes(16, dtype) + 1024) <= 233472, dtype
+    # the population fit's launch, 16 rows x 64 steps x 8192 channels x 16 states: 256 blocks a row,
+    # checkpoints before chunks 1-6 of 8
+    got = bwd_scratch(16, 64, 8192, 16)
+    assert (got["lanes"], got["states"], got["parts"], got["slots"]) == (4, 4, 256, 64 // BWD_CHUNK - 2)
+    assert got["pbc"] == (16, 64, 256, 32) and got["ckpt"] == (16, 256, 6, THREADS * 4)
+    assert bwd_scratch(2, 9, 40, 5)["slots"] == 0 and bwd_scratch(2, 17, 40, 5)["slots"] == 1
 
 
 def test_scan_probe_counts_the_loop_that_holds_the_exponentials():
@@ -377,3 +412,95 @@ def test_scan_probe_variants_patch_the_kernel_source_once():
         for old, new in patches:
             assert scan.count(old) == 1 and old != new
     assert "#if" not in scan  # the kernel as built has no compile-time variants
+
+
+def _tool(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_scan_backward_probe_patches_the_source_as_it_counts():
+    """``tools/selective_scan_bwd_probe.py`` times the backward's launches
+    apart and its diagnostic copies from patched copies of the source: the
+    entry cut after the main kernel, an appended entry to ``launch_sum``,
+    and each diagnostic's text found as many times as it lists, in the
+    tree's source (and the parent's set only in the parent's)."""
+    probe = _tool("selective_scan_bwd_probe")
+    src = _source("selective_scan_bwd")
+    assert src.count(probe.MAIN_ONLY[0]) == 1
+    assert ("int launch_sum(const float* in, float* out, long long outer, int K, long long inner, "
+            "cudaStream_t st)") in src
+    assert probe.diagnostics_for(src) is probe.DIAGNOSTICS["tree"]
+    split = probe.patch(src, [(*probe.MAIN_ONLY, 1)]) + probe.PROBE_SUM
+    for patches in probe.DIAGNOSTICS["tree"].values():
+        assert probe.patch(split, patches) != split
+    with pytest.raises(RuntimeError, match="times, not"):
+        probe.patch(src, probe.DIAGNOSTICS["parent"]["no expf"])
+    # the parent's wrapper, 77fb41a: per-warp partials, a checkpoint every 8 steps
+    assert probe.parent_scratch(16, 64, 8192, 16)["pbc"] == (16, 64, 512, 2, 16)
+
+
+def test_scan_backward_probe_reads_ptxas():
+    probe = _tool("selective_scan_bwd_probe")
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125selective_scan_bwd_kernelILi4ELi4EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125selective_scan_bwd_kernelILi4ELi4EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110sum_middleEPKfPfxi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110sum_middleEPKfPfxi
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 18 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+    assert probe.ptxas_table(log) == {
+        "4x4": dict(stack=0, spill_stores=0, spill_loads=0, registers=96),
+        "sum_middle": dict(stack=8, spill_stores=4, spill_loads=4, registers=18),
+    }
+
+
+def test_planted_faults_patch_the_tree_once():
+    """Each fault of ``tools/planted_faults.py`` replaces a text found once
+    in the tree (``bwd``: the backward's read of h_{t-1}), as does each
+    serving gate it turns into a log line."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    faults = _tool("planted_faults")
+    for fault, (_, subs, gates) in faults.FAULTS.items():
+        for path, old, new in subs:
+            assert (root / path).read_text().count(old) == 1 and old != new, fault
+        for g in gates:
+            assert (root / "chip_smoke.py").read_text().count(faults.GATES[g][0]) == 1, (fault, g)
+    assert "h_{t-1}" in faults.FAULTS["bwd"][1][0][1]
+
+
+def test_scan_backward_probe_counts_each_loop_of_the_instance():
+    """The probe reads every loop (a backward branch) of one instance off
+    ``cuobjdump -sass`` and counts its exponentials, shuffles, shared and
+    device memory instructions and barriers."""
+    probe = _tool("selective_scan_bwd_probe")
+    sass = """
+        Function : _ZN4_GLOBAL__N_125selective_scan_bwd_kernelILi4ELi4EEEvNS_4ArgsE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   MUFU.EX2 R7, R5 ;
+        /*0030*/              @P0 BRA `(.L_x_1) ;
+.L_x_2:
+        /*0040*/                   SHFL.BFLY PT, R8, R9, 0x10, 0x1f ;
+        /*0050*/                   STS [R3], R8 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/              @!P1 BRA `(.L_x_2) ;
+        /*0080*/                   EXIT ;
+        Function : _ZN4_GLOBAL__N_110sum_middleEPKfPfxii
+        /*0000*/                   EXIT ;
+"""
+    loops = probe.sass_loops(sass, 4, 4)
+    assert [(l["start"], l["end"], l["instructions"]) for l in loops] == [(0x10, 0x30, 3), (0x40, 0x70, 4)]
+    assert (loops[0]["MUFU"], loops[0]["LDS"], loops[1]["SHFL"], loops[1]["STS"], loops[1]["BAR"]) == (1, 1, 1, 1, 1)
+    assert probe.sass_loops(sass, 2, 8) == []

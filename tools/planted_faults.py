@@ -61,8 +61,8 @@ FAULTS = {
                                    "    kdim, n = w.shape[-2:]\n    chips = math.prod(lead_w)\n")],
                 ()),
     "roll": ("smollm-135m", [(MASKING, "    key = (r0 % rows, c0 % cols)\n", "    key = (0, 0)\n")], ()),
-    "bwd": ("falcon-mamba-7b", [(SCAN_BWD, "        const float hp = j ? hb[j - 1][s] : h0[s];\n",
-                                 "        const float hp = hb[j][s];\n")], ()),
+    "bwd": ("falcon-mamba-7b", [(SCAN_BWD, "      get<S>(hp, hs + j * NT * S, tid);  // h_{t-1}",
+                                 "      get<S>(hp, hs + (j + 1) * NT * S, tid);  // h_t")], ()),
 }
 
 RUN = """
