@@ -535,13 +535,15 @@ def rel_l2(got, ref):
 def reset_launches():
     """Zero the model path's kernel counters: launches and launches by variant
     (the masked GEMM's chip-batched, expert-batched and chip x expert ones
-    too, and the scan's and its backward's chip-batched ones)."""
+    too, its ``mma`` launches that copied an operand TMA refuses, and the
+    scan's and its backward's chip-batched ones)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_bwd
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
 
     for fn in (masked_matmul, flash_attention, selective_scan, selective_scan_bwd):
         fn.launches = 0
+    masked_matmul.copy_launches = 0
     selective_scan.fleet_launches = selective_scan_bwd.fleet_launches = 0
     for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "fleet_launches_by_variant"),
                      (masked_matmul, "expert_launches_by_variant"),
@@ -4140,12 +4142,14 @@ def run(args, torch) -> int:
             for rate, ok in oks.items():
                 ref = masked_matmul_ref(x, w, ok)
                 got = masked_matmul(x, w, ok)
+                loads = masked_matmul.last_loads  # the mma kernel's load route of x and w: TMA or copies
                 e, good = worst(got, ref, dtype_tol(dtype))
                 err = max(err, e)
                 if not good:
                     failures.append(f"masked_matmul {arch} {dtype} {m}x{k}x{n} rate {rate}: {e}")
                 if bf16:
                     got32 = masked_matmul(x, w32, ok)
+                    loads32 = masked_matmul.last_loads
                     e32, good32 = worst(got32, masked_matmul_ref(x, w32, ok), dtype_tol(dtype))
                     err = max(err, e32)
                     if not good32 or not torch.equal(got32, got):
@@ -4172,10 +4176,11 @@ def run(args, torch) -> int:
                 ms=time_ms(lambda: masked_matmul(x, w, ok)),
                 plain_ms=time_ms(lambda: masked_matmul_ref(x, w, ok), reps=5),
                 library_ms=time_ms(lambda: torch.matmul(x, wm)),
-                **bound(size), uses=uses, k=k, n=n, tied=tied, max_abs_err=err,
+                **bound(size), uses=uses, k=k, n=n, tied=tied, max_abs_err=err, loads=loads,
             )
             if bf16:
                 row.update(
+                    f32w_loads=loads32,
                     f32w_ms=time_ms(lambda: masked_matmul(x, w32, ok)),
                     **bound(4, "f32w_"),
                     v1_ms=time_ms(lambda: masked_matmul(x, w, ok, variant="v1")),
@@ -4185,8 +4190,9 @@ def run(args, torch) -> int:
             mm_rows[(arch, name_of(dtype), m, idx)] = row
             log(f"masked_matmul {arch:15s} {name_of(dtype):8s} M={m:5d} K={k:5d} N={n:6d}"
                 f"{' (embed.T)' if tied else ''}: err<= {err:.3g} (rtol, atol {dtype_tol(dtype)}) "
-                f"{row['variant']} {row['ms']:.4f} ms"
-                + (f"  fp32 w {row['f32w_ms']:.4f} ms (bound {row['f32w_bound_ms']:.4f})  v1 {row['v1_ms']:.4f} ms"
+                f"{row['variant']}{' loads (x, w) ' + str(loads) if loads else ''} {row['ms']:.4f} ms"
+                + (f"  fp32 w{' ' + str(loads32) if loads32 else ''} {row['f32w_ms']:.4f} ms (bound "
+                   f"{row['f32w_bound_ms']:.4f})  v1 {row['v1_ms']:.4f} ms"
                    if bf16 else "")
                 + f"  plain {row['plain_ms']:.4f} ms  torch.matmul(masked w) {row['library_ms']:.4f} ms  "
                 f"bound {row['bound_ms']:.4f} ms"
@@ -4645,6 +4651,7 @@ def run(args, torch) -> int:
 
     launches = {"masked_matmul": 0, "flash_attention": 0, "selective_scan": 0}
     variant_launches = dict.fromkeys(variant_counts(), 0)
+    copied = dict(mma=0)  # the main path's mma launches that copied an operand TMA refuses
 
     serve_report, profile_report, profile_lines = {}, {}, []
 
@@ -4679,6 +4686,7 @@ def run(args, torch) -> int:
             launches[key] += got_counts[key]
         for key in variant_launches:
             variant_launches[key] += got_variants[key]
+        copied["mma"] += masked_matmul.copy_launches
         want = dict(masked_matmul=per_step * (1 + NEW), flash_attention=0,
                     selective_scan=c.num_layers if c.has_ssm else 0)
         if got_counts != want:
@@ -4832,7 +4840,9 @@ def run(args, torch) -> int:
         times the plain path's own."""
         per_step = sum(uses for _, _, uses in c.gemm_shapes())
         tokens = {"tokens": torch.randint(0, c.vocab_size, (BATCH, LONG), generator=gen, device=dev)}
-        M.prefill(params, {"tokens": tokens["tokens"][:, :256]}, c, ctx_k, attn_impl="kernel")
+        # a warm-up at the timed shape, not counted: the timed run meets no kernel instance (the mma
+        # kernel's 256-token tile, which a shorter warm-up leaves unused) at its first launch
+        M.prefill(params, tokens, c, ctx_k, attn_impl="kernel")
         torch.cuda.synchronize()
         want = dict(masked_matmul=per_step, flash_attention=c.num_layers,
                     selective_scan=c.num_layers if c.has_ssm else 0)
@@ -4849,6 +4859,7 @@ def run(args, torch) -> int:
                 launches[key] += got_counts[key]
             for key in variant_launches:
                 variant_launches[key] += got_variants[key]
+            copied["mma"] += masked_matmul.copy_launches
             if got_counts != want:
                 raise Failed(f"long prefill {c.name} {cc.dtype}: launches {got_counts}, expected {want}")
             check_variants(f"long prefill {c.name}", cc.dtype, got_variants)
@@ -5101,6 +5112,7 @@ def run(args, torch) -> int:
              ms=dstep["f32w_ms"], plain_ms=dstep["plain_ms"], bound_ms=dstep["f32w_bound_ms"],
              bound_by=bound_by(dstep, "f32w_"), library_ms=dstep["library_ms"]),
         dict(name="masked_matmul.mma", **mm_entry("mma"), launches=variant_launches["masked_matmul.mma"],
+             launches_by_copies=copied["mma"],
              launches_lm_eval=lm_launches["masked_matmul"]["mma"],
              launches_continuous=cont_launches["mma"], launches_fleet=fleet_launches["mma"],
              ms=pstep["f32w_ms"], plain_ms=pstep["plain_ms"], bound_ms=pstep["f32w_bound_ms"],

@@ -134,8 +134,9 @@ def masked_matmul_launch(
     ``gemm_plan``'s tiles, K slices and grid (``splits`` forced, as the
     wrapper forces a caller's or the cache's). ``dims`` are (M, N, K),
     ``blocks`` one tile's rows and columns and one slice's K; ``smem_bytes``
-    is the mma kernel's dynamic shared memory (the decode and tiled kernels
-    have static shared memory only)."""
+    is the mma kernel's dynamic shared memory for the fp32 master w, the
+    larger of its two w dtypes (the decode and tiled kernels have static
+    shared memory only)."""
     kind = mm.pick_variant(_dtype(dtype), m)
     r, c = mask_shape
     chips *= experts
@@ -154,7 +155,7 @@ def masked_matmul_launch(
         kernel="masked_matmul",
         dims=(m, n, k),
         blocks=(min(bm, m), min(bn, n), min(slice_k, k)),
-        smem_bytes=mm._MMA_SMEM[k_contiguous] if kind == "mma" else 0,
+        smem_bytes=mm._mma_smem(bm) if kind == "mma" else 0,
         grid=plan.grid,
         params=dict(splits=plan.splits),
     )

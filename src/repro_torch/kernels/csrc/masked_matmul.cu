@@ -19,15 +19,29 @@
 //   memory in a fixed order. embed.T: 8 lanes read one column's K run, 4 columns per warp, x from
 //   shared memory, summed by shuffles. K is split across blocks to fill one wave of two blocks
 //   per SM, and no more: a partial second wave would double the time.
-// - mma (bf16 x, M > 16) is bound by operations: 128 x 128 output tiles on the tensor cores
-//   (mma.sync m16n8k16, bf16 in, fp32 accumulators), k-depth 32, 8 warps of 64 x 32. x tiles come
-//   through cp.async into a three-stage ring (or by plain loads where x rows are not 16-byte
-//   aligned); w tiles come through registers, because every weight is masked (and an fp32 weight
-//   rounded) before it reaches shared memory. x is fetched two k tiles ahead; bf16 w too, into
-//   two register sets (fp32 w one tile ahead: a second set of fp32 registers would spill). The
-//   grid walks groups of 8 row tiles across the column tiles, so blocks that run together share
-//   their w tiles in L2. Both operands reach the tensor cores by ldmatrix (.trans for a
-//   row-major w tile) from padded rows, free of bank conflicts.
+// - mma (bf16 x, M > 16): wgmma with the masked weight as the register operand, fed by a TMA
+//   ring. Each output tile is computed transposed, y^T = (w * mask)^T x^T: 128 weight columns,
+//   split over two consumer warpgroups of 64 (wgmma's M), by 128 or 256 tokens (its N, so
+//   M = 160 is one tile and each weight is read once). A producer warpgroup's first thread keeps
+//   a ring of stages (an x tile of 64 k and the raw w tile, fp32 or bf16 as stored, both in TMA's
+//   128-byte swizzle; as many as fit 200 KB) filled by cp.async.bulk.tensor, each completing on
+//   the stage's mbarrier. A consumer thread reads its two columns' raw weights from the stage
+//   (conflict-free LDS under the swizzle), rounds them to bf16, multiplies them by their 0/1 mask
+//   bits and packs them straight into wgmma's A fragment: the masked weight never reaches shared
+//   or device memory. x is wgmma's B from shared memory (K-major, the natural layout of x's
+//   rows). Fragments of two k steps are prepared, then their wgmmas issued as one group; the next
+//   group's are prepared while it runs (two register sets), and a stage is released once the
+//   group after its last has been issued. Each thread's weight columns are fixed, so its mask
+//   bits come as one 64-bit word a k tile per column from the transposed bit matrix (one load
+//   where R is a multiple of 64, bit by bit otherwise), a tile ahead.
+//   The grid is persistent, one block an SM: each walks work items (chip, tile, K slice) so one
+//   item's epilogue overlaps the next one's loads. The tiles' traffic into shared memory binds
+//   it (PERF.md, PR 31): 256-token tiles move the fewest bytes a product, so K is cut only where
+//   the tiles leave half the card idle. An operand TMA refuses (a base or row stride not a
+//   multiple of 16 bytes, as at K = 100) is copied by the producer warpgroup into the same
+//   swizzled layout, fenced for the async proxy: the same kernel, named in the wrapper's
+//   last_loads. TMA maps are encoded per launch (cuTensorMapEncodeTiled, found through the
+//   runtime's driver entry point, so nothing but the runtime is linked).
 // - v1 (float32 x and w) runs in fp32 on the SIMT cores, since tensor cores would round fp32 to
 //   tf32, which misses the float32 tolerances. Two kernels, picked by M as the bf16 pair is:
 //   - M <= 16: the decode kernels above, instantiated for fp32 x and w with no bf16 rounding of w
@@ -50,10 +64,10 @@
 //   beside the bf16 kernels.
 //
 // The bf16 kernels take w in bf16 or in fp32 (the master weights, read in place): each fp32 weight
-// is rounded to bf16 in registers (__float2bfloat16_rn, bit for bit what w.to(torch.bfloat16)
+// is rounded to bf16 in registers (round to nearest even, bit for bit what w.to(torch.bfloat16)
 // gives) before the mask and the product, so both launches give the same bits. Every kernel reads
 // the mask as bits packed once per mask by the wrapper (8 KB for 256 x 256, L1-resident), 1 byte
-// per 8 weights instead of 32 bytes of float mask. Where K is split, each slice writes an fp32
+// per 8 weights instead of 32 bytes of float mask (mma: the transposed bits, by weight column). Where K is split, each slice writes an fp32
 // partial and the last slice of each tile sums them in slice order, so results do not change from
 // run to run.
 //
@@ -66,13 +80,17 @@
 // ONE mask, since every expert GEMM runs on the same chip; the mask's batch stride is then 0, so
 // its bits are packed and read once for all experts. Both at once (a fleet's MoE layer): the
 // batch axis is chips x E, and a mask group of E has grid entry i read mask i / E, so each chip's
-// experts share that chip's bits, packed once a chip. Left for later work: wgmma and TMA (a warp-specialized producer ring) for the mma kernel,
-// and a CUDA graph of the decode step, whose small GEMMs are launch-bound.
+// experts share that chip's bits, packed once a chip. The persistent mma kernel takes the axis
+// into its work items in place of grid.y. Left for later work: a CUDA graph of the decode step,
+// whose small GEMMs are launch-bound. (TMA multicast of each w tile to a cluster of two blocks on
+// neighbouring token tiles was built and ran slower: PERF.md, PR 31.)
+#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <cstring>
 #include <type_traits>
 
 namespace {
@@ -223,22 +241,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // columns n0.., `cols`) at part[(z * M + m) * N + n]. The last slice to finish sums the partials
 // in slice order, so the result does not depend on which slice finished last, and writes y. The
 // merge is a tail on one SM, bound by L2 latency, so its threads keep many loads in flight (float4
-// loads where the columns allow). The tile's
-// counter is left at 0 for the next launch, so the caller zeroes the counters once, not per
-// launch. grid.y is the chip: `part` is the chip's own, and the counter index counts chips x
-// tiles.
-template <typename TY>
-__device__ void merge_splits(const float* part, int* counters, TY* y, int M, int N, int m0,
-                             int rows, int n0, int cols) {
-  __shared__ int is_last;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+// loads where the columns allow). The tile's counter (counters[ctr], one a tile of every chip) is
+// left at 0 for the next launch, so the caller zeroes the counters once, not per launch. `part`
+// is the chip's own. The T threads tid = 0 .. T - 1 take part, `sync` is their barrier and
+// `is_last` a shared int of theirs.
+template <typename TY, typename Sync>
+__device__ void merge_partials(const float* part, int* counters, int ctr, int Z, TY* y, int M, int N,
+                               int m0, int rows, int n0, int cols, int tid, int T, Sync sync,
+                               int* is_last) {
   __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(&counters[tile], 1) == (int)gridDim.z - 1;
-  __syncthreads();
-  if (!is_last) return;
+  sync();
+  if (tid == 0) *is_last = atomicAdd(&counters[ctr], 1) == Z - 1;
+  sync();
+  if (!*is_last) return;
   __threadfence();
-  const int Z = gridDim.z, T = blockDim.x;
   const long long zs = (long long)M * N;
   const int vw = (cols % 4 == 0 && n0 % 4 == 0 && N % 4 == 0) ? 4 : 1;  // outputs per load
   const int total = rows * cols / vw;
@@ -246,7 +262,7 @@ __device__ void merge_splits(const float* part, int* counters, TY* y, int M, int
   // one output (a decode tile's M x 256)
   auto run = [&](auto e_, auto zb_) {
     constexpr int E = decltype(e_)::value, ZB = decltype(zb_)::value;
-    for (int base = threadIdx.x; base < total; base += E * T) {
+    for (int base = tid; base < total; base += E * T) {
       long long o[E];
       bool in[E];
       float4 sum[E];
@@ -294,7 +310,17 @@ __device__ void merge_splits(const float* part, int* counters, TY* y, int M, int
     run(std::integral_constant<int, 1>{}, std::integral_constant<int, 16>{});
   else
     run(std::integral_constant<int, 4>{}, std::integral_constant<int, 4>{});
-  if (threadIdx.x == 0) counters[tile] = 0;
+  if (tid == 0) counters[ctr] = 0;
+}
+
+// merge_partials for the decode kernels: the whole block takes part; grid.y is the chip, grid.z
+// the slice, and the counter index counts chips x tiles.
+template <typename TY>
+__device__ void merge_splits(const float* part, int* counters, TY* y, int M, int N, int m0,
+                             int rows, int n0, int cols) {
+  __shared__ int is_last;
+  merge_partials(part, counters, blockIdx.y * gridDim.x + blockIdx.x, gridDim.z, y, M, N, m0, rows, n0,
+                 cols, threadIdx.x, blockDim.x, [] { __syncthreads(); }, &is_last);
 }
 
 // ---------------------------------------------------------------------------
@@ -545,277 +571,523 @@ decode_cols_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// mma: M > 16, tensor cores
+// mma: M > 16, tensor cores (wgmma with the masked weight in registers, a TMA-fed ring)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BM = 128, MMA_BN = 128, MMA_BK = 32, MMA_THREADS = 256;
-constexpr int MMA_CH = MMA_BM * MMA_BK / 8 / MMA_THREADS;  // 8-element chunks per thread per tile
-constexpr int MMA_ALD = MMA_BK + 8;  // a row of an x tile [m][k] or a k-contiguous w tile [n][k]
-constexpr int MMA_BLD = MMA_BN + 8;  // a row of a row-major w tile [k][n]
-constexpr int MMA_A_STAGES = 3;      // x tiles: t (read), t + 1 (landed), t + 2 (in flight)
-constexpr int MMA_GROUP_M = 8;       // row tiles per raster group
-constexpr int MMA_MIN_TILES = 4;     // k tiles a slice holds at least, where K is split
-constexpr int MMA_A_ELEMS = MMA_BM * MMA_ALD;
-template <bool KCONTIG> __host__ __device__ constexpr int mma_b_elems() { return KCONTIG ? MMA_BN * MMA_ALD : MMA_BK * MMA_BLD; }
-template <bool KCONTIG> __host__ __device__ constexpr int mma_smem_bytes() {
-  return 2 * (MMA_A_STAGES * MMA_A_ELEMS + 2 * mma_b_elems<KCONTIG>());
+constexpr int MMA_BN = 128;          // weight columns (y's N) a block: two consumer warpgroups of 64
+constexpr int MMA_BK = 64;           // k depth of a stage: 128 bytes of bf16 x, the swizzle's span
+constexpr int MMA_CONSUMERS = 256;   // two warpgroups
+constexpr int MMA_PRODUCERS = 128;   // and the producer warpgroup
+constexpr int MMA_THREADS = MMA_CONSUMERS + MMA_PRODUCERS;
+// registers a thread after setmaxnreg: the producers give theirs to the consumers' accumulators
+// (128 x 56 + 256 x 224 <= 65,536)
+constexpr int MMA_PRODUCER_REGS = 56, MMA_CONSUMER_REGS = 224;
+constexpr int MMA_STEP_GROUP = 2;    // k steps of 16 a wgmma group: half a k tile
+constexpr int MMA_MIN_TILES = 2;     // k tiles a slice holds at least, where K is split
+constexpr int MMA_SPLIT_SHARE = 8;   // K is split only where one entry's tiles fill 1 / 8 of the SMs
+constexpr int MMA_GROUP_M = 8;       // token tiles a raster group
+constexpr int MMA_RING_BYTES = 200 * 1024;  // the ring's stages, at most
+constexpr int MMA_MAX_STAGES = 6;
+
+// A stage holds the x tile (TOK token rows of 64 k, 128 bytes each) and the raw w tile (64 k x
+// 128 columns as stored: fp32 or bf16), both as TMA's 128-byte swizzle lays them out.
+template <typename WT, int TOK> struct MmaShape {
+  static constexpr int X_BYTES = TOK * MMA_BK * 2;
+  static constexpr int W_BYTES = MMA_BK * MMA_BN * (int)sizeof(WT);
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int STAGES =
+      MMA_RING_BYTES / STAGE < MMA_MAX_STAGES ? MMA_RING_BYTES / STAGE : MMA_MAX_STAGES;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + the slack that aligns the ring to 1 KB
+  static constexpr int NR = TOK / 2;  // a consumer thread's fp32 accumulators: 64 x TOK over 128
+};
+
+struct MmaArgs {
+  const __nv_bfloat16* x;  // (chips, M, K)
+  const void* w;           // entry c at w + c * swc: (K, N) strides (wstride, 1), or (1, wstride)
+  const uint8_t* bits_t;   // each mask transposed and packed: (masks, C, rbytes)
+  __nv_bfloat16* y;        // (chips, M, N)
+  float* part;             // chips x splits x M x N fp32 partials, where K is split
+  int* counters;           // one a tile of every chip, zero, left zero
+  long long wstride, swc, sbm;
+  int chips, M, N, K, mgroup, R, C, rbytes, tiles_m, tiles_n, splits, per, x_copy, w_copy;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// Wait for the phase of `parity` to complete. A ring that never completes (a fault in the kernel)
+// traps after 10 s, so the launch fails with an error rather than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try(a, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try(a, parity))
+    if (globaltimer() - t0 > 10000000000ull) __trap();
+}
+// a 3-d TMA load of one box into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ bool aligned16_dev(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+// The producer warpgroup's own copy of one box, for an operand TMA refuses (a base or a stride
+// that is not a multiple of 16 bytes): `rows` rows of 128 bytes, swizzled as TMA's SWIZZLE_128B
+// writes them, element (r, i) = src[(o0 + r) * ostride + i0 + i], zero where o0 + r >= olim or
+// i0 + i >= ilim. A whole 16-byte chunk is read in the widest pieces its address allows (one
+// 16-byte load, two of 8, four of 4), a partial one element by element.
+template <typename T>
+__device__ __forceinline__ void copy_box(unsigned char* dst, const T* src, long long ostride, int o0, int olim,
+                                         int i0, int ilim, int rows, int lane, int lanes) {
+  constexpr int E = 16 / (int)sizeof(T);
+#pragma unroll 4
+  for (int c = lane; c < rows * 8; c += lanes) {
+    const int r = c >> 3, q = c & 7;
+    const int o = o0 + r, i = i0 + q * E;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (o < olim && i < ilim) {
+      const T* p = src + (long long)o * ostride + i;
+      const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+      if (i + E <= ilim && (at & 15) == 0) {
+        v = __ldg(reinterpret_cast<const uint4*>(p));
+      } else if (i + E <= ilim && (at & 7) == 0) {
+        const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p)), hi = __ldg(reinterpret_cast<const uint2*>(p) + 1);
+        v = make_uint4(lo.x, lo.y, hi.x, hi.y);
+      } else if (i + E <= ilim && (at & 3) == 0) {
+        const unsigned* u = reinterpret_cast<const unsigned*>(p);
+        v = make_uint4(__ldg(u), __ldg(u + 1), __ldg(u + 2), __ldg(u + 3));
+      } else {
+        T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+          if (i + j < ilim) e[j] = p[j];
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * 128 + ((q ^ (r & 7)) << 4)) = v;
+  }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// keeps the compiler from moving accumulator accesses across the wgmma sections
+template <int NR> __device__ __forceinline__ void acc_fence(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The B operand: a K-major x tile, rows of 128 bytes with the 128-byte swizzle, 8-row groups
+// 1024 bytes apart; `saddr` is the shared address of the 16 k at hand (the 1-KB aligned tile plus
+// 32 bytes a k step).
+__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// wgmma m64nTOKk16, A (the masked weights) from registers, B (x) from shared memory, fp32
+// accumulators; D += A * B.
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+__device__ __forceinline__ void wgmma_rs_256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, 1, 1, 1, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+template <int TOK> __device__ __forceinline__ void wgmma_rs(float (&d)[TOK / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (TOK == 128) wgmma_rs_128(d, a, desc);
+  else wgmma_rs_256(d, a, desc);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) { return bits_of(__floats2bfloat162_rn(lo, hi)); }
+
+// A consumer thread's A fragment of k step s of the stage's raw w tile `ws`: rows g and g + 8 of
+// its warp's 16 (g = lane / 4) are the weight columns nl and nl + 1, and its k are 2 t4, 2 t4 + 1,
+// 2 t4 + 8 and 2 t4 + 9 (t4 = lane % 4) of the step's 16: a[2h + j] holds column nl + j at k pair
+// 2 t4 + 8h. Each weight is rounded to bf16 (a no-op for bf16 w). `off` are the thread's offsets
+// into the tile (mma_offsets), so every address below is an offset plus a constant.
+template <typename WT, bool KCONTIG>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const unsigned char* ws, const int (&off)[2],
+                                       int s, int t4) {
+  if constexpr (!KCONTIG) {  // rows of k, (h, e) at row 16s + 8h + 2t4 + e
+    if constexpr (sizeof(WT) == 4) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v0 = *reinterpret_cast<const float2*>(ws + off[0] + (16 * s + 8 * h) * 128);
+        const float2 v1 = *reinterpret_cast<const float2*>(ws + off[1] + (16 * s + 8 * h) * 128);
+        a[2 * h] = pack_bf16(v0.x, v1.x);
+        a[2 * h + 1] = pack_bf16(v0.y, v1.y);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t u0 = *reinterpret_cast<const uint32_t*>(ws + off[0] + (16 * s + 8 * h) * 128);
+        const uint32_t u1 = *reinterpret_cast<const uint32_t*>(ws + off[1] + (16 * s + 8 * h) * 128);
+        a[2 * h] = __byte_perm(u0, u1, 0x5410);
+        a[2 * h + 1] = __byte_perm(u0, u1, 0x7632);
+      }
+    }
+  } else {  // rows of n: off[j] is row nl + j's byte offset; its swizzle is the row's low 3 bits
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int sw = (off[j] >> 7) & 7;
+        if constexpr (sizeof(WT) == 4) {  // box s / 2 of 32 k, 16-byte chunk 4 (s % 2) + 2h + t4 / 2
+          const int q = 4 * (s & 1) + 2 * h + (t4 >> 1);
+          const float2 v = *reinterpret_cast<const float2*>(ws + (s >> 1) * 16384 + off[j] + ((q ^ sw) << 4) +
+                                                            8 * (t4 & 1));
+          a[2 * h + j] = pack_bf16(v.x, v.y);
+        } else {  // one box of 64 k, chunk 2s + h
+          a[2 * h + j] = *reinterpret_cast<const uint32_t*>(ws + off[j] + (((2 * s + h) ^ sw) << 4) + 4 * t4);
+        }
+      }
+  }
+}
+
+// The thread's offsets into a stage's w tile (see load_a). Row-major w: the tile is 128 / E boxes
+// of 64 k rows x E columns (E = 128 bytes of WT), 8 KB each; the thread's columns nl, nl + 1 sit
+// in box nl / E, 16-byte chunk q; off[e] is row 2t4 + e of it, swizzled. k-contiguous w: 64 / E
+// boxes of 128 n rows x E k, 16 KB each; off[j] is row nl + j's byte offset in a box.
+template <typename WT, bool KCONTIG>
+__device__ __forceinline__ void mma_offsets(int (&off)[2], int nl, int t4) {
+  if constexpr (!KCONTIG) {
+    constexpr int E = 128 / (int)sizeof(WT);
+    const int b = nl / E, nc = nl % E;
+    const int q = nc * (int)sizeof(WT) / 16, within = nc * (int)sizeof(WT) % 16;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * t4 + e;  // < 8: its swizzle is r itself
+      off[e] = b * 8192 + r * 128 + ((q ^ r) << 4) + within;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) off[j] = (nl + j) * 128;
+  }
+}
+
+// 64 mask bits of one weight column c (its row of the transposed bit matrix, `row`), bit i for
+// k = k0 + i, where kr = k0 % R. Where R is a multiple of 64, one aligned 8-byte load; any
+// other R, bit by bit (only the 16 bits this thread reads: i = 16s + 8h + 2t4 + e).
+__device__ __forceinline__ uint64_t mask_word(const uint8_t* row, bool aligned, int kr, int R, int t4) {
+  if (aligned) return __ldg(reinterpret_cast<const unsigned long long*>(row + (kr >> 3)));
+  uint64_t v = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 16 * s + 8 * h + 2 * t4 + e;
+        const int r = (kr + i) % R;
+        v |= (uint64_t)((__ldg(row + (r >> 3)) >> (r & 7)) & 1u) << i;
+      }
+  return v;
+}
+
+// The bf16 multipliers, 1.0 or 0.0, of mask bits p and p + 1 of u (the low half of the result for
+// bit p): the bits are shifted to the sign bits of x's byte 0 and x2's byte 1, and prmt copies
+// each sign across its half. p is a constant once the loops are unrolled.
+__device__ __forceinline__ uint32_t mask_pair(uint32_t u, int p) {
+  const uint32_t x = p <= 7 ? u << (7 - p) : u >> (p - 7);
+  const uint32_t x2 = p <= 14 ? u << (14 - p) : u >> (p - 14);
+  uint32_t m;
+  asm("prmt.b32 %0, %1, %2, 0xDD88;" : "=r"(m) : "r"(x), "r"(x2));
+  return m & 0x3F803F80u;
+}
+
+// One launch computes y = x @ (w * mask) for every chip (or expert) as a persistent walk over
+// work items (chip, output tile of TOK tokens x 128 weight columns, K slice). Warpgroups 0 and 1
+// are the consumers, each computing y^T for 64 weight columns: wgmma m64nTOKk16 with the masked
+// weights as A from registers and the x tile as B from shared memory. Warpgroup 2 is the
+// producer: its first thread keeps the ring of STAGES stages filled by TMA, one stage a k tile of
+// 64, and all of it copies an operand TMA refuses.
+template <typename WT, bool KCONTIG, int TOK>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+mma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+           const MmaArgs a) {
+  using S = MmaShape<WT, TOK>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ unsigned char mma_raw[];
+  unsigned char* const ring =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(mma_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ int is_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1 + MMA_PRODUCERS);  // producer 0's expect_tx, then every producer's arrival
+      mbar_init(&empty[i], MMA_CONSUMERS / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = a.tiles_m * a.tiles_n, tiles_k = (a.K + MMA_BK - 1) / MMA_BK;
+  const int items = a.chips * tiles * a.splits;
+  // Item order: chip, then output tile, then K slice (the slices of a tile run together). The
+  // tiles walk groups of MMA_GROUP_M token tiles across the column tiles, token tiles fastest,
+  // so blocks that run together share their w tiles in L2.
+  auto locate = [&](int item, int& chip, int& tile, int& m0, int& n0, int& z, int& t0, int& nt) {
+    chip = item / (tiles * a.splits);
+    const int rem = item - chip * tiles * a.splits;
+    tile = rem / a.splits;
+    z = rem - tile * a.splits;
+    const int group = tile / (MMA_GROUP_M * a.tiles_n), first_m = group * MMA_GROUP_M;
+    const int group_m = min(a.tiles_m - first_m, MMA_GROUP_M);
+    const int in_group = tile - group * MMA_GROUP_M * a.tiles_n;
+    m0 = (first_m + in_group % group_m) * TOK;
+    n0 = in_group / group_m * MMA_BN;
+    t0 = z * a.per;
+    nt = max(0, min(tiles_k - t0, a.per));
+  };
+
+  if (warp >= MMA_CONSUMERS / 32) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(MMA_PRODUCER_REGS));
+    constexpr int WE = 128 / (int)sizeof(WT);  // w elements a 128-byte box row
+    const int p = tid - MMA_CONSUMERS;
+    const uint32_t tx = (a.x_copy ? 0u : (uint32_t)S::X_BYTES) + (a.w_copy ? 0u : (uint32_t)S::W_BYTES);
+    const WT* const w = static_cast<const WT*>(a.w);
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      int chip, tile, m0, n0, z, t0, nt;
+      locate(item, chip, tile, m0, n0, z, t0, nt);
+      const int wc = a.swc != 0 ? chip : 0;  // the map's entry coordinate (a shared w has one entry)
+      for (int t = 0; t < nt; ++t, ++it) {
+        const int stage = it % STAGES;
+        mbar_wait(&empty[stage], ((it / STAGES) & 1) ^ 1);
+        unsigned char* const xs = ring + stage * S::STAGE;
+        unsigned char* const ws = xs + S::X_BYTES;
+        const int k0 = (t0 + t) * MMA_BK;
+        if (p == 0) {
+          mbar_arrive_tx(&full[stage], tx);
+          if (!a.x_copy) tma_load3(xs, &xmap, &full[stage], k0, m0, chip);
+          if (!a.w_copy) {
+            if (KCONTIG) {
+#pragma unroll
+              for (int b = 0; b < MMA_BK / WE; ++b) tma_load3(ws + b * 16384, &wmap, &full[stage], k0 + b * WE, n0, wc);
+            } else {
+#pragma unroll
+              for (int b = 0; b < MMA_BN / WE; ++b) tma_load3(ws + b * 8192, &wmap, &full[stage], n0 + b * WE, k0, wc);
+            }
+          }
+        }
+        if (a.x_copy || a.w_copy) {  // the whole warpgroup copies what TMA does not take
+          if (a.x_copy)
+            copy_box(xs, a.x + (long long)chip * a.M * a.K, a.K, m0, a.M, k0, a.K, TOK, p, MMA_PRODUCERS);
+          if (a.w_copy) {
+            const WT* wp = w + chip * a.swc;
+            if (KCONTIG) {
+              for (int b = 0; b < MMA_BK / WE; ++b)
+                copy_box(ws + b * 16384, wp, a.wstride, n0, a.N, k0 + b * WE, a.K, MMA_BN, p, MMA_PRODUCERS);
+            } else {
+              for (int b = 0; b < MMA_BN / WE; ++b)
+                copy_box(ws + b * 8192, wp, a.wstride, k0, a.K, n0 + b * WE, a.N, MMA_BK, p, MMA_PRODUCERS);
+            }
+          }
+          // generic-proxy writes, read by wgmma (the async proxy) once the barrier completes
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        }
+        mbar_arrive(&full[stage]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MMA_CONSUMER_REGS));
+
+  // the consumers: warpgroup wg, warp wq of it, g = lane / 4, t4 = lane % 4
+  const int wg = warp >> 2, wq = warp & 3, t4 = lane & 3;
+  const int nl = 64 * wg + 16 * wq + 2 * (lane >> 2);  // the thread's columns nl, nl + 1 of the block's 128
+  int off[2];
+  mma_offsets<WT, KCONTIG>(off, nl, t4);
+  const bool aligned = a.R % 64 == 0;
+  float acc[S::NR];
+  uint32_t af[2][MMA_STEP_GROUP][4];  // two sets of A fragments: one being read by wgmma, one being filled
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    int chip, tile, m0, n0, z, t0, nt;
+    locate(item, chip, tile, m0, n0, z, t0, nt);
+    const uint8_t* const bits = a.bits_t + (long long)(chip / a.mgroup) * a.sbm;
+    const uint8_t* rows[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) rows[j] = bits + (long long)((n0 + nl + j) % a.C) * a.rbytes;
+#pragma unroll
+    for (int i = 0; i < S::NR; ++i) acc[i] = 0.f;
+    acc_fence(acc);
+    int kr = (int)(((long long)t0 * MMA_BK) % a.R);
+    uint64_t next[2];  // the next k tile's mask words, loaded a tile ahead
+#pragma unroll
+    for (int j = 0; j < 2; ++j) next[j] = mask_word(rows[j], aligned, kr, a.R, t4);
+    // One k tile: MMA_STEP_GROUP steps' A fragments are prepared, then their wgmmas issued back to
+    // back as one group; the groups alternate between two register sets, and waiting for all but
+    // the newest group frees the other set (and, after a tile's first group, the stage before).
+    for (int t = 0; t < nt; ++t) {
+      constexpr int G = MMA_STEP_GROUP, GROUPS = 4 / G;
+      static_assert(GROUPS % 2 == 0, "an even number of groups a tile: the sets alternate within it");
+      const int stage = it % STAGES;
+      uint32_t mw[2][2];  // [column][k half]: the column's 64 mask bits, shifted to this thread's k
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t v = next[j] >> (2 * t4);
+        mw[j][0] = static_cast<uint32_t>(v);
+        mw[j][1] = static_cast<uint32_t>(v >> 32);
+      }
+      kr += MMA_BK;
+      if (kr >= a.R) kr %= a.R;
+      if (t + 1 < nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) next[j] = mask_word(rows[j], aligned, kr, a.R, t4);
+      }
+      mbar_wait(&full[stage], (it / STAGES) & 1);
+      const unsigned char* const ws = ring + stage * S::STAGE + S::X_BYTES;
+      const uint32_t xaddr = smem_u32(ring + stage * S::STAGE);
+#pragma unroll
+      for (int gi = 0; gi < GROUPS; ++gi) {
+        uint32_t (&fs)[G][4] = af[gi & 1];
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          const int s = gi * G + q;
+          uint32_t (&f)[4] = fs[q];
+          load_a<WT, KCONTIG>(f, ws, off, s, t4);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t m = mask_pair(mw[j][s >> 1], 16 * (s & 1) + 8 * h);
+              f[2 * h + j] = bits_of(__hmul2(*reinterpret_cast<const __nv_bfloat162*>(&f[2 * h + j]),
+                                             *reinterpret_cast<const __nv_bfloat162*>(&m)));
+            }
+        }
+        wg_fence();
+#pragma unroll
+        for (int q = 0; q < G; ++q) wgmma_rs<TOK>(acc, fs[q], b_desc(xaddr + 32 * (gi * G + q)));
+        wg_commit();
+        wg_wait<1>();
+        if (gi == 0 && t > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      ++it;
+    }
+    wg_wait<0>();
+    if (nt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    acc_fence(acc);
+
+    // accumulator 4i + e: token 8i + 2t4 + (e & 1) of the tile, weight column nl + (e >> 1)
+    const int n = n0 + nl;
+    const bool pairs = (a.N & 1) == 0;
+    const bool split = a.splits > 1;
+    __nv_bfloat16* const y = a.y + (long long)chip * a.M * a.N;
+    float* const part = a.part + (long long)chip * a.splits * a.M * a.N;
+    if (n < a.N) {
+#pragma unroll
+      for (int i = 0; i < S::NR / 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * i + 2 * t4 + e;
+          if (m >= a.M) continue;
+          const float v0 = acc[4 * i + e], v1 = acc[4 * i + 2 + e];
+          const long long o = (long long)m * a.N + n;
+          if (split) {
+            float* p = part + (long long)z * a.M * a.N + o;
+            if (pairs) {
+              *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+            } else {
+              p[0] = v0;
+              if (n + 1 < a.N) p[1] = v1;
+            }
+          } else if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(y + o) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            y[o] = __float2bfloat16(v0);
+            if (n + 1 < a.N) y[o + 1] = __float2bfloat16(v1);
+          }
+        }
+    }
+    if (split)
+      merge_partials(part, a.counters, chip * tiles + tile, a.splits, y, a.M, a.N, m0, TOK, n0, MMA_BN, tid,
+                     MMA_CONSUMERS, [] { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }, &is_last);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiled: v1 at M > 16, register-tiled SIMT FP32
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 // one 4-byte element (zero-filled where src_bytes is 0); 4-byte copies go through L1 (.ca)
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
 }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// wstride: swk for row-major w, swn for k-contiguous w. bits is the (R, C) bit matrix for
-// row-major w and the transposed (C, R) one for k-contiguous w, bstride bytes per row.
-//
-// Pipeline, per k tile t: x tile t + 2 goes by cp.async into a three-stage ring; w tile t + D
-// goes into registers; the MMAs of tile t run; w tile t + 1 is masked, rounded and stored into
-// the other of two shared-memory w stages. D = 2 for bf16 w (two register sets: a tile's loads
-// have two tiles of MMAs to land), 1 for fp32 w, whose second set would spill. One barrier per
-// k tile.
-template <typename WT, bool KCONTIG>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
-mma_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
-           const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ y, int M, int N, int K,
-           long long wstride, long long swc, long long sbm, int mgroup, int R, int C, int bstride,
-           int tiles_per_split, int x_async, int w_vec, float* __restrict__ part,
-           int* __restrict__ counters) {
-  constexpr int BT = mma_b_elems<KCONTIG>();
-  const int chip = blockIdx.y;
-  x += (long long)chip * M * K;
-  w += chip * swc;
-  bits += (long long)(chip / mgroup) * sbm;
-  y += (long long)chip * M * N;
-  part += (long long)chip * gridDim.z * M * N;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [3][BM * ALD]
-  __nv_bfloat16* const Bs = As + MMA_A_STAGES * MMA_A_ELEMS;             // [2][BT]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, each 64 x 32 of the output tile
-  // Grouped raster: blockIdx.x walks groups of MMA_GROUP_M row tiles, each group across all
-  // column tiles with its row tiles fastest, so the blocks that run together share their w tiles
-  // (read from device memory once, then from L2) and a few x row tiles.
-  const int m_tiles = (M + MMA_BM - 1) / MMA_BM, n_tiles = (N + MMA_BN - 1) / MMA_BN;
-  const int group = blockIdx.x / (MMA_GROUP_M * n_tiles), first_m = group * MMA_GROUP_M;
-  const int group_m = min(m_tiles - first_m, MMA_GROUP_M);
-  const int in_group = blockIdx.x % (MMA_GROUP_M * n_tiles);
-  const int m0 = (first_m + in_group % group_m) * MMA_BM, n0 = in_group / group_m * MMA_BN;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int nt = max(0, min((K + MMA_BK - 1) / MMA_BK - t_begin, tiles_per_split));
-
-  // This thread's MMA_CH 8-element chunks of each tile (KC = BK / 8 chunks per k run, NC = BN / 8
-  // per row). x: chunk c is row c / KC, k (c % KC) * 8. Row-major w: k row c / NC, columns
-  // (c % NC) * 8; k-contiguous w: column c / KC, k (c % KC) * 8.
-  constexpr int KC = MMA_BK / 8, NC = MMA_BN / 8;
-  int a_row[MMA_CH], a_k[MMA_CH], w_k[MMA_CH], w_n[MMA_CH], m_fix[MMA_CH], m_var[MMA_CH];
-#pragma unroll
-  for (int i = 0; i < MMA_CH; ++i) {
-    const int c = tid + i * MMA_THREADS;
-    a_row[i] = c / KC;
-    a_k[i] = (c % KC) * 8;
-    w_k[i] = KCONTIG ? (c % KC) * 8 : c / NC;
-    w_n[i] = KCONTIG ? c / KC : (c % NC) * 8;
-    m_fix[i] = (n0 + w_n[i]) % C;                // the mask column, fixed per thread
-    m_var[i] = (t_begin * MMA_BK + w_k[i]) % R;  // the mask row of the next w tile loaded
-  }
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  constexpr int D = sizeof(WT) == 2 && MMA_CH == 2 ? 2 : 1;  // w prefetch distance in k tiles
-  WRaw<WT> wraw[D][MMA_CH];  // [set][chunk]
-  uint32_t wmask[D][MMA_CH];
-
-  // x tile t into ring stage `stage`: by cp.async, or (rows not 16-byte aligned) by plain loads
-  auto load_x = [&](int t, int stage) {
-    const int k0 = t * MMA_BK;
-#pragma unroll
-    for (int i = 0; i < MMA_CH; ++i) {
-      const int m = m0 + a_row[i], k = k0 + a_k[i];
-      __nv_bfloat16* dst = As + stage * MMA_A_ELEMS + a_row[i] * MMA_ALD + a_k[i];
-      if (x_async) {
-        const bool in = m < M && k < K;
-        cp_async16(dst, in ? x + (long long)m * K + k : x, in ? 16 : 0);
-      } else {
-        uint4 v = make_uint4(0, 0, 0, 0);
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-        if (m < M) {
-          const int cnt = min(8, K - k);
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (j < cnt) e[j] = x[(long long)m * K + k + j];
-        }
-        *reinterpret_cast<uint4*>(dst) = v;
-      }
-    }
-  };
-  // w tile t into register set P, with its mask bits
-  auto load_w = [&](int t, auto set) {
-    constexpr int P = decltype(set)::value;
-    const int k0 = t * MMA_BK;
-#pragma unroll
-    for (int i = 0; i < MMA_CH; ++i) {
-      const int k = k0 + w_k[i], n = n0 + w_n[i];
-      if (KCONTIG) {
-        const int cnt = min(8, K - k);
-        if (n < N && cnt > 0) {
-          const WT* p = w + (long long)n * wstride + k;
-          if (w_vec && cnt == 8) load_vec(wraw[P][i], p); else load_scalar(wraw[P][i], p, cnt);
-        } else {
-          zero(wraw[P][i]);
-        }
-        wmask[P][i] = mask8(bits, bstride, R, m_fix[i], m_var[i]);
-      } else {
-        const int cnt = min(8, N - n);
-        if (k < K && cnt > 0) {
-          const WT* p = w + (long long)k * wstride + n;
-          if (w_vec && cnt == 8) load_vec(wraw[P][i], p); else load_scalar(wraw[P][i], p, cnt);
-        } else {
-          zero(wraw[P][i]);
-        }
-        wmask[P][i] = mask8(bits, bstride, C, m_var[i], m_fix[i]);
-      }
-      m_var[i] += MMA_BK;
-      if (m_var[i] >= R) m_var[i] %= R;
-    }
-  };
-  // register set P, masked and rounded, into w stage `stage`
-  auto store_w = [&](auto set, int stage) {
-    constexpr int P = decltype(set)::value;
-#pragma unroll
-    for (int i = 0; i < MMA_CH; ++i) {
-      const int off = KCONTIG ? w_n[i] * MMA_ALD + w_k[i] : w_k[i] * MMA_BLD + w_n[i];
-      *reinterpret_cast<uint4*>(Bs + stage * BT + off) = masked8(wraw[P][i], wmask[P][i]);
-    }
-  };
-  auto compute = [&](int a_stage, int b_stage) {
-    const __nv_bfloat16* as = As + a_stage * MMA_A_ELEMS;
-    const __nv_bfloat16* bs = Bs + b_stage * BT;
-#pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        if (KCONTIG)
-          ldsm_x4(r, bs + (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * MMA_ALD + kk * 16 +
-                         ((lane >> 3) & 1) * 8);
-        else
-          ldsm_x4_t(r, bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * MMA_BLD + wn * 32 +
-                           np * 16 + (lane >> 4) * 8);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        uint32_t af[4];
-        ldsm_x4(af, as + (wm * 64 + mi * 16 + (lane & 15)) * MMA_ALD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], af, bf[ni][0], bf[ni][1]);
-      }
-    }
-  };
-  // one k tile; P = t % D is the register set of w tiles t and t + D; w stages alternate
-  using S0 = std::integral_constant<int, 0>;
-  using S1 = std::integral_constant<int, D - 1>;  // set 1 with D = 2, set 0 with D = 1
-  auto step = [&](int t, auto set) {
-    constexpr int P = decltype(set)::value;
-    cp_async_wait1();
-    __syncthreads();  // x tile t landed, w tile t stored; every warp is done with tile t - 1
-    if (t + 2 < nt) load_x(t_begin + t + 2, (t + 2) % MMA_A_STAGES);
-    if (t + D < nt) load_w(t_begin + t + D, set);
-    cp_async_commit();  // one group per step, empty or not
-    compute(t % MMA_A_STAGES, t & 1);
-    if (t + 1 < nt) store_w(std::integral_constant<int, (P + 1) % D>{}, (t + 1) & 1);
-  };
-
-  if (nt > 0) {
-    load_x(t_begin, 0);
-    load_w(t_begin, S0{});
-  }
-  cp_async_commit();
-  if (nt > 1) {
-    load_x(t_begin + 1, 1);
-    if (D == 2) load_w(t_begin + 1, S1{});
-  }
-  cp_async_commit();
-  if (nt > 0) store_w(S0{}, 0);
-  for (int t = 0; t < nt; t += 2) {
-    step(t, S0{});
-    if (t + 1 < nt) step(t + 1, S1{});
-  }
-
-  // accumulator (mi, ni, e): row wm*64 + mi*16 + lane/4 (+8 for e >= 2), column wn*32 + ni*8 +
-  // 2*(lane%4) + e%2
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool pairs = (N & 1) == 0;
-  const bool split = gridDim.z > 1;
-  float* my = part + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + mi * 16 + g + 8 * h;
-        const int n = n0 + wn * 32 + ni * 8 + 2 * t4;
-        if (m >= M || n >= N) continue;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        const long long o = (long long)m * N + n;
-        if (split) {
-          if (pairs) {
-            *reinterpret_cast<float2*>(my + o) = make_float2(v0, v1);
-          } else {
-            my[o] = v0;
-            if (n + 1 < N) my[o + 1] = v1;
-          }
-        } else if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(y + o) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          y[o] = __float2bfloat16(v0);
-          if (n + 1 < N) y[o + 1] = __float2bfloat16(v1);
-        }
-      }
-  if (split) merge_splits(part, counters, y, M, N, m0, MMA_BM, n0, MMA_BN);
-}
-
-// ---------------------------------------------------------------------------
-// tiled: v1 at M > 16, register-tiled SIMT FP32
-// ---------------------------------------------------------------------------
 
 constexpr int TL_THREADS = 256;
 constexpr int TL_BK = 8;              // k depth of a tile
@@ -1143,23 +1415,47 @@ int split_count(int tiles_k, int want) {
   return (tiles_k + per - 1) / per;
 }
 
-// The bf16 kernels' plan: K slices and output tiles (per chip). Both keep the grid of chips x
-// tiles x slices within one wave of two blocks per SM (a second, partial wave would double the
-// time), so a fleet's launch splits K less than one chip's. decode cuts K into whole DEC_KQ-row
-// granules, at most DEC_MAX_SPLITS slices; mma gives each slice at least MMA_MIN_TILES k tiles.
-// v1's plan, the same rules for its decode and tiled kernels, is kernels/masked_matmul/ops.py::
-// _split_plan; the launches below check its scratch and counters.
+// The mma kernel's token tile: 128 rows at M <= 128, 256 above (at M <= 256 one
+// tile reads each weight once). A tile's traffic into shared memory, not its tensor work, sets
+// its time (PERF.md, PR 31), and 256 tokens x 128 columns moves the fewest bytes a product; but
+// where the chips' 256-row tiles would leave more than half the SMs idle, 128-row tiles fill them
+// without cutting K. kernels/masked_matmul/ops.py::_mma_tokens mirrors it.
+int mma_tokens(int chips, int M, int N, int sms) {
+  if (M <= 128) return 128;
+  if (M <= 256) return 256;
+  const long long tiles = (long long)chips * ((M + 255) / 256) * ((N + MMA_BN - 1) / MMA_BN);
+  return 2 * tiles < sms ? 128 : 256;
+}
+
+// The bf16 kernels' plan: K slices, output tiles (per chip) and the tile's rows. decode keeps its
+// grid of chips x tiles x slices within one wave of two blocks per SM (a second, partial wave would
+// double the time), cutting K into whole DEC_KQ-row granules, at most DEC_MAX_SPLITS slices. mma
+// runs one persistent block an SM: K is cut only where one entry's tiles fill at most 1 /
+// MMA_SPLIT_SHARE of the SMs, each slice at least MMA_MIN_TILES k tiles, the same cut for every
+// chip count. v1's plan, the same rules for its decode and tiled
+// kernels, is kernels/masked_matmul/ops.py::_split_plan; the launches below check its scratch and
+// counters.
 void plan(int variant, int chips, int M, int N, int K, bool kcontig, int sms, int* splits,
-          int* tiles_out) {
+          int* tiles_out, int* tokens) {
   if (variant == 2) {
     const int bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS;
     *tiles_out = (N + bn - 1) / bn;
+    *tokens = M;
     *splits = split_count(std::max(1, (K + DEC_KQ - 1) / DEC_KQ),
                           std::min(DEC_MAX_SPLITS, std::max(1, 2 * sms / (chips * *tiles_out))));
   } else {
-    *tiles_out = ((M + MMA_BM - 1) / MMA_BM) * ((N + MMA_BN - 1) / MMA_BN);
+    *tokens = mma_tokens(chips, M, N, sms);
+    *tiles_out = ((M + *tokens - 1) / *tokens) * ((N + MMA_BN - 1) / MMA_BN);
+    // K is cut as one entry's launch alone would cut it, so each chip's (or expert's) rows of a
+    // batched launch have the bits of its own launch (the token tile changes no bit); and only
+    // where that entry's tiles fill at most an eighth of the SMs, since a cut's partials cost
+    // more than the idle SMs do above that, all the more in a batched launch
+    const int tok1 = mma_tokens(1, M, N, sms);
+    const int tiles1 = ((M + tok1 - 1) / tok1) * ((N + MMA_BN - 1) / MMA_BN);
     const int tiles_k = std::max(1, (K + MMA_BK - 1) / MMA_BK);
-    *splits = split_count(tiles_k, std::min(tiles_k / MMA_MIN_TILES, 2 * sms / (chips * *tiles_out)));
+    *splits = MMA_SPLIT_SHARE * tiles1 > sms
+                  ? 1
+                  : split_count(tiles_k, std::min(tiles_k / MMA_MIN_TILES, sms / tiles1));
   }
 }
 
@@ -1279,46 +1575,127 @@ int launch_v1(int chips, const void* x, const void* w, const uint8_t* bits, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename WT, bool KCONTIG>
-int launch_mma_layout(dim3 grid, const __nv_bfloat16* x, const WT* w, const uint8_t* bits,
-                      __nv_bfloat16* y, int M, int N, int K, long long wstride, long long swc,
-                      int mask_group, int R, int C, int bstride, int per, int x_async, int w_vec,
-                      float* part, int* counters, cudaStream_t s) {
-  constexpr int smem = mma_smem_bytes<KCONTIG>();
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so the library links
+// nothing but the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-d map (d0 innermost, unit stride; d1 and d2 at s1 and s2 bytes) of boxes b0 x b1 x 1 with
+// the 128-byte swizzle; zero where a box passes the edge.
+int encode_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, unsigned long long d0,
+               unsigned long long d1, unsigned long long d2, unsigned long long s1, unsigned long long s2,
+               unsigned b0, unsigned b1) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What TMA takes: a 16-byte aligned base and strides that are multiples of 16 bytes, under 2^40
+bool tma_stride(long long bytes) { return bytes > 0 && bytes % 16 == 0 && bytes < (1LL << 40); }
+
+template <typename WT, bool KCONTIG, int TOK>
+int launch_mma_tok(const CUtensorMap& xm, const CUtensorMap& wm, const MmaArgs& a, int blocks, cudaStream_t s) {
+  constexpr int smem = MmaShape<WT, TOK>::SMEM;
   // above 48 KB only after this attribute is set (on the current device)
-  const cudaError_t err = cudaFuncSetAttribute(mma_kernel<WT, KCONTIG>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(mma_kernel<WT, KCONTIG, TOK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mma_kernel<WT, KCONTIG><<<grid, MMA_THREADS, smem, s>>>(
-      x, w, bits, y, M, N, K, wstride, swc, (long long)(mask_group != 0) * (KCONTIG ? C : R) * bstride,
-      std::max(mask_group, 1), R, C,
-      bstride, per, x_async, w_vec, part, counters);
+  mma_kernel<WT, KCONTIG, TOK><<<blocks, MMA_THREADS, smem, s>>>(xm, wm, a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// loads: bit 0 asks for x by the producer's copies, bit 1 for w; the rest by TMA, which must then
+// take the operand: a 16-byte aligned base, row strides of a multiple of 16 bytes, and a stacked
+// w's entries at least an entry apart (the wrapper picks by the same rule: ops.py::_mma_loads).
 template <typename WT>
-int launch_mma(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
-               void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R,
-               int C, int mask_group, int splits, float* part, long long scratch_bytes, int* counters,
-               int counters_len, cudaStream_t s) {
+int launch_mma(int chips, const void* x, const void* w, const uint8_t* bits_t, void* y, int M, int N, int K,
+               long long swk, long long swn, long long swc, int R, int C, int mask_group, int splits, int tokens,
+               int blocks, int loads, float* part, long long scratch_bytes, int* counters, int counters_len,
+               cudaStream_t s) {
+  if ((tokens != 128 && tokens != 256) || blocks < 1 || (loads & ~3) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool kcontig = swn != 1;
-  const dim3 grid(((M + MMA_BM - 1) / MMA_BM) * ((N + MMA_BN - 1) / MMA_BN), chips, splits);
+  MmaArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = w;
+  a.bits_t = bits_t;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.part = part;
+  a.counters = counters;
+  a.wstride = kcontig ? swn : swk;
+  a.swc = swc;
+  a.rbytes = (R + 7) / 8;
+  a.sbm = (long long)(mask_group != 0) * C * a.rbytes;
+  a.chips = chips;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.mgroup = std::max(mask_group, 1);
+  a.R = R;
+  a.C = C;
+  a.tiles_m = (M + tokens - 1) / tokens;
+  a.tiles_n = (N + MMA_BN - 1) / MMA_BN;
   const int tiles_k = (K + MMA_BK - 1) / MMA_BK;
-  const int per = (tiles_k + splits - 1) / splits;
-  if (int err = check_split(chips, splits, grid.x, M, N, scratch_bytes, counters_len))
+  a.splits = splits;
+  a.per = (tiles_k + splits - 1) / splits;
+  a.x_copy = loads & 1;
+  a.w_copy = (loads >> 1) & 1;
+  if (int err = check_split(chips, splits, (long long)a.tiles_m * a.tiles_n, M, N, scratch_bytes, counters_len))
     return err;
-  const long long unit = 16 / sizeof(WT);
-  const int x_async = aligned16(x) && K % 8 == 0;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wt = static_cast<const WT*>(w);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (kcontig)
-    return launch_mma_layout<WT, true>(grid, xb, wt, bits_t, yb, M, N, K, swn, swc, mask_group, R, C, (R + 7) / 8,
-                                       per, x_async, aligned16(w) && swn % unit == 0 && swc % unit == 0,
-                                       part, counters, s);
-  return launch_mma_layout<WT, false>(grid, xb, wt, bits, yb, M, N, K, swk, swc, mask_group, R, C, (C + 7) / 8,
-                                      per, x_async, aligned16(w) && swk % unit == 0 && swc % unit == 0,
-                                      part, counters, s);
+  const long long sz = sizeof(WT);
+  alignas(64) CUtensorMap xm, wm;
+  memset(&xm, 0, sizeof(xm));
+  memset(&wm, 0, sizeof(wm));
+  if (!a.x_copy) {
+    if (!aligned16(x) || !tma_stride(2LL * K)) return static_cast<int>(cudaErrorInvalidValue);
+    if (int err = encode_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, chips, 2ULL * K, 2ULL * M * K,
+                             MMA_BK, tokens))
+      return err;
+  }
+  if (!a.w_copy) {
+    // an entry's bytes: a stacked w's stride, at least one entry's extent; a shared w has one entry
+    const long long extent = (kcontig ? (long long)N : (long long)K) * a.wstride * sz;
+    const long long entry = swc != 0 ? swc * sz : extent;
+    if (!aligned16(w) || !tma_stride(a.wstride * sz) || !tma_stride(entry) || entry < extent)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const CUtensorMapDataType dt = sz == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const unsigned we = 128 / sz;
+    const unsigned long long entries = swc != 0 ? chips : 1;
+    const int err = kcontig ? encode_map(&wm, dt, w, K, N, entries, a.wstride * sz, entry, we, MMA_BN)
+                            : encode_map(&wm, dt, w, N, K, entries, a.wstride * sz, entry, we, MMA_BK);
+    if (err) return err;
+  }
+#define MMA_GO(KC, T)                                                  \
+  if (kcontig == KC && tokens == T) return launch_mma_tok<WT, KC, T>(xm, wm, a, blocks, s);
+  MMA_GO(false, 128)
+  MMA_GO(false, 256)
+  MMA_GO(true, 128)
+  MMA_GO(true, 256)
+#undef MMA_GO
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1326,18 +1703,19 @@ int launch_mma(int chips, const void* x, const void* w, const uint8_t* bits, con
 // The launch plan of a bf16 kernel (variant 2 = decode, 3 = mma) for `chips` stacks of x (M, K)
 // and w (K, N), w k-contiguous (embed.T) or not, on a card of `sms` SMs: out[0] = K slices,
 // out[1] = the scratch bytes a launch needs (every chip's slices' fp32 partials; 0 for one
-// slice), out[2] = output tiles of all chips, the split-K counters it needs. The kernels' tiles
-// and split rules live here alone.
+// slice), out[2] = output tiles of all chips, the split-K counters it needs, out[3] = a tile's
+// rows (mma: the token tile; decode: M). The kernels' tiles and split rules live here alone.
 extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, int kcontig, int sms,
                                   long long* out) {
   if ((variant != 2 && variant != 3) || chips < 1 || M < 1 || N < 1 || K < 1 || sms < 1 ||
       (variant == 2 && M > 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  int splits = 1, tiles_out = 1;
-  plan(variant, chips, M, N, K, kcontig != 0, sms, &splits, &tiles_out);
+  int splits = 1, tiles_out = 1, tokens = 0;
+  plan(variant, chips, M, N, K, kcontig != 0, sms, &splits, &tiles_out, &tokens);
   out[0] = splits;
   out[1] = splits == 1 ? 0 : 4LL * chips * splits * M * N;
   out[2] = (long long)chips * tiles_out;
+  out[3] = tokens;
   return 0;
 }
 
@@ -1363,9 +1741,9 @@ extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, i
 extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, const void* x,
                              const void* w, const void* bits, const void* bits_t, void* y, int M,
                              int N, int K, long long swk, long long swn, long long swc, int R, int C,
-                             int mask_group, int splits, int split_tiles,
-                             void* scratch, long long scratch_bytes, void* counters, int counters_len,
-                             void* stream) {
+                             int mask_group, int splits, int split_tiles, int tokens, int blocks,
+                             int loads, void* scratch, long long scratch_bytes, void* counters,
+                             int counters_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (splits < 1 || chips < 1 || chips > 65535 || (swk != 1 && swn != 1) ||
       mask_group < 0 || (mask_group && chips % mask_group != 0))
@@ -1396,9 +1774,9 @@ extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, con
                                                      counters_len, s);
   if (variant == 3)
     return wdtype == 1
-               ? launch_mma<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, g,
-                                           splits, part, scratch_bytes, cnt, counters_len, s)
-               : launch_mma<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, g, splits,
-                                   part, scratch_bytes, cnt, counters_len, s);
+               ? launch_mma<__nv_bfloat16>(chips, x, w, bt, y, M, N, K, swk, swn, swc, R, C, g, splits, tokens,
+                                           blocks, loads, part, scratch_bytes, cnt, counters_len, s)
+               : launch_mma<float>(chips, x, w, bt, y, M, N, K, swk, swn, swc, R, C, g, splits, tokens, blocks,
+                                   loads, part, scratch_bytes, cnt, counters_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,11 @@ differently on an H100:
   with 16-byte loads, applies the mask on chip and never writes a masked
   copy; K is split across blocks so a narrow GEMM still spreads its reads
   over the whole card;
-- ``mma`` (bf16 x, M > 16): operations bound it; 128 x 128 tiles on the
-  tensor cores;
+- ``mma`` (bf16 x, M > 16): the tensor cores through ``wgmma``, the masked
+  weight as the register operand and x from shared memory, both fed by a
+  TMA ring; a persistent block an SM walks tiles of 128 or 256 tokens
+  (``_mma_tokens``) by 128 weight columns. Its tiles' traffic into shared
+  memory, more than its tensor work, sets its time;
 - ``v1`` (float32 x and w): the float32 kernels, in fp32 on the SIMT cores,
   since tensor cores would round fp32 to tf32. At M <= 16 the ``decode``
   kernels' template streams the fp32 weights (bound by their bytes); above
@@ -71,6 +74,16 @@ chips x experts launches and k-contiguous w (the tied unembedding's
 ``embed.T``) keep the plan, as does ``variant="v1"`` on bf16. ``masked_matmul.last_splits`` is
 the count the last launch ran.
 
+The mma kernel loads each operand by TMA where TMA takes it (a 16-byte
+aligned base and row strides of a multiple of 16 bytes: ``_mma_loads``);
+otherwise its producer warpgroup copies that operand itself, in the same
+kernel and into the same layout (hymba-1.5b's ``dt_proj`` at K = 100, a
+bf16 w whose rows are not a multiple of 16 bytes, a view that starts off
+alignment). ``masked_matmul.last_loads`` is the last mma launch's route
+(``("tma" | "copy", "tma" | "copy")`` for x and w, None after another
+kernel) and ``masked_matmul.copy_launches`` counts the mma launches that
+copied an operand.
+
 ``masked_matmul`` launches a kernel for a CUDA tensor and counts the launch
 in ``masked_matmul.launches`` and ``masked_matmul.launches_by_variant`` (a
 chip-batched launch also in ``masked_matmul.fleet_launches_by_variant``, an
@@ -111,7 +124,7 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 8
     + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 )
 # the C entry point's variant codes
@@ -119,15 +132,35 @@ VARIANTS = {"v1": 1, "decode": 2, "mma": 3}
 _SMALL_M = 16
 _PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
 # csrc/masked_matmul.cu's tiles and split rules: the decode kernels' columns a block (row-major
-# w, embed.T), K granule and most slices; the mma kernel's tile and fewest k tiles a slice; the
-# tiled v1 kernel's fewest k tiles a slice
+# w, embed.T), K granule and most slices; the mma kernel's weight columns a block, k depth of a
+# stage, fewest k tiles a slice and the share of the SMs an entry's tiles fill at most where K is
+# cut; the tiled v1 kernel's fewest k tiles a slice
 _DEC_BN_ROWS, _DEC_BN_COLS, _DEC_KQ, _DEC_MAX_SPLITS = 256, 32, 64, 32
-_MMA_BM, _MMA_BN, _MMA_BK, _MMA_MIN_TILES = 128, 128, 32, 4
+_MMA_BN, _MMA_BK, _MMA_MIN_TILES, _MMA_SPLIT_SHARE = 128, 64, 2, 8
 _TL_MIN_TILES = 8
-# the mma kernel's dynamic shared memory (mma_smem_bytes<KCONTIG>: three x stages and two w
-# stages of bf16, rows padded by 8); the decode and tiled kernels use static shared memory only
-_MMA_SMEM = {False: 2 * (3 * _MMA_BM * (_MMA_BK + 8) + 2 * _MMA_BK * (_MMA_BN + 8)),
-             True: 2 * (3 * _MMA_BM * (_MMA_BK + 8) + 2 * _MMA_BN * (_MMA_BK + 8))}
+# the mma kernel's ring (MmaShape): stages of an x tile (tokens x 64 bf16) and the raw w tile
+# (64 x 128 of w's dtype), as many as fit 200 KB, at most 6, plus 1 KB that aligns the ring
+_MMA_RING_BYTES, _MMA_MAX_STAGES = 200 * 1024, 6
+
+
+def _mma_smem(tokens: int, w_size: int = 4) -> int:
+    """The mma kernel's dynamic shared memory for a token tile and w's
+    element size (``MmaShape<WT, TOK>::SMEM``); the decode and tiled
+    kernels use static shared memory only."""
+    stage = tokens * _MMA_BK * 2 + _MMA_BK * _MMA_BN * w_size
+    return min(_MMA_MAX_STAGES, _MMA_RING_BYTES // stage) * stage + 1024
+
+
+def _mma_tokens(m: int, n: int, sms: int, chips: int = 1) -> int:
+    """The mma kernel's token tile (``mma_tokens`` in the C source): 128 rows
+    at M <= 128, 256 above, the tile that moves the fewest bytes into shared
+    memory a product; but 128 where the chips' 256-row tiles would leave
+    more than half the SMs idle."""
+    if m <= 256:
+        return 128 if m <= 128 else 256
+    return 128 if 2 * chips * -(-m // 256) * -(-n // _MMA_BN) < sms else 256
+
+
 _SLICE_COST = 0.01  # a K slice's own cost in the tiled plan, in tile-waves
 
 
@@ -205,37 +238,46 @@ def _split_plan(
 
 def _plan(
     kind: str, m: int, n: int, k: int, k_contiguous: bool, sms: int, chips: int = 1
-) -> tuple[int, int, int]:
-    """A bf16 kernel's (K slices, scratch bytes, output tiles of all chips):
-    the rule of ``plan`` in csrc/masked_matmul.cu (``_c_plan`` asks the C
-    source, and a card test holds the two equal). Both kernels keep the grid
-    of chips x tiles x slices within one wave of two blocks per SM; decode
-    cuts K into whole 64-row granules, at most 32 slices, mma gives each
-    slice at least 4 k tiles."""
+) -> tuple[int, int, int, int]:
+    """A bf16 kernel's (K slices, scratch bytes, output tiles of all chips,
+    a tile's rows): the rule of ``plan`` in csrc/masked_matmul.cu
+    (``_c_plan`` asks the C source, and a card test holds the two equal).
+    decode keeps its grid of chips x tiles x slices within one wave of two
+    blocks per SM and cuts K into whole 64-row granules, at most 32 slices
+    (a tile's rows: M). mma runs one persistent block an SM over tiles of
+    ``_mma_tokens`` tokens x 128 weight columns and cuts K only where one
+    entry's tiles alone fill at most an eighth of the SMs (a cut's partials
+    cost more than idle SMs above that), each slice at least 2 k tiles of
+    64: every chip count cuts K alike, so a chip's (or an expert's) rows of
+    a batched launch have the bits of its own launch."""
     if kind not in ("decode", "mma") or min(chips, m, n, k, sms) < 1 or (kind == "decode" and m > _SMALL_M):
         raise ValueError(f"no bf16 masked-GEMM plan for {kind} at chips {chips}, M {m}, N {n}, K {k}")
     if kind == "decode":
+        tokens = m
         tiles_out = -(-n // (_DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS))
         want = min(_DEC_MAX_SPLITS, max(1, 2 * sms // (chips * tiles_out)))
         splits = _split_count(max(1, -(-k // _DEC_KQ)), want)
     else:
-        tiles_out = -(-m // _MMA_BM) * -(-n // _MMA_BN)
+        tokens = _mma_tokens(m, n, sms, chips)
+        tiles_out = -(-m // tokens) * -(-n // _MMA_BN)
         tiles_k = max(1, -(-k // _MMA_BK))
-        splits = _split_count(tiles_k, min(tiles_k // _MMA_MIN_TILES, 2 * sms // (chips * tiles_out)))
-    return splits, 0 if splits == 1 else 4 * chips * splits * m * n, chips * tiles_out
+        tiles1 = -(-m // _mma_tokens(m, n, sms)) * -(-n // _MMA_BN)  # one entry's tiles alone
+        splits = 1 if _MMA_SPLIT_SHARE * tiles1 > sms else _split_count(
+            tiles_k, min(tiles_k // _MMA_MIN_TILES, sms // tiles1))
+    return splits, 0 if splits == 1 else 4 * chips * splits * m * n, chips * tiles_out, tokens
 
 
 def _c_plan(
     kind: str, m: int, n: int, k: int, k_contiguous: bool, sms: int, chips: int = 1
-) -> tuple[int, int, int]:
+) -> tuple[int, int, int, int]:
     """``_plan`` as ``masked_matmul_plan`` in csrc/masked_matmul.cu computes
     it (on the card only; a card test holds the two equal)."""
-    out = (ctypes.c_longlong * 3)()
+    out = (ctypes.c_longlong * 4)()
     fn = load_kernel("masked_matmul_plan", _PLAN_ARGTYPES, source="masked_matmul")
     check_launch(
         "masked_matmul_plan", fn(VARIANTS[kind], chips, m, n, k, int(k_contiguous), sms, out)
     )
-    return out[0], out[1], out[2]
+    return out[0], out[1], out[2], out[3]
 
 
 def _tiles_k(kind: str, k: int) -> int:
@@ -247,8 +289,8 @@ def _tiles_k(kind: str, k: int) -> int:
 def max_splits(kind: str, m: int, k: int) -> int:
     """The most K slices a launch of ``kind`` may take: the plan's own cap.
     The decode kernels (bf16 ``decode`` and v1 at M <= 16): 32 slices of
-    64-row granules; ``mma``: 4 k tiles a slice; the tiled v1 kernel: 8 k
-    tiles a slice."""
+    64-row granules; ``mma``: 2 k tiles of 64 a slice; the tiled v1 kernel:
+    8 k tiles a slice."""
     if kind == "decode" or (kind == "v1" and m <= _SMALL_M):
         return min(_DEC_MAX_SPLITS, _tiles_k("decode", k))
     if kind == "mma":
@@ -258,12 +300,12 @@ def max_splits(kind: str, m: int, k: int) -> int:
 
 class GemmPlan(NamedTuple):
     kind: str  # the kernel: decode, mma or v1
-    tile: tuple  # (BM, BN, BK) of one output tile and k step
+    tile: tuple  # (BM, BN, BK) of one output tile and k step (mma: tokens, weight columns, k)
     splits: int  # K slices of a split tile
     split_tiles: int  # v1: each chip's tiles cut into K slices (above M = 16 a partial last wave's); bf16: 0
     scratch_bytes: int  # the fp32 partials of the split tiles
     tiles: int  # output tiles of all chips: the split-K counters a launch needs
-    grid: tuple  # the CUDA grid
+    grid: tuple  # the CUDA grid (mma: persistent, at most one block an SM over every chip's tiles and slices)
     max_splits: int  # the cap a forced count must keep
 
 
@@ -302,15 +344,14 @@ def gemm_plan(
             scratch = 0 if s == 1 else 4 * chips * split_tiles * s * bm * bn
             grid = (per_chip + split_tiles * (s - 1), chips)
         return GemmPlan(kind, tile, s, split_tiles, scratch, tiles, grid, cap)
-    s, scratch, tiles = _plan(kind, m, n, k, k_contiguous, sms, chips)
+    s, scratch, tiles, rows = _plan(kind, m, n, k, k_contiguous, sms, chips)
     if splits is not None:
         s = _split_count(tiles_k, splits)
         scratch = 0 if s == 1 else 4 * chips * s * m * n
     if kind == "decode":
         tile = (m, _DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS, _DEC_KQ)
-    else:
-        tile = (_MMA_BM, _MMA_BN, _MMA_BK)
-    return GemmPlan(kind, tile, s, 0, scratch, tiles, (tiles // chips, chips, s), cap)
+        return GemmPlan(kind, tile, s, 0, scratch, tiles, (tiles // chips, chips, s), cap)
+    return GemmPlan(kind, (rows, _MMA_BN, _MMA_BK), s, 0, scratch, tiles, (min(tiles * s, sms), 1), cap)
 
 
 def resolve_plan(
@@ -388,6 +429,28 @@ def packed_mask(ok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 packed_mask.chips_packed = 0
+
+
+def _tma_stride(nbytes: int) -> bool:
+    return 0 < nbytes < 1 << 40 and nbytes % 16 == 0
+
+
+def _mma_loads(x_ptr: int, k: int, w: torch.Tensor, w_stride: int) -> tuple[str, str]:
+    """How the mma kernel loads x (chips, M, K contiguous at ``x_ptr``) and
+    w (entry stride ``w_stride``, 0 for one w): ``"tma"`` where TMA takes
+    the operand (a 16-byte aligned base, row strides of a multiple of 16
+    bytes, a stacked w's entries at least an entry's extent apart), else
+    ``"copy"``, the kernel's producer warp copying it itself. ``launch_mma``
+    in the C source checks the same rule."""
+    size = w.element_size()
+    kcontig = w.stride(-1) != 1
+    stride = w.stride(-1) if kcontig else w.stride(-2)
+    extent = (w.shape[-1] if kcontig else w.shape[-2]) * stride * size
+    entry = w_stride * size
+    x_tma = x_ptr % 16 == 0 and _tma_stride(2 * k)
+    w_tma = (w.data_ptr() % 16 == 0 and _tma_stride(stride * size)
+             and (entry == 0 or (_tma_stride(entry) and entry >= extent)))
+    return "tma" if x_tma else "copy", "tma" if w_tma else "copy"
 
 
 def _check_dtypes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -492,12 +555,15 @@ def masked_matmul(
         counters = split_counters(x.device, stream, tiles)
         # partials only where K is split; the caching allocator hands the bytes back
         scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device) if scratch_bytes else None
+        loads = _mma_loads(x3.data_ptr(), kdim, w, w_stride) if kind == "mma" else None
         fn = load_kernel("masked_matmul", _ARGTYPES)
         err = fn(
             VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x3.data_ptr(), w.data_ptr(),
             bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
             m, n, kdim, w.stride(-2), w.stride(-1), w_stride,
             ok.shape[-2], ok.shape[-1], group, plan.splits, plan.split_tiles,
+            plan.tile[0] if kind == "mma" else 0, plan.grid[0] if kind == "mma" else 0,
+            0 if loads is None else (loads[0] == "copy") | (loads[1] == "copy") << 1,
             scratch.data_ptr() if scratch is not None else None,
             scratch_bytes, counters.data_ptr(), counters.numel(), stream,
         )
@@ -505,6 +571,9 @@ def masked_matmul(
         masked_matmul.launches += 1
         masked_matmul.launches_by_variant[kind] += 1
         masked_matmul.last_splits = plan.splits
+        masked_matmul.last_loads = loads
+        if loads is not None and "copy" in loads:
+            masked_matmul.copy_launches += 1
         if w.dim() == 4:
             masked_matmul.fleet_expert_launches_by_variant[kind] += 1
         elif experts:
@@ -516,6 +585,8 @@ def masked_matmul(
 
 masked_matmul.launches = 0
 masked_matmul.last_splits = None
+masked_matmul.last_loads = None
+masked_matmul.copy_launches = 0
 masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.fleet_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.expert_launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -573,7 +644,9 @@ def masked_matmul_checksummed(
     the column-checksum row ``1^T x`` to the input and push the augmented
     batch through the SAME :func:`masked_matmul` (one kernel launch on the
     card, the plain version on the host), so the checksum row meets the same
-    silicon (mask) as the payload rows. Returns ``(y, check_row)``, where on
+    silicon (mask) as the payload rows, summed over K in the payload launch's
+    own slices (so y has the bits of ``masked_matmul(x, w, ok)``). Returns
+    ``(y, check_row)``, where on
     consistent hardware ``check_row[b] == sum_m y[m, b]`` up to float
     reassociation; a permanent fault in PE column ``b % C`` perturbs both
     through the identical mask, which is what lets ``obs/abft.py`` fold the
@@ -582,5 +655,12 @@ def masked_matmul_checksummed(
     kdim = x.shape[-1]
     x2 = x.reshape(-1, kdim)
     xa = torch.cat([x2, x2.sum(dim=0, keepdim=True).to(x2.dtype)], dim=0)
-    ya = masked_matmul(xa, w, ok)
+    splits = None
+    m = x2.shape[0]
+    if x.device.type == "cuda" and pick_variant(x.dtype, m) == "mma":
+        # the payload's own K slices (the mma plan's rows change the token tile, which changes no
+        # bit, and may change the slices): the checksum row rides along without changing its bits
+        splits = resolve_plan(x.dtype, m, kdim, w.shape[1], ok.shape[-2:], x.device, sm_count(x.device),
+                              k_contiguous=w.stride(-1) != 1).splits
+    ya = masked_matmul(xa, w, ok, splits=splits)
     return ya[:-1].reshape(*lead, w.shape[1]), ya[-1]

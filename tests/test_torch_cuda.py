@@ -175,7 +175,8 @@ def test_masked_matmul_v1_variant_is_reachable_and_agrees(cuda):
 def test_decode_plan_fills_one_wave_without_empty_slices(cuda, m, k, n, contig):
     from repro_torch.kernels.masked_matmul.ops import _plan
 
-    splits, part_bytes, tiles_out = _plan("decode", m, n, k, contig, 132)
+    splits, part_bytes, tiles_out, rows = _plan("decode", m, n, k, contig, 132)
+    assert rows == m
     assert tiles_out == -(-n // (32 if contig else 256))
     tiles_k = -(-k // 64)
     per = -(-tiles_k // splits)
@@ -189,17 +190,118 @@ def test_decode_plan_fills_one_wave_without_empty_slices(cuda, m, k, n, contig):
 @pytest.mark.parametrize("m,k,n", [(512, 576, 192), (8192, 576, 576), (512, 8192, 16384), (17, 100, 132),
                                    (8192, 5504, 1600), (1024, 576, 49152), (512, 1536, 576)])
 def test_mma_plan_keeps_four_k_tiles_per_slice(cuda, m, k, n):
-    from repro_torch.kernels.masked_matmul.ops import _plan
+    """A slice keeps at least 128 rows of K (four k tiles of 32; two of the
+    kernel's 64), and K is cut only where the tiles fill at most an eighth
+    of the card's SMs, never past one round of the persistent blocks."""
+    from repro_torch.kernels.masked_matmul.ops import _mma_tokens, _plan
 
-    splits, part_bytes, tiles_out = _plan("mma", m, n, k, False, 132)
-    assert tiles_out == -(-m // 128) * -(-n // 128)
-    tiles_k = -(-k // 32)
+    splits, part_bytes, tiles_out, tokens = _plan("mma", m, n, k, False, 132)
+    assert tokens == _mma_tokens(m, n, 132) and tiles_out == -(-m // tokens) * -(-n // 128)
+    tiles_k = -(-k // 64)
     per = -(-tiles_k // splits)
     assert 1 <= splits and (splits - 1) * per < tiles_k
-    assert splits == 1 or (per >= 4 and tiles_out * splits <= 2 * 132)
+    assert splits == 1 or (per * 64 >= 128 and tiles_out * splits <= 132 and 8 * tiles_out <= 132)
     assert part_bytes == (0 if splits == 1 else 4 * splits * m * n)
-    if tiles_out <= 66 and tiles_k >= 8:
+    if 8 * tiles_out <= 132 and tiles_k >= 4:
         assert splits > 1
+
+
+# the mma kernel (wgmma, TMA) at its edges: token tiles of 128 and 256 (257: three 128-row tiles, the
+# last ragged), K not a multiple of its 64-deep k tiles, N not a multiple of its 64-column warpgroups, a
+# mask of 8 x 8 and of 256 x 256, row-major w and embed.T; N = 70 also takes w by the producer's
+# copies (its rows are 280 bytes apart in fp32, 140 in bf16: not a multiple of 16), K = 100 x
+MMA_EDGES = [(100, 132), (200, 200), (576, 70)]
+
+
+@pytest.mark.parametrize("mask", [(8, 8), (256, 256)])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("k,n", MMA_EDGES)
+@pytest.mark.parametrize("m", [17, 24, 160, 257])
+def test_mma_edge_shapes_match_plain_and_repeat_their_bits(cuda, m, k, n, transposed, mask):
+    """The mma kernel against the plain version at its edges; the fp32-w
+    launch gives the bf16-w launch's bits, and a second launch the first's."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w32 = torch.randn(n, k, generator=g, device=cuda) / k ** 0.5
+    w32 = w32.T if transposed else w32.T.contiguous()
+    w16 = w32.to(torch.bfloat16)
+    ok = torch.from_numpy(random_fault_map(m, *mask, 0.3).ok_mask).to(cuda)
+    before = masked_matmul.launches_by_variant["mma"]
+    got32 = masked_matmul(x, w32, ok)
+    loads = masked_matmul.last_loads
+    got16 = masked_matmul(x, w16, ok)
+    again = masked_matmul(x, w32, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant["mma"] == before + 3
+    assert loads[0] == ("copy" if k % 8 else "tma")
+    assert torch.equal(got32, got16) and torch.equal(got32, again)
+    assert_close(got32, masked_matmul_ref(x, w32, ok), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [24, 160, 257])
+def test_mma_chip_stack_experts_and_mask_group_match_plain(cuda, m):
+    """A chip stack with one w for every chip (chip stride 0), 4 experts
+    under one mask, and 2 chips x 3 experts (a mask group), at a ragged
+    shape, against the plain version, fp32-w bits equal to bf16-w bits."""
+    k, n = 200, 132
+    g = torch.Generator(device=cuda).manual_seed(m)
+    maps = [torch.from_numpy(random_fault_map(c, 8, 8, 0.3).ok_mask).to(cuda) for c in range(3)]
+    shared = torch.randn(k, n, generator=g, device=cuda).expand(3, k, n)
+    experts = torch.randn(4, k, n, generator=g, device=cuda)
+    both = torch.randn(2, 3, k, n, generator=g, device=cuda)
+    cases = [
+        (torch.randn(3, m, k, generator=g, device=cuda).to(torch.bfloat16), shared, torch.stack(maps)),
+        (torch.randn(4, m, k, generator=g, device=cuda).to(torch.bfloat16), experts, maps[0]),
+        (torch.randn(2, 3, m, k, generator=g, device=cuda).to(torch.bfloat16), both, torch.stack(maps[:2])),
+    ]
+    for x, w32, ok in cases:
+        got32 = masked_matmul(x, w32, ok)
+        assert masked_matmul.last_loads == ("tma", "tma")
+        got16 = masked_matmul(x, w32.to(torch.bfloat16), ok)  # rows of 264 bytes: w by copies
+        torch.cuda.synchronize()
+        assert masked_matmul.last_loads == ("tma", "copy")
+        assert torch.equal(got32, got16)
+        assert_close(got32, masked_matmul_ref(x, w32, ok), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [40, 257])
+def test_mma_takes_an_operand_tma_refuses_by_the_producers_copies(cuda, m):
+    """x or w at an address TMA refuses (not 16-byte aligned) goes through
+    the same kernel, loaded by its producer warpgroup's own copies: named
+    in ``last_loads``, counted in ``copy_launches``, and the same bits as
+    the aligned operands' launch by TMA."""
+    k, n = 576, 300
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=g, device=cuda)
+    ok = torch.from_numpy(random_fault_map(1, 256, 256, 0.3).ok_mask).to(cuda)
+    want = masked_matmul(x, w, ok)
+    assert masked_matmul.last_loads == ("tma", "tma")
+    xbuf = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda)
+    x_off = xbuf[1:].view(m, k)
+    x_off.copy_(x)
+    wbuf = torch.empty(k, n + 1, device=cuda)
+    w_off = wbuf[:, 1:]
+    w_off.copy_(w)
+    for xi, wi, loads in ((x_off, w, ("copy", "tma")), (x, w_off, ("tma", "copy")), (x_off, w_off, ("copy", "copy"))):
+        copies = masked_matmul.copy_launches
+        got = masked_matmul(xi, wi, ok)
+        torch.cuda.synchronize()
+        assert masked_matmul.last_loads == loads
+        assert masked_matmul.copy_launches == copies + 1
+        assert torch.equal(got, want), loads
+
+
+@pytest.mark.parametrize("chips,m,n", [(8, 512, 576), (3, 257, 300), (4, 64, 1600)])
+def test_mma_chip_batched_rows_have_each_chips_own_launch_bits(cuda, chips, m, n):
+    """The mma plan cuts K as one entry's launch would, whatever the chip
+    count, and the token tile (256 rows for 8 chips at M = 512, 128 for one)
+    changes no bit: each chip's rows of a chip-batched launch are the bits
+    of that chip's own launch, at the plans' own counts."""
+    x, w, ok = _fleet_inputs(cuda, chips, m, 576, n, False, torch.bfloat16, torch.float32, seed=m)
+    got = masked_matmul(x, w, ok)
+    for c in range(chips):
+        assert torch.equal(got[c], masked_matmul(x[c], w[c], ok[c])), c
 
 
 def test_the_plan_refuses_what_no_bf16_kernel_runs(cuda):

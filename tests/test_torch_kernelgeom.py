@@ -127,18 +127,28 @@ def test_masked_matmul_launch_is_the_wrappers_plan(dtype, m, k, n):
         assert launch.grid == plan.grid and launch.params == dict(splits=plan.splits)
         assert lint_launch(launch) == []
         blocks = launch.grid[0] * launch.grid[1] * (launch.grid[2] if len(launch.grid) > 2 else 1)
-        assert blocks == plan.tiles + (plan.split_tiles * (plan.splits - 1) if kind == "v1" and m > 16 else
-                                       plan.tiles * (plan.splits - 1))
-    # the chip axis multiplies the grid's chip extent, and k-contiguous w is the decode kernels' 32 columns
-    assert masked_matmul_launch(m, k, n, (256, 256), dtype=dtype, chips=3).grid[1] == 3
+        if kind == "mma":  # persistent: one block an SM at most, walking every tile's slices
+            assert blocks == min(plan.tiles * plan.splits, SMS)
+        else:
+            assert blocks == plan.tiles + (plan.split_tiles * (plan.splits - 1) if kind == "v1" and m > 16 else
+                                           plan.tiles * (plan.splits - 1))
+    # the chip axis multiplies the grid's chip extent (mma: the tiles its persistent blocks walk),
+    # and k-contiguous w is the decode kernels' 32 columns
+    three = masked_matmul_launch(m, k, n, (256, 256), dtype=dtype, chips=3)
+    if kind == "mma":
+        plan3 = mm.gemm_plan(kind, m, n, k, SMS, 3)
+        assert plan3.tiles == 3 * mm.gemm_plan(kind, m, n, k, SMS).tiles
+        assert three.grid == (min(plan3.tiles * plan3.splits, SMS), 1)
+    else:
+        assert three.grid[1] == 3
     if m <= 16:
         assert masked_matmul_launch(m, k, n, (256, 256), dtype=dtype, k_contiguous=True).blocks[1] == min(32, n)
 
 
 def test_the_split_plan_is_the_c_sources_rule_and_its_cap():
-    # decode: 32 slices at most, of 64-row granules; mma: 4 k tiles a slice; tiled v1: 8
+    # decode: 32 slices at most, of 64-row granules; mma: 2 k tiles of 64 a slice; tiled v1: 8
     assert mm.max_splits("decode", 4, 8192) == 32 and mm.max_splits("decode", 4, 576) == 9
-    assert mm.max_splits("mma", 512, 576) == 18 // 4 and mm.max_splits("mma", 512, 100) == 1
+    assert mm.max_splits("mma", 512, 576) == 9 // 2 and mm.max_splits("mma", 512, 100) == 1
     assert mm.max_splits("v1", 4, 576) == 9 and mm.max_splits("v1", 512, 576) == 72 // 8
     # the heuristic is the plan, and forcing its own count gives the same launch
     for kind, m, n, k in (("decode", 4, 1536, 576), ("mma", 512, 192, 576), ("v1", 4, 1536, 576),
@@ -149,9 +159,10 @@ def test_the_split_plan_is_the_c_sources_rule_and_its_cap():
             assert tuple(mm._split_plan(m, n, k, SMS)) == (plan.splits, plan.scratch_bytes, plan.tiles,
                                                             plan.split_tiles)
         else:
-            assert mm._plan(kind, m, n, k, False, SMS) == (plan.splits, plan.scratch_bytes, plan.tiles)
+            assert mm._plan(kind, m, n, k, False, SMS) == (plan.splits, plan.scratch_bytes, plan.tiles,
+                                                            plan.tile[0])
     # a forced count loses its empty slices, as the plan's does; a v1 shape with no partial wave runs whole
-    assert mm.gemm_plan("mma", 512, 192, 576, SMS, splits=4).splits == 4
+    assert mm.gemm_plan("mma", 512, 192, 576, SMS, splits=4).splits == mm._split_count(9, 4) == 3
     assert mm.gemm_plan("decode", 4, 1536, 576, SMS, splits=8).splits == mm._split_count(9, 8) == 5
     whole = mm.gemm_plan("v1", 1024, 4224, 576, SMS)  # 8 x 33 = 264 tiles: two blocks on each of 132 SMs
     assert whole.tiles % (2 * SMS) == 0
