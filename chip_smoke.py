@@ -359,7 +359,11 @@ Phases; any failure ends the run with a nonzero exit and no result line:
     three variants phase 13's as ``launches_continuous`` and phase 14's
     chip-batched ones as ``launches_fleet``, and their worst chip-batched
     error as ``max_abs_err_fleet``; ``masked_matmul.decode.chips8``
-    is phase 14's chip-batched decode step; ``masked_matmul.<variant>.experts``
+    is phase 14's chip-batched decode step; ``masked_matmul.decode``'s
+    ``launches_by_offset`` counts the main path's decode launches whose w
+    runs start off 16 bytes (hymba-1.5b's untied head), ``.mma``'s
+    ``launches_by_copies`` those that copied an operand TMA refuses;
+    ``masked_matmul.<variant>.experts``
     phase 15's expert-batched launches with mixtral's rows,
     ``selective_scan_bwd`` the scan's backward kernel with phase 12's
     stage "families" fits' launches and (a)'s timed row, and
@@ -535,7 +539,8 @@ def rel_l2(got, ref):
 def reset_launches():
     """Zero the model path's kernel counters: launches and launches by variant
     (the masked GEMM's chip-batched, expert-batched and chip x expert ones
-    too, its ``mma`` launches that copied an operand TMA refuses, and the
+    too, its ``mma`` launches that copied an operand TMA refuses, its
+    ``decode`` launches on the offset route, and the
     scan's and its backward's chip-batched ones)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan, selective_scan_bwd
@@ -543,7 +548,7 @@ def reset_launches():
 
     for fn in (masked_matmul, flash_attention, selective_scan, selective_scan_bwd):
         fn.launches = 0
-    masked_matmul.copy_launches = 0
+    masked_matmul.copy_launches = masked_matmul.offset_launches = 0
     selective_scan.fleet_launches = selective_scan_bwd.fleet_launches = 0
     for fn, attr in ((masked_matmul, "launches_by_variant"), (masked_matmul, "fleet_launches_by_variant"),
                      (masked_matmul, "expert_launches_by_variant"),
@@ -4651,7 +4656,9 @@ def run(args, torch) -> int:
 
     launches = {"masked_matmul": 0, "flash_attention": 0, "selective_scan": 0}
     variant_launches = dict.fromkeys(variant_counts(), 0)
-    copied = dict(mma=0)  # the main path's mma launches that copied an operand TMA refuses
+    # the main path's mma launches that copied an operand TMA refuses, and its decode launches whose w
+    # runs start off 16 bytes (bulk copies from the boundary below, read at an offset)
+    copied = dict(mma=0, decode=0)
 
     serve_report, profile_report, profile_lines = {}, {}, []
 
@@ -4687,6 +4694,7 @@ def run(args, torch) -> int:
         for key in variant_launches:
             variant_launches[key] += got_variants[key]
         copied["mma"] += masked_matmul.copy_launches
+        copied["decode"] += masked_matmul.offset_launches
         want = dict(masked_matmul=per_step * (1 + NEW), flash_attention=0,
                     selective_scan=c.num_layers if c.has_ssm else 0)
         if got_counts != want:
@@ -4860,6 +4868,7 @@ def run(args, torch) -> int:
             for key in variant_launches:
                 variant_launches[key] += got_variants[key]
             copied["mma"] += masked_matmul.copy_launches
+            copied["decode"] += masked_matmul.offset_launches
             if got_counts != want:
                 raise Failed(f"long prefill {c.name} {cc.dtype}: launches {got_counts}, expected {want}")
             check_variants(f"long prefill {c.name}", cc.dtype, got_variants)
@@ -5108,6 +5117,7 @@ def run(args, torch) -> int:
 
     kernels = [
         dict(name="masked_matmul.decode", **mm_entry("decode"), launches=variant_launches["masked_matmul.decode"],
+             launches_by_offset=copied["decode"],
              launches_continuous=cont_launches["decode"], launches_fleet=fleet_launches["decode"],
              ms=dstep["f32w_ms"], plain_ms=dstep["plain_ms"], bound_ms=dstep["f32w_bound_ms"],
              bound_by=bound_by(dstep, "f32w_"), library_ms=dstep["library_ms"]),

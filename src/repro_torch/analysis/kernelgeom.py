@@ -135,8 +135,8 @@ def masked_matmul_launch(
     wrapper forces a caller's or the cache's). ``dims`` are (M, N, K),
     ``blocks`` one tile's rows and columns and one slice's K; ``smem_bytes``
     is the mma kernel's dynamic shared memory for the fp32 master w, the
-    larger of its two w dtypes (the decode and tiled kernels have static
-    shared memory only)."""
+    larger of its two w dtypes, and the bf16 decode kernel's ring at the
+    larger of its two (v1's kernels have static shared memory only)."""
     kind = mm.pick_variant(_dtype(dtype), m)
     r, c = mask_shape
     chips *= experts
@@ -150,12 +150,13 @@ def masked_matmul_launch(
         return KernelLaunch("masked_matmul", (m, n, k), (1, 1, 1), 0, (), dict(splits=splits), refused)
     plan = mm.gemm_plan(kind, m, n, k, sm_count, chips, k_contiguous, splits)
     bm, bn, bk = plan.tile
-    slice_k = -(-mm._tiles_k(kind, k) // plan.splits) * bk
+    slice_k = -(-mm._tiles_k(kind, k, k_contiguous) // plan.splits) * bk
     return KernelLaunch(
         kernel="masked_matmul",
         dims=(m, n, k),
         blocks=(min(bm, m), min(bn, n), min(slice_k, k)),
-        smem_bytes=mm._mma_smem(bm) if kind == "mma" else 0,
+        smem_bytes=(mm._mma_smem(bm) if kind == "mma" else
+                    max(mm._dec_smem(m, size, k_contiguous) for size in (2, 4)) if kind == "decode" else 0),
         grid=plan.grid,
         params=dict(splits=plan.splits),
     )

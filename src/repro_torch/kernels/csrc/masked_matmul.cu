@@ -12,13 +12,30 @@
 //
 // Three kernels; the caller's dtype and M pick one (kernels/masked_matmul/ops.py):
 //
-// - decode (bf16 x, M <= 16) is bound by the weight bytes. Every thread streams its weights with
-//   16-byte loads (8 bf16 or 2 x 4 fp32), several rows in flight, and accumulates M x 8 outputs
-//   in fp32 registers. Row-major w: a warp reads 256 neighbouring columns of 8 consecutive rows
-//   at a time, with those rows of x; the block's 8 warps split its rows and are summed in shared
-//   memory in a fixed order. embed.T: 8 lanes read one column's K run, 4 columns per warp, x from
-//   shared memory, summed by shuffles. K is split across blocks to fill one wave of two blocks
-//   per SM, and no more: a partial second wave would double the time.
+// - decode (bf16 x, M <= 16) is bound by the weight bytes. A block of 288 threads takes one column
+//   tile (256 columns of row-major w, 32 of embed.T) over one K slice. Its producer warp's lane 0
+//   keeps a shared-memory ring of stages (16 rows of the tile, or 128 k of each column: 16 KB of
+//   fp32 w, or 8 KB of bf16, and x's bf16 rows; as many stages as fit 104 KB) filled by TMA, one
+//   dense box of w and one of x a stage, each completing on the stage's mbarrier. The boxes are
+//   large because the copy unit's cost is by request: 1-D bulk copies of 1 KB runs held one block
+//   to 15 GB/s (PERF.md §6). The maps are cached on the host by pointer and shape, so a
+//   weight's are encoded once, not per launch. Eight consumer warps read the raw weights from the
+//   stage, round them to bf16, mask them and multiply them into M x 8 (row-major) or M (embed.T)
+//   fp32 sums a thread; M picks an instance of 4, 8 or 16 rows, so M = 8 computes 8. Two blocks
+//   an SM at M <= 8 hold about 200 KB in flight, far over the 25 KB that DRAM's latency (about
+//   1 us) asks for at 3.35 TB/s over 132 SMs. K is split over a thread-block cluster of up to 16
+//   blocks a tile (8 beyond 3 tiles), as many slices as two blocks an SM over ONE entry's tiles
+//   ask for (never the chip or expert count, never M); the slices meet in distributed shared
+//   memory, summed in rank order: no scratch, no counters, no fence. The grid is not persistent:
+//   (tiles x slices, entries), one cluster a tile; where the entries' tiles pass one wave
+//   (mixtral's 8 experts x 64 tiles x 4 slices = 2,048 blocks on 132 SMs at two an SM, 7.8
+//   waves) the hardware starts each cluster as SMs free, so the last wave's empty share is under
+//   a sixth of one wave's time. A w whose runs start off 16 bytes (hymba-1.5b's untied head,
+//   32,001 fp32 columns; a bf16 w of N = 132), which TMA refuses, is copied run by run by 1-D
+//   bulk copies (cp.async.bulk) from the 16-byte boundary below and read at each run's offset;
+//   a granule past the operand's last byte is never read (its elements are loaded one by one).
+//   An x TMA refuses (K = 100) is written by the producer's lanes. The wrapper names the routes
+//   in last_loads.
 // - mma (bf16 x, M > 16): wgmma with the masked weight as the register operand, fed by a TMA
 //   ring. Each output tile is computed transposed, y^T = (w * mask)^T x^T: 128 weight columns,
 //   split over two consumer warpgroups of 64 (wgmma's M), by 128 or 256 tokens (its N, so
@@ -44,9 +61,13 @@
 //   runtime's driver entry point, so nothing but the runtime is linked).
 // - v1 (float32 x and w) runs in fp32 on the SIMT cores, since tensor cores would round fp32 to
 //   tf32, which misses the float32 tolerances. Two kernels, picked by M as the bf16 pair is:
-//   - M <= 16: the decode kernels above, instantiated for fp32 x and w with no bf16 rounding of w
-//     (the masked weight is w times its 0/1 bit, as the plain version multiplies). Bound by the
-//     weight bytes: fp32 w in 16-byte loads, 8, 4 or 2 rows in flight at M <= 4, 8 or 16.
+//   - M <= 16: decode_rows_kernel and decode_cols_kernel, streaming kernels without a ring: every
+//     thread streams its weights with 16-byte loads (2 x 4 fp32), several rows in flight, and
+//     accumulates M x 8 outputs in fp32 registers; the block's 8 warps are summed in shared memory
+//     in a fixed order, and K is split across blocks through fp32 partials to fill one wave of two
+//     blocks per SM. Instantiated for fp32 x and w with no bf16 rounding of w (the masked weight
+//     is w times its 0/1 bit, as the plain version multiplies): 8, 4 or 2 rows in flight at
+//     M <= 4, 8 or 16. (An explicit v1 on bf16 x and w runs their bf16 instances.)
 //   - M > 16: `tiled`, a register-tiled SIMT kernel bound by operations (67 TFLOP/s FP32).
 //     128 x 128 output tiles (64 rows where M <= 64, 64 columns where 128-wide tiles would leave
 //     a quarter of their columns empty), 256 threads, each accumulating an 8 x 8 (or 8 x 4, 4 x
@@ -67,25 +88,27 @@
 // is rounded to bf16 in registers (round to nearest even, bit for bit what w.to(torch.bfloat16)
 // gives) before the mask and the product, so both launches give the same bits. Every kernel reads
 // the mask as bits packed once per mask by the wrapper (8 KB for 256 x 256, L1-resident), 1 byte
-// per 8 weights instead of 32 bytes of float mask (mma: the transposed bits, by weight column). Where K is split, each slice writes an fp32
-// partial and the last slice of each tile sums them in slice order, so results do not change from
-// run to run.
+// per 8 weights instead of 32 bytes of float mask (mma: the transposed bits, by weight column).
+// Where mma or v1 split K, each slice writes an fp32 partial and the last slice of each tile sums
+// them in slice order; decode sums its slices in its cluster in rank order. So results do not
+// change from run to run.
 //
 // A chip axis (the counterpart of the TPU kernel under jax.vmap, whose batching rule adds the
 // chip to the kernel's grid): every kernel takes `chips` stacks of x (chips, M, K), w (chip
 // stride swc, 0 for a weight shared by every chip), the mask and y (chips, M, N), and folds the
 // chip into grid.y. Each chip has its own split-K counters (the tile index counts chips x tiles)
-// and its own slices of the scratch, and the plan cuts K for chips x tiles output tiles. One
-// launch serves the whole fleet. The same axis carries an MoE layer's experts: w (E, K, N) under
+// and its own slices of the scratch; the bf16 plans cut K as one chip's launch would, so a chip's
+// rows of a batched launch have the bits of its own launch. One launch serves the whole fleet. The same axis carries an MoE layer's experts: w (E, K, N) under
 // ONE mask, since every expert GEMM runs on the same chip; the mask's batch stride is then 0, so
 // its bits are packed and read once for all experts. Both at once (a fleet's MoE layer): the
 // batch axis is chips x E, and a mask group of E has grid entry i read mask i / E, so each chip's
 // experts share that chip's bits, packed once a chip. The persistent mma kernel takes the axis
-// into its work items in place of grid.y. Left for later work: a CUDA graph of the decode step,
-// whose small GEMMs are launch-bound. (TMA multicast of each w tile to a cluster of two blocks on
+// into its work items in place of grid.y. A decode launch allocates nothing and touches no
+// counter, so a CUDA graph of the decode step can capture it as it is. (TMA multicast of each w tile to a cluster of two blocks on
 // neighbouring token tiles was built and ran slower: PERF.md, PR 31.)
 #include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is found at run time
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -324,12 +347,11 @@ __device__ void merge_splits(const float* part, int* counters, TY* y, int M, int
 }
 
 // ---------------------------------------------------------------------------
-// decode: M <= 16, bound by the weight bytes
+// v1 at M <= 16: the streaming kernels, bound by the weight bytes (the bf16 decode kernel is below)
 // ---------------------------------------------------------------------------
 
 constexpr int DEC_THREADS = 256;
 constexpr int DEC_KQ = 64;           // K granule of the split plan
-constexpr int DEC_MAX_SPLITS = 32;  // the last block of a tile merges every slice's partial serially
 // rows of x the k-contiguous kernel stages in shared memory at a time: 16 KB of fp32, so a slice
 // of up to 1024 rows (M <= 4) stages its x once
 template <int MT> __host__ __device__ constexpr int dec_kc() { return 4096 / MT; }
@@ -1078,6 +1100,346 @@ mma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUt
 }
 
 // ---------------------------------------------------------------------------
+// decode: bf16 x, M <= 16, bound by the weight bytes (a TMA ring, K split over a cluster)
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_CONSUMERS = 256;             // eight consumer warps
+constexpr int DEC_THREADS_BULK = DEC_CONSUMERS + 32;  // and one producer warp
+constexpr int DEC_MAX_CLUSTER = 16;            // K slices of a tile, at most: a non-portable cluster
+constexpr int DEC_WIDE_CLUSTER = 8;             // the most where an entry has more than DEC_NARROW_TILES tiles
+constexpr int DEC_NARROW_TILES = 3;
+constexpr int DEC_ROWS_KD = 16;                // k rows of a stage of row-major w: the K granule
+constexpr int DEC_COLS_KD = 128;               // k of a stage of k-contiguous w: the K granule
+constexpr int DEC_ROWS_WARP = DEC_ROWS_KD / 8;  // rows of a stage a consumer warp takes
+constexpr int DEC_RING_BYTES = 104 * 1024;      // the ring's stages, at most: two blocks an SM at M <= 8
+constexpr int DEC_MAX_STAGES = 12;
+
+// A stage holds w's tile as stored (row-major: KD rows of the block's BN columns; k-contiguous:
+// each of its BN columns' run of KD k) and x's KD k as bf16 [MT][KD]. By TMA, w lands as one dense
+// box (rows RUN bytes apart) and x as another, rows of x past M zero. Where w's runs start off 16
+// bytes (the "offset" route), each run is a 1-D bulk copy from the 16-byte boundary at or below
+// its first byte into a slot of PITCH bytes. Where x's rows are not 16-byte multiples, the
+// producer warp writes x itself. The stage's geometry is the same in elements for both w dtypes
+// and both routes, so all four sum in the same order; bf16 takes about twice the stages.
+template <typename WT, bool KCONTIG, int MT> struct DecShape {
+  static constexpr int BN = KCONTIG ? DEC_BN_COLS : DEC_BN_ROWS;
+  static constexpr int KD = KCONTIG ? DEC_COLS_KD : DEC_ROWS_KD;
+  static constexpr int COPIES = KCONTIG ? BN : KD;
+  static constexpr int RUN = (KCONTIG ? KD : BN) * (int)sizeof(WT);  // a run's bytes, the TMA box's rows
+  static constexpr int PITCH = RUN + 16;
+  static constexpr int W_BYTES = COPIES * PITCH;
+  static constexpr int W_BOX = COPIES * RUN;
+  static constexpr int X_BYTES = MT * KD * 2;
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int STAGES = DEC_RING_BYTES / STAGE < DEC_MAX_STAGES ? DEC_RING_BYTES / STAGE : DEC_MAX_STAGES;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int RED = KCONTIG ? 0 : 8 * MT * BN * 4;  // the consumer warps' partials, over the ring
+  static constexpr int BODY = RING > RED ? RING : RED;
+  static constexpr int PART = MT * BN * 4;  // the block's partial, which its cluster reads
+  static constexpr int BARS = 2 * DEC_MAX_STAGES * 8;  // the ring's full and empty barriers, first
+  static constexpr int SMEM = BARS + 128 + BODY + PART;  // + the slack that aligns the ring to 128 bytes
+  static_assert(2 * STAGES * 8 <= BARS && STAGE % 128 == 0 && W_BYTES % 128 == 0, "TMA's 128-byte boxes");
+};
+
+struct DecArgs {
+  const __nv_bfloat16* x;    // (entries, M, K)
+  const void* w;             // entry e at w + e * swc: (K, N) strides (wstride, 1), or (1, wstride)
+  const unsigned char* wend;  // just past the last byte of w that any entry holds
+  const uint8_t* bits;       // row-major w: each mask's bits along C; k-contiguous: along R (transposed)
+  __nv_bfloat16* y;          // (entries, M, N)
+  long long wstride, swc, sbm;
+  int M, N, K, mgroup, R, C, bstride, splits, per, x_copy, w_offset;  // the routes: see launch_decode_bulk
+};
+
+// one bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned) into this block's
+// shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The 8 weights as the decode kernel multiplies them: each rounded to bf16, times its 0/1 mask bit
+// as a bf16 product, widened to fp32; the values weights8 gives (bf16 x), with mask_pair's four
+// instructions a pair for the multipliers.
+template <typename WT>
+__device__ __forceinline__ void masked_wide8(const WRaw<WT>& r, uint32_t m, float (&f)[8]) {
+  uint32_t h[4];
+  to_pairs(r, h);
+  uint4 q;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&q);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint32_t mp = mask_pair(m, 2 * p);
+    o[p] = bits_of(__hmul2(*reinterpret_cast<const __nv_bfloat162*>(&h[p]), *reinterpret_cast<const __nv_bfloat162*>(&mp)));
+  }
+  unpack8(q, f);
+}
+
+// Eight weights of a stage at byte p, whose run starts `o` bytes into its 16-byte granule: 16-byte
+// loads where the run is aligned, 4-byte ones where it lies on 4 bytes, else 2-byte ones (a bf16
+// run on an odd element).
+template <typename WT>
+__device__ __forceinline__ void load_slot(WRaw<WT>& r, const unsigned char* p, int o) {
+  constexpr int WORDS = (int)sizeof(WRaw<WT>) / 4;
+  if (o == 0) {
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) r.v[i] = reinterpret_cast<const uint4*>(p)[i];
+  } else if ((o & 3) == 0) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(&r.v[0]);
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) d[i] = reinterpret_cast<const uint32_t*>(p)[i];
+  } else {
+    unsigned short* d = reinterpret_cast<unsigned short*>(&r.v[0]);
+#pragma unroll
+    for (int i = 0; i < 2 * WORDS; ++i) d[i] = reinterpret_cast<const unsigned short*>(p)[i];
+  }
+}
+
+// One launch computes y = x @ (w * mask) for every entry (chip or expert): grid (tiles x splits,
+// entries), a cluster of `splits` blocks a column tile, block rank z the tile's K slice z. Warp 8
+// is the producer: each stage, its lane 0 asks TMA for w's box and x's box (or, on the offset
+// route, lane i bulk-copies run i; where x is not TMA's, the lanes write it), then the lanes arrive
+// on the stage's full barrier. Warps 0-7 consume: row-major w, warp q takes rows 2q and 2q + 1 of
+// each stage of 16, lane l its columns 8l .. 8l + 7; k-contiguous w, 8 lanes a column, lane s its
+// k 8s .. 8s + 7 and 64 + 8s .. 64 + 8s + 7 of each stage of 128. Every thread sums its products
+// in k order; the warps' partials of a row-major tile are added in warp order 0 .. 7, the 8 lanes
+// of a k-contiguous column by a butterfly (xor 1, 2, 4). The slices' partials meet in distributed
+// shared memory: block z sums the outputs of its run of columns (the z-th of `splits` runs of the
+// tile) over the cluster's blocks in rank order and writes y. No scratch, no counters, no fence:
+// a launch allocates nothing and can be captured as it is.
+template <typename WT, bool KCONTIG, int MT>
+__global__ void __launch_bounds__(DEC_THREADS_BULK, MT == 16 ? 1 : 2)
+decode_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap, const DecArgs a) {
+  using S = DecShape<WT, KCONTIG, MT>;
+  constexpr int STAGES = S::STAGES, KD = S::KD, BN = S::BN;
+  extern __shared__ __align__(128) unsigned char dec_smem[];
+  uint64_t* const full = reinterpret_cast<uint64_t*>(dec_smem);
+  uint64_t* const empty = full + STAGES;
+  unsigned char* const ring =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(dec_smem) + S::BARS + 127) & ~uintptr_t(127));
+  float* const part = reinterpret_cast<float*>(ring + S::BODY);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int splits = a.splits;
+  const int tile = blockIdx.x / splits, z = blockIdx.x - tile * splits;
+  const int entry = blockIdx.y;
+  const int n0 = tile * BN;
+  const int k_begin = z * a.per, k_end = min(a.K, k_begin + a.per);
+  const int nt = k_end > k_begin ? (k_end - k_begin + KD - 1) / KD : 0;
+  const WT* const w = static_cast<const WT*>(a.w) + entry * a.swc;
+  const int pitch = a.w_offset ? S::PITCH : S::RUN;  // a run's room in the stage
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1 + 32);  // lane 0's expect_tx, then every producer lane's arrival
+      mbar_init(&empty[i], DEC_CONSUMERS / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == DEC_CONSUMERS / 32) {  // the producer warp
+    const __nv_bfloat16* const x = a.x + (long long)entry * a.M * a.K;
+    const uintptr_t wend = reinterpret_cast<uintptr_t>(a.wend);
+    const int wc = a.swc != 0 ? entry : 0;  // w's map: a shared w has one entry
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
+      unsigned char* const ws = ring + st * S::STAGE;
+      __nv_bfloat16* const xs = reinterpret_cast<__nv_bfloat16*>(ws + S::W_BYTES);
+      const int k0 = k_begin + t * KD, kn = min(KD, k_end - k0);
+      // the offset route: this lane's run of w, row k0 + lane of the tile's columns, or column
+      // n0 + lane's run of K, from the 16-byte boundary below, but never a granule past the
+      // operand's last byte
+      const WT* src = nullptr;
+      int count = 0;
+      if (a.w_offset && !KCONTIG && lane < KD && lane < kn) {
+        src = w + (long long)(k0 + lane) * a.wstride + n0;
+        count = min(BN, a.N - n0);
+      } else if (a.w_offset && KCONTIG && n0 + lane < a.N) {
+        src = w + (long long)(n0 + lane) * a.wstride + k0;
+        count = kn;
+      }
+      const uintptr_t at = reinterpret_cast<uintptr_t>(src), a0 = at & ~uintptr_t(15);
+      const uintptr_t end = at + (uintptr_t)count * sizeof(WT);
+      uintptr_t a1 = (end + 15) & ~uintptr_t(15);
+      if (a1 > wend) a1 = wend & ~uintptr_t(15);
+      const uint32_t bytes = count > 0 && a1 > a0 ? (uint32_t)(a1 - a0) : 0u;
+      uint32_t total = bytes;
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) total += __shfl_xor_sync(0xffffffffu, total, d);
+      if (lane == 0) {  // TMA's boxes count whole, their parts past the operand's edges zero-filled
+        mbar_arrive_tx(&full[st], total + (a.w_offset ? 0u : (uint32_t)S::W_BOX) + (a.x_copy ? 0u : (uint32_t)S::X_BYTES));
+        if (!a.w_offset) {
+          if (KCONTIG)
+            tma_load3(ws, &wmap, &full[st], k0, n0, wc);
+          else
+            tma_load3(ws, &wmap, &full[st], n0, k0, wc);
+        }
+        if (!a.x_copy) tma_load3(xs, &xmap, &full[st], k0, 0, entry);
+      }
+      __syncwarp();
+      unsigned char* const slot = ws + lane * S::PITCH;
+      if (bytes) bulk_copy(slot, reinterpret_cast<const void*>(a0), bytes, &full[st]);
+      // the run's last elements in a granule that passes the operand's end: loaded one by one
+      for (uintptr_t p = max(a0 + bytes, at); count > 0 && p < end; p += sizeof(WT))
+        *reinterpret_cast<WT*>(slot + (p - a0)) = *reinterpret_cast<const WT*>(p);
+      if (a.x_copy) {  // x's rows are not 16-byte multiples: the lanes write them, zero past the slice
+        for (int e = lane; e < a.M * KD; e += 32) {
+          const int m = e / KD, kk = e - m * KD;
+          xs[m * KD + kk] = kk < kn ? x[(long long)m * a.K + k0 + kk] : __float2bfloat16(0.f);
+        }
+      }
+      mbar_arrive(&full[st]);
+    }
+    if (splits > 1) {  // the consumers' two cluster barriers
+      cooperative_groups::this_cluster().sync();
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+    }
+    return;
+  }
+
+  const uint8_t* const bits = a.bits + (long long)(entry / a.mgroup) * a.sbm;
+  __nv_bfloat16* const y = a.y + (long long)entry * a.M * a.N;
+  if constexpr (!KCONTIG) {
+    float acc[MT][8];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+    const int cm = (n0 + lane * 8) % a.C;  // the mask column of the lane's first column
+    const int i0 = DEC_ROWS_WARP * warp;
+    int kr = (k_begin + i0) % a.R;  // the mask row of the warp's first row of the stage
+    // row i of the stage (row k of w, mask row r), rounded, masked and widened: the lane's 8 weights
+    auto row = [&](const unsigned char* ws, int i, int k, int r, float (&wf)[8]) {
+      const int o = a.w_offset ? (int)(reinterpret_cast<uintptr_t>(w + (long long)k * a.wstride + n0) & 15) : 0;
+      WRaw<WT> raw;
+      load_slot(raw, ws + i * pitch + o + lane * 8 * (int)sizeof(WT), o);
+      masked_wide8(raw, mask8(bits, a.bstride, a.C, r, cm), wf);
+    };
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      const unsigned char* const ws = ring + st * S::STAGE;
+      const __nv_bfloat16* const xs = reinterpret_cast<const __nv_bfloat16*>(ws + S::W_BYTES);
+      const int k0 = k_begin + t * KD;
+#pragma unroll
+      for (int rr = 0; rr < DEC_ROWS_WARP; ++rr) {  // one row at a time: 8 weights and M sums live
+        const int i = i0 + rr, k = k0 + i;
+        if (k >= k_end) break;
+        float wf[8];
+        row(ws, i, k, kr + rr < a.R ? kr + rr : kr + rr - a.R, wf);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xk = __bfloat162float(xs[m * KD + i]);  // x[m][k], one address for the warp
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xk, wf[j], acc[m][j]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      kr += KD;
+      while (kr >= a.R) kr -= a.R;
+    }
+    // every stage is consumed (so every copy has landed): the ring holds the warps' partials
+    asm volatile("bar.sync 1, %0;\n" ::"n"(DEC_CONSUMERS) : "memory");
+    float* const red = reinterpret_cast<float*>(ring);  // [warp][m][BN]
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float* r = red + (warp * MT + m) * BN + lane * 8;
+      reinterpret_cast<float4*>(r)[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+      reinterpret_cast<float4*>(r)[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(DEC_CONSUMERS) : "memory");
+    const int c = tid;  // the block's partial of column n0 + c: warps 0 .. 7 in order
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float s = red[m * BN + c];
+#pragma unroll
+      for (int q = 1; q < 8; ++q) s += red[(q * MT + m) * BN + c];
+      part[m * BN + c] = s;
+      if (splits == 1 && m < a.M && n0 + c < a.N) y[(long long)m * a.N + n0 + c] = __float2bfloat16(s);
+    }
+  } else {
+    float acc[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+    const int col = tid >> 3, sub = tid & 7, n = n0 + col;
+    const int cm = n % a.C;  // the row of the transposed bit matrix
+    const int o = a.w_offset ? (int)(reinterpret_cast<uintptr_t>(w + (long long)n * a.wstride + k_begin) & 15) : 0;
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      const unsigned char* const ws = ring + st * S::STAGE;
+      const __nv_bfloat16* const xs = reinterpret_cast<const __nv_bfloat16*>(ws + S::W_BYTES);
+      const int k0 = k_begin + t * KD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kk = 8 * sub + 64 * h, k = k0 + kk;
+        if (k >= k_end) break;
+        WRaw<WT> raw;
+        load_slot(raw, ws + col * pitch + o + kk * (int)sizeof(WT), o);
+        if (k + 8 > k_end) {  // past the slice's end: stale bytes of the slot, zeroed (not masked)
+          WT* e = reinterpret_cast<WT*>(&raw.v[0]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (k + j >= k_end) e[j] = from_f<WT>(0.f);
+        }
+        float wf[8];
+        masked_wide8(raw, mask8(bits, a.bstride, a.R, cm, k % a.R), wf);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {  // x[m][k .. k + 7]: zero past the slice's end, never stale
+          float xv[8];
+          unpack8(*reinterpret_cast<const uint4*>(xs + m * KD + kk), xv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[m] = fmaf(xv[j], wf[j], acc[m]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], 1);
+      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], 2);
+      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], 4);
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        part[m * BN + col] = acc[m];
+        if (splits == 1 && m < a.M && n < a.N) y[(long long)m * a.N + n] = __float2bfloat16(acc[m]);
+      }
+    }
+  }
+  if (splits == 1) return;
+  // the slices' partials, summed in rank order through distributed shared memory: block z's
+  // outputs (row m, a run of neighbouring columns c) spread over its threads, each output's peers
+  // read at once, then added in rank order
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();
+  const int share = (BN + splits - 1) / splits, c0 = z * share;  // the block's columns c0 .. c0 + cols
+  const int cols = max(0, min(share, min(BN, a.N - n0) - c0));
+  const float* peer[DEC_MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < DEC_MAX_CLUSTER; ++q) peer[q] = q < splits ? cluster.map_shared_rank(part, q) : part;
+  for (int o = tid; o < a.M * cols; o += DEC_CONSUMERS) {
+    const int m = o / cols, c = c0 + (o - m * cols);
+    float v[DEC_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < DEC_MAX_CLUSTER; ++q) v[q] = q < splits ? peer[q][m * BN + c] : 0.f;
+    float s = v[0];
+#pragma unroll
+    for (int q = 1; q < DEC_MAX_CLUSTER; ++q)
+      if (q < splits) s += v[q];
+    y[(long long)m * a.N + n0 + c] = __float2bfloat16(s);
+  }
+  // no block leaves while a peer may still read its partial (nothing to publish: relaxed)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // tiled: v1 at M > 16, register-tiled SIMT FP32
 // ---------------------------------------------------------------------------
 
@@ -1427,9 +1789,11 @@ int mma_tokens(int chips, int M, int N, int sms) {
   return 2 * tiles < sms ? 128 : 256;
 }
 
-// The bf16 kernels' plan: K slices, output tiles (per chip) and the tile's rows. decode keeps its
-// grid of chips x tiles x slices within one wave of two blocks per SM (a second, partial wave would
-// double the time), cutting K into whole DEC_KQ-row granules, at most DEC_MAX_SPLITS slices. mma
+// The bf16 kernels' plan: K slices, output tiles (per chip) and the tile's rows. decode cuts K into
+// whole stages (16 rows of row-major w, 128 k of embed.T), as many slices as two blocks an SM
+// over one entry's column tiles ask for, at most a cluster of DEC_MAX_CLUSTER: the same slices at
+// every M and every chip or expert count, so each entry's rows of a batched launch, and a
+// checksummed launch's payload rows, have the bits of their own launch. mma
 // runs one persistent block an SM: K is cut only where one entry's tiles fill at most 1 /
 // MMA_SPLIT_SHARE of the SMs, each slice at least MMA_MIN_TILES k tiles, the same cut for every
 // chip count. v1's plan, the same rules for its decode and tiled
@@ -1438,11 +1802,15 @@ int mma_tokens(int chips, int M, int N, int sms) {
 void plan(int variant, int chips, int M, int N, int K, bool kcontig, int sms, int* splits,
           int* tiles_out, int* tokens) {
   if (variant == 2) {
-    const int bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS;
+    // one entry's column tiles alone set the slices (never the chip or expert count, nor M): two
+    // blocks an SM's worth of them, each slice whole stages, at most a cluster of 16 for a narrow
+    // weight (at most 3 tiles: one entry alone leaves the card idle) and of 8 otherwise (a batched
+    // launch of wider entries passes one wave, and a wide cluster packs the GPCs worse)
+    const int bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS, kd = kcontig ? DEC_COLS_KD : DEC_ROWS_KD;
     *tiles_out = (N + bn - 1) / bn;
     *tokens = M;
-    *splits = split_count(std::max(1, (K + DEC_KQ - 1) / DEC_KQ),
-                          std::min(DEC_MAX_SPLITS, std::max(1, 2 * sms / (chips * *tiles_out))));
+    const int cap = *tiles_out <= DEC_NARROW_TILES ? DEC_MAX_CLUSTER : DEC_WIDE_CLUSTER;
+    *splits = split_count((K + kd - 1) / kd, std::min(cap, std::max(1, 2 * sms / *tiles_out)));
   } else {
     *tokens = mma_tokens(chips, M, N, sms);
     *tiles_out = ((M + *tokens - 1) / *tokens) * ((N + MMA_BN - 1) / MMA_BN);
@@ -1597,10 +1965,10 @@ EncodeTiled encode_tiled() {
 }
 
 // A 3-d map (d0 innermost, unit stride; d1 and d2 at s1 and s2 bytes) of boxes b0 x b1 x 1 with
-// the 128-byte swizzle; zero where a box passes the edge.
+// the 128-byte swizzle (mma) or none (decode: dense boxes); zero where a box passes the edge.
 int encode_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, unsigned long long d0,
                unsigned long long d1, unsigned long long d2, unsigned long long s1, unsigned long long s2,
-               unsigned b0, unsigned b1) {
+               unsigned b0, unsigned b1, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {d0, d1, d2};
@@ -1608,13 +1976,174 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, unsig
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t estride[3] = {1, 1, 1};
   const CUresult r = fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // What TMA takes: a 16-byte aligned base and strides that are multiples of 16 bytes, under 2^40
 bool tma_stride(long long bytes) { return bytes > 0 && bytes % 16 == 0 && bytes < (1LL << 40); }
+
+// A small cache of encoded maps, keyed by every argument the encoding reads: a weight's maps are
+// encoded once, and an activation's again only where its address or shape is new, so a launch
+// call does not pay for an encoding it made before. (A map holds an address and a layout only, so
+// a hit stays right after the tensor that made it is freed.)
+struct MapKey {
+  const void* base;
+  unsigned long long d0, d1, d2, s1, s2;
+  unsigned b0, b1;
+  int dt;
+};
+
+int cached_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, unsigned long long d0,
+               unsigned long long d1, unsigned long long d2, unsigned long long s1, unsigned long long s2,
+               unsigned b0, unsigned b1) {
+  struct Slot {
+    MapKey key;
+    CUtensorMap map;
+    bool used;
+  };
+  static Slot slots[512];
+  MapKey key;
+  memset(&key, 0, sizeof(key));
+  key.base = base;
+  key.d0 = d0;
+  key.d1 = d1;
+  key.d2 = d2;
+  key.s1 = s1;
+  key.s2 = s2;
+  key.b0 = b0;
+  key.b1 = b1;
+  key.dt = static_cast<int>(dt);
+  unsigned long long h = 1469598103934665603ULL;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(&key);
+  for (size_t i = 0; i < sizeof(key); ++i) h = (h ^ kb[i]) * 1099511628211ULL;
+  Slot& slot = slots[h % 512];
+  if (slot.used && memcmp(&slot.key, &key, sizeof(key)) == 0) {
+    *map = slot.map;
+    return 0;
+  }
+  if (int err = encode_map(map, dt, base, d0, d1, d2, s1, s2, b0, b1, CU_TENSOR_MAP_SWIZZLE_NONE)) return err;
+  slot.key = key;
+  slot.map = *map;
+  slot.used = true;
+  return 0;
+}
+
+template <typename WT, bool KC, int MT>
+int launch_decode_mt(const CUtensorMap& xm, const CUtensorMap& wm, const DecArgs& a, int tiles, int entries,
+                     cudaStream_t s) {
+  using S = DecShape<WT, KC, MT>;
+  auto kern = decode_kernel<WT, KC, MT>;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64 || dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // set once a device: above 48 KB only after this attribute, and clusters of more than 8 blocks
+  // only after the non-portable one; a cluster of `splits` blocks that no GPC holds at this shared
+  // memory never launches, so each slice count is checked once
+  static bool ready[64];
+  static signed char fits[64][DEC_MAX_CLUSTER + 1];
+  if (!ready[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * a.splits, entries, 1);
+  cfg.blockDim = dim3(DEC_THREADS_BULK, 1, 1);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.splits > 1 ? 1 : 0;
+  if (a.splits > 1 && fits[dev][a.splits] == 0) {
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fits[dev][a.splits] = clusters > 0 ? 1 : -1;
+  }
+  if (a.splits > 1 && fits[dev][a.splits] < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, xm, wm, a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The bf16 decode kernel (bf16 x, M <= 16, w in WT): the instance by M (4, 8 or 16 rows) and w's
+// layout; `splits` K slices of whole stages, none empty, one cluster a column tile. loads: bit 0
+// asks for x by the producer's own loads, bit 1 for w by 1-D bulk copies from the 16-byte boundary
+// below each run (the offset route); the rest by TMA, which must then take the operand: a 16-byte
+// aligned base, row strides of a multiple of 16 bytes, a stacked w's entries at least an entry
+// apart (the wrapper picks by the same rule: ops.py::_decode_loads).
+template <typename WT>
+int launch_decode_bulk(int chips, const void* x, const void* w, const uint8_t* bits, const uint8_t* bits_t,
+                       void* y, int M, int N, int K, long long swk, long long swn, long long swc, int R, int C,
+                       int mask_group, int splits, int loads, cudaStream_t s) {
+  if (M < 1 || M > 16 || splits < 1 || splits > DEC_MAX_CLUSTER || swc < 0 || (loads & ~3) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool kcontig = swn != 1;
+  const int kd = kcontig ? DEC_COLS_KD : DEC_ROWS_KD, bn = kcontig ? DEC_BN_COLS : DEC_BN_ROWS;
+  const int granules = (K + kd - 1) / kd;
+  const int per = (granules + splits - 1) / splits;
+  if ((long long)(splits - 1) * per >= granules) return static_cast<int>(cudaErrorInvalidValue);  // an empty slice
+  DecArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = w;
+  a.bits = kcontig ? bits_t : bits;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.wstride = kcontig ? swn : swk;
+  a.swc = swc;
+  a.bstride = kcontig ? (R + 7) / 8 : (C + 7) / 8;
+  a.sbm = (long long)(mask_group != 0) * (kcontig ? C : R) * a.bstride;
+  a.mgroup = std::max(mask_group, 1);
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.R = R;
+  a.C = C;
+  a.splits = splits;
+  a.per = per * kd;
+  a.x_copy = loads & 1;
+  a.w_offset = (loads >> 1) & 1;
+  // the operand's last element: the last entry's last row (or column) end
+  const long long last = (long long)(chips - 1) * swc + (kcontig ? (long long)(N - 1) * swn + K - 1
+                                                                  : (long long)(K - 1) * swk + N - 1);
+  a.wend = static_cast<const unsigned char*>(w) + (last + 1) * (long long)sizeof(WT);
+  const int tiles = (N + bn - 1) / bn;
+  const int mt = M <= 4 ? 4 : M <= 8 ? 8 : 16;
+  alignas(64) CUtensorMap xm, wm;
+  memset(&xm, 0, sizeof(xm));
+  memset(&wm, 0, sizeof(wm));
+  if (!a.x_copy) {  // boxes of kd k x mt rows of one entry's x; rows past M zero
+    if (!aligned16(x) || !tma_stride(2LL * K)) return static_cast<int>(cudaErrorInvalidValue);
+    if (int err = cached_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, chips, 2ULL * K, 2ULL * M * K, kd, mt))
+      return err;
+  }
+  if (!a.w_offset) {  // boxes of kd rows x bn columns (row-major) or bn columns x kd k (embed.T)
+    const long long sz = sizeof(WT);
+    const long long extent = (kcontig ? (long long)N : (long long)K) * a.wstride * sz;
+    const long long entry = swc != 0 ? swc * sz : extent;
+    if (!aligned16(w) || !tma_stride(a.wstride * sz) || !tma_stride(entry) || entry < extent)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const CUtensorMapDataType dt = sz == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const unsigned long long entries = swc != 0 ? chips : 1;
+    const int err = kcontig ? cached_map(&wm, dt, w, K, N, entries, a.wstride * sz, entry, kd, bn)
+                            : cached_map(&wm, dt, w, N, K, entries, a.wstride * sz, entry, bn, kd);
+    if (err) return err;
+  }
+#define DEC_GO(KC_, MT_) \
+  if (kcontig == KC_ && mt == MT_) return launch_decode_mt<WT, KC_, MT_>(xm, wm, a, tiles, chips, s);
+  DEC_GO(false, 4)
+  DEC_GO(false, 8)
+  DEC_GO(false, 16)
+  DEC_GO(true, 4)
+  DEC_GO(true, 8)
+  DEC_GO(true, 16)
+#undef DEC_GO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 template <typename WT, bool KCONTIG, int TOK>
 int launch_mma_tok(const CUtensorMap& xm, const CUtensorMap& wm, const MmaArgs& a, int blocks, cudaStream_t s) {
@@ -1713,10 +2242,56 @@ extern "C" int masked_matmul_plan(int variant, int chips, int M, int N, int K, i
   int splits = 1, tiles_out = 1, tokens = 0;
   plan(variant, chips, M, N, K, kcontig != 0, sms, &splits, &tiles_out, &tokens);
   out[0] = splits;
-  out[1] = splits == 1 ? 0 : 4LL * chips * splits * M * N;
+  out[1] = splits == 1 || variant == 2 ? 0 : 4LL * chips * splits * M * N;  // decode sums in its cluster
   out[2] = (long long)chips * tiles_out;
   out[3] = tokens;
   return 0;
+}
+
+// The bf16 decode kernel's instance for M rows (4, 8 or 16), w's dtype (0 = float32, 1 = bfloat16)
+// and layout: out[0] = registers a thread, out[1] = local (spill) bytes a thread, out[2] = dynamic
+// shared memory, out[3] = blocks an SM holds, out[4] = clusters of `splits` blocks the card holds at
+// once (0 for splits 1).
+extern "C" int masked_matmul_decode_info(int mt, int wdtype, int kcontig, int splits, long long* out) {
+  auto info = [&](auto kern, int smem) -> int {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)  // clusters of more than 8, where the card takes them
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+    int blocks = 0, clusters = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, DEC_THREADS_BULK, smem);
+    if (err == cudaSuccess && splits > 1) {
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = splits;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(splits * 64, 1, 1);
+      cfg.blockDim = dim3(DEC_THREADS_BULK, 1, 1);
+      cfg.dynamicSmemBytes = smem;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = fa.numRegs;
+    out[1] = (long long)fa.localSizeBytes;
+    out[2] = smem;
+    out[3] = blocks;
+    out[4] = clusters;
+    return 0;
+  };
+#define DEC_INFO(WT_, KC_, MT_)                                                          \
+  if ((wdtype == 0) == std::is_same<WT_, float>::value && (kcontig != 0) == KC_ && mt == MT_) \
+    return info(decode_kernel<WT_, KC_, MT_>, DecShape<WT_, KC_, MT_>::SMEM);
+  DEC_INFO(float, false, 4) DEC_INFO(float, false, 8) DEC_INFO(float, false, 16)
+  DEC_INFO(float, true, 4) DEC_INFO(float, true, 8) DEC_INFO(float, true, 16)
+  DEC_INFO(__nv_bfloat16, false, 4) DEC_INFO(__nv_bfloat16, false, 8) DEC_INFO(__nv_bfloat16, false, 16)
+  DEC_INFO(__nv_bfloat16, true, 4) DEC_INFO(__nv_bfloat16, true, 8) DEC_INFO(__nv_bfloat16, true, 16)
+#undef DEC_INFO
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // variant: 1 = v1 (x and w share the dtype xdtype), 2 = decode (M <= 16), 3 = mma; 2 and 3 take
@@ -1764,14 +2339,11 @@ extern "C" int masked_matmul(int variant, int xdtype, int wdtype, int chips, con
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (xdtype != 1 || (wdtype != 0 && wdtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (variant == 2)
-    return wdtype == 1
-               ? launch_decode<__nv_bfloat16, __nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn,
-                                                             swc, R, C, g, splits, part, scratch_bytes,
-                                                             cnt, counters_len, s)
-               : launch_decode<__nv_bfloat16, float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R,
-                                                     C, g, splits, part, scratch_bytes, cnt,
-                                                     counters_len, s);
+  if (variant == 2)  // no scratch and no counters: the slices meet in the cluster's shared memory
+    return wdtype == 1 ? launch_decode_bulk<__nv_bfloat16>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, g,
+                                                           splits, loads, s)
+                       : launch_decode_bulk<float>(chips, x, w, b, bt, y, M, N, K, swk, swn, swc, R, C, g, splits,
+                                                   loads, s);
   if (variant == 3)
     return wdtype == 1
                ? launch_mma<__nv_bfloat16>(chips, x, w, bt, y, M, N, K, swk, swn, swc, R, C, g, splits, tokens,

@@ -7,10 +7,12 @@ Kernels: ``kernels/csrc/masked_matmul.cu``. They replace the TPU kernel
 The dtype and M pick the kernel; each is hand-written and each is bound
 differently on an H100:
 
-- ``decode`` (bf16 x, M <= 16): the weight bytes bound it. It streams w
-  with 16-byte loads, applies the mask on chip and never writes a masked
-  copy; K is split across blocks so a narrow GEMM still spreads its reads
-  over the whole card;
+- ``decode`` (bf16 x, M <= 16): the weight bytes bound it. A producer warp
+  streams w and x by TMA into a shared-memory ring, eight consumer warps
+  apply the mask on chip (no masked copy is ever written), and K is split
+  over a thread-block cluster whose blocks sum their slices in distributed
+  shared memory, so a narrow GEMM still spreads its reads over the card and
+  a launch allocates nothing;
 - ``mma`` (bf16 x, M > 16): the tensor cores through ``wgmma``, the masked
   weight as the register operand and x from shared memory, both fed by a
   TMA ring; a persistent block an SM walks tiles of 128 or 256 tokens
@@ -30,8 +32,8 @@ the kernel, bit for bit as ``w.to(torch.bfloat16)`` would round it, so the
 two launches give the same bits and no bf16 copy of w is ever written. w is
 taken through its strides, so the tied unembedding's ``embed.T`` is read in
 place. Every kernel reads the mask as bits, packed once per mask tensor
-(``packed_mask``), and split launches share one zeroed counter buffer per
-stream (``kernels.common.split_counters``).
+(``packed_mask``), and the split ``mma`` and ``v1`` launches share one
+zeroed counter buffer per stream (``kernels.common.split_counters``).
 
 A chip axis: with w of shape (chips, K, N), x (chips, ..., K) and ok
 (chips, R, C), one launch computes every chip's product with its own weights
@@ -79,10 +81,17 @@ aligned base and row strides of a multiple of 16 bytes: ``_mma_loads``);
 otherwise its producer warpgroup copies that operand itself, in the same
 kernel and into the same layout (hymba-1.5b's ``dt_proj`` at K = 100, a
 bf16 w whose rows are not a multiple of 16 bytes, a view that starts off
-alignment). ``masked_matmul.last_loads`` is the last mma launch's route
-(``("tma" | "copy", "tma" | "copy")`` for x and w, None after another
-kernel) and ``masked_matmul.copy_launches`` counts the mma launches that
-copied an operand.
+alignment). The decode kernel loads both by TMA under the same rule; an x
+TMA refuses is written by its producer warp (``"copy"``), and a w whose
+rows or columns start off 16 bytes (hymba-1.5b's untied head, 32,001 fp32
+columns; a bf16 w of N = 132) is copied run by run by 1-D bulk copies from
+the 16-byte boundary below, read at each run's offset (``"offset"``,
+``_decode_loads``). ``masked_matmul.last_loads`` is the last bf16 launch's
+route for x and w: mma ``("tma" | "copy", "tma" | "copy")``, decode
+``("tma" | "copy", "tma" | "offset")``; None after v1.
+``masked_matmul.copy_launches`` counts the mma launches that copied an
+operand, ``masked_matmul.offset_launches`` the decode launches on the
+offset route.
 
 ``masked_matmul`` launches a kernel for a CUDA tensor and counts the launch
 in ``masked_matmul.launches`` and ``masked_matmul.launches_by_variant`` (a
@@ -132,10 +141,15 @@ VARIANTS = {"v1": 1, "decode": 2, "mma": 3}
 _SMALL_M = 16
 _PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
 # csrc/masked_matmul.cu's tiles and split rules: the decode kernels' columns a block (row-major
-# w, embed.T), K granule and most slices; the mma kernel's weight columns a block, k depth of a
-# stage, fewest k tiles a slice and the share of the SMs an entry's tiles fill at most where K is
-# cut; the tiled v1 kernel's fewest k tiles a slice
+# w, embed.T), v1's K granule and most slices at M <= 16; the bf16 decode kernel's K granule (a
+# stage: 16 rows of row-major w, 128 k of embed.T), most slices (a cluster of 16), ring stages
+# by w's element size and its block; the mma kernel's weight columns a block, k depth of a stage,
+# fewest k tiles a slice and the share of the SMs an entry's tiles fill at most where K is cut;
+# the tiled v1 kernel's fewest k tiles a slice
 _DEC_BN_ROWS, _DEC_BN_COLS, _DEC_KQ, _DEC_MAX_SPLITS = 256, 32, 64, 32
+_DEC_ROWS_KD, _DEC_COLS_KD, _DEC_MAX_CLUSTER = 16, 128, 16
+_DEC_WIDE_CLUSTER, _DEC_NARROW_TILES = 8, 3  # the cap where an entry has more column tiles than that
+_DEC_RING_BYTES, _DEC_MAX_STAGES = 104 * 1024, 12
 _MMA_BN, _MMA_BK, _MMA_MIN_TILES, _MMA_SPLIT_SHARE = 128, 64, 2, 8
 _TL_MIN_TILES = 8
 # the mma kernel's ring (MmaShape): stages of an x tile (tokens x 64 bf16) and the raw w tile
@@ -145,10 +159,30 @@ _MMA_RING_BYTES, _MMA_MAX_STAGES = 200 * 1024, 6
 
 def _mma_smem(tokens: int, w_size: int = 4) -> int:
     """The mma kernel's dynamic shared memory for a token tile and w's
-    element size (``MmaShape<WT, TOK>::SMEM``); the decode and tiled
+    element size (``MmaShape<WT, TOK>::SMEM``); v1's decode and tiled
     kernels use static shared memory only."""
     stage = tokens * _MMA_BK * 2 + _MMA_BK * _MMA_BN * w_size
     return min(_MMA_MAX_STAGES, _MMA_RING_BYTES // stage) * stage + 1024
+
+
+def _dec_mt(m: int) -> int:
+    """The bf16 decode kernel's instance for M rows: 4, 8 or 16."""
+    return 4 if m <= 4 else 8 if m <= 8 else 16
+
+
+def _dec_smem(m: int, w_size: int = 4, k_contiguous: bool = False) -> int:
+    """The bf16 decode kernel's dynamic shared memory (``DecShape<WT,
+    KCONTIG, MT>::SMEM``): 192 bytes of barriers and 128 that align the ring
+    for TMA, the ring (each stage room for w's runs, 16 more bytes than a
+    run each, and x as bf16; as many stages as fit 104 KB, at most 12),
+    which the row-major kernel's eight warps' partials reuse, and the
+    block's partial that its cluster reads."""
+    mt = _dec_mt(m)
+    bn, kd = (_DEC_BN_COLS, _DEC_COLS_KD) if k_contiguous else (_DEC_BN_ROWS, _DEC_ROWS_KD)
+    copies, run = (bn, kd) if k_contiguous else (kd, bn)
+    stage = copies * (run * w_size + 16) + mt * kd * 2
+    red = 0 if k_contiguous else 8 * mt * bn * 4
+    return 2 * _DEC_MAX_STAGES * 8 + 128 + max(min(_DEC_MAX_STAGES, _DEC_RING_BYTES // stage) * stage, red) + mt * bn * 4
 
 
 def _mma_tokens(m: int, n: int, sms: int, chips: int = 1) -> int:
@@ -242,10 +276,13 @@ def _plan(
     """A bf16 kernel's (K slices, scratch bytes, output tiles of all chips,
     a tile's rows): the rule of ``plan`` in csrc/masked_matmul.cu
     (``_c_plan`` asks the C source, and a card test holds the two equal).
-    decode keeps its grid of chips x tiles x slices within one wave of two
-    blocks per SM and cuts K into whole 64-row granules, at most 32 slices
-    (a tile's rows: M). mma runs one persistent block an SM over tiles of
-    ``_mma_tokens`` tokens x 128 weight columns and cuts K only where one
+    decode cuts K into whole stages (16 rows of row-major w, 128 k of
+    embed.T), as many slices as two blocks an SM over one entry's column
+    tiles ask for, at most 16 (a non-portable cluster, whose blocks sum the
+    slices in shared memory: no scratch) for a weight of at most 3 column
+    tiles and 8 for a wider one: the slices depend on neither M nor the
+    chip or expert count (a tile's rows: M). mma runs one persistent block
+    an SM over tiles of ``_mma_tokens`` tokens x 128 weight columns and cuts K only where one
     entry's tiles alone fill at most an eighth of the SMs (a cut's partials
     cost more than idle SMs above that), each slice at least 2 k tiles of
     64: every chip count cuts K alike, so a chip's (or an expert's) rows of
@@ -255,8 +292,9 @@ def _plan(
     if kind == "decode":
         tokens = m
         tiles_out = -(-n // (_DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS))
-        want = min(_DEC_MAX_SPLITS, max(1, 2 * sms // (chips * tiles_out)))
-        splits = _split_count(max(1, -(-k // _DEC_KQ)), want)
+        cap = _DEC_MAX_CLUSTER if tiles_out <= _DEC_NARROW_TILES else _DEC_WIDE_CLUSTER
+        splits = _split_count(_tiles_k("decode", k, k_contiguous), min(cap, max(1, 2 * sms // tiles_out)))
+        return splits, 0, chips * tiles_out, tokens
     else:
         tokens = _mma_tokens(m, n, sms, chips)
         tiles_out = -(-m // tokens) * -(-n // _MMA_BN)
@@ -280,19 +318,25 @@ def _c_plan(
     return out[0], out[1], out[2], out[3]
 
 
-def _tiles_k(kind: str, k: int) -> int:
-    """k tiles (granules) a launch of ``kind`` cuts K into."""
-    bk = _MMA_BK if kind == "mma" else _DEC_KQ if kind == "decode" else 8
+def _tiles_k(kind: str, k: int, k_contiguous: bool = False) -> int:
+    """k tiles (granules) a launch of ``kind`` cuts K into: decode's stages
+    (16 rows of row-major w, 128 k of embed.T), v1's 64-row granules at
+    M <= 16 (``kind`` "v1 decode"), mma's k tiles of 64, the tiled v1
+    kernel's of 8."""
+    bk = {"mma": _MMA_BK, "decode": _DEC_COLS_KD if k_contiguous else _DEC_ROWS_KD, "v1 decode": _DEC_KQ}.get(kind, 8)
     return max(1, -(-k // bk))
 
 
 def max_splits(kind: str, m: int, k: int) -> int:
     """The most K slices a launch of ``kind`` may take: the plan's own cap.
-    The decode kernels (bf16 ``decode`` and v1 at M <= 16): 32 slices of
-    64-row granules; ``mma``: 2 k tiles of 64 a slice; the tiled v1 kernel:
-    8 k tiles a slice."""
-    if kind == "decode" or (kind == "v1" and m <= _SMALL_M):
-        return min(_DEC_MAX_SPLITS, _tiles_k("decode", k))
+    bf16 ``decode``: a cluster of 16, each slice at least a stage of 16 rows
+    (a k-contiguous w's stages of 128 drop what they cannot fill); v1 at
+    M <= 16: 32 slices of 64-row granules; ``mma``: 2 k tiles of 64 a slice;
+    the tiled v1 kernel: 8 k tiles a slice."""
+    if kind == "decode":
+        return min(_DEC_MAX_CLUSTER, _tiles_k("decode", k))
+    if kind == "v1" and m <= _SMALL_M:
+        return min(_DEC_MAX_SPLITS, _tiles_k("v1 decode", k))
     if kind == "mma":
         return max(1, _tiles_k("mma", k) // _MMA_MIN_TILES)
     return max(1, _tiles_k("v1", k) // _TL_MIN_TILES)
@@ -303,9 +347,10 @@ class GemmPlan(NamedTuple):
     tile: tuple  # (BM, BN, BK) of one output tile and k step (mma: tokens, weight columns, k)
     splits: int  # K slices of a split tile
     split_tiles: int  # v1: each chip's tiles cut into K slices (above M = 16 a partial last wave's); bf16: 0
-    scratch_bytes: int  # the fp32 partials of the split tiles
+    scratch_bytes: int  # the fp32 partials of the split tiles (decode: 0, its cluster sums them)
     tiles: int  # output tiles of all chips: the split-K counters a launch needs
-    grid: tuple  # the CUDA grid (mma: persistent, at most one block an SM over every chip's tiles and slices)
+    grid: tuple  # the CUDA grid (mma: persistent, at most one block an SM over every chip's tiles and slices;
+    # decode: a cluster of ``splits`` blocks a column tile, by the chips)
     max_splits: int  # the cap a forced count must keep
 
 
@@ -322,7 +367,7 @@ def gemm_plan(
     cap = max_splits(kind, m, k)
     if splits is not None and not 1 <= splits <= cap:
         raise ValueError(f"{kind} at M {m}, K {k} takes 1 to {cap} K slices, got {splits}")
-    tiles_k = _tiles_k(kind, k)
+    tiles_k = _tiles_k(kind, k, k_contiguous)
     if kind == "v1":
         bm, bn, bk = tile = _v1_tiles(m, n, k_contiguous)
         heur = _split_plan(m, n, k, sms, chips, k_contiguous)
@@ -347,10 +392,10 @@ def gemm_plan(
     s, scratch, tiles, rows = _plan(kind, m, n, k, k_contiguous, sms, chips)
     if splits is not None:
         s = _split_count(tiles_k, splits)
-        scratch = 0 if s == 1 else 4 * chips * s * m * n
+        scratch = 0 if s == 1 or kind == "decode" else 4 * chips * s * m * n
     if kind == "decode":
-        tile = (m, _DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS, _DEC_KQ)
-        return GemmPlan(kind, tile, s, 0, scratch, tiles, (tiles // chips, chips, s), cap)
+        tile = (m, _DEC_BN_COLS if k_contiguous else _DEC_BN_ROWS, _DEC_COLS_KD if k_contiguous else _DEC_ROWS_KD)
+        return GemmPlan(kind, tile, s, 0, 0, tiles, (tiles // chips * s, chips), cap)
     return GemmPlan(kind, (rows, _MMA_BN, _MMA_BK), s, 0, scratch, tiles, (min(tiles * s, sms), 1), cap)
 
 
@@ -442,15 +487,29 @@ def _mma_loads(x_ptr: int, k: int, w: torch.Tensor, w_stride: int) -> tuple[str,
     bytes, a stacked w's entries at least an entry's extent apart), else
     ``"copy"``, the kernel's producer warp copying it itself. ``launch_mma``
     in the C source checks the same rule."""
-    size = w.element_size()
-    kcontig = w.stride(-1) != 1
-    stride = w.stride(-1) if kcontig else w.stride(-2)
-    extent = (w.shape[-1] if kcontig else w.shape[-2]) * stride * size
+    size, strides, shape = w.element_size(), w.stride(), w.shape
+    kcontig = strides[-1] != 1
+    stride = strides[-1] if kcontig else strides[-2]
+    extent = (shape[-1] if kcontig else shape[-2]) * stride * size
     entry = w_stride * size
     x_tma = x_ptr % 16 == 0 and _tma_stride(2 * k)
     w_tma = (w.data_ptr() % 16 == 0 and _tma_stride(stride * size)
              and (entry == 0 or (_tma_stride(entry) and entry >= extent)))
     return "tma" if x_tma else "copy", "tma" if w_tma else "copy"
+
+
+def _decode_loads(x_ptr: int, k: int, w: torch.Tensor, w_stride: int) -> tuple[str, str]:
+    """How the bf16 decode kernel loads x (chips, M, K contiguous at
+    ``x_ptr``) and w (entry stride ``w_stride``): by TMA, one box a stage,
+    where TMA takes the operand (``_mma_loads``' rule: a 16-byte aligned
+    base, row strides of a multiple of 16 bytes, a stacked w's entries at
+    least an entry apart); else x by the producer warp's own loads
+    (``"copy"``), and w by 1-D bulk copies of each run from the 16-byte
+    boundary below its first byte, read at its offset (``"offset"``: the
+    kernel finds each run's offset itself). ``launch_decode_bulk`` in the C
+    source checks the same rule."""
+    loads = _mma_loads(x_ptr, k, w, w_stride)
+    return loads[0], "tma" if loads[1] == "tma" else "offset"
 
 
 def _check_dtypes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -551,29 +610,35 @@ def masked_matmul(
         bits, bits_t = packed_mask(ok)
         plan = resolve_plan(x.dtype, m, kdim, n, ok.shape[-2:], x.device, sms, splits=splits, chips=chips,
                             k_contiguous=w.stride(-1) != 1, variant=variant)
-        scratch_bytes, tiles = plan.scratch_bytes, plan.tiles
-        counters = split_counters(x.device, stream, tiles)
+        scratch_bytes = plan.scratch_bytes
+        # decode sums its K slices in its cluster's shared memory: no counters, no scratch
+        counters = None if kind == "decode" else split_counters(x.device, stream, plan.tiles)
         # partials only where K is split; the caching allocator hands the bytes back
         scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device) if scratch_bytes else None
-        loads = _mma_loads(x3.data_ptr(), kdim, w, w_stride) if kind == "mma" else None
+        x_ptr = x3.data_ptr()
+        loads = (_mma_loads(x_ptr, kdim, w, w_stride) if kind == "mma"
+                 else _decode_loads(x_ptr, kdim, w, w_stride) if kind == "decode" else None)
         fn = load_kernel("masked_matmul", _ARGTYPES)
         err = fn(
-            VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x3.data_ptr(), w.data_ptr(),
+            VARIANTS[kind], _DTYPES[x.dtype], _DTYPES[w.dtype], chips, x_ptr, w.data_ptr(),
             bits.data_ptr(), bits_t.data_ptr(), y.data_ptr(),
             m, n, kdim, w.stride(-2), w.stride(-1), w_stride,
             ok.shape[-2], ok.shape[-1], group, plan.splits, plan.split_tiles,
             plan.tile[0] if kind == "mma" else 0, plan.grid[0] if kind == "mma" else 0,
-            0 if loads is None else (loads[0] == "copy") | (loads[1] == "copy") << 1,
-            scratch.data_ptr() if scratch is not None else None,
-            scratch_bytes, counters.data_ptr(), counters.numel(), stream,
+            0 if loads is None else (loads[0] == "copy") | (loads[1] != "tma") << 1,
+            scratch.data_ptr() if scratch is not None else None, scratch_bytes,
+            counters.data_ptr() if counters is not None else None, 0 if counters is None else counters.numel(),
+            stream,
         )
         check_launch("masked_matmul", err)
         masked_matmul.launches += 1
         masked_matmul.launches_by_variant[kind] += 1
         masked_matmul.last_splits = plan.splits
         masked_matmul.last_loads = loads
-        if loads is not None and "copy" in loads:
+        if kind == "mma" and "copy" in loads:
             masked_matmul.copy_launches += 1
+        if kind == "decode" and loads[1] == "offset":
+            masked_matmul.offset_launches += 1
         if w.dim() == 4:
             masked_matmul.fleet_expert_launches_by_variant[kind] += 1
         elif experts:
@@ -587,6 +652,7 @@ masked_matmul.launches = 0
 masked_matmul.last_splits = None
 masked_matmul.last_loads = None
 masked_matmul.copy_launches = 0
+masked_matmul.offset_launches = 0
 masked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.fleet_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 masked_matmul.expert_launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -657,9 +723,10 @@ def masked_matmul_checksummed(
     xa = torch.cat([x2, x2.sum(dim=0, keepdim=True).to(x2.dtype)], dim=0)
     splits = None
     m = x2.shape[0]
-    if x.device.type == "cuda" and pick_variant(x.dtype, m) == "mma":
+    if x.device.type == "cuda" and pick_variant(x.dtype, m) == pick_variant(x.dtype, m + 1) != "v1":
         # the payload's own K slices (the mma plan's rows change the token tile, which changes no
-        # bit, and may change the slices): the checksum row rides along without changing its bits
+        # bit, and may change the slices; a tuned count is keyed by M): the checksum row rides along
+        # without changing its bits
         splits = resolve_plan(x.dtype, m, kdim, w.shape[1], ok.shape[-2:], x.device, sm_count(x.device),
                               k_contiguous=w.stride(-1) != 1).splits
     ya = masked_matmul(xa, w, ok, splits=splits)

@@ -368,6 +368,9 @@ def tune_kernel(
     best, best_s, _ = hillclimb(
         heuristic, lambda b: lattice_neighbors(b, lattices), score, max_evals=max_evals,
     )
+    # the blocks the wrapper launches for the winning lattice point (a raw point may collapse: 16 K
+    # slices of 36 stages are 12), so the table holds what a launch reports in its ``last_*``
+    best = normalize_blocks(kernel, shape, best, dtype)
     _, best_smem = lint_candidate(kernel, shape, dtype, best)
     flops, byts = kernel_flops_bytes(kernel, shape, dtype)
     return TuneResult(

@@ -173,18 +173,26 @@ def test_masked_matmul_v1_variant_is_reachable_and_agrees(cuda):
     (1, 100, 3200, False), (16, 64, 20000, False), (4, 8, 8, False), (4, 4096, 16384, False),
 ])
 def test_decode_plan_fills_one_wave_without_empty_slices(cuda, m, k, n, contig):
+    """The decode plan cuts K into whole stages (16 rows, or 128 k of
+    embed.T), as many slices as two blocks an SM over one entry's column
+    tiles ask for, at most a cluster of 16 (8 beyond 3 column tiles), none empty, no scratch; the same
+    slices at every chip count and at M and M + 1."""
     from repro_torch.kernels.masked_matmul.ops import _plan
 
     splits, part_bytes, tiles_out, rows = _plan("decode", m, n, k, contig, 132)
-    assert rows == m
-    assert tiles_out == -(-n // (32 if contig else 256))
-    tiles_k = -(-k // 64)
-    per = -(-tiles_k // splits)
-    assert 1 <= splits <= tiles_k and (splits - 1) * per < tiles_k
-    assert part_bytes == (0 if splits == 1 else 4 * splits * m * n)
-    # within one wave of two blocks per SM and at most 32 slices, and not far below either
-    assert splits <= 32 and (splits == 1 or tiles_out * splits <= 2 * 132)
-    assert splits >= min(32, 2 * 132 // tiles_out, tiles_k) // 2
+    assert rows == m and part_bytes == 0
+    tiles = -(-n // (32 if contig else 256))
+    assert tiles_out == tiles
+    stages = -(-k // (128 if contig else 16))
+    per = -(-stages // splits)
+    assert 1 <= splits <= min(16, stages) and (splits - 1) * per < stages
+    # within one wave of two blocks per SM for one entry, and not far below either
+    assert splits == 1 or tiles * splits <= 2 * 132
+    assert splits <= (16 if tiles <= 3 else 8) and splits >= min(16 if tiles <= 3 else 8, 2 * 132 // tiles, stages) // 2
+    for chips in (2, 8, 16):
+        assert _plan("decode", m, n, k, contig, 132, chips) == (splits, 0, chips * tiles, m)
+    if m < 16:
+        assert _plan("decode", m + 1, n, k, contig, 132)[0] == splits
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 576, 192), (8192, 576, 576), (512, 8192, 16384), (17, 100, 132),
@@ -302,6 +310,133 @@ def test_mma_chip_batched_rows_have_each_chips_own_launch_bits(cuda, chips, m, n
     got = masked_matmul(x, w, ok)
     for c in range(chips):
         assert torch.equal(got[c], masked_matmul(x[c], w[c], ok[c])), c
+
+
+# the bf16 decode kernel (bulk-copy ring, K split over a cluster) at its edges: M 1-16 over its three
+# instances, K below one stage (8) and not a multiple of one (100), N ragged (70, 132, 300: not a
+# multiple of the 256-column tile; 70 fp32 and 132 bf16 rows start off 16 bytes), masks that divide
+# no tile (12 x 20), row-major w and embed.T
+DECODE_EDGES = [(8, 8), (100, 132), (576, 70), (576, 300)]
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("k,n", DECODE_EDGES)
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 16])
+def test_decode_edge_shapes_match_plain_and_repeat_their_bits(cuda, m, k, n, transposed):
+    """The decode kernel against the plain version at its edges; the fp32-w
+    launch gives the bf16-w launch's bits, and a second launch the first's."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w32 = torch.randn(n, k, generator=g, device=cuda) / k ** 0.5
+    w32 = w32.T if transposed else w32.T.contiguous()
+    w16 = w32.to(torch.bfloat16)
+    ok = torch.from_numpy(random_fault_map(m, 12, 20, 0.3).ok_mask).to(cuda)
+    before = masked_matmul.launches_by_variant["decode"]
+    got32 = masked_matmul(x, w32, ok)
+    got16 = masked_matmul(x, w16, ok)
+    again = masked_matmul(x, w32, ok)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_variant["decode"] == before + 3
+    assert torch.equal(got32, got16) and torch.equal(got32, again)
+    assert_close(got32, masked_matmul_ref(x, w32, ok), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [4, 8])
+@pytest.mark.parametrize("chips", [2, 4, 8])
+def test_decode_chip_batched_rows_have_each_chips_own_launch_bits(cuda, chips, m):
+    """The decode plan's slices depend on one entry's shape alone, so each
+    chip's rows of a chip-batched launch are the bits of that chip's own
+    launch: row-major w (SmolLM's 576 x 1536, a plan of several slices) and
+    the tied unembedding's embed.T, and a weight shared by every chip."""
+    for k, n, transposed in ((576, 1536, False), (1536, 576, False), (576, 3000, True)):
+        x, w, ok = _fleet_inputs(cuda, chips, m, k, n, transposed, torch.bfloat16, torch.float32, seed=chips + m)
+        got = masked_matmul(x, w, ok)
+        torch.cuda.synchronize()
+        for c in range(chips):
+            assert torch.equal(got[c], masked_matmul(x[c], w[c], ok[c])), (k, n, c)
+        shared = w[0].expand(chips, *w.shape[1:])
+        got = masked_matmul(x, shared, ok)
+        for c in range(chips):
+            assert torch.equal(got[c], masked_matmul(x[c], w[0], ok[c])), (k, n, c, "shared")
+
+
+@pytest.mark.parametrize("m", [4, 8])
+def test_decode_experts_and_chips_x_experts_have_each_entrys_own_launch_bits(cuda, m):
+    """Experts under one mask and 2 chips x 4 experts (a mask group): each
+    entry's rows equal the launch of that expert alone under its mask."""
+    k, n = 300, 700
+    g = torch.Generator(device=cuda).manual_seed(m)
+    maps = [torch.from_numpy(random_fault_map(c, 256, 256, 0.3).ok_mask).to(cuda) for c in range(2)]
+    experts = torch.randn(4, k, n, generator=g, device=cuda) / k ** 0.5
+    x = torch.randn(4, m, k, generator=g, device=cuda).to(torch.bfloat16)
+    got = masked_matmul(x, experts, maps[0])
+    assert_close(got, masked_matmul_ref(x, experts, maps[0]), torch.bfloat16)
+    for e in range(4):
+        assert torch.equal(got[e], masked_matmul(x[e], experts[e], maps[0])), e
+    both = torch.randn(2, 4, k, n, generator=g, device=cuda) / k ** 0.5
+    xb = torch.randn(2, 4, m, k, generator=g, device=cuda).to(torch.bfloat16)
+    ok = torch.stack(maps)
+    got = masked_matmul(xb, both, ok)
+    assert_close(got, masked_matmul_ref(xb, both, ok), torch.bfloat16)
+    for c in range(2):
+        for e in range(4):
+            assert torch.equal(got[c, e], masked_matmul(xb[c, e], both[c, e], maps[c])), (c, e)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_decode_load_routes_are_named_and_bit_equal(cuda, m):
+    """w and x that TMA takes go by one box a stage each ("tma"); w whose
+    rows start off 16 bytes (a view one element in; hymba-1.5b's untied
+    head, 1600 x 32001 fp32, rows 128,004 bytes apart) by 1-D bulk copies
+    from the 16-byte boundary below, read at each run's offset ("offset",
+    counted in ``offset_launches``); x off 16 bytes by the producer warp's
+    own loads ("copy"). Each route is named in ``last_loads`` and gives the
+    bits of the same operands on TMA."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    ok = torch.from_numpy(random_fault_map(1, 256, 256, 0.1).ok_mask).to(cuda)
+    for k, n in ((576, 300), (1600, 32001)):
+        x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+        pad = torch.randn(k, -(-n // 4) * 4, generator=g, device=cuda) / k ** 0.5  # rows 16-byte multiples apart
+        w_tma = pad[:, :n] if n % 4 else pad[:, :n].contiguous()
+        wbuf = torch.empty(k * n + 1, device=cuda)
+        w_off = wbuf[1:].view(k, n)  # every row starts 4 bytes (or more) off 16
+        w_off.copy_(w_tma)
+        xbuf = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda)
+        x_off = xbuf[1:].view(m, k)
+        x_off.copy_(x)
+        want = masked_matmul(x, w_tma, ok)
+        assert masked_matmul.last_loads == ("tma", "tma")
+        offsets = masked_matmul.offset_launches
+        for xi, wi, loads in ((x, w_off, ("tma", "offset")), (x_off, w_tma, ("copy", "tma")),
+                              (x_off, w_off, ("copy", "offset")), (x, w_off.to(torch.bfloat16), ("tma", "offset"))):
+            got = masked_matmul(xi, wi, ok)
+            torch.cuda.synchronize()
+            assert masked_matmul.last_loads == loads, (k, n, loads)
+            assert torch.equal(got, want), (k, n, loads)
+        assert masked_matmul.offset_launches == offsets + 3
+        assert_close(want, masked_matmul_ref(x, w_off, ok), torch.bfloat16)
+
+
+def test_a_decode_launch_allocates_no_scratch_and_takes_no_counters(cuda):
+    """A decode launch sums its K slices in its cluster's shared memory: it
+    allocates y alone, and takes no split-K counter buffer, also on a stream
+    that has never launched before."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.masked_matmul.ops import gemm_plan, sm_count
+
+    x, w, ok = _gemm_inputs(cuda, 4, 1536, 576, False, seed=5)
+    assert gemm_plan("decode", 4, 576, 1536, sm_count(cuda)).splits > 1
+    masked_matmul(x, w, ok)  # the mask packed, the library loaded
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        before = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+        y = masked_matmul(x, w, ok)
+        after = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    torch.cuda.synchronize()
+    assert after - before == 1 and masked_matmul.last_splits > 1
+    assert (cuda.index or 0, stream.cuda_stream) not in common._COUNTERS
+    assert torch.equal(y, masked_matmul(x, w, ok))
 
 
 def test_the_plan_refuses_what_no_bf16_kernel_runs(cuda):

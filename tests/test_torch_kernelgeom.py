@@ -146,8 +146,10 @@ def test_masked_matmul_launch_is_the_wrappers_plan(dtype, m, k, n):
 
 
 def test_the_split_plan_is_the_c_sources_rule_and_its_cap():
-    # decode: 32 slices at most, of 64-row granules; mma: 2 k tiles of 64 a slice; tiled v1: 8
-    assert mm.max_splits("decode", 4, 8192) == 32 and mm.max_splits("decode", 4, 576) == 9
+    # bf16 decode: a cluster of 16 slices at most, of 16-row stages; v1 at M <= 16: 32 slices at most,
+    # of 64-row granules; mma: 2 k tiles of 64 a slice; tiled v1: 8
+    assert mm.max_splits("decode", 4, 8192) == 16 and mm.max_splits("decode", 4, 100) == 7
+    assert mm.max_splits("v1", 4, 8192) == 32
     assert mm.max_splits("mma", 512, 576) == 9 // 2 and mm.max_splits("mma", 512, 100) == 1
     assert mm.max_splits("v1", 4, 576) == 9 and mm.max_splits("v1", 512, 576) == 72 // 8
     # the heuristic is the plan, and forcing its own count gives the same launch
@@ -163,7 +165,7 @@ def test_the_split_plan_is_the_c_sources_rule_and_its_cap():
                                                             plan.tile[0])
     # a forced count loses its empty slices, as the plan's does; a v1 shape with no partial wave runs whole
     assert mm.gemm_plan("mma", 512, 192, 576, SMS, splits=4).splits == mm._split_count(9, 4) == 3
-    assert mm.gemm_plan("decode", 4, 1536, 576, SMS, splits=8).splits == mm._split_count(9, 8) == 5
+    assert mm.gemm_plan("decode", 4, 1536, 144, SMS, splits=8).splits == mm._split_count(9, 8) == 5
     whole = mm.gemm_plan("v1", 1024, 4224, 576, SMS)  # 8 x 33 = 264 tiles: two blocks on each of 132 SMs
     assert whole.tiles % (2 * SMS) == 0
     assert mm.gemm_plan("v1", 1024, 4224, 576, SMS, splits=8)[2:5] == (1, 0, 0)
@@ -252,7 +254,7 @@ def test_krn001_for_what_the_wrappers_refuse():
     assert _codes(mamba_scan_launch(4, 128, 8192, 16, lanes=3)) == ["KRN001"]
     # a K split beyond the cap, and tiles no instance is built for
     assert _codes(masked_matmul_launch(512, 576, 192, (256, 256), dtype="bfloat16", splits=5)) == ["KRN001"]
-    assert _codes(masked_matmul_launch(4, 576, 192, (256, 256), dtype="bfloat16", splits=10)) == ["KRN001"]
+    assert _codes(masked_matmul_launch(4, 576, 192, (256, 256), dtype="bfloat16", splits=17)) == ["KRN001"]
     assert _codes(flash_attention_launch(4, 9, 3, 2048, 2048, 64, bq=128, bkv=128, dtype="bfloat16")) == ["KRN001"]
     assert _codes(flash_attention_launch(4, 9, 3, 2048, 2048, 48)) == ["KRN001"]
     assert isinstance(masked_matmul_launch(4, 576, 192, (256, 256)), KernelLaunch)

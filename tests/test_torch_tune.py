@@ -454,6 +454,18 @@ STUB_CASES = [  # (kernel, shape, dtype, seconds of a candidate)
 ]
 
 
+def test_the_table_holds_the_blocks_the_wrapper_launches(monkeypatch):
+    """A winning lattice point that collapses (16 K slices of SmolLM's 36
+    stages are 12) is stored as the launch it makes, so a wrapper reading the
+    table reports in ``last_splits`` what the table holds."""
+    shape = dict(m=4, k=576, n=1536, r=256, c=256)
+    _stub_space(monkeypatch, "masked_matmul", lambda b: 1.0 / b["splits"])
+    res = tune_kernel("masked_matmul", shape, torch.bfloat16, device="cpu", iters=2)
+    assert res.best_blocks == dict(splits=12) == normalize_blocks("masked_matmul", shape, dict(splits=16),
+                                                                  torch.bfloat16)
+    assert mm_ops.gemm_plan("decode", 4, 1536, 576, 132, splits=res.best_blocks["splits"]).splits == 12
+
+
 @pytest.mark.parametrize("kernel,shape,dtype,times", STUB_CASES,
                          ids=[f"{c[0]}-{i}" for i, c in enumerate(STUB_CASES)])
 def test_each_new_space_beats_or_ties_its_seed_and_never_launches_a_rejected_point(
@@ -488,12 +500,15 @@ def test_the_flash_space_rejects_tiles_that_are_not_built_or_do_not_fit(monkeypa
 def test_the_split_lattice_stops_at_the_plans_cap():
     from repro_torch.tune.tuner import _mm_lattice
 
-    assert _mm_lattice(dict(m=4, k=576, n=1536), torch.bfloat16) == dict(splits=[1, 2, 4, 8, 9])
+    # bf16 decode: a cluster of at most 16 slices, each at least a stage of 16 rows
+    assert _mm_lattice(dict(m=4, k=576, n=1536), torch.bfloat16) == dict(splits=[1, 2, 4, 8, 16])
+    assert _mm_lattice(dict(m=4, k=100, n=1536), torch.bfloat16) == dict(splits=[1, 2, 4, 7])
     assert _mm_lattice(dict(m=8192, k=576, n=1536), torch.bfloat16) == dict(splits=[1, 2, 4])
     assert _mm_lattice(dict(m=512, k=576, n=192), torch.float32) == dict(splits=[1, 2, 4, 8, 9])
-    assert _mm_lattice(dict(m=4, k=8192, n=4096), torch.bfloat16) == dict(splits=[1, 2, 4, 8, 16, 32])
-    # raw points that collapse to one launch: 8 slices of 9 granules are 5 of 2
-    assert normalize_blocks("masked_matmul", dict(m=4, k=576, n=1536, r=256, c=256), dict(splits=8),
+    assert _mm_lattice(dict(m=4, k=8192, n=4096), torch.bfloat16) == dict(splits=[1, 2, 4, 8, 16])
+    assert _mm_lattice(dict(m=4, k=8192, n=4096), torch.float32) == dict(splits=[1, 2, 4, 8, 16, 32])
+    # raw points that collapse to one launch: 8 slices of 9 stages are 5 of 2
+    assert normalize_blocks("masked_matmul", dict(m=4, k=144, n=1536, r=256, c=256), dict(splits=8),
                             torch.bfloat16) == dict(splits=5)
 
 
@@ -511,22 +526,22 @@ def test_the_real_runners_time_the_plain_versions_on_the_cpu(isolated_cache, ker
 
 
 def test_the_masked_gemm_seam_resolution_order(isolated_cache):
-    shape = dict(m=4, k=576, n=1536, r=256, c=256)
-    plan = mm_ops.gemm_plan("decode", 4, 1536, 576, 132)
+    shape = dict(m=4, k=144, n=1536, r=256, c=256)
+    plan = mm_ops.gemm_plan("decode", 4, 1536, 144, 132)
 
     def launched(**kw):
-        return mm_ops.resolve_plan(torch.bfloat16, 4, 576, 1536, (256, 256), "cuda", 132, **kw).splits
+        return mm_ops.resolve_plan(torch.bfloat16, 4, 144, 1536, (256, 256), "cuda", 132, **kw).splits
 
-    assert launched() == plan.splits == 9  # the plan
+    assert launched() == plan.splits == 5  # the plan: 8 slices of 9 stages are 5
     isolated_cache.put(cache_key("masked_matmul", shape, "bfloat16", "cuda"), dict(blocks=dict(splits=2)))
     assert launched() == 2  # the cache
     assert launched(splits=3) == 3  # the caller
-    assert launched(splits=4) == 3  # 4 slices of 9 granules leave one empty: 3 of 3
-    assert launched(k_contiguous=True) == mm_ops.gemm_plan("decode", 4, 1536, 576, 132, k_contiguous=True).splits
-    assert launched(chips=2) == mm_ops.gemm_plan("decode", 4, 1536, 576, 132, 2).splits  # chip-batched: the plan
-    assert launched(variant="v1") == mm_ops.gemm_plan("v1", 4, 1536, 576, 132).splits  # a forced v1: the plan
+    assert launched(splits=4) == 3  # 4 slices of 9 stages leave one empty: 3 of 3
+    assert launched(k_contiguous=True) == mm_ops.gemm_plan("decode", 4, 1536, 144, 132, k_contiguous=True).splits
+    assert launched(chips=2) == mm_ops.gemm_plan("decode", 4, 1536, 144, 132, 2).splits  # chip-batched: the plan
+    assert launched(variant="v1") == mm_ops.gemm_plan("v1", 4, 1536, 144, 132).splits  # a forced v1: the plan
     assert mm_ops.resolve_plan(torch.float32, 4, 576, 1536, (256, 256), "cuda", 132).splits == 9  # float32 misses
-    assert mm_ops.resolve_plan(torch.bfloat16, 4, 576, 1536, (256, 256), "cpu", 132).splits == 9  # cpu misses
+    assert mm_ops.resolve_plan(torch.bfloat16, 4, 144, 1536, (256, 256), "cpu", 132).splits == 5  # cpu misses
     isolated_cache.put(cache_key("masked_matmul", shape, "bfloat16", "cuda"), dict(blocks=dict(splits=64)))
     with pytest.raises(ValueError, match="K slices"):  # a tuned entry the plan refuses raises
         launched()

@@ -108,9 +108,11 @@ def patch(text: str, patches) -> str:
     return text
 
 
-def build_all(common, texts: dict) -> dict:
+def build_all(common, texts: dict, optional=()) -> dict:
     """Each named source text built into ``build/kernels`` (one nvcc each, all
-    started together); returns name -> (library, compiler log, wall seconds)."""
+    started together); returns name -> (library, compiler log, wall seconds).
+    A name in ``optional`` that fails to build is left out, with its log
+    printed; any other failure raises."""
     common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in texts.items():
@@ -124,6 +126,9 @@ def build_all(common, texts: dict) -> dict:
     for name, (proc, lib, log, t0) in procs.items():
         text = proc.communicate()[0].decode(errors="replace")
         seconds = time.perf_counter() - t0
+        if proc.returncode and name in optional:
+            print(f"{name} failed to build (left out):\n{text[-3000:]}", flush=True)
+            continue
         if proc.returncode:
             raise RuntimeError(f"{name} failed to build:\n{text}")
         log.write_text(text)
@@ -131,14 +136,14 @@ def build_all(common, texts: dict) -> dict:
     return out
 
 
-def ptxas_table(log: str) -> dict:
-    """Registers, stack and spill bytes of each ``mma_kernel`` instance in an
+def ptxas_table(log: str, kernel: str = "mma_kernel") -> dict:
+    """Registers, stack and spill bytes of each ``kernel`` instance in an
     ``nvcc -Xptxas -v`` log, keyed by its template arguments."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if m:
-            k = re.search(r"mma_kernelI(\w+?)EEv", m.group(1))
+            k = re.search(kernel + r"I(\w+?)EEv", m.group(1))
             fn = k.group(1) if k else None
             if fn:
                 out.setdefault(fn, {})
@@ -317,6 +322,394 @@ def prefill_turns(parent: Path, stem: Path, card: str) -> dict:
                   f"({', '.join(f'{t:.2f}' for t in warm)})", flush=True)
     return dict(turns=turns)
 
+# ---------------------------------------------------------------------------
+# --decode: the bf16 decode kernel (M <= 16), parent and tree in turns
+# ---------------------------------------------------------------------------
+
+# diagnostic copies of the tree's decode kernel (its row-major consumers; the k-contiguous unembed
+# keeps its code): (text, replacement, times the text is found)
+DEC_NO_MASK = ("masked_wide8(raw, mask8(bits, a.bstride, a.C, r, cm), wf);", "masked_wide8(raw, 0xFFu, wf);", 1)
+DEC_FMA = ("for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xk, wf[j], acc[m][j]);",)
+DEC_NO_FMA = [(DEC_FMA[0], "acc[m][m & 7] += xk + wf[m & 7];", 1)]
+DEC_SLOT = "load_slot(raw, ws + i * pitch + o + lane * 8 * (int)sizeof(WT), o);"
+DEC_NO_READ = (DEC_SLOT, "zero(raw);", 1)
+# the launch and block start alone (every block returns after its barriers' set-up), and no epilogue
+# past the block's own sum (no cluster barrier, no distributed-shared-memory sum, no store of y)
+DEC_LAUNCH_ONLY = ("  __syncthreads();\n\n  if (warp == DEC_CONSUMERS / 32) {  // the producer warp",
+                   "  __syncthreads();\n  if (a.M > 0) return;\n  if (warp == DEC_CONSUMERS / 32) {", 1)
+DEC_NO_EPILOGUE = [("    if (splits > 1) {  // the consumers' two cluster barriers", "    if (splits < 0) {", 1),
+                   ("  if (splits == 1) return;\n  // the slices' partials", "  return;\n  // the slices' partials", 1)]
+DEC_DIAGNOSTICS = {
+    "no mask": [DEC_NO_MASK],
+    "no FMA": DEC_NO_FMA,
+    "ring only": [DEC_NO_MASK, *DEC_NO_FMA, DEC_NO_READ],
+    "no epilogue": DEC_NO_EPILOGUE,
+    "no epilogue, no FMA": [*DEC_NO_EPILOGUE, *DEC_NO_FMA],
+    "launch only": [DEC_LAUNCH_ONLY],
+}
+# alternatives to the tree's decode kernel, held to the gate and timed beside it: the M <= 8
+# instances given 112 registers a thread (ptxas holds 288 threads at two blocks an SM to 96, and
+# the 8-row instance spills) in place of the two-block launch bound
+DEC_BOUNDS = "__global__ void __launch_bounds__(DEC_THREADS_BULK, MT == 16 ? 1 : 2)"
+# (the mask multipliers by mma's prmt sign-replication, once a variant here, won 1-3% with the same bits:
+# the kernel's masked_wide8)
+DEC_VARIANTS = {"112 registers": [(DEC_BOUNDS, "__global__ void __launch_bounds__(DEC_THREADS_BULK) "
+                                               "__maxnreg__(MT == 16 ? 224 : 112)", 1)]}
+DEC_INFO_ARGS = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+
+
+def decode_sass_counts(sass: str) -> dict:
+    """Each bf16 decode instance's SASS: TMA box loads (``UTMALDG``), 1-D bulk
+    copies (``UBLKCP``), cluster barriers (``UCGABAR_*``), mbarrier
+    operations (``SYNCS``), 16-byte global
+    loads of w (``LDG.E.128``, the parent's stream), local loads and stores,
+    keyed by the kernel and its template arguments (the tree's
+    ``decode_kernel``; the parent's ``decode_rows_kernel`` and
+    ``decode_cols_kernel`` with bf16 x)."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0]
+        k = re.search(r"(decode_kernel|decode_rows_kernel|decode_cols_kernel)I(\w+?)EEv", name)
+        if not k or (k.group(1) != "decode_kernel" and not k.group(2).startswith("13__nv_bfloat16")):
+            continue
+        heads = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
+        out[f"{k.group(1)}<{k.group(2)}>"] = dict(
+            UTMALDG=sum(h.startswith("UTMALDG") for h in heads), UBLKCP=sum(h.startswith("UBLKCP") for h in heads),
+            UCGABAR=sum(h.startswith("UCGABAR") for h in heads),
+            SYNCS=sum(h.startswith("SYNCS") for h in heads),
+            LDG128=sum(h.startswith("LDG") and ".128" in h for h in heads),
+            LDL=sum(h.startswith("LDL") for h in heads), STL=sum(h.startswith("STL") for h in heads),
+            instructions=len(heads))
+    return out
+
+
+def decode_shapes(quick: bool) -> list:
+    """(row, label, lead, M, K, N, uses, tied) of ``PERF.md``'s decode rows:
+    one bf16 decode step at M = 4 of SmolLM-135M (row 1), of falcon-mamba-7b
+    and hymba-1.5b (row 1a), of SmolLM for 8 chips in one launch a GEMM (row
+    1b), each GEMM shape with its launches a step (the tied unembed reads
+    embed.T); mixtral-8x22b's ``wg`` and ``wd`` at M = 8 over 8 experts under
+    one mask (row 1d) and over 2 chips x 8 experts (row 1e)."""
+    from repro_torch.configs import get_arch
+
+    out = []
+    for row, arch, lead in (("1", "smollm-135m", ()), ("1a falcon", "falcon-mamba-7b", ()),
+                            ("1a hymba", "hymba-1.5b", ()), ("1b", "smollm-135m", (8,))):
+        cfg = get_arch(arch)
+        seen = {}
+        for k, n, uses in cfg.gemm_shapes():
+            seen[(k, n)] = seen.get((k, n), 0) + uses
+        items = list(seen.items())
+        for (k, n), uses in items[:1] + items[-1:] if quick else items:
+            out.append((row, arch, lead, 4, k, n, uses, n == cfg.vocab_size and cfg.tie_embeddings))
+    out.append(("1d", "mixtral-8x22b wg", ("E", 8), 8, 6144, 16384, 1, False))
+    out.append(("1d", "mixtral-8x22b wd", ("E", 8), 8, 16384, 6144, 1, False))
+    out.append(("1e", "mixtral-8x22b wg", (2, 8), 8, 6144, 16384, 1, False))
+    if not quick:
+        out.append(("1e", "mixtral-8x22b wd", (2, 8), 8, 16384, 6144, 1, False))
+    return out
+
+
+# the wrapper shapes whose launch calls ``--decode`` times in each tree's own process: SmolLM-135M's
+# 576 x 1536 (K split over slices) and its tied unembed (embed.T, one slice) at M = 4
+HOST_SHAPES = ((576, 1536, False), (576, 49152, True))
+
+
+def host_worker(root: Path, out: Path) -> int:
+    """One tree's wrapper (``masked_matmul`` of the package under ``root``'s
+    ``src``, its kernel built there): the host's cost of one launch call,
+    enqueue only: the median of 20 batches' means, 50 calls a batch, a sync
+    after each batch, after 100 calls of warm-up."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.core import random_fault_map
+    from repro_torch.kernels.common import build_kernels
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    build_kernels(["masked_matmul"])
+    dev = torch.device("cuda")
+    ok = torch.from_numpy(random_fault_map(0, 256, 256, 0.1).ok_mask).to(dev)
+    rep = dict(root=str(root), host_us={})
+    for k, n, tied in HOST_SHAPES:
+        x = torch.randn(4, k, device=dev).to(torch.bfloat16)
+        w = torch.randn(n, k, device=dev).T if tied else torch.randn(k, n, device=dev)
+        for _ in range(100):
+            masked_matmul(x, w, ok)
+        torch.cuda.synchronize()
+        batches = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            for _ in range(50):
+                masked_matmul(x, w, ok)
+            batches.append((time.perf_counter() - t0) / 50 * 1e6)
+            torch.cuda.synchronize()
+        rep["host_us"][f"{k}x{n}{' embed.T' if tied else ''}"] = statistics.median(batches)
+    out.write_text(json.dumps(rep))
+    return 0
+
+
+def host_turns(parent: Path, stem: Path, card: str) -> dict:
+    """Each tree's wrapper in a process of its own (both trees' kernels built
+    together first), in turns: parent, tree, tree, parent, twice; each
+    shape's median over a tree's turns is printed."""
+    trees = {"tree": ROOT, "parent": parent}
+    if not (parent / SOURCE).exists():
+        trees.pop("parent")
+    code = "import sys; sys.path.insert(0, sys.argv[1] + '/src'); from repro_torch.kernels.common import " \
+           "build_kernels; build_kernels(['masked_matmul'])"
+    builds = [subprocess.Popen([sys.executable, "-c", code, str(r)]) for r in trees.values()]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("host: a tree's kernels failed to build")
+    turns = []
+    for i, who in enumerate(w for w in ("parent", "tree", "tree", "parent") * 2 if w in trees):
+        out = Path(f"{stem}.host{i}.json")
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--host-worker", str(trees[who]),
+                               "--out", str(out)])
+        if proc.returncode:
+            raise RuntimeError(f"host: turn {i} ({who}) failed")
+        rep = json.loads(out.read_text())
+        rep.update(turn=i, who=who)
+        turns.append(rep)
+        print(f"host turn {i} {who} ({card}): one masked_matmul call at M = 4, enqueue only (us): "
+              + ", ".join(f"{s} {us:.2f}" for s, us in rep["host_us"].items()), flush=True)
+    medians = {who: {s: statistics.median(t["host_us"][s] for t in turns if t["who"] == who)
+                     for s in turns[0]["host_us"]} for who in trees}
+    for who, m in medians.items():
+        print(f"host {who}, median of its turns (us; {card}): " + ", ".join(f"{s} {us:.2f}" for s, us in m.items()),
+              flush=True)
+    return dict(turns=turns, medians=medians)
+
+
+def decode_main(args, torch, common, mm, card: str) -> int:
+    """``--decode``: the decode kernel of the tree and of the parent, each
+    built from its own source, called through its own C entry point and
+    plan; see the module's docstring."""
+    from repro_torch.core import random_fault_map
+
+    sources = {"tree": (ROOT / SOURCE).read_text()}
+    parent_src = Path(args.parent) / SOURCE
+    if parent_src.exists() and parent_src.read_text() != sources["tree"]:
+        sources["parent"] = parent_src.read_text()
+    texts = dict(sources)
+    diags = {} if args.no_diagnostics else DEC_DIAGNOSTICS
+    for name, patches in {**diags, **DEC_VARIANTS}.items():
+        texts[f"tree {name}"] = patch(sources["tree"], patches)
+    built = build_all(common, texts, optional=[f"tree {name}" for name in DEC_VARIANTS])
+    texts = {k: v for k, v in texts.items() if k in built}
+    variants = [f"tree {name}" for name in DEC_VARIANTS if f"tree {name}" in built]
+    report = dict(card=card, build_seconds={k: v[2] for k, v in built.items()}, ptxas={}, sass={}, info={},
+                  rows=[], host_us={})
+    print("build wall seconds (all started together): "
+          + ", ".join(f"{k} {v[2]:.2f}" for k, v in built.items()), flush=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = {name: ctypes.CDLL(str(lib)) for name, (lib, _, _) in built.items()}
+    for who in [*sources, *variants]:
+        log = built[who][1]
+        report["ptxas"][who] = {**{f"decode_kernel<{k}>": v for k, v in ptxas_table(log, "decode_kernel").items()},
+                                **{f"decode_rows_kernel<{k}>": v
+                                   for k, v in ptxas_table(log, "decode_rows_kernel").items()},
+                                **{f"decode_cols_kernel<{k}>": v
+                                   for k, v in ptxas_table(log, "decode_cols_kernel").items()}}
+        sass = subprocess.run([cuobjdump, "-sass", str(built[who][0])], capture_output=True, text=True).stdout
+        report["sass"][who] = decode_sass_counts(sass)
+        for inst, counts in sorted(report["sass"][who].items()):
+            key = inst.replace("<", "<", 1)
+            print(f"{who} {inst}: ptxas {report['ptxas'][who].get(key)}; sass {counts}", flush=True)
+    if hasattr(libs["tree"], "masked_matmul_decode_info"):
+        fn = libs["tree"].masked_matmul_decode_info
+        fn.argtypes, fn.restype = DEC_INFO_ARGS, ctypes.c_int
+        for mt in (4, 8, 16):
+            for wname, wd in (("fp32", 0), ("bf16", 1)):
+                for kc in (0, 1):
+                    out = (ctypes.c_longlong * 5)()
+                    if fn(mt, wd, kc, 8, out) == 0:
+                        rec = dict(zip(("registers", "local_bytes", "smem", "blocks_per_sm", "clusters_of_8"), out))
+                        if fn(mt, wd, kc, 16, out) == 0:  # a non-portable cluster of 16, where the card holds one
+                            rec["clusters_of_16"] = out[4]
+                        report["info"][f"MT {mt} {wname} w {'embed.T' if kc else 'row-major'}"] = rec
+                        print(f"tree decode_kernel MT {mt} {wname} w {'embed.T' if kc else 'row-major'}: {rec}",
+                              flush=True)
+
+    def entry(name):
+        fn = libs[name].masked_matmul
+        fn.argtypes, fn.restype = TREE_ARGS, ctypes.c_int
+        return fn
+
+    def c_plan(name, chips, m, n, k, kcontig, sms):
+        fn = libs[name].masked_matmul_plan
+        fn.argtypes, fn.restype = PLAN_ARGS, ctypes.c_int
+        out = (ctypes.c_longlong * 4)()
+        if fn(2, chips, m, n, k, int(kcontig), sms, out):
+            raise RuntimeError(f"{name}: no decode plan for {chips} x {m} x {k} x {n}")
+        return list(out)
+
+    dev = torch.device("cuda")
+    sms = common.sm_count(dev)
+    flush = torch.empty(2**28, dtype=torch.int32, device=dev)
+
+    def time_ms(fn, reps=10):
+        fn()
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+    def caller(name, x3, w, ok, group, chips):
+        """A zero-argument launch of ``name``'s decode kernel on x3 (chips, M,
+        K), w (K, N) or stacked with entry stride w.stride(-3), ok (R, C) or
+        (masks, R, C), with that source's own plan; returns (launch, y)."""
+        m, k = x3.shape[1:]
+        n = w.shape[-1]
+        kcontig = w.stride(-1) != 1
+        swc = w.stride(-3) if w.dim() >= 3 else 0
+        splits, scratch_bytes, tiles, _ = c_plan(name, chips, m, n, k, kcontig, sms)
+        y = torch.empty(chips, m, n, dtype=torch.bfloat16, device=dev)
+        scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8, device=dev)
+        counters = torch.zeros(max(tiles, 1), dtype=torch.int32, device=dev)
+        bits, bits_t = mm.packed_mask(ok)
+        fn = entry(name)
+        loads = mm._decode_loads(x3.data_ptr(), k, w, swc)
+        route = 0 if name == "parent" else (loads[0] == "copy") | (loads[1] != "tma") << 1
+        argv_ = (2, 1, 1 if w.dtype == torch.bfloat16 else 0, chips, x3.data_ptr(), w.data_ptr(), bits.data_ptr(),
+                 bits_t.data_ptr(), y.data_ptr(), m, n, k, w.stride(-2), w.stride(-1), swc, ok.shape[-2],
+                 ok.shape[-1], group, splits, 0, 0, 0, route, scratch.data_ptr(), scratch_bytes,
+                 counters.data_ptr(), counters.numel(), torch.cuda.current_stream().cuda_stream)
+        keep = (x3, w, y, scratch, counters, bits, bits_t)
+
+        def launch():
+            err = fn(*argv_)
+            if err or keep is None:
+                raise RuntimeError(f"{name} decode launch failed with CUDA error {err}")
+        return launch, y, splits
+
+    # the host's cost of a launch call, the C entry point alone (enqueue only): SmolLM's 576 x 1536
+    # (K split) and its tied unembed (embed.T, one slice) at M = 4, each source's batches of 100
+    # calls in turns, a sync after each batch; the median batch
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1, 4, 576, generator=g, device=dev).to(torch.bfloat16)
+    ok = torch.from_numpy(random_fault_map(0, 256, 256, 0.1).ok_mask).to(dev)
+    for label, w in (("576x1536", torch.randn(576, 1536, generator=g, device=dev)),
+                     ("576x49152 embed.T", torch.randn(49152, 576, generator=g, device=dev).T)):
+        launches = {who: caller(who, x, w, ok, 0, 1)[0] for who in sources}
+        batches = {who: [] for who in sources}
+        for _ in range(8):
+            for who in sources:
+                launches[who]()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    launches[who]()
+                batches[who].append((time.perf_counter() - t0) / 100 * 1e6)
+                torch.cuda.synchronize()
+        report["host_us"][label] = {who: statistics.median(b) for who, b in batches.items()}
+        print(f"host cost of one C entry call at {label}, M = 4, enqueue only, median of 8 batches in turns (us): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in report["host_us"][label].items()), flush=True)
+
+    bad, variant_bad = [], []
+    rows = {r.strip() for r in args.rows.split(",") if r.strip()}
+    for row, label, lead, m, k, n, uses, tied in decode_shapes(args.quick):
+        if rows and row not in rows and row.split()[0] not in rows:
+            continue
+        experts = bool(lead) and lead[0] == "E"
+        chips = lead[1] if experts else (lead[0] * lead[1] if len(lead) == 2 else lead[0] if lead else 1)
+        masks = lead[0] if lead and not experts else 1
+        group = 0 if experts or not lead else (lead[1] if len(lead) == 2 else 1)
+        x3 = torch.randn(chips, m, k, generator=g, device=dev).to(torch.bfloat16)
+        w32 = torch.randn(chips, n, k, generator=g, device=dev) / k ** 0.5
+        w32 = w32.transpose(1, 2) if tied else w32.transpose(1, 2).contiguous()
+        oks = torch.stack([torch.from_numpy(random_fault_map(c, 256, 256, 0.1).ok_mask) for c in range(masks)])
+        ok = oks.to(dev) if lead and not experts else oks[0].to(dev)
+        w32 = w32 if chips > 1 else w32[0]
+        wb = w32.to(torch.bfloat16)  # keeps embed.T's strides
+        inner = (lead[0], lead[1]) if len(lead) == 2 and not experts else (chips,) if chips > 1 else ()
+        xs = x3.reshape(*inner, m, k)
+        ws32 = w32.reshape(*inner, k, n) if chips > 1 else w32
+        ref = mm.masked_matmul_ref(xs, ws32, ok).reshape(chips, m, n)
+        wm = (ws32.to(torch.bfloat16).float()
+              * mm.periodic_mask(ws32.shape, ok[:, None] if ws32.dim() == 4 else ok, dtype=torch.float32)
+              ).to(torch.bfloat16).reshape(chips, k, n)
+        rec = dict(row=row, shape=label, lead=list(map(str, lead)), m=m, k=k, n=n, uses=uses, tied=tied,
+                   loads=mm._decode_loads(x3.data_ptr(), k, w32, w32.stride(-3) if w32.dim() >= 3 else 0))
+        mask_bytes = masks * 256 * 32
+        for wname, wt in (("fp32 w", w32), ("bf16 w", wb)):
+            calls = {who: caller(who, x3, wt, ok, group, chips) for who in texts}
+            rec[f"{wname} splits"] = {who: calls[who][2] for who in sources}
+            got = {}
+            for who in texts:
+                launch, y, _ = calls[who]
+                launch()
+                torch.cuda.synchronize()
+                got[who] = y.clone()
+                launch()
+                torch.cuda.synchronize()
+                if who not in sources and who not in variants:
+                    continue
+                diff = (got[who].float() - ref.float()).abs()
+                good = bool((diff <= BF16_TOL[1] + BF16_TOL[0] * ref.float().abs()).all())
+                same = torch.equal(y, got[who])
+                rec[f"{who} {wname} err"] = float(diff.max())
+                if not (good and same and (who not in variants or torch.equal(got[who], got["tree"]))):
+                    (bad if who in sources else variant_bad).append(
+                        f"{row} {label} {wname} {who}: err {float(diff.max())} repeat-bits {same}")
+            if wname == "bf16 w" and not torch.equal(got["tree"], rec.pop("_tree_fp32")):
+                bad.append(f"{row} {label}: the tree's bf16-w launch parts from its fp32-w launch's bits")
+            if wname == "fp32 w":
+                rec["_tree_fp32"] = got["tree"]
+            order = ["parent", "tree", "tree", "parent"] if "parent" in sources else ["tree", "tree"]
+            turns = {who: [] for who in sources}
+            for who in order:
+                turns[who].append(time_ms(calls[who][0]))
+            for who in variants:
+                turns[who] = [time_ms(calls[who][0])]
+            rec[f"{wname} turns"] = turns
+            for name in diags:
+                rec.setdefault(f"{wname} diagnostics", {})[name] = time_ms(calls[f"tree {name}"][0])
+            nbytes = 2 * chips * m * (k + n) + chips * k * n * wt.element_size() + mask_bytes
+            rec[f"{wname} bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        x_l, w_l = (x3, wm) if chips > 1 else (x3[0], wm[0])
+        rec["library_ms"] = time_ms(lambda: torch.bmm(x_l, w_l) if chips > 1 else torch.matmul(x_l, w_l))
+        rec["library"] = "torch.bmm" if chips > 1 else "torch.matmul"
+        report["rows"].append(rec)
+        print(f"row {row} {label} {'x'.join(map(str, lead)) or '1'} M={m} K={k} N={n}{' embed.T' if tied else ''} "
+              f"(x{uses}; loads {rec['loads']}; splits {rec['fp32 w splits']}): "
+              + "; ".join(f"{w_} turns " + ", ".join(f"{who} " + "/".join(f"{t:.4f}" for t in ts)
+                                                     for who, ts in rec[f"{w_} turns"].items())
+                          + f" bound {rec[f'{w_} bound_ms']:.4f}"
+                          + (" diagnostics " + ", ".join(f"{d} {t:.4f}" for d, t in rec[f"{w_} diagnostics"].items())
+                             if diags else "")
+                          for w_ in ("fp32 w", "bf16 w"))
+              + f"; {rec['library']} {rec['library_ms']:.4f} ms", flush=True)
+        del x3, w32, wb, ref, wm, calls, got
+        torch.cuda.empty_cache()
+
+    sums = {}
+    for rec in report["rows"]:
+        s = sums.setdefault(rec["row"], {})
+        for w_ in ("fp32 w", "bf16 w"):
+            for who, ts in rec[f"{w_} turns"].items():
+                s[f"{who} {w_}"] = s.get(f"{who} {w_}", 0.0) + statistics.mean(ts) * rec["uses"]
+            s[f"bound {w_}"] = s.get(f"bound {w_}", 0.0) + rec[f"{w_} bound_ms"] * rec["uses"]
+        s["library"] = s.get("library", 0.0) + rec["library_ms"] * rec["uses"]
+    report["sums"] = sums
+    for row, s in sums.items():
+        print(f"row {row}, each shape's mean of turns times its uses (ms; {card}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in s.items()), flush=True)
+    if args.host:
+        report["host"] = host_turns(Path(args.parent), Path(args.out).with_suffix(""), card)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(f"wrote {out}; launches outside the gate or not bit-stable: {bad or 'none'}; variants outside it, or "
+          f"parting from the tree's bits: {variant_bad or 'none'}")
+    return 1 if bad else 0
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -330,10 +723,17 @@ def main(argv=None) -> int:
                     help="also time the 4x2048 prefills of SmolLM-135M, qwen3-0.6b and hymba-1.5b, parent and "
                          "tree in turns, each in a process of its own")
     ap.add_argument("--sass-dir", default="", help="write the tree's and the parent's mma instances' SASS here")
+    ap.add_argument("--decode", action="store_true",
+                    help="the bf16 decode kernel (M <= 16) in place of mma: rows 1, 1a, 1b, 1d and 1e")
+    ap.add_argument("--host", action="store_true",
+                    help="with --decode, also each tree's wrapper's host cost of a launch call, a process each")
     ap.add_argument("--prefill-worker", default="", help=argparse.SUPPRESS)  # a checkout's root: one turn
+    ap.add_argument("--host-worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.prefill_worker:
         return prefill_worker(Path(args.prefill_worker), Path(args.out))
+    if args.host_worker:
+        return host_worker(Path(args.host_worker), Path(args.out))
     import torch
 
     if not torch.cuda.is_available():
@@ -348,6 +748,8 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if args.decode:
+        return decode_main(args, torch, common, mm, card)
     sources = {"tree": (ROOT / SOURCE).read_text()}
     parent_src = Path(args.parent) / SOURCE
     if parent_src.exists() and parent_src.read_text() != sources["tree"]:
