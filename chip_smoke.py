@@ -23,7 +23,11 @@ Phases; any failure ends the run with a nonzero exit and no result line:
      (25 / 5, window 1024) at S = 2048, then at the reference zoo's other
      head dims at 4 x 2048: hubert-xlarge's 16 heads at D = 80 (an encoder,
      not causal), phi3-mini's 32 / 32 at D = 96 and qwen3-0.6b's 16 / 8 at
-     D = 128; in bf16 the mma kernel and v1 are both held and timed;
+     D = 128; in bf16 the mma kernel (``wgmma`` fed by a TMA ring) and v1
+     are both held and timed; SDPA is timed at its best route
+     (``is_causal`` where the cell is plain causal from position 0, no mask
+     for the encoder, ``enable_gqa`` on the unrepeated K and V) as the
+     yardstick, and beside it as a masked call on repeated K and V;
    - the selective scan at (B, L, D, N) = (4, 128, 8192, 16) (falcon-mamba's
      serving prefill), (4, 128, 3200, 16) (hymba's), (4, 2048, 3200, 16)
      and (4, 2048, 8192, 16) (the two long prefills), a ragged (2, 37, 11,
@@ -4213,6 +4217,23 @@ def run(args, torch) -> int:
             ms_list = (BATCH, 1024) if tied else (BATCH, BATCH * PROMPT, 1024, BATCH * LONG)
             mm_err = max(mm_err, gemm_case(cfg.name, idx, k, n, uses, tied, dtype, ms_list))
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_best(q, k, v, keep, causal, window, q_offset):
+        """SDPA's best route for one flash cell, as a callable: ``is_causal``
+        where the cell is plain causal from position 0, no mask for the
+        encoder, else the boolean mask; ``enable_gqa`` on the unrepeated K and
+        V (K and V repeated where this torch refuses it)."""
+        plain = not window and (not causal or (q_offset == 0 and q.shape[2] == k.shape[2]))
+        mask = dict(is_causal=causal) if plain else dict(attn_mask=keep)
+        try:
+            sdpa(q[:, :, :1], k, v, enable_gqa=True, **({} if plain else dict(attn_mask=keep[:1])))
+            return lambda: sdpa(q, k, v, enable_gqa=True, **mask)
+        except (TypeError, RuntimeError):
+            g = q.shape[1] // k.shape[1]
+            kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+            return lambda: sdpa(q, kr, vr, **mask)
+
     fa_err, fa_rows = 0.0, {}
     b, d64 = BATCH, cfg.resolved_head_dim
     # (model, Hq, Hkv, S, case, window, Sq, D, causal): SmolLM's heads at the serving and
@@ -4252,12 +4273,14 @@ def run(args, torch) -> int:
             nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * size
             bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * hq * d * pairs / PEAK_OPS[name_of(dtype)]) * 1e3
             kr, vr = kk.repeat_interleave(hq // hkv, 1), vv.repeat_interleave(hq // hkv, 1)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
             row = dict(
                 variant="mma" if bf16 else "v1",
                 ms=time_ms(lambda: flash_attention(q, kk, vv, **kw)),
                 plain_ms=time_ms(lambda: attention_ref(q, kk, vv, **kw), reps=3),
-                library_ms=time_ms(lambda: sdpa(q, kr, vr, attn_mask=keep)),
+                # SDPA at its best route (the yardstick), and as this phase once timed it: K and V
+                # repeated to every query head, a boolean mask
+                library_ms=time_ms(sdpa_best(q, kk, vv, keep, causal, window, off)),
+                masked_library_ms=time_ms(lambda: sdpa(q, kr, vr, attn_mask=keep)),
                 bound_ms=bound, max_abs_err=err, d=d,
             )
             if bf16:
@@ -4266,7 +4289,8 @@ def run(args, torch) -> int:
             log(f"flash_attention {model:11s} {name_of(dtype):8s} B={b} Hq={hq} Hkv={hkv} D={d} Sq={sq:5d} "
                 f"Skv={s:5d} {case:19s}: err<= {err:.3g} (rtol, atol {tol}) {row['variant']} {row['ms']:.4f} ms"
                 + (f"  v1 {row['v1_ms']:.4f} ms" if bf16 else "")
-                + f"  plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  bound {bound:.4f} ms")
+                + f"  plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms (masked, K and V repeated "
+                f"{row['masked_library_ms']:.4f})  bound {bound:.4f} ms")
     del q, kk, vv, kr, vr, keep, ref
 
     # the selective scan, with inputs as the model gives them: dt fp32 from a
@@ -5146,11 +5170,11 @@ def run(args, torch) -> int:
         dict(name="flash_attention.mma", **fa_src, launches=variant_launches["flash_attention.mma"],
              launches_lm_eval=lm_launches["flash_attention"]["mma"], launches_zoo=zoo_launches["flash_attention.mma"],
              ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
-             bound_by="operations", library_ms=fa["library_ms"]),
+             bound_by="operations", library_ms=fa["library_ms"], masked_library_ms=fa["masked_library_ms"]),
         dict(name="flash_attention.v1", **fa_src, launches=variant_launches["flash_attention.v1"],
              launches_lm_eval=lm_launches["flash_attention"]["v1"], launches_zoo=zoo_launches["flash_attention.v1"],
              ms=fa32["ms"], plain_ms=fa32["plain_ms"], bound_ms=fa32["bound_ms"],
-             bound_by="operations", library_ms=fa32["library_ms"]),
+             bound_by="operations", library_ms=fa32["library_ms"], masked_library_ms=fa32["masked_library_ms"]),
         dict(name="selective_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/selective_scan.cu",
              replaces="src/repro/kernels/mamba_scan/mamba_scan.py:54",

@@ -63,8 +63,9 @@ class KernelLaunch:
     each, ``smem_bytes`` the dynamic shared memory one block requests,
     ``grid`` the CUDA grid the wrapper launches (empty where not modelled),
     ``params`` the tunable parameters as launched (what the tuner reads
-    back), and ``refused`` why the wrapper would refuse the launch (empty
-    where it takes it)."""
+    back), ``refused`` why the wrapper would refuse the launch (empty
+    where it takes it) and ``threads`` a block's threads (0 where not
+    modelled)."""
 
     kernel: str
     dims: tuple
@@ -73,6 +74,7 @@ class KernelLaunch:
     grid: tuple = ()
     params: dict = field(default_factory=dict)
     refused: str = ""
+    threads: int = 0
 
 
 def lint_launch(launch: KernelLaunch) -> list:
@@ -170,21 +172,25 @@ def flash_attention_launch(
     skv: int,
     head_dim: int,
     *,
-    bq: int = fa.DEFAULT_TILE[0],
-    bkv: int = fa.DEFAULT_TILE[1],
+    bq: Optional[int] = None,
+    bkv: Optional[int] = None,
     dtype: Any = torch.float32,
     variant: str = "auto",
 ) -> KernelLaunch:
-    """Geometry of ``flash_attention`` (B, H, S, D) at tile (bq, bkv): the
-    variant the dtype picks, one block per (sequence x query head, bq query
-    rows), the instance's shared memory; refused where the tile or the
-    head dim is not built (an over-limit v1 tile is refused by KRN002)."""
+    """Geometry of ``flash_attention`` (B, H, S, D) at tile (bq, bkv), the
+    variant's default where not given: the variant the dtype picks, one
+    block per (sequence x query head, bq query rows) of ``fa.threads``
+    threads, the instance's shared memory; refused where the tile or the
+    head dim is not built for the variant (an over-limit v1 tile is refused
+    by KRN002)."""
     dt = _dtype(dtype)
     kind = fa.pick_variant(dt, variant)
+    bq = fa.DEFAULT_TILE[kind][0] if bq is None else bq
+    bkv = fa.DEFAULT_TILE[kind][1] if bkv is None else bkv
     refused = ""
     if head_dim not in fa.HEAD_DIMS:
         refused = f"flash is built for head dims {fa.HEAD_DIMS}, not {head_dim}"
-    elif (bq, bkv) not in (fa.TILES if kind == "v1" and dt == torch.float32 else
+    elif (bq, bkv) not in (fa.TILES["v1"] if kind == "v1" and dt == torch.float32 else
                            fa.tiles_built(kind, dt, head_dim)):  # v1's tiles over the limit: KRN002
         refused = f"flash {kind} in {dt} at D = {head_dim} is built for tiles {fa.tiles_built(kind, dt, head_dim)}"
     q_tiles = -(-sq // bq) if bq > 0 else 0
@@ -197,6 +203,7 @@ def flash_attention_launch(
         grid=grid,
         params=dict(bq=bq, bkv=bkv),
         refused=refused,
+        threads=fa.threads(kind, bq),
     )
 
 

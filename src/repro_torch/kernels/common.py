@@ -6,7 +6,8 @@ seam between the wrappers and the tuning cache.
 Kernels live in ``kernels/csrc/*.cu``, each with a plain C entry point. At
 first use ``nvcc`` compiles a source for ``sm_90a`` into a shared library
 under ``build/kernels/`` at the repository root (named by a hash of the
-source and flags, so an edited source never loads a stale library), and
+source, the ``csrc/`` headers it includes and the flags, so an edited
+source or header never loads a stale library), and
 ``ctypes`` loads it. Importing this module builds nothing, so the CPU tests
 (which have no ``nvcc``) import every kernel module freely.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -86,7 +88,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC_DIR),
 )
 
 _FNS: dict[str, ctypes._CFuncPtr] = {}
@@ -99,9 +101,27 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_bytes(path: Path) -> bytes:
+    """A source's bytes and those of every header of ``csrc/`` it includes
+    (``#include "..."``, followed into the headers), each once: what a
+    build of it reads from this repository."""
+    seen, todo, out = set(), [Path(path)], []
+    while todo:
+        p = todo.pop(0)
+        if p in seen or not p.exists():
+            continue
+        seen.add(p)
+        text = p.read_bytes()
+        out.append(text)
+        todo += [CSRC_DIR / m.decode() for m in _INCLUDE.findall(text)]
+    return b"".join(out)
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(source_bytes(CSRC_DIR / f"{name}.cu") + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

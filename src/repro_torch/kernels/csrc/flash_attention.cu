@@ -11,18 +11,26 @@
 // Bound on the card: at prefill lengths the QK^T and PV products bound it by operations. Two
 // kernels, picked by the dtype (kernels/flash_attention/ops.py):
 //
-// - mma (bf16), FlashAttention-2's shape within what mma.sync offers: one block of 4 warps per
-//   (b * Hq + h, 64-row q tile), heaviest causal tiles first; each warp owns 16 query rows and
-//   keeps their q fragments in registers for the whole walk. S = QK^T and O += PV run on the
-//   tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators), K fragments by ldmatrix and V
-//   fragments by ldmatrix.trans. The online softmax stays in fp32 registers: row max and row sum
-//   over each quad by shuffles, exp2f with scale * log2(e) folded into the scores. P is rounded
-//   to bf16 in registers and fed straight back as the A operand of PV (the one rounding step the
-//   fp32 reference does not take, as in FlashAttention-2). K and V tiles of 64 keys go through a
-//   two-stage shared-memory ring by cp.async (16-byte chunks, zero-filled past Skv), so the next
-//   tile loads while this one is multiplied; rows are padded to D + 8 bf16 (an odd number of
-//   16-byte units), so ldmatrix is free of bank conflicts. q, k, v and their strides must be
-//   16-byte aligned (the wrapper checks).
+// - mma (bf16), FlashAttention-3's forward shape on wgmma and TMA: one block per (q tile of BQ
+//   rows, b * Hq + h), heaviest causal tiles first. A producer warpgroup's first thread loads the
+//   block's Q once and keeps a ring of two (K, V) stages full by TMA (cp.async.bulk.tensor,
+//   4-d maps over the (B, H, S, D) views' strides, 128-byte swizzle), each K and V tile with its
+//   own full mbarrier and each stage an empty one; it walks only the kv tiles some row of the block
+//   keeps. No consumer thread issues a copy. Each consumer warpgroup owns 64 query rows (wgmma's
+//   M): S = Q K^T by wgmma m64nBKVk16 with both operands in shared memory (K's rows have D
+//   contiguous: K-major, no transpose), the online softmax in fp32 registers on the accumulator
+//   fragment (ex2.approx with scale * log2(e) folded into one FFMA a score, the -inf mask only on
+//   edge tiles and without a branch an element, m = 0 for a row with no key yet), P rounded to
+//   bf16 in registers (the one rounding step the fp32 reference does not take) and fed straight
+//   back as wgmma's register A operand for O += P V, with V an MN-major B from shared memory (the descriptor's transpose, no copy). A
+//   warpgroup whose 64 rows keep no key of a tile skips its products and still releases the stage.
+//   With two consumer warpgroups (BQ = 128) they take turns to issue S (named barriers), so one's
+//   softmax runs under the other's product, and setmaxnreg gives the producer's registers to the
+//   consumers (40 / 232). The epilogue divides by the quad-summed row sum (0 where it is 0) and
+//   stores bf16 pairs to the strided output. D = 80 and 96 fill one 128-byte box and part of a
+//   second, which TMA fills with zeros past D: S takes the k steps up to D only, and O += P V runs
+//   at N = D. q, k, v and their strides must be 16-byte aligned, with no zero stride along a dim of
+//   more than one (the wrapper checks).
 // - v1 (float32), FlashAttention-2's shape in FP32 SIMT (tensor cores would round fp32 to tf32,
 //   which misses the float32 tolerances): one block of 256 threads per (64-row q tile, b * Hq +
 //   h), the heaviest causal tiles launched first. Q stays in shared memory for the whole walk;
@@ -45,23 +53,19 @@
 // through their batch/head/sequence strides (the caller's (B, S, H, D) projections need no
 // copy), and mask ragged Sq and Skv here. Both take the head dim D as a template parameter and are
 // built for D = 64, 80, 96 and 128 (the reference's model zoo: SmolLM and hymba 64, hubert-xlarge
-// 80, phi3-mini 96, qwen3, llama3, mixtral, llama4 and internvl2 128); the fragments, chunk loops
-// and padded rows follow D, and the tiles live in dynamic shared memory (mma 45 KiB at D = 64 and
-// 85 KiB at 128, v1 102 and 182 KiB), its limit raised at each launch that needs more than 48 KiB
-// (per launch, not once per instance: the attribute belongs to the current device). Left for
-// later work: wgmma and TMA, with a producer warp keeping the ring full.
+// 80, phi3-mini 96, qwen3, llama3, mixtral, llama4 and internvl2 128), with their tiles in dynamic
+// shared memory, its limit raised at each launch that needs more than 48 KiB (per launch, not once
+// per instance: the attribute belongs to the current device).
 //
 // Tiles. Both kernels take the q tile BQ and the kv tile BKV as template parameters, and each is
-// built at four (BQ, BKV) instances, chosen from the kernel's structure; the autotuner
-// (repro_torch.tune, space "flash_attention") picks among them per shape, and (64, 64), the
-// heuristic, keeps the code the kernels had with fixed tiles:
-// - mma: a warp owns 16 query rows, so BQ = 16 x warps: 64 is 4 warps (128 threads), 128 is 8
-//   warps (256 threads), which reuses each K/V tile for twice the rows (half the K/V traffic
-//   through shared memory a row) at twice the causal tiles' diagonal waste. BKV sets the n
-//   fragments of S a warp holds, BKV / 8: 32 keys are 4 fragments (fewer registers, more
-//   barriers a row), 64 are 8, 128 are 16 (half the barriers and ring refills, 32 more registers
-//   a thread). Instances (64, 64), (128, 64), (64, 32), (64, 128): at most 153 KiB, (64, 128) at
-//   D = 128.
+// built at four (BQ, BKV) instances of its own, chosen from the kernel's structure; the autotuner
+// (repro_torch.tune, space "flash_attention") picks among a variant's per shape:
+// - mma: BQ / 64 consumer warpgroups and one producer warpgroup, so 256 threads at BQ = 64 and
+//   384 at 128 (which reuses each K/V tile for twice the rows at twice the causal tiles' diagonal
+//   waste); BKV is wgmma's N for S and BKV / 16 k steps of O += P V. Shared memory is 1 KiB of
+//   alignment, Q and the ring, ceil(D / 64) boxes of 128-byte rows each (FlashShape): (64, 64)
+//   41 KiB at D = 64, (128, 128) 161 KiB at D = 80 to 128. Instances (128, 128), the heuristic,
+//   (128, 64), (64, 128) and (64, 64), at every D.
 // - v1: 256 threads as 16 x 16, thread (tx, ty) owning rows ty x BQ / 16 + i and keys tx + 16 j,
 //   so BQ / 16 rows and BKV / 16 keys a thread: BQ = 128 gives each thread 8 rows (each K float4
 //   read from shared memory feeds twice the FMAs), BKV = 32 or 128 gives it 2 or 8 keys. Shared
@@ -75,6 +79,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma fences, TMA maps
+
 namespace {
 
 struct Strides {
@@ -82,216 +88,378 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// mma: bf16 on the tensor cores
+// mma: bf16, wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-// BQ query rows per block, 16 per warp; BKV keys per kv tile
-template <int BQ> __host__ __device__ constexpr int f_threads() { return 2 * BQ; }
-// A padded shared-memory row of head dim D: D + 8 bf16, an odd number of 16-byte units (144 bytes at
-// D = 64, 272 at 128), so the eight rows an ldmatrix reads fall in eight different bank groups.
-template <int D> __host__ __device__ constexpr int f_ld() { return D + 8; }
-// Q, then the two-stage K and V rings: 46,080 bytes at D = 64, 87,040 at D = 128 for (64, 64)
-template <int D, int BQ, int BKV> __host__ __device__ constexpr int f_smem() {
-  return (BQ + 4 * BKV) * f_ld<D>() * 2;
+// A block: BQ / 64 consumer warpgroups (64 query rows each, wgmma's M) and one producer
+// warpgroup. Shared memory holds Q and a ring of STAGES (K, V) tiles, each as 64-column boxes of
+// 128-byte rows under TMA's 128-byte swizzle (box c holds columns 64c .. 64c + 63 of every row;
+// past D, TMA writes zeros).
+template <int D, int BQ, int BKV> struct FlashShape {
+  static constexpr int CONSUMERS = BQ / 64;  // warpgroups
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int BOXES = (D + 63) / 64;          // 64-column boxes a row
+  static constexpr int Q_BYTES = BQ * 128 * BOXES;
+  static constexpr int KV_BYTES = BKV * 128 * BOXES;   // one K or V tile
+  // two (K, V) stages: three or four timed no faster, and cost the 64-row instances their second
+  // block an SM at D >= 80
+  static constexpr int STAGES = 2;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;  // + the slack that aligns it to 1 KB
+  // Two consumer warpgroups: 168 registers a thread at launch (ptxas's cap for 384 threads), and
+  // setmaxnreg hands the producer's to the consumers (384 x 168 = 128 x 40 + 256 x 232). One: 256
+  // threads with up to 255 registers each, no rebalance.
+  static constexpr bool REBALANCE = CONSUMERS > 1;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+};
+
+struct FlashArgs {
+  __nv_bfloat16* o;
+  Strides os;
+  int Hq, Hkv, Sq, Skv, causal, window, q_offset;
+  float scale_log2;
+};
+
+// A K-major operand (Q as A, K as B: D contiguous): 128-byte rows under the 128-byte swizzle,
+// 8-row groups 1024 bytes apart; `saddr` is the 1-KB aligned box plus 32 bytes a k step.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+// V as an MN-major B (its D columns are wgmma's N, its keys the k): N runs along the 128-byte rows,
+// the next 64 columns one box (`box` bytes) on (the leading byte offset), and 8-key groups are
+// 1024 bytes apart (the stride byte offset); `saddr` is the tile plus 2048 bytes a k step of 16 keys.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t saddr, uint32_t box) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(box >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// S (64 x 64) = A B, A and B K-major from shared memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
+// S (64 x 128) = A B, A and B K-major from shared memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// O (64 x 64) += A B, A (P) from registers, B (V) MN-major from shared memory
+__device__ __forceinline__ void wgmma_rs_64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+// O (64 x 80) += A B, A (P) from registers, B (V) MN-major from shared memory
+__device__ __forceinline__ void wgmma_rs_80(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+// O (64 x 96) += A B, A (P) from registers, B (V) MN-major from shared memory
+__device__ __forceinline__ void wgmma_rs_96(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+// O (64 x 128) += A B, A (P) from registers, B (V) MN-major from shared memory
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <int N> __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_64(d, da, db, scale_d);
+  else wgmma_ss_128(d, da, db, scale_d);
+}
+template <int N> __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_80(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_96(d, a, db);
+  else wgmma_rs_128(d, a, db);
+}
+
+// 2^x by the SFU (ex2.approx, flushing subnormal results to 0; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// named barriers 1 and 2 (0 is __syncthreads), between the two consumer warpgroups' 256 threads
+__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <int D, int F_BQ, int F_BKV>
-__global__ void __launch_bounds__(f_threads<F_BQ>())
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
-                 int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
-                 int causal, int window, int q_offset) {
-  constexpr int F_LD = f_ld<D>();
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int F_THREADS = f_threads<F_BQ>();
-  constexpr int KV_CHUNKS = F_BKV * CH;  // of a K (or V) tile
-  constexpr int NB = F_BKV / 8;           // n fragments of S: blocks of 8 keys
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto Ks = [&](int stage) { return Qs + (F_BQ + stage * F_BKV) * F_LD; };
-  auto Vs = [&](int stage) { return Qs + (F_BQ + (2 + stage) * F_BKV) * F_LD; };
+// One block per (q tile, b * Hq + h), the heaviest causal tiles first. The producer warpgroup's
+// first thread loads Q once and keeps the (K, V) ring full over the kv tiles any row of the block
+// keeps; each consumer warpgroup computes its 64 rows: S = Q K^T (wgmma, both from shared memory),
+// the online softmax in fp32 registers, P rounded to bf16 in registers and O += P V (wgmma, P from
+// registers, V from shared memory).
+template <int D, int BQ, int BKV>
+__global__ void __launch_bounds__(FlashShape<D, BQ, BKV>::THREADS, 1)
+flash_mma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const FlashArgs a) {
+  using S = FlashShape<D, BQ, BKV>;
+  constexpr int STAGES = S::STAGES;
+  constexpr int NR = BKV / 2;  // a consumer thread's scores of a tile: BKV / 8 blocks of 8 keys, 4 each
+  extern __shared__ unsigned char flash_raw[];
+  unsigned char* const qs =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(flash_raw) + 1023) & ~uintptr_t(1023));
+  auto ks = [&](int st) { return qs + S::Q_BYTES + st * 2 * S::KV_BYTES; };
+  auto vs = [&](int st) { return qs + S::Q_BYTES + (st * 2 + 1) * S::KV_BYTES; };
+  // the Q barrier, then each stage's K full, V full and empty barriers
+  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+  uint64_t* const qbar = bars;
+  auto kfull = [&](int st) { return bars + 1 + st; };
+  auto vfull = [&](int st) { return bars + 1 + STAGES + st; };
+  auto empty = [&](int st) { return bars + 1 + 2 * STAGES + st; };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;  // the longest causal rows start first
-
-  const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kp = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vp = v + b * vs.b + hk * vs.h;
+  const int b = bh / a.Hq, h = bh % a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
 
   // kv range any row of this block keeps, in whole tiles
-  const int lo = q_offset + q0;
-  const int hi = q_offset + min(q0 + F_BQ, Sq) - 1;
-  const int kv_end = causal ? min(Skv, hi + 1) : Skv;
-  const int kv_begin = window > 0 ? max(0, lo - window + 1) : 0;
-  const int t_first = kv_begin / F_BKV;
-  const int n_tiles = kv_end > kv_begin ? (kv_end - 1) / F_BKV - t_first + 1 : 0;
+  const int lo = a.q_offset + q0;
+  const int hi = a.q_offset + min(q0 + BQ, a.Sq) - 1;
+  const int kv_end = a.causal ? min(a.Skv, hi + 1) : a.Skv;
+  const int kv_begin = a.window > 0 ? max(0, lo - a.window + 1) : 0;
+  const int t_first = kv_begin / BKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - 1) / BKV - t_first + 1 : 0;
 
-  // this warp's rows (absolute positions) and the range of keys any of them keeps
-  const int w_lo = lo + warp * 16, w_hi = w_lo + 15;
-  const int r0 = w_lo + g, r1 = r0 + 8;
-
-  // F_BKV rows x D / 8 chunks of 16 bytes per tile: D / 16 chunks per thread at (64, 64)
-  auto load_kv = [&](int tile, int stage) {
-    const int t0 = tile * F_BKV;
-#pragma unroll
-    for (int i = 0; i < (KV_CHUNKS + F_THREADS - 1) / F_THREADS; ++i) {
-      const int c = tid + i * F_THREADS;
-      if constexpr (KV_CHUNKS % F_THREADS != 0) {
-        if (c >= KV_CHUNKS) break;
-      }
-      const int r = c / CH, ch = (c % CH) * 8;
-      const bool in = t0 + r < Skv;
-      cp_async16(Ks(stage) + r * F_LD + ch, in ? kp + (long long)(t0 + r) * ks.s + ch : kp, in ? 16 : 0);
-      cp_async16(Vs(stage) + r * F_LD + ch, in ? vp + (long long)(t0 + r) * vs.s + ch : vp, in ? 16 : 0);
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(kfull(st), 1);  // the producer's expect_tx; the bytes complete it
+      mbar_init(vfull(st), 1);
+      mbar_init(empty(st), 4 * S::CONSUMERS);  // one arrival a consumer warp
     }
-  };
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    const int c = tid + i * F_THREADS;
-    const int r = c / CH, ch = (c % CH) * 8;
-    const bool in = q0 + r < Sq;
-    cp_async16(&Qs[r * F_LD + ch], in ? qp + (long long)(q0 + r) * qs.s + ch : qp, in ? 16 : 0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (n_tiles > 0) load_kv(t_first, 0);
-  cp_async_commit();
+  __syncthreads();
 
-  uint32_t qf[D / 16][4];  // this warp's 16 x D q tile as D / 16 A fragments
-  float oacc[D / 8][4];    // 16 x D output: D / 8 blocks of 8 head dims
+  if (warp >= 4 * S::CONSUMERS) {  // the producer warpgroup
+    if constexpr (S::REBALANCE) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::PRODUCER_REGS));
+    if (warp == 4 * S::CONSUMERS && lane == 0 && n_tiles > 0) {
+      tma_prefetch(&qmap);
+      tma_prefetch(&kmap);
+      tma_prefetch(&vmap);
+      mbar_arrive_tx(qbar, S::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+      for (int c = 0; c < S::BOXES; ++c) tma_load4(qs + c * BQ * 128, &qmap, qbar, 64 * c, q0, h, b);
+      int st = 0;
+      uint32_t ph = 0;  // the ring's stage and its phase, tile after tile
+      for (int it = 0; it < n_tiles; ++it) {
+        const int t0 = (t_first + it) * BKV;
+        mbar_wait(empty(st), ph ^ 1);
+        mbar_arrive_tx(kfull(st), S::KV_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows r0 and r1
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
-    cp_async_wait0();
-    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
-    if (it == 0) {
+        for (int c = 0; c < S::BOXES; ++c) tma_load4(ks(st) + c * BKV * 128, &kmap, kfull(st), 64 * c, t0, hk, b);
+        mbar_arrive_tx(vfull(st), S::KV_BYTES);
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        ldsm_x4(qf[kc], &Qs[(warp * 16 + (lane & 15)) * F_LD + kc * 16 + (lane >> 4) * 8]);
-    }
-    if (it + 1 < n_tiles) {
-      load_kv(t_first + it + 1, st ^ 1);
-      cp_async_commit();
-    }
-    const int t0 = (t_first + it) * F_BKV;
-    // a tile that keeps no key of this warp's rows adds nothing
-    if ((causal && t0 > w_hi) || (window > 0 && t0 + F_BKV - 1 <= w_lo - window)) continue;
-
-    // S = Q K^T for 16 rows x F_BKV keys: NB blocks of 8 keys
-    float s[NB][4];
-#pragma unroll
-    for (int i = 0; i < NB; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-    const __nv_bfloat16* kt = Ks(st);
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-#pragma unroll
-      for (int np = 0; np < NB / 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4(r, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * F_LD + kc * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], qf[kc], r[0], r[1]);
-        mma16816(s[2 * np + 1], qf[kc], r[2], r[3]);
-      }
-
-    // scale into log2 units; mask where the tile crosses an edge of what these rows keep
-    const bool edge = t0 + F_BKV > Skv || (causal && t0 + F_BKV - 1 > w_lo) ||
-                      (window > 0 && t0 <= w_hi - window);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = s[nb][e] * scale_log2;
-        if (edge) {
-          const int col = t0 + nb * 8 + 2 * t4 + (e & 1);
-          const int row = e < 2 ? r0 : r1;
-          const bool keep = col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
-          val = keep ? val : -INFINITY;
+        for (int c = 0; c < S::BOXES; ++c) tma_load4(vs(st) + c * BKV * 128, &vmap, vfull(st), 64 * c, t0, hk, b);
+        if (++st == STAGES) {
+          st = 0;
+          ph ^= 1;
         }
-        s[nb][e] = val;
       }
+    }
+    return;
+  }
+  if constexpr (S::REBALANCE) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
 
-    // online softmax, one row per half of the accumulator (e 0-1: row r0, e 2-3: row r1)
+  // the consumers: warpgroup wg owns rows row0 .. row0 + 63 of the block; its warp wq rows
+  // 16 wq + g and 16 wq + g + 8 of those (g = lane / 4), keys 8i + 2 t4 and + 1 of each block i of 8
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + 64 * wg;
+  const bool live = row0 < a.Sq;
+  const int w_lo = a.q_offset + row0, w_hi = a.q_offset + min(row0 + 64, a.Sq) - 1;  // absolute
+  const int r0 = w_lo + 16 * wq + g, r1 = r0 + 8;
+  const uint32_t qaddr = smem_u32(qs) + 64 * wg * 128;
+
+  float o[D / 2];  // 64 x D output: D / 8 blocks of 8 head dims, 4 a thread each
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  acc_fence(o);
+  // rows r0 and r1: the running max in log2 units (scores times scale_log2) and this thread's share
+  // of the running sum (the quad is summed at the end)
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // the columns each row keeps, [keep_lo, keep_hi], for the edge tiles' mask
+  int keep_lo[2], keep_hi[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = hf ? r1 : r0;
+    keep_lo[hf] = a.window > 0 ? row - a.window + 1 : 0;
+    keep_hi[hf] = a.causal ? min(row, a.Skv - 1) : a.Skv - 1;
+  }
+  // Two consumer warpgroups take turns to issue S = Q K^T (named barriers 1 and 2), so one's
+  // softmax runs while the other's product holds the tensor cores; warpgroup 0 goes first.
+  constexpr bool PINGPONG = S::CONSUMERS == 2;
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  if (PINGPONG && wg == 1 && n_tiles > 0) named_arrive(1);
+
+  int st = 0;
+  uint32_t ph = 0;  // the ring's stage and its phase, tile after tile
+  for (int it = 0; it < n_tiles; ++it, st = st + 1 == STAGES ? 0 : st + 1, ph ^= st == 0) {  // next stage
+    const int t0 = (t_first + it) * BKV;
+    mbar_wait(kfull(st), ph);
+    if (PINGPONG) named_sync(1 + wg);
+    // a tile that keeps no key of this warpgroup's rows adds nothing; its stage is still released
+    // once its loads have landed
+    if (!live || (a.causal && t0 > w_hi) || (a.window > 0 && t0 + BKV - 1 <= w_lo - a.window)) {
+      if (PINGPONG) named_arrive(2 - wg);
+      mbar_wait(vfull(st), ph);
+      if (lane == 0) mbar_arrive(empty(st));
+      continue;
+    }
+
+    // S = Q K^T: 64 rows x BKV keys, D / 16 k steps (up to D: the zero columns past it are not read)
+    float s[NR];
+    const uint32_t kaddr = smem_u32(ks(st));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKV>(s, kmajor_desc(qaddr + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
+                    kmajor_desc(kaddr + (kk >> 2) * BKV * 128 + (kk & 3) * 32), kk > 0);
+    wg_commit();
+    if (PINGPONG) named_arrive(2 - wg);
+    wg_wait<0>();
+    acc_fence(s);
+
+    // -inf where the tile crosses an edge of what these rows keep (the zero rows TMA writes past
+    // Skv included), without a branch an element
+    if (t0 + BKV > a.Skv || (a.causal && t0 + BKV - 1 > w_lo) || (a.window > 0 && t0 <= w_hi - a.window)) {
+#pragma unroll
+      for (int i = 0; i < NR / 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = t0 + 8 * i + 2 * t4 + (e & 1);
+          const bool keep = (col >= keep_lo[e >> 1]) & (col <= keep_hi[e >> 1]);
+          s[4 * i + e] = keep ? s[4 * i + e] : -INFINITY;
+        }
+    }
+
+    // online softmax in log2 units, one row per half of each block (e 0-1: row r0, e 2-3: row r1):
+    // p = 2^(s * scale_log2 - m) by one FFMA and one ex2; the max and the sum as four partial
+    // chains a row
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      float mx = -INFINITY;
+      float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[hf], mx);
+      for (int i = 0; i < NR / 4; ++i)
+        mx[i & 3] = fmaxf(mx[i & 3], fmaxf(s[4 * i + 2 * hf], s[4 * i + 2 * hf + 1]));
+      float m = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(m_run[hf], m * a.scale_log2);
       const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet: p = 0
-      const float alpha = exp2f(m_run[hf] - m_use);
-      float sum = 0.f;
+      const float alpha = fast_exp2(m_run[hf] - m_use);
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        s[nb][2 * hf] = exp2f(s[nb][2 * hf] - m_use);
-        s[nb][2 * hf + 1] = exp2f(s[nb][2 * hf + 1] - m_use);
-        sum += s[nb][2 * hf] + s[nb][2 * hf + 1];
+      for (int i = 0; i < NR / 4; ++i) {
+        float& x0 = s[4 * i + 2 * hf];
+        float& x1 = s[4 * i + 2 * hf + 1];
+        x0 = fast_exp2(fmaf(x0, a.scale_log2, -m_use));
+        x1 = fast_exp2(fmaf(x1, a.scale_log2, -m_use));
+        sum[i & 3] += x0 + x1;
       }
-      l_run[hf] = l_run[hf] * alpha + sum;  // this thread's share; the quad is summed at the end
+      l_run[hf] = l_run[hf] * alpha + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
       m_run[hf] = m_new;
 #pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        oacc[db][2 * hf] *= alpha;
-        oacc[db][2 * hf + 1] *= alpha;
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i + 2 * hf] *= alpha;
+        o[4 * i + 2 * hf + 1] *= alpha;
       }
     }
 
-    // O += P V: P (16 x F_BKV, bf16) as F_BKV / 16 A fragments straight from the S accumulators
-    const __nv_bfloat16* vt = Vs(st);
+    // P (64 x BKV, bf16) as BKV / 16 A fragments straight from the score registers: k step kk is
+    // blocks 2kk (a[0], a[1]) and 2kk + 1 (a[2], a[3])
+    uint32_t p[BKV / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < NB / 2; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t r[4];
-        ldsm_x4_t(r, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * F_LD + dp * 16 + (lane >> 4) * 8);
-        mma16816(oacc[2 * dp], pa, r[0], r[1]);
-        mma16816(oacc[2 * dp + 1], pa, r[2], r[3]);
-      }
-    }
+      for (int j = 0; j < 4; ++j) p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+
+    // O += P V: BKV / 16 k steps of 16 keys, N = D
+    mbar_wait(vfull(st), ph);
+    const uint32_t vaddr = smem_u32(vs(st));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs<D>(o, p[kk], mnmajor_desc(vaddr + kk * 2048, BKV * 128));
+    wg_commit();
+    wg_wait<0>();
+    acc_fence(o);
+    if (lane == 0) mbar_arrive(empty(st));
   }
+  if (PINGPONG && wg == 0 && n_tiles > 0) named_sync(1);  // the last turn warpgroup 1 handed over
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -299,13 +467,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that kept no key returns 0
-    const int qi = q0 + warp * 16 + g + 8 * hf;
-    if (qi >= Sq) continue;
-    __nv_bfloat16* op = o + b * os.b + h * os.h + (long long)qi * os.s + 2 * t4;
+    const int qi = row0 + 16 * wq + g + 8 * hf;
+    if (qi >= a.Sq) continue;
+    __nv_bfloat16* op = a.o + b * a.os.b + h * a.os.h + (long long)qi * a.os.s + 2 * t4;
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db)
-      *reinterpret_cast<__nv_bfloat162*>(op + db * 8) =
-          __floats2bfloat162_rn(oacc[db][2 * hf] * inv, oacc[db][2 * hf + 1] * inv);
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * hf] * inv, o[4 * i + 2 * hf + 1] * inv);
   }
 }
 
@@ -313,6 +481,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // v1: FP32 SIMT
 // ---------------------------------------------------------------------------
 namespace v1 {
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 // BQ query rows per block, BKV keys per kv tile (template parameters)
 constexpr int NT = 256;
@@ -599,38 +774,53 @@ int launch(int bq, int bkv, const void* q, const void* k, const void* v, void* o
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// A (D, S, H, B) map of a (B, H, S, D) view, element strides st (0 along a dim of size 1, which
+// is never stepped: any legal stride will do there), in boxes of 64 columns x `rows` rows under the
+// 128-byte swizzle wgmma reads; zero past D and past S. TMA cannot step a broadcast dim (a zero
+// stride along a dim of more than one): refused.
+int flash_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, Strides st, int rows) {
+  const long long steps[3][2] = {{st.s, S}, {st.h, H}, {st.b, B}};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    if (steps[i][0] == 0 && steps[i][1] > 1) return static_cast<int>(cudaErrorInvalidValue);
+    strides[i] = steps[i][0] != 0 ? 2ULL * steps[i][0] : 2ULL * D;
+    if (!tma_stride(static_cast<long long>(strides[i]))) return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return cached_map(map, map_spec(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                                  CU_TENSOR_MAP_SWIZZLE_128B));
+}
+
 template <int D, int BQ, int BKV>
-int launch_mma_tile(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-                    int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2, int causal,
-                    int window, int q_offset, cudaStream_t stream) {
-  constexpr int smem = f_smem<D, BQ, BKV>();
-  static_assert(smem <= v1::SMEM_LIMIT, "every mma instance fits the card's shared memory");
+int launch_mma_tile(const void* q, const void* k, const void* v, int B, Strides qs, Strides ks, Strides vs,
+                    const FlashArgs& a, cudaStream_t stream) {
+  using S = FlashShape<D, BQ, BKV>;
+  static_assert(S::SMEM <= v1::SMEM_LIMIT, "every mma instance fits the card's shared memory");
+  CUtensorMap qm, km, vm;
+  if (int e = flash_map(&qm, q, D, a.Sq, a.Hq, B, qs, BQ)) return e;
+  if (int e = flash_map(&km, k, D, a.Skv, a.Hkv, B, ks, BKV)) return e;
+  if (int e = flash_map(&vm, v, D, a.Skv, a.Hkv, B, vs, BKV)) return e;
   auto kern = flash_mma_kernel<D, BQ, BKV>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (S::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  kern<<<grid, f_threads<BQ>(), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, qs,
-      ks, vs, os, scale_log2, causal, window, q_offset);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, B * a.Hq);
+  kern<<<grid, S::THREADS, S::SMEM, stream>>>(qm, km, vm, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the (BQ, BKV) instances
 template <int D>
-int launch_mma(int bq, int bkv, const void* q, const void* k, const void* v, void* o, int B, int Hq,
-               int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
-               int causal, int window, int q_offset, cudaStream_t st) {
-#define MMA_TILE(BQ_, BKV_)                                                                        \
-  if (bq == BQ_ && bkv == BKV_)                                                                   \
-    return launch_mma_tile<D, BQ_, BKV_>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale_log2, \
-                                         causal, window, q_offset, st);
-  MMA_TILE(64, 64)
+int launch_mma(int bq, int bkv, const void* q, const void* k, const void* v, int B, Strides qs, Strides ks,
+               Strides vs, const FlashArgs& a, cudaStream_t st) {
+#define MMA_TILE(BQ_, BKV_) \
+  if (bq == BQ_ && bkv == BKV_) return launch_mma_tile<D, BQ_, BKV_>(q, k, v, B, qs, ks, vs, a, st);
+  MMA_TILE(128, 128)
   MMA_TILE(128, 64)
-  MMA_TILE(64, 32)
   MMA_TILE(64, 128)
+  MMA_TILE(64, 64)
 #undef MMA_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -687,12 +877,13 @@ extern "C" int flash_attention(int variant, int dtype, const void* q, const void
     if (s % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const float sl = scale * 1.4426950408889634f;
+  const FlashArgs a{static_cast<__nv_bfloat16*>(o), os, Hq, Hkv, Sq, Skv, causal, window, q_offset,
+                    scale * 1.4426950408889634f};
   switch (D) {
-    case 64: return launch_mma<64>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
-    case 80: return launch_mma<80>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
-    case 96: return launch_mma<96>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
-    case 128: return launch_mma<128>(bq, bkv, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, sl, causal, window, q_offset, st);
+    case 64: return launch_mma<64>(bq, bkv, q, k, v, B, qs, ks, vs, a, st);
+    case 80: return launch_mma<80>(bq, bkv, q, k, v, B, qs, ks, vs, a, st);
+    case 96: return launch_mma<96>(bq, bkv, q, k, v, B, qs, ks, vs, a, st);
+    case 128: return launch_mma<128>(bq, bkv, q, k, v, B, qs, ks, vs, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

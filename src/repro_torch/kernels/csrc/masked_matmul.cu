@@ -106,7 +106,6 @@
 // into its work items in place of grid.y. A decode launch allocates nothing and touches no
 // counter, so a CUDA graph of the decode step can capture it as it is. (TMA multicast of each w tile to a cluster of two blocks on
 // neighbouring token tiles was built and ran slower: PERF.md, PR 31.)
-#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is found at run time
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -115,6 +114,8 @@
 #include <algorithm>
 #include <cstring>
 #include <type_traits>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma fences, TMA maps
 
 namespace {
 
@@ -634,50 +635,6 @@ struct MmaArgs {
   int chips, M, N, K, mgroup, R, C, rbytes, tiles_m, tiles_n, splits, per, x_copy, w_copy;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// one arrival that also announces `bytes` of TMA traffic to come
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-// Wait for the phase of `parity` to complete. A ring that never completes (a fault in the kernel)
-// traps after 10 s, so the launch fails with an error rather than holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  if (mbar_try(a, parity)) return;
-  const uint64_t t0 = globaltimer();
-  while (!mbar_try(a, parity))
-    if (globaltimer() - t0 > 10000000000ull) __trap();
-}
-// a 3-d TMA load of one box into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
 __device__ __forceinline__ bool aligned16_dev(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -717,16 +674,6 @@ __device__ __forceinline__ void copy_box(unsigned char* dst, const T* src, long 
   }
 }
 
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator accesses across the wgmma sections
-template <int NR> __device__ __forceinline__ void acc_fence(float (&d)[NR]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 // The B operand: a K-major x tile, rows of 128 bytes with the 128-byte swizzle, 8-row groups
 // 1024 bytes apart; `saddr` is the shared address of the 16 k at hand (the 1-KB aligned tile plus
 // 32 bytes a k step).
@@ -1943,91 +1890,25 @@ int launch_v1(int chips, const void* x, const void* w, const uint8_t* bits, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so the library links
-// nothing but the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 3-d map (d0 innermost, unit stride; d1 and d2 at s1 and s2 bytes) of boxes b0 x b1 x 1 with
-// the 128-byte swizzle (mma) or none (decode: dense boxes); zero where a box passes the edge.
+// the 128-byte swizzle (mma) or none (decode: dense boxes)
+MapSpec map3(CUtensorMapDataType dt, const void* base, unsigned long long d0, unsigned long long d1,
+             unsigned long long d2, unsigned long long s1, unsigned long long s2, unsigned b0, unsigned b1,
+             CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  return map_spec(dt, 3, base, dims, strides, box, swizzle);
+}
 int encode_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, unsigned long long d0,
                unsigned long long d1, unsigned long long d2, unsigned long long s1, unsigned long long s2,
                unsigned b0, unsigned b1, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t estride[3] = {1, 1, 1};
-  const CUresult r = fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_map(map, map3(dt, base, d0, d1, d2, s1, s2, b0, b1, swizzle));
 }
-
-// What TMA takes: a 16-byte aligned base and strides that are multiples of 16 bytes, under 2^40
-bool tma_stride(long long bytes) { return bytes > 0 && bytes % 16 == 0 && bytes < (1LL << 40); }
-
-// A small cache of encoded maps, keyed by every argument the encoding reads: a weight's maps are
-// encoded once, and an activation's again only where its address or shape is new, so a launch
-// call does not pay for an encoding it made before. (A map holds an address and a layout only, so
-// a hit stays right after the tensor that made it is freed.)
-struct MapKey {
-  const void* base;
-  unsigned long long d0, d1, d2, s1, s2;
-  unsigned b0, b1;
-  int dt;
-};
-
+// the decode kernel's dense boxes, through the cache of encoded maps
 int cached_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, unsigned long long d0,
                unsigned long long d1, unsigned long long d2, unsigned long long s1, unsigned long long s2,
                unsigned b0, unsigned b1) {
-  struct Slot {
-    MapKey key;
-    CUtensorMap map;
-    bool used;
-  };
-  static Slot slots[512];
-  MapKey key;
-  memset(&key, 0, sizeof(key));
-  key.base = base;
-  key.d0 = d0;
-  key.d1 = d1;
-  key.d2 = d2;
-  key.s1 = s1;
-  key.s2 = s2;
-  key.b0 = b0;
-  key.b1 = b1;
-  key.dt = static_cast<int>(dt);
-  unsigned long long h = 1469598103934665603ULL;
-  const unsigned char* kb = reinterpret_cast<const unsigned char*>(&key);
-  for (size_t i = 0; i < sizeof(key); ++i) h = (h ^ kb[i]) * 1099511628211ULL;
-  Slot& slot = slots[h % 512];
-  if (slot.used && memcmp(&slot.key, &key, sizeof(key)) == 0) {
-    *map = slot.map;
-    return 0;
-  }
-  if (int err = encode_map(map, dt, base, d0, d1, d2, s1, s2, b0, b1, CU_TENSOR_MAP_SWIZZLE_NONE)) return err;
-  slot.key = key;
-  slot.map = *map;
-  slot.used = true;
-  return 0;
+  return cached_map(map, map3(dt, base, d0, d1, d2, s1, s2, b0, b1, CU_TENSOR_MAP_SWIZZLE_NONE));
 }
 
 template <typename WT, bool KC, int MT>

@@ -9,10 +9,13 @@ operations. Both kernels keep scores and softmax statistics on chip, skip
 kv tiles that the causal and window masks exclude, and read each kv head
 once for its whole query group. The dtype picks the kernel:
 
-- ``mma`` (bfloat16): both products on the tensor cores (``mma.sync``), K
-  and V tiles through a two-stage ``cp.async`` ring. It needs q, k and v
-  16-byte aligned with strides that are multiples of 8 elements (the
-  model's (B, S, H, D) projections are); the wrapper raises otherwise;
+- ``mma`` (bfloat16): FlashAttention-3's forward shape. A producer warpgroup
+  loads Q and a two-stage ring of K and V tiles by TMA (``mbarrier``s, no
+  copy by any consumer thread); each consumer warpgroup owns 64 query rows
+  and runs S = QK^T and O += PV on ``wgmma``, P fed from registers. It
+  needs q, k and v 16-byte aligned with strides that are multiples of 8
+  elements (the model's (B, S, H, D) projections are) and no broadcast
+  (zero-stride) dim; the wrapper raises otherwise;
 - ``v1`` (float32): FlashAttention-2's shape in fp32 on the SIMT cores,
   since tensor cores would round fp32 to tf32: S = QK^T and O += PV as
   register-tiled outer products over shared-memory tiles, K and V through
@@ -21,14 +24,14 @@ once for its whole query group. The dtype picks the kernel:
   ``variant="v1"`` also forces it for bf16, to time it beside the mma
   kernel; the serving paths never ask for it.
 
-Tiles: each kernel is built at the ``(bq, bkv)`` instances of ``TILES``
-(``tiles_built`` says which for a variant, dtype and head dim: v1 only where
-its shared memory fits, and in bf16 only at the default). The tile comes
-from the caller, else the tuning cache (``kernels.common.tuned_block``,
-kernel ``flash_attention``, the reference's key ``(b, hq, hkv, sq, skv, d,
-causal)``; read for the variant the dtype picks, not for a forced v1), else
-``DEFAULT_TILE``, whose launch is the one the kernels had with fixed tiles.
-A tile that is not built, or whose shared memory (``smem_bytes``, which the
+Tiles: each kernel is built at its own ``(bq, bkv)`` instances,
+``TILES[variant]`` (``tiles_built`` says which for a variant, dtype and
+head dim: v1 only where its shared memory fits, and in bf16 only at its
+default). The tile comes from the caller, else the tuning cache
+(``kernels.common.tuned_block``, kernel ``flash_attention``, the
+reference's key ``(b, hq, hkv, sq, skv, d, causal)``; read for the variant
+the dtype picks, not for a forced v1), else ``DEFAULT_TILE[variant]``. A
+tile that is not built, or whose shared memory (``smem_bytes``, which the
 geometry lint reads too) exceeds the card's, raises before any launch.
 ``flash_attention.last_blocks`` is the last launch's tile.
 
@@ -56,16 +59,20 @@ __all__ = [
     "pick_variant",
     "tiles_built",
     "smem_bytes",
+    "threads",
     "resolve_tile",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 96, 128)  # the head dims both kernels are built for
 VARIANTS = {"v1": 1, "mma": 2}  # the C entry point's variant codes
-# the (bq, bkv) instances csrc/flash_attention.cu builds (its header says why these); the first
-# is the heuristic
-TILES = ((64, 64), (128, 64), (64, 32), (64, 128))
-DEFAULT_TILE = TILES[0]
+# the (bq, bkv) instances csrc/flash_attention.cu builds for each variant (its header says why
+# these); the first is the heuristic
+TILES = {
+    "mma": ((128, 128), (128, 64), (64, 128), (64, 64)),
+    "v1": ((64, 64), (128, 64), (64, 32), (64, 128)),
+}
+DEFAULT_TILE = {kind: tiles[0] for kind, tiles in TILES.items()}
 _ARGTYPES = (
     [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
     + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -82,23 +89,31 @@ def pick_variant(dtype: torch.dtype, variant: str = "auto") -> str:
 
 def smem_bytes(kind: str, bq: int, bkv: int, d: int) -> int:
     """Dynamic shared memory one block of ``kind`` requests at tile (bq,
-    bkv) and head dim d: mma's Q tile and two-stage K and V rings of bf16
-    rows padded to d + 8; v1's fp32 Q, rings and P, rows padded by 4
-    (``f_smem`` and ``v1::smem_bytes`` in the C source)."""
+    bkv) and head dim d: mma's Q tile and two-stage K and V rings, each row
+    ceil(d / 64) boxes of 128 bytes, plus 1 KiB to align them; v1's fp32 Q,
+    rings and P, rows padded by 4 (``FlashShape::SMEM`` and
+    ``v1::smem_bytes`` in the C source)."""
     if kind == "mma":
-        return (bq + 4 * bkv) * (d + 8) * 2
+        return 1024 + (bq + 4 * bkv) * 128 * -(-d // 64)
     return 4 * ((bq + 4 * bkv) * (d + 4) + bq * (bkv + 4))
+
+
+def threads(kind: str, bq: int) -> int:
+    """Threads of one block: mma a consumer warpgroup for every 64 query
+    rows and the producer warpgroup (``FlashShape::THREADS``), v1 256."""
+    return 128 * (max(bq, 0) // 64 + 1) if kind == "mma" else 256
 
 
 def tiles_built(kind: str, dtype: torch.dtype, d: int) -> tuple:
     """The tiles the C source builds for a variant, dtype and head dim: mma
-    all of ``TILES``; v1 in float32 those whose shared memory fits the card,
-    in bf16 (a timing variant) ``DEFAULT_TILE`` alone."""
+    all of ``TILES["mma"]``; v1 in float32 those of ``TILES["v1"]`` whose
+    shared memory fits the card, in bf16 (a timing variant) its default
+    alone."""
     if kind == "mma":
-        return TILES
+        return TILES["mma"]
     if dtype != torch.float32:
-        return (DEFAULT_TILE,)
-    return tuple(t for t in TILES if smem_bytes("v1", *t, d) <= SMEM_LIMIT_BYTES)
+        return (DEFAULT_TILE["v1"],)
+    return tuple(t for t in TILES["v1"] if smem_bytes("v1", *t, d) <= SMEM_LIMIT_BYTES)
 
 
 def resolve_tile(
@@ -106,17 +121,17 @@ def resolve_tile(
     bq: Optional[int] = None, bkv: Optional[int] = None, variant: str = "auto",
 ) -> tuple[int, int]:
     """The tile the wrapper launches for this call: the caller's, else the
-    tuning cache's (for the variant the dtype picks), else ``DEFAULT_TILE``."""
+    tuning cache's (for the variant the dtype picks), else that variant's
+    ``DEFAULT_TILE``."""
+    kind = pick_variant(dtype, variant)
+    dq, dkv = DEFAULT_TILE[kind]
     if variant != "auto":
-        return (DEFAULT_TILE[0] if bq is None else int(bq), DEFAULT_TILE[1] if bkv is None else int(bkv))
+        return (dq if bq is None else int(bq), dkv if bkv is None else int(bkv))
     got = tuned_block(
         "flash_attention", dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, causal=int(causal)), dtype,
-        device=device, defaults=_TILE_DEFAULT, overrides=dict(bq=bq, bkv=bkv),
+        device=device, defaults=dict(bq=dq, bkv=dkv), overrides=dict(bq=bq, bkv=bkv),
     )
     return got["bq"], got["bkv"]
-
-
-_TILE_DEFAULT = dict(bq=DEFAULT_TILE[0], bkv=DEFAULT_TILE[1])
 
 
 def _strides(t: torch.Tensor) -> list[int]:
@@ -214,6 +229,9 @@ def flash_attention(
                     f"the bf16 flash kernel needs {name} 16-byte aligned with strides that are "
                     f"multiples of 8 elements, got offset {t.data_ptr() % 16} and strides {t.stride()}"
                 )
+            if any(x == 0 and size > 1 for x, size in zip(st, t.shape[:3])):
+                raise ValueError(f"the bf16 flash kernel's TMA cannot step a broadcast dim of {name}: "
+                                 f"shape {tuple(t.shape)}, strides {t.stride()}")
     if b and hq and sq:
         fn = load_kernel("flash_attention", _ARGTYPES)
         err = fn(

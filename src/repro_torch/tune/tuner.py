@@ -32,8 +32,10 @@ cache keys match:
   count); runs the launch the main path makes: bf16 x with the float32
   master w (``fault_linear`` in ``kernel`` mode), or float32 x and w, w
   row-major, under a 10%-faulty chip's mask;
-- ``flash_attention``: ``bq, bkv``, the tile (heuristic 64 x 64; the
-  lattice spans the built instances, ``flash_attention.ops.TILES``);
+- ``flash_attention``: ``bq, bkv``, the tile (heuristic: the variant's
+  ``DEFAULT_TILE``, 128 x 128 for bf16 ``mma`` and 64 x 64 for float32
+  ``v1``; the lattice spans that variant's instances,
+  ``flash_attention.ops.TILES``);
 - ``decode_attention``: ``bkv``, the dense kernel's tile (heuristic 128);
 - ``mamba_scan``: ``lanes``, the lanes a channel (heuristic:
   ``scan_plan``'s), with softplus dt and negative A as the model gives them.
@@ -58,6 +60,7 @@ from repro_torch.analysis.kernelgeom import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import backend_tag, dtype_name
 from repro_torch.kernels.flash_attention.ops import TILES as FLASH_TILES
+from repro_torch.kernels.flash_attention.ops import pick_variant as flash_variant
 from repro_torch.kernels.mamba_scan.ops import LANES
 from repro_torch.kernels.masked_matmul.ops import max_splits, pick_variant
 from repro_torch.obs.recorder import NULL_RECORDER
@@ -88,7 +91,7 @@ SHAPE_FIELDS = {
 # the wrappers' heuristics, the hillclimb seed; None is the wrapper's plan, read off its launch
 HEURISTIC_BLOCKS = {
     "masked_matmul": dict(splits=None),
-    "flash_attention": dict(bq=64, bkv=64),
+    "flash_attention": dict(bq=None, bkv=None),
     "decode_attention": dict(bkv=128),
     "mamba_scan": dict(lanes=None),
 }
@@ -125,8 +128,10 @@ def _mm_lattice(shape, dtype):
 
 
 def _fa_lattice(shape, dtype):
-    """Each tile coordinate over the values the built instances take."""
-    return dict(bq=sorted({t[0] for t in FLASH_TILES}), bkv=sorted({t[1] for t in FLASH_TILES}))
+    """Each tile coordinate over the values the instances of the variant the
+    dtype picks take."""
+    tiles = FLASH_TILES[flash_variant(_dt(dtype))]
+    return dict(bq=sorted({t[0] for t in tiles}), bkv=sorted({t[1] for t in tiles}))
 
 
 def _da_lattice(shape, dtype):

@@ -986,6 +986,62 @@ def test_bf16_flash_kernel_zero_mass_rows_are_exact_zero(cuda):
     torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=1e-2)
 
 
+FLASH_MMA_TILES = ((128, 128), (128, 64), (64, 128), (64, 64))  # ops.TILES["mma"]
+# (B, Hq, Hkv, Sq, Skv, causal, window, q_offset): ragged lengths that cut through both tile sizes,
+# a window and an offset, rows that keep no key, a batch of one with one kv head, Sq of 1
+FLASH_MMA_CASES = [
+    (2, 6, 2, 203, 333, True, 150, 130), (2, 5, 5, 129, 77, False, None, 0), (1, 4, 1, 300, 300, True, None, 0),
+    (1, 3, 1, 1, 1, True, None, 0), (1, 6, 2, 70, 40, True, 8, 30), (2, 6, 3, 37, 1100, True, 1024, 1063),
+]
+
+
+@pytest.mark.parametrize("tile", FLASH_MMA_TILES, ids=[f"{t[0]}x{t[1]}" for t in FLASH_MMA_TILES])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_bf16_flash_every_mma_instance_on_strided_views_and_edges(cuda, d, tile):
+    """Every mma instance at every head dim, on the model's (B, S, H, D)
+    projections (q, k and v sliced from one fused buffer), a V whose every
+    column holds its own offset (a column read from the wrong box shows),
+    held to the plain version; the same bits on a second launch."""
+    from repro_torch.kernels.flash_attention.ops import TILES
+
+    assert TILES["mma"] == FLASH_MMA_TILES
+    g = torch.Generator(device=cuda).manual_seed(d + tile[0] + tile[1])
+    for b, hq, hkv, sq, skv, causal, window, off in FLASH_MMA_CASES:
+        qkv = torch.randn(b, max(sq, skv), hq + 2 * hkv, d, generator=g, device=cuda)
+        qkv[..., hq + hkv:, :] += torch.arange(d, device=cuda) / 8
+        qkv = qkv.to(torch.bfloat16)
+        q = qkv[:, :sq, :hq].transpose(1, 2)
+        k = qkv[:, :skv, hq:hq + hkv].transpose(1, 2)
+        v = qkv[:, :skv, hq + hkv:].transpose(1, 2)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        ref = attention_ref(q, k, v, **kw).float()
+        before = dict(flash_attention.launches_by_variant)
+        got = flash_attention(q, k, v, bq=tile[0], bkv=tile[1], **kw)
+        again = flash_attention(q, k, v, bq=tile[0], bkv=tile[1], **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_variant == {**before, "mma": before["mma"] + 2}
+        assert flash_attention.last_blocks == dict(bq=tile[0], bkv=tile[1])
+        assert got.shape == (b, hq, sq, d) and got.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(got.float(), ref, rtol=2e-2, atol=1e-2, msg=f"case {b, hq, hkv, sq, skv, kw}")
+        assert torch.equal(got, again)
+        empty = ~ref.abs().amax(-1).bool()  # rows that keep no key: exact zeros
+        assert not got.float()[empty].abs().any()
+
+
+def test_bf16_flash_refuses_what_the_mma_kernel_cannot_read(cuda):
+    """A tile the mma kernel is not built for, and a broadcast (zero-stride)
+    dim TMA cannot step, raise before any launch: no fallback to v1."""
+    q = torch.randn(1, 4, 64, 64, device=cuda).to(torch.bfloat16)
+    before = dict(flash_attention.launches_by_variant)
+    for bq, bkv in ((64, 32), (256, 64), (32, 128)):
+        with pytest.raises(ValueError, match="built for tiles"):
+            flash_attention(q, q, q, bq=bq, bkv=bkv)
+    kb = torch.randn(1, 1, 64, 64, device=cuda).to(torch.bfloat16).expand(1, 4, 64, 64)
+    with pytest.raises(ValueError, match="broadcast"):
+        flash_attention(q, kb, kb)
+    assert flash_attention.launches_by_variant == before
+
+
 def test_bf16_flash_kernel_refuses_a_misaligned_view(cuda):
     base = torch.randn(2, 65, 3, 64, device=cuda).to(torch.bfloat16)
     q = base[:, 1:].transpose(1, 2)  # fine: every stride a multiple of 8
@@ -1456,6 +1512,8 @@ def test_flash_refuses_tiles_it_does_not_build(cuda):
             flash_attention(q, q, q, **kw)
     with pytest.raises(ValueError, match="built for tiles"):  # bf16 v1 is built at the default alone
         flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), variant="v1", bq=128, bkv=64)
+    with pytest.raises(ValueError, match="built for tiles"):  # mma has no 32-key tile
+        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), bq=64, bkv=32)
     assert flash_attention.launches == before
 
 
@@ -1505,6 +1563,7 @@ def test_selective_scan_every_legal_lane_count_matches_plain(cuda, empty_cache, 
 def test_an_empty_cache_gives_the_bits_of_the_explicit_heuristic(cuda, empty_cache):
     """Each of the three wrappers with no blocks and an empty cache launches
     its heuristic, bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import DEFAULT_TILE, pick_variant
     from repro_torch.kernels.mamba_scan.ops import scan_plan, sm_count
     from repro_torch.kernels.masked_matmul.ops import gemm_plan
 
@@ -1520,8 +1579,9 @@ def test_an_empty_cache_gives_the_bits_of_the_explicit_heuristic(cuda, empty_cac
         q = torch.randn(2, 9, 300, 64, device=cuda).to(dtype)
         k = torch.randn(2, 3, 300, 64, device=cuda).to(dtype)
         got = flash_attention(q, k, k)
-        assert flash_attention.last_blocks == dict(bq=64, bkv=64)
-        assert torch.equal(got, flash_attention(q, k, k, bq=64, bkv=64))
+        tile = DEFAULT_TILE[pick_variant(dtype)]  # mma (128, 128), v1 (64, 64)
+        assert flash_attention.last_blocks == dict(bq=tile[0], bkv=tile[1])
+        assert torch.equal(got, flash_attention(q, k, k, bq=tile[0], bkv=tile[1]))
         args = _scan_inputs(cuda, 2, 64, 800, 16, dtype)
         y, h = selective_scan(*args)
         lanes = scan_plan(2, 800, 16, sm_count(cuda)).lanes

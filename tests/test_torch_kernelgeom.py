@@ -186,13 +186,18 @@ def test_the_forced_split_scratch_stays_within_the_cap():
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_flash_launch_mirrors_the_built_instances(d):
     for kind, dtype in (("mma", "bfloat16"), ("v1", "float32")):
-        for bq, bkv in fa.TILES:
+        for bq, bkv in fa.TILES[kind]:
             launch = flash_attention_launch(4, 9, 3, 2048, 2048, d, bq=bq, bkv=bkv, dtype=dtype)
             assert launch.smem_bytes == fa.smem_bytes(kind, bq, bkv, d)
             assert launch.params == dict(bq=bq, bkv=bkv)
             built = (bq, bkv) in fa.tiles_built(kind, getattr(torch, dtype), d)
             assert (lint_launch(launch) == []) == built
             assert launch.grid == ((2048 // bq, 36) if kind == "mma" else (36, 2048 // bq))
+            # mma: a consumer warpgroup a 64 rows and the producer warpgroup; v1: 256 threads
+            assert launch.threads == (128 * (bq // 64 + 1) if kind == "mma" else 256)
+        # no tile given: the variant's default
+        assert flash_attention_launch(4, 9, 3, 2048, 2048, d, dtype=dtype).params == dict(
+            zip(("bq", "bkv"), fa.DEFAULT_TILE[kind]))
     # bf16 v1 (a timing variant) is built at the default tile alone
     assert "KRN001" in _codes(flash_attention_launch(1, 2, 2, 64, 64, d, bq=128, bkv=64, dtype="bfloat16",
                                                      variant="v1"))
@@ -201,10 +206,12 @@ def test_flash_launch_mirrors_the_built_instances(d):
 def test_flash_v1_shared_memory_is_the_c_sources():
     # 4 ((BQ + 4 BKV)(D + 4) + BQ (BKV + 4)) bytes at D = 128; the last two are over 232,448
     assert [fa.smem_bytes("v1", *t, 128) for t in ((64, 64), (128, 64), (64, 128))] == [186368, 237568, 337920]
-    assert fa.smem_bytes("mma", 64, 64, 64) == 46080 and fa.smem_bytes("mma", 64, 64, 128) == 87040
+    # mma: 1 KiB of alignment, Q and two (K, V) stages of 128-byte rows, ceil(D / 64) boxes a row
+    assert fa.smem_bytes("mma", 64, 64, 64) == 41984 and fa.smem_bytes("mma", 64, 64, 128) == 82944
+    assert fa.smem_bytes("mma", 128, 128, 80) == fa.smem_bytes("mma", 128, 128, 128) == 164864
     assert SMEM_LIMIT_BYTES == 232448
     assert fa.tiles_built("v1", torch.float32, 128) == ((64, 64), (64, 32))
-    assert fa.tiles_built("v1", torch.float32, 80) == fa.TILES
+    assert fa.tiles_built("v1", torch.float32, 80) == fa.TILES["v1"]
 
 
 @pytest.mark.parametrize("b,d,n", [(4, 8192, 16), (4, 3200, 16), (2, 300, 64), (1, 11, 4)])
@@ -255,6 +262,6 @@ def test_krn001_for_what_the_wrappers_refuse():
     # a K split beyond the cap, and tiles no instance is built for
     assert _codes(masked_matmul_launch(512, 576, 192, (256, 256), dtype="bfloat16", splits=5)) == ["KRN001"]
     assert _codes(masked_matmul_launch(4, 576, 192, (256, 256), dtype="bfloat16", splits=17)) == ["KRN001"]
-    assert _codes(flash_attention_launch(4, 9, 3, 2048, 2048, 64, bq=128, bkv=128, dtype="bfloat16")) == ["KRN001"]
+    assert _codes(flash_attention_launch(4, 9, 3, 2048, 2048, 64, bq=64, bkv=32, dtype="bfloat16")) == ["KRN001"]
     assert _codes(flash_attention_launch(4, 9, 3, 2048, 2048, 48)) == ["KRN001"]
     assert isinstance(masked_matmul_launch(4, 576, 192, (256, 256)), KernelLaunch)

@@ -492,9 +492,20 @@ def test_the_flash_space_rejects_tiles_that_are_not_built_or_do_not_fit(monkeypa
     res = tune_kernel("flash_attention", shape, torch.float32, device="cpu", iters=1, max_evals=99)
     codes = {(r["blocks"]["bq"], r["blocks"]["bkv"]): r["codes"] for r in res.rejected_configs}
     assert codes[(128, 64)] == ["KRN002"] and codes[(64, 128)] == ["KRN002"]  # 237,568 and 337,920 B
-    assert all(c == ["KRN001"] for t, c in codes.items() if t not in TILES)
+    assert all(c == ["KRN001"] for t, c in codes.items() if t not in TILES["v1"])
     assert {(b["bq"], b["bkv"]) for b in launched} <= {(64, 64), (64, 32)}
     assert res.best_blocks == dict(bq=64, bkv=64) and res.smem_bytes == 186368
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "mma"), (torch.float32, "v1")])
+def test_the_flash_lattice_spans_the_instances_of_the_variant_the_dtype_picks(dtype, kind):
+    from repro_torch.tune.tuner import _fa_lattice
+
+    lattice = _fa_lattice(dict(b=4, hq=9, hkv=3, sq=2048, skv=2048, d=64, causal=1), dtype)
+    assert lattice == dict(bq=sorted({t[0] for t in TILES[kind]}), bkv=sorted({t[1] for t in TILES[kind]}))
+    heur = normalize_blocks("flash_attention", dict(b=4, hq=9, hkv=3, sq=2048, skv=2048, d=64, causal=1),
+                            HEURISTIC_BLOCKS["flash_attention"], dtype)
+    assert heur == dict(zip(("bq", "bkv"), DEFAULT_TILE[kind]))
 
 
 def test_the_split_lattice_stops_at_the_plans_cap():
@@ -549,13 +560,14 @@ def test_the_masked_gemm_seam_resolution_order(isolated_cache):
 
 def test_the_flash_seam_resolution_order(isolated_cache):
     args = (4, 9, 3, 2048, 2048, 64, True, torch.bfloat16, "cuda")
-    assert resolve_tile(*args) == DEFAULT_TILE == (64, 64)
+    assert resolve_tile(*args) == DEFAULT_TILE["mma"] == (128, 128)
     isolated_cache.put(cache_key("flash_attention", dict(b=4, hq=9, hkv=3, sq=2048, skv=2048, d=64, causal=1),
                                  "bfloat16", "cuda"), dict(blocks=dict(bq=128, bkv=32)))
     assert resolve_tile(*args) == (128, 32)
     assert resolve_tile(*args, bkv=128) == (128, 128)  # the caller, per parameter
-    assert resolve_tile(*args[:6], False, *args[7:]) == (64, 64)  # not causal: another key
-    assert resolve_tile(*args, variant="v1") == (64, 64)  # a forced v1 keeps the default
+    assert resolve_tile(*args[:6], False, *args[7:]) == (128, 128)  # not causal: another key
+    assert resolve_tile(*args, variant="v1") == DEFAULT_TILE["v1"] == (64, 64)  # a forced v1 keeps its default
+    assert resolve_tile(*args[:7], torch.float32, args[8]) == (64, 64)  # float32: v1's default
 
 
 def test_the_scan_seam_resolution_order(isolated_cache):
